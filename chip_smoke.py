@@ -1,0 +1,557 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+
+1. print the card (``nvidia-smi`` name and power limit) and the torch
+   version; turn TF32 off so that f32 references run in full f32;
+2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all at once);
+3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
+   shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
+   bf16), and time kernel, plain version, bound and a dense ``torch.matmul``
+   yardstick;
+4. the same for ``paged_decode_attention`` (B = 4, Hkv = 4, G = 2, Dh = 256,
+   page 16, lengths past 1024, window None and 1024, -1 table entries and an
+   empty row), with SDPA over the gathered KV as the yardstick;
+5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
+   vocab 262144; random weights from a seed; bf16) through
+   ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
+   each, with both kernels' launch counts read around that run; then the
+   decode step after the prefill drain run with the kernels and with the
+   plain versions from one cache state, logits compared; then 4 decode
+   steps under ``torch.profiler``;
+6. print one JSON line describing each ported kernel;
+7. print the device line, last.
+
+It exits non-zero without a result where no CUDA device is present or where
+the port's sources are missing next to this script.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from contextlib import contextmanager
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
+PEAK_OPS = {"torch.bfloat16": 989e12,      # dense tensor-core bf16
+            "torch.float32": 67e12}        # f32 outside the tensor cores
+SEED = 0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def bench(calls, iters: int) -> tuple:
+    """(device ms, host ms) per call over ``iters`` calls, cycling through
+    ``calls`` (each on its own copy of the inputs, so that together they
+    exceed the 50 MB L2 and every call reads device memory as the serving
+    step does). The device time is taken behind a sleep kernel that holds
+    the stream while the host enqueues every call, so it is the calls' time
+    on the card without the host's launch overhead between them; the host
+    time is the enqueue cost per call."""
+    import torch
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for i in range(iters):
+        calls[i % len(calls)]()
+    host_s = (time.perf_counter() - h0) / iters
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(4 * host_s * iters * 2e9) + 2_000_000)
+    t0.record()
+    for i in range(iters):
+        calls[i % len(calls)]()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters, host_s * 1e3
+
+
+def copies_for(nbytes: int) -> int:
+    return max(2, math.ceil(150e6 / max(nbytes, 1)))
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple:
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got, ref) -> tuple:
+    d = (got.float() - ref.float()).abs()
+    return float(d.max()), float((d / ref.float().abs().clamp_min(1e-3)).max())
+
+
+def within(got, ref, atol: float, rtol: float) -> bool:
+    d = (got.float() - ref.float()).abs()
+    return bool((d <= atol + rtol * ref.float().abs()).all())
+
+
+# ---------------------------------------------------------------------------
+# phase 3: csd_spmm_fwd
+# ---------------------------------------------------------------------------
+
+SPMM_TOL = {"torch.float32": (1e-4, 1e-4),   # f32 sums in another order
+            "torch.bfloat16": (1e-2, 1e-2)}  # + one bf16 rounding of y
+
+
+def spmm_cases(cfg):
+    from repro_torch.core.block_pattern import fit_block_pattern
+    sp = cfg.sparsity
+    up = fit_block_pattern(cfg.d_model, cfg.d_ff, sp.rho_ffn[0], sp, seed=12)
+    down = fit_block_pattern(cfg.d_ff, cfg.d_model, sp.rho_ffn[1], sp,
+                             seed=13)
+    for dtype_name in ("float32", "bfloat16"):
+        for m in (4, 256):
+            for act in (None, "gelu"):
+                yield ("up/gate", up, m, dtype_name, act, False)
+            for with_bias in (False, True):
+                yield ("down", down, m, dtype_name, None, with_bias)
+
+
+def run_spmm(cfg, device, results):
+    import torch
+    from repro_torch.kernels import csd_spmm
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for name, bp, m, dtype_name, act, with_bias in spmm_cases(cfg):
+        dtype = getattr(torch, dtype_name)
+        shape = (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
+        slab_bytes = math.prod(shape) * dtype.itemsize
+        n = copies_for(slab_bytes)
+        xs = [torch.randn((m, bp.n_in), generator=g, device=device)
+              .to(dtype) for _ in range(n)]
+        ws = [(torch.randn(shape, generator=g, device=device)
+               / math.sqrt(bp.d_in_b * bp.block_in)).to(dtype)
+              for _ in range(n)]
+        bias = (0.1 * torch.randn(bp.n_out, generator=g, device=device)
+                ).to(dtype) if with_bias else None
+        idx = torch.as_tensor(bp.block_idx, dtype=torch.int32, device=device)
+        kw = dict(bias=bias, activation=act)
+        got = csd_spmm.csd_spmm_fwd_cuda(xs[0], ws[0], idx, **kw)
+        ref = csd_spmm.csd_spmm_fwd_plain(xs[0], ws[0], idx, **kw)
+        torch.cuda.synchronize()
+        atol, rtol = SPMM_TOL[str(dtype)]
+        abs_e, rel_e = max_err(got, ref)
+        ok = within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+        ms, host_ms = bench([lambda i=i: csd_spmm.csd_spmm_fwd_cuda(
+            xs[i], ws[i], idx, **kw) for i in range(n)], 60)
+        plain_ms, _ = bench([lambda i=i: csd_spmm.csd_spmm_fwd_plain(
+            xs[i], ws[i], idx, **kw) for i in range(n)], 6)
+        dense = [torch.zeros((bp.n_in, bp.n_out), dtype=dtype, device=device)
+                 for _ in range(copies_for(bp.n_in * bp.n_out
+                                           * dtype.itemsize))]
+        lib_ms, _ = bench([lambda d=d: torch.matmul(xs[0], d)
+                           for d in dense], 30)
+        del dense
+        el = dtype.itemsize
+        nbytes = el * (m * bp.n_in + math.prod(shape) + m * bp.n_out
+                       + (bp.n_out if with_bias else 0)) + 4 * idx.numel()
+        ops = 2 * m * math.prod(shape)
+        bound_ms, bound_by = bound(nbytes, ops, dtype)
+        rec = dict(kernel="csd_spmm_fwd", junction=name, m=m,
+                   dtype=dtype_name, activation=act, bias=with_bias,
+                   max_abs_err=abs_e, max_rel_err=rel_e, atol=atol,
+                   rtol=rtol, ok=ok, ms=ms, host_ms=host_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=lib_ms)
+        results.append(rec)
+        log(json.dumps(rec))
+        if not ok:
+            fail(f"csd_spmm_fwd disagrees with its plain version: {rec}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: paged_decode_attention
+# ---------------------------------------------------------------------------
+
+PAGED_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (1e-2, 1e-2)}
+
+
+def paged_inputs(device, dtype, window, g):
+    """B=4 rows of lengths past 1024, one empty; unmapped entries -1 (the
+    table tail, and with a window the leading pages every query has left,
+    as the engine's window reclamation leaves them)."""
+    import torch
+    b, hkv, grp, dh, page = 4, 4, 2, 256, 16
+    lengths = [1100, 517, 0, 1040]
+    n_pages = 72
+    pool = sum(-(-n // page) for n in lengths) + 1
+    perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(1))
+    table = torch.full((b, n_pages), -1, dtype=torch.int32)
+    k = 0
+    for i, n in enumerate(lengths):
+        for p in range(-(-n // page)):
+            if window is None or (p + 1) * page > n - window:
+                table[i, p] = int(perm[k])
+            k += 1
+    q = torch.randn((b, hkv, grp, dh), generator=g, device=device).to(dtype)
+    kp = torch.randn((pool, page, hkv, dh), generator=g,
+                     device=device).to(dtype)
+    vp = torch.randn((pool, page, hkv, dh), generator=g,
+                     device=device).to(dtype)
+    return q, kp, vp, table.to(device), torch.tensor(
+        lengths, dtype=torch.int32, device=device)
+
+
+def run_paged(device, results):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for window in (None, 1024):
+            q, kp, vp, table, lengths = paged_inputs(device, dtype, window, g)
+            n = copies_for(2 * kp.numel() * kp.element_size())
+            pools = [(kp.clone(), vp.clone()) for _ in range(n)]
+            kw = dict(window=window)
+            got = fa.paged_decode_attention_cuda(q, kp, vp, table, lengths,
+                                                 **kw)
+            ref = fa.paged_decode_attention_plain(q, kp, vp, table, lengths,
+                                                  **kw)
+            torch.cuda.synchronize()
+            atol, rtol = PAGED_TOL[str(dtype)]
+            abs_e, rel_e = max_err(got, ref)
+            ok = within(got, ref, atol, rtol) and bool(
+                (got[2] == 0).all()) and bool(torch.isfinite(got).all())
+            ms, host_ms = bench([lambda p=p: fa.paged_decode_attention_cuda(
+                q, p[0], p[1], table, lengths, **kw) for p in pools], 100)
+            plain_ms, _ = bench([lambda p=p: fa.paged_decode_attention_plain(
+                q, p[0], p[1], table, lengths, **kw) for p in pools], 10)
+            # yardstick: SDPA over the gathered (GQA-expanded) KV + mask
+            b, hkv, grp, dh = q.shape
+            idx = table.long().clamp_min(0)
+            kk = kp[idx].reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+            vv = vp[idx].reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+            kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
+            kpos = torch.arange(kk.shape[2], device=device)
+            mask = (kpos[None] < lengths[:, None].long()) & (
+                table >= 0).repeat_interleave(kp.shape[1], 1)
+            if window is not None:
+                mask &= kpos[None] >= lengths[:, None].long() - window
+            qq = q.reshape(b, hkv * grp, 1, dh)
+            lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask[:, None, None])], 50)
+            visible = int(mask.sum())
+            el = dtype.itemsize
+            nbytes = el * (2 * visible * hkv * dh + 2 * q.numel()) \
+                + 4 * (table.numel() + lengths.numel())
+            bound_ms, bound_by = bound(nbytes, 4 * grp * dh * visible * hkv,
+                                       dtype)
+            rec = dict(kernel="paged_decode_attention", dtype=dtype_name,
+                       window=window, lengths=lengths.tolist(),
+                       max_abs_err=abs_e, max_rel_err=rel_e, atol=atol,
+                       rtol=rtol, ok=ok, ms=ms, host_ms=host_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib_ms)
+            results.append(rec)
+            log(json.dumps(rec))
+            if not ok:
+                fail(f"paged_decode_attention disagrees with its plain "
+                     f"version: {rec}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve gemma3-4b at full width
+# ---------------------------------------------------------------------------
+
+LOGIT_TOL = 5e-2  # of the largest |logit|: 34 bf16 layers of rounding
+
+
+def engine_config():
+    from repro_torch.serving.engine import EngineConfig
+    return EngineConfig(max_slots=4, page_size=16, total_pages=40,
+                        max_pages_per_seq=10, token_budget=256,
+                        prefill_chunk=64)
+
+
+@contextmanager
+def plain_versions():
+    """Run the model's kernels through their plain versions (on the card)
+    for a reference step; the port itself has no such switch."""
+    from repro_torch.kernels import csd_spmm, flash_attention
+    from repro_torch.nn import attention, layers
+
+    def plain_matmul(x, w, block_idx, *, bias=None, activation=None):
+        y = csd_spmm.csd_spmm_fwd_plain(x.reshape(-1, x.shape[-1]), w,
+                                        block_idx, bias=bias,
+                                        activation=activation)
+        return y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+    with mock.patch.object(layers, "csd_matmul", plain_matmul), \
+            mock.patch.object(attention, "paged_decode_attention",
+                              flash_attention.paged_decode_attention_plain):
+        yield
+
+
+def serve(device, cfg, out_dir, prompt_lens=(64, 96, 112, 128), n_new=32):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import csd_spmm, flash_attention
+    from repro_torch.nn.model import LM
+    from repro_torch.serving.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    model = LM(cfg, device=device,
+               generator=torch.Generator(device=device).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    warm = ServingEngine(model, engine_config(), device=device)
+    warm.run([np.arange(16, dtype=np.int32)], 2)  # cuBLAS handles, smem attrs
+    torch.cuda.synchronize()
+    log(f"built {cfg.name} ({n_params / 1e9:.3f} B params, "
+        f"{cfg.n_layers} layers) and warmed up in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(SEED)
+    lens = list(prompt_lens)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    eng = ServingEngine(model, engine_config(), device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    csd_spmm.csd_spmm_fwd_cuda.launches = 0
+    flash_attention.paged_decode_attention_cuda.launches = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.add_request(p, n_new, req_id=i)
+    ttft, steps, t_prefilled, gen_at = {}, 0, None, 0
+    while eng.sched.has_work():
+        eng.step()  # ends in a host copy of the sampled tokens
+        steps += 1
+        now = time.perf_counter()
+        for s in eng.sched.active:
+            if s is not None and s.n_generated >= 1:
+                ttft.setdefault(s.req.req_id, now - t_start)
+        for rid in eng.outputs:
+            ttft.setdefault(rid, now - t_start)
+        if t_prefilled is None and len(ttft) == len(prompts):
+            t_prefilled = now
+            gen_at = sum(len(o) for o in eng.outputs.values()) + sum(
+                s.n_generated for s in eng.sched.active if s is not None)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {"csd_spmm_fwd": csd_spmm.csd_spmm_fwd_cuda.launches,
+                "paged_decode_attention":
+                    flash_attention.paged_decode_attention_cuda.launches}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    outs = [eng.outputs[i] for i in range(len(prompts))]
+    toks = np.stack(outs)
+    gen_total = toks.size
+    rec = dict(model=cfg.name, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+               requests=len(prompts), prompt_lens=lens, new_tokens=n_new,
+               steps=steps, wall_s=t_end - t_start,
+               tok_per_s=gen_total / (t_end - t_start),
+               decode_tok_per_s=(gen_total - gen_at) / (t_end - t_prefilled),
+               ttft_s=[ttft[i] for i in range(len(prompts))],
+               peak_mem_gb=peak_gb, launches=launches)
+    log(json.dumps(rec))
+    if toks.shape != (len(prompts), n_new) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        fail(f"served tokens malformed: shape {toks.shape}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the served run never launched {name}")
+
+    # the decode step after the prefill drain, run from one cache state with
+    # the kernels and with their plain versions
+    chk = ServingEngine(model, engine_config(), device=device)
+    for i, p in enumerate(prompts):
+        chk.add_request(p, n_new, req_id=i)
+    while chk.sched.waiting or any(s is not None and s.prefilling
+                                   for s in chk.sched.active):
+        chk.step()
+    plan = chk.sched.schedule()
+    if not plan.decode_slots or plan.prefills:
+        fail("expected a pure decode step after the prefill drain")
+    slots = chk.config.max_slots
+    tokens = np.zeros((slots, 1), np.int32)
+    n_new_a = np.zeros((slots,), np.int32)
+    for s in plan.decode_slots:
+        tokens[s, 0] = chk.sched.active[s].pending_token
+        n_new_a[s] = 1
+    base = [{k: v.clone() for k, v in c.items()} for c in chk.cache]
+
+    def run_step():
+        chk.cache = [{k: v.clone() for k, v in c.items()} for c in base]
+        return chk._run(tokens, chk.sched.state.seq_lens, n_new_a)
+
+    logits_k = run_step()
+    with plain_versions():
+        logits_p = run_step()
+    torch.cuda.synchronize()
+    rows = list(plan.decode_slots)
+    lk, lp = logits_k[rows, 0].float(), logits_p[rows, 0].float()
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    chk_rec = dict(check="decode logits after the prefill drain, kernels "
+                         "vs plain versions",
+                   rows=len(rows), max_abs_err=err, max_abs_logit=scale,
+                   tol=LOGIT_TOL * scale, argmax_agreement=agree,
+                   finite=bool(torch.isfinite(lk).all()))
+    log(json.dumps(chk_rec))
+    if not chk_rec["finite"] or err > LOGIT_TOL * scale:
+        fail(f"decode logits disagree: {chk_rec}")
+    return rec, chk_rec, profile_decode(model, prompts, n_new, device,
+                                        out_dir)
+
+
+def profile_decode(model, prompts, n_new, device, out_dir, n_steps=4):
+    """Where a decode step's time goes: ``n_steps`` engine decode steps
+    under ``torch.profiler``, kernel time summed by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(model, engine_config(), device=device)
+    for i, p in enumerate(prompts):
+        eng.add_request(p, n_new, req_id=i)
+    while eng.sched.waiting or any(s is not None and s.prefilling
+                                   for s in eng.sched.active):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(str(out_dir / "decode_trace.json"))
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total_us = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    rec = dict(check="decode step profile", steps=n_steps,
+               wall_ms_per_step=wall * 1e3 / n_steps,
+               kernel_ms_per_step=total_us / 1e3 / n_steps
+               if total_us else "not measured",
+               device_idle_share=1 - total_us / 1e6 / wall
+               if total_us else "not measured",
+               kernel_launches_per_step=sum(e.count for e in kernels)
+               / n_steps,
+               top=[dict(name=e.key[:70], us_per_step=dev_us(e) / n_steps,
+                         calls_per_step=e.count / n_steps) for e in top])
+    log(json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: the port's sources (src/repro_torch) are not "
+              "next to this script", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    # phase 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    t_all = time.perf_counter()
+
+    # phase 2
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"built {build.sources()} in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # phases 3-4
+    results = []
+    run_spmm(get_config("gemma3_4b"), device, results)
+    run_paged(device, results)
+    torch.cuda.empty_cache()
+
+    # phase 5
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    serve_rec, chk_rec, prof_rec = serve(device, get_config("gemma3_4b"),
+                                         out_dir)
+
+    # phase 6: one entry per kernel, at the shape of a decode step
+    def pick(kernel, **want):
+        return next(r for r in results if r["kernel"] == kernel and all(
+            r.get(k) == v for k, v in want.items()))
+
+    spmm = pick("csd_spmm_fwd", junction="down", m=4, dtype="bfloat16",
+                bias=False)
+    paged = pick("paged_decode_attention", dtype="bfloat16", window=None)
+    entries = []
+    for name, rec, src, replaces, shape in (
+            ("csd_spmm_fwd", spmm,
+             "src/repro_torch/kernels/csrc/csd_spmm_fwd.cu",
+             "src/repro/kernels/csd_spmm.py:385",
+             "down junction, x (4, 10240) bf16, w (5, 32, 256, 512)"),
+            ("paged_decode_attention", paged,
+             "src/repro_torch/kernels/csrc/paged_decode.cu",
+             "src/repro/kernels/flash_attention.py:299",
+             "q (4, 4, 2, 256) bf16, page 16, lengths [1100, 517, 0, 1040]")):
+        entries.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=serve_rec["launches"][name],
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            shape=shape))
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        dict(card=smi, torch=torch.__version__, cases=results,
+             serve=serve_rec, logits_check=chk_rec, profile=prof_rec,
+             kernels=entries),
+        indent=1))
+    log(f"total {time.perf_counter() - t_all:.1f} s")
+    log(json.dumps({"kernels": entries}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

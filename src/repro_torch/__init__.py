@@ -1,0 +1,12 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
+
+It mirrors ``src/repro`` module for module (``repro_torch.<path>`` is the
+counterpart of ``repro.<path>``) and imports neither JAX nor ``repro``.
+Every TPU kernel on a ported path has a hand-written CUDA kernel under
+``kernels/csrc`` with a plain PyTorch version beside it; a CPU tensor runs
+the plain version, a CUDA tensor the kernel.
+
+Ported so far: serving a decoder-only LM (gemma3_4b) through the paged
+serving engine, with the ``csd_spmm_fwd`` and ``paged_decode_attention``
+kernels.
+"""

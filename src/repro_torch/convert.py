@@ -1,0 +1,71 @@
+"""Move a JAX parameter tree into the port: ``from_jax_params``.
+
+The JAX ``LM`` keeps its layers as ``params["stack"]["scan"][u]`` (trees
+whose leaves carry a leading group axis g, one entry per slot u of the
+repeating unit) and ``params["stack"]["epilogue"][i]``. The port's flat
+``layers`` list holds scan slot u of group g at index ``g * unit + u`` and
+epilogue block i after all scanned layers. The tree is passed in as numpy
+arrays, so this module needs no JAX.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from .nn.model import LM, detect_unit
+
+_LEAF = {"w": "weight", "b": "bias"}
+_ATTN = {"q": "wq", "k": "wk", "v": "wv", "o": "wo"}
+
+
+def _items(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _items(v, path + (k,))
+    else:
+        yield path, np.asarray(tree)
+
+
+def _block_name(path: tuple) -> str:
+    names = list(path)
+    if names[0] == "attn" and names[1] in _ATTN:
+        names[1] = _ATTN[names[1]]
+    names[-1] = _LEAF.get(names[-1], names[-1])
+    return ".".join(names)
+
+
+def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
+    """The port's state dict (parameters only) for ``model`` from the JAX
+    ``LM`` parameter tree as numpy arrays. Raises if a parameter is missing,
+    left over, or of another shape."""
+    stack = np_tree["stack"]
+    if stack.get("prologue"):
+        raise NotImplementedError("stacks with a prologue layer")
+    kinds = model.cfg.layer_kinds
+    unit = detect_unit(kinds)
+    n_groups = len(kinds) // unit
+    out: Dict[str, np.ndarray] = {
+        "embed.table": np.asarray(np_tree["embed"]["table"]),
+        "ln_f.scale": np.asarray(np_tree["ln_f"]["scale"]),
+    }
+    for u, slot_tree in enumerate(stack["scan"]):
+        for path, arr in _items(slot_tree):
+            for g in range(n_groups):
+                out[f"layers.{g * unit + u}.{_block_name(path)}"] = arr[g]
+    for i, blk in enumerate(stack["epilogue"]):
+        for path, arr in _items(blk):
+            out[f"layers.{n_groups * unit + i}.{_block_name(path)}"] = arr
+    params = dict(model.named_parameters())
+    if set(out) != set(params):
+        raise ValueError(
+            f"parameter mismatch: missing {sorted(set(params) - set(out))}, "
+            f"unexpected {sorted(set(out) - set(params))}")
+    sd = {}
+    for name, arr in out.items():
+        p = params[name]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        sd[name] = torch.as_tensor(np.array(arr), dtype=p.dtype)
+    return sd

@@ -1,0 +1,328 @@
+// csd_spmm_fwd — forward block-sparse junction for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/csd_spmm.py:csd_spmm_fwd (Pallas
+// body _fwd_kernel): y = act(sum_f x[:, blk(block_idx[rb, f])] @ w[rb, f] + b)
+// with w laid out (n_rb, d_in_b, bL, bR), f32 accumulation and the output in
+// the dtype of x.
+//
+// What bounds it on the card: in decode M is the number of serving slots
+// (a handful of rows), so the kernel is bound by the bytes of the weight
+// slab it has to stream once. For gemma3-4b in bf16 that is 26.2 MB per
+// up/gate junction and 41.9 MB per down junction, about 7.8 us and 12.5 us
+// at 3.35 TB/s. Prefill (M = slots x chunk) is still below the bf16 ridge
+// point at the chunk sizes the engine uses.
+//
+// What the design does about it: the Pallas grid revisits one output tile
+// across the sequential fan-in axis f; blocks on the GPU run in no order,
+// so each CTA owns one (BM x 64) output tile (64 columns of one right
+// block) and loops over fan-in slots and over bL in BK chunks itself,
+// reading its own block_idx row. Every weight element is read by exactly
+// one CTA, once. Tiles of x and w stream through a cp.async ring (6 stages
+// for decode-sized M, 3 for prefill) so that many loads are in flight while
+// the current chunk is multiplied (bf16 through WMMA tensor-core fragments,
+// f32 on the CUDA cores in full precision). When the output tiles alone
+// are too few to fill the card (gemma3's down junction has 40 in decode),
+// the fan-in slots are split over gridDim.z CTAs that write f32 partial
+// sums, and a second small kernel adds them in a fixed order (the result
+// does not depend on scheduling). The ragged M edge is masked with
+// zero-filled loads and guarded stores rather than padded. The epilogue
+// adds the bias, applies relu or tanh-gelu and casts, so the pre-activation
+// never reaches device memory except as those partial sums.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kBN = 64;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float v, float* out) { *out = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* out) {
+  *out = __float2bfloat16(v);
+}
+
+// act: 0 none, 1 relu, 2 tanh-approximate gelu (jax.nn.gelu approximate)
+__device__ __forceinline__ float activate(float z, int act) {
+  if (act == 1) return fmaxf(z, 0.f);
+  if (act == 2) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    float t = tanhf(c * (z + 0.044715f * z * z * z));
+    return z * (0.5f * (1.f + t));
+  }
+  return z;
+}
+
+template <typename T, int BM>
+struct Tile {
+  static constexpr int BK = std::is_same<T, float>::value ? 32 : 64;
+  static constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  static constexpr int XS = BK + EPC;         // padded smem row strides
+  static constexpr int WS = kBN + EPC;
+  static constexpr int STAGES = BM == 16 ? 6 : 3;
+  static constexpr int SMEM =
+      STAGES * (BM * XS + BK * WS) * static_cast<int>(sizeof(T));
+};
+
+// Writes the tile's element (m, n) of the junction output: the finished
+// value when there is one split, else the split's raw f32 partial sum.
+template <typename T>
+__device__ __forceinline__ void emit(float z, int m, int n, int M, int n_out,
+                                     const T* bias, T* y, float* partial,
+                                     int act) {
+  if (partial != nullptr) {
+    partial[(static_cast<size_t>(blockIdx.z) * M + m) * n_out + n] = z;
+    return;
+  }
+  if (bias != nullptr) z += to_f32(bias[n]);
+  store(activate(z, act), y + static_cast<size_t>(m) * n_out + n);
+}
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(kThreads)
+    csd_spmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        const int* __restrict__ idx, const T* __restrict__ bias,
+                        T* __restrict__ y, float* __restrict__ partial, int M,
+                        int n_in, int d_in_b, int bL, int bR, int n_out,
+                        int slots_per_split, int act) {
+  using TL = Tile<T, BM>;
+  constexpr int BK = TL::BK, EPC = TL::EPC, XS = TL::XS, WS = TL::WS;
+  constexpr int S = TL::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  T* ws = xs + S * BM * XS;
+
+  const int tid = threadIdx.x;
+  const int col0 = blockIdx.x * kBN;  // first output column of the tile
+  const int rb = col0 / bR;
+  const int n0 = col0 - rb * bR;  // column offset inside the right block
+  const int m0 = blockIdx.y * BM;
+  const int f0 = blockIdx.z * slots_per_split;  // this split's fan-in slots
+  const int n_slots = min(d_in_b - f0, slots_per_split);
+  const int steps_per_slot = bL / BK;
+  const int n_steps = max(n_slots, 0) * steps_per_slot;
+
+  auto load_stage = [&](int t) {
+    if (t >= n_steps) return;
+    const int stage = t % S;
+    const int fl = t / steps_per_slot;
+    const int f = f0 + fl;
+    const int k0 = (t - fl * steps_per_slot) * BK;
+    const int lb = __ldg(idx + rb * d_in_b + f);
+    const T* xsrc = x + static_cast<size_t>(lb) * bL + k0;
+    T* xdst = xs + stage * BM * XS;
+    constexpr int XC = BK / EPC;  // chunks per x row
+    for (int c = tid; c < BM * XC; c += kThreads) {
+      const int r = c / XC, cc = c - r * XC;
+      const int m = m0 + r;
+      const bool ok = m < M;
+      cp_async16(xdst + r * XS + cc * EPC,
+                 xsrc + static_cast<size_t>(ok ? m : 0) * n_in + cc * EPC, ok);
+    }
+    const T* wsrc =
+        w + ((static_cast<size_t>(rb) * d_in_b + f) * bL + k0) * bR + n0;
+    T* wdst = ws + stage * BK * WS;
+    constexpr int WC = kBN / EPC;  // chunks per w row
+    for (int c = tid; c < BK * WC; c += kThreads) {
+      const int r = c / WC, cc = c - r * WC;
+      cp_async16(wdst + r * WS + cc * EPC,
+                 wsrc + static_cast<size_t>(r) * bR + cc * EPC, true);
+    }
+  };
+
+  for (int s = 0; s < S - 1; ++s) {
+    load_stage(s);
+    cp_async_commit();
+  }
+
+  if constexpr (std::is_same<T, float>::value) {
+    // CUDA-core path: 16 threads across 64 columns (4 each), 8 across rows
+    constexpr int TM = BM / 8;
+    const int tx = tid % 16, ty = tid / 16;
+    float acc[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+    for (int t = 0; t < n_steps; ++t) {
+      cp_async_wait<S - 2>();
+      __syncthreads();
+      load_stage(t + S - 1);
+      cp_async_commit();
+      const T* xt = xs + (t % S) * BM * XS;
+      const T* wt = ws + (t % S) * BK * WS;
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(wt + kk * WS + tx * 4);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float a = xt[(ty * TM + i) * XS + kk];
+          acc[i][0] = fmaf(a, b4.x, acc[i][0]);
+          acc[i][1] = fmaf(a, b4.y, acc[i][1]);
+          acc[i][2] = fmaf(a, b4.z, acc[i][2]);
+          acc[i][3] = fmaf(a, b4.w, acc[i][3]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + ty * TM + i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        emit(acc[i][j], m, col0 + tx * 4 + j, M, n_out, bias, y, partial,
+             act);
+    }
+  } else {
+    // tensor-core path: warp w owns columns [16w, 16w + 16) of the tile
+    using namespace nvcuda;
+    constexpr int MF = BM / 16;
+    const int warp = tid / 32;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF];
+#pragma unroll
+    for (int i = 0; i < MF; ++i) wmma::fill_fragment(acc[i], 0.f);
+
+    for (int t = 0; t < n_steps; ++t) {
+      cp_async_wait<S - 2>();
+      __syncthreads();
+      load_stage(t + S - 1);
+      cp_async_commit();
+      const T* xt = xs + (t % S) * BM * XS;
+      const T* wt = ws + (t % S) * BK * WS;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major>
+            bf;
+        wmma::load_matrix_sync(bf, wt + kk * WS + warp * 16, WS);
+#pragma unroll
+        for (int i = 0; i < MF; ++i) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major>
+              af;
+          wmma::load_matrix_sync(af, xt + i * 16 * XS + kk, XS);
+          wmma::mma_sync(acc[i], af, bf, acc[i]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the stage ring is reused as the epilogue buffer
+    constexpr int CS = kBN + 4;
+    static_assert(TL::SMEM >= BM * CS * 4, "epilogue buffer must fit");
+    float* cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+      wmma::store_matrix_sync(cs + i * 16 * CS + warp * 16, acc[i], CS,
+                              wmma::mem_row_major);
+    __syncthreads();
+    for (int e = tid; e < BM * kBN; e += kThreads) {
+      const int r = e / kBN, c = e - r * kBN;
+      const int m = m0 + r;
+      if (m >= M) continue;
+      emit(cs[r * CS + c], m, col0 + c, M, n_out, bias, y, partial, act);
+    }
+  }
+}
+
+// Second pass of a split junction: y = act(sum_s partial[s] + bias), the
+// splits added in order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    csd_spmm_reduce_kernel(const float* __restrict__ partial,
+                           const T* __restrict__ bias, T* __restrict__ y,
+                           int M, int n_out, int n_splits, int act) {
+  const size_t total = static_cast<size_t>(M) * n_out;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float z = 0.f;
+    for (int s = 0; s < n_splits; ++s) z += partial[s * total + e];
+    if (bias != nullptr) z += to_f32(bias[e % n_out]);
+    store(activate(z, act), y + e);
+  }
+}
+
+template <typename T, int BM>
+int launch(const void* x, const void* w, const int* idx, const void* bias,
+           void* y, float* partial, int M, int n_in, int n_rb, int d_in_b,
+           int bL, int bR, int n_splits, int act, cudaStream_t stream) {
+  constexpr int smem = Tile<T, BM>::SMEM;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        csd_spmm_fwd_kernel<T, BM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const int n_out = n_rb * bR;
+  const int per_split = (d_in_b + n_splits - 1) / n_splits;
+  dim3 grid(n_out / kBN, (M + BM - 1) / BM, n_splits);
+  csd_spmm_fwd_kernel<T, BM><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), idx,
+      static_cast<const T*>(bias), static_cast<T*>(y),
+      n_splits > 1 ? partial : nullptr, M, n_in, d_in_b, bL, bR, n_out,
+      per_split, act);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_splits == 1) return static_cast<int>(e);
+  const size_t total = static_cast<size_t>(M) * n_out;
+  const int blocks = static_cast<int>((total + 255) / 256);
+  csd_spmm_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
+      partial, static_cast<const T*>(bias), static_cast<T*>(y), M, n_out,
+      n_splits, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16. act: 0 none, 1 relu, 2 gelu (tanh).
+// n_splits: how many CTAs share one output tile's fan-in slots (1 = no
+// second pass); every split must own at least one slot, and `partial`
+// must then hold n_splits * M * n_rb * bR floats.
+// Preconditions (checked by the Python wrapper): contiguous tensors on one
+// device, 16-byte aligned, bL % 64 == 0, bR % 64 == 0, M >= 1.
+// Returns cudaGetLastError() after the launches.
+extern "C" int csd_spmm_fwd(const void* x, const void* w, const int* idx,
+                            const void* bias, void* y, float* partial, int M,
+                            int n_in, int n_rb, int d_in_b, int bL, int bR,
+                            int n_splits, int dtype, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool small = M <= 16;
+  if (dtype == 0)
+    return small ? launch<float, 16>(x, w, idx, bias, y, partial, M, n_in,
+                                     n_rb, d_in_b, bL, bR, n_splits, act, s)
+                 : launch<float, 64>(x, w, idx, bias, y, partial, M, n_in,
+                                     n_rb, d_in_b, bL, bR, n_splits, act, s);
+  if (dtype == 1)
+    return small ? launch<__nv_bfloat16, 16>(x, w, idx, bias, y, partial, M,
+                                             n_in, n_rb, d_in_b, bL, bR,
+                                             n_splits, act, s)
+                 : launch<__nv_bfloat16, 64>(x, w, idx, bias, y, partial, M,
+                                             n_in, n_rb, d_in_b, bL, bR,
+                                             n_splits, act, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

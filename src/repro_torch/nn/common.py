@@ -1,0 +1,90 @@
+"""Model configuration shared by the nn stack (port of the configuration
+half of ``repro.nn.common``).
+
+The fields and defaults are those of the JAX package's ``ModelConfig`` and
+``SparsityConfig`` that the serving slice reads; fields of the MoE, SSM,
+encoder-decoder and frontend families, the TPU backend switch and the
+quantization knob arrive with the slices that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SparsityConfig:
+    """Where and how pre-defined sparsity is applied inside a model: the
+    FFN up/gate junctions get density ``rho_ffn[0]``, the down junction
+    ``rho_ffn[1]`` (the paper's trend 3: later junctions denser)."""
+
+    enabled: bool = False
+    rho_ffn: Tuple[float, float] = (0.5, 0.75)
+    rho_attn: Optional[float] = None  # None = attention projections dense
+    method: str = "clashfree"
+    cf_type: int = 1
+    dither: bool = False
+    block_in: int = 256
+    block_out: int = 1024
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    d_ff: int = 1024
+    vocab_size: int = 32000
+    max_seq_len: int = 8192
+
+    layer_pattern: Tuple[str, ...] = ()  # per-layer kinds, cycled; () = all attn
+    attn_window: Optional[int] = None    # sliding window for 'local' layers
+    local_global_ratio: int = 0          # k local : 1 global (0 = all global)
+    logit_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-6
+    post_norms: bool = False     # gemma2/3 sandwich norms (+ qk-norm)
+    act: str = "silu"            # silu | gelu | gelu_tanh | relu
+    ffn_gated: bool = True
+    tie_embeddings: bool = True
+    scale_embed: bool = False    # gemma multiplies embeddings by sqrt(d)
+
+    sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
+
+    dtype: str = "bfloat16"      # activation/compute dtype
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Resolved per-layer kind: 'global' or 'local'."""
+        if self.layer_pattern:
+            pat = self.layer_pattern
+            return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+        if self.local_global_ratio > 0:
+            k = self.local_global_ratio
+            return tuple("local" if (i % (k + 1)) != k else "global"
+                         for i in range(self.n_layers))
+        return ("global",) * self.n_layers
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def param_dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)

@@ -1,0 +1,140 @@
+"""Primitive layers (port of ``repro.nn.layers``): ``Linear`` (dense or
+pre-defined block-sparse), ``RMSNorm``, ``Embedding``, rotary embeddings and
+the activation registry.
+
+Every module takes the ``device`` and parameter ``dtype`` it is built on and
+a ``torch.Generator`` for its random init; the init distributions are the
+JAX package's, the numbers are not (tests move the JAX parameters over with
+``repro_torch.convert``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..core.block_pattern import BlockPattern, fit_block_pattern
+from ..kernels.ops import apply_activation, csd_matmul
+from .common import SparsityConfig
+
+
+def _normal(shape, std: float, generator, device, dtype) -> nn.Parameter:
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32) * std
+    return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+class Linear(nn.Module):
+    """A junction. Dense by default; pre-defined block-sparse when ``rho < 1``
+    and the sparsity config admits it. A dense weight is (n_in, n_out); a
+    sparse one is the slab (n_rb, d_in_b, bL, bR), with the pattern's
+    gather form kept beside it as the int32 buffer ``block_idx``."""
+
+    def __init__(self, n_in: int, n_out: int, *, bias: bool = False,
+                 rho: float = 1.0, sp: Optional[SparsityConfig] = None,
+                 seed: int = 0, dtype=torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_in, self.n_out = n_in, n_out
+        self.pattern: Optional[BlockPattern] = None
+        if sp is not None:
+            self.pattern = fit_block_pattern(n_in, n_out, rho, sp, seed=seed)
+        if self.pattern is not None:
+            bp = self.pattern
+            self.weight = _normal(
+                (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out),
+                math.sqrt(1.0 / (bp.d_in_b * bp.block_in)), generator,
+                device, dtype)
+            self.register_buffer("block_idx", torch.as_tensor(
+                bp.block_idx, dtype=torch.int32, device=device))
+        else:
+            self.weight = _normal((n_in, n_out), math.sqrt(1.0 / n_in),
+                                  generator, device, dtype)
+            self.block_idx = None
+        self.bias = nn.Parameter(torch.zeros(n_out, device=device,
+                                             dtype=dtype),
+                                 requires_grad=False) if bias else None
+
+    @property
+    def is_sparse(self) -> bool:
+        return self.pattern is not None
+
+    def forward(self, x: torch.Tensor,
+                activation: Optional[str] = None) -> torch.Tensor:
+        """``activation(x @ W + b)``; for a sparse junction the bias and
+        activation ride the fused ``csd_matmul`` epilogue. The weight is
+        used in its stored dtype: the serving engine makes the one
+        compute-dtype copy at load, not one per call."""
+        if self.is_sparse:
+            return csd_matmul(x, self.weight, self.block_idx, bias=self.bias,
+                              activation=activation)
+        y = x @ self.weight
+        if self.bias is not None:
+            y = y + self.bias
+        return apply_activation(y, activation)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm computed in f32. Zero-centred (gemma style, ``1 + scale``
+    with the scale initialised to zeros) for every model, as in the JAX
+    package."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        xf = xf * torch.rsqrt(var + self.eps)
+        return (xf * (1.0 + self.scale.float())).to(x.dtype)
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, dim: int, dtype=torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.table = _normal((vocab, dim), 1.0 / math.sqrt(dim), generator,
+                             device, dtype)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.table)
+
+    def attend(self, h: torch.Tensor) -> torch.Tensor:
+        """Tied output head: h @ table^T -> logits."""
+        return h @ self.table.T
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs    # (..., S, Dh/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    """The registry: jax.nn.gelu defaults to the tanh approximation, so
+    "gelu" and "gelu_tanh" name the same function."""
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu,
+            "gelu_tanh": _gelu_tanh}[name]

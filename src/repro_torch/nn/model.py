@@ -1,0 +1,104 @@
+"""The decoder-only LM for paged serving (port of ``repro.nn.model.LM``).
+
+The JAX package splits its layers into scanned pattern units (gemma3:
+5 local + 1 global) under ``lax.scan`` plus an unscanned epilogue (34 =
+5 x 6 + 4 for gemma3). Here the layers are one flat ``nn.ModuleList`` run
+by a Python loop, but each layer is built with the seed its JAX block has,
+because the seed picks its FFN sparsity pattern: scan slot ``u`` gets
+``10 * u + 1`` in every group (scanned groups share one pattern per slot),
+epilogue block ``i`` gets ``2000 + 10 * i``. The MoE prologue layer does not
+exist for the models this port serves yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from .common import ModelConfig, dtype_of, param_dtype_of
+from .layers import Embedding, RMSNorm
+from .transformer import TransformerBlock
+
+
+def detect_unit(kinds: Tuple[str, ...]) -> int:
+    """The repeating unit of the layer kinds, as the JAX ``Stack`` finds it
+    (a unit repeated only once counts only if it spans every layer)."""
+    n = len(kinds)
+    for u in range(1, n + 1):
+        groups = n // u
+        ok = all(kinds[i] == kinds[i % u] for i in range(groups * u))
+        if ok and (groups > 1 or u == n):
+            return u
+    return n
+
+
+def layer_seeds(kinds: Tuple[str, ...]) -> List[int]:
+    """Per-layer block seeds of the JAX stack (scan slots, then epilogue)."""
+    if not kinds:
+        return []
+    unit = detect_unit(kinds)
+    scanned = (len(kinds) // unit) * unit
+    return [10 * (i % unit) + 1 if i < scanned else 2000 + 10 * (i - scanned)
+            for i in range(len(kinds))]
+
+
+class LM(nn.Module):
+    """Decoder-only token LM with the tied embedding head."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not cfg.tie_embeddings:
+            raise NotImplementedError("the port serves tied-head models only")
+        self.cfg = cfg
+        pd = param_dtype_of(cfg)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, pd, device,
+                               generator)
+        kinds = cfg.layer_kinds
+        self.layers = nn.ModuleList(
+            TransformerBlock(cfg, kind, seed=seed, device=device,
+                             generator=generator)
+            for kind, seed in zip(kinds, layer_seeds(kinds)))
+        self.ln_f = RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)
+
+    def init_paged_cache(self, total_pages: int, page_size: int,
+                         dtype: Optional[torch.dtype] = None,
+                         device=None) -> List[dict]:
+        """Per-layer page pools, each with one extra write-discard page
+        (attention layers keep no per-slot state)."""
+        cfg = self.cfg
+        dtype = dtype or dtype_of(cfg)
+        device = device or self.embed.table.device
+        shape = (total_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+        return [{"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                 "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+                for _ in self.layers]
+
+    def logits_fn(self, h: torch.Tensor) -> torch.Tensor:
+        logits = self.embed.attend(h)
+        cap = self.cfg.final_softcap
+        if cap is not None:
+            logits = cap * torch.tanh(logits / cap)
+        return logits
+
+    @torch.no_grad()
+    def paged_step(self, tokens: torch.Tensor, pos: torch.Tensor,
+                   n_new: torch.Tensor, cache: List[dict],
+                   page_table: torch.Tensor) -> torch.Tensor:
+        """One engine step: tokens (B, C) int, per-row start positions
+        ``pos`` (B,) and valid counts ``n_new`` (B,), int32. C == 1 is a
+        batched decode step, C > 1 one prefill chunk. Updates the cache in
+        place and returns the logits of each row's last valid token,
+        (B, 1, V)."""
+        x = self.embed(tokens)
+        if self.cfg.scale_embed:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        for layer, c in zip(self.layers, cache):
+            x = layer.paged_step(x, pos, n_new, c, page_table)
+        x = self.ln_f(x)
+        idx = torch.clamp(n_new.long() - 1, 0, x.shape[1] - 1)
+        h_last = torch.gather(
+            x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
+        return self.logits_fn(h_last)

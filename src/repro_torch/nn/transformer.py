@@ -1,0 +1,49 @@
+"""The decoder block (port of ``repro.nn.transformer.TransformerBlock``'s
+paged serving step): pre-norm attention + FFN, with gemma's sandwich norms
+when ``post_norms`` is set."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from .attention import Attention
+from .common import ModelConfig, param_dtype_of
+from .ffn import FFN
+from .layers import RMSNorm
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, kind: str, seed: int = 0,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.kind = kind
+        window = cfg.attn_window if kind == "local" else None
+        self.attn = Attention(cfg, window=window, seed=seed,
+                              qk_norm=cfg.post_norms, device=device,
+                              generator=generator)
+        self.ffn = FFN(cfg, seed=seed, device=device, generator=generator)
+        pd = param_dtype_of(cfg)
+        norm = lambda: RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)  # noqa: E731
+        self.ln_attn = norm()
+        self.ln_ffn = norm()
+        if cfg.post_norms:
+            self.ln_attn_post = norm()
+            self.ln_ffn_post = norm()
+
+    def paged_step(self, x: torch.Tensor, pos: torch.Tensor,
+                   n_new: torch.Tensor, cache: dict,
+                   page_table: torch.Tensor) -> torch.Tensor:
+        """Serving step (decode or prefill chunk) against paged KV; the
+        layer's pages in ``cache`` are updated in place."""
+        h = self.attn.paged_step(self.ln_attn(x), pos, n_new, cache,
+                                 page_table)
+        if self.cfg.post_norms:
+            h = self.ln_attn_post(h)
+        x = x + h
+        h = self.ffn(self.ln_ffn(x))
+        if self.cfg.post_norms:
+            h = self.ln_ffn_post(h)
+        return x + h

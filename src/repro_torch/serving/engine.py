@@ -1,0 +1,217 @@
+"""ServingEngine: continuous-batching inference over the paged cache (port of
+``repro.serving.engine``).
+
+One ``step()`` executes a scheduler plan: chunked prefill for sequences
+still consuming their prompt, packed into one batched call per chunk length,
+then one batched decode step for every running sequence. Every FFN junction
+runs the ``csd_spmm_fwd`` kernel and every decode step the paged decode
+kernel when the model lives on the card; on the CPU the same code runs the
+plain versions.
+
+At load the engine moves the model to its device and compute dtype once
+(bf16 for the full configs): the JAX ``Linear`` casts its f32 weight on
+every call, which here would triple the bytes each junction reads. The
+allocator stays on the host; each step sends the page table, the positions
+and the valid counts to the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..nn.common import dtype_of
+from .scheduler import Request, Scheduler, StepPlan
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine knobs. ``token_budget`` is the per-step work quantum (the
+    paper's degree of parallelism ``z``), ``page_size`` the KV allocation
+    granularity, ``max_slots`` the number of resident sequences.
+    Speculative decode (the JAX package's ``spec_k``) is not ported yet."""
+    max_slots: int = 8
+    page_size: int = 16
+    total_pages: int = 128
+    max_pages_per_seq: int = 32
+    token_budget: int = 64
+    prefill_chunk: int = 32
+    greedy: bool = True
+    temperature: float = 1.0
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Asking for the card where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "versions on the CPU")
+    return dev
+
+
+class ServingEngine:
+    """Continuous-batching engine: add requests any time, call ``step()``
+    (or ``run()``) and collect finished generations."""
+
+    def __init__(self, model, config: Optional[EngineConfig] = None, *,
+                 device=None, seed: int = 0, **overrides):
+        if overrides and config is not None:
+            raise ValueError("pass EngineConfig or overrides, not both")
+        cfg = config or EngineConfig(**overrides)
+        self.device = resolve_device(device)
+        mc = model.cfg
+        self.model = model.to(device=self.device, dtype=dtype_of(mc))
+        self.config = cfg
+        self.seed = seed
+        self.sched = Scheduler(
+            slots=cfg.max_slots, total_pages=cfg.total_pages,
+            page_size=cfg.page_size,
+            max_pages_per_seq=cfg.max_pages_per_seq,
+            token_budget=cfg.token_budget,
+            prefill_chunk=cfg.prefill_chunk,
+            window=self._reclaim_window(mc))
+        self.cache = model.init_paged_cache(cfg.total_pages, cfg.page_size,
+                                            dtype_of(mc), self.device)
+        self._next_id = 0
+        self.outputs: Dict[int, np.ndarray] = {}
+
+    @staticmethod
+    def _reclaim_window(mc) -> Optional[int]:
+        """Sliding-window page reclamation is sound only when every
+        attention layer is windowed: all page pools share one page table,
+        so a page may be freed only when no layer can still read it."""
+        if mc.attn_window is not None and set(mc.layer_kinds) == {"local"}:
+            return int(mc.attn_window)
+        return None
+
+    # -- request intake ----------------------------------------------------
+
+    def add_request(self, prompt, max_new_tokens: int,
+                    req_id: Optional[int] = None) -> int:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if len(prompt) == 0:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        need = len(prompt) + max_new_tokens
+        cap = min(self.config.max_pages_per_seq,
+                  self.config.total_pages) * self.config.page_size
+        if need > cap:
+            raise ValueError(
+                f"request needs {need} tokens but a sequence can hold at "
+                f"most {cap} (min(max_pages_per_seq, total_pages) * "
+                f"page_size)")
+        if req_id is None:
+            req_id = self._next_id
+        elif any(r.req_id == req_id for r in self.sched.waiting) or any(
+                s is not None and s.req.req_id == req_id
+                for s in self.sched.active):
+            raise ValueError(f"req_id {req_id} is already queued or in flight")
+        self._next_id = max(self._next_id, req_id) + 1
+        self.sched.add(Request(req_id=req_id, prompt=prompt,
+                               max_new_tokens=max_new_tokens))
+        return req_id
+
+    # -- sampling ----------------------------------------------------------
+
+    def _sample(self, logits: torch.Tensor, slot: int) -> int:
+        if self.config.greedy:
+            return int(torch.argmax(logits))
+        seq = self.sched.active[slot]
+        # one stream per (request, absolute position): a preempted and
+        # recomputed sequence re-draws identical tokens
+        rng = np.random.default_rng((self.seed, seq.req.req_id,
+                                     len(seq.tokens)))
+        z = logits.double().cpu().numpy() / self.config.temperature
+        p = np.exp(z - z.max())
+        return int(rng.choice(len(p), p=p / p.sum()))
+
+    # -- the step ----------------------------------------------------------
+
+    def _run(self, tokens: np.ndarray, pos: np.ndarray,
+             n_new: np.ndarray) -> torch.Tensor:
+        dev = self.device
+        return self.model.paged_step(
+            torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(pos, dtype=torch.int32, device=dev),
+            torch.as_tensor(n_new, device=dev), self.cache,
+            torch.as_tensor(self.sched.state.page_table, device=dev))
+
+    def step(self) -> Tuple[StepPlan, List[Tuple[int, np.ndarray]]]:
+        """Run one engine step; returns (plan, finished) where finished is
+        a list of (req_id, generated token ids)."""
+        cfg = self.config
+        plan = self.sched.schedule()
+        slots = cfg.max_slots
+        for group in plan.prefill_groups:
+            # equal-length chunks of different sequences in ONE call; slots
+            # without a chunk ride along inactive with n_new == 0
+            c = len(group[0][2])
+            tokens = np.zeros((slots, c), np.int32)
+            pos = np.zeros((slots,), np.int32)
+            n_new = np.zeros((slots,), np.int32)
+            for slot, start, toks in group:
+                tokens[slot, :len(toks)] = toks
+                pos[slot] = start
+                n_new[slot] = len(toks)
+            logits = self._run(tokens, pos, n_new)
+            for slot, _, toks in group:
+                self.sched.advance_prefill(slot, len(toks))
+                seq = self.sched.active[slot]
+                if not seq.prefilling and len(seq.tokens) == seq.n_prefilled:
+                    # prompt fully cached and no pending token yet (also
+                    # true right after a preemption recompute): sample it
+                    self.sched.append_token(
+                        slot, self._sample(logits[slot, 0], slot))
+
+        if plan.decode_slots:
+            tokens = np.zeros((slots, 1), np.int32)
+            n_new = np.zeros((slots,), np.int32)
+            for s in plan.decode_slots:
+                tokens[s, 0] = self.sched.active[s].pending_token
+                n_new[s] = 1
+            logits = self._run(tokens, self.sched.state.seq_lens, n_new)
+            greedy = torch.argmax(logits[:, 0], dim=-1).cpu().numpy() \
+                if cfg.greedy else None
+            for s in plan.decode_slots:
+                self.sched.note_decoded(s)
+                tok = int(greedy[s]) if cfg.greedy \
+                    else self._sample(logits[s, 0], s)
+                self.sched.append_token(s, tok)
+
+        finished = []
+        for s in range(slots):
+            seq = self.sched.active[s]
+            if seq is not None and seq.done:
+                req, gen = self.sched.finish(s)
+                self.outputs[req.req_id] = gen
+                finished.append((req.req_id, gen))
+        return plan, finished
+
+    # -- drain loop --------------------------------------------------------
+
+    def run(self, prompts: Sequence, max_new_tokens,
+            max_steps: int = 100_000) -> List[np.ndarray]:
+        """Submit ``prompts`` (1-D int arrays) and step until all finish;
+        returns the generated ids per prompt, in submission order.
+        ``max_new_tokens`` is an int or a per-prompt list."""
+        if isinstance(max_new_tokens, int):
+            max_new_tokens = [max_new_tokens] * len(prompts)
+        ids = [self.add_request(p, n)
+               for p, n in zip(prompts, max_new_tokens)]
+        steps = 0
+        while self.sched.has_work():
+            plan, _ = self.step()
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError("engine failed to drain (stuck plan?)")
+            if plan.n_tokens == 0 and not plan.admitted \
+                    and not plan.preempted:
+                raise RuntimeError(
+                    "scheduler produced an empty plan with work pending — "
+                    "page pool too small for any resident sequence")
+        return [self.outputs.pop(i) for i in ids]
