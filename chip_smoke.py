@@ -23,14 +23,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode step after the prefill drain run with the kernels and with the
    plain versions from one cache state, logits compared; then 4 decode
    steps under ``torch.profiler``;
-6. print one JSON line describing each ported kernel;
-7. print the device line, last.
+6. hold the training kernels against their plain versions at gemma3-4b's
+   training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
+   down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
+   ``csd_spmm_dx`` and ``csd_spmm_dw``, timed like phase 3;
+7. free the serving model and train gemma3-4b at its full configuration
+   (f32 parameters, bf16 compute, batch 2 x seq 2048, remat): one step's
+   loss and gradients with the kernels and with the plain versions
+   compared; then 4 ``Trainer`` steps on ``BigramLM`` batches with the
+   launch counts of the three junction kernels read around them; then one
+   step under ``torch.profiler``;
+8. print one JSON line describing each ported kernel;
+9. print the device line, last.
 
 It exits non-zero without a result where no CUDA device is present or where
 the port's sources are missing next to this script.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -115,12 +126,18 @@ SPMM_TOL = {"torch.float32": (1e-4, 1e-4),   # f32 sums in another order
             "torch.bfloat16": (1e-2, 1e-2)}  # + one bf16 rounding of y
 
 
-def spmm_cases(cfg):
+def junction_patterns(cfg):
+    """The (up/gate, down) block patterns of gemma3-4b's FFN."""
     from repro_torch.core.block_pattern import fit_block_pattern
     sp = cfg.sparsity
     up = fit_block_pattern(cfg.d_model, cfg.d_ff, sp.rho_ffn[0], sp, seed=12)
     down = fit_block_pattern(cfg.d_ff, cfg.d_model, sp.rho_ffn[1], sp,
                              seed=13)
+    return up, down
+
+
+def spmm_cases(cfg):
+    up, down = junction_patterns(cfg)
     for dtype_name in ("float32", "bfloat16"):
         for m in (4, 256):
             for act in (None, "gelu"):
@@ -290,15 +307,14 @@ def plain_versions():
     """Run the model's kernels through their plain versions (on the card)
     for a reference step; the port itself has no such switch."""
     from repro_torch.kernels import csd_spmm, flash_attention
-    from repro_torch.nn import attention, layers
+    from repro_torch.nn import attention
 
-    def plain_matmul(x, w, block_idx, *, bias=None, activation=None):
-        y = csd_spmm.csd_spmm_fwd_plain(x.reshape(-1, x.shape[-1]), w,
-                                        block_idx, bias=bias,
-                                        activation=activation)
-        return y.reshape(x.shape[:-1] + (y.shape[-1],))
-
-    with mock.patch.object(layers, "csd_matmul", plain_matmul), \
+    with mock.patch.object(csd_spmm, "csd_spmm_fwd_cuda",
+                           csd_spmm.csd_spmm_fwd_plain), \
+            mock.patch.object(csd_spmm, "csd_spmm_dx_cuda",
+                              csd_spmm.csd_spmm_dx_plain), \
+            mock.patch.object(csd_spmm, "csd_spmm_dw_cuda",
+                              csd_spmm.csd_spmm_dw_plain), \
             mock.patch.object(attention, "paged_decode_attention",
                               flash_attention.paged_decode_attention_plain):
         yield
@@ -417,6 +433,16 @@ def serve(device, cfg, out_dir, prompt_lens=(64, 96, 112, 128), n_new=32):
                                         out_dir)
 
 
+def export_trace(prof, path: Path) -> None:
+    """The profiler's chrome trace, gzipped (``<path>.gz``)."""
+    import gzip
+    import shutil
+    prof.export_chrome_trace(str(path))
+    with open(path, "rb") as src, gzip.open(f"{path}.gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    path.unlink()
+
+
 def profile_decode(model, prompts, n_new, device, out_dir, n_steps=4):
     """Where a decode step's time goes: ``n_steps`` engine decode steps
     under ``torch.profiler``, kernel time summed by name."""
@@ -440,7 +466,7 @@ def profile_decode(model, prompts, n_new, device, out_dir, n_steps=4):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    prof.export_chrome_trace(str(out_dir / "decode_trace.json"))
+    export_trace(prof, out_dir / "decode_trace.json")
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
@@ -460,6 +486,328 @@ def profile_decode(model, prompts, n_new, device, out_dir, n_steps=4):
                / n_steps,
                top=[dict(name=e.key[:70], us_per_step=dev_us(e) / n_steps,
                          calls_per_step=e.count / n_steps) for e in top])
+    log(json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training kernels at gemma3-4b's training shapes
+# ---------------------------------------------------------------------------
+
+TRAIN_M = 2 * 2048   # batch x sequence of phase 7
+# max |kernel - plain| over max |plain|: f32 sums in another order; bf16
+# one rounding of each output on top
+TRAIN_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
+
+
+def dense_of(bp, w):
+    """The (n_in, n_out) dense weight of a slab (zeros off the pattern):
+    what the library yardstick multiplies."""
+    import torch
+    d = torch.zeros((bp.n_lb, bp.block_in, bp.n_rb, bp.block_out),
+                    dtype=w.dtype, device=w.device)
+    for rb in range(bp.n_rb):
+        for f in range(bp.d_in_b):
+            d[int(bp.block_idx[rb, f]), :, rb] = w[rb, f]
+    return d.reshape(bp.n_in, bp.n_out)
+
+
+def run_train_kernels(cfg, device, results):
+    import torch
+    from repro_torch.kernels import csd_spmm
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    up, down = junction_patterns(cfg)
+    m = TRAIN_M
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for name, bp, act in (("gate", up, "gelu"), ("down", down, None)):
+            shape = (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
+            n_w = math.prod(shape)
+            x = torch.randn((m, bp.n_in), generator=g, device=device) \
+                .to(dtype)
+            w = (torch.randn(shape, generator=g, device=device)
+                 / math.sqrt(bp.d_in_b * bp.block_in)).to(dtype)
+            dy = torch.randn((m, bp.n_out), generator=g, device=device) \
+                .to(dtype)
+            aux = torch.randn((m, bp.n_out), generator=g, device=device) \
+                .to(dtype) if act else None
+            pat = {k: torch.as_tensor(getattr(bp, k), dtype=torch.int32,
+                                      device=device)
+                   for k in ("block_idx", "out_idx", "out_slot")}
+            wd = dense_of(bp, w)
+            el = dtype.itemsize
+            n_x, n_y = m * bp.n_in, m * bp.n_out
+            n_aux = n_y if act else 0
+            kbw = dict(block_in=bp.block_in, block_out=bp.block_out,
+                       aux=aux, activation=act)
+            # the training forward saves z where the backward needs it
+            kfw = dict(activation=act, save_preact=act == "gelu")
+            cases = (
+                ("csd_spmm_fwd",
+                 lambda: csd_spmm.csd_spmm_fwd_cuda(
+                     x, w, pat["block_idx"], **kfw),
+                 lambda: csd_spmm.csd_spmm_fwd_plain(
+                     x, w, pat["block_idx"], **kfw),
+                 lambda: torch.matmul(x, wd),
+                 el * (n_x + n_w + (1 + kfw["save_preact"]) * n_y)),
+                ("csd_spmm_dx",
+                 lambda: csd_spmm.csd_spmm_dx_cuda(
+                     dy, w, pat["out_idx"], pat["out_slot"], aux=aux,
+                     activation=act),
+                 lambda: csd_spmm.csd_spmm_dx_plain(
+                     dy, w, pat["out_idx"], pat["out_slot"], aux=aux,
+                     activation=act),
+                 lambda: torch.matmul(dy, wd.T),
+                 el * (n_y + n_aux + n_w + n_x)),
+                ("csd_spmm_dw",
+                 lambda: csd_spmm.csd_spmm_dw_cuda(
+                     x, dy, pat["block_idx"], **kbw),
+                 lambda: csd_spmm.csd_spmm_dw_plain(
+                     x, dy, pat["block_idx"], **kbw),
+                 lambda: torch.matmul(x.T, dy),
+                 el * (n_x + n_y + n_aux + n_w)),
+            )
+            for kernel, run, plain, lib, nbytes in cases:
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                if isinstance(got, tuple):  # y and the saved z
+                    got, ref = torch.cat(got, 1), torch.cat(ref, 1)
+                err = float((got.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                tol = TRAIN_TOL[str(dtype)]
+                ok = err <= tol * scale and bool(torch.isfinite(got).all())
+                del got, ref
+                ms, host_ms = bench([run], 10)
+                plain_ms, _ = bench([plain], 2)
+                lib_ms, _ = bench([lib], 10)
+                bound_ms, bound_by = bound(
+                    nbytes + 4 * pat["block_idx"].numel(), 2 * m * n_w,
+                    dtype)
+                rec = dict(kernel=kernel, junction=name, m=m,
+                           dtype=dtype_name, activation=act,
+                           save_preact=kernel == "csd_spmm_fwd"
+                           and kfw["save_preact"],
+                           max_abs_err=err, max_abs_ref=scale, tol=tol,
+                           ok=ok, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_ms)
+                results.append(rec)
+                log(json.dumps(rec))
+                if not ok:
+                    fail(f"{kernel} disagrees with its plain version: {rec}")
+            del x, w, dy, aux, wd
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train gemma3-4b at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+# kernels vs plain versions, one step from the same weights. In bf16 both
+# round every activation to bf16 at the same places, but sums taken in
+# another order flip single roundings (2^-8 relative each), and 34 layers
+# carry the flips on: the slab gradients differ by ~3% (relative Frobenius
+# norm) in the first layer as in the last. The same step in f32 compute
+# shows that this is rounding: there the kernels agree with the plain
+# versions to f32 summation order.
+STEP_TOL = {"bfloat16": {"loss": 1e-2, "grad_norm": 3e-2, "slab_grad": 5e-2},
+            "float32": {"loss": 1e-5, "grad_norm": 1e-4, "slab_grad": 1e-3}}
+
+
+def train_launch_counts():
+    from repro_torch.kernels import csd_spmm
+    return {k: getattr(csd_spmm, f"{k}_cuda").launches
+            for k in ("csd_spmm_fwd", "csd_spmm_dx", "csd_spmm_dw")}
+
+
+def reset_launch_counts():
+    from repro_torch.kernels import csd_spmm, flash_attention
+    for fn in (csd_spmm.csd_spmm_fwd_cuda, csd_spmm.csd_spmm_dx_cuda,
+               csd_spmm.csd_spmm_dw_cuda,
+               flash_attention.paged_decode_attention_cuda):
+        fn.launches = 0
+
+
+def loss_and_grads(model, batch, names):
+    """One step's loss, global gradient norm and copies of the gradients
+    of ``names``; the gradients are dropped afterwards."""
+    import torch
+    from repro_torch.optim import adam
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss(batch)
+    loss.backward()
+    params = dict(model.named_parameters())
+    gnorm = float(adam.global_norm({n: p.grad for n, p in params.items()}))
+    sel = {n: params[n].grad.detach().clone() for n in names}
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return float(loss.detach()), gnorm, sel
+
+
+def step_check(model, batch, cfg, dtype_name):
+    """One step's loss and gradients with the kernels and with the plain
+    versions, computing in ``dtype_name``; fails past ``STEP_TOL``."""
+    import torch
+    last = cfg.n_layers - 1
+    names = [f"layers.{i}.ffn.{j}.weight" for i in (0, last)
+             for j in ("up", "gate", "down")]
+    model.cfg = cfg.with_(dtype=dtype_name)  # the compute dtype of embed_in
+    try:
+        t0 = time.perf_counter()
+        loss_k, gn_k, sel_k = loss_and_grads(model, batch, names)
+        t_k = time.perf_counter()
+        with plain_versions():
+            loss_p, gn_p, sel_p = loss_and_grads(model, batch, names)
+        t_p = time.perf_counter()
+    finally:
+        model.cfg = cfg
+    slab = {n: float(torch.linalg.vector_norm(sel_k[n] - sel_p[n])
+                     / torch.linalg.vector_norm(sel_p[n])) for n in names}
+    tol = STEP_TOL[dtype_name]
+    chk = dict(check="one training step, kernels vs plain versions",
+               dtype=dtype_name, loss_kernels=loss_k, loss_plain=loss_p,
+               loss_rel_err=abs(loss_k - loss_p) / abs(loss_p),
+               grad_norm_kernels=gn_k, grad_norm_plain=gn_p,
+               grad_norm_rel_err=abs(gn_k - gn_p) / gn_p,
+               slab_grad_rel_fro_err=slab, tol=tol,
+               kernel_step_s=t_k - t0, plain_step_s=t_p - t_k,
+               ln_vocab=math.log(cfg.vocab_size))
+    log(json.dumps(chk))
+    if not (math.isfinite(loss_k) and math.isfinite(gn_k)) \
+            or chk["loss_rel_err"] > tol["loss"] \
+            or chk["grad_norm_rel_err"] > tol["grad_norm"] \
+            or max(slab.values()) > tol["slab_grad"]:
+        fail(f"training step with kernels disagrees with plain: {chk}")
+    return chk
+
+
+def train(device, cfg, out_dir):
+    import numpy as np
+    import torch
+    from repro_torch.data import BigramLM
+    from repro_torch.nn.model import LM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    model = LM(cfg, device=device,
+               generator=torch.Generator(device=device).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    data = BigramLM(vocab_size=cfg.vocab_size, seed=SEED)
+    tc = TrainerConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                       total_steps=TRAIN_STEPS), log_every=1)
+    trainer = Trainer(model, tc, device=device)
+    batch = trainer.to_device(data.batch(0, TRAIN_BATCH, TRAIN_SEQ))
+    t_k = time.perf_counter()
+    chk = [step_check(model, batch, cfg, cfg.dtype),
+           step_check(model, batch, cfg, "float32")]
+
+    params, opt = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    hist = []
+    reset_launch_counts()
+    trainer.fit(data.iterate(TRAIN_BATCH, TRAIN_SEQ), TRAIN_STEPS,
+                on_step=lambda s, m: (hist.append(m), log(json.dumps(
+                    dict(step=s, **m)))), params=params, opt=opt)
+    torch.cuda.synchronize()
+    launches = train_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = [tokens / h["tokens_per_s"] for h in hist]
+    steady = step_s[1:] or step_s
+    rec = dict(model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, n_params=n_params, dtype=cfg.dtype,
+               param_dtype=cfg.param_dtype, remat=cfg.remat,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+               losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist], step_s=step_s,
+               steady_step_s=sum(steady) / len(steady),
+               tokens_per_s=tokens * len(steady) / sum(steady),
+               peak_mem_gb=peak_gb, launches=launches,
+               launches_per_step={k: v / TRAIN_STEPS
+                                  for k, v in launches.items()},
+               setup_s=t_k - t0)
+    log(json.dumps(rec))
+    losses = np.asarray(rec["losses"])
+    if not np.isfinite(losses).all() \
+            or abs(losses[0] - math.log(cfg.vocab_size)) > 2.5:
+        fail(f"training losses not finite or far from ln(vocab): {rec}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the training run never launched {name}")
+    prof = profile_train(trainer, params, opt, data, out_dir)
+    return chk, rec, prof
+
+
+def kernel_kind(name: str) -> str:
+    """A kernel's kind, for the step's time breakdown: the port's junction
+    kernels by name; library matrix products in f32 (the attention
+    einsums) and in other types (projections, head); copies and casts;
+    reductions; other elementwise work."""
+    low = name.lower()
+    for k in ("csd_spmm_fwd", "csd_spmm_dx", "csd_spmm_dw"):
+        if f"{k}_kernel" in name:
+            return k
+    if any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "gemv",
+                              "dot_kernel")):
+        f32 = any(t in low for t in ("f32f32", "sgemm", "<float"))
+        return "matmul f32" if f32 else "matmul bf16"
+    if "copy" in low:
+        return "copy/cast"
+    if "reduce" in low or "softmax" in low:
+        return "reduction"
+    return "elementwise/other"
+
+
+def profile_train(trainer, params, opt, data, out_dir):
+    """Where a training step's time goes: one ``Trainer`` step under
+    ``torch.profiler``, kernel time summed by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer.to_device(data.batch(TRAIN_STEPS, TRAIN_BATCH,
+                                         TRAIN_SEQ))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = train_launch_counts()
+    export_trace(prof, out_dir / "train_trace.json")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total_us = sum(dev_us(e) for e in kernels)
+    by_kernel = {k: sum(dev_us(e) for e in kernels
+                        if f"{k}_kernel" in e.key) / 1e3
+                 for k in ("csd_spmm_fwd", "csd_spmm_dx", "csd_spmm_dw")}
+    by_kind = {}
+    for e in kernels:
+        kind = kernel_kind(e.key)
+        ms, n = by_kind.get(kind, (0.0, 0))
+        by_kind[kind] = (ms + dev_us(e) / 1e3, n + e.count)
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    rec = dict(check="training step profile", wall_ms=wall * 1e3,
+               kernel_ms=total_us / 1e3 if total_us else "not measured",
+               device_idle_share=1 - total_us / 1e6 / wall
+               if total_us else "not measured",
+               kernel_launches=sum(e.count for e in kernels),
+               junction_kernel_ms=by_kernel, junction_launches=launches,
+               by_kind={k: dict(ms=ms, launches=n)
+                        for k, (ms, n) in sorted(by_kind.items(),
+                                                 key=lambda kv: -kv[1][0])},
+               top=[dict(name=e.key[:70], ms=dev_us(e) / 1e3,
+                         calls=e.count) for e in top])
     log(json.dumps(rec))
     return rec
 
@@ -514,35 +862,58 @@ def main() -> int:
     serve_rec, chk_rec, prof_rec = serve(device, get_config("gemma3_4b"),
                                          out_dir)
 
-    # phase 6: one entry per kernel, at the shape of a decode step
+    gc.collect()  # the serving model and its engines
+    torch.cuda.empty_cache()
+
+    # phase 6
+    run_train_kernels(get_config("gemma3_4b"), device, results)
+
+    # phase 7
+    step_chk, train_rec, train_prof = train(device, get_config("gemma3_4b"),
+                                            out_dir)
+
+    # phase 8: one entry per kernel: the junction kernels at the training
+    # shape of the gelu gate junction, paged decode at a decode step's
     def pick(kernel, **want):
         return next(r for r in results if r["kernel"] == kernel and all(
             r.get(k) == v for k, v in want.items()))
 
-    spmm = pick("csd_spmm_fwd", junction="down", m=4, dtype="bfloat16",
-                bias=False)
-    paged = pick("paged_decode_attention", dtype="bfloat16", window=None)
+    gate = dict(junction="gate", m=TRAIN_M, dtype="bfloat16")
+    gate_shape = (f"gate junction (gelu), M {TRAIN_M} bf16, "
+                  f"w (10, 5, 256, 1024)")
     entries = []
-    for name, rec, src, replaces, shape in (
-            ("csd_spmm_fwd", spmm,
+    for name, rec, src, replaces, launches, shape in (
+            ("csd_spmm_fwd", pick("csd_spmm_fwd", **gate),
              "src/repro_torch/kernels/csrc/csd_spmm_fwd.cu",
              "src/repro/kernels/csd_spmm.py:385",
-             "down junction, x (4, 10240) bf16, w (5, 32, 256, 512)"),
-            ("paged_decode_attention", paged,
+             train_rec["launches"]["csd_spmm_fwd"],
+             gate_shape + ", save_preact"),
+            ("paged_decode_attention",
+             pick("paged_decode_attention", dtype="bfloat16", window=None),
              "src/repro_torch/kernels/csrc/paged_decode.cu",
              "src/repro/kernels/flash_attention.py:299",
-             "q (4, 4, 2, 256) bf16, page 16, lengths [1100, 517, 0, 1040]")):
+             serve_rec["launches"]["paged_decode_attention"],
+             "q (4, 4, 2, 256) bf16, page 16, lengths [1100, 517, 0, 1040]"),
+            ("csd_spmm_dx", pick("csd_spmm_dx", **gate),
+             "src/repro_torch/kernels/csrc/csd_spmm_dx.cu",
+             "src/repro/kernels/csd_spmm.py:539",
+             train_rec["launches"]["csd_spmm_dx"], gate_shape),
+            ("csd_spmm_dw", pick("csd_spmm_dw", **gate),
+             "src/repro_torch/kernels/csrc/csd_spmm_dw.cu",
+             "src/repro/kernels/csd_spmm.py:679",
+             train_rec["launches"]["csd_spmm_dw"], gate_shape)):
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=serve_rec["launches"][name],
-            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             shape=shape))
+    entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cases=results,
              serve=serve_rec, logits_check=chk_rec, profile=prof_rec,
-             kernels=entries),
+             train_step_check=step_chk, train=train_rec,
+             train_profile=train_prof, kernels=entries),
         indent=1))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": entries}))

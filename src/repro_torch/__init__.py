@@ -8,5 +8,7 @@ the plain version, a CUDA tensor the kernel.
 
 Ported so far: serving a decoder-only LM (gemma3_4b) through the paged
 serving engine, with the ``csd_spmm_fwd`` and ``paged_decode_attention``
-kernels.
+kernels; and training it (``train.Trainer``, ``launch.train``) with the
+junction's forward, backward-data and backward-weights kernels
+(``csd_spmm_fwd``, ``csd_spmm_dx``, ``csd_spmm_dw``).
 """

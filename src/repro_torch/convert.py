@@ -6,6 +6,10 @@ repeating unit) and ``params["stack"]["epilogue"][i]``. The port's flat
 ``layers`` list holds scan slot u of group g at index ``g * unit + u`` and
 epilogue block i after all scanned layers. The tree is passed in as numpy
 arrays, so this module needs no JAX.
+
+A gradient tree from ``jax.grad`` of the LM's loss has the parameter
+tree's structure, so the same function maps it onto the port's parameter
+names; the training tests compare gradients that way.
 """
 from __future__ import annotations
 

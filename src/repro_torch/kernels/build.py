@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root (the
-hash covers the source, so an edited kernel is rebuilt). Nothing is built
-when this module is imported: ``load`` builds one library at first use,
-``build_all`` starts one nvcc per source at once and waits for all of them.
+hash covers the source and the shared ``csrc/*.cuh`` headers, so an edited
+kernel is rebuilt). Nothing is built when this module is imported: ``load``
+builds one library at first use, ``build_all`` starts one nvcc per source at
+once and waits for all of them.
 """
 from __future__ import annotations
 
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    text += " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha1(text).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,23 +1,37 @@
-"""CSD-SpMM forward: the pre-defined block-sparse junction (paper eq. (2a)).
+"""CSD-SpMM: the pre-defined block-sparse junction's three operations (paper
+eqs. (2a), (3b), (4b)) — port of ``repro.kernels.csd_spmm``.
 
-``y[m, rb] = act(sum_f x[m, block_idx[rb, f]] @ w[rb, f] + b[rb])`` with the
-weight slab ``w`` laid out ``(n_rb, d_in_b, bL, bR)`` (right-block major,
-the paper's edge numbering), accumulation in f32 and the output in the
-dtype of ``x``.
+With the weight slab ``w`` laid out ``(n_rb, d_in_b, bL, bR)`` (right-block
+major, the paper's edge numbering) and the pattern's gather form
+``block_idx`` (n_rb, d_in_b) and scatter form ``out_idx``/``out_slot``
+(n_lb, d_out_b):
 
-Two implementations of the one function live here:
+* FF  ``y[m, rb] = act(sum_f x[m, block_idx[rb, f]] @ w[rb, f] + b[rb])``,
+  with ``save_preact`` also ``z = x @ W + b``;
+* BP  ``dx[m, lb] = sum_g mask(dy)[m, out_idx[lb, g]]
+  @ w[out_idx[lb, g], out_slot[lb, g]]^T``;
+* UP  ``dw[rb, f] = x[m, block_idx[rb, f]]^T @ mask(dy)[m, rb]`` over all m,
+  with ``want_db`` also ``db[rb] = sum_m mask(dy)[m, rb]`` in f32;
 
-* ``csd_spmm_fwd_plain`` — the slot-wise gather sweep (one fan-in slot at
-  a time, as ``repro.kernels.ops._xla_fwd``), then bias and activation. It
-  is what a CPU tensor runs and what the CUDA kernel is held against.
-* ``csd_spmm_fwd_cuda`` — the hand-written Hopper kernel
-  ``csrc/csd_spmm_fwd.cu``. It takes CUDA tensors only and raises on
-  anything it does not take; it never falls back to the plain version.
+where ``mask`` (``mask_cotangent``) folds the fused activation's derivative
+into the cotangent from the saved ``aux`` (y for relu, z for gelu).
+Accumulation is in f32; y, z and dx come out in the dtype of their input,
+dw in the dtype of x.
+
+Two implementations of each operation live here:
+
+* ``*_plain`` — slot-wise sweeps (one fan slot at a time, as the JAX
+  package's ``_xla_fwd``/``_xla_dx``/``_xla_dw``) in plain PyTorch. They are
+  what a CPU tensor runs and what the CUDA kernels are held against.
+* ``*_cuda`` — the hand-written Hopper kernels under ``csrc/``. They take
+  CUDA tensors only and raise on anything they do not take; they never fall
+  back to the plain version. Each counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -28,6 +42,8 @@ from . import build
 ACTIVATIONS = ("relu", "gelu")
 _ACT_CODE = {None: 0, "relu": 1, "gelu": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_GELU_C = math.sqrt(2.0 / math.pi)
+_GELU_A = 0.044715
 
 
 def apply_activation(z: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
@@ -42,12 +58,38 @@ def apply_activation(z: torch.Tensor, activation: Optional[str]) -> torch.Tensor
     raise ValueError(f"unsupported fused activation {activation!r}")
 
 
+def mask_cotangent(dy: torch.Tensor, aux: Optional[torch.Tensor],
+                   activation: Optional[str]) -> torch.Tensor:
+    """Fold the fused activation's derivative into the cotangent: relu's
+    mask is the sign of the saved output y, gelu's derivative is the
+    analytic one of the tanh approximation at the saved pre-activation z,
+    computed in f32. The result has the dtype of ``dy``."""
+    if activation is None:
+        return dy
+    if activation == "relu":
+        return dy * (aux > 0).to(dy.dtype)
+    if activation == "gelu":
+        z = aux.float()
+        t = torch.tanh(_GELU_C * (z + _GELU_A * z * z * z))
+        g = 0.5 * (1.0 + t) \
+            + 0.5 * z * (1.0 - t * t) * _GELU_C * (1.0 + 3.0 * _GELU_A * z * z)
+        return (dy.float() * g).to(dy.dtype)
+    raise ValueError(f"unsupported fused activation {activation!r}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
 def csd_spmm_fwd_plain(x: torch.Tensor, w: torch.Tensor,
                        block_idx: torch.Tensor, *,
                        bias: Optional[torch.Tensor] = None,
-                       activation: Optional[str] = None) -> torch.Tensor:
+                       activation: Optional[str] = None,
+                       save_preact: bool = False):
     """x (M, n_in), w (n_rb, d_in_b, bL, bR), block_idx (n_rb, d_in_b)
-    integer tensor, bias (n_rb * bR,) or None -> y (M, n_rb * bR)."""
+    integer tensor, bias (n_rb * bR,) or None -> y (M, n_rb * bR), or
+    (y, z) with ``save_preact``."""
     m = x.shape[0]
     n_rb, d_in_b, bl, br = w.shape
     xb = x.reshape(m, -1, bl)
@@ -59,7 +101,55 @@ def csd_spmm_fwd_plain(x: torch.Tensor, w: torch.Tensor,
     z = acc.reshape(m, n_rb * br)
     if bias is not None:
         z = z + bias.float()
-    return apply_activation(z, activation).to(x.dtype)
+    y = apply_activation(z, activation).to(x.dtype)
+    return (y, z.to(x.dtype)) if save_preact else y
+
+
+def csd_spmm_dx_plain(dy: torch.Tensor, w: torch.Tensor,
+                      out_idx: torch.Tensor, out_slot: torch.Tensor, *,
+                      aux: Optional[torch.Tensor] = None,
+                      activation: Optional[str] = None) -> torch.Tensor:
+    """dy (M, n_rb * bR), w (n_rb, d_in_b, bL, bR), out_idx/out_slot
+    (n_lb, d_out_b) integer tensors, aux like dy when ``activation`` is
+    given -> dx (M, n_lb * bL) in the dtype of dy."""
+    m = dy.shape[0]
+    n_rb, _, bl, br = w.shape
+    n_lb, d_out_b = out_idx.shape
+    dyb = mask_cotangent(dy, aux, activation).reshape(m, n_rb, br)
+    oidx = out_idx.to(device=dy.device, dtype=torch.long)
+    oslot = out_slot.to(device=dy.device, dtype=torch.long)
+    acc = torch.zeros((m, n_lb, bl), dtype=torch.float32, device=dy.device)
+    for g in range(d_out_b):
+        lhs = dyb[:, oidx[:, g], :].float()              # (M, n_lb, bR)
+        w_g = w[oidx[:, g], oslot[:, g]].float()          # (n_lb, bL, bR)
+        acc += torch.einsum("mlo,lio->mli", lhs, w_g)
+    return acc.reshape(m, n_lb * bl).to(dy.dtype)
+
+
+def csd_spmm_dw_plain(x: torch.Tensor, dy: torch.Tensor,
+                      block_idx: torch.Tensor, *, block_in: int,
+                      block_out: int, aux: Optional[torch.Tensor] = None,
+                      activation: Optional[str] = None,
+                      want_db: bool = False):
+    """x (M, n_in), dy (M, n_rb * bR) -> dw (n_rb, d_in_b, bL, bR) in the
+    dtype of x, summed over M; with ``want_db`` returns (dw, db), db the f32
+    column sum of the masked cotangent, (n_rb * bR,)."""
+    m = x.shape[0]
+    n_rb, d_in_b = block_idx.shape
+    dym = mask_cotangent(dy, aux, activation)
+    xb = x.reshape(m, -1, block_in).float()
+    dyb = dym.reshape(m, n_rb, block_out).float()
+    idx = block_idx.to(device=x.device, dtype=torch.long)
+    dw = torch.stack([torch.einsum("mri,mro->rio", xb[:, idx[:, f], :], dyb)
+                      for f in range(d_in_b)], dim=1).to(x.dtype)
+    if want_db:
+        return dw, dym.float().sum(dim=0)
+    return dw
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,39 +170,63 @@ def split_count(m: int, n_out: int, d_in_b: int, n_sm: int) -> int:
     return -(-d_in_b // per_split)
 
 
-def _bind() -> ctypes.CDLL:
-    lib = build.load("csd_spmm_fwd")
-    fn = lib.csd_spmm_fwd
+def _bind(name: str, n_ptrs: int, n_ints: int):
+    fn = getattr(build.load(name), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check(name: str, tensors, floats, ints) -> None:
+    """What every kernel takes: CUDA tensors on the current device,
+    contiguous and 16-byte aligned; float tensors of one dtype among
+    float32/bfloat16; int32 pattern tensors."""
+    dev = tensors[0].device
+    if not tensors[0].is_cuda or any(t.device != dev for t in tensors) \
+            or dev.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: every operand must be a CUDA tensor on "
+                         f"the current device")
+    dt = floats[0].dtype
+    if dt not in _DTYPE_CODE or any(t.dtype != dt for t in floats) \
+            or any(t.dtype != torch.int32 for t in ints):
+        raise ValueError(f"{name}: float operands must share one dtype of "
+                         f"float32/bfloat16 and pattern tensors be int32")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
+                         f"aligned")
+
+
+def _check_act(name: str, activation, aux, like) -> None:
+    if activation not in _ACT_CODE:
+        raise ValueError(f"unsupported fused activation {activation!r}")
+    if activation is not None and (aux is None or aux.shape != like.shape):
+        raise ValueError(f"{name}: activation {activation!r} needs aux of "
+                         f"shape {tuple(like.shape)}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def csd_spmm_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
                       block_idx: torch.Tensor, *,
                       bias: Optional[torch.Tensor] = None,
                       activation: Optional[str] = None,
-                      save_preact: bool = False) -> torch.Tensor:
+                      save_preact: bool = False):
     """Launch ``csrc/csd_spmm_fwd.cu`` on the current stream. Same contract
     as ``csd_spmm_fwd_plain``; ``block_idx`` must be an int32 tensor on the
     device of ``x``. Raises on what the kernel does not take."""
-    if save_preact:
-        raise NotImplementedError(
-            "save_preact is a training output; the serving kernel has none")
     if activation not in _ACT_CODE:
         raise ValueError(f"unsupported fused activation {activation!r}")
-    tensors = (x, w, block_idx) if bias is None else (x, w, block_idx, bias)
-    if not x.is_cuda or any(t.device != x.device for t in tensors) \
-            or x.device.index != torch.cuda.current_device():
-        raise ValueError("csd_spmm_fwd_cuda: x, w, block_idx and bias must "
-                         "be CUDA tensors on the current device")
-    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype \
-            or (bias is not None and bias.dtype != x.dtype) \
-            or block_idx.dtype != torch.int32:
-        raise ValueError("csd_spmm_fwd_cuda: x, w and bias must share one "
-                         "dtype of float32/bfloat16, block_idx be int32")
+    floats = (x, w) if bias is None else (x, w, bias)
+    _check("csd_spmm_fwd_cuda", floats + (block_idx,), floats, (block_idx,))
     if x.dim() != 2 or w.dim() != 4:
         raise ValueError("csd_spmm_fwd_cuda: x must be 2-D and w 4-D")
     m, n_in = x.shape
@@ -124,25 +238,99 @@ def csd_spmm_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
             f"csd_spmm_fwd_cuda: shapes not taken: x {tuple(x.shape)}, "
             f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
             f"block_idx {tuple(block_idx.shape)}")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
-        raise ValueError("csd_spmm_fwd_cuda: tensors must be contiguous and "
-                         "16-byte aligned")
     y = torch.empty((m, n_rb * br), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(y) if save_preact else None
+    if m > 0:
+        n_splits = split_count(m, n_rb * br, d_in_b, _sm_count(x.device))
+        partial = torch.empty((n_splits, m, n_rb * br), dtype=torch.float32,
+                              device=x.device) if n_splits > 1 else None
+        rc = _bind("csd_spmm_fwd", 7, 9)(
+            x.data_ptr(), w.data_ptr(), block_idx.data_ptr(), _ptr(bias),
+            y.data_ptr(), _ptr(z), _ptr(partial),
+            m, n_in, n_rb, d_in_b, bl, br, n_splits,
+            _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+            torch.cuda.current_stream().cuda_stream)
+        _raise_on(rc, "csd_spmm_fwd")
+        csd_spmm_fwd_cuda.launches += 1
+    return (y, z) if save_preact else y
+
+
+def csd_spmm_dx_cuda(dy: torch.Tensor, w: torch.Tensor,
+                     out_idx: torch.Tensor, out_slot: torch.Tensor, *,
+                     aux: Optional[torch.Tensor] = None,
+                     activation: Optional[str] = None) -> torch.Tensor:
+    """Launch ``csrc/csd_spmm_dx.cu`` on the current stream. Same contract
+    as ``csd_spmm_dx_plain``; out_idx/out_slot int32 on the device of dy."""
+    _check_act("csd_spmm_dx_cuda", activation, aux, dy)
+    act_aux = () if activation is None else (aux,)
+    floats = (dy, w) + act_aux
+    _check("csd_spmm_dx_cuda", floats + (out_idx, out_slot), floats,
+           (out_idx, out_slot))
+    if dy.dim() != 2 or w.dim() != 4:
+        raise ValueError("csd_spmm_dx_cuda: dy must be 2-D and w 4-D")
+    m, n_out = dy.shape
+    n_rb, d_in_b, bl, br = w.shape
+    n_lb, d_out_b = out_idx.shape
+    if bl % 64 or br % 64 or n_out != n_rb * br \
+            or tuple(out_slot.shape) != (n_lb, d_out_b) \
+            or n_lb * d_out_b != n_rb * d_in_b:
+        raise ValueError(
+            f"csd_spmm_dx_cuda: shapes not taken: dy {tuple(dy.shape)}, "
+            f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
+            f"out_idx {tuple(out_idx.shape)}")
+    dx = torch.empty((m, n_lb * bl), dtype=dy.dtype, device=dy.device)
+    if m > 0:
+        rc = _bind("csd_spmm_dx", 6, 9)(
+            dy.data_ptr(), _ptr(aux if activation else None), w.data_ptr(),
+            out_idx.data_ptr(), out_slot.data_ptr(), dx.data_ptr(),
+            m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
+            _DTYPE_CODE[dy.dtype], _ACT_CODE[activation],
+            torch.cuda.current_stream().cuda_stream)
+        _raise_on(rc, "csd_spmm_dx")
+        csd_spmm_dx_cuda.launches += 1
+    return dx
+
+
+def csd_spmm_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
+                     block_idx: torch.Tensor, *, block_in: int,
+                     block_out: int, aux: Optional[torch.Tensor] = None,
+                     activation: Optional[str] = None,
+                     want_db: bool = False):
+    """Launch ``csrc/csd_spmm_dw.cu`` on the current stream. Same contract
+    as ``csd_spmm_dw_plain``; block_idx int32 on the device of x."""
+    _check_act("csd_spmm_dw_cuda", activation, aux, dy)
+    act_aux = () if activation is None else (aux,)
+    floats = (x, dy) + act_aux
+    _check("csd_spmm_dw_cuda", floats + (block_idx,), floats, (block_idx,))
+    if x.dim() != 2 or dy.dim() != 2 or block_idx.dim() != 2:
+        raise ValueError("csd_spmm_dw_cuda: x, dy and block_idx must be 2-D")
+    m, n_in = x.shape
+    n_rb, d_in_b = block_idx.shape
+    bl, br = block_in, block_out
+    if bl % 64 or br % 64 or n_in % bl or tuple(dy.shape) != (m, n_rb * br):
+        raise ValueError(
+            f"csd_spmm_dw_cuda: shapes not taken: x {tuple(x.shape)}, "
+            f"dy {tuple(dy.shape)}, block ({bl}, {br}) (bL and bR must be "
+            f"multiples of 64)")
+    dw = torch.empty((n_rb, d_in_b, bl, br), dtype=x.dtype, device=x.device)
+    db = torch.empty((n_rb * br,), dtype=torch.float32, device=x.device) \
+        if want_db else None
     if m == 0:
-        return y
-    n_splits = split_count(m, n_rb * br, d_in_b, _sm_count(x.device))
-    partial = torch.empty((n_splits, m, n_rb * br), dtype=torch.float32,
-                          device=x.device) if n_splits > 1 else None
-    rc = _bind()(x.data_ptr(), w.data_ptr(), block_idx.data_ptr(),
-                 None if bias is None else bias.data_ptr(), y.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 m, n_in, n_rb, d_in_b, bl, br, n_splits,
-                 _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
-                 torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"csd_spmm_fwd launch failed: CUDA error {rc}")
-    csd_spmm_fwd_cuda.launches += 1
-    return y
+        dw.zero_()
+        if db is not None:
+            db.zero_()
+    else:
+        rc = _bind("csd_spmm_dw", 6, 8)(
+            x.data_ptr(), dy.data_ptr(), _ptr(aux if activation else None),
+            block_idx.data_ptr(), dw.data_ptr(), _ptr(db),
+            m, n_in, n_rb, d_in_b, bl, br,
+            _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+            torch.cuda.current_stream().cuda_stream)
+        _raise_on(rc, "csd_spmm_dw")
+        csd_spmm_dw_cuda.launches += 1
+    return (dw, db) if want_db else dw
 
 
 csd_spmm_fwd_cuda.launches = 0
+csd_spmm_dx_cuda.launches = 0
+csd_spmm_dw_cuda.launches = 0

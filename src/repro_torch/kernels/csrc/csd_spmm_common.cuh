@@ -1,0 +1,96 @@
+// Device helpers shared by the three block-sparse junction kernels
+// (csd_spmm_fwd.cu, csd_spmm_dx.cu, csd_spmm_dw.cu): 16-byte cp.async
+// copies with zero fill, f32 <-> storage-type conversion, the fused
+// activation and its derivative folded into a cotangent.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace csd {
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float v, float* out) { *out = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* out) {
+  *out = __float2bfloat16(v);
+}
+
+constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float kGeluA = 0.044715f;
+
+// act: 0 none, 1 relu, 2 tanh-approximate gelu (jax.nn.gelu approximate)
+__device__ __forceinline__ float activate(float z, int act) {
+  if (act == 1) return fmaxf(z, 0.f);
+  if (act == 2) {
+    float t = tanhf(kGeluC * (z + kGeluA * z * z * z));
+    return z * (0.5f * (1.f + t));
+  }
+  return z;
+}
+
+// The cotangent with the activation's derivative folded in, rounded to the
+// storage type as the JAX package's mask_cotangent rounds it: relu keeps dy
+// where the saved output is positive; gelu multiplies dy by the analytic
+// derivative of the tanh approximation at the saved pre-activation, in f32.
+template <typename T>
+__device__ __forceinline__ void mask_in_place(T* dy, T aux, int act) {
+  const float a = to_f32(aux);
+  if (act == 1) {
+    if (!(a > 0.f)) store(0.f, dy);
+  } else if (act == 2) {
+    const float t = tanhf(kGeluC * (a + kGeluA * a * a * a));
+    const float g = 0.5f * (1.f + t) +
+                    0.5f * a * (1.f - t * t) * kGeluC *
+                        (1.f + 3.f * kGeluA * a * a);
+    store(to_f32(*dy) * g, dy);
+  }
+}
+
+// Masks a ROWS x COLS tile of dy in shared memory, in place, from the aux
+// tile of the same layout (row stride LD elements, rows 16-byte aligned).
+// Each of the NT threads takes whole 16-byte chunks: one load of dy and one
+// of aux feed 8 (bf16) or 4 (f32) independent evaluations, which keeps the
+// pass from waiting on one shared-memory round trip per element.
+template <typename T, int ROWS, int COLS, int LD, int NT>
+__device__ __forceinline__ void mask_tile(T* dy, const T* aux, int act,
+                                          int tid) {
+  constexpr int N = 16 / sizeof(T);
+  constexpr int CPR = COLS / N;  // chunks per row
+  static_assert(COLS % N == 0 && (LD * sizeof(T)) % 16 == 0, "16-byte rows");
+#pragma unroll 2
+  for (int c = tid; c < ROWS * CPR; c += NT) {
+    const int r = c / CPR;
+    const int off = r * LD + (c - r * CPR) * N;
+    uint4 dv = *reinterpret_cast<const uint4*>(dy + off);
+    const uint4 av = *reinterpret_cast<const uint4*>(aux + off);
+    T* de = reinterpret_cast<T*>(&dv);
+    const T* ae = reinterpret_cast<const T*>(&av);
+#pragma unroll
+    for (int i = 0; i < N; ++i) mask_in_place(de + i, ae[i], act);
+    *reinterpret_cast<uint4*>(dy + off) = dv;
+  }
+}
+
+}  // namespace csd

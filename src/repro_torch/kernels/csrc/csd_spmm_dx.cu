@@ -1,0 +1,260 @@
+// csd_spmm_dx — backward-data (BP, paper eq. (3b)) of the block-sparse
+// junction for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/csd_spmm.py:csd_spmm_dx (Pallas body
+// _dx_kernel), 4-D form:
+//   dx[m, lb] = sum_g mask(dy)[m, out_idx[lb, g]] @ w[out_idx[lb, g],
+//                                                     out_slot[lb, g]]^T
+// over the pattern's scatter form (each left block lb feeds d_out_b right
+// blocks), with the activation's derivative folded into dy from the saved
+// aux (y for relu, the pre-activation z for gelu), f32 accumulation and dx
+// in the dtype of dy.
+//
+// What bounds it on the card: in training M is batch x sequence (4096 for
+// gemma3-4b at 2 x 2048). Each left block's K = d_out_b * bR is 5120 for
+// the up/gate junctions and 2048 for down, so the work is 2 * M * n_in * K
+// operations (about 107 GFLOP per junction) against ~90-130 MB of dy, aux,
+// w and dx: far above the bf16 ridge point. It is bound by operations,
+// ~108 us (up/gate) and ~174 us (down) at 989 TFLOP/s.
+//
+// What the design does about it: the Pallas grid revisits one dx tile
+// across the sequential g axis; here each CTA owns one (BM x 64) tile of dx
+// (64 columns inside one left block) and loops over the g slots and over bR
+// in BK chunks itself, so nothing is accumulated across CTAs: no atomics,
+// and the result repeats bit for bit. The w block of slot g is read as the
+// column-major B operand straight from its (bL, bR) layout (w^T without a
+// copy). Tiles of dy, aux and w stream through a 3-stage cp.async ring;
+// each dy tile is masked in shared memory from its aux tile once it lands
+// and before the tensor cores read it (bf16 through WMMA fragments, f32 on
+// the CUDA cores in full precision), so the masked cotangent never reaches
+// device memory. The ragged M edge is zero-filled on load and guarded on
+// store.
+#include "csd_spmm_common.cuh"
+
+namespace {
+
+using csd::cp_async16;
+using csd::cp_async_commit;
+using csd::cp_async_wait;
+using csd::mask_tile;
+using csd::store;
+
+constexpr int kThreads = 128;
+constexpr int kBN = 64;  // dx columns per CTA
+constexpr int kBM = 64;  // dx rows per CTA
+
+template <typename T>
+struct DxTile {
+  static constexpr int BK = std::is_same<T, float>::value ? 32 : 64;
+  static constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  static constexpr int AS = BK + EPC;  // dy/aux rows (kBM x BK), padded
+  static constexpr int WS = BK + EPC;  // w rows: [n][k], kBN x BK, padded
+  static constexpr int STAGES = 3;
+  static constexpr int SMEM =
+      STAGES * (2 * kBM * AS + kBN * WS) * static_cast<int>(sizeof(T));
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    csd_spmm_dx_kernel(const T* __restrict__ dy, const T* __restrict__ aux,
+                       const T* __restrict__ w, const int* __restrict__ oidx,
+                       const int* __restrict__ oslot, T* __restrict__ dx,
+                       int M, int n_out, int n_in, int d_in_b, int bL,
+                       int bR, int d_out_b, int act) {
+  using TL = DxTile<T>;
+  constexpr int BK = TL::BK, EPC = TL::EPC, AS = TL::AS, WS = TL::WS;
+  constexpr int S = TL::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* dys = reinterpret_cast<T*>(smem);
+  T* auxs = dys + S * kBM * AS;
+  T* ws = auxs + S * kBM * AS;
+
+  const int tid = threadIdx.x;
+  const int col0 = blockIdx.x * kBN;  // first dx column of the tile
+  const int lb = col0 / bL;
+  const int n0 = col0 - lb * bL;  // column offset inside the left block
+  const int m0 = blockIdx.y * kBM;
+  const int steps_per_slot = bR / BK;
+  const int n_steps = d_out_b * steps_per_slot;
+
+  auto load_stage = [&](int t) {
+    if (t >= n_steps) return;
+    const int stage = t % S;
+    const int g = t / steps_per_slot;
+    const int k0 = (t - g * steps_per_slot) * BK;
+    const int rb = __ldg(oidx + lb * d_out_b + g);
+    const int f = __ldg(oslot + lb * d_out_b + g);
+    constexpr int AC = BK / EPC;  // chunks per dy row
+    const size_t col = static_cast<size_t>(rb) * bR + k0;
+    T* ddst = dys + stage * kBM * AS;
+    T* adst = auxs + stage * kBM * AS;
+    for (int c = tid; c < kBM * AC; c += kThreads) {
+      const int r = c / AC, cc = c - r * AC;
+      const int m = m0 + r;
+      const bool ok = m < M;
+      const size_t off = static_cast<size_t>(ok ? m : 0) * n_out + col +
+                         cc * EPC;
+      cp_async16(ddst + r * AS + cc * EPC, dy + off, ok);
+      if (act != 0) cp_async16(adst + r * AS + cc * EPC, aux + off, ok);
+    }
+    // w[rb, f] rows n0 .. n0 + 63, columns k0 .. k0 + BK: B[k][n] = w[n][k]
+    const T* wsrc =
+        w + ((static_cast<size_t>(rb) * d_in_b + f) * bL + n0) * bR + k0;
+    T* wdst = ws + stage * kBN * WS;
+    for (int c = tid; c < kBN * AC; c += kThreads) {
+      const int r = c / AC, cc = c - r * AC;
+      cp_async16(wdst + r * WS + cc * EPC,
+                 wsrc + static_cast<size_t>(r) * bR + cc * EPC, true);
+    }
+  };
+
+  // Waits for step t's tiles and masks its dy tile; returns the stage.
+  auto arrive = [&](int t) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    load_stage(t + S - 1);
+    cp_async_commit();
+    const int stage = t % S;
+    if (act != 0) {
+      T* d = dys + stage * kBM * AS;
+      const T* a = auxs + stage * kBM * AS;
+      mask_tile<T, kBM, BK, AS, kThreads>(d, a, act, tid);
+      __syncthreads();
+    }
+    return stage;
+  };
+
+  for (int s = 0; s < S - 1; ++s) {
+    load_stage(s);
+    cp_async_commit();
+  }
+
+  if constexpr (std::is_same<T, float>::value) {
+    // CUDA-core path: 16 threads across 64 columns (4 each), 8 across rows
+    constexpr int TM = kBM / 8;
+    const int tx = tid % 16, ty = tid / 16;
+    float acc[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+    for (int t = 0; t < n_steps; ++t) {
+      const int stage = arrive(t);
+      const T* at = dys + stage * kBM * AS;
+      const T* wt = ws + stage * kBN * WS;
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        float b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = wt[(tx * 4 + j) * WS + kk];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float a = at[(ty * TM + i) * AS + kk];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + ty * TM + i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        store(acc[i][j], dx + static_cast<size_t>(m) * n_in + col0 + tx * 4 +
+                             j);
+    }
+  } else {
+    // tensor-core path: warp w owns dx columns [16w, 16w + 16) of the tile
+    using namespace nvcuda;
+    constexpr int MF = kBM / 16;
+    const int warp = tid / 32;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF];
+#pragma unroll
+    for (int i = 0; i < MF; ++i) wmma::fill_fragment(acc[i], 0.f);
+
+    for (int t = 0; t < n_steps; ++t) {
+      const int stage = arrive(t);
+      const T* at = dys + stage * kBM * AS;
+      const T* wt = ws + stage * kBN * WS;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major>
+            bf;
+        wmma::load_matrix_sync(bf, wt + warp * 16 * WS + kk, WS);
+#pragma unroll
+        for (int i = 0; i < MF; ++i) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major>
+              af;
+          wmma::load_matrix_sync(af, at + i * 16 * AS + kk, AS);
+          wmma::mma_sync(acc[i], af, bf, acc[i]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the stage ring is reused as the epilogue buffer
+    constexpr int CS = kBN + 4;
+    static_assert(TL::SMEM >= kBM * CS * 4, "epilogue buffer must fit");
+    float* cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+      wmma::store_matrix_sync(cs + i * 16 * CS + warp * 16, acc[i], CS,
+                              wmma::mem_row_major);
+    __syncthreads();
+    for (int e = tid; e < kBM * kBN; e += kThreads) {
+      const int r = e / kBN, c = e - r * kBN;
+      const int m = m0 + r;
+      if (m >= M) continue;
+      store(cs[r * CS + c], dx + static_cast<size_t>(m) * n_in + col0 + c);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* dy, const void* aux, const void* w, const int* oidx,
+           const int* oslot, void* dx, int M, int n_rb, int d_in_b, int bL,
+           int bR, int n_lb, int d_out_b, int act, cudaStream_t stream) {
+  constexpr int smem = DxTile<T>::SMEM;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        csd_spmm_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const int n_in = n_lb * bL;
+  dim3 grid(n_in / kBN, (M + kBM - 1) / kBM);
+  csd_spmm_dx_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(aux),
+      static_cast<const T*>(w), oidx, oslot, static_cast<T*>(dx), M,
+      n_rb * bR, n_in, d_in_b, bL, bR, d_out_b, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16. act: 0 none (aux unused, may be null),
+// 1 relu (aux = y), 2 gelu (aux = z).
+// Preconditions (checked by the Python wrapper): contiguous tensors on one
+// device, 16-byte aligned, bL % 64 == 0, bR % 64 == 0, M >= 1,
+// out_idx/out_slot (n_lb, d_out_b) int32 with n_lb * d_out_b == n_rb * d_in_b.
+// Returns cudaGetLastError() after the launch.
+extern "C" int csd_spmm_dx(const void* dy, const void* aux, const void* w,
+                           const int* out_idx, const int* out_slot, void* dx,
+                           int M, int n_rb, int d_in_b, int bL, int bR,
+                           int n_lb, int d_out_b, int dtype, int act,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(dy, aux, w, out_idx, out_slot, dx, M, n_rb, d_in_b,
+                         bL, bR, n_lb, d_out_b, act, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(dy, aux, w, out_idx, out_slot, dx, M, n_rb,
+                                 d_in_b, bL, bR, n_lb, d_out_b, act, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -27,53 +27,23 @@
 // does not depend on scheduling). The ragged M edge is masked with
 // zero-filled loads and guarded stores rather than padded. The epilogue
 // adds the bias, applies relu or tanh-gelu and casts, so the pre-activation
-// never reaches device memory except as those partial sums.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
+// never reaches device memory except as those partial sums, or as the
+// second output z when training asks for it (save_preact: the backward of
+// gelu needs z; the epilogue, or the split's second pass, writes it beside
+// y from the same f32 value).
+#include "csd_spmm_common.cuh"
 
 namespace {
 
+using csd::activate;
+using csd::cp_async16;
+using csd::cp_async_commit;
+using csd::cp_async_wait;
+using csd::store;
+using csd::to_f32;
+
 constexpr int kThreads = 128;
 constexpr int kBN = 64;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float v, float* out) { *out = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* out) {
-  *out = __float2bfloat16(v);
-}
-
-// act: 0 none, 1 relu, 2 tanh-approximate gelu (jax.nn.gelu approximate)
-__device__ __forceinline__ float activate(float z, int act) {
-  if (act == 1) return fmaxf(z, 0.f);
-  if (act == 2) {
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    float t = tanhf(c * (z + 0.044715f * z * z * z));
-    return z * (0.5f * (1.f + t));
-  }
-  return z;
-}
 
 template <typename T, int BM>
 struct Tile {
@@ -87,24 +57,28 @@ struct Tile {
 };
 
 // Writes the tile's element (m, n) of the junction output: the finished
-// value when there is one split, else the split's raw f32 partial sum.
+// value (and the pre-activation when zout is given) when there is one
+// split, else the split's raw f32 partial sum.
 template <typename T>
 __device__ __forceinline__ void emit(float z, int m, int n, int M, int n_out,
-                                     const T* bias, T* y, float* partial,
-                                     int act) {
+                                     const T* bias, T* y, T* zout,
+                                     float* partial, int act) {
   if (partial != nullptr) {
     partial[(static_cast<size_t>(blockIdx.z) * M + m) * n_out + n] = z;
     return;
   }
   if (bias != nullptr) z += to_f32(bias[n]);
-  store(activate(z, act), y + static_cast<size_t>(m) * n_out + n);
+  const size_t e = static_cast<size_t>(m) * n_out + n;
+  if (zout != nullptr) store(z, zout + e);
+  store(activate(z, act), y + e);
 }
 
 template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
     csd_spmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         const int* __restrict__ idx, const T* __restrict__ bias,
-                        T* __restrict__ y, float* __restrict__ partial, int M,
+                        T* __restrict__ y, T* __restrict__ zout,
+                        float* __restrict__ partial, int M,
                         int n_in, int d_in_b, int bL, int bR, int n_out,
                         int slots_per_split, int act) {
   using TL = Tile<T, BM>;
@@ -195,8 +169,8 @@ __global__ void __launch_bounds__(kThreads)
       if (m >= M) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        emit(acc[i][j], m, col0 + tx * 4 + j, M, n_out, bias, y, partial,
-             act);
+        emit(acc[i][j], m, col0 + tx * 4 + j, M, n_out, bias, y, zout,
+             partial, act);
     }
   } else {
     // tensor-core path: warp w owns columns [16w, 16w + 16) of the tile
@@ -244,32 +218,36 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / kBN, c = e - r * kBN;
       const int m = m0 + r;
       if (m >= M) continue;
-      emit(cs[r * CS + c], m, col0 + c, M, n_out, bias, y, partial, act);
+      emit(cs[r * CS + c], m, col0 + c, M, n_out, bias, y, zout, partial,
+           act);
     }
   }
 }
 
-// Second pass of a split junction: y = act(sum_s partial[s] + bias), the
-// splits added in order.
+// Second pass of a split junction: z = sum_s partial[s] + bias, the splits
+// added in order; y = act(z), and z itself when zout is given.
 template <typename T>
 __global__ void __launch_bounds__(256)
     csd_spmm_reduce_kernel(const float* __restrict__ partial,
                            const T* __restrict__ bias, T* __restrict__ y,
-                           int M, int n_out, int n_splits, int act) {
+                           T* __restrict__ zout, int M, int n_out,
+                           int n_splits, int act) {
   const size_t total = static_cast<size_t>(M) * n_out;
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float z = 0.f;
     for (int s = 0; s < n_splits; ++s) z += partial[s * total + e];
     if (bias != nullptr) z += to_f32(bias[e % n_out]);
+    if (zout != nullptr) store(z, zout + e);
     store(activate(z, act), y + e);
   }
 }
 
 template <typename T, int BM>
 int launch(const void* x, const void* w, const int* idx, const void* bias,
-           void* y, float* partial, int M, int n_in, int n_rb, int d_in_b,
-           int bL, int bR, int n_splits, int act, cudaStream_t stream) {
+           void* y, void* z, float* partial, int M, int n_in, int n_rb,
+           int d_in_b, int bL, int bR, int n_splits, int act,
+           cudaStream_t stream) {
   constexpr int smem = Tile<T, BM>::SMEM;
   static bool configured = false;
   if (!configured) {
@@ -284,7 +262,7 @@ int launch(const void* x, const void* w, const int* idx, const void* bias,
   dim3 grid(n_out / kBN, (M + BM - 1) / BM, n_splits);
   csd_spmm_fwd_kernel<T, BM><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), idx,
-      static_cast<const T*>(bias), static_cast<T*>(y),
+      static_cast<const T*>(bias), static_cast<T*>(y), static_cast<T*>(z),
       n_splits > 1 ? partial : nullptr, M, n_in, d_in_b, bL, bR, n_out,
       per_split, act);
   cudaError_t e = cudaGetLastError();
@@ -292,8 +270,8 @@ int launch(const void* x, const void* w, const int* idx, const void* bias,
   const size_t total = static_cast<size_t>(M) * n_out;
   const int blocks = static_cast<int>((total + 255) / 256);
   csd_spmm_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
-      partial, static_cast<const T*>(bias), static_cast<T*>(y), M, n_out,
-      n_splits, act);
+      partial, static_cast<const T*>(bias), static_cast<T*>(y),
+      static_cast<T*>(z), M, n_out, n_splits, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -302,27 +280,29 @@ int launch(const void* x, const void* w, const int* idx, const void* bias,
 // dtype: 0 float32, 1 bfloat16. act: 0 none, 1 relu, 2 gelu (tanh).
 // n_splits: how many CTAs share one output tile's fan-in slots (1 = no
 // second pass); every split must own at least one slot, and `partial`
-// must then hold n_splits * M * n_rb * bR floats.
+// must then hold n_splits * M * n_rb * bR floats. z (nullable): where to
+// write the pre-activation x @ W + b, in the dtype of x.
 // Preconditions (checked by the Python wrapper): contiguous tensors on one
 // device, 16-byte aligned, bL % 64 == 0, bR % 64 == 0, M >= 1.
 // Returns cudaGetLastError() after the launches.
 extern "C" int csd_spmm_fwd(const void* x, const void* w, const int* idx,
-                            const void* bias, void* y, float* partial, int M,
-                            int n_in, int n_rb, int d_in_b, int bL, int bR,
-                            int n_splits, int dtype, int act, void* stream) {
+                            const void* bias, void* y, void* z,
+                            float* partial, int M, int n_in, int n_rb,
+                            int d_in_b, int bL, int bR, int n_splits,
+                            int dtype, int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = M <= 16;
   if (dtype == 0)
-    return small ? launch<float, 16>(x, w, idx, bias, y, partial, M, n_in,
+    return small ? launch<float, 16>(x, w, idx, bias, y, z, partial, M, n_in,
                                      n_rb, d_in_b, bL, bR, n_splits, act, s)
-                 : launch<float, 64>(x, w, idx, bias, y, partial, M, n_in,
+                 : launch<float, 64>(x, w, idx, bias, y, z, partial, M, n_in,
                                      n_rb, d_in_b, bL, bR, n_splits, act, s);
   if (dtype == 1)
-    return small ? launch<__nv_bfloat16, 16>(x, w, idx, bias, y, partial, M,
-                                             n_in, n_rb, d_in_b, bL, bR,
+    return small ? launch<__nv_bfloat16, 16>(x, w, idx, bias, y, z, partial,
+                                             M, n_in, n_rb, d_in_b, bL, bR,
                                              n_splits, act, s)
-                 : launch<__nv_bfloat16, 64>(x, w, idx, bias, y, partial, M,
-                                             n_in, n_rb, d_in_b, bL, bR,
+                 : launch<__nv_bfloat16, 64>(x, w, idx, bias, y, z, partial,
+                                             M, n_in, n_rb, d_in_b, bL, bR,
                                              n_splits, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,16 @@
-"""The junction primitive ``csd_matmul`` (forward only, port of
-``repro.kernels.ops.csd_matmul``).
+"""The differentiable junction primitive ``csd_matmul`` (port of
+``repro.kernels.ops.csd_matmul`` with its custom VJP).
 
 It flattens the leading dims of ``x`` to M and dispatches on the device of
-the tensor: a CPU tensor runs the plain slot-wise sweep, a CUDA tensor the
-hand-written kernel, and any other device raises. There is no backend
-option, no tuning, sharding or quantization; the backward pass arrives with
-the training slice.
+the tensor: a CPU tensor runs the plain slot-wise sweeps, a CUDA tensor the
+hand-written kernels, and any other device raises. When a gradient is
+needed the call runs through ``CsdMatmul``, a ``torch.autograd.Function``
+that wires the paper's three operations as the JAX package's Pallas branch
+does (``_fwd_vjp``/``_bwd_vjp``): FF saves ``(x, w, b, aux)``, with aux the
+output y for relu and the pre-activation z for gelu (``save_preact``); BP
+runs dx over the transpose pattern and UP runs dw (and db) with the
+activation's derivative masked in. There is no backend option, no tuning,
+sharding or quantization.
 """
 from __future__ import annotations
 
@@ -17,21 +22,78 @@ from . import csd_spmm
 from .csd_spmm import apply_activation  # noqa: F401 — one definition for layers
 
 
+def _kernels(device: torch.device):
+    """(fwd, dx, dw) for tensors on ``device``."""
+    if device.type == "cuda":
+        return (csd_spmm.csd_spmm_fwd_cuda, csd_spmm.csd_spmm_dx_cuda,
+                csd_spmm.csd_spmm_dw_cuda)
+    if device.type == "cpu":
+        return (csd_spmm.csd_spmm_fwd_plain, csd_spmm.csd_spmm_dx_plain,
+                csd_spmm.csd_spmm_dw_plain)
+    raise ValueError(f"csd_matmul: no implementation for {device}")
+
+
+class CsdMatmul(torch.autograd.Function):
+    """y = act(x @ W_sparse + b) on 2-D x, with FF/BP/UP as the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, block_idx, out_idx, out_slot, activation):
+        fwd = _kernels(x.device)[0]
+        if activation == "gelu":
+            y, aux = fwd(x, w, block_idx, bias=bias, activation=activation,
+                         save_preact=True)
+        else:
+            y = fwd(x, w, block_idx, bias=bias, activation=activation)
+            aux = y if activation == "relu" else None
+        ctx.activation = activation
+        ctx.save_for_backward(x, w, bias, aux, block_idx, out_idx, out_slot)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias, aux, block_idx, out_idx, out_slot = ctx.saved_tensors
+        act = ctx.activation
+        _, dx_fn, dw_fn = _kernels(x.device)
+        # backward traffic stays in the compute dtype, as in the JAX package
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = dx_fn(dy, w, out_idx, out_slot, aux=aux, activation=act)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            kw = dict(block_in=w.shape[2], block_out=w.shape[3], aux=aux,
+                      activation=act)
+            if bias is not None:
+                dw, db = dw_fn(x, dy, block_idx, want_db=True, **kw)
+                db = db.to(bias.dtype)
+            else:
+                dw = dw_fn(x, dy, block_idx, **kw)
+            dw = dw.to(w.dtype)
+        return dx, dw, db, None, None, None, None
+
+
 def csd_matmul(x: torch.Tensor, w: torch.Tensor, block_idx: torch.Tensor, *,
                bias: Optional[torch.Tensor] = None,
-               activation: Optional[str] = None) -> torch.Tensor:
+               activation: Optional[str] = None,
+               out_idx: Optional[torch.Tensor] = None,
+               out_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., n_in) -> (..., n_out): ``activation(x @ W_sparse + bias)``
     with the epilogue fused, ``w`` the (n_rb, d_in_b, bL, bR) slab and
-    ``block_idx`` its (n_rb, d_in_b) int32 pattern on the device of ``x``."""
+    ``block_idx`` its (n_rb, d_in_b) int32 pattern on the device of ``x``.
+    A gradient also needs the scatter form ``out_idx``/``out_slot``
+    (n_lb, d_out_b), int32 on the same device."""
     if activation is not None and activation not in csd_spmm.ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation!r}")
     xf = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda":
-        y = csd_spmm.csd_spmm_fwd_cuda(xf.contiguous(), w, block_idx,
-                                       bias=bias, activation=activation)
-    elif x.device.type == "cpu":
-        y = csd_spmm.csd_spmm_fwd_plain(xf, w, block_idx, bias=bias,
-                                        activation=activation)
+        xf = xf.contiguous()
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, bias))
+    if needs_grad:
+        if out_idx is None or out_slot is None:
+            raise ValueError("csd_matmul: a gradient needs out_idx/out_slot")
+        y = CsdMatmul.apply(xf, w, bias, block_idx, out_idx, out_slot,
+                            activation)
     else:
-        raise ValueError(f"csd_matmul: no implementation for {x.device}")
+        y = _kernels(x.device)[0](xf, w, block_idx, bias=bias,
+                                  activation=activation)
     return y.reshape(x.shape[:-1] + (y.shape[-1],))

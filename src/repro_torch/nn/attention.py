@@ -1,9 +1,14 @@
-"""GQA attention for the paged serving step (port of ``repro.nn.attention``'s
-``Attention._qkv`` and ``Attention.paged_step``).
+"""GQA attention (port of ``repro.nn.attention``): ``chunked_attention`` and
+``Attention.forward`` for the full sequence (training), ``Attention._qkv``
+and ``Attention.paged_step`` for serving.
 
-Decode (one token per row) runs through the paged decode kernel; a prefill
-chunk gathers the row's logical KV view and runs masked grouped attention
-in plain torch, as the JAX package does with a gather and einsums.
+The full-sequence path is the JAX package's XLA form, not a kernel: a loop
+over query chunks, a static window span sliced out of KV for sliding-window
+layers, and for long KV an online-softmax merge over KV chunks, all in
+plain torch. Decode (one token per row) runs through the paged decode
+kernel; a prefill chunk gathers the row's logical KV view and runs masked
+grouped attention in plain torch, as the JAX package does with a gather
+and einsums.
 """
 from __future__ import annotations
 
@@ -25,6 +30,97 @@ def _softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+def _attend_block(q_chunk, k_c, v_c, qpos, kpos, *, causal, window,
+                  softcap, scale):
+    """One (q-block x kv-block) attention with flash-style partials: the
+    un-normalised f32 output (B, Q, Hkv, G, Dh) and the per-row max and
+    exp-sum (B, Hkv, G, Q), so that blocks can be merged online."""
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q_chunk.float() * scale,
+                          k_c.float())
+    logits = _softcap(logits, softcap)
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=logits.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask, logits, _NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - torch.clamp_min(m, _NEG_INF / 2)[..., None])
+    p = torch.where((m > _NEG_INF / 2)[..., None], p, 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_c.float())
+    return o, m, l
+
+
+def _per_row(t: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv, G, Q) row statistics -> (B, Q, Hkv, G, 1), to scale o."""
+    return t.permute(0, 3, 1, 2)[..., None]
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: Optional[int],
+                      softcap: Optional[float], chunk: int, scale: float,
+                      q_offset: int = 0,
+                      kv_chunk: Optional[int] = None) -> torch.Tensor:
+    """Memory-bounded attention (port of ``repro.nn.attention.
+    chunked_attention``). q (B, Sq, Hkv, G, Dh) grouped; k, v (B, Skv, Hkv,
+    Dh) -> (B, Sq, Hkv, G, Dh) in the dtype of q. Query chunks of ``chunk``
+    rows; a windowed causal layer attends to a span of KV rounded up to 128
+    keys around each chunk; without a window and for KV longer than
+    ``2 * kv_chunk`` the KV chunks are merged online. A row with no visible
+    key gives 0."""
+    b, sq, hkv, g, dh = q.shape
+    skv = k.shape[1]
+    chunk = min(chunk, sq)
+    pad_q = (-sq) % chunk
+    if pad_q:
+        q = torch.cat([q, q.new_zeros((b, pad_q, hkv, g, dh))], dim=1)
+    n_chunks = (sq + pad_q) // chunk
+    use_window_slice = (window is not None and causal
+                        and window + chunk < skv)
+    span = min(skv, ((window or 0) + chunk + 127) // 128 * 128) \
+        if use_window_slice else skv
+    use_kv_scan = (kv_chunk is not None and not use_window_slice
+                   and skv > 2 * kv_chunk and skv % kv_chunk == 0)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    dev = q.device
+    outs = []
+    for i in range(n_chunks):
+        q_chunk = q[:, i * chunk:(i + 1) * chunk]
+        q_start = i * chunk + q_offset
+        qpos = q_start + torch.arange(chunk, device=dev)
+        if use_window_slice:
+            start = min(max(q_start + chunk - span, 0), skv - span)
+            k_c, v_c = k[:, start:start + span], v[:, start:start + span]
+            kpos = start + torch.arange(span, device=dev)
+        else:
+            k_c, v_c, kpos = k, v, torch.arange(skv, device=dev)
+        if not use_kv_scan:
+            o, _, l = _attend_block(q_chunk, k_c, v_c, qpos, kpos, **kw)
+        else:
+            o = torch.zeros((b, chunk, hkv, g, dh), dtype=torch.float32,
+                            device=dev)
+            m = torch.full((b, hkv, g, chunk), _NEG_INF, device=dev)
+            l = torch.zeros((b, hkv, g, chunk), device=dev)
+            for j in range(skv // kv_chunk):
+                sl = slice(j * kv_chunk, (j + 1) * kv_chunk)
+                o_j, m_j, l_j = _attend_block(
+                    q_chunk, k_c[:, sl], v_c[:, sl], qpos, kpos[sl], **kw)
+                m_new = torch.maximum(m, m_j)
+                c_old = torch.where(m > _NEG_INF / 2, torch.exp(m - m_new),
+                                    0.0)
+                c_new = torch.where(m_j > _NEG_INF / 2,
+                                    torch.exp(m_j - m_new), 0.0)
+                l = l * c_old + l_j * c_new
+                o = o * _per_row(c_old) + o_j * _per_row(c_new)
+                m = m_new
+        safe_l = torch.where(l == 0.0, 1.0, l)
+        outs.append((o / _per_row(safe_l)).to(q.dtype))
+    out = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
+    return out[:, :sq] if pad_q else out
 
 
 class Attention(nn.Module):
@@ -67,6 +163,20 @@ class Attention(nn.Module):
         q = apply_rope(q, positions, self.cfg.rope_theta)
         k = apply_rope(k, positions, self.cfg.rope_theta)
         return q, k, v
+
+    def forward(self, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal self-attention (training): x (B, S, d),
+        positions (B, S) -> (B, S, d)."""
+        cfg = self.cfg
+        b, sq, _ = x.shape
+        q, k, v = self._qkv(x, positions)
+        qg = q.reshape(b, sq, self.kv, self.groups, self.dh)
+        o = chunked_attention(
+            qg, k, v, causal=True, window=self.window,
+            softcap=cfg.logit_softcap, chunk=cfg.attn_chunk,
+            kv_chunk=cfg.attn_kv_chunk, scale=self.dh ** -0.5)
+        return self.wo(o.reshape(b, sq, self.h * self.dh))
 
     def paged_step(self, x: torch.Tensor, pos: torch.Tensor,
                    n_new: torch.Tensor, cache: dict,

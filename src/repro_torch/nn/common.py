@@ -2,9 +2,9 @@
 half of ``repro.nn.common``).
 
 The fields and defaults are those of the JAX package's ``ModelConfig`` and
-``SparsityConfig`` that the serving slice reads; fields of the MoE, SSM,
-encoder-decoder and frontend families, the TPU backend switch and the
-quantization knob arrive with the slices that use them.
+``SparsityConfig`` that the serving and training slices read; fields of the
+MoE, SSM, encoder-decoder and frontend families, the TPU backend switch and
+the quantization knob arrive with the slices that use them.
 """
 from __future__ import annotations
 
@@ -61,6 +61,10 @@ class ModelConfig:
 
     dtype: str = "bfloat16"      # activation/compute dtype
     param_dtype: str = "float32"
+    remat: bool = True           # recompute each layer and loss chunk
+    attn_chunk: int = 512        # query chunk of the full-sequence attention
+    attn_kv_chunk: int = 1024    # inner KV chunk for long sequences
+    loss_chunk: int = 512        # sequence chunk of the cross-entropy
 
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:
@@ -80,6 +84,17 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Asking for the card where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "versions on the CPU")
+    return dev
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:

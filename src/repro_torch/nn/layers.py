@@ -24,14 +24,15 @@ from .common import SparsityConfig
 def _normal(shape, std: float, generator, device, dtype) -> nn.Parameter:
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32) * std
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+    return nn.Parameter(w.to(dtype))
 
 
 class Linear(nn.Module):
     """A junction. Dense by default; pre-defined block-sparse when ``rho < 1``
     and the sparsity config admits it. A dense weight is (n_in, n_out); a
     sparse one is the slab (n_rb, d_in_b, bL, bR), with the pattern's
-    gather form kept beside it as the int32 buffer ``block_idx``."""
+    gather form kept beside it as the int32 buffer ``block_idx`` and its
+    scatter form (for the backward pass) as ``out_idx``/``out_slot``."""
 
     def __init__(self, n_in: int, n_out: int, *, bias: bool = False,
                  rho: float = 1.0, sp: Optional[SparsityConfig] = None,
@@ -48,15 +49,15 @@ class Linear(nn.Module):
                 (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out),
                 math.sqrt(1.0 / (bp.d_in_b * bp.block_in)), generator,
                 device, dtype)
-            self.register_buffer("block_idx", torch.as_tensor(
-                bp.block_idx, dtype=torch.int32, device=device))
+            for name in ("block_idx", "out_idx", "out_slot"):
+                self.register_buffer(name, torch.as_tensor(
+                    getattr(bp, name), dtype=torch.int32, device=device))
         else:
             self.weight = _normal((n_in, n_out), math.sqrt(1.0 / n_in),
                                   generator, device, dtype)
-            self.block_idx = None
+            self.block_idx = self.out_idx = self.out_slot = None
         self.bias = nn.Parameter(torch.zeros(n_out, device=device,
-                                             dtype=dtype),
-                                 requires_grad=False) if bias else None
+                                             dtype=dtype)) if bias else None
 
     @property
     def is_sparse(self) -> bool:
@@ -65,15 +66,20 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor,
                 activation: Optional[str] = None) -> torch.Tensor:
         """``activation(x @ W + b)``; for a sparse junction the bias and
-        activation ride the fused ``csd_matmul`` epilogue. The weight is
-        used in its stored dtype: the serving engine makes the one
-        compute-dtype copy at load, not one per call."""
+        activation ride the fused ``csd_matmul`` epilogue. Weight and bias
+        are cast to the dtype of x on each call, as in the JAX package, so
+        the gradient of a bf16 step flows back into the f32 parameter (the
+        serving engine stores them in the compute dtype, where the cast is
+        free)."""
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
         if self.is_sparse:
-            return csd_matmul(x, self.weight, self.block_idx, bias=self.bias,
-                              activation=activation)
-        y = x @ self.weight
-        if self.bias is not None:
-            y = y + self.bias
+            return csd_matmul(x, w, self.block_idx, bias=b,
+                              activation=activation, out_idx=self.out_idx,
+                              out_slot=self.out_slot)
+        y = x @ w
+        if b is not None:
+            y = y + b
         return apply_activation(y, activation)
 
 
@@ -86,8 +92,7 @@ class RMSNorm(nn.Module):
                  device=None):
         super().__init__()
         self.eps = eps
-        self.scale = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype),
-                                  requires_grad=False)
+        self.scale = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -103,12 +108,16 @@ class Embedding(nn.Module):
         self.table = _normal((vocab, dim), 1.0 / math.sqrt(dim), generator,
                              device, dtype)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.table)
+    def forward(self, tokens: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Rows of the table, looked up in ``dtype`` (the compute dtype in
+        training, as the JAX package casts the table before the lookup)."""
+        table = self.table if dtype is None else self.table.to(dtype)
+        return F.embedding(tokens, table)
 
     def attend(self, h: torch.Tensor) -> torch.Tensor:
-        """Tied output head: h @ table^T -> logits."""
-        return h @ self.table.T
+        """Tied output head: h @ table^T -> logits, in the dtype of h."""
+        return h @ self.table.to(h.dtype).T
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:

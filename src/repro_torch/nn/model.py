@@ -1,4 +1,6 @@
-"""The decoder-only LM for paged serving (port of ``repro.nn.model.LM``).
+"""The decoder-only LM (port of ``repro.nn.model.LM``): the full-sequence
+forward and chunked cross-entropy loss of training, and the paged serving
+step.
 
 The JAX package splits its layers into scanned pattern units (gemma3:
 5 local + 1 global) under ``lax.scan`` plus an unscanned epilogue (34 =
@@ -7,15 +9,21 @@ by a Python loop, but each layer is built with the seed its JAX block has,
 because the seed picks its FFN sparsity pattern: scan slot ``u`` gets
 ``10 * u + 1`` in every group (scanned groups share one pattern per slot),
 epilogue block ``i`` gets ``2000 + 10 * i``. The MoE prologue layer does not
-exist for the models this port serves yet.
+exist for the models this port runs yet.
+
+With ``cfg.remat`` the training forward recomputes each layer, and the loss
+each sequence chunk, in the backward pass (``torch.utils.checkpoint``); the
+JAX package recomputes each scanned group of layers instead. The results
+are the same, only the memory differs.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, dtype_of, param_dtype_of
 from .layers import Embedding, RMSNorm
@@ -82,6 +90,64 @@ class LM(nn.Module):
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)
         return logits
+
+    # -- training ------------------------------------------------------------
+
+    def _remat(self) -> bool:
+        return self.cfg.remat and torch.is_grad_enabled()
+
+    def embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings in the compute dtype, scaled by sqrt(d_model)
+        where the model asks for it."""
+        cdt = dtype_of(self.cfg)
+        x = self.embed(tokens, dtype=cdt)
+        if self.cfg.scale_embed:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=cdt)
+        return x
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) int -> final-normed hidden states (B, S, d)."""
+        x = self.embed_in(tokens)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        for layer in self.layers:
+            if self._remat():
+                x = checkpoint(layer, x, positions, use_reentrant=False)
+            else:
+                x = layer(x, positions)
+        return self.ln_f(x)
+
+    def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor):
+        logits = self.logits_fn(h).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp_min(0)[..., None].long())[..., 0]
+        valid = (labels >= 0).float()
+        return ((logz - gold) * valid).sum(), valid.sum()
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy of ``batch`` ({"tokens", "labels"},
+        (B, S) int; a label < 0 is ignored), in f32, over ``loss_chunk``
+        sequence chunks (a tail shorter than a chunk is dropped, as in the
+        JAX package). Returns (loss, {"loss", "tokens"})."""
+        h = self.forward(batch["tokens"])
+        labels = batch["labels"]
+        s = labels.shape[1]
+        chunk = min(self.cfg.loss_chunk, s)
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(s // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            if self._remat():
+                t, c = checkpoint(self._chunk_loss, h[:, sl], labels[:, sl],
+                                  use_reentrant=False)
+            else:
+                t, c = self._chunk_loss(h[:, sl], labels[:, sl])
+            tot, cnt = tot + t, cnt + c
+        loss = tot / torch.clamp_min(cnt, 1.0)
+        return loss, {"loss": loss, "tokens": cnt}
+
+    # -- serving -------------------------------------------------------------
 
     @torch.no_grad()
     def paged_step(self, tokens: torch.Tensor, pos: torch.Tensor,

@@ -1,6 +1,7 @@
-"""The decoder block (port of ``repro.nn.transformer.TransformerBlock``'s
-paged serving step): pre-norm attention + FFN, with gemma's sandwich norms
-when ``post_norms`` is set."""
+"""The decoder block (port of ``repro.nn.transformer.TransformerBlock``):
+pre-norm attention + FFN, with gemma's sandwich norms when ``post_norms`` is
+set; ``forward`` runs the full sequence (training), ``paged_step`` one
+serving step."""
 from __future__ import annotations
 
 from typing import Optional
@@ -32,6 +33,17 @@ class TransformerBlock(nn.Module):
         if cfg.post_norms:
             self.ln_attn_post = norm()
             self.ln_ffn_post = norm()
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward: x (B, S, d), positions (B, S)."""
+        h = self.attn(self.ln_attn(x), positions)
+        if self.cfg.post_norms:
+            h = self.ln_attn_post(h)
+        x = x + h
+        h = self.ffn(self.ln_ffn(x))
+        if self.cfg.post_norms:
+            h = self.ln_ffn_post(h)
+        return x + h
 
     def paged_step(self, x: torch.Tensor, pos: torch.Tensor,
                    n_new: torch.Tensor, cache: dict,

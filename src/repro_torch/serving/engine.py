@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..nn.common import dtype_of
+from ..nn.common import dtype_of, resolve_device
 from .scheduler import Request, Scheduler, StepPlan
 
 
@@ -40,17 +40,6 @@ class EngineConfig:
     prefill_chunk: int = 32
     greedy: bool = True
     temperature: float = 1.0
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: the card unless the caller names
-    another. Asking for the card where there is none raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the plain "
-            "versions on the CPU")
-    return dev
 
 
 class ServingEngine:

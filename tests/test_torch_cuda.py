@@ -99,3 +99,85 @@ def test_paged_decode_cuda_matches_plain(cuda_device, window, softcap,
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.float().cpu(), ref.float().cpu(),
                                atol=tol, rtol=tol)
+
+
+# the junction of the training kernels: 8 left blocks of 128, 4 right blocks
+# of 192 (bR not a power of two), fan-in 4 and fan-out 2
+TRAIN_JUNCTION = dict(n_in=1024, n_out=768, bl=128, br=192)
+# max |kernel - plain| over max |plain|: f32 sums taken in another order;
+# bf16 one rounding of each output (2^-8 relative) on top of that
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+DB_TOL = 1e-4  # db is an f32 column sum in both versions
+
+
+def _train_case(device, dtype, m, seed=5):
+    bp, x, w, b = _junction(seed, m, **TRAIN_JUNCTION)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.normal(size=(m, bp.n_out)).astype(np.float32)
+    aux = rng.normal(size=(m, bp.n_out)).astype(np.float32)
+    to = lambda a: _t(a).to(device, dtype)  # noqa: E731
+    pat = {k: _t(getattr(bp, k)).to(device).int()
+           for k in ("block_idx", "out_idx", "out_slot")}
+    return bp, to(x), to(w), to(b), to(dy), to(aux), pat
+
+
+def _close(got, ref, tol):
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [64, 100, 4096])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_spmm_fwd_save_preact_cuda_matches_plain(cuda_device, activation,
+                                                     m, dtype):
+    bp, x, w, b, _, _, pat = _train_case(cuda_device, dtype, m)
+    kw = dict(bias=b, activation=activation, save_preact=True)
+    y, z = csd_spmm.csd_spmm_fwd_cuda(x, w, pat["block_idx"], **kw)
+    y_ref, z_ref = csd_spmm.csd_spmm_fwd_plain(x, w, pat["block_idx"], **kw)
+    torch.cuda.synchronize()
+    _close(y, y_ref, TRAIN_TOL[dtype])
+    _close(z, z_ref, TRAIN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [64, 100, 4096])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_spmm_dx_cuda_matches_plain(cuda_device, activation, m, dtype):
+    bp, _, w, _, dy, aux, pat = _train_case(cuda_device, dtype, m)
+    kw = dict(aux=aux, activation=activation)
+    got = csd_spmm.csd_spmm_dx_cuda(dy, w, pat["out_idx"], pat["out_slot"],
+                                    **kw)
+    ref = csd_spmm.csd_spmm_dx_plain(dy, w, pat["out_idx"], pat["out_slot"],
+                                     **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (m, bp.n_in) and got.dtype == dtype
+    _close(got, ref, TRAIN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [64, 100, 4096])
+@pytest.mark.parametrize("want_db", [False, True], ids=["nodb", "db"])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_spmm_dw_cuda_matches_plain(cuda_device, activation, want_db, m,
+                                        dtype):
+    bp, x, _, _, dy, aux, pat = _train_case(cuda_device, dtype, m)
+    kw = dict(block_in=bp.block_in, block_out=bp.block_out, aux=aux,
+              activation=activation, want_db=want_db)
+    got = csd_spmm.csd_spmm_dw_cuda(x, dy, pat["block_idx"], **kw)
+    ref = csd_spmm.csd_spmm_dw_plain(x, dy, pat["block_idx"], **kw)
+    torch.cuda.synchronize()
+    if want_db:
+        (got, db), (ref, db_ref) = got, ref
+        assert db.dtype == torch.float32
+        _close(db, db_ref, DB_TOL)
+    assert got.shape == (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
+    assert got.dtype == dtype
+    _close(got, ref, TRAIN_TOL[dtype])

@@ -2,9 +2,12 @@
 
 On the CPU each dispatcher runs its plain version; these tests hold that
 version to the JAX package's Pallas kernel (interpret mode) and to its XLA
-lowering, in f32. The CUDA kernels themselves are compared with the plain
-versions by ``tests/test_torch_cuda.py`` (on a card) and ``chip_smoke.py``.
+lowering, in f32 (and for the backward kernels also in bf16), and the
+autograd ``csd_matmul`` to ``jax.vjp`` of the JAX junction. The CUDA
+kernels themselves are compared with the plain versions by
+``tests/test_torch_cuda.py`` (on a card) and ``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +21,10 @@ from repro_torch.kernels import csd_spmm, flash_attention, ops
 
 TOL_SPMM = 1e-5    # f32: same products, different summation order
 TOL_PAGED = 2e-5   # f32 online softmax vs one-shot softmax
+# backward kernels, max |port - JAX| over max |JAX|: f32 sums in another
+# order; bf16 one rounding of each output plus the XLA form's bf16 running
+# sum over the (at most 4) fan slots
+TOL_BWD = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def _junction(seed, m, n_in=64, n_out=96, bl=16, br=32, rho=0.5):
@@ -115,3 +122,152 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             _t(q), _t(kp), _t(vp), _t(table), _t(lengths))
     assert csd_spmm.csd_spmm_fwd_cuda.launches == 0
     assert flash_attention.paged_decode_attention_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the training operations: mask, backward-data, backward-weights, autograd
+# ---------------------------------------------------------------------------
+
+DTYPES = ["float32", "bfloat16"]
+
+
+def _bwd_case(seed, m, dtype):
+    """A junction of 8 left blocks with fan-in 4 and fan-out 2, its
+    cotangent and aux, in ``dtype`` as arrays for JAX and tensors for the
+    port."""
+    bp, x, w, _ = _junction(seed, m, n_in=128, n_out=128)
+    rng = np.random.default_rng(seed + 100)
+    dy = rng.normal(size=(m, bp.n_out)).astype(np.float32)
+    aux = rng.normal(size=(m, bp.n_out)).astype(np.float32)
+    arrs = [jnp.asarray(a, dtype) for a in (x, w, dy, aux)]
+    tens = [_t(np.array(a.astype(jnp.float32))).to(getattr(torch, dtype))
+            for a in arrs]
+    return bp, arrs, tens
+
+
+def _close_rel(got, ref, tol):
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
+                     np.float32)
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    err = np.abs(got - ref).max()
+    assert err <= tol * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_mask_cotangent_matches_reference(activation, dtype):
+    _, (_, _, dy, aux), (_, _, tdy, taux) = _bwd_case(5, 24, dtype)
+    got = csd_spmm.mask_cotangent(tdy, taux, activation)
+    ref = jcsd.mask_cotangent(dy, aux, activation)
+    assert got.dtype == tdy.dtype
+    # bf16: the f32 products round to bf16 the same way, one ulp at a tie
+    _close_rel(got, ref, 1e-6 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_spmm_dx_plain_matches_pallas_and_xla(activation, dtype):
+    bp, (_, w, dy, aux), (_, tw, tdy, taux) = _bwd_case(6, 40, dtype)
+    assert bp.out_idx.shape[1] > 1  # several slots per left block
+    got = csd_spmm.csd_spmm_dx_plain(tdy, tw, _t(bp.out_idx),
+                                     _t(bp.out_slot), aux=taux,
+                                     activation=activation)
+    pallas = jcsd.csd_spmm_dx(dy, w, bp.out_idx, bp.out_slot, aux=aux,
+                              activation=activation, block_m=8,
+                              interpret=True)
+    xla = jops._xla_dx(jops._mask_dy_xla(dy, aux, activation), w,
+                       bp.out_idx, bp.out_slot)
+    assert got.dtype == tdy.dtype and got.shape == (40, bp.n_in)
+    for ref in (pallas, xla):
+        _close_rel(got, ref, TOL_BWD[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("want_db", [False, True], ids=["nodb", "db"])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_spmm_dw_plain_matches_pallas_and_xla(activation, want_db,
+                                                  dtype):
+    bp, (x, _, dy, aux), (tx, _, tdy, taux) = _bwd_case(7, 40, dtype)
+    kw = dict(block_in=bp.block_in, block_out=bp.block_out,
+              activation=activation, want_db=want_db)
+    got = csd_spmm.csd_spmm_dw_plain(tx, tdy, _t(bp.block_idx), aux=taux,
+                                     **kw)
+    pallas = jcsd.csd_spmm_dw(x, dy, bp.block_idx, aux=aux, block_m=8,
+                              interpret=True, **kw)
+    mdy = jops._mask_dy_xla(dy, aux, activation)
+    xla = jops._xla_dw(x, mdy, bp.block_idx, bp.block_in, bp.block_out)
+    if want_db:
+        (got, db), (pallas, pallas_db) = got, pallas
+        assert db.dtype == torch.float32
+        for ref in (pallas_db, jnp.sum(mdy.astype(jnp.float32), axis=0)):
+            _close_rel(db, ref, TOL_BWD["float32"])
+    assert got.dtype == tx.dtype
+    for ref in (pallas, xla):
+        _close_rel(got, ref, TOL_BWD[dtype])
+
+
+@pytest.mark.parametrize("activation", [None, "gelu"])
+def test_csd_spmm_fwd_plain_save_preact_matches_pallas(activation):
+    bp, x, w, b = _junction(8, 24)
+    y, z = csd_spmm.csd_spmm_fwd_plain(
+        _t(x), _t(w), _t(bp.block_idx), bias=_t(b), activation=activation,
+        save_preact=True)
+    ry, rz = jcsd.csd_spmm_fwd(
+        jnp.asarray(x), jnp.asarray(w), bp.block_idx, bias=jnp.asarray(b),
+        activation=activation, save_preact=True, block_m=8, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), atol=TOL_SPMM,
+                               rtol=TOL_SPMM)
+    np.testing.assert_allclose(z.numpy(), np.asarray(rz), atol=TOL_SPMM,
+                               rtol=TOL_SPMM)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_matmul_gradients_match_jax_vjp(activation, with_bias, backend):
+    m = 24
+    bp, x, w, b = _junction(9, m)
+    dy = np.random.default_rng(10).normal(size=(2, m // 2, bp.n_out)) \
+        .astype(np.float32)
+    x3 = x.reshape(2, m // 2, -1)
+    kw = dict(activation=activation, backend=backend)
+    if backend == "pallas":
+        kw.update(interpret=True, block_m=8)
+
+    def jfn(x_, w_, b_):
+        return jops.csd_matmul(x_, w_, bp, bias=b_ if with_bias else None,
+                               **kw)
+
+    ref, vjp = jax.vjp(jfn, jnp.asarray(x3), jnp.asarray(w), jnp.asarray(b))
+    rdx, rdw, rdb = vjp(jnp.asarray(dy))
+    tx, tw, tb = (torch.tensor(a, requires_grad=True) for a in (x3, w, b))
+    got = ops.csd_matmul(tx, tw, _t(bp.block_idx).int(),
+                         bias=tb if with_bias else None,
+                         activation=activation, out_idx=_t(bp.out_idx).int(),
+                         out_slot=_t(bp.out_slot).int())
+    got.backward(_t(dy))
+    _close_rel(got.detach(), ref, TOL_BWD["float32"])
+    _close_rel(tx.grad, rdx, TOL_BWD["float32"])
+    _close_rel(tw.grad, rdw, TOL_BWD["float32"])
+    if with_bias:
+        _close_rel(tb.grad, rdb, TOL_BWD["float32"])
+    else:
+        assert tb.grad is None
+
+
+def test_training_cuda_wrappers_refuse_cpu_tensors():
+    """The backward wrappers launch their kernels or raise, like the
+    forward one: a CPU tensor never runs the plain version through them."""
+    bp, (_, _, _, _), (tx, tw, tdy, taux) = _bwd_case(11, 8, "float32")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        csd_spmm.csd_spmm_dx_cuda(tdy, tw, _t(bp.out_idx).int(),
+                                  _t(bp.out_slot).int())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        csd_spmm.csd_spmm_dw_cuda(tx, tdy, _t(bp.block_idx).int(),
+                                  block_in=bp.block_in,
+                                  block_out=bp.block_out)
+    with pytest.raises(ValueError, match="needs aux"):
+        csd_spmm.csd_spmm_dx_cuda(tdy, tw, _t(bp.out_idx).int(),
+                                  _t(bp.out_slot).int(), activation="gelu")
+    assert csd_spmm.csd_spmm_dx_cuda.launches == 0
+    assert csd_spmm.csd_spmm_dw_cuda.launches == 0
