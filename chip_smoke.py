@@ -16,6 +16,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. the same for ``paged_decode_attention`` (B = 4, Hkv = 4, G = 2, Dh = 256,
    page 16, lengths past 1024, window None and 1024, -1 table entries and an
    empty row), with SDPA over the gathered KV as the yardstick;
+4b. the int8 serving kernels against their plain versions: the int8
+   ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (M 4 and 256, f32
+   and bf16, with and without the gelu epilogue; the yardstick a
+   ``torch.matmul`` on the densified, dequantized slab), and paged decode
+   over int8 pages at phase 4's case (the yardstick SDPA over the
+   gathered, dequantized KV), timed like phase 3;
 5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
    vocab 262144; random weights from a seed; bf16) through
    ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
@@ -23,6 +29,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode step after the prefill drain run with the kernels and with the
    plain versions from one cache state, logits compared; then 4 decode
    steps under ``torch.profiler``;
+5b. the same in int8 (``EngineConfig(quant=QuantConfig(weights=True,
+   kv=True))``) from a fresh f32 model of the same seed, quantized at load:
+   launch counts of all four serving kernels around the run (the bf16
+   forward and the full-width paged decode must not run), the kernels per
+   decode step, the bytes of the int8 slabs and of the page pool, the
+   kernels-vs-plain decode step and 4 profiled decode steps; then the
+   teacher-forced top-1 agreement of the int8 model's logits with the bf16
+   model's on phase 5's prompts and tokens (recorded, not gated);
 6. hold the training kernels against their plain versions at gemma3-4b's
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
@@ -289,17 +303,203 @@ def run_paged(device, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the int8 serving kernels
+# ---------------------------------------------------------------------------
+
+# max |kernel - plain|: f32 sums in another order, against the largest
+# |plain|; bf16 one rounding of the output
+QUANT_F32_TOL = 1e-4
+
+
+def quant_close(got, ref, dtype) -> bool:
+    if dtype == "float32":
+        return float((got - ref).abs().max()) \
+            <= QUANT_F32_TOL * float(ref.abs().max())
+    return within(got, ref, *SPMM_TOL["torch.bfloat16"])
+
+
+def run_spmm_quant(cfg, device, results):
+    import torch
+    from repro_torch.core.quant import dequantize_slab, quantize_slab
+    from repro_torch.kernels import csd_spmm
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    up, down = junction_patterns(cfg)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for name, bp in (("up/gate", up), ("down", down)):
+            shape = (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
+            n_w = math.prod(shape)
+            n = copies_for(n_w)
+            slabs = [quantize_slab(torch.randn(shape, generator=g,
+                                               device=device)
+                                   / math.sqrt(bp.d_in_b * bp.block_in))
+                     for _ in range(n)]
+            idx = torch.as_tensor(bp.block_idx, dtype=torch.int32,
+                                  device=device)
+            dense = dense_of(bp, dequantize_slab(*slabs[0], dtype))
+            denses = [dense] + [dense.clone() for _ in range(
+                copies_for(dense.numel() * dense.element_size()) - 1)]
+            for m in (4, 256):
+                x = torch.randn((m, bp.n_in), generator=g,
+                                device=device).to(dtype)
+                for act in (None, "gelu"):
+                    def kern(i=0):
+                        q, sc = slabs[i]
+                        return csd_spmm.csd_spmm_fwd_cuda(
+                            x, q, idx, activation=act, w_scale=sc)
+
+                    def plain(i=0):
+                        q, sc = slabs[i]
+                        return csd_spmm.csd_spmm_fwd_plain(
+                            x, q, idx, activation=act, w_scale=sc)
+                    got, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    got, ref = got.float(), ref.float()
+                    ok = quant_close(got, ref, dtype_name) and bool(
+                        torch.isfinite(got).all())
+                    abs_e, rel_e = max_err(got, ref)
+                    ms, host_ms = bench([lambda i=i: kern(i)
+                                         for i in range(n)], 60)
+                    plain_ms, _ = bench([lambda i=i: plain(i)
+                                         for i in range(n)], 6)
+                    lib_ms, _ = bench([lambda d=d: torch.matmul(x, d)
+                                       for d in denses], 30)
+                    el = dtype.itemsize
+                    nbytes = el * m * (bp.n_in + bp.n_out) + n_w \
+                        + 4 * 2 * idx.numel()  # slab, scales, pattern
+                    bound_ms, bound_by = bound(nbytes, 2 * m * n_w, dtype)
+                    rec = dict(kernel="csd_spmm_fwd_quant", junction=name,
+                               m=m, dtype=dtype_name, activation=act,
+                               max_abs_err=abs_e, max_rel_err=rel_e,
+                               max_abs_ref=float(ref.abs().max()), ok=ok,
+                               ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=lib_ms,
+                               library="torch.matmul, densified "
+                                       "dequantized slab")
+                    results.append(rec)
+                    log(json.dumps(rec))
+                    if not ok:
+                        fail(f"int8 csd_spmm_fwd disagrees with its plain "
+                             f"version: {rec}")
+            del slabs, dense, denses
+            torch.cuda.empty_cache()
+
+
+def run_paged_quant(device, results):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.kv_cache import quantize_kv
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for window in (None, 1024):
+            q, kp, vp, table, lengths = paged_inputs(device, torch.float32,
+                                                     window, g)
+            q = q.to(dtype)
+            (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+            del kp, vp
+            n = copies_for(2 * k8.numel())
+            pools = [tuple(t.clone() for t in (k8, v8, ks, vs))
+                     for _ in range(n)]
+
+            def kern(p):
+                return fa.paged_decode_attention_cuda(
+                    q, p[0], p[1], table, lengths, window=window,
+                    k_scale=p[2], v_scale=p[3])
+
+            def plain(p):
+                return fa.paged_decode_attention_plain(
+                    q, p[0], p[1], table, lengths, window=window,
+                    k_scale=p[2], v_scale=p[3])
+            got, ref = kern(pools[0]), plain(pools[0])
+            torch.cuda.synchronize()
+            atol, rtol = PAGED_TOL[str(dtype)]
+            abs_e, rel_e = max_err(got, ref)
+            ok = within(got, ref, atol, rtol) and bool(
+                (got[2] == 0).all()) and bool(torch.isfinite(got).all())
+            ms, host_ms = bench([lambda p=p: kern(p) for p in pools], 100)
+            plain_ms, _ = bench([lambda p=p: plain(p) for p in pools], 10)
+            # yardstick: SDPA over the gathered, dequantized (GQA-expanded)
+            # KV in q's dtype, with the mask
+            b, hkv, grp, dh = q.shape
+            idx = table.long().clamp_min(0)
+            kk = (k8[idx].float() * ks[idx][..., None, None]).to(dtype)
+            vv = (v8[idx].float() * vs[idx][..., None, None]).to(dtype)
+            kk = kk.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+            vv = vv.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+            kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
+            kpos = torch.arange(kk.shape[2], device=device)
+            mask = (kpos[None] < lengths[:, None].long()) & (
+                table >= 0).repeat_interleave(k8.shape[1], 1)
+            if window is not None:
+                mask &= kpos[None] >= lengths[:, None].long() - window
+            qq = q.reshape(b, hkv * grp, 1, dh)
+            lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask[:, None, None])], 50)
+            visible = int(mask.sum())
+            # int8 K and V rows, one f32 K and V scale per visible token,
+            # q read and the output written in q's dtype
+            nbytes = 2 * visible * hkv * dh + 8 * visible \
+                + 2 * q.numel() * dtype.itemsize \
+                + 4 * (table.numel() + lengths.numel())
+            bound_ms, bound_by = bound(nbytes, 4 * grp * dh * visible * hkv,
+                                       dtype)
+            rec = dict(kernel="paged_decode_attention_quant",
+                       dtype=dtype_name, window=window,
+                       lengths=lengths.tolist(), max_abs_err=abs_e,
+                       max_rel_err=rel_e, atol=atol, rtol=rtol, ok=ok, ms=ms,
+                       host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib_ms,
+                       library="SDPA over the gathered, dequantized KV")
+            results.append(rec)
+            log(json.dumps(rec))
+            if not ok:
+                fail(f"int8 paged_decode_attention disagrees with its plain "
+                     f"version: {rec}")
+            del pools, kk, vv
+
+
+# ---------------------------------------------------------------------------
 # phase 5: serve gemma3-4b at full width
 # ---------------------------------------------------------------------------
 
 LOGIT_TOL = 5e-2  # of the largest |logit|: 34 bf16 layers of rounding
+NEAR_TIE_MARGIN = 0.05  # top-2 logit gap below which a flip is a near tie
 
 
-def engine_config():
+def engine_config(quant=None):
     from repro_torch.serving.engine import EngineConfig
     return EngineConfig(max_slots=4, page_size=16, total_pages=40,
                         max_pages_per_seq=10, token_budget=256,
-                        prefill_chunk=64)
+                        prefill_chunk=64, quant=quant)
+
+
+SERVE_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant",
+                 "paged_decode_attention", "paged_decode_attention_quant")
+
+
+def serve_launch_counts() -> dict:
+    from repro_torch.kernels import csd_spmm, flash_attention
+    return {k: getattr(csd_spmm if k.startswith("csd") else flash_attention,
+                       f"{k}_cuda").launches for k in SERVE_KERNELS}
+
+
+def resident_bytes(eng) -> dict:
+    """Bytes on the card of the sparse junctions' slabs (and their scales)
+    and of the page pool (pages and per-token scales)."""
+    from repro_torch.nn.layers import Linear
+    lins = [m for m in eng.model.modules()
+            if isinstance(m, Linear) and m.is_sparse]
+    return dict(
+        ffn_slab_bytes=sum(m.weight.numel() * m.weight.element_size()
+                           for m in lins),
+        ffn_slab_dtype=str(lins[0].weight.dtype),
+        ffn_scale_bytes=sum(m.w_scale.numel() * 4 for m in lins
+                            if m.w_scale is not None),
+        kv_pool_bytes=sum(t.numel() * t.element_size()
+                          for c in eng.cache for t in c.values()))
 
 
 @contextmanager
@@ -309,8 +509,17 @@ def plain_versions():
     from repro_torch.kernels import csd_spmm, flash_attention
     from repro_torch.nn import attention
 
+    def fwd_quant_plain(x, w, w_scale, block_idx, **kw):
+        return csd_spmm.csd_spmm_fwd_plain(x, w, block_idx, w_scale=w_scale,
+                                           **kw)
+
     with mock.patch.object(csd_spmm, "csd_spmm_fwd_cuda",
                            csd_spmm.csd_spmm_fwd_plain), \
+            mock.patch.object(csd_spmm, "csd_spmm_fwd_quant_cuda",
+                              fwd_quant_plain), \
+            mock.patch.object(flash_attention,
+                              "paged_decode_attention_quant_cuda",
+                              flash_attention.paged_decode_attention_plain), \
             mock.patch.object(csd_spmm, "csd_spmm_dx_cuda",
                               csd_spmm.csd_spmm_dx_plain), \
             mock.patch.object(csd_spmm, "csd_spmm_dw_cuda",
@@ -320,32 +529,31 @@ def plain_versions():
         yield
 
 
-def serve(device, cfg, out_dir, prompt_lens=(64, 96, 112, 128), n_new=32):
+def serve(model, device, out_dir, quant=None,
+          prompt_lens=(64, 96, 112, 128), n_new=32):
+    """Serve ``model`` (phase 5; with ``quant`` phase 5b) and check it."""
     import numpy as np
     import torch
-    from repro_torch.kernels import csd_spmm, flash_attention
-    from repro_torch.nn.model import LM
     from repro_torch.serving.engine import ServingEngine
 
+    cfg = model.cfg
+    tag = "int8" if quant is not None else cfg.dtype
     t0 = time.perf_counter()
-    model = LM(cfg, device=device,
-               generator=torch.Generator(device=device).manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
-    warm = ServingEngine(model, engine_config(), device=device)
+    warm = ServingEngine(model, engine_config(quant), device=device)
     warm.run([np.arange(16, dtype=np.int32)], 2)  # cuBLAS handles, smem attrs
     torch.cuda.synchronize()
     log(f"built {cfg.name} ({n_params / 1e9:.3f} B params, "
-        f"{cfg.n_layers} layers) and warmed up in "
+        f"{cfg.n_layers} layers, {tag}) and warmed up in "
         f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
     lens = list(prompt_lens)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
-    eng = ServingEngine(model, engine_config(), device=device)
+    eng = ServingEngine(model, engine_config(quant), device=device)
     torch.cuda.reset_peak_memory_stats(device)
-    csd_spmm.csd_spmm_fwd_cuda.launches = 0
-    flash_attention.paged_decode_attention_cuda.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     for i, p in enumerate(prompts):
@@ -366,32 +574,43 @@ def serve(device, cfg, out_dir, prompt_lens=(64, 96, 112, 128), n_new=32):
                 s.n_generated for s in eng.sched.active if s is not None)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {"csd_spmm_fwd": csd_spmm.csd_spmm_fwd_cuda.launches,
-                "paged_decode_attention":
-                    flash_attention.paged_decode_attention_cuda.launches}
+    launches = serve_launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     outs = [eng.outputs[i] for i in range(len(prompts))]
     toks = np.stack(outs)
     gen_total = toks.size
     rec = dict(model=cfg.name, n_layers=cfg.n_layers,
                d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+               quant=None if quant is None else dict(weights=quant.weights,
+                                                     kv=quant.kv),
                requests=len(prompts), prompt_lens=lens, new_tokens=n_new,
                steps=steps, wall_s=t_end - t_start,
                tok_per_s=gen_total / (t_end - t_start),
                decode_tok_per_s=(gen_total - gen_at) / (t_end - t_prefilled),
                ttft_s=[ttft[i] for i in range(len(prompts))],
-               peak_mem_gb=peak_gb, launches=launches)
+               peak_mem_gb=peak_gb, launches=launches, **resident_bytes(eng))
     log(json.dumps(rec))
     if toks.shape != (len(prompts), n_new) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
         fail(f"served tokens malformed: shape {toks.shape}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"the served run never launched {name}")
+    # the run went through this configuration's kernels and no others
+    if quant is None:
+        want, never = ("csd_spmm_fwd", "paged_decode_attention"), \
+            ("csd_spmm_fwd_quant", "paged_decode_attention_quant")
+    else:
+        want, never = ("csd_spmm_fwd_quant", "paged_decode_attention_quant"), \
+            ("csd_spmm_fwd", "paged_decode_attention")
+    for name in want:
+        if launches[name] <= 0:
+            fail(f"the {tag} served run never launched {name}")
+    for name in never:
+        if launches[name] != 0:
+            fail(f"the {tag} served run launched {name} {launches[name]} "
+                 f"times")
 
     # the decode step after the prefill drain, run from one cache state with
     # the kernels and with their plain versions
-    chk = ServingEngine(model, engine_config(), device=device)
+    chk = ServingEngine(model, engine_config(quant), device=device)
     for i, p in enumerate(prompts):
         chk.add_request(p, n_new, req_id=i)
     while chk.sched.waiting or any(s is not None and s.prefilling
@@ -412,7 +631,9 @@ def serve(device, cfg, out_dir, prompt_lens=(64, 96, 112, 128), n_new=32):
         chk.cache = [{k: v.clone() for k, v in c.items()} for c in base]
         return chk._run(tokens, chk.sched.state.seq_lens, n_new_a)
 
+    reset_launch_counts()
     logits_k = run_step()
+    per_step = {k: v for k, v in serve_launch_counts().items() if v}
     with plain_versions():
         logits_p = run_step()
     torch.cuda.synchronize()
@@ -421,16 +642,76 @@ def serve(device, cfg, out_dir, prompt_lens=(64, 96, 112, 128), n_new=32):
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    chk_rec = dict(check="decode logits after the prefill drain, kernels "
-                         "vs plain versions",
+    chk_rec = dict(check=f"{tag} decode logits after the prefill drain, "
+                         f"kernels vs plain versions",
                    rows=len(rows), max_abs_err=err, max_abs_logit=scale,
                    tol=LOGIT_TOL * scale, argmax_agreement=agree,
-                   finite=bool(torch.isfinite(lk).all()))
+                   finite=bool(torch.isfinite(lk).all()),
+                   launches_per_decode_step=per_step)
     log(json.dumps(chk_rec))
     if not chk_rec["finite"] or err > LOGIT_TOL * scale:
         fail(f"decode logits disagree: {chk_rec}")
-    return rec, chk_rec, profile_decode(model, prompts, n_new, device,
-                                        out_dir)
+    expect = {want[0]: 3 * cfg.n_layers, want[1]: cfg.n_layers}
+    if per_step != expect:
+        fail(f"{tag} decode step launched {per_step}, expected {expect}")
+    return rec, chk_rec, profile_decode(
+        model, prompts, n_new, device, out_dir, quant), toks, prompts
+
+
+def top1_agreement(ref_model, model, prompts, gen, device, quant,
+                   page_size=16):
+    """Teacher-forced top-1 agreement of ``model`` (served with ``quant``)
+    against ``ref_model`` (full width), counted as the JAX package's
+    ``benchmarks/serving_bench.py::int8_top1_agreement`` counts it: both are
+    fed the reference's tokens (``prompts`` then ``gen``), and at every
+    generated position the argmaxes are compared; a flip where the
+    reference's top-2 logit gap is below ``NEAR_TIE_MARGIN`` counts as a
+    near tie. The rows run batched, one paged step per position."""
+    import numpy as np
+    import torch
+    from repro_torch.nn.common import dtype_of
+
+    b = len(prompts)
+    lens = np.asarray([len(p) for p in prompts], np.int32)
+    n_gen = gen.shape[1]
+    per_row = -(-(int(lens.max()) + n_gen) // page_size)
+    table = torch.arange(b * per_row, dtype=torch.int32,
+                         device=device).reshape(b, per_row)
+    dt = dtype_of(ref_model.cfg)
+    caches = [ref_model.init_paged_cache(b * per_row, page_size, dt, device),
+              model.init_paged_cache(b * per_row, page_size, dt, device,
+                                     quant_kv=quant.kv)]
+    prompt = np.zeros((b, int(lens.max())), np.int32)
+    for i, p in enumerate(prompts):
+        prompt[i, :len(p)] = p
+
+    def step(m, cache, toks, pos, n):
+        return m.paged_step(
+            torch.as_tensor(toks, device=device),
+            torch.as_tensor(pos, dtype=torch.int32, device=device),
+            torch.as_tensor(n, dtype=torch.int32, device=device), cache,
+            table)[:, 0].float()
+
+    l_ref = step(ref_model, caches[0], prompt, np.zeros(b), lens)
+    l_q = step(model, caches[1], prompt, np.zeros(b), lens)
+    n_same = n_tie = 0
+    for j in range(n_gen):
+        a_ref, a_q = l_ref.argmax(-1), l_q.argmax(-1)
+        top2 = l_ref.topk(2, dim=-1).values
+        same = a_ref == a_q
+        n_same += int(same.sum())
+        n_tie += int((~same & (top2[:, 0] - top2[:, 1]
+                               < NEAR_TIE_MARGIN)).sum())
+        toks = gen[:, j:j + 1]
+        pos = lens + j
+        l_ref = step(ref_model, caches[0], toks, pos, np.ones(b))
+        l_q = step(model, caches[1], toks, pos, np.ones(b))
+    n_tok = b * n_gen
+    return dict(check="teacher-forced top-1 agreement, int8 vs bf16 "
+                      "engine logits (recorded, not gated)",
+                raw=n_same / n_tok, gated=(n_same + n_tie) / n_tok,
+                n_near_tie=n_tie, n_tok=n_tok,
+                near_tie_margin=NEAR_TIE_MARGIN)
 
 
 def export_trace(prof, path: Path) -> None:
@@ -443,7 +724,8 @@ def export_trace(prof, path: Path) -> None:
     path.unlink()
 
 
-def profile_decode(model, prompts, n_new, device, out_dir, n_steps=4):
+def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
+                   n_steps=4):
     """Where a decode step's time goes: ``n_steps`` engine decode steps
     under ``torch.profiler``, kernel time summed by name."""
     import torch
@@ -451,7 +733,7 @@ def profile_decode(model, prompts, n_new, device, out_dir, n_steps=4):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ServingEngine
 
-    eng = ServingEngine(model, engine_config(), device=device)
+    eng = ServingEngine(model, engine_config(quant), device=device)
     for i, p in enumerate(prompts):
         eng.add_request(p, n_new, req_id=i)
     while eng.sched.waiting or any(s is not None and s.prefilling
@@ -466,7 +748,8 @@ def profile_decode(model, prompts, n_new, device, out_dir, n_steps=4):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    export_trace(prof, out_dir / "decode_trace.json")
+    export_trace(prof, out_dir / ("decode_trace.json" if quant is None
+                                  else "decode_trace_int8.json"))
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
@@ -476,7 +759,9 @@ def profile_decode(model, prompts, n_new, device, out_dir, n_steps=4):
                if e.device_type == DeviceType.CUDA]
     total_us = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    rec = dict(check="decode step profile", steps=n_steps,
+    rec = dict(check="decode step profile" + ("" if quant is None
+                                              else " (int8)"),
+               steps=n_steps,
                wall_ms_per_step=wall * 1e3 / n_steps,
                kernel_ms_per_step=total_us / 1e3 / n_steps
                if total_us else "not measured",
@@ -623,9 +908,10 @@ def train_launch_counts():
 
 def reset_launch_counts():
     from repro_torch.kernels import csd_spmm, flash_attention
-    for fn in (csd_spmm.csd_spmm_fwd_cuda, csd_spmm.csd_spmm_dx_cuda,
-               csd_spmm.csd_spmm_dw_cuda,
-               flash_attention.paged_decode_attention_cuda):
+    for fn in (csd_spmm.csd_spmm_fwd_cuda, csd_spmm.csd_spmm_fwd_quant_cuda,
+               csd_spmm.csd_spmm_dx_cuda, csd_spmm.csd_spmm_dw_cuda,
+               flash_attention.paged_decode_attention_cuda,
+               flash_attention.paged_decode_attention_quant_cuda):
         fn.launches = 0
 
 
@@ -850,30 +1136,53 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # phases 3-4
+    # phases 3-4, 4b
     results = []
-    run_spmm(get_config("gemma3_4b"), device, results)
+    cfg = get_config("gemma3_4b")
+    run_spmm(cfg, device, results)
     run_paged(device, results)
+    run_spmm_quant(cfg, device, results)
+    run_paged_quant(device, results)
     torch.cuda.empty_cache()
+    log(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
 
     # phase 5
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.nn.model import LM
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    serve_rec, chk_rec, prof_rec = serve(device, get_config("gemma3_4b"),
-                                         out_dir)
 
-    gc.collect()  # the serving model and its engines
+    def fresh_model():  # f32 parameters from the seed
+        return LM(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(SEED))
+
+    bf16_model = fresh_model()
+    serve_rec, chk_rec, prof_rec, bf16_toks, prompts = serve(
+        bf16_model, device, out_dir)
+    log(f"phase 5 done at {time.perf_counter() - t_all:.1f} s")
+
+    # phase 5b: the same weights, quantized at load from f32
+    quant = QuantConfig(weights=True, kv=True)
+    int8_model = fresh_model()
+    q_serve_rec, q_chk_rec, q_prof_rec, _, _ = serve(
+        int8_model, device, out_dir, quant=quant)
+    agree_rec = top1_agreement(bf16_model, int8_model, prompts, bf16_toks,
+                               device, quant)
+    log(json.dumps(agree_rec))
+    log(f"phase 5b done at {time.perf_counter() - t_all:.1f} s")
+    del bf16_model, int8_model
+    gc.collect()  # the serving models and their engines
     torch.cuda.empty_cache()
 
     # phase 6
-    run_train_kernels(get_config("gemma3_4b"), device, results)
+    run_train_kernels(cfg, device, results)
 
     # phase 7
-    step_chk, train_rec, train_prof = train(device, get_config("gemma3_4b"),
-                                            out_dir)
+    step_chk, train_rec, train_prof = train(device, cfg, out_dir)
 
     # phase 8: one entry per kernel: the junction kernels at the training
-    # shape of the gelu gate junction, paged decode at a decode step's
+    # shape of the gelu gate junction, paged decode at a decode step's, the
+    # int8 kernels at the decode step's down junction and attention
     def pick(kernel, **want):
         return next(r for r in results if r["kernel"] == kernel and all(
             r.get(k) == v for k, v in want.items()))
@@ -901,7 +1210,23 @@ def main() -> int:
             ("csd_spmm_dw", pick("csd_spmm_dw", **gate),
              "src/repro_torch/kernels/csrc/csd_spmm_dw.cu",
              "src/repro/kernels/csd_spmm.py:679",
-             train_rec["launches"]["csd_spmm_dw"], gate_shape)):
+             train_rec["launches"]["csd_spmm_dw"], gate_shape),
+            ("csd_spmm_fwd_quant",
+             pick("csd_spmm_fwd_quant", junction="down", m=4,
+                  dtype="bfloat16", activation=None),
+             "src/repro_torch/kernels/csrc/csd_spmm_fwd_quant.cu",
+             "src/repro/kernels/csd_spmm.py:253",
+             q_serve_rec["launches"]["csd_spmm_fwd_quant"],
+             "down, x (4, 10240) bf16, w int8 (5, 32, 256, 512), "
+             "w_scale f32 (5, 32)"),
+            ("paged_decode_attention_quant",
+             pick("paged_decode_attention_quant", dtype="bfloat16",
+                  window=None),
+             "src/repro_torch/kernels/csrc/paged_decode.cu",
+             "src/repro/kernels/flash_attention.py:299",
+             q_serve_rec["launches"]["paged_decode_attention_quant"],
+             "q (4, 4, 2, 256) bf16, int8 pages, page 16, lengths "
+             "[1100, 517, 0, 1040]")):
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
@@ -912,6 +1237,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cases=results,
              serve=serve_rec, logits_check=chk_rec, profile=prof_rec,
+             serve_int8=q_serve_rec, logits_check_int8=q_chk_rec,
+             profile_int8=q_prof_rec, top1_agreement_int8=agree_rec,
              train_step_check=step_chk, train=train_rec,
              train_profile=train_prof, kernels=entries),
         indent=1))

@@ -10,5 +10,7 @@ Ported so far: serving a decoder-only LM (gemma3_4b) through the paged
 serving engine, with the ``csd_spmm_fwd`` and ``paged_decode_attention``
 kernels; and training it (``train.Trainer``, ``launch.train``) with the
 junction's forward, backward-data and backward-weights kernels
-(``csd_spmm_fwd``, ``csd_spmm_dx``, ``csd_spmm_dw``).
+(``csd_spmm_fwd``, ``csd_spmm_dx``, ``csd_spmm_dw``); and serving it in
+int8 (``core.quant``, ``EngineConfig.quant``) with the int8 forward kernel
+``csd_spmm_fwd_quant`` and paged decode over int8 pages.
 """

@@ -10,6 +10,11 @@ arrays, so this module needs no JAX.
 A gradient tree from ``jax.grad`` of the LM's loss has the parameter
 tree's structure, so the same function maps it onto the port's parameter
 names; the training tests compare gradients that way.
+
+A tree that the JAX package's ``quantize_tree`` has rewritten (int8 slab
+``w`` with an f32 sibling ``w_scale``) loads into a port model that
+``core.quant.quantize_model`` has quantized: the slabs and scales arrive
+bit for bit.
 """
 from __future__ import annotations
 
@@ -41,9 +46,10 @@ def _block_name(path: tuple) -> str:
 
 
 def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
-    """The port's state dict (parameters only) for ``model`` from the JAX
-    ``LM`` parameter tree as numpy arrays. Raises if a parameter is missing,
-    left over, or of another shape."""
+    """The port's state dict (parameters, and the ``w_scale`` buffers of a
+    quantized model) for ``model`` from the JAX ``LM`` parameter tree as
+    numpy arrays. Raises if a parameter is missing, left over, or of
+    another shape."""
     stack = np_tree["stack"]
     if stack.get("prologue"):
         raise NotImplementedError("stacks with a prologue layer")
@@ -62,6 +68,8 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
         for path, arr in _items(blk):
             out[f"layers.{n_groups * unit + i}.{_block_name(path)}"] = arr
     params = dict(model.named_parameters())
+    params.update((n, b) for n, b in model.named_buffers()
+                  if n.endswith(".w_scale"))
     if set(out) != set(params):
         raise ValueError(
             f"parameter mismatch: missing {sorted(set(params) - set(out))}, "
@@ -71,5 +79,9 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
         p = params[name]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        if (p.dtype == torch.int8) != (arr.dtype == np.int8):
+            raise ValueError(f"{name}: a {arr.dtype} array for a {p.dtype} "
+                             f"tensor (int8 slabs load from a quantized "
+                             f"tree into a quantized model)")
         sd[name] = torch.as_tensor(np.array(arr), dtype=p.dtype)
     return sd

@@ -1,1 +1,2 @@
-"""Pre-defined sparse patterns (numpy; the port's own copies)."""
+"""Pre-defined sparse patterns (numpy; the port's own copies) and the
+int8 quantization of junction slabs."""

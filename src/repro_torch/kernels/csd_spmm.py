@@ -26,6 +26,12 @@ Two implementations of each operation live here:
 * ``*_cuda`` — the hand-written Hopper kernels under ``csrc/``. They take
   CUDA tensors only and raise on anything they do not take; they never fall
   back to the plain version. Each counts its launches in ``.launches``.
+
+The forward also has an int8 form for serving (``w_scale``): the slab is
+int8 with one f32 scale per (bL x bR) block (``core.quant``), each slot's
+partial sum is scaled before it is accumulated, and no gradient exists.
+Its kernel is ``csrc/csd_spmm_fwd_quant.cu`` (``csd_spmm_fwd_quant_cuda``,
+which ``csd_spmm_fwd_cuda`` calls when given ``w_scale``).
 """
 from __future__ import annotations
 
@@ -77,6 +83,25 @@ def mask_cotangent(dy: torch.Tensor, aux: Optional[torch.Tensor],
     raise ValueError(f"unsupported fused activation {activation!r}")
 
 
+def _check_quant(name: str, w: torch.Tensor,
+                 w_scale: Optional[torch.Tensor], save_preact: bool) -> None:
+    """The int8 forward's contract: inference only, an int8 slab."""
+    if w_scale is None:
+        if w.dtype == torch.int8:
+            raise ValueError(f"{name}: an int8 slab needs its w_scale")
+        return
+    if save_preact:
+        raise ValueError(f"{name}: save_preact is unsupported on the "
+                         f"quantized path (inference only; training stays "
+                         f"full width)")
+    if w.dtype != torch.int8:
+        raise ValueError(f"{name}: w_scale given but w.dtype={w.dtype}, "
+                         f"expected int8")
+    if tuple(w_scale.shape) != tuple(w.shape[:2]):
+        raise ValueError(f"{name}: w_scale {tuple(w_scale.shape)} must be "
+                         f"{tuple(w.shape[:2])}")
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -86,10 +111,17 @@ def csd_spmm_fwd_plain(x: torch.Tensor, w: torch.Tensor,
                        block_idx: torch.Tensor, *,
                        bias: Optional[torch.Tensor] = None,
                        activation: Optional[str] = None,
-                       save_preact: bool = False):
+                       save_preact: bool = False,
+                       w_scale: Optional[torch.Tensor] = None):
     """x (M, n_in), w (n_rb, d_in_b, bL, bR), block_idx (n_rb, d_in_b)
     integer tensor, bias (n_rb * bR,) or None -> y (M, n_rb * bR), or
-    (y, z) with ``save_preact``."""
+    (y, z) with ``save_preact``.
+
+    ``w_scale`` (n_rb, d_in_b) f32 selects the int8 forward (inference
+    only): ``w`` is int8, each slot's f32 partial sum of x @ q is
+    multiplied by its block's scale before it is accumulated, as the JAX
+    package's Pallas kernel ``_fwd_kernel_quant`` does."""
+    _check_quant("csd_spmm_fwd", w, w_scale, save_preact)
     m = x.shape[0]
     n_rb, d_in_b, bl, br = w.shape
     xb = x.reshape(m, -1, bl)
@@ -97,7 +129,10 @@ def csd_spmm_fwd_plain(x: torch.Tensor, w: torch.Tensor,
     acc = torch.zeros((m, n_rb, br), dtype=torch.float32, device=x.device)
     for f in range(d_in_b):
         lhs = xb[:, idx[:, f], :].float()  # (M, n_rb, bL)
-        acc += torch.einsum("mri,rio->mro", lhs, w[:, f].float())
+        part = torch.einsum("mri,rio->mro", lhs, w[:, f].float())
+        if w_scale is not None:
+            part = part * w_scale[:, f].float()[None, :, None]
+        acc += part
     z = acc.reshape(m, n_rb * br)
     if bias is not None:
         z = z + bias.float()
@@ -215,35 +250,54 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def csd_spmm_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
-                      block_idx: torch.Tensor, *,
-                      bias: Optional[torch.Tensor] = None,
-                      activation: Optional[str] = None,
-                      save_preact: bool = False):
-    """Launch ``csrc/csd_spmm_fwd.cu`` on the current stream. Same contract
-    as ``csd_spmm_fwd_plain``; ``block_idx`` must be an int32 tensor on the
-    device of ``x``. Raises on what the kernel does not take."""
-    if activation not in _ACT_CODE:
-        raise ValueError(f"unsupported fused activation {activation!r}")
-    floats = (x, w) if bias is None else (x, w, bias)
-    _check("csd_spmm_fwd_cuda", floats + (block_idx,), floats, (block_idx,))
+def _check_fwd_shapes(name: str, x, w, block_idx, bias) -> tuple:
     if x.dim() != 2 or w.dim() != 4:
-        raise ValueError("csd_spmm_fwd_cuda: x must be 2-D and w 4-D")
+        raise ValueError(f"{name}: x must be 2-D and w 4-D")
     m, n_in = x.shape
     n_rb, d_in_b, bl, br = w.shape
     if bl % 64 or br % 64 or n_in % bl \
             or tuple(block_idx.shape) != (n_rb, d_in_b) \
             or (bias is not None and tuple(bias.shape) != (n_rb * br,)):
         raise ValueError(
-            f"csd_spmm_fwd_cuda: shapes not taken: x {tuple(x.shape)}, "
+            f"{name}: shapes not taken: x {tuple(x.shape)}, "
             f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
             f"block_idx {tuple(block_idx.shape)}")
+    return m, n_in, n_rb, d_in_b, bl, br
+
+
+def _splits(x: torch.Tensor, m: int, n_out: int, d_in_b: int):
+    """(n_splits, f32 partial-sum scratch or None) of a forward launch."""
+    n_splits = split_count(m, n_out, d_in_b, _sm_count(x.device))
+    partial = torch.empty((n_splits, m, n_out), dtype=torch.float32,
+                          device=x.device) if n_splits > 1 else None
+    return n_splits, partial
+
+
+def csd_spmm_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
+                      block_idx: torch.Tensor, *,
+                      bias: Optional[torch.Tensor] = None,
+                      activation: Optional[str] = None,
+                      save_preact: bool = False,
+                      w_scale: Optional[torch.Tensor] = None):
+    """Launch ``csrc/csd_spmm_fwd.cu`` on the current stream. Same contract
+    as ``csd_spmm_fwd_plain``; ``block_idx`` must be an int32 tensor on the
+    device of ``x``. With ``w_scale`` the int8 kernel runs instead
+    (``csd_spmm_fwd_quant_cuda``). Raises on what the kernel does not
+    take."""
+    if activation not in _ACT_CODE:
+        raise ValueError(f"unsupported fused activation {activation!r}")
+    _check_quant("csd_spmm_fwd_cuda", w, w_scale, save_preact)
+    if w_scale is not None:
+        return csd_spmm_fwd_quant_cuda(x, w, w_scale, block_idx, bias=bias,
+                                       activation=activation)
+    floats = (x, w) if bias is None else (x, w, bias)
+    _check("csd_spmm_fwd_cuda", floats + (block_idx,), floats, (block_idx,))
+    m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
+        "csd_spmm_fwd_cuda", x, w, block_idx, bias)
     y = torch.empty((m, n_rb * br), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if save_preact else None
     if m > 0:
-        n_splits = split_count(m, n_rb * br, d_in_b, _sm_count(x.device))
-        partial = torch.empty((n_splits, m, n_rb * br), dtype=torch.float32,
-                              device=x.device) if n_splits > 1 else None
+        n_splits, partial = _splits(x, m, n_rb * br, d_in_b)
         rc = _bind("csd_spmm_fwd", 7, 9)(
             x.data_ptr(), w.data_ptr(), block_idx.data_ptr(), _ptr(bias),
             y.data_ptr(), _ptr(z), _ptr(partial),
@@ -253,6 +307,39 @@ def csd_spmm_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
         _raise_on(rc, "csd_spmm_fwd")
         csd_spmm_fwd_cuda.launches += 1
     return (y, z) if save_preact else y
+
+
+def csd_spmm_fwd_quant_cuda(x: torch.Tensor, w: torch.Tensor,
+                            w_scale: torch.Tensor, block_idx: torch.Tensor,
+                            *, bias: Optional[torch.Tensor] = None,
+                            activation: Optional[str] = None) -> torch.Tensor:
+    """Launch ``csrc/csd_spmm_fwd_quant.cu`` on the current stream: the
+    int8 forward, inference only. x (M, n_in) f32/bf16, w int8 (n_rb,
+    d_in_b, bL, bR), w_scale f32 (n_rb, d_in_b), bias like x or None,
+    block_idx int32, all on the device of x -> y (M, n_rb * bR) like x.
+    Raises on what the kernel does not take."""
+    if activation not in _ACT_CODE:
+        raise ValueError(f"unsupported fused activation {activation!r}")
+    _check_quant("csd_spmm_fwd_quant_cuda", w, w_scale, False)
+    floats = (x,) if bias is None else (x, bias)
+    _check("csd_spmm_fwd_quant_cuda", floats + (w, w_scale, block_idx),
+           floats, (block_idx,))
+    if w_scale.dtype != torch.float32:
+        raise ValueError("csd_spmm_fwd_quant_cuda: w_scale must be float32")
+    m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
+        "csd_spmm_fwd_quant_cuda", x, w, block_idx, bias)
+    y = torch.empty((m, n_rb * br), dtype=x.dtype, device=x.device)
+    if m > 0:
+        n_splits, partial = _splits(x, m, n_rb * br, d_in_b)
+        rc = _bind("csd_spmm_fwd_quant", 7, 9)(
+            x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+            block_idx.data_ptr(), _ptr(bias), y.data_ptr(), _ptr(partial),
+            m, n_in, n_rb, d_in_b, bl, br, n_splits,
+            _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+            torch.cuda.current_stream().cuda_stream)
+        _raise_on(rc, "csd_spmm_fwd_quant")
+        csd_spmm_fwd_quant_cuda.launches += 1
+    return y
 
 
 def csd_spmm_dx_cuda(dy: torch.Tensor, w: torch.Tensor,
@@ -332,5 +419,6 @@ def csd_spmm_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
 
 
 csd_spmm_fwd_cuda.launches = 0
+csd_spmm_fwd_quant_cuda.launches = 0
 csd_spmm_dx_cuda.launches = 0
 csd_spmm_dw_cuda.launches = 0

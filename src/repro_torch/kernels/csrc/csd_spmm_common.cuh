@@ -1,7 +1,8 @@
-// Device helpers shared by the three block-sparse junction kernels
-// (csd_spmm_fwd.cu, csd_spmm_dx.cu, csd_spmm_dw.cu): 16-byte cp.async
-// copies with zero fill, f32 <-> storage-type conversion, the fused
-// activation and its derivative folded into a cotangent.
+// Device helpers shared by the block-sparse junction kernels
+// (csd_spmm_fwd.cu, csd_spmm_fwd_quant.cu, csd_spmm_dx.cu, csd_spmm_dw.cu):
+// 16-byte cp.async copies with zero fill, f32 <-> storage-type conversion,
+// the fused activation and its derivative folded into a cotangent, and the
+// two forward kernels' epilogue and ordered second pass over fan-in splits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -90,6 +91,42 @@ __device__ __forceinline__ void mask_tile(T* dy, const T* aux, int act,
 #pragma unroll
     for (int i = 0; i < N; ++i) mask_in_place(de + i, ae[i], act);
     *reinterpret_cast<uint4*>(dy + off) = dv;
+  }
+}
+
+// Writes the tile's element (m, n) of the junction output: the finished
+// value (and the pre-activation when zout is given) when there is one
+// split, else the split's raw f32 partial sum.
+template <typename T>
+__device__ __forceinline__ void emit(float z, int m, int n, int M, int n_out,
+                                     const T* bias, T* y, T* zout,
+                                     float* partial, int act) {
+  if (partial != nullptr) {
+    partial[(static_cast<size_t>(blockIdx.z) * M + m) * n_out + n] = z;
+    return;
+  }
+  if (bias != nullptr) z += to_f32(bias[n]);
+  const size_t e = static_cast<size_t>(m) * n_out + n;
+  if (zout != nullptr) store(z, zout + e);
+  store(activate(z, act), y + e);
+}
+
+// Second pass of a split junction: z = sum_s partial[s] + bias, the splits
+// added in order; y = act(z), and z itself when zout is given.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    reduce_splits_kernel(const float* __restrict__ partial,
+                         const T* __restrict__ bias, T* __restrict__ y,
+                         T* __restrict__ zout, int M, int n_out, int n_splits,
+                         int act) {
+  const size_t total = static_cast<size_t>(M) * n_out;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float z = 0.f;
+    for (int s = 0; s < n_splits; ++s) z += partial[s * total + e];
+    if (bias != nullptr) z += to_f32(bias[e % n_out]);
+    if (zout != nullptr) store(z, zout + e);
+    store(activate(z, act), y + e);
   }
 }
 

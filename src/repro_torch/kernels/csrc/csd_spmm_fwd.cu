@@ -35,12 +35,10 @@
 
 namespace {
 
-using csd::activate;
 using csd::cp_async16;
 using csd::cp_async_commit;
 using csd::cp_async_wait;
-using csd::store;
-using csd::to_f32;
+using csd::emit;
 
 constexpr int kThreads = 128;
 constexpr int kBN = 64;
@@ -55,23 +53,6 @@ struct Tile {
   static constexpr int SMEM =
       STAGES * (BM * XS + BK * WS) * static_cast<int>(sizeof(T));
 };
-
-// Writes the tile's element (m, n) of the junction output: the finished
-// value (and the pre-activation when zout is given) when there is one
-// split, else the split's raw f32 partial sum.
-template <typename T>
-__device__ __forceinline__ void emit(float z, int m, int n, int M, int n_out,
-                                     const T* bias, T* y, T* zout,
-                                     float* partial, int act) {
-  if (partial != nullptr) {
-    partial[(static_cast<size_t>(blockIdx.z) * M + m) * n_out + n] = z;
-    return;
-  }
-  if (bias != nullptr) z += to_f32(bias[n]);
-  const size_t e = static_cast<size_t>(m) * n_out + n;
-  if (zout != nullptr) store(z, zout + e);
-  store(activate(z, act), y + e);
-}
 
 template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
@@ -224,25 +205,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Second pass of a split junction: z = sum_s partial[s] + bias, the splits
-// added in order; y = act(z), and z itself when zout is given.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    csd_spmm_reduce_kernel(const float* __restrict__ partial,
-                           const T* __restrict__ bias, T* __restrict__ y,
-                           T* __restrict__ zout, int M, int n_out,
-                           int n_splits, int act) {
-  const size_t total = static_cast<size_t>(M) * n_out;
-  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float z = 0.f;
-    for (int s = 0; s < n_splits; ++s) z += partial[s * total + e];
-    if (bias != nullptr) z += to_f32(bias[e % n_out]);
-    if (zout != nullptr) store(z, zout + e);
-    store(activate(z, act), y + e);
-  }
-}
-
 template <typename T, int BM>
 int launch(const void* x, const void* w, const int* idx, const void* bias,
            void* y, void* z, float* partial, int M, int n_in, int n_rb,
@@ -269,7 +231,7 @@ int launch(const void* x, const void* w, const int* idx, const void* bias,
   if (e != cudaSuccess || n_splits == 1) return static_cast<int>(e);
   const size_t total = static_cast<size_t>(M) * n_out;
   const int blocks = static_cast<int>((total + 255) / 256);
-  csd_spmm_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
+  csd::reduce_splits_kernel<T><<<blocks, 256, 0, stream>>>(
       partial, static_cast<const T*>(bias), static_cast<T*>(y),
       static_cast<T*>(z), M, n_out, n_splits, act);
   return static_cast<int>(cudaGetLastError());

@@ -1,17 +1,19 @@
 // paged_decode_attention — one grouped query token over a paged KV cache,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a); its pages full width or int8.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // paged_decode_attention (Pallas wrapper _paged_decode_pallas, body
-// _paged_decode_kernel with quant=False): for every (row b, kv head h) the
+// _paged_decode_kernel with quant=False, and with quant=True for int8
+// pages with per-token f32 scales): for every (row b, kv head h) the
 // G query heads of the group attend to the keys kpos < lengths[b] (and,
 // with a window, kpos > lengths[b] - 1 - window) that the row's page table
 // maps, with an optional tanh softcap, online softmax in f32, and an empty
 // row giving 0.
 //
 // What bounds it on the card: bytes, the K and V pages that the rows'
-// visible positions occupy; the arithmetic is about 4 G Dh operations per
-// key, far below the ridge point.
+// visible positions occupy (and with int8 pages 8 bytes of scales per
+// key); the arithmetic is about 4 G Dh operations per key, far below the
+// ridge point.
 //
 // What the design does about it: the Pallas grid walks one row's pages in
 // sequence; a decode batch has only B x Hkv (row, head) pairs, far fewer
@@ -30,9 +32,20 @@
 // With more than one split, each CTA writes its unnormalised output with
 // its running max and sum, and a second kernel merges the splits in order,
 // as the online softmax would have.
+//
+// Int8 pages (paged_decode_attention_quant) keep that plan. A lane's 8 head
+// dims of an int8 K or V row are 8 bytes, read with one 8-byte load (the
+// lane-to-dim map of bf16), so a 64-key tile of Dh 256 is 16 KB per page
+// kind instead of 32 KB. Each tile's 64 per-token scales are copied beside
+// it through the same page-table entries (a -1 entry is never dereferenced,
+// for scales as for pages), and each key is dequantized as the reference
+// does it, k = float(q8) * k_scale[token] in f32, before the dot product
+// with the scaled query; V likewise before it is accumulated.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -58,36 +71,82 @@ __device__ __forceinline__ void store(float v, __nv_bfloat16* out) {
   *out = __float2bfloat16(v);
 }
 
-template <typename T>
+// How a lane reads its chunk of a K/V row in shared memory: EPC
+// consecutive head dims, converted to f32 (16 bytes of f32 or bf16, 8 bytes
+// of int8).
+template <typename PT>
+struct PageIO;
+template <>
+struct PageIO<float> {
+  static constexpr int EPC = 4;
+  __device__ static void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  }
+};
+template <>
+struct PageIO<__nv_bfloat16> {
+  static constexpr int EPC = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+  }
+};
+template <>
+struct PageIO<int8_t> {
+  static constexpr int EPC = 8;
+  __device__ static void load(const int8_t* p, float* out) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    const int8_t* e = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(e[i]);
+  }
+};
+
+template <typename PT>
 size_t smem_bytes(int G, int Dh, int KT, int tile_pages) {
-  return 2 * static_cast<size_t>(KT) * Dh * sizeof(T)  // K, V tiles
-         + static_cast<size_t>(G) * Dh * 4             // scaled q
-         + static_cast<size_t>(kWarps) * G * Dh * 4    // per-warp outputs
-         + static_cast<size_t>(kWarps) * G * 2 * 4     // per-warp max, sum
-         + static_cast<size_t>(tile_pages) * 4;        // page ids
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  return 2 * static_cast<size_t>(KT) * Dh * sizeof(PT)  // K, V tiles
+         + static_cast<size_t>(G) * Dh * 4              // scaled q
+         + static_cast<size_t>(kWarps) * G * Dh * 4     // per-warp outputs
+         + static_cast<size_t>(kWarps) * G * 2 * 4      // per-warp max, sum
+         + (kQuant ? 2 * static_cast<size_t>(KT) * 4 : 0)  // K, V scales
+         + static_cast<size_t>(tile_pages) * 4;         // page ids
 }
 
-template <typename T>
+template <typename T, typename PT>
 __global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages,
+    paged_decode_kernel(const T* __restrict__ q,
+                        const PT* __restrict__ k_pages,
+                        const PT* __restrict__ v_pages,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
                         const int* __restrict__ table,
                         const int* __restrict__ lengths, T* __restrict__ out,
                         float* __restrict__ part_o, float* __restrict__ part_ml,
                         int Hkv, int G, int Dh, int page_size, int n_pages,
                         int KT, int pages_per_split, int window,
                         float softcap, float scale) {
-  constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  constexpr int EPC = PageIO<PT>::EPC;  // head dims per lane chunk
   constexpr int CPL = 256 / EPC / 32;   // chunks per lane at Dh = 256
   constexpr int DPL = CPL * EPC;        // head dims per lane (8)
+  constexpr int EPV = 16 / sizeof(PT);  // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile_pages = KT / page_size;
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + KT * Dh;
+  PT* k_s = reinterpret_cast<PT*>(smem);
+  PT* v_s = k_s + KT * Dh;
   float* q_s = reinterpret_cast<float*>(v_s + KT * Dh);
   float* wacc_s = q_s + G * Dh;
   float* wml_s = wacc_s + kWarps * G * Dh;
-  int* pid_s = reinterpret_cast<int*>(wml_s + kWarps * G * 2);
+  float* ks_s = wml_s + kWarps * G * 2;  // per-token scales (int8 pages)
+  float* vs_s = ks_s + (kQuant ? KT : 0);
+  int* pid_s = reinterpret_cast<int*>(vs_s + (kQuant ? KT : 0));
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
@@ -95,7 +154,8 @@ __global__ void __launch_bounds__(kThreads)
   const int len = lengths[b];
   const int lo = window >= 0 ? max(0, len - window) : 0;  // first visible
   const int hi = len;                                      // one past last
-  const int VPR = Dh / EPC;  // 16-byte chunks per K/V row
+  const int VPR = Dh / EPC;  // lane chunks per K/V row
+  const int CPR = Dh / EPV;  // 16-byte copies per K/V row
 
   const size_t bh = static_cast<size_t>(b) * Hkv + h;
   for (int e = tid; e < G * Dh; e += kThreads)
@@ -131,17 +191,25 @@ __global__ void __launch_bounds__(kThreads)
                        ? table[static_cast<size_t>(b) * n_pages + p0 + tid]
                        : -1;
     __syncthreads();
-    for (int c = tid; c < KT * VPR; c += kThreads) {
-      const int r = c / VPR, cc = c - r * VPR;
+    for (int c = tid; c < KT * CPR; c += kThreads) {
+      const int r = c / CPR, cc = c - r * CPR;
       const int pid = pid_s[r / page_size], j = r % page_size;
       const size_t off =
           pid >= 0 ? ((static_cast<size_t>(pid) * page_size + j) * Hkv + h) *
-                             Dh + cc * EPC
+                             Dh + cc * EPV
                    : 0;
-      cp_async16(k_s + r * Dh + cc * EPC, k_pages + off, pid >= 0);
-      cp_async16(v_s + r * Dh + cc * EPC, v_pages + off, pid >= 0);
+      cp_async16(k_s + r * Dh + cc * EPV, k_pages + off, pid >= 0);
+      cp_async16(v_s + r * Dh + cc * EPV, v_pages + off, pid >= 0);
     }
     asm volatile("cp.async.commit_group;\n" ::);
+    if constexpr (kQuant) {
+      for (int r = tid; r < KT; r += kThreads) {
+        const int pid = pid_s[r / page_size];
+        const size_t t = static_cast<size_t>(pid) * page_size + r % page_size;
+        ks_s[r] = pid >= 0 ? k_scale[t] : 0.f;
+        vs_s[r] = pid >= 0 ? v_scale[t] : 0.f;
+      }
+    }
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
 
@@ -152,17 +220,20 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
         const int c = lane + 32 * j;
-        uint4 kc = make_uint4(0, 0, 0, 0), vc = make_uint4(0, 0, 0, 0);
         if (c < VPR) {
-          kc = *reinterpret_cast<const uint4*>(k_s + r * Dh + c * EPC);
-          vc = *reinterpret_cast<const uint4*>(v_s + r * Dh + c * EPC);
-        }
-        const T* kt = reinterpret_cast<const T*>(&kc);
-        const T* vt = reinterpret_cast<const T*>(&vc);
+          PageIO<PT>::load(k_s + r * Dh + c * EPC, kf + j * EPC);
+          PageIO<PT>::load(v_s + r * Dh + c * EPC, vf + j * EPC);
+        } else {
 #pragma unroll
-        for (int e = 0; e < EPC; ++e) {
-          kf[j * EPC + e] = to_f32(kt[e]);
-          vf[j * EPC + e] = to_f32(vt[e]);
+          for (int e = 0; e < EPC; ++e) kf[j * EPC + e] = vf[j * EPC + e] = 0.f;
+        }
+      }
+      if constexpr (kQuant) {
+        const float ks = ks_s[r], vs = vs_s[r];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          kf[e] *= ks;
+          vf[e] *= vs;
         }
       }
 #pragma unroll
@@ -264,28 +335,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, typename PT>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const int* table, const int* lengths, void* out, float* part_o,
-           float* part_ml, int B, int Hkv, int G, int Dh, int page_size,
-           int n_pages, int keys_per_tile, int pages_per_split, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           const float* k_scale, const float* v_scale, const int* table,
+           const int* lengths, void* out, float* part_o, float* part_ml,
+           int B, int Hkv, int G, int Dh, int page_size, int n_pages,
+           int keys_per_tile, int pages_per_split, int window, float softcap,
+           float scale, cudaStream_t stream) {
   const int tile_pages = keys_per_tile / page_size;
-  const size_t smem = smem_bytes<T>(G, Dh, keys_per_tile, tile_pages);
+  const size_t smem = smem_bytes<PT>(G, Dh, keys_per_tile, tile_pages);
   static size_t configured = 48 * 1024;  // the default dynamic limit
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        paged_decode_kernel<T, PT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = smem;
   }
   const int n_splits = (n_pages + pages_per_split - 1) / pages_per_split;
-  paged_decode_kernel<T><<<dim3(n_splits, Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), table, lengths, static_cast<T*>(out),
-      part_o, part_ml, Hkv, G, Dh, page_size, n_pages, keys_per_tile,
-      pages_per_split, window, softcap, scale);
+  paged_decode_kernel<T, PT>
+      <<<dim3(n_splits, Hkv, B), kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const PT*>(k_pages),
+          static_cast<const PT*>(v_pages), k_scale, v_scale, table, lengths,
+          static_cast<T*>(out), part_o, part_ml, Hkv, G, Dh, page_size,
+          n_pages, keys_per_tile, pages_per_split, window, softcap, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return static_cast<int>(e);
   paged_decode_merge_kernel<T><<<dim3(Hkv, B), kThreads, 0, stream>>>(
@@ -312,14 +385,38 @@ extern "C" int paged_decode_attention(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, table, lengths, out, part_o,
-                         part_ml, B, Hkv, G, Dh, page_size, n_pages,
-                         keys_per_tile, pages_per_split, window, softcap,
-                         scale, s);
+    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr, table,
+                                lengths, out, part_o, part_ml, B, Hkv, G, Dh,
+                                page_size, n_pages, keys_per_tile,
+                                pages_per_split, window, softcap, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, table, lengths, out,
-                                 part_o, part_ml, B, Hkv, G, Dh, page_size,
-                                 n_pages, keys_per_tile, pages_per_split,
-                                 window, softcap, scale, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, part_o,
+        part_ml, B, Hkv, G, Dh, page_size, n_pages, keys_per_tile,
+        pages_per_split, window, softcap, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same over int8 pages (P, page, Hkv, Dh) with per-token float32
+// scales k_scale, v_scale (P, page); dtype is that of q and out. Further
+// precondition: Dh % 16 == 0.
+extern "C" int paged_decode_attention_quant(
+    const void* q, const void* k_pages, const void* v_pages,
+    const float* k_scale, const float* v_scale, const int* table,
+    const int* lengths, void* out, float* part_o, float* part_ml, int B,
+    int Hkv, int G, int Dh, int page_size, int n_pages, int keys_per_tile,
+    int pages_per_split, int window, float softcap, float scale, int dtype,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, int8_t>(q, k_pages, v_pages, k_scale, v_scale, table,
+                                 lengths, out, part_o, part_ml, B, Hkv, G, Dh,
+                                 page_size, n_pages, keys_per_tile,
+                                 pages_per_split, window, softcap, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, k_scale, v_scale, table, lengths, out, part_o,
+        part_ml, B, Hkv, G, Dh, page_size, n_pages, keys_per_tile,
+        pages_per_split, window, softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,8 +9,10 @@ that wires the paper's three operations as the JAX package's Pallas branch
 does (``_fwd_vjp``/``_bwd_vjp``): FF saves ``(x, w, b, aux)``, with aux the
 output y for relu and the pre-activation z for gelu (``save_preact``); BP
 runs dx over the transpose pattern and UP runs dw (and db) with the
-activation's derivative masked in. There is no backend option, no tuning,
-sharding or quantization.
+activation's derivative masked in. With ``w_scale`` the slab is int8
+(``core.quant``) and the call runs the int8 forward: inference only, so a
+gradient request raises, as the JAX package's quantized junction has no
+VJP. There is no backend option, no tuning and no sharding.
 """
 from __future__ import annotations
 
@@ -75,12 +77,14 @@ def csd_matmul(x: torch.Tensor, w: torch.Tensor, block_idx: torch.Tensor, *,
                bias: Optional[torch.Tensor] = None,
                activation: Optional[str] = None,
                out_idx: Optional[torch.Tensor] = None,
-               out_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out_slot: Optional[torch.Tensor] = None,
+               w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., n_in) -> (..., n_out): ``activation(x @ W_sparse + bias)``
     with the epilogue fused, ``w`` the (n_rb, d_in_b, bL, bR) slab and
     ``block_idx`` its (n_rb, d_in_b) int32 pattern on the device of ``x``.
     A gradient also needs the scatter form ``out_idx``/``out_slot``
-    (n_lb, d_out_b), int32 on the same device."""
+    (n_lb, d_out_b), int32 on the same device. ``w_scale`` (n_rb, d_in_b)
+    f32 selects the int8 forward for an int8 ``w`` (inference only)."""
     if activation is not None and activation not in csd_spmm.ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation!r}")
     xf = x.reshape(-1, x.shape[-1])
@@ -88,7 +92,13 @@ def csd_matmul(x: torch.Tensor, w: torch.Tensor, block_idx: torch.Tensor, *,
         xf = xf.contiguous()
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, w, bias))
-    if needs_grad:
+    if w_scale is not None:
+        if needs_grad:
+            raise ValueError("csd_matmul: the int8 junction (w_scale) is "
+                             "inference only and has no gradient")
+        y = _kernels(x.device)[0](xf, w, block_idx, bias=bias,
+                                  activation=activation, w_scale=w_scale)
+    elif needs_grad:
         if out_idx is None or out_slot is None:
             raise ValueError("csd_matmul: a gradient needs out_idx/out_slot")
         y = CsdMatmul.apply(xf, w, bias, block_idx, out_idx, out_slot,

@@ -190,11 +190,15 @@ class Attention(nn.Module):
         cache: {'k_pages', 'v_pages'} of shape (P+1, page, Hkv, Dh),
         addressed through page_table (B, max_pages). The pages are updated
         in place (the JAX package donates them to the jitted step instead).
+        With ``k_scale``/``v_scale`` ((P+1, page) f32) in the cache the
+        pages are int8: new KV is quantized at append, decode runs the int8
+        kernel, and a prefill chunk dequantizes the gathered pages in f32.
         Returns (B, C, d).
         """
         cfg = self.cfg
         b, c = x.shape[:2]
         k_pages, v_pages = cache["k_pages"], cache["v_pages"]
+        scales = {k: cache[k] for k in ("k_scale", "v_scale") if k in cache}
         page_size = k_pages.shape[1]
         trash = k_pages.shape[0] - 1
         steps = torch.arange(c, dtype=torch.int32, device=x.device)
@@ -204,7 +208,12 @@ class Attention(nn.Module):
         q, k_new, v_new = self._qkv(x, positions)
         phys, off = kv_cache.physical_addresses(
             page_table, positions, valid, page_size, trash)
-        kv_cache.write_kv(k_pages, v_pages, k_new, v_new, phys, off)
+        if scales:
+            kv_cache.write_kv_quant(k_pages, v_pages, scales["k_scale"],
+                                    scales["v_scale"], k_new, v_new, phys,
+                                    off)
+        else:
+            kv_cache.write_kv(k_pages, v_pages, k_new, v_new, phys, off)
         lengths = pos + n_new
         scale = self.dh ** -0.5
 
@@ -212,11 +221,18 @@ class Attention(nn.Module):
             qg = q.reshape(b, self.kv, self.groups, self.dh)
             o = paged_decode_attention(
                 qg.contiguous(), k_pages, v_pages, page_table, lengths,
-                window=self.window, softcap=cfg.logit_softcap, scale=scale)
+                window=self.window, softcap=cfg.logit_softcap, scale=scale,
+                **scales)
             o = o.reshape(b, 1, self.h * self.dh).to(x.dtype)
         else:
-            k = kv_cache.gather_kv(k_pages, page_table).to(q.dtype)
-            v = kv_cache.gather_kv(v_pages, page_table).to(q.dtype)
+            k = kv_cache.gather_kv(k_pages, page_table)
+            v = kv_cache.gather_kv(v_pages, page_table)
+            if scales:
+                ks = kv_cache.gather_scales(scales["k_scale"], page_table)
+                vs = kv_cache.gather_scales(scales["v_scale"], page_table)
+                k = k.float() * ks[:, :, None, None]
+                v = v.float() * vs[:, :, None, None]
+            k, v = k.to(q.dtype), v.to(q.dtype)
             qg = q.reshape(b, c, self.kv, self.groups, self.dh)
             logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float() * scale,
                                   k.float())

@@ -2,9 +2,10 @@
 half of ``repro.nn.common``).
 
 The fields and defaults are those of the JAX package's ``ModelConfig`` and
-``SparsityConfig`` that the serving and training slices read; fields of the
-MoE, SSM, encoder-decoder and frontend families, the TPU backend switch and
-the quantization knob arrive with the slices that use them.
+``SparsityConfig`` that the serving and training slices read, with the
+int8 serving knob ``SparsityConfig.quant``; fields of the MoE, SSM,
+encoder-decoder and frontend families and the TPU backend switch arrive
+with the slices that use them.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+from ..core.quant import QuantConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +32,10 @@ class SparsityConfig:
     block_in: int = 256
     block_out: int = 1024
     seed: int = 0
+    # int8 inference (core.quant.QuantConfig); None = full width. Training
+    # always runs full width: the serving engine applies it once at load,
+    # when its EngineConfig.quant is None
+    quant: Optional[QuantConfig] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,7 +32,13 @@ class Linear(nn.Module):
     and the sparsity config admits it. A dense weight is (n_in, n_out); a
     sparse one is the slab (n_rb, d_in_b, bL, bR), with the pattern's
     gather form kept beside it as the int32 buffer ``block_idx`` and its
-    scatter form (for the backward pass) as ``out_idx``/``out_slot``."""
+    scatter form (for the backward pass) as ``out_idx``/``out_slot``.
+
+    ``core.quant.quantize_model`` makes a sparse junction int8 for serving:
+    ``weight`` becomes the int8 slab and the buffer ``w_scale`` (n_rb,
+    d_in_b) holds its f32 per-block scales (None otherwise). A dtype cast
+    of the module (``.to(dtype)``) leaves ``w_scale`` in f32: rounding the
+    scales would change every block's dequantized values."""
 
     def __init__(self, n_in: int, n_out: int, *, bias: bool = False,
                  rho: float = 1.0, sp: Optional[SparsityConfig] = None,
@@ -58,6 +64,14 @@ class Linear(nn.Module):
             self.block_idx = self.out_idx = self.out_slot = None
         self.bias = nn.Parameter(torch.zeros(n_out, device=device,
                                              dtype=dtype)) if bias else None
+        self.register_buffer("w_scale", None)
+
+    def _apply(self, fn, recurse=True):
+        scale = self.w_scale
+        out = super()._apply(fn, recurse)
+        if scale is not None and self.w_scale.dtype != scale.dtype:
+            self.w_scale = scale.to(self.w_scale.device)
+        return out
 
     @property
     def is_sparse(self) -> bool:
@@ -70,9 +84,15 @@ class Linear(nn.Module):
         are cast to the dtype of x on each call, as in the JAX package, so
         the gradient of a bf16 step flows back into the f32 parameter (the
         serving engine stores them in the compute dtype, where the cast is
-        free)."""
-        w = self.weight.to(x.dtype)
+        free). An int8 slab enters the int8 forward uncast, with its
+        scales."""
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if self.weight.dtype == torch.int8:
+            if self.w_scale is None:
+                raise ValueError("an int8 junction weight needs its w_scale")
+            return csd_matmul(x, self.weight, self.block_idx, bias=b,
+                              activation=activation, w_scale=self.w_scale)
+        w = self.weight.to(x.dtype)
         if self.is_sparse:
             return csd_matmul(x, w, self.block_idx, bias=b,
                               activation=activation, out_idx=self.out_idx,

@@ -73,16 +73,29 @@ class LM(nn.Module):
 
     def init_paged_cache(self, total_pages: int, page_size: int,
                          dtype: Optional[torch.dtype] = None,
-                         device=None) -> List[dict]:
+                         device=None, quant_kv: bool = False) -> List[dict]:
         """Per-layer page pools, each with one extra write-discard page
-        (attention layers keep no per-slot state)."""
+        (attention layers keep no per-slot state). ``quant_kv`` makes the
+        pools int8 with per-token f32 scale buffers ``k_scale``/``v_scale``
+        of shape (P+1, page) beside them; the attention step keys the int8
+        path on their presence."""
         cfg = self.cfg
         dtype = dtype or dtype_of(cfg)
         device = device or self.embed.table.device
         shape = (total_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
-        return [{"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-                 "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
-                for _ in self.layers]
+
+        def pool():
+            if not quant_kv:
+                return {k: torch.zeros(shape, dtype=dtype, device=device)
+                        for k in ("k_pages", "v_pages")}
+            c = {k: torch.zeros(shape, dtype=torch.int8, device=device)
+                 for k in ("k_pages", "v_pages")}
+            c.update({k: torch.zeros(shape[:2], dtype=torch.float32,
+                                     device=device)
+                      for k in ("k_scale", "v_scale")})
+            return c
+
+        return [pool() for _ in self.layers]
 
     def logits_fn(self, h: torch.Tensor) -> torch.Tensor:
         logits = self.embed.attend(h)

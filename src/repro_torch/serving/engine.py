@@ -13,6 +13,13 @@ At load the engine moves the model to its device and compute dtype once
 every call, which here would triple the bytes each junction reads. The
 allocator stays on the host; each step sends the page table, the positions
 and the valid counts to the device.
+
+int8 serving (``EngineConfig.quant``, or the model's
+``SparsityConfig.quant`` when that is None): with ``weights`` every sparse
+junction is quantized once at load, from the weights as given and before
+the cast to the compute dtype, and then runs the int8 forward kernel; with
+``kv`` the page pools are int8 with per-token scales and decode runs the
+int8 paged-decode kernel.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.quant import QuantConfig, quantize_model
 from ..nn.common import dtype_of, resolve_device
 from .scheduler import Request, Scheduler, StepPlan
 
@@ -40,6 +48,10 @@ class EngineConfig:
     prefill_chunk: int = 32
     greedy: bool = True
     temperature: float = 1.0
+    # int8 inference: quantize the sparse junctions' slabs per block at load
+    # (weights=True) and/or keep the KV pages in int8 with per-token scales
+    # (kv=True). None falls back to the model's SparsityConfig.quant
+    quant: Optional[QuantConfig] = None
 
 
 class ServingEngine:
@@ -53,7 +65,12 @@ class ServingEngine:
         cfg = config or EngineConfig(**overrides)
         self.device = resolve_device(device)
         mc = model.cfg
-        self.model = model.to(device=self.device, dtype=dtype_of(mc))
+        qc = cfg.quant if cfg.quant is not None else mc.sparsity.quant
+        self.quant = qc
+        model = model.to(device=self.device)
+        if qc is not None and qc.weights:
+            quantize_model(model)  # the scales stay f32 through the cast
+        self.model = model.to(dtype=dtype_of(mc))
         self.config = cfg
         self.seed = seed
         self.sched = Scheduler(
@@ -63,8 +80,9 @@ class ServingEngine:
             token_budget=cfg.token_budget,
             prefill_chunk=cfg.prefill_chunk,
             window=self._reclaim_window(mc))
-        self.cache = model.init_paged_cache(cfg.total_pages, cfg.page_size,
-                                            dtype_of(mc), self.device)
+        self.cache = model.init_paged_cache(
+            cfg.total_pages, cfg.page_size, dtype_of(mc), self.device,
+            quant_kv=qc is not None and qc.kv)
         self._next_id = 0
         self.outputs: Dict[int, np.ndarray] = {}
 

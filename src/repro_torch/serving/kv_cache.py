@@ -16,6 +16,9 @@ page tables.
   ``(page_table[slot, p // page_size], p % page_size)``; ``first_page`` is
   0 until sliding-window reclamation (``release_prefix``) frees leading
   pages whose positions every window has left.
+* Int8 pages (serving with ``QuantConfig(kv=True)``) carry one f32 scale
+  per stored token in ``(total_pages + 1, page_size)`` buffers beside them,
+  written at append time through the same addresses (trash page included).
 """
 from __future__ import annotations
 
@@ -169,3 +172,48 @@ def gather_kv(pages: torch.Tensor,       # (P+1, page, Hkv, Dh)
     _, page, hkv, dh = pages.shape
     flat = pages[torch.clamp(page_table.long(), 0, pages.shape[0] - 1)]
     return flat.reshape(b, m * page, hkv, dh)
+
+
+# ---------------------------------------------------------------------------
+# Int8 pages: one symmetric f32 scale per stored token
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor  # (B, C, Hkv, Dh)
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token int8 quantization: the amax reduces over (Hkv,
+    Dh), one scale per (batch, token). Returns (int8, (B, C) f32)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None, None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def write_kv_quant(k_pages: torch.Tensor,  # (P+1, page, Hkv, Dh) int8
+                   v_pages: torch.Tensor,
+                   k_scale: torch.Tensor,  # (P+1, page) f32
+                   v_scale: torch.Tensor,
+                   k_new: torch.Tensor,    # (B, C, Hkv, Dh) full width
+                   v_new: torch.Tensor,
+                   phys: torch.Tensor,     # (B, C)
+                   off: torch.Tensor       # (B, C)
+                   ) -> None:
+    """Quantize at append: new KV is reduced to int8 plus a per-token scale
+    and both are scattered, in place, through the same (phys, off)
+    addresses."""
+    kq, ks = quantize_kv(k_new)
+    vq, vs = quantize_kv(v_new)
+    k_pages[phys, off] = kq
+    v_pages[phys, off] = vq
+    k_scale[phys, off] = ks
+    v_scale[phys, off] = vs
+
+
+def gather_scales(scales: torch.Tensor,     # (P+1, page)
+                  page_table: torch.Tensor  # (B, max_pages)
+                  ) -> torch.Tensor:
+    """The scales' twin of :func:`gather_kv`: (B, max_pages * page) f32."""
+    b, m = page_table.shape
+    flat = scales[torch.clamp(page_table.long(), 0, scales.shape[0] - 1)]
+    return flat.reshape(b, m * scales.shape[1])

@@ -181,3 +181,70 @@ def test_csd_spmm_dw_cuda_matches_plain(cuda_device, activation, want_db, m,
     assert got.shape == (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
     assert got.dtype == dtype
     _close(got, ref, TRAIN_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the int8 serving kernels
+# ---------------------------------------------------------------------------
+
+
+def _quantize(w):
+    """Per-block symmetric int8 slab and f32 scales (core.quant)."""
+    from repro_torch.core.quant import quantize_slab
+    return quantize_slab(_t(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [3, 16, 100])
+@pytest.mark.parametrize("activation", [None, "gelu"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_csd_spmm_quant_cuda_matches_plain(cuda_device, with_bias,
+                                           activation, m, dtype, tol):
+    bp, x, w, b = _junction(6, m, n_in=2048, n_out=1024, bl=256, br=512)
+    q, s = (t.to(cuda_device) for t in _quantize(w))
+    xd = _t(x).to(cuda_device, dtype)
+    idx = _t(bp.block_idx).to(cuda_device).int()
+    bias = _t(b).to(cuda_device, dtype) if with_bias else None
+    kw = dict(bias=bias, activation=activation, w_scale=s)
+    n0 = csd_spmm.csd_spmm_fwd_quant_cuda.launches
+    got = csd_spmm.csd_spmm_fwd_cuda(xd, q, idx, **kw)
+    ref = csd_spmm.csd_spmm_fwd_plain(xd, q, idx, **kw)
+    torch.cuda.synchronize()
+    assert csd_spmm.csd_spmm_fwd_quant_cuda.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (m, bp.n_out)
+    np.testing.assert_allclose(got.float().cpu(), ref.float().cpu(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (6, 30.0),
+                                            (70, None)])
+@pytest.mark.parametrize("dh", [64, 256])
+def test_paged_decode_quant_cuda_matches_plain(cuda_device, dh, window,
+                                               softcap, dtype, tol):
+    from repro_torch.serving.kv_cache import quantize_kv
+    case = _paged_case(dh=dh)
+    q = _t(case[0]).to(cuda_device, dtype)
+    # int8 pages with per-token scales, as write_kv_quant stores them
+    k8, ks = quantize_kv(_t(case[1]))
+    v8, vs = quantize_kv(_t(case[2]))
+    k8, v8, ks, vs = (t.to(cuda_device) for t in (k8, v8, ks, vs))
+    table, lengths = (_t(a).to(cuda_device) for a in case[3:])
+    kw = dict(window=window, softcap=softcap, k_scale=ks, v_scale=vs)
+    n0 = flash_attention.paged_decode_attention_quant_cuda.launches
+    got = flash_attention.paged_decode_attention_cuda(q, k8, v8, table,
+                                                      lengths, **kw)
+    ref = flash_attention.paged_decode_attention_plain(q, k8, v8, table,
+                                                       lengths, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.paged_decode_attention_quant_cuda.launches \
+        == n0 + 1
+    np.testing.assert_allclose(got.float().cpu(), ref.float().cpu(),
+                               atol=tol, rtol=tol)
+    assert (got[2] == 0).all()  # the empty row
