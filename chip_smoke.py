@@ -15,13 +15,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    yardstick;
 4. the same for ``paged_decode_attention`` (B = 4, Hkv = 4, G = 2, Dh = 256,
    page 16, lengths past 1024, window None and 1024, -1 table entries and an
-   empty row), with SDPA over the gathered KV as the yardstick;
+   empty row), with SDPA over the gathered KV as the yardstick, and
+   again at granite-moe-1b-a400m's heads (Hkv = 8, G = 2, Dh = 64,
+   no window);
 4b. the int8 serving kernels against their plain versions: the int8
    ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (M 4 and 256, f32
    and bf16, with and without the gelu epilogue; the yardstick a
    ``torch.matmul`` on the densified, dequantized slab), and paged decode
-   over int8 pages at phase 4's case (the yardstick SDPA over the
+   over int8 pages at phase 4's cases (the yardstick SDPA over the
    gathered, dequantized KV), timed like phase 3;
+3c. the expert-batched forward kernels against their plain versions at
+   granite-moe-1b-a400m's serving shapes (32 experts, C = 4 and 256 rows
+   each; up/gate 1024 -> 512 in 128 x 256 blocks at fan-in 4, down 512 ->
+   1024 at fan-in 3; f32 and bf16): ``csd_spmm_fwd_batched`` with phase 3's
+   tolerances and ``csd_spmm_fwd_quant_batched`` with phase 4b's, timed
+   like phase 3 with one ``torch.bmm`` over the densified (dequantized)
+   slabs as the yardstick;
 5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
    vocab 262144; random weights from a seed; bf16) through
    ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
@@ -31,12 +40,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    steps under ``torch.profiler``;
 5b. the same in int8 (``EngineConfig(quant=QuantConfig(weights=True,
    kv=True))``) from a fresh f32 model of the same seed, quantized at load:
-   launch counts of all four serving kernels around the run (the bf16
+   launch counts of all six serving kernels around the run (the bf16
    forward and the full-width paged decode must not run), the kernels per
    decode step, the bytes of the int8 slabs and of the page pool, the
    kernels-vs-plain decode step and 4 profiled decode steps; then the
    teacher-forced top-1 agreement of the int8 model's logits with the bf16
    model's on phase 5's prompts and tokens (recorded, not gated);
+5c. serve granite-moe-1b-a400m at its full width (24 layers, d_model 1024,
+   32 experts top-8 of d_expert 512, vocab 49155; random weights from a
+   seed; bf16) in its serving configuration: expert blocks 128 x 256
+   (densities 0.5 and 0.75) and the dropless capacity factor 4.0 that
+   paged serving needs. Phase 5's requests, checks and profile, with 72
+   expert-batched forward and 24 paged-decode launches per decode step,
+   none of the 4-D forward, and the resident expert slab bytes;
+5d. the same weights quantized at load (weights and KV), as phase 5b:
+   72 launches of the int8 expert-batched forward and 24 of the int8 paged
+   decode per decode step, none of the full-width kernels, the int8 slab
+   and scale bytes, and the top-1 agreement with 5c (recorded, not gated);
 6. hold the training kernels against their plain versions at gemma3-4b's
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
@@ -216,14 +236,25 @@ def run_spmm(cfg, device, results):
 # ---------------------------------------------------------------------------
 
 PAGED_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (1e-2, 1e-2)}
+# (Hkv, Dh, windows): gemma3-4b's heads (5 of 6 layers windowed), then
+# granite-moe-1b-a400m's (all global); G = 2 for both
+PAGED_SHAPES = ((4, 256, (None, 1024)), (8, 64, (None,)))
 
 
-def paged_inputs(device, dtype, window, g):
+def paged_cases():
+    """(dtype name, Hkv, Dh, window) of phases 4 and 4b."""
+    for dtype_name in ("float32", "bfloat16"):
+        for hkv, dh, windows in PAGED_SHAPES:
+            for window in windows:
+                yield dtype_name, hkv, dh, window
+
+
+def paged_inputs(device, dtype, window, g, hkv=4, dh=256):
     """B=4 rows of lengths past 1024, one empty; unmapped entries -1 (the
     table tail, and with a window the leading pages every query has left,
     as the engine's window reclamation leaves them)."""
     import torch
-    b, hkv, grp, dh, page = 4, 4, 2, 256, 16
+    b, grp, page = 4, 2, 16
     lengths = [1100, 517, 0, 1040]
     n_pages = 72
     pool = sum(-(-n // page) for n in lengths) + 1
@@ -249,57 +280,57 @@ def run_paged(device, results):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=device).manual_seed(SEED + 1)
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name, hkv, dh, window in paged_cases():
         dtype = getattr(torch, dtype_name)
-        for window in (None, 1024):
-            q, kp, vp, table, lengths = paged_inputs(device, dtype, window, g)
-            n = copies_for(2 * kp.numel() * kp.element_size())
-            pools = [(kp.clone(), vp.clone()) for _ in range(n)]
-            kw = dict(window=window)
-            got = fa.paged_decode_attention_cuda(q, kp, vp, table, lengths,
-                                                 **kw)
-            ref = fa.paged_decode_attention_plain(q, kp, vp, table, lengths,
-                                                  **kw)
-            torch.cuda.synchronize()
-            atol, rtol = PAGED_TOL[str(dtype)]
-            abs_e, rel_e = max_err(got, ref)
-            ok = within(got, ref, atol, rtol) and bool(
-                (got[2] == 0).all()) and bool(torch.isfinite(got).all())
-            ms, host_ms = bench([lambda p=p: fa.paged_decode_attention_cuda(
-                q, p[0], p[1], table, lengths, **kw) for p in pools], 100)
-            plain_ms, _ = bench([lambda p=p: fa.paged_decode_attention_plain(
-                q, p[0], p[1], table, lengths, **kw) for p in pools], 10)
-            # yardstick: SDPA over the gathered (GQA-expanded) KV + mask
-            b, hkv, grp, dh = q.shape
-            idx = table.long().clamp_min(0)
-            kk = kp[idx].reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-            vv = vp[idx].reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-            kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
-            kpos = torch.arange(kk.shape[2], device=device)
-            mask = (kpos[None] < lengths[:, None].long()) & (
-                table >= 0).repeat_interleave(kp.shape[1], 1)
-            if window is not None:
-                mask &= kpos[None] >= lengths[:, None].long() - window
-            qq = q.reshape(b, hkv * grp, 1, dh)
-            lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask[:, None, None])], 50)
-            visible = int(mask.sum())
-            el = dtype.itemsize
-            nbytes = el * (2 * visible * hkv * dh + 2 * q.numel()) \
-                + 4 * (table.numel() + lengths.numel())
-            bound_ms, bound_by = bound(nbytes, 4 * grp * dh * visible * hkv,
-                                       dtype)
-            rec = dict(kernel="paged_decode_attention", dtype=dtype_name,
-                       window=window, lengths=lengths.tolist(),
-                       max_abs_err=abs_e, max_rel_err=rel_e, atol=atol,
-                       rtol=rtol, ok=ok, ms=ms, host_ms=host_ms,
-                       plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=lib_ms)
-            results.append(rec)
-            log(json.dumps(rec))
-            if not ok:
-                fail(f"paged_decode_attention disagrees with its plain "
-                     f"version: {rec}")
+        q, kp, vp, table, lengths = paged_inputs(device, dtype, window, g,
+                                                 hkv, dh)
+        n = copies_for(2 * kp.numel() * kp.element_size())
+        pools = [(kp.clone(), vp.clone()) for _ in range(n)]
+        kw = dict(window=window)
+        got = fa.paged_decode_attention_cuda(q, kp, vp, table, lengths,
+                                             **kw)
+        ref = fa.paged_decode_attention_plain(q, kp, vp, table, lengths,
+                                              **kw)
+        torch.cuda.synchronize()
+        atol, rtol = PAGED_TOL[str(dtype)]
+        abs_e, rel_e = max_err(got, ref)
+        ok = within(got, ref, atol, rtol) and bool(
+            (got[2] == 0).all()) and bool(torch.isfinite(got).all())
+        ms, host_ms = bench([lambda p=p: fa.paged_decode_attention_cuda(
+            q, p[0], p[1], table, lengths, **kw) for p in pools], 100)
+        plain_ms, _ = bench([lambda p=p: fa.paged_decode_attention_plain(
+            q, p[0], p[1], table, lengths, **kw) for p in pools], 10)
+        # yardstick: SDPA over the gathered (GQA-expanded) KV + mask
+        b, hkv, grp, dh = q.shape
+        idx = table.long().clamp_min(0)
+        kk = kp[idx].reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+        vv = vp[idx].reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+        kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
+        kpos = torch.arange(kk.shape[2], device=device)
+        mask = (kpos[None] < lengths[:, None].long()) & (
+            table >= 0).repeat_interleave(kp.shape[1], 1)
+        if window is not None:
+            mask &= kpos[None] >= lengths[:, None].long() - window
+        qq = q.reshape(b, hkv * grp, 1, dh)
+        lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask[:, None, None])], 50)
+        visible = int(mask.sum())
+        el = dtype.itemsize
+        nbytes = el * (2 * visible * hkv * dh + 2 * q.numel()) \
+            + 4 * (table.numel() + lengths.numel())
+        bound_ms, bound_by = bound(nbytes, 4 * grp * dh * visible * hkv,
+                                   dtype)
+        rec = dict(kernel="paged_decode_attention", dtype=dtype_name,
+                   hkv=hkv, dh=dh, window=window, lengths=lengths.tolist(),
+                   max_abs_err=abs_e, max_rel_err=rel_e, atol=atol,
+                   rtol=rtol, ok=ok, ms=ms, host_ms=host_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=lib_ms)
+        results.append(rec)
+        log(json.dumps(rec))
+        if not ok:
+            fail(f"paged_decode_attention disagrees with its plain "
+                 f"version: {rec}")
 
 
 # ---------------------------------------------------------------------------
@@ -392,73 +423,214 @@ def run_paged_quant(device, results):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.kv_cache import quantize_kv
     g = torch.Generator(device=device).manual_seed(SEED + 4)
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name, hkv, dh, window in paged_cases():
         dtype = getattr(torch, dtype_name)
-        for window in (None, 1024):
-            q, kp, vp, table, lengths = paged_inputs(device, torch.float32,
-                                                     window, g)
-            q = q.to(dtype)
-            (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
-            del kp, vp
-            n = copies_for(2 * k8.numel())
-            pools = [tuple(t.clone() for t in (k8, v8, ks, vs))
-                     for _ in range(n)]
+        q, kp, vp, table, lengths = paged_inputs(device, torch.float32,
+                                                 window, g, hkv, dh)
+        q = q.to(dtype)
+        (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+        del kp, vp
+        n = copies_for(2 * k8.numel())
+        pools = [tuple(t.clone() for t in (k8, v8, ks, vs))
+                 for _ in range(n)]
 
-            def kern(p):
-                return fa.paged_decode_attention_cuda(
-                    q, p[0], p[1], table, lengths, window=window,
-                    k_scale=p[2], v_scale=p[3])
+        def kern(p):
+            return fa.paged_decode_attention_cuda(
+                q, p[0], p[1], table, lengths, window=window,
+                k_scale=p[2], v_scale=p[3])
 
-            def plain(p):
-                return fa.paged_decode_attention_plain(
-                    q, p[0], p[1], table, lengths, window=window,
-                    k_scale=p[2], v_scale=p[3])
-            got, ref = kern(pools[0]), plain(pools[0])
-            torch.cuda.synchronize()
-            atol, rtol = PAGED_TOL[str(dtype)]
-            abs_e, rel_e = max_err(got, ref)
-            ok = within(got, ref, atol, rtol) and bool(
-                (got[2] == 0).all()) and bool(torch.isfinite(got).all())
-            ms, host_ms = bench([lambda p=p: kern(p) for p in pools], 100)
-            plain_ms, _ = bench([lambda p=p: plain(p) for p in pools], 10)
-            # yardstick: SDPA over the gathered, dequantized (GQA-expanded)
-            # KV in q's dtype, with the mask
-            b, hkv, grp, dh = q.shape
-            idx = table.long().clamp_min(0)
-            kk = (k8[idx].float() * ks[idx][..., None, None]).to(dtype)
-            vv = (v8[idx].float() * vs[idx][..., None, None]).to(dtype)
-            kk = kk.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-            vv = vv.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-            kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
-            kpos = torch.arange(kk.shape[2], device=device)
-            mask = (kpos[None] < lengths[:, None].long()) & (
-                table >= 0).repeat_interleave(k8.shape[1], 1)
-            if window is not None:
-                mask &= kpos[None] >= lengths[:, None].long() - window
-            qq = q.reshape(b, hkv * grp, 1, dh)
-            lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask[:, None, None])], 50)
-            visible = int(mask.sum())
-            # int8 K and V rows, one f32 K and V scale per visible token,
-            # q read and the output written in q's dtype
-            nbytes = 2 * visible * hkv * dh + 8 * visible \
-                + 2 * q.numel() * dtype.itemsize \
-                + 4 * (table.numel() + lengths.numel())
-            bound_ms, bound_by = bound(nbytes, 4 * grp * dh * visible * hkv,
-                                       dtype)
-            rec = dict(kernel="paged_decode_attention_quant",
-                       dtype=dtype_name, window=window,
-                       lengths=lengths.tolist(), max_abs_err=abs_e,
-                       max_rel_err=rel_e, atol=atol, rtol=rtol, ok=ok, ms=ms,
-                       host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=lib_ms,
-                       library="SDPA over the gathered, dequantized KV")
-            results.append(rec)
-            log(json.dumps(rec))
-            if not ok:
-                fail(f"int8 paged_decode_attention disagrees with its plain "
-                     f"version: {rec}")
-            del pools, kk, vv
+        def plain(p):
+            return fa.paged_decode_attention_plain(
+                q, p[0], p[1], table, lengths, window=window,
+                k_scale=p[2], v_scale=p[3])
+        got, ref = kern(pools[0]), plain(pools[0])
+        torch.cuda.synchronize()
+        atol, rtol = PAGED_TOL[str(dtype)]
+        abs_e, rel_e = max_err(got, ref)
+        ok = within(got, ref, atol, rtol) and bool(
+            (got[2] == 0).all()) and bool(torch.isfinite(got).all())
+        ms, host_ms = bench([lambda p=p: kern(p) for p in pools], 100)
+        plain_ms, _ = bench([lambda p=p: plain(p) for p in pools], 10)
+        # yardstick: SDPA over the gathered, dequantized (GQA-expanded)
+        # KV in q's dtype, with the mask
+        b, hkv, grp, dh = q.shape
+        idx = table.long().clamp_min(0)
+        kk = (k8[idx].float() * ks[idx][..., None, None]).to(dtype)
+        vv = (v8[idx].float() * vs[idx][..., None, None]).to(dtype)
+        kk = kk.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+        vv = vv.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+        kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
+        kpos = torch.arange(kk.shape[2], device=device)
+        mask = (kpos[None] < lengths[:, None].long()) & (
+            table >= 0).repeat_interleave(k8.shape[1], 1)
+        if window is not None:
+            mask &= kpos[None] >= lengths[:, None].long() - window
+        qq = q.reshape(b, hkv * grp, 1, dh)
+        lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask[:, None, None])], 50)
+        visible = int(mask.sum())
+        # int8 K and V rows, one f32 K and V scale per visible token,
+        # q read and the output written in q's dtype
+        nbytes = 2 * visible * hkv * dh + 8 * visible \
+            + 2 * q.numel() * dtype.itemsize \
+            + 4 * (table.numel() + lengths.numel())
+        bound_ms, bound_by = bound(nbytes, 4 * grp * dh * visible * hkv,
+                                   dtype)
+        rec = dict(kernel="paged_decode_attention_quant",
+                   dtype=dtype_name, hkv=hkv, dh=dh, window=window,
+                   lengths=lengths.tolist(), max_abs_err=abs_e,
+                   max_rel_err=rel_e, atol=atol, rtol=rtol, ok=ok, ms=ms,
+                   host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=lib_ms,
+                   library="SDPA over the gathered, dequantized KV")
+        results.append(rec)
+        log(json.dumps(rec))
+        if not ok:
+            fail(f"int8 paged_decode_attention disagrees with its plain "
+                 f"version: {rec}")
+        del pools, kk, vv
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the expert-batched forward kernels at granite-moe's shapes
+# ---------------------------------------------------------------------------
+
+
+def granite_serving_config():
+    """granite-moe-1b-a400m as published, with the two fields paged serving
+    needs: 128 x 256 expert blocks (the default 256 x 1024 make both expert
+    junctions dense at d_model 1024, d_expert 512) and the dropless
+    capacity factor n_routed / top_k = 4.0."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("granite_moe_1b_a400m")
+    return cfg.with_(
+        moe=dataclasses.replace(cfg.moe, capacity_factor=4.0),
+        sparsity=dataclasses.replace(cfg.sparsity, block_in=128,
+                                     block_out=256))
+
+
+def expert_patterns(cfg):
+    """The (up/gate, down) expert patterns of the MoE blocks (layer seed 1,
+    gate +32, down +33)."""
+    from repro_torch.core.block_pattern import fit_block_pattern
+    sp, d, d_e = cfg.sparsity, cfg.d_model, cfg.moe.d_expert
+    return (fit_block_pattern(d, d_e, sp.rho_ffn[0], sp, seed=1 + 32),
+            fit_block_pattern(d_e, d, sp.rho_ffn[1], sp, seed=1 + 33))
+
+
+def expert_slab_bytes(cfg, itemsize: int) -> tuple:
+    """(slab bytes, scale bytes) of every layer's up, gate and down expert
+    slabs, from their patterns."""
+    up, down = expert_patterns(cfg)
+    per_expert = [bp.n_rb * bp.d_in_b for bp in (up, up, down)]
+    n = cfg.n_layers * cfg.moe.n_routed
+    weights = n * sum(k * bp.block_in * bp.block_out
+                      for k, bp in zip(per_expert, (up, up, down)))
+    return weights * itemsize, 4 * n * sum(per_expert)
+
+
+def dense_of_experts(bp, w):
+    """(E, n_in, n_out) dense weights of a stack of expert slabs: what
+    ``torch.bmm`` multiplies in the yardstick."""
+    import torch
+    return torch.stack([dense_of(bp, w[e]) for e in range(w.shape[0])])
+
+
+def run_spmm_batched(cfg, device, results):
+    import torch
+    from repro_torch.core.quant import dequantize_slab, quantize_slab
+    from repro_torch.kernels import csd_spmm
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    n_exp = cfg.moe.n_routed
+    up, down = expert_patterns(cfg)
+    for dtype_name, (name, bp), quant in (
+            (d, j, q) for d in ("float32", "bfloat16")
+            for j in (("up/gate", up), ("down", down))
+            for q in (False, True)):
+        dtype = getattr(torch, dtype_name)
+        kernel = "csd_spmm_fwd_quant_batched" if quant \
+            else "csd_spmm_fwd_batched"
+        shape = (n_exp, bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
+        n_w = math.prod(shape)
+        n = copies_for(n_w * (1 if quant else dtype.itemsize))
+        slabs = []
+        for _ in range(n):
+            w = torch.randn(shape, generator=g, device=device) \
+                / math.sqrt(bp.d_in_b * bp.block_in)
+            slabs.append(quantize_slab(w) if quant else (w.to(dtype), None))
+        idx = torch.as_tensor(bp.block_idx, dtype=torch.int32, device=device)
+        w0 = dequantize_slab(*slabs[0], dtype) if quant else slabs[0][0]
+        dense = dense_of_experts(bp, w0)
+        denses = [dense] + [dense.clone() for _ in range(
+            copies_for(dense.numel() * dense.element_size()) - 1)]
+        del w0
+        variants = ((None, False), ("gelu", False)) if name == "up/gate" \
+            else ((None, False), (None, True))
+        for m in (4, 256):
+            x = torch.randn((n_exp, m, bp.n_in), generator=g,
+                            device=device).to(dtype)
+            for act, with_bias in variants:
+                bias = (0.1 * torch.randn((n_exp, bp.n_out), generator=g,
+                                          device=device)).to(dtype) \
+                    if with_bias else None
+
+                def kern(i=0):
+                    w, sc = slabs[i]
+                    return csd_spmm.csd_spmm_fwd_batched_cuda(
+                        x, w, idx, bias=bias, activation=act, w_scale=sc)
+
+                def plain(i=0):
+                    w, sc = slabs[i]
+                    return csd_spmm.csd_spmm_fwd_batched_plain(
+                        x, w, idx, bias=bias, activation=act, w_scale=sc)
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                if quant:
+                    ok = quant_close(got.float(), ref.float(), dtype_name)
+                    tol = dict(tol_of_max=QUANT_F32_TOL) \
+                        if dtype_name == "float32" \
+                        else dict(zip(("atol", "rtol"),
+                                      SPMM_TOL["torch.bfloat16"]))
+                else:
+                    ok = within(got, ref, *SPMM_TOL[str(dtype)])
+                    tol = dict(zip(("atol", "rtol"), SPMM_TOL[str(dtype)]))
+                ok = ok and bool(torch.isfinite(got).all()) \
+                    and got.shape == (n_exp, m, bp.n_out)
+                abs_e, rel_e = max_err(got, ref)
+                ms, host_ms = bench([lambda i=i: kern(i)
+                                     for i in range(n)], 60)
+                plain_ms, _ = bench([lambda i=i: plain(i)
+                                     for i in range(n)], 6)
+                lib_ms, _ = bench([lambda d=d: torch.bmm(x, d)
+                                   for d in denses], 30)
+                el = dtype.itemsize
+                slab_b = n_w + 4 * n_w // (bp.block_in * bp.block_out) \
+                    if quant else el * n_w  # int8 slab + f32 scales
+                nbytes = el * n_exp * m * (bp.n_in + bp.n_out) + slab_b \
+                    + (el * n_exp * bp.n_out if with_bias else 0) \
+                    + 4 * idx.numel()
+                bound_ms, bound_by = bound(nbytes, 2 * m * n_w, dtype)
+                rec = dict(kernel=kernel, junction=name, experts=n_exp, m=m,
+                           dtype=dtype_name, activation=act, bias=with_bias,
+                           w_shape=list(shape),
+                           n_splits=csd_spmm.split_count(
+                               m, bp.n_out, bp.d_in_b,
+                               csd_spmm._sm_count(device), n_exp),
+                           max_abs_err=abs_e, max_rel_err=rel_e,
+                           max_abs_ref=float(ref.float().abs().max()),
+                           **tol, ok=ok, ms=ms, host_ms=host_ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=lib_ms,
+                           library="torch.bmm over the densified"
+                                   + (" dequantized" if quant else "")
+                                   + " slabs")
+                results.append(rec)
+                log(json.dumps(rec))
+                if not ok:
+                    fail(f"{kernel} disagrees with its plain version: {rec}")
+        del slabs, dense, denses
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -477,7 +649,18 @@ def engine_config(quant=None):
 
 
 SERVE_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant",
+                 "csd_spmm_fwd_batched", "csd_spmm_fwd_quant_batched",
                  "paged_decode_attention", "paged_decode_attention_quant")
+
+
+def serve_kernels(cfg, quant) -> tuple:
+    """The (junction, paged decode) kernels a serving run of ``cfg`` must
+    launch: the expert-batched forward for an MoE model, the int8 forms
+    with ``quant``."""
+    fwd = "csd_spmm_fwd" + ("" if quant is None else "_quant") \
+        + ("_batched" if cfg.moe is not None else "")
+    paged = "paged_decode_attention" + ("" if quant is None else "_quant")
+    return fwd, paged
 
 
 def serve_launch_counts() -> dict:
@@ -487,17 +670,24 @@ def serve_launch_counts() -> dict:
 
 
 def resident_bytes(eng) -> dict:
-    """Bytes on the card of the sparse junctions' slabs (and their scales)
-    and of the page pool (pages and per-token scales)."""
+    """Bytes on the card of the sparse junctions' slabs (FFN ``Linear``s
+    and MoE expert slabs) and their scales, and of the page pool (pages
+    and per-token scales)."""
+    from repro_torch.nn.ffn import MoE
     from repro_torch.nn.layers import Linear
-    lins = [m for m in eng.model.modules()
-            if isinstance(m, Linear) and m.is_sparse]
+    slabs = []  # (weight, scale or None)
+    for m in eng.model.modules():
+        if isinstance(m, Linear) and m.is_sparse:
+            slabs.append((m.weight, m.w_scale))
+        elif isinstance(m, MoE):
+            slabs += [(getattr(m, n), getattr(m, f"{n}_scale"))
+                      for n in ("up", "gate", "down")
+                      if getattr(m, f"{n}_idx") is not None]
     return dict(
-        ffn_slab_bytes=sum(m.weight.numel() * m.weight.element_size()
-                           for m in lins),
-        ffn_slab_dtype=str(lins[0].weight.dtype),
-        ffn_scale_bytes=sum(m.w_scale.numel() * 4 for m in lins
-                            if m.w_scale is not None),
+        ffn_slab_bytes=sum(w.numel() * w.element_size() for w, _ in slabs),
+        ffn_slab_dtype=str(slabs[0][0].dtype),
+        ffn_scale_bytes=sum(sc.numel() * 4 for _, sc in slabs
+                            if sc is not None),
         kv_pool_bytes=sum(t.numel() * t.element_size()
                           for c in eng.cache for t in c.values()))
 
@@ -513,10 +703,18 @@ def plain_versions():
         return csd_spmm.csd_spmm_fwd_plain(x, w, block_idx, w_scale=w_scale,
                                            **kw)
 
+    def fwd_quant_batched_plain(x, w, w_scale, block_idx, **kw):
+        return csd_spmm.csd_spmm_fwd_batched_plain(x, w, block_idx,
+                                                   w_scale=w_scale, **kw)
+
     with mock.patch.object(csd_spmm, "csd_spmm_fwd_cuda",
                            csd_spmm.csd_spmm_fwd_plain), \
             mock.patch.object(csd_spmm, "csd_spmm_fwd_quant_cuda",
                               fwd_quant_plain), \
+            mock.patch.object(csd_spmm, "csd_spmm_fwd_batched_cuda",
+                              csd_spmm.csd_spmm_fwd_batched_plain), \
+            mock.patch.object(csd_spmm, "csd_spmm_fwd_quant_batched_cuda",
+                              fwd_quant_batched_plain), \
             mock.patch.object(flash_attention,
                               "paged_decode_attention_quant_cuda",
                               flash_attention.paged_decode_attention_plain), \
@@ -530,8 +728,10 @@ def plain_versions():
 
 
 def serve(model, device, out_dir, quant=None,
-          prompt_lens=(64, 96, 112, 128), n_new=32):
-    """Serve ``model`` (phase 5; with ``quant`` phase 5b) and check it."""
+          prompt_lens=(64, 96, 112, 128), n_new=32, trace="decode_trace",
+          slab_bytes=None):
+    """Serve ``model`` (phases 5 and 5c; with ``quant`` 5b and 5d) and
+    check it; with ``slab_bytes`` the resident slab bytes must be those."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import ServingEngine
@@ -594,12 +794,11 @@ def serve(model, device, out_dir, quant=None,
             or toks.max() >= cfg.vocab_size:
         fail(f"served tokens malformed: shape {toks.shape}")
     # the run went through this configuration's kernels and no others
-    if quant is None:
-        want, never = ("csd_spmm_fwd", "paged_decode_attention"), \
-            ("csd_spmm_fwd_quant", "paged_decode_attention_quant")
-    else:
-        want, never = ("csd_spmm_fwd_quant", "paged_decode_attention_quant"), \
-            ("csd_spmm_fwd", "paged_decode_attention")
+    want = serve_kernels(cfg, quant)
+    never = [k for k in SERVE_KERNELS if k not in want]
+    if slab_bytes is not None and rec["ffn_slab_bytes"] != slab_bytes:
+        fail(f"{cfg.name} {tag}: resident slab bytes "
+             f"{rec['ffn_slab_bytes']}, expected {slab_bytes}")
     for name in want:
         if launches[name] <= 0:
             fail(f"the {tag} served run never launched {name}")
@@ -642,8 +841,8 @@ def serve(model, device, out_dir, quant=None,
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    chk_rec = dict(check=f"{tag} decode logits after the prefill drain, "
-                         f"kernels vs plain versions",
+    chk_rec = dict(check=f"{cfg.name} {tag} decode logits after the "
+                         f"prefill drain, kernels vs plain versions",
                    rows=len(rows), max_abs_err=err, max_abs_logit=scale,
                    tol=LOGIT_TOL * scale, argmax_agreement=agree,
                    finite=bool(torch.isfinite(lk).all()),
@@ -655,7 +854,8 @@ def serve(model, device, out_dir, quant=None,
     if per_step != expect:
         fail(f"{tag} decode step launched {per_step}, expected {expect}")
     return rec, chk_rec, profile_decode(
-        model, prompts, n_new, device, out_dir, quant), toks, prompts
+        model, prompts, n_new, device, out_dir, quant, trace=trace), \
+        toks, prompts
 
 
 def top1_agreement(ref_model, model, prompts, gen, device, quant,
@@ -707,8 +907,8 @@ def top1_agreement(ref_model, model, prompts, gen, device, quant,
         l_ref = step(ref_model, caches[0], toks, pos, np.ones(b))
         l_q = step(model, caches[1], toks, pos, np.ones(b))
     n_tok = b * n_gen
-    return dict(check="teacher-forced top-1 agreement, int8 vs bf16 "
-                      "engine logits (recorded, not gated)",
+    return dict(check=f"{model.cfg.name}: teacher-forced top-1 agreement, "
+                      f"int8 vs bf16 engine logits (recorded, not gated)",
                 raw=n_same / n_tok, gated=(n_same + n_tie) / n_tok,
                 n_near_tie=n_tie, n_tok=n_tok,
                 near_tie_margin=NEAR_TIE_MARGIN)
@@ -725,7 +925,7 @@ def export_trace(prof, path: Path) -> None:
 
 
 def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
-                   n_steps=4):
+                   n_steps=4, trace="decode_trace"):
     """Where a decode step's time goes: ``n_steps`` engine decode steps
     under ``torch.profiler``, kernel time summed by name."""
     import torch
@@ -748,8 +948,8 @@ def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    export_trace(prof, out_dir / ("decode_trace.json" if quant is None
-                                  else "decode_trace_int8.json"))
+    export_trace(prof, out_dir / (trace + ("" if quant is None
+                                           else "_int8") + ".json"))
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
@@ -759,8 +959,8 @@ def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
                if e.device_type == DeviceType.CUDA]
     total_us = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    rec = dict(check="decode step profile" + ("" if quant is None
-                                              else " (int8)"),
+    rec = dict(check=f"{model.cfg.name} decode step profile"
+               + ("" if quant is None else " (int8)"),
                steps=n_steps,
                wall_ms_per_step=wall * 1e3 / n_steps,
                kernel_ms_per_step=total_us / 1e3 / n_steps
@@ -909,6 +1109,8 @@ def train_launch_counts():
 def reset_launch_counts():
     from repro_torch.kernels import csd_spmm, flash_attention
     for fn in (csd_spmm.csd_spmm_fwd_cuda, csd_spmm.csd_spmm_fwd_quant_cuda,
+               csd_spmm.csd_spmm_fwd_batched_cuda,
+               csd_spmm.csd_spmm_fwd_quant_batched_cuda,
                csd_spmm.csd_spmm_dx_cuda, csd_spmm.csd_spmm_dw_cuda,
                flash_attention.paged_decode_attention_cuda,
                flash_attention.paged_decode_attention_quant_cuda):
@@ -1136,13 +1338,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # phases 3-4, 4b
+    # phases 3-4, 4b, 3c
     results = []
     cfg = get_config("gemma3_4b")
+    gcfg = granite_serving_config()
     run_spmm(cfg, device, results)
     run_paged(device, results)
     run_spmm_quant(cfg, device, results)
     run_paged_quant(device, results)
+    run_spmm_batched(gcfg, device, results)
     torch.cuda.empty_cache()
     log(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
 
@@ -1152,8 +1356,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
 
-    def fresh_model():  # f32 parameters from the seed
-        return LM(cfg, device=device,
+    def fresh_model(c=cfg):  # f32 parameters from the seed
+        return LM(c, device=device,
                   generator=torch.Generator(device=device).manual_seed(SEED))
 
     bf16_model = fresh_model()
@@ -1172,6 +1376,31 @@ def main() -> int:
     log(f"phase 5b done at {time.perf_counter() - t_all:.1f} s")
     del bf16_model, int8_model
     gc.collect()  # the serving models and their engines
+    torch.cuda.empty_cache()
+
+    # phase 5c: granite-moe-1b-a400m in its serving configuration, bf16
+    g_bytes = dict(zip(("bf16", "int8"), (expert_slab_bytes(gcfg, k)
+                                          for k in (2, 1))))
+    g_bf16 = fresh_model(gcfg)
+    g_serve_rec, g_chk_rec, g_prof_rec, g_toks, g_prompts = serve(
+        g_bf16, device, out_dir, trace="decode_trace_granite",
+        slab_bytes=g_bytes["bf16"][0])
+    log(f"phase 5c done at {time.perf_counter() - t_all:.1f} s")
+
+    # phase 5d: the same weights, quantized at load from f32
+    g_int8 = fresh_model(gcfg)
+    gq_serve_rec, gq_chk_rec, gq_prof_rec, _, _ = serve(
+        g_int8, device, out_dir, quant=quant, trace="decode_trace_granite",
+        slab_bytes=g_bytes["int8"][0])
+    if gq_serve_rec["ffn_scale_bytes"] != g_bytes["int8"][1]:
+        fail(f"int8 expert scale bytes {gq_serve_rec['ffn_scale_bytes']}, "
+             f"expected {g_bytes['int8'][1]}")
+    g_agree_rec = top1_agreement(g_bf16, g_int8, g_prompts, g_toks, device,
+                                 quant)
+    log(json.dumps(g_agree_rec))
+    log(f"phase 5d done at {time.perf_counter() - t_all:.1f} s")
+    del g_bf16, g_int8
+    gc.collect()
     torch.cuda.empty_cache()
 
     # phase 6
@@ -1198,7 +1427,8 @@ def main() -> int:
              train_rec["launches"]["csd_spmm_fwd"],
              gate_shape + ", save_preact"),
             ("paged_decode_attention",
-             pick("paged_decode_attention", dtype="bfloat16", window=None),
+             pick("paged_decode_attention", dtype="bfloat16", window=None,
+                  dh=256),
              "src/repro_torch/kernels/csrc/paged_decode.cu",
              "src/repro/kernels/flash_attention.py:299",
              serve_rec["launches"]["paged_decode_attention"],
@@ -1221,12 +1451,28 @@ def main() -> int:
              "w_scale f32 (5, 32)"),
             ("paged_decode_attention_quant",
              pick("paged_decode_attention_quant", dtype="bfloat16",
-                  window=None),
+                  window=None, dh=256),
              "src/repro_torch/kernels/csrc/paged_decode.cu",
              "src/repro/kernels/flash_attention.py:299",
              q_serve_rec["launches"]["paged_decode_attention_quant"],
              "q (4, 4, 2, 256) bf16, int8 pages, page 16, lengths "
-             "[1100, 517, 0, 1040]")):
+             "[1100, 517, 0, 1040]"),
+            ("csd_spmm_fwd_batched",
+             pick("csd_spmm_fwd_batched", junction="down", m=4,
+                  dtype="bfloat16", bias=False),
+             "src/repro_torch/kernels/csrc/csd_spmm_fwd.cu",
+             "src/repro/kernels/csd_spmm.py:337",
+             g_serve_rec["launches"]["csd_spmm_fwd_batched"],
+             "granite-moe down, x (32, 4, 512) bf16, w (32, 4, 3, 128, "
+             "256)"),
+            ("csd_spmm_fwd_quant_batched",
+             pick("csd_spmm_fwd_quant_batched", junction="down", m=4,
+                  dtype="bfloat16", bias=False),
+             "src/repro_torch/kernels/csrc/csd_spmm_fwd_quant.cu",
+             "src/repro/kernels/csd_spmm.py:295",
+             gq_serve_rec["launches"]["csd_spmm_fwd_quant_batched"],
+             "granite-moe down, x (32, 4, 512) bf16, w int8 (32, 4, 3, "
+             "128, 256), w_scale f32 (32, 4, 3)")):
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
@@ -1239,6 +1485,11 @@ def main() -> int:
              serve=serve_rec, logits_check=chk_rec, profile=prof_rec,
              serve_int8=q_serve_rec, logits_check_int8=q_chk_rec,
              profile_int8=q_prof_rec, top1_agreement_int8=agree_rec,
+             granite_serve=g_serve_rec, granite_logits_check=g_chk_rec,
+             granite_profile=g_prof_rec, granite_serve_int8=gq_serve_rec,
+             granite_logits_check_int8=gq_chk_rec,
+             granite_profile_int8=gq_prof_rec,
+             granite_top1_agreement_int8=g_agree_rec,
              train_step_check=step_chk, train=train_rec,
              train_profile=train_prof, kernels=entries),
         indent=1))

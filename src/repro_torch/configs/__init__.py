@@ -10,7 +10,7 @@ import importlib
 
 from ..nn.common import ModelConfig
 
-ARCHS = ["gemma3_4b"]
+ARCHS = ["gemma3_4b", "granite_moe_1b_a400m"]
 
 
 def canonical(name: str) -> str:

@@ -15,6 +15,12 @@ A tree that the JAX package's ``quantize_tree`` has rewritten (int8 slab
 ``w`` with an f32 sibling ``w_scale``) loads into a port model that
 ``core.quant.quantize_model`` has quantized: the slabs and scales arrive
 bit for bit.
+
+An MoE block's tree ``ffn: {router, up, gate, down[, shared]}`` maps onto
+``MoE`` under the same names (``ffn.router``, ``ffn.up``, ...; a shared
+expert's ``FFN`` under ``ffn.shared``), and the ``up_scale``,
+``gate_scale`` and ``down_scale`` siblings that ``quantize_tree`` writes for
+int8 expert slabs onto the buffers of those names.
 """
 from __future__ import annotations
 
@@ -46,10 +52,10 @@ def _block_name(path: tuple) -> str:
 
 
 def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
-    """The port's state dict (parameters, and the ``w_scale`` buffers of a
-    quantized model) for ``model`` from the JAX ``LM`` parameter tree as
-    numpy arrays. Raises if a parameter is missing, left over, or of
-    another shape."""
+    """The port's state dict (parameters, and the scale buffers of a
+    quantized model: ``w_scale`` and the MoE ``*_scale``) for ``model``
+    from the JAX ``LM`` parameter tree as numpy arrays. Raises if a
+    parameter is missing, left over, or of another shape."""
     stack = np_tree["stack"]
     if stack.get("prologue"):
         raise NotImplementedError("stacks with a prologue layer")
@@ -69,7 +75,7 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
             out[f"layers.{n_groups * unit + i}.{_block_name(path)}"] = arr
     params = dict(model.named_parameters())
     params.update((n, b) for n, b in model.named_buffers()
-                  if n.endswith(".w_scale"))
+                  if n.endswith("_scale"))
     if set(out) != set(params):
         raise ValueError(
             f"parameter mismatch: missing {sorted(set(params) - set(out))}, "

@@ -63,10 +63,13 @@ def dequantize_slab(q: torch.Tensor, scales: torch.Tensor,
 def quantize_model(model: nn.Module) -> nn.Module:
     """Quantize every block-sparse junction of ``model`` in place, from its
     weights as they are (the counterpart of ``quantize_tree``: the port has
-    no spec tree, so it walks the sparse ``Linear``s). Each becomes an int8
-    ``weight`` with an f32 ``w_scale`` buffer (n_rb, d_in_b) on the same
-    device; dense junctions and junctions already quantized are left as
-    they are. Returns ``model``."""
+    no spec tree, so it walks the modules). A sparse ``Linear`` becomes an
+    int8 ``weight`` with an f32 ``w_scale`` buffer (n_rb, d_in_b); each
+    expert slab of an ``MoE`` (``up``, ``gate``, ``down`` with a pattern)
+    becomes int8 with an f32 buffer ``<name>_scale`` (E, n_rb, d_in_b), the
+    JAX tree's sibling names. Dense junctions and junctions already
+    quantized are left as they are. Returns ``model``."""
+    from ..nn.ffn import MoE
     from ..nn.layers import Linear
     for mod in model.modules():
         if isinstance(mod, Linear) and mod.is_sparse \
@@ -75,4 +78,13 @@ def quantize_model(model: nn.Module) -> nn.Module:
                 q, scales = quantize_slab(mod.weight)
             mod.weight = nn.Parameter(q, requires_grad=False)
             mod.w_scale = scales
+        elif isinstance(mod, MoE):
+            for name in ("up", "gate", "down"):
+                if getattr(mod, f"{name}_idx") is None \
+                        or getattr(mod, f"{name}_scale") is not None:
+                    continue
+                with torch.no_grad():
+                    q, scales = quantize_slab(getattr(mod, name))
+                setattr(mod, name, nn.Parameter(q, requires_grad=False))
+                setattr(mod, f"{name}_scale", scales)
     return model

@@ -32,6 +32,14 @@ int8 with one f32 scale per (bL x bR) block (``core.quant``), each slot's
 partial sum is scaled before it is accumulated, and no gradient exists.
 Its kernel is ``csrc/csd_spmm_fwd_quant.cu`` (``csd_spmm_fwd_quant_cuda``,
 which ``csd_spmm_fwd_cuda`` calls when given ``w_scale``).
+
+And the forward has an expert-batched form for MoE (the JAX package's
+``_csd_spmm_fwd_batched`` and ``_csd_spmm_fwd_quant_batched``): x (E, M,
+n_in) against E slabs (E, n_rb, d_in_b, bL, bR) of one shared pattern,
+bias (E, n_rb * bR), scales (E, n_rb, d_in_b) in the int8 form. Its
+kernels are the same two sources with the expert index in the grid
+(``csd_spmm_fwd_batched_cuda``, ``csd_spmm_fwd_quant_batched_cuda``); it is
+forward only.
 """
 from __future__ import annotations
 
@@ -97,9 +105,9 @@ def _check_quant(name: str, w: torch.Tensor,
     if w.dtype != torch.int8:
         raise ValueError(f"{name}: w_scale given but w.dtype={w.dtype}, "
                          f"expected int8")
-    if tuple(w_scale.shape) != tuple(w.shape[:2]):
+    if tuple(w_scale.shape) != tuple(w.shape[:-2]):
         raise ValueError(f"{name}: w_scale {tuple(w_scale.shape)} must be "
-                         f"{tuple(w.shape[:2])}")
+                         f"{tuple(w.shape[:-2])}")
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +146,36 @@ def csd_spmm_fwd_plain(x: torch.Tensor, w: torch.Tensor,
         z = z + bias.float()
     y = apply_activation(z, activation).to(x.dtype)
     return (y, z.to(x.dtype)) if save_preact else y
+
+
+def csd_spmm_fwd_batched_plain(x: torch.Tensor, w: torch.Tensor,
+                               block_idx: torch.Tensor, *,
+                               bias: Optional[torch.Tensor] = None,
+                               activation: Optional[str] = None,
+                               w_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The expert-batched forward: x (E, M, n_in), w (E, n_rb, d_in_b, bL,
+    bR), block_idx (n_rb, d_in_b) shared by every expert, bias (E, n_rb *
+    bR) or None -> y (E, M, n_rb * bR), expert e computed as
+    ``csd_spmm_fwd_plain(x[e], w[e], block_idx, bias=bias[e], ...)`` (the
+    JAX package's ``_xla_fwd_batched``). ``w_scale`` (E, n_rb, d_in_b) f32
+    selects the int8 form (``_xla_fwd_quant_batched``)."""
+    _check_quant("csd_spmm_fwd_batched", w, w_scale, False)
+    e, m = x.shape[:2]
+    _, n_rb, d_in_b, bl, br = w.shape
+    xb = x.reshape(e, m, -1, bl)
+    idx = block_idx.to(device=x.device, dtype=torch.long)
+    acc = torch.zeros((e, m, n_rb, br), dtype=torch.float32, device=x.device)
+    for f in range(d_in_b):
+        lhs = xb[:, :, idx[:, f], :].float()  # (E, M, n_rb, bL)
+        part = torch.einsum("emri,erio->emro", lhs, w[:, :, f].float())
+        if w_scale is not None:
+            part = part * w_scale[:, :, f].float()[:, None, :, None]
+        acc += part
+    z = acc.reshape(e, m, n_rb * br)
+    if bias is not None:
+        z = z + bias.float()[:, None, :]
+    return apply_activation(z, activation).to(x.dtype)
 
 
 def csd_spmm_dx_plain(dy: torch.Tensor, w: torch.Tensor,
@@ -192,12 +230,18 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_count(m: int, n_out: int, d_in_b: int, n_sm: int) -> int:
+def _block_m(m: int) -> int:
+    """The forward kernels' rows per CTA tile."""
+    return 16 if m <= 16 else 64
+
+
+def split_count(m: int, n_out: int, d_in_b: int, n_sm: int,
+                experts: int = 1) -> int:
     """How many CTAs share one output tile's fan-in slots: 1 when the
-    (BM x 64) output tiles alone give about twice as many CTAs as SMs,
-    else enough splits to get there, every split owning at least one
-    slot (the kernel's BM is 16 for M <= 16, else 64)."""
-    tiles = (n_out // 64) * -(-m // (16 if m <= 16 else 64))
+    (BM x 64) output tiles of all ``experts`` alone give about twice as
+    many CTAs as SMs, else enough splits to get there, every split owning
+    at least one slot."""
+    tiles = experts * (n_out // 64) * -(-m // _block_m(m))
     want = -(-2 * n_sm // tiles)
     if want <= 1:
         return 1
@@ -250,27 +294,88 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _check_fwd_shapes(name: str, x, w, block_idx, bias) -> tuple:
-    if x.dim() != 2 or w.dim() != 4:
-        raise ValueError(f"{name}: x must be 2-D and w 4-D")
-    m, n_in = x.shape
-    n_rb, d_in_b, bl, br = w.shape
-    if bl % 64 or br % 64 or n_in % bl \
+def _check_fwd_shapes(name: str, x, w, block_idx, bias,
+                      batched: bool) -> tuple:
+    """(E, M, n_in, n_rb, d_in_b, bL, bR) of a forward launch: x (M, n_in)
+    with w (n_rb, d_in_b, bL, bR) and bias (n_rb * bR,) as E = 1, or with
+    ``batched`` x (E, M, n_in), w (E, n_rb, d_in_b, bL, bR) and bias (E,
+    n_rb * bR)."""
+    if (x.dim(), w.dim()) != ((3, 5) if batched else (2, 4)):
+        raise ValueError(f"{name}: x must be {3 if batched else 2}-D and w "
+                         f"{5 if batched else 4}-D")
+    e, m, n_in = x.shape if batched else (1,) + tuple(x.shape)
+    n_rb, d_in_b, bl, br = w.shape[-4:]
+    bias_shape = (e, n_rb * br) if batched else (n_rb * br,)
+    if bl % 64 or br % 64 or n_in % bl or (batched and w.shape[0] != e) \
             or tuple(block_idx.shape) != (n_rb, d_in_b) \
-            or (bias is not None and tuple(bias.shape) != (n_rb * br,)):
+            or (bias is not None and tuple(bias.shape) != bias_shape) \
+            or e * -(-m // _block_m(m)) > 65535:
         raise ValueError(
             f"{name}: shapes not taken: x {tuple(x.shape)}, "
             f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
             f"block_idx {tuple(block_idx.shape)}")
-    return m, n_in, n_rb, d_in_b, bl, br
+    return e, m, n_in, n_rb, d_in_b, bl, br
 
 
-def _splits(x: torch.Tensor, m: int, n_out: int, d_in_b: int):
-    """(n_splits, f32 partial-sum scratch or None) of a forward launch."""
-    n_splits = split_count(m, n_out, d_in_b, _sm_count(x.device))
-    partial = torch.empty((n_splits, m, n_out), dtype=torch.float32,
+def _splits(x: torch.Tensor, e: int, m: int, n_out: int, d_in_b: int):
+    """(n_splits, f32 partial-sum scratch or None) of a forward launch
+    over ``e`` experts of ``m`` rows."""
+    n_splits = split_count(m, n_out, d_in_b, _sm_count(x.device), e)
+    partial = torch.empty((n_splits, e * m, n_out), dtype=torch.float32,
                           device=x.device) if n_splits > 1 else None
     return n_splits, partial
+
+
+def _launch_fwd(name: str, x, w, block_idx, bias, activation, save_preact,
+                batched: bool):
+    """Check and launch ``csrc/csd_spmm_fwd.cu``; (y, z or None, whether
+    the kernel was launched)."""
+    floats = (x, w) if bias is None else (x, w, bias)
+    _check(name, floats + (block_idx,), floats, (block_idx,))
+    e, m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
+        name, x, w, block_idx, bias, batched)
+    y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
+                    device=x.device)
+    z = torch.empty_like(y) if save_preact else None
+    if y.numel() == 0:
+        return y, z, False
+    n_splits, partial = _splits(x, e, m, n_rb * br, d_in_b)
+    rc = _bind("csd_spmm_fwd", 7, 10)(
+        x.data_ptr(), w.data_ptr(), block_idx.data_ptr(), _ptr(bias),
+        y.data_ptr(), _ptr(z), _ptr(partial),
+        e, m, n_in, n_rb, d_in_b, bl, br, n_splits,
+        _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "csd_spmm_fwd")
+    return y, z, True
+
+
+def _launch_fwd_quant(name: str, x, w, w_scale, block_idx, bias, activation,
+                      batched: bool):
+    """Check and launch ``csrc/csd_spmm_fwd_quant.cu``; (y, whether the
+    kernel was launched)."""
+    if activation not in _ACT_CODE:
+        raise ValueError(f"unsupported fused activation {activation!r}")
+    _check_quant(name, w, w_scale, False)
+    floats = (x,) if bias is None else (x, bias)
+    _check(name, floats + (w, w_scale, block_idx), floats, (block_idx,))
+    if w_scale.dtype != torch.float32:
+        raise ValueError(f"{name}: w_scale must be float32")
+    e, m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
+        name, x, w, block_idx, bias, batched)
+    y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
+                    device=x.device)
+    if y.numel() == 0:
+        return y, False
+    n_splits, partial = _splits(x, e, m, n_rb * br, d_in_b)
+    rc = _bind("csd_spmm_fwd_quant", 7, 10)(
+        x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+        block_idx.data_ptr(), _ptr(bias), y.data_ptr(), _ptr(partial),
+        e, m, n_in, n_rb, d_in_b, bl, br, n_splits,
+        _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "csd_spmm_fwd_quant")
+    return y, True
 
 
 def csd_spmm_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -290,21 +395,9 @@ def csd_spmm_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
     if w_scale is not None:
         return csd_spmm_fwd_quant_cuda(x, w, w_scale, block_idx, bias=bias,
                                        activation=activation)
-    floats = (x, w) if bias is None else (x, w, bias)
-    _check("csd_spmm_fwd_cuda", floats + (block_idx,), floats, (block_idx,))
-    m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
-        "csd_spmm_fwd_cuda", x, w, block_idx, bias)
-    y = torch.empty((m, n_rb * br), dtype=x.dtype, device=x.device)
-    z = torch.empty_like(y) if save_preact else None
-    if m > 0:
-        n_splits, partial = _splits(x, m, n_rb * br, d_in_b)
-        rc = _bind("csd_spmm_fwd", 7, 9)(
-            x.data_ptr(), w.data_ptr(), block_idx.data_ptr(), _ptr(bias),
-            y.data_ptr(), _ptr(z), _ptr(partial),
-            m, n_in, n_rb, d_in_b, bl, br, n_splits,
-            _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
-            torch.cuda.current_stream().cuda_stream)
-        _raise_on(rc, "csd_spmm_fwd")
+    y, z, launched = _launch_fwd("csd_spmm_fwd_cuda", x, w, block_idx, bias,
+                                 activation, save_preact, batched=False)
+    if launched:
         csd_spmm_fwd_cuda.launches += 1
     return (y, z) if save_preact else y
 
@@ -318,27 +411,56 @@ def csd_spmm_fwd_quant_cuda(x: torch.Tensor, w: torch.Tensor,
     d_in_b, bL, bR), w_scale f32 (n_rb, d_in_b), bias like x or None,
     block_idx int32, all on the device of x -> y (M, n_rb * bR) like x.
     Raises on what the kernel does not take."""
+    y, launched = _launch_fwd_quant("csd_spmm_fwd_quant_cuda", x, w, w_scale,
+                                    block_idx, bias, activation,
+                                    batched=False)
+    if launched:
+        csd_spmm_fwd_quant_cuda.launches += 1
+    return y
+
+
+def csd_spmm_fwd_batched_cuda(x: torch.Tensor, w: torch.Tensor,
+                              block_idx: torch.Tensor, *,
+                              bias: Optional[torch.Tensor] = None,
+                              activation: Optional[str] = None,
+                              w_scale: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Launch ``csrc/csd_spmm_fwd.cu`` over E experts on the current stream.
+    Same contract as ``csd_spmm_fwd_batched_plain``: x (E, M, n_in), w (E,
+    n_rb, d_in_b, bL, bR), bias (E, n_rb * bR) or None, block_idx int32
+    (n_rb, d_in_b), all on the device of x. With ``w_scale`` the int8
+    kernel runs instead (``csd_spmm_fwd_quant_batched_cuda``). Raises on
+    what the kernel does not take."""
     if activation not in _ACT_CODE:
         raise ValueError(f"unsupported fused activation {activation!r}")
-    _check_quant("csd_spmm_fwd_quant_cuda", w, w_scale, False)
-    floats = (x,) if bias is None else (x, bias)
-    _check("csd_spmm_fwd_quant_cuda", floats + (w, w_scale, block_idx),
-           floats, (block_idx,))
-    if w_scale.dtype != torch.float32:
-        raise ValueError("csd_spmm_fwd_quant_cuda: w_scale must be float32")
-    m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
-        "csd_spmm_fwd_quant_cuda", x, w, block_idx, bias)
-    y = torch.empty((m, n_rb * br), dtype=x.dtype, device=x.device)
-    if m > 0:
-        n_splits, partial = _splits(x, m, n_rb * br, d_in_b)
-        rc = _bind("csd_spmm_fwd_quant", 7, 9)(
-            x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
-            block_idx.data_ptr(), _ptr(bias), y.data_ptr(), _ptr(partial),
-            m, n_in, n_rb, d_in_b, bl, br, n_splits,
-            _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
-            torch.cuda.current_stream().cuda_stream)
-        _raise_on(rc, "csd_spmm_fwd_quant")
-        csd_spmm_fwd_quant_cuda.launches += 1
+    _check_quant("csd_spmm_fwd_batched_cuda", w, w_scale, False)
+    if w_scale is not None:
+        return csd_spmm_fwd_quant_batched_cuda(
+            x, w, w_scale, block_idx, bias=bias, activation=activation)
+    y, _, launched = _launch_fwd("csd_spmm_fwd_batched_cuda", x, w,
+                                 block_idx, bias, activation, False,
+                                 batched=True)
+    if launched:
+        csd_spmm_fwd_batched_cuda.launches += 1
+    return y
+
+
+def csd_spmm_fwd_quant_batched_cuda(x: torch.Tensor, w: torch.Tensor,
+                                    w_scale: torch.Tensor,
+                                    block_idx: torch.Tensor, *,
+                                    bias: Optional[torch.Tensor] = None,
+                                    activation: Optional[str] = None
+                                    ) -> torch.Tensor:
+    """Launch ``csrc/csd_spmm_fwd_quant.cu`` over E experts on the current
+    stream: the int8 expert-batched forward, inference only. x (E, M, n_in)
+    f32/bf16, w int8 (E, n_rb, d_in_b, bL, bR), w_scale f32 (E, n_rb,
+    d_in_b), bias (E, n_rb * bR) like x or None, block_idx int32 -> y (E,
+    M, n_rb * bR) like x. Raises on what the kernel does not take."""
+    y, launched = _launch_fwd_quant("csd_spmm_fwd_quant_batched_cuda", x, w,
+                                    w_scale, block_idx, bias, activation,
+                                    batched=True)
+    if launched:
+        csd_spmm_fwd_quant_batched_cuda.launches += 1
     return y
 
 
@@ -420,5 +542,7 @@ def csd_spmm_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
 
 csd_spmm_fwd_cuda.launches = 0
 csd_spmm_fwd_quant_cuda.launches = 0
+csd_spmm_fwd_batched_cuda.launches = 0
+csd_spmm_fwd_quant_batched_cuda.launches = 0
 csd_spmm_dx_cuda.launches = 0
 csd_spmm_dw_cuda.launches = 0

@@ -2,7 +2,8 @@
 // (csd_spmm_fwd.cu, csd_spmm_fwd_quant.cu, csd_spmm_dx.cu, csd_spmm_dw.cu):
 // 16-byte cp.async copies with zero fill, f32 <-> storage-type conversion,
 // the fused activation and its derivative folded into a cotangent, and the
-// two forward kernels' epilogue and ordered second pass over fan-in splits.
+// two forward kernels' epilogue and ordered second pass over fan-in splits
+// (for one junction or E expert junctions of one shared pattern).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,7 +97,10 @@ __device__ __forceinline__ void mask_tile(T* dy, const T* aux, int act,
 
 // Writes the tile's element (m, n) of the junction output: the finished
 // value (and the pre-activation when zout is given) when there is one
-// split, else the split's raw f32 partial sum.
+// split, else the split's raw f32 partial sum. In the expert-batched form
+// m is the row across all experts (e * M_e + row) and M the rows of all
+// experts, so y, zout and the partial sums are (E * M_e, n_out); bias
+// points at the expert's own row.
 template <typename T>
 __device__ __forceinline__ void emit(float z, int m, int n, int M, int n_out,
                                      const T* bias, T* y, T* zout,
@@ -111,20 +115,23 @@ __device__ __forceinline__ void emit(float z, int m, int n, int M, int n_out,
   store(activate(z, act), y + e);
 }
 
-// Second pass of a split junction: z = sum_s partial[s] + bias, the splits
-// added in order; y = act(z), and z itself when zout is given.
+// Second pass of a split junction over E experts of M_e rows each: z =
+// sum_s partial[s] + bias[expert], the splits added in order; y = act(z),
+// and z itself when zout is given. bias is (E, n_out) (E = 1: one row).
 template <typename T>
 __global__ void __launch_bounds__(256)
     reduce_splits_kernel(const float* __restrict__ partial,
                          const T* __restrict__ bias, T* __restrict__ y,
-                         T* __restrict__ zout, int M, int n_out, int n_splits,
-                         int act) {
-  const size_t total = static_cast<size_t>(M) * n_out;
+                         T* __restrict__ zout, int E, int M_e, int n_out,
+                         int n_splits, int act) {
+  const size_t per_expert = static_cast<size_t>(M_e) * n_out;
+  const size_t total = per_expert * E;
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float z = 0.f;
     for (int s = 0; s < n_splits; ++s) z += partial[s * total + e];
-    if (bias != nullptr) z += to_f32(bias[e % n_out]);
+    if (bias != nullptr)
+      z += to_f32(bias[(e / per_expert) * n_out + e % n_out]);
     if (zout != nullptr) store(z, zout + e);
     store(activate(z, act), y + e);
   }

@@ -6,30 +6,36 @@
 // @ q[rb, f]) * s[rb, f] + b), with the slab q int8 (n_rb, d_in_b, bL, bR),
 // one f32 scale s per (bL x bR) block (n_rb, d_in_b), each slot's partial
 // sum in f32 scaled before it is accumulated, and the output in the dtype
-// of x.
+// of x; and _csd_spmm_fwd_quant_batched (body _fwd_kernel_quant_batched),
+// the same for E expert junctions over one shared block_idx: x (E, M,
+// n_in), q (E, n_rb, d_in_b, bL, bR), s (E, n_rb, d_in_b), bias (E, n_rb *
+// bR), y (E, M, n_rb * bR). The single junction is the case E = 1.
 //
 // What bounds it on the card: in decode (M = a handful of serving slots)
 // the bytes of the int8 slab, streamed once: for gemma3-4b 13.1 MB per
 // up/gate junction and 21.0 MB per down junction, 3.9 us and 6.3 us at
-// 3.35 TB/s, half the bf16 slab's time.
+// 3.35 TB/s, half the bf16 slab's time; for the 32 experts of
+// granite-moe-1b-a400m's MoE decode step 8.4 MB per up/gate call and 12.6
+// MB per down call, 2.5 us and 3.8 us.
 //
 // What the design does about it: csd_spmm_fwd.cu's schedule, unchanged:
 // one CTA per (BM x 64) output tile looping over its fan-in slots and bL in
 // BK chunks, the slots split over gridDim.z CTAs with the ordered f32
 // second pass when the tiles alone are too few, a cp.async ring (6 stages
-// for decode-sized M, 3 for prefill). What changes is the weight tile: it
-// arrives as int8, so one 16-byte copy carries 16 weights and a 64 x 64
-// tile is 4 KB. For bf16 x every thread widens its share of the arrived
-// int8 tile to bf16 in shared memory (exact for |q| <= 127) behind one
-// barrier, and the tensor cores read the widened tile; for f32 x the
-// CUDA-core loop converts four int8 weights to f32 in registers. The scale
-// is uniform over a block, so the CTA keeps a second accumulator for the
-// current slot (bL / BK k-steps, 4 at bL = 256), and at the slot's end adds
-// it times the slot's scale into the running sum, element by element in
-// the accumulator fragments (legal because both fragments share one
-// layout). The scale is not folded into the weights: bf16(q * s) would
-// round where the reference does not. Bias, activation and cast run in the
-// epilogue of csd_spmm_fwd.cu.
+// for decode-sized M, 3 for prefill), experts folded into gridDim.y with
+// each CTA offsetting x, q, s, bias and its output rows by its expert's
+// strides. What changes is the weight tile: it arrives as int8, so one
+// 16-byte copy carries 16 weights and a 64 x 64 tile is 4 KB. For bf16 x
+// every thread widens its share of the arrived int8 tile to bf16 in shared
+// memory (exact for |q| <= 127) behind one barrier, and the tensor cores
+// read the widened tile; for f32 x the CUDA-core loop converts four int8
+// weights to f32 in registers. The scale is uniform over a block, so the
+// CTA keeps a second accumulator for the current slot (bL / BK k-steps, 4
+// at bL = 256), and at the slot's end adds it times the slot's scale into
+// the running sum, element by element in the accumulator fragments (legal
+// because both fragments share one layout). The scale is not folded into
+// the weights: bf16(q * s) would round where the reference does not. Bias,
+// activation and cast run in the epilogue of csd_spmm_fwd.cu.
 #include "csd_spmm_common.cuh"
 
 namespace {
@@ -65,9 +71,9 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ scale,
                               const int* __restrict__ idx,
                               const T* __restrict__ bias, T* __restrict__ y,
-                              float* __restrict__ partial, int M, int n_in,
-                              int d_in_b, int bL, int bR, int n_out,
-                              int slots_per_split, int act) {
+                              float* __restrict__ partial, int E, int M,
+                              int n_in, int d_in_b, int bL, int bR,
+                              int n_out, int slots_per_split, int act) {
   using TL = QTile<T, BM>;
   constexpr int BK = TL::BK, EPC = TL::EPC, XS = TL::XS, WS = TL::WS;
   constexpr int S = TL::STAGES;
@@ -79,7 +85,14 @@ __global__ void __launch_bounds__(kThreads)
   const int col0 = blockIdx.x * kBN;  // first output column of the tile
   const int rb = col0 / bR;
   const int n0 = col0 - rb * bR;  // column offset inside the right block
-  const int m0 = blockIdx.y * BM;
+  const int m_tiles = (M + BM - 1) / BM;
+  const int ex = blockIdx.y / m_tiles;  // this CTA's expert
+  const int m0 = (blockIdx.y - ex * m_tiles) * BM;
+  const int row0 = ex * M;  // the expert's first row of y and partial
+  x += static_cast<size_t>(ex) * M * n_in;
+  w += static_cast<size_t>(ex) * n_out * d_in_b * bL;
+  scale += static_cast<size_t>(ex) * (n_out / bR) * d_in_b;
+  if (bias != nullptr) bias += static_cast<size_t>(ex) * n_out;
   const int f0 = blockIdx.z * slots_per_split;  // this split's fan-in slots
   const int n_slots = min(d_in_b - f0, slots_per_split);
   const int steps_per_slot = bL / BK;
@@ -174,8 +187,8 @@ __global__ void __launch_bounds__(kThreads)
       if (m >= M) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        emit(acc[i][j], m, col0 + tx * 4 + j, M, n_out, bias, y,
-             static_cast<T*>(nullptr), partial, act);
+        emit(acc[i][j], row0 + m, col0 + tx * 4 + j, E * M, n_out, bias,
+             y, static_cast<T*>(nullptr), partial, act);
     }
   } else {
     // tensor-core path: warp w owns columns [16w, 16w + 16) of the tile
@@ -253,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / kBN, c = e - r * kBN;
       const int m = m0 + r;
       if (m >= M) continue;
-      emit(cs[r * CS + c], m, col0 + c, M, n_out, bias, y,
+      emit(cs[r * CS + c], row0 + m, col0 + c, E * M, n_out, bias, y,
            static_cast<T*>(nullptr), partial, act);
     }
   }
@@ -261,9 +274,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int BM>
 int launch(const void* x, const void* w, const float* scale, const int* idx,
-           const void* bias, void* y, float* partial, int M, int n_in,
-           int n_rb, int d_in_b, int bL, int bR, int n_splits, int act,
-           cudaStream_t stream) {
+           const void* bias, void* y, float* partial, int E, int M,
+           int n_in, int n_rb, int d_in_b, int bL, int bR, int n_splits,
+           int act, cudaStream_t stream) {
   constexpr int smem = QTile<T, BM>::SMEM;
   static bool configured = false;
   if (!configured) {
@@ -275,53 +288,57 @@ int launch(const void* x, const void* w, const float* scale, const int* idx,
   }
   const int n_out = n_rb * bR;
   const int per_split = (d_in_b + n_splits - 1) / n_splits;
-  dim3 grid(n_out / kBN, (M + BM - 1) / BM, n_splits);
+  dim3 grid(n_out / kBN, E * ((M + BM - 1) / BM), n_splits);
   csd_spmm_fwd_quant_kernel<T, BM><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w), scale, idx,
       static_cast<const T*>(bias), static_cast<T*>(y),
-      n_splits > 1 ? partial : nullptr, M, n_in, d_in_b, bL, bR, n_out,
+      n_splits > 1 ? partial : nullptr, E, M, n_in, d_in_b, bL, bR, n_out,
       per_split, act);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return static_cast<int>(e);
-  const size_t total = static_cast<size_t>(M) * n_out;
+  const size_t total = static_cast<size_t>(E) * M * n_out;
   const int blocks = static_cast<int>((total + 255) / 256);
   csd::reduce_splits_kernel<T><<<blocks, 256, 0, stream>>>(
       partial, static_cast<const T*>(bias), static_cast<T*>(y),
-      static_cast<T*>(nullptr), M, n_out, n_splits, act);
+      static_cast<T*>(nullptr), E, M, n_out, n_splits, act);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, bias and y: dtype 0 float32, 1 bfloat16. w: int8 (n_rb, d_in_b, bL,
-// bR); w_scale: float32 (n_rb, d_in_b). act: 0 none, 1 relu, 2 gelu
-// (tanh). n_splits: how many CTAs share one output tile's fan-in slots (1 =
-// no second pass); every split must own at least one slot, and `partial`
-// must then hold n_splits * M * n_rb * bR floats.
+// E expert junctions of M rows each over one shared pattern idx (n_rb,
+// d_in_b); E = 1 is the single junction. x (E, M, n_in), bias (E, n_rb *
+// bR) or null and y (E, M, n_rb * bR): dtype 0 float32, 1 bfloat16. w: int8
+// (E, n_rb, d_in_b, bL, bR); w_scale: float32 (E, n_rb, d_in_b). act: 0
+// none, 1 relu, 2 gelu (tanh). n_splits: how many CTAs share one output
+// tile's fan-in slots (1 = no second pass); every split must own at least
+// one slot, and `partial` must then hold n_splits * E * M * n_rb * bR
+// floats.
 // Preconditions (checked by the Python wrapper): contiguous tensors on one
-// device, 16-byte aligned, bL % 64 == 0, bR % 64 == 0, M >= 1.
+// device, 16-byte aligned, bL % 64 == 0, bR % 64 == 0, M >= 1, E >= 1,
+// E * ceil(M / BM) <= 65535 (BM = 16 for M <= 16, else 64).
 // Returns cudaGetLastError() after the launches.
 extern "C" int csd_spmm_fwd_quant(const void* x, const void* w,
                                   const float* w_scale, const int* idx,
                                   const void* bias, void* y, float* partial,
-                                  int M, int n_in, int n_rb, int d_in_b,
-                                  int bL, int bR, int n_splits, int dtype,
-                                  int act, void* stream) {
+                                  int E, int M, int n_in, int n_rb,
+                                  int d_in_b, int bL, int bR, int n_splits,
+                                  int dtype, int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = M <= 16;
   if (dtype == 0)
-    return small ? launch<float, 16>(x, w, w_scale, idx, bias, y, partial, M,
-                                     n_in, n_rb, d_in_b, bL, bR, n_splits,
+    return small ? launch<float, 16>(x, w, w_scale, idx, bias, y, partial, E,
+                                     M, n_in, n_rb, d_in_b, bL, bR, n_splits,
                                      act, s)
-                 : launch<float, 64>(x, w, w_scale, idx, bias, y, partial, M,
-                                     n_in, n_rb, d_in_b, bL, bR, n_splits,
+                 : launch<float, 64>(x, w, w_scale, idx, bias, y, partial, E,
+                                     M, n_in, n_rb, d_in_b, bL, bR, n_splits,
                                      act, s);
   if (dtype == 1)
     return small ? launch<__nv_bfloat16, 16>(x, w, w_scale, idx, bias, y,
-                                             partial, M, n_in, n_rb, d_in_b,
-                                             bL, bR, n_splits, act, s)
+                                             partial, E, M, n_in, n_rb,
+                                             d_in_b, bL, bR, n_splits, act, s)
                  : launch<__nv_bfloat16, 64>(x, w, w_scale, idx, bias, y,
-                                             partial, M, n_in, n_rb, d_in_b,
-                                             bL, bR, n_splits, act, s);
+                                             partial, E, M, n_in, n_rb,
+                                             d_in_b, bL, bR, n_splits, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,7 +12,10 @@ runs dx over the transpose pattern and UP runs dw (and db) with the
 activation's derivative masked in. With ``w_scale`` the slab is int8
 (``core.quant``) and the call runs the int8 forward: inference only, so a
 gradient request raises, as the JAX package's quantized junction has no
-VJP. There is no backend option, no tuning and no sharding.
+VJP. A 5-D slab (E, n_rb, d_in_b, bL, bR) selects the expert-batched form
+(MoE): x (E, ..., n_in) keeps its leading expert dim and flattens the rest
+to M; it is forward only so far, so a gradient request raises too. There
+is no backend option, no tuning and no sharding.
 """
 from __future__ import annotations
 
@@ -73,6 +76,15 @@ class CsdMatmul(torch.autograd.Function):
         return dx, dw, db, None, None, None, None
 
 
+def _batched_fwd(device: torch.device):
+    """The expert-batched forward for tensors on ``device``."""
+    if device.type == "cuda":
+        return csd_spmm.csd_spmm_fwd_batched_cuda
+    if device.type == "cpu":
+        return csd_spmm.csd_spmm_fwd_batched_plain
+    raise ValueError(f"csd_matmul: no implementation for {device}")
+
+
 def csd_matmul(x: torch.Tensor, w: torch.Tensor, block_idx: torch.Tensor, *,
                bias: Optional[torch.Tensor] = None,
                activation: Optional[str] = None,
@@ -84,14 +96,35 @@ def csd_matmul(x: torch.Tensor, w: torch.Tensor, block_idx: torch.Tensor, *,
     ``block_idx`` its (n_rb, d_in_b) int32 pattern on the device of ``x``.
     A gradient also needs the scatter form ``out_idx``/``out_slot``
     (n_lb, d_out_b), int32 on the same device. ``w_scale`` (n_rb, d_in_b)
-    f32 selects the int8 forward for an int8 ``w`` (inference only)."""
+    f32 selects the int8 forward for an int8 ``w`` (inference only).
+
+    Expert-batched form: ``w`` (E, n_rb, d_in_b, bL, bR) with ``x`` (E,
+    ..., n_in), ``bias`` (E, n_out) and ``w_scale`` (E, n_rb, d_in_b) runs
+    all E expert junctions over the one shared pattern and returns (E, ...,
+    n_out); forward only."""
     if activation is not None and activation not in csd_spmm.ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation!r}")
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, bias))
+    if w.dim() == 5:
+        if x.dim() < 2 or x.shape[0] != w.shape[0]:
+            raise ValueError(f"csd_matmul: batched junction: x leading dim "
+                             f"{tuple(x.shape)} must match the expert count "
+                             f"E={w.shape[0]}")
+        if needs_grad:
+            raise ValueError(
+                "csd_matmul: the expert-batched (5-D) junction is forward "
+                "only; MoE training (the 5-D csd_spmm_dx/csd_spmm_dw) is "
+                "not ported yet (ROADMAP.md, slice 4b)")
+        xf = x.reshape(x.shape[0], -1, x.shape[-1])
+        if x.device.type == "cuda":
+            xf = xf.contiguous()
+        y = _batched_fwd(x.device)(xf, w, block_idx, bias=bias,
+                                   activation=activation, w_scale=w_scale)
+        return y.reshape(x.shape[:-1] + (y.shape[-1],))
     xf = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda":
         xf = xf.contiguous()
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, w, bias))
     if w_scale is not None:
         if needs_grad:
             raise ValueError("csd_matmul: the int8 junction (w_scale) is "

@@ -4,7 +4,10 @@
 
 runs random-init weights (from ``--seed``) at the full configuration on the
 card; without ``--full`` it serves the smoke configuration. ``--device cpu``
-runs the plain versions of the kernels on the CPU.
+runs the plain versions of the kernels on the CPU. ``--arch
+granite_moe_1b_a400m`` is accepted, but its published expert capacity
+(``capacity_factor`` 1.25) is not dropless, so the engine refuses it; the
+JAX CLI falls back to its dense-cache loop there, which is not ported.
 """
 from __future__ import annotations
 

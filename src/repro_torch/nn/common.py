@@ -1,9 +1,9 @@
 """Model configuration shared by the nn stack (port of the configuration
 half of ``repro.nn.common``).
 
-The fields and defaults are those of the JAX package's ``ModelConfig`` and
-``SparsityConfig`` that the serving and training slices read, with the
-int8 serving knob ``SparsityConfig.quant``; fields of the MoE, SSM,
+The fields and defaults are those of the JAX package's ``ModelConfig``,
+``SparsityConfig`` and ``MoEConfig`` that the ported slices read, with the
+int8 serving knob ``SparsityConfig.quant``; fields of the SSM,
 encoder-decoder and frontend families and the TPU backend switch arrive
 with the slices that use them.
 """
@@ -26,6 +26,11 @@ class SparsityConfig:
     enabled: bool = False
     rho_ffn: Tuple[float, float] = (0.5, 0.75)
     rho_attn: Optional[float] = None  # None = attention projections dense
+    # MoE expert junctions (up/gate/down of every routed expert) become
+    # block-sparse too, one pattern per junction shared by all experts,
+    # executed through the expert-batched csd_matmul; densities follow
+    # rho_ffn
+    moe_sparsity: bool = False
     method: str = "clashfree"
     cf_type: int = 1
     dither: bool = False
@@ -36,6 +41,18 @@ class SparsityConfig:
     # always runs full width: the serving engine applies it once at load,
     # when its EngineConfig.quant is None
     quant: Optional[QuantConfig] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int
+    top_k: int
+    n_shared: int = 0
+    d_expert: int = 0           # per-expert hidden size
+    capacity_factor: float = 1.25
+    router_zloss: float = 1e-3
+    first_layer_dense: bool = False   # deepseek-moe: layer 0 is dense FFN
+    dense_d_ff: int = 0               # hidden size of that dense layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +80,8 @@ class ModelConfig:
     ffn_gated: bool = True
     tie_embeddings: bool = True
     scale_embed: bool = False    # gemma multiplies embeddings by sqrt(d)
+
+    moe: Optional[MoEConfig] = None
 
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
 

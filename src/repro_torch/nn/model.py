@@ -8,8 +8,11 @@ The JAX package splits its layers into scanned pattern units (gemma3:
 by a Python loop, but each layer is built with the seed its JAX block has,
 because the seed picks its FFN sparsity pattern: scan slot ``u`` gets
 ``10 * u + 1`` in every group (scanned groups share one pattern per slot),
-epilogue block ``i`` gets ``2000 + 10 * i``. The MoE prologue layer does not
-exist for the models this port runs yet.
+epilogue block ``i`` gets ``2000 + 10 * i``. MoE blocks (granite-moe) get
+the same seeds; the MoE prologue layer (deepseek-moe's dense layer 0) is
+not ported yet, and the paged step runs MoE over all B x C rows, inactive
+slots' rows included, as the JAX step does (serving needs dropless
+capacity for that, which the engine checks).
 
 With ``cfg.remat`` the training forward recomputes each layer, and the loss
 each sequence chunk, in the backward pass (``torch.utils.checkpoint``); the
@@ -144,6 +147,10 @@ class LM(nn.Module):
         (B, S) int; a label < 0 is ignored), in f32, over ``loss_chunk``
         sequence chunks (a tail shorter than a chunk is dropped, as in the
         JAX package). Returns (loss, {"loss", "tokens"})."""
+        if self.cfg.moe is not None:
+            raise NotImplementedError(
+                "MoE training (the aux losses in the loss, the 5-D "
+                "csd_spmm_dx/csd_spmm_dw) is not ported yet")
         h = self.forward(batch["tokens"])
         labels = batch["labels"]
         s = labels.shape[1]

@@ -1,7 +1,9 @@
 """The decoder block (port of ``repro.nn.transformer.TransformerBlock``):
-pre-norm attention + FFN, with gemma's sandwich norms when ``post_norms`` is
-set; ``forward`` runs the full sequence (training), ``paged_step`` one
-serving step."""
+pre-norm attention + FFN or MoE, with gemma's sandwich norms when
+``post_norms`` is set; ``forward`` runs the full sequence (training),
+``paged_step`` one serving step. An MoE block's aux values (load balance,
+router z-loss) are dropped here, as the JAX block drops them in serving:
+they enter the loss with MoE training, which is not ported yet."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,7 +13,7 @@ import torch.nn as nn
 
 from .attention import Attention
 from .common import ModelConfig, param_dtype_of
-from .ffn import FFN
+from .ffn import FFN, MoE
 from .layers import RMSNorm
 
 
@@ -25,7 +27,17 @@ class TransformerBlock(nn.Module):
         self.attn = Attention(cfg, window=window, seed=seed,
                               qk_norm=cfg.post_norms, device=device,
                               generator=generator)
-        self.ffn = FFN(cfg, seed=seed, device=device, generator=generator)
+        if cfg.moe is not None:
+            if cfg.moe.first_layer_dense:
+                raise NotImplementedError(
+                    "MoE stacks with a dense first layer (deepseek-moe's "
+                    "prologue) are not ported yet")
+            self.ffn = MoE(cfg, seed=seed, device=device,
+                           generator=generator)
+        else:
+            self.ffn = FFN(cfg, seed=seed, device=device,
+                           generator=generator)
+        self.is_moe = cfg.moe is not None
         pd = param_dtype_of(cfg)
         norm = lambda: RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)  # noqa: E731
         self.ln_attn = norm()
@@ -34,16 +46,20 @@ class TransformerBlock(nn.Module):
             self.ln_attn_post = norm()
             self.ln_ffn_post = norm()
 
+    def _ffn_res(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.ffn(self.ln_ffn(x))
+        if self.is_moe:
+            h = h[0]
+        if self.cfg.post_norms:
+            h = self.ln_ffn_post(h)
+        return x + h
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward: x (B, S, d), positions (B, S)."""
         h = self.attn(self.ln_attn(x), positions)
         if self.cfg.post_norms:
             h = self.ln_attn_post(h)
-        x = x + h
-        h = self.ffn(self.ln_ffn(x))
-        if self.cfg.post_norms:
-            h = self.ln_ffn_post(h)
-        return x + h
+        return self._ffn_res(x + h)
 
     def paged_step(self, x: torch.Tensor, pos: torch.Tensor,
                    n_new: torch.Tensor, cache: dict,
@@ -54,8 +70,4 @@ class TransformerBlock(nn.Module):
                                  page_table)
         if self.cfg.post_norms:
             h = self.ln_attn_post(h)
-        x = x + h
-        h = self.ffn(self.ln_ffn(x))
-        if self.cfg.post_norms:
-            h = self.ln_ffn_post(h)
-        return x + h
+        return self._ffn_res(x + h)

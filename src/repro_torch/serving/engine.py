@@ -16,10 +16,15 @@ and the valid counts to the device.
 
 int8 serving (``EngineConfig.quant``, or the model's
 ``SparsityConfig.quant`` when that is None): with ``weights`` every sparse
-junction is quantized once at load, from the weights as given and before
-the cast to the compute dtype, and then runs the int8 forward kernel; with
-``kv`` the page pools are int8 with per-token scales and decode runs the
-int8 paged-decode kernel.
+junction (MoE expert slabs included) is quantized once at load, from the
+weights as given and before the cast to the compute dtype, and then runs
+the int8 forward kernel; with ``kv`` the page pools are int8 with
+per-token scales and decode runs the int8 paged-decode kernel.
+
+MoE models serve only dropless (``capacity_factor >= n_routed / top_k``):
+a batched step runs the rows of inactive slots too, and with a finite
+expert capacity those rows could evict real tokens from their experts'
+buffers.
 """
 from __future__ import annotations
 
@@ -63,8 +68,16 @@ class ServingEngine:
         if overrides and config is not None:
             raise ValueError("pass EngineConfig or overrides, not both")
         cfg = config or EngineConfig(**overrides)
-        self.device = resolve_device(device)
         mc = model.cfg
+        moe = mc.moe
+        if moe is not None and moe.capacity_factor * moe.top_k \
+                < moe.n_routed:
+            raise NotImplementedError(
+                f"paged serving with capacity-constrained MoE "
+                f"(capacity_factor={moe.capacity_factor}): rebuild the "
+                f"model with capacity_factor >= n_routed/top_k = "
+                f"{moe.n_routed / moe.top_k:.1f} (dropless decode)")
+        self.device = resolve_device(device)
         qc = cfg.quant if cfg.quant is not None else mc.sparsity.quant
         self.quant = qc
         model = model.to(device=self.device)

@@ -248,3 +248,64 @@ def test_paged_decode_quant_cuda_matches_plain(cuda_device, dh, window,
     np.testing.assert_allclose(got.float().cpu(), ref.float().cpu(),
                                atol=tol, rtol=tol)
     assert (got[2] == 0).all()  # the empty row
+
+
+# ---------------------------------------------------------------------------
+# the expert-batched (MoE) forward kernels, full width and int8
+# ---------------------------------------------------------------------------
+
+
+def _batched_junction(seed, e, m, n_in, n_out, bl, br, rho=0.5):
+    rng = np.random.default_rng(seed)
+    bp = make_block_pattern(n_in, n_out, rho, block_in=bl, block_out=br,
+                            seed=seed)
+    x = rng.normal(size=(e, m, n_in)).astype(np.float32)
+    w = (rng.normal(size=(e, bp.n_rb, bp.d_in_b, bl, br))
+         / np.sqrt(bp.d_in_b * bl)).astype(np.float32)
+    b = rng.normal(size=(e, n_out)).astype(np.float32)
+    return bp, x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [3, 16, 100])
+@pytest.mark.parametrize("activation", [None, "gelu"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-slab", "int8"])
+def test_csd_spmm_batched_cuda_matches_plain(cuda_device, quant, activation,
+                                             m, dtype, tol):
+    """Granite's down junction shape (128 x 256 blocks, fan-in 3) at 6
+    experts, with bias; on 132 SMs the fan-in slots split over 3, 3 and 2
+    CTAs at m = 3, 16 and 100, so the second pass runs with an expert
+    stride in the bias."""
+    bp, x, w, b = _batched_junction(7, 6, m, n_in=512, n_out=1024, bl=128,
+                                    br=256, rho=0.75)
+    xd = _t(x).to(cuda_device, dtype)
+    idx = _t(bp.block_idx).to(cuda_device).int()
+    bias = _t(b).to(cuda_device, dtype)
+    if quant:
+        q, s = (t.to(cuda_device) for t in _quantize(w))
+        wd, kw = q, dict(w_scale=s)
+        counter = csd_spmm.csd_spmm_fwd_quant_batched_cuda
+    else:
+        wd, kw = _t(w).to(cuda_device, dtype), {}
+        counter = csd_spmm.csd_spmm_fwd_batched_cuda
+    kw.update(bias=bias, activation=activation)
+    n0 = counter.launches
+    got = csd_spmm.csd_spmm_fwd_batched_cuda(xd, wd, idx, **kw)
+    ref = csd_spmm.csd_spmm_fwd_batched_plain(xd, wd, idx, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (6, m, bp.n_out)
+    np.testing.assert_allclose(got.float().cpu(), ref.float().cpu(),
+                               atol=tol, rtol=tol)
+    # expert e is the single junction over x[e], w[e], bias[e]
+    e = 4
+    one = csd_spmm.csd_spmm_fwd_cuda(
+        xd[e].contiguous(), wd[e].contiguous(), idx, bias=bias[e].contiguous(),
+        activation=activation,
+        w_scale=kw["w_scale"][e].contiguous() if quant else None)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[e].float().cpu(), one.float().cpu(),
+                               atol=tol, rtol=tol)
