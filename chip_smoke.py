@@ -61,12 +61,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
    ``csd_spmm_dx`` and ``csd_spmm_dw``, timed like phase 3;
+6b. hold the expert-batched training kernels against their plain versions
+   at granite-moe-1b-a400m's training shapes (32 experts of C = 1280 rows:
+   batch 2 x seq 2048 at top-8 and capacity factor 1.25; up/gate and down
+   in 128 x 256 blocks, f32 and bf16): the 5-D ``csd_spmm_dx`` and
+   ``csd_spmm_dw`` (with and without db) and the batched forward, each
+   also once with the gelu epilogue (``save_preact``, masked cotangent),
+   timed like phase 6 with one ``torch.bmm`` over the densified slabs as
+   the yardstick;
 7. free the serving model and train gemma3-4b at its full configuration
    (f32 parameters, bf16 compute, batch 2 x seq 2048, remat): one step's
    loss and gradients with the kernels and with the plain versions
-   compared; then 4 ``Trainer`` steps on ``BigramLM`` batches with the
-   launch counts of the three junction kernels read around them; then one
-   step under ``torch.profiler``;
+   compared; two identical steps with bit-identical loss and gradients;
+   then 4 ``Trainer`` steps on ``BigramLM`` batches with the launch counts
+   of every kernel read around them (exactly 3 junction launches per layer
+   for dx and dw, 6 for the forward with remat, none of any other
+   kernel); then one step under ``torch.profiler``;
+7b. free that model and train granite-moe-1b-a400m at its full width and
+   depth in its training configuration (the published capacity factor
+   1.25, expert blocks 128 x 256) the same way: the kernels-vs-plain step
+   also reports how many routing choices differ between the two runs, and
+   the counts are of the expert-batched kernels (72 dx, 72 dw, 144
+   forwards per step), none of the 4-D or int8 ones;
 8. print one JSON line describing each ported kernel;
 9. print the device line, last.
 
@@ -496,18 +512,24 @@ def run_paged_quant(device, results):
 # ---------------------------------------------------------------------------
 
 
-def granite_serving_config():
-    """granite-moe-1b-a400m as published, with the two fields paged serving
-    needs: 128 x 256 expert blocks (the default 256 x 1024 make both expert
-    junctions dense at d_model 1024, d_expert 512) and the dropless
-    capacity factor n_routed / top_k = 4.0."""
+def granite_training_config():
+    """granite-moe-1b-a400m as published (capacity factor 1.25: training
+    drops the assignments past an expert's capacity, as the JAX trainer
+    does) with 128 x 256 expert blocks: the default 256 x 1024 make both
+    expert junctions dense at d_model 1024, d_expert 512."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config("granite_moe_1b_a400m")
-    return cfg.with_(
-        moe=dataclasses.replace(cfg.moe, capacity_factor=4.0),
-        sparsity=dataclasses.replace(cfg.sparsity, block_in=128,
-                                     block_out=256))
+    return cfg.with_(sparsity=dataclasses.replace(cfg.sparsity, block_in=128,
+                                                  block_out=256))
+
+
+def granite_serving_config():
+    """The training configuration with the dropless capacity factor
+    n_routed / top_k = 4.0 that paged serving needs."""
+    import dataclasses
+    cfg = granite_training_config()
+    return cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
 
 
 def expert_patterns(cfg):
@@ -664,9 +686,7 @@ def serve_kernels(cfg, quant) -> tuple:
 
 
 def serve_launch_counts() -> dict:
-    from repro_torch.kernels import csd_spmm, flash_attention
-    return {k: getattr(csd_spmm if k.startswith("csd") else flash_attention,
-                       f"{k}_cuda").launches for k in SERVE_KERNELS}
+    return {k: v for k, v in launch_counts().items() if k in SERVE_KERNELS}
 
 
 def resident_bytes(eng) -> dict:
@@ -722,6 +742,10 @@ def plain_versions():
                               csd_spmm.csd_spmm_dx_plain), \
             mock.patch.object(csd_spmm, "csd_spmm_dw_cuda",
                               csd_spmm.csd_spmm_dw_plain), \
+            mock.patch.object(csd_spmm, "csd_spmm_dx_batched_cuda",
+                              csd_spmm.csd_spmm_dx_batched_plain), \
+            mock.patch.object(csd_spmm, "csd_spmm_dw_batched_cuda",
+                              csd_spmm.csd_spmm_dw_batched_plain), \
             mock.patch.object(attention, "paged_decode_attention",
                               flash_attention.paged_decode_attention_plain):
         yield
@@ -1085,7 +1109,112 @@ def run_train_kernels(cfg, device, results):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: train gemma3-4b at full width
+# phase 6b: the expert-batched training kernels at granite-moe's shapes
+# ---------------------------------------------------------------------------
+
+
+def expert_capacity(cfg, tokens: int) -> int:
+    """Rows per expert of an MoE step over ``tokens`` tokens (``MoE.capacity``
+    of the port and of the JAX package)."""
+    mc = cfg.moe
+    return max(math.ceil(tokens * mc.top_k / mc.n_routed
+                         * mc.capacity_factor), 1)
+
+
+def run_train_kernels_batched(cfg, device, results):
+    import torch
+    from repro_torch.kernels import csd_spmm
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    n_exp = cfg.moe.n_routed
+    m = expert_capacity(cfg, TRAIN_M)
+    up, down = expert_patterns(cfg)
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for name, bp, act in (("up/gate", up, None), ("up/gate", up, "gelu"),
+                              ("down", down, None)):
+            shape = (n_exp, bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
+            n_w = math.prod(shape)
+
+            def randn(*size):
+                return torch.randn(size, generator=g, device=device)
+            x = randn(n_exp, m, bp.n_in).to(dtype)
+            w = (randn(*shape) / math.sqrt(bp.d_in_b * bp.block_in)).to(dtype)
+            dy = randn(n_exp, m, bp.n_out).to(dtype)
+            aux = randn(n_exp, m, bp.n_out).to(dtype) if act else None
+            pat = {k: torch.as_tensor(getattr(bp, k), dtype=torch.int32,
+                                      device=device)
+                   for k in ("block_idx", "out_idx", "out_slot")}
+            wd = dense_of_experts(bp, w)
+            el = dtype.itemsize
+            n_x, n_y = n_exp * m * bp.n_in, n_exp * m * bp.n_out
+            n_aux = n_y if act else 0
+            sp = act == "gelu"  # the training forward saves z for gelu
+            kfw = dict(activation=act, save_preact=sp)
+            kdx = dict(aux=aux, activation=act)
+            cases = [
+                ("csd_spmm_fwd_batched", False,
+                 lambda: csd_spmm.csd_spmm_fwd_batched_cuda(
+                     x, w, pat["block_idx"], **kfw),
+                 lambda: csd_spmm.csd_spmm_fwd_batched_plain(
+                     x, w, pat["block_idx"], **kfw),
+                 lambda: torch.bmm(x, wd),
+                 el * (n_x + n_w + (1 + sp) * n_y)),
+                ("csd_spmm_dx_batched", False,
+                 lambda: csd_spmm.csd_spmm_dx_batched_cuda(
+                     dy, w, pat["out_idx"], pat["out_slot"], **kdx),
+                 lambda: csd_spmm.csd_spmm_dx_batched_plain(
+                     dy, w, pat["out_idx"], pat["out_slot"], **kdx),
+                 lambda: torch.bmm(dy, wd.transpose(1, 2)),
+                 el * (n_y + n_aux + n_w + n_x))]
+            for want_db in (False, True):
+                kdw = dict(block_in=bp.block_in, block_out=bp.block_out,
+                           aux=aux, activation=act, want_db=want_db)
+                cases.append((
+                    "csd_spmm_dw_batched", want_db,
+                    lambda kdw=kdw: csd_spmm.csd_spmm_dw_batched_cuda(
+                        x, dy, pat["block_idx"], **kdw),
+                    lambda kdw=kdw: csd_spmm.csd_spmm_dw_batched_plain(
+                        x, dy, pat["block_idx"], **kdw),
+                    lambda: torch.bmm(x.transpose(1, 2), dy),
+                    el * (n_x + n_y + n_aux + n_w)
+                    + 4 * n_exp * bp.n_out * want_db))
+            for kernel, want_db, run, plain, lib, nbytes in cases:
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                if isinstance(got, tuple):  # (y, z) or (dw, db)
+                    got, ref = (torch.cat([t.float().reshape(n_exp, -1)
+                                           for t in o], 1)
+                                for o in (got, ref))
+                err = float((got.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                tol = TRAIN_TOL[str(dtype)]
+                ok = err <= tol * scale and bool(torch.isfinite(got).all())
+                del got, ref
+                ms, host_ms = bench([run], 10)
+                plain_ms, _ = bench([plain], 2)
+                lib_ms, _ = bench([lib], 10)
+                bound_ms, bound_by = bound(
+                    nbytes + 4 * pat["block_idx"].numel(), 2 * m * n_w,
+                    dtype)
+                rec = dict(kernel=kernel, junction=name, experts=n_exp, m=m,
+                           dtype=dtype_name, activation=act, want_db=want_db,
+                           save_preact=kernel == "csd_spmm_fwd_batched"
+                           and sp, w_shape=list(shape),
+                           max_abs_err=err, max_abs_ref=scale, tol=tol,
+                           ok=ok, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_ms,
+                           library="torch.bmm over the densified slabs")
+                results.append(rec)
+                log(json.dumps(rec))
+                if not ok:
+                    fail(f"{kernel} disagrees with its plain version: {rec}")
+            del x, w, dy, aux, wd
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 7b: train gemma3-4b and granite-moe-1b-a400m at full width
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
@@ -1100,21 +1229,67 @@ STEP_TOL = {"bfloat16": {"loss": 1e-2, "grad_norm": 3e-2, "slab_grad": 5e-2},
             "float32": {"loss": 1e-5, "grad_norm": 1e-4, "slab_grad": 1e-3}}
 
 
-def train_launch_counts():
-    from repro_torch.kernels import csd_spmm
-    return {k: getattr(csd_spmm, f"{k}_cuda").launches
-            for k in ("csd_spmm_fwd", "csd_spmm_dx", "csd_spmm_dw")}
+ALL_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant", "csd_spmm_fwd_batched",
+               "csd_spmm_fwd_quant_batched", "csd_spmm_dx",
+               "csd_spmm_dx_batched", "csd_spmm_dw", "csd_spmm_dw_batched",
+               "paged_decode_attention", "paged_decode_attention_quant")
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import csd_spmm, flash_attention
+    return {k: getattr(csd_spmm if k.startswith("csd") else flash_attention,
+                       f"{k}_cuda").launches for k in ALL_KERNELS}
 
 
 def reset_launch_counts():
     from repro_torch.kernels import csd_spmm, flash_attention
-    for fn in (csd_spmm.csd_spmm_fwd_cuda, csd_spmm.csd_spmm_fwd_quant_cuda,
-               csd_spmm.csd_spmm_fwd_batched_cuda,
-               csd_spmm.csd_spmm_fwd_quant_batched_cuda,
-               csd_spmm.csd_spmm_dx_cuda, csd_spmm.csd_spmm_dw_cuda,
-               flash_attention.paged_decode_attention_cuda,
-               flash_attention.paged_decode_attention_quant_cuda):
-        fn.launches = 0
+    for k in ALL_KERNELS:
+        getattr(csd_spmm if k.startswith("csd") else flash_attention,
+                f"{k}_cuda").launches = 0
+
+
+def train_launches_per_step(cfg) -> dict:
+    """Every kernel's launches in one training step of ``cfg``: each of the
+    3 junctions of a layer runs the forward (twice with remat: the
+    recompute), dx and dw once; the expert-batched forms for an MoE
+    model; no other kernel."""
+    form = "_batched" if cfg.moe is not None else ""
+    n = 3 * cfg.n_layers
+    want = {f"csd_spmm_fwd{form}": 2 * n if cfg.remat else n,
+            f"csd_spmm_dx{form}": n, f"csd_spmm_dw{form}": n}
+    return {k: want.get(k, 0) for k in ALL_KERNELS}
+
+
+@contextmanager
+def routing(record=None, replay=None):
+    """Patch ``torch.topk``, which in a training step only the MoE router
+    calls: append each call's expert choices to ``record``, or give back
+    the choices of ``replay`` in call order instead of choosing (the gates
+    are then the router's probabilities at those experts), so that two
+    runs route alike."""
+    import torch
+    topk = torch.topk
+    todo = iter(replay) if replay is not None else None
+
+    def patched(t, k, dim=-1, **kw):
+        if todo is not None:
+            ids = next(todo)
+            return torch.gather(t, dim, ids), ids
+        vals, ids = topk(t, k, dim=dim, **kw)
+        record.append(ids.detach())
+        return vals, ids
+
+    with mock.patch.object(torch, "topk", patched):
+        yield
+
+
+def routing_differences(a: list, b: list, n_layers: int) -> dict:
+    """How many (layer, token) expert sets differ between two runs' first
+    forward (the captures after it are the remat recompute)."""
+    tokens = sum(x.shape[0] for x in a[:n_layers])
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a[:n_layers], b[:n_layers]))
+    return dict(token_layer_sets=tokens, differing=diff)
 
 
 def loss_and_grads(model, batch, names):
@@ -1135,42 +1310,91 @@ def loss_and_grads(model, batch, names):
 
 def step_check(model, batch, cfg, dtype_name):
     """One step's loss and gradients with the kernels and with the plain
-    versions, computing in ``dtype_name``; fails past ``STEP_TOL``."""
+    versions, computing in ``dtype_name``; fails past ``STEP_TOL``. The
+    gradients compared are the first and last layers' FFN (or MoE)
+    parameters. For MoE the plain versions run twice: routing on their
+    own, where the routing choices that differ from the kernels' run are
+    counted and the gradients recorded, and with the kernels' run's
+    routing replayed, which is the run held to ``STEP_TOL``: a flipped
+    choice sends a token through other experts, a difference no kernel
+    tolerance describes."""
     import torch
     last = cfg.n_layers - 1
-    names = [f"layers.{i}.ffn.{j}.weight" for i in (0, last)
-             for j in ("up", "gate", "down")]
+    names = [n for n, _ in model.named_parameters()
+             if any(n.startswith(f"layers.{i}.ffn.") for i in (0, last))]
+    routes_k, routes_p = [], []
+    moe = cfg.moe is not None
     model.cfg = cfg.with_(dtype=dtype_name)  # the compute dtype of embed_in
     try:
         t0 = time.perf_counter()
-        loss_k, gn_k, sel_k = loss_and_grads(model, batch, names)
+        with routing(record=routes_k):
+            loss_k, gn_k, sel_k = loss_and_grads(model, batch, names)
         t_k = time.perf_counter()
-        with plain_versions():
+        with plain_versions(), routing(record=routes_p):
             loss_p, gn_p, sel_p = loss_and_grads(model, batch, names)
         t_p = time.perf_counter()
+        if moe:
+            own = loss_p, gn_p, sel_p
+            with plain_versions(), routing(replay=routes_k):
+                loss_p, gn_p, sel_p = loss_and_grads(model, batch, names)
     finally:
         model.cfg = cfg
-    slab = {n: float(torch.linalg.vector_norm(sel_k[n] - sel_p[n])
-                     / torch.linalg.vector_norm(sel_p[n])) for n in names}
+
+    def errors(loss, gn, sel):
+        return dict(
+            loss_plain=loss, loss_rel_err=abs(loss_k - loss) / abs(loss),
+            grad_norm_plain=gn, grad_norm_rel_err=abs(gn_k - gn) / gn,
+            slab_grad_rel_fro_err={
+                n: float(torch.linalg.vector_norm(sel_k[n] - sel[n])
+                         / torch.linalg.vector_norm(sel[n])) for n in names})
+
     tol = STEP_TOL[dtype_name]
-    chk = dict(check="one training step, kernels vs plain versions",
-               dtype=dtype_name, loss_kernels=loss_k, loss_plain=loss_p,
-               loss_rel_err=abs(loss_k - loss_p) / abs(loss_p),
-               grad_norm_kernels=gn_k, grad_norm_plain=gn_p,
-               grad_norm_rel_err=abs(gn_k - gn_p) / gn_p,
-               slab_grad_rel_fro_err=slab, tol=tol,
+    chk = dict(check=f"{cfg.name}: one training step, kernels vs plain "
+                     f"versions" + (" (routing replayed)" if moe else ""),
+               dtype=dtype_name, loss_kernels=loss_k, grad_norm_kernels=gn_k,
+               **errors(loss_p, gn_p, sel_p), tol=tol,
                kernel_step_s=t_k - t0, plain_step_s=t_p - t_k,
                ln_vocab=math.log(cfg.vocab_size))
+    if moe:
+        chk["own_routing"] = dict(
+            routing=routing_differences(routes_k, routes_p, cfg.n_layers),
+            **errors(*own))
     log(json.dumps(chk))
     if not (math.isfinite(loss_k) and math.isfinite(gn_k)) \
             or chk["loss_rel_err"] > tol["loss"] \
             or chk["grad_norm_rel_err"] > tol["grad_norm"] \
-            or max(slab.values()) > tol["slab_grad"]:
+            or max(chk["slab_grad_rel_fro_err"].values()) > tol["slab_grad"]:
         fail(f"training step with kernels disagrees with plain: {chk}")
     return chk
 
 
-def train(device, cfg, out_dir):
+def determinism_check(model, batch, cfg):
+    """Two identical steps with the kernels, in the compute dtype, must
+    give bit-identical loss and gradients (every parameter)."""
+    import torch
+    model.zero_grad(set_to_none=True)
+    loss_a, _ = model.loss(batch)
+    loss_a.backward()
+    first = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    loss_b, _ = model.loss(batch)
+    loss_b.backward()
+    differ = [n for n, p in model.named_parameters()
+              if not torch.equal(p.grad, first[n])]
+    same_loss = bool(torch.equal(loss_a.detach(), loss_b.detach()))
+    del first
+    model.zero_grad(set_to_none=True)
+    rec = dict(check=f"{cfg.name}: two identical {cfg.dtype} steps",
+               loss=float(loss_a.detach()), loss_bit_identical=same_loss,
+               n_params=len(list(model.parameters())),
+               grads_differing=differ)
+    log(json.dumps(rec))
+    if not same_loss or differ:
+        fail(f"two identical training steps differ: {rec}")
+    return rec
+
+
+def train(device, cfg, out_dir, trace="train_trace"):
     import numpy as np
     import torch
     from repro_torch.data import BigramLM
@@ -1189,7 +1413,8 @@ def train(device, cfg, out_dir):
     batch = trainer.to_device(data.batch(0, TRAIN_BATCH, TRAIN_SEQ))
     t_k = time.perf_counter()
     chk = [step_check(model, batch, cfg, cfg.dtype),
-           step_check(model, batch, cfg, "float32")]
+           step_check(model, batch, cfg, "float32"),
+           determinism_check(model, batch, cfg)]
 
     params, opt = trainer.init_state()
     torch.cuda.synchronize()
@@ -1200,7 +1425,7 @@ def train(device, cfg, out_dir):
                 on_step=lambda s, m: (hist.append(m), log(json.dumps(
                     dict(step=s, **m)))), params=params, opt=opt)
     torch.cuda.synchronize()
-    launches = train_launch_counts()
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_s = [tokens / h["tokens_per_s"] for h in hist]
@@ -1217,15 +1442,24 @@ def train(device, cfg, out_dir):
                launches_per_step={k: v / TRAIN_STEPS
                                   for k, v in launches.items()},
                setup_s=t_k - t0)
+    if cfg.moe is not None:
+        rec.update(expert_blocks=[cfg.sparsity.block_in,
+                                  cfg.sparsity.block_out],
+                   capacity_factor=cfg.moe.capacity_factor,
+                   expert_capacity=expert_capacity(cfg, tokens),
+                   moe_lb=[h["moe_lb"] for h in hist],
+                   moe_z=[h["moe_z"] for h in hist])
     log(json.dumps(rec))
     losses = np.asarray(rec["losses"])
     if not np.isfinite(losses).all() \
             or abs(losses[0] - math.log(cfg.vocab_size)) > 2.5:
         fail(f"training losses not finite or far from ln(vocab): {rec}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"the training run never launched {name}")
-    prof = profile_train(trainer, params, opt, data, out_dir)
+    want = {k: v * TRAIN_STEPS for k, v in
+            train_launches_per_step(cfg).items()}
+    if launches != want:
+        fail(f"{cfg.name}: the training run launched {launches}, expected "
+             f"{want}")
+    prof = profile_train(trainer, params, opt, data, out_dir, trace)
     return chk, rec, prof
 
 
@@ -1249,7 +1483,7 @@ def kernel_kind(name: str) -> str:
     return "elementwise/other"
 
 
-def profile_train(trainer, params, opt, data, out_dir):
+def profile_train(trainer, params, opt, data, out_dir, trace):
     """Where a training step's time goes: one ``Trainer`` step under
     ``torch.profiler``, kernel time summed by name."""
     import torch
@@ -1266,8 +1500,8 @@ def profile_train(trainer, params, opt, data, out_dir):
         trainer.train_step(params, opt, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = train_launch_counts()
-    export_trace(prof, out_dir / "train_trace.json")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    export_trace(prof, out_dir / f"{trace}.json")
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
@@ -1403,11 +1637,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 6
+    # phases 6 and 6b
     run_train_kernels(cfg, device, results)
+    log(f"phase 6 done at {time.perf_counter() - t_all:.1f} s")
+    tcfg = granite_training_config()
+    run_train_kernels_batched(tcfg, device, results)
+    torch.cuda.empty_cache()
+    log(f"phase 6b done at {time.perf_counter() - t_all:.1f} s")
 
     # phase 7
     step_chk, train_rec, train_prof = train(device, cfg, out_dir)
+    gc.collect()  # the gemma3 model, its gradients and AdamW state
+    torch.cuda.empty_cache()
+    log(f"phase 7 done at {time.perf_counter() - t_all:.1f} s")
+
+    # phase 7b
+    g_step_chk, g_train_rec, g_train_prof = train(
+        device, tcfg, out_dir, trace="train_trace_granite")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 7b done at {time.perf_counter() - t_all:.1f} s")
 
     # phase 8: one entry per kernel: the junction kernels at the training
     # shape of the gelu gate junction, paged decode at a decode step's, the
@@ -1417,6 +1666,12 @@ def main() -> int:
             r.get(k) == v for k, v in want.items()))
 
     gate = dict(junction="gate", m=TRAIN_M, dtype="bfloat16")
+    # granite's training up/gate junction: silu runs outside it, no bias
+    g_up = dict(junction="up/gate", activation=None, dtype="bfloat16",
+                want_db=False)
+    g_up_shape = (f"granite-moe up/gate, 32 experts of "
+                  f"{expert_capacity(tcfg, TRAIN_M)} rows, bf16, w (32, 2, "
+                  f"4, 128, 256)")
     gate_shape = (f"gate junction (gelu), M {TRAIN_M} bf16, "
                   f"w (10, 5, 256, 1024)")
     entries = []
@@ -1430,7 +1685,7 @@ def main() -> int:
              pick("paged_decode_attention", dtype="bfloat16", window=None,
                   dh=256),
              "src/repro_torch/kernels/csrc/paged_decode.cu",
-             "src/repro/kernels/flash_attention.py:299",
+             "src/repro/kernels/flash_attention.py:214",
              serve_rec["launches"]["paged_decode_attention"],
              "q (4, 4, 2, 256) bf16, page 16, lengths [1100, 517, 0, 1040]"),
             ("csd_spmm_dx", pick("csd_spmm_dx", **gate),
@@ -1453,7 +1708,7 @@ def main() -> int:
              pick("paged_decode_attention_quant", dtype="bfloat16",
                   window=None, dh=256),
              "src/repro_torch/kernels/csrc/paged_decode.cu",
-             "src/repro/kernels/flash_attention.py:299",
+             "src/repro/kernels/flash_attention.py:214",
              q_serve_rec["launches"]["paged_decode_attention_quant"],
              "q (4, 4, 2, 256) bf16, int8 pages, page 16, lengths "
              "[1100, 517, 0, 1040]"),
@@ -1472,7 +1727,17 @@ def main() -> int:
              "src/repro/kernels/csd_spmm.py:295",
              gq_serve_rec["launches"]["csd_spmm_fwd_quant_batched"],
              "granite-moe down, x (32, 4, 512) bf16, w int8 (32, 4, 3, "
-             "128, 256), w_scale f32 (32, 4, 3)")):
+             "128, 256), w_scale f32 (32, 4, 3)"),
+            ("csd_spmm_dx_batched", pick("csd_spmm_dx_batched", **g_up),
+             "src/repro_torch/kernels/csrc/csd_spmm_dx.cu",
+             "src/repro/kernels/csd_spmm.py:539",
+             g_train_rec["launches"]["csd_spmm_dx_batched"],
+             g_up_shape),
+            ("csd_spmm_dw_batched", pick("csd_spmm_dw_batched", **g_up),
+             "src/repro_torch/kernels/csrc/csd_spmm_dw.cu",
+             "src/repro/kernels/csd_spmm.py:679",
+             g_train_rec["launches"]["csd_spmm_dw_batched"],
+             g_up_shape)):
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
@@ -1480,6 +1745,8 @@ def main() -> int:
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             shape=shape))
     entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
+    next(e for e in entries if e["name"] == "csd_spmm_fwd_batched")[
+        "launches_train"] = g_train_rec["launches"]["csd_spmm_fwd_batched"]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cases=results,
              serve=serve_rec, logits_check=chk_rec, profile=prof_rec,
@@ -1491,7 +1758,9 @@ def main() -> int:
              granite_profile_int8=gq_prof_rec,
              granite_top1_agreement_int8=g_agree_rec,
              train_step_check=step_chk, train=train_rec,
-             train_profile=train_prof, kernels=entries),
+             train_profile=train_prof, granite_train_step_check=g_step_chk,
+             granite_train=g_train_rec, granite_train_profile=g_train_prof,
+             kernels=entries),
         indent=1))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": entries}))

@@ -6,11 +6,12 @@ Pre-defined sparse expert junctions (``moe_sparsity``) at densities
 
 The same configuration as ``repro/configs/granite_moe_1b_a400m.py``. At
 full width the default 256 x 1024 blocks make both expert junctions dense
-(up/gate 4 x 1 blocks, down 2 x 1); the port serves it with
+(up/gate 4 x 1 blocks, down 2 x 1); the port trains and serves it with
 ``block_in=128, block_out=256`` (up/gate 8 x 2 blocks at fan-in 4, density
-0.5; down 4 x 4 at fan-in 3, density 0.75) and the dropless
-``capacity_factor=4.0`` (``n_routed / top_k``) that paged serving needs,
-set with ``with_`` where it is used.
+0.5; down 4 x 4 at fan-in 3, density 0.75), training at the published
+capacity factor and serving at the dropless ``capacity_factor=4.0``
+(``n_routed / top_k``) that paged serving needs, set with ``with_`` where
+it is used.
 """
 from ..nn.common import ModelConfig, MoEConfig, SparsityConfig
 

@@ -38,8 +38,15 @@ And the forward has an expert-batched form for MoE (the JAX package's
 n_in) against E slabs (E, n_rb, d_in_b, bL, bR) of one shared pattern,
 bias (E, n_rb * bR), scales (E, n_rb, d_in_b) in the int8 form. Its
 kernels are the same two sources with the expert index in the grid
-(``csd_spmm_fwd_batched_cuda``, ``csd_spmm_fwd_quant_batched_cuda``); it is
-forward only.
+(``csd_spmm_fwd_batched_cuda``, ``csd_spmm_fwd_quant_batched_cuda``). The
+backward operations have the same expert-batched form for MoE training
+(the JAX package's ``csd_spmm_dx``/``csd_spmm_dw`` on 5-D/3-D operands):
+dy and aux (E, M, n_out), x (E, M, n_in), dx (E, M, n_in), dw (E, n_rb,
+d_in_b, bL, bR), db (E, n_out), each expert summed over its own rows
+(``csd_spmm_dx_batched_cuda``, ``csd_spmm_dw_batched_cuda``, with the
+expert index in the grids of ``csrc/csd_spmm_dx.cu`` and
+``csrc/csd_spmm_dw.cu``). Each single-junction plain version is its
+batched form with one expert.
 """
 from __future__ import annotations
 
@@ -115,6 +122,11 @@ def _check_quant(name: str, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _opt(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` with a leading expert dim of 1, or None."""
+    return None if t is None else t[None]
+
+
 def csd_spmm_fwd_plain(x: torch.Tensor, w: torch.Tensor,
                        block_idx: torch.Tensor, *,
                        bias: Optional[torch.Tensor] = None,
@@ -128,39 +140,29 @@ def csd_spmm_fwd_plain(x: torch.Tensor, w: torch.Tensor,
     ``w_scale`` (n_rb, d_in_b) f32 selects the int8 forward (inference
     only): ``w`` is int8, each slot's f32 partial sum of x @ q is
     multiplied by its block's scale before it is accumulated, as the JAX
-    package's Pallas kernel ``_fwd_kernel_quant`` does."""
+    package's Pallas kernel ``_fwd_kernel_quant`` does. The expert-batched
+    form with one expert."""
     _check_quant("csd_spmm_fwd", w, w_scale, save_preact)
-    m = x.shape[0]
-    n_rb, d_in_b, bl, br = w.shape
-    xb = x.reshape(m, -1, bl)
-    idx = block_idx.to(device=x.device, dtype=torch.long)
-    acc = torch.zeros((m, n_rb, br), dtype=torch.float32, device=x.device)
-    for f in range(d_in_b):
-        lhs = xb[:, idx[:, f], :].float()  # (M, n_rb, bL)
-        part = torch.einsum("mri,rio->mro", lhs, w[:, f].float())
-        if w_scale is not None:
-            part = part * w_scale[:, f].float()[None, :, None]
-        acc += part
-    z = acc.reshape(m, n_rb * br)
-    if bias is not None:
-        z = z + bias.float()
-    y = apply_activation(z, activation).to(x.dtype)
-    return (y, z.to(x.dtype)) if save_preact else y
+    out = csd_spmm_fwd_batched_plain(
+        x[None], w[None], block_idx, bias=_opt(bias), activation=activation,
+        save_preact=save_preact, w_scale=_opt(w_scale))
+    return (out[0][0], out[1][0]) if save_preact else out[0]
 
 
 def csd_spmm_fwd_batched_plain(x: torch.Tensor, w: torch.Tensor,
                                block_idx: torch.Tensor, *,
                                bias: Optional[torch.Tensor] = None,
                                activation: Optional[str] = None,
-                               w_scale: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
+                               save_preact: bool = False,
+                               w_scale: Optional[torch.Tensor] = None):
     """The expert-batched forward: x (E, M, n_in), w (E, n_rb, d_in_b, bL,
     bR), block_idx (n_rb, d_in_b) shared by every expert, bias (E, n_rb *
-    bR) or None -> y (E, M, n_rb * bR), expert e computed as
-    ``csd_spmm_fwd_plain(x[e], w[e], block_idx, bias=bias[e], ...)`` (the
-    JAX package's ``_xla_fwd_batched``). ``w_scale`` (E, n_rb, d_in_b) f32
-    selects the int8 form (``_xla_fwd_quant_batched``)."""
-    _check_quant("csd_spmm_fwd_batched", w, w_scale, False)
+    bR) or None -> y (E, M, n_rb * bR), or (y, z) with ``save_preact``,
+    expert e computed as ``csd_spmm_fwd_plain(x[e], w[e], block_idx,
+    bias=bias[e], ...)`` (the JAX package's ``_xla_fwd_batched``).
+    ``w_scale`` (E, n_rb, d_in_b) f32 selects the int8 form
+    (``_xla_fwd_quant_batched``)."""
+    _check_quant("csd_spmm_fwd_batched", w, w_scale, save_preact)
     e, m = x.shape[:2]
     _, n_rb, d_in_b, bl, br = w.shape
     xb = x.reshape(e, m, -1, bl)
@@ -175,7 +177,8 @@ def csd_spmm_fwd_batched_plain(x: torch.Tensor, w: torch.Tensor,
     z = acc.reshape(e, m, n_rb * br)
     if bias is not None:
         z = z + bias.float()[:, None, :]
-    return apply_activation(z, activation).to(x.dtype)
+    y = apply_activation(z, activation).to(x.dtype)
+    return (y, z.to(x.dtype)) if save_preact else y
 
 
 def csd_spmm_dx_plain(dy: torch.Tensor, w: torch.Tensor,
@@ -184,19 +187,34 @@ def csd_spmm_dx_plain(dy: torch.Tensor, w: torch.Tensor,
                       activation: Optional[str] = None) -> torch.Tensor:
     """dy (M, n_rb * bR), w (n_rb, d_in_b, bL, bR), out_idx/out_slot
     (n_lb, d_out_b) integer tensors, aux like dy when ``activation`` is
-    given -> dx (M, n_lb * bL) in the dtype of dy."""
-    m = dy.shape[0]
-    n_rb, _, bl, br = w.shape
+    given -> dx (M, n_lb * bL) in the dtype of dy. The expert-batched form
+    with one expert."""
+    return csd_spmm_dx_batched_plain(dy[None], w[None], out_idx, out_slot,
+                                     aux=_opt(aux), activation=activation)[0]
+
+
+def csd_spmm_dx_batched_plain(dy: torch.Tensor, w: torch.Tensor,
+                              out_idx: torch.Tensor, out_slot: torch.Tensor,
+                              *, aux: Optional[torch.Tensor] = None,
+                              activation: Optional[str] = None
+                              ) -> torch.Tensor:
+    """The expert-batched backward-data: dy (E, M, n_rb * bR), w (E, n_rb,
+    d_in_b, bL, bR), out_idx/out_slot (n_lb, d_out_b) shared by every
+    expert, aux like dy when ``activation`` is given -> dx (E, M, n_lb *
+    bL) in the dtype of dy, expert e computed as ``csd_spmm_dx_plain(dy[e],
+    w[e], ...)`` (the JAX package's ``_xla_dx_batched``)."""
+    e, m = dy.shape[:2]
+    _, n_rb, _, bl, br = w.shape
     n_lb, d_out_b = out_idx.shape
-    dyb = mask_cotangent(dy, aux, activation).reshape(m, n_rb, br)
+    dyb = mask_cotangent(dy, aux, activation).reshape(e, m, n_rb, br)
     oidx = out_idx.to(device=dy.device, dtype=torch.long)
     oslot = out_slot.to(device=dy.device, dtype=torch.long)
-    acc = torch.zeros((m, n_lb, bl), dtype=torch.float32, device=dy.device)
+    acc = torch.zeros((e, m, n_lb, bl), dtype=torch.float32, device=dy.device)
     for g in range(d_out_b):
-        lhs = dyb[:, oidx[:, g], :].float()              # (M, n_lb, bR)
-        w_g = w[oidx[:, g], oslot[:, g]].float()          # (n_lb, bL, bR)
-        acc += torch.einsum("mlo,lio->mli", lhs, w_g)
-    return acc.reshape(m, n_lb * bl).to(dy.dtype)
+        lhs = dyb[:, :, oidx[:, g], :].float()           # (E, M, n_lb, bR)
+        w_g = w[:, oidx[:, g], oslot[:, g]].float()       # (E, n_lb, bL, bR)
+        acc += torch.einsum("emlo,elio->emli", lhs, w_g)
+    return acc.reshape(e, m, n_lb * bl).to(dy.dtype)
 
 
 def csd_spmm_dw_plain(x: torch.Tensor, dy: torch.Tensor,
@@ -206,17 +224,35 @@ def csd_spmm_dw_plain(x: torch.Tensor, dy: torch.Tensor,
                       want_db: bool = False):
     """x (M, n_in), dy (M, n_rb * bR) -> dw (n_rb, d_in_b, bL, bR) in the
     dtype of x, summed over M; with ``want_db`` returns (dw, db), db the f32
-    column sum of the masked cotangent, (n_rb * bR,)."""
-    m = x.shape[0]
+    column sum of the masked cotangent, (n_rb * bR,). The expert-batched
+    form with one expert."""
+    out = csd_spmm_dw_batched_plain(
+        x[None], dy[None], block_idx, block_in=block_in, block_out=block_out,
+        aux=_opt(aux), activation=activation, want_db=want_db)
+    return (out[0][0], out[1][0]) if want_db else out[0]
+
+
+def csd_spmm_dw_batched_plain(x: torch.Tensor, dy: torch.Tensor,
+                              block_idx: torch.Tensor, *, block_in: int,
+                              block_out: int,
+                              aux: Optional[torch.Tensor] = None,
+                              activation: Optional[str] = None,
+                              want_db: bool = False):
+    """The expert-batched backward-weights: x (E, M, n_in), dy (E, M, n_rb
+    * bR) -> dw (E, n_rb, d_in_b, bL, bR) in the dtype of x, each expert
+    summed over its own M rows (the JAX package's ``_xla_dw_batched``);
+    with ``want_db`` returns (dw, db), db (E, n_rb * bR) f32."""
+    e, m = x.shape[:2]
     n_rb, d_in_b = block_idx.shape
     dym = mask_cotangent(dy, aux, activation)
-    xb = x.reshape(m, -1, block_in).float()
-    dyb = dym.reshape(m, n_rb, block_out).float()
+    xb = x.reshape(e, m, -1, block_in).float()
+    dyb = dym.reshape(e, m, n_rb, block_out).float()
     idx = block_idx.to(device=x.device, dtype=torch.long)
-    dw = torch.stack([torch.einsum("mri,mro->rio", xb[:, idx[:, f], :], dyb)
-                      for f in range(d_in_b)], dim=1).to(x.dtype)
+    dw = torch.stack([torch.einsum("emri,emro->erio", xb[:, :, idx[:, f], :],
+                                   dyb)
+                      for f in range(d_in_b)], dim=2).to(x.dtype)
     if want_db:
-        return dw, dym.float().sum(dim=0)
+        return dw, dym.float().sum(dim=1)
     return dw
 
 
@@ -423,26 +459,27 @@ def csd_spmm_fwd_batched_cuda(x: torch.Tensor, w: torch.Tensor,
                               block_idx: torch.Tensor, *,
                               bias: Optional[torch.Tensor] = None,
                               activation: Optional[str] = None,
-                              w_scale: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
+                              save_preact: bool = False,
+                              w_scale: Optional[torch.Tensor] = None):
     """Launch ``csrc/csd_spmm_fwd.cu`` over E experts on the current stream.
     Same contract as ``csd_spmm_fwd_batched_plain``: x (E, M, n_in), w (E,
     n_rb, d_in_b, bL, bR), bias (E, n_rb * bR) or None, block_idx int32
-    (n_rb, d_in_b), all on the device of x. With ``w_scale`` the int8
-    kernel runs instead (``csd_spmm_fwd_quant_batched_cuda``). Raises on
-    what the kernel does not take."""
+    (n_rb, d_in_b), all on the device of x; (y, z) with ``save_preact``.
+    With ``w_scale`` the int8 kernel runs instead
+    (``csd_spmm_fwd_quant_batched_cuda``). Raises on what the kernel does
+    not take."""
     if activation not in _ACT_CODE:
         raise ValueError(f"unsupported fused activation {activation!r}")
-    _check_quant("csd_spmm_fwd_batched_cuda", w, w_scale, False)
+    _check_quant("csd_spmm_fwd_batched_cuda", w, w_scale, save_preact)
     if w_scale is not None:
         return csd_spmm_fwd_quant_batched_cuda(
             x, w, w_scale, block_idx, bias=bias, activation=activation)
-    y, _, launched = _launch_fwd("csd_spmm_fwd_batched_cuda", x, w,
-                                 block_idx, bias, activation, False,
+    y, z, launched = _launch_fwd("csd_spmm_fwd_batched_cuda", x, w,
+                                 block_idx, bias, activation, save_preact,
                                  batched=True)
     if launched:
         csd_spmm_fwd_batched_cuda.launches += 1
-    return y
+    return (y, z) if save_preact else y
 
 
 def csd_spmm_fwd_quant_batched_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -464,39 +501,110 @@ def csd_spmm_fwd_quant_batched_cuda(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def _launch_dx(name: str, dy, w, out_idx, out_slot, aux, activation,
+               batched: bool):
+    """Check and launch ``csrc/csd_spmm_dx.cu``; (dx, whether the kernel
+    was launched). dy (M, n_out) with w (n_rb, d_in_b, bL, bR) as E = 1,
+    or with ``batched`` dy (E, M, n_out) and w (E, n_rb, d_in_b, bL, bR)."""
+    _check_act(name, activation, aux, dy)
+    act_aux = () if activation is None else (aux,)
+    floats = (dy, w) + act_aux
+    _check(name, floats + (out_idx, out_slot), floats, (out_idx, out_slot))
+    if (dy.dim(), w.dim()) != ((3, 5) if batched else (2, 4)):
+        raise ValueError(f"{name}: dy must be {3 if batched else 2}-D and w "
+                         f"{5 if batched else 4}-D")
+    e, m, n_out = dy.shape if batched else (1,) + tuple(dy.shape)
+    n_rb, d_in_b, bl, br = w.shape[-4:]
+    n_lb, d_out_b = out_idx.shape
+    if bl % 64 or br % 64 or n_out != n_rb * br \
+            or (batched and w.shape[0] != e) \
+            or tuple(out_slot.shape) != (n_lb, d_out_b) \
+            or n_lb * d_out_b != n_rb * d_in_b or e * -(-m // 64) > 65535:
+        raise ValueError(
+            f"{name}: shapes not taken: dy {tuple(dy.shape)}, "
+            f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
+            f"out_idx {tuple(out_idx.shape)}")
+    dx = torch.empty(dy.shape[:-1] + (n_lb * bl,), dtype=dy.dtype,
+                     device=dy.device)
+    if dx.numel() == 0:
+        return dx, False
+    rc = _bind("csd_spmm_dx", 6, 10)(
+        dy.data_ptr(), _ptr(aux if activation else None), w.data_ptr(),
+        out_idx.data_ptr(), out_slot.data_ptr(), dx.data_ptr(),
+        e, m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
+        _DTYPE_CODE[dy.dtype], _ACT_CODE[activation],
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "csd_spmm_dx")
+    return dx, True
+
+
+def _launch_dw(name: str, x, dy, block_idx, bl: int, br: int, aux,
+               activation, want_db: bool, batched: bool):
+    """Check and launch ``csrc/csd_spmm_dw.cu``; (dw, db or None, whether
+    the kernel was launched). x (M, n_in) and dy (M, n_out) as E = 1, or
+    with ``batched`` x (E, M, n_in) and dy (E, M, n_out)."""
+    _check_act(name, activation, aux, dy)
+    act_aux = () if activation is None else (aux,)
+    floats = (x, dy) + act_aux
+    _check(name, floats + (block_idx,), floats, (block_idx,))
+    rank = 3 if batched else 2
+    if x.dim() != rank or dy.dim() != rank or block_idx.dim() != 2:
+        raise ValueError(f"{name}: x and dy must be {rank}-D and block_idx "
+                         f"2-D")
+    e, m, n_in = x.shape if batched else (1,) + tuple(x.shape)
+    n_rb, d_in_b = block_idx.shape
+    if bl % 64 or br % 64 or n_in % bl \
+            or tuple(dy.shape) != x.shape[:-1] + (n_rb * br,) \
+            or e * n_rb * d_in_b > 65535:
+        raise ValueError(
+            f"{name}: shapes not taken: x {tuple(x.shape)}, "
+            f"dy {tuple(dy.shape)}, block ({bl}, {br}) (bL and bR must be "
+            f"multiples of 64)")
+    lead = (e,) if batched else ()
+    dw = torch.empty(lead + (n_rb, d_in_b, bl, br), dtype=x.dtype,
+                     device=x.device)
+    db = torch.empty(lead + (n_rb * br,), dtype=torch.float32,
+                     device=x.device) if want_db else None
+    if m == 0 or e == 0:
+        dw.zero_()
+        if db is not None:
+            db.zero_()
+        return dw, db, False
+    rc = _bind("csd_spmm_dw", 6, 9)(
+        x.data_ptr(), dy.data_ptr(), _ptr(aux if activation else None),
+        block_idx.data_ptr(), dw.data_ptr(), _ptr(db),
+        e, m, n_in, n_rb, d_in_b, bl, br,
+        _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "csd_spmm_dw")
+    return dw, db, True
+
+
 def csd_spmm_dx_cuda(dy: torch.Tensor, w: torch.Tensor,
                      out_idx: torch.Tensor, out_slot: torch.Tensor, *,
                      aux: Optional[torch.Tensor] = None,
                      activation: Optional[str] = None) -> torch.Tensor:
     """Launch ``csrc/csd_spmm_dx.cu`` on the current stream. Same contract
     as ``csd_spmm_dx_plain``; out_idx/out_slot int32 on the device of dy."""
-    _check_act("csd_spmm_dx_cuda", activation, aux, dy)
-    act_aux = () if activation is None else (aux,)
-    floats = (dy, w) + act_aux
-    _check("csd_spmm_dx_cuda", floats + (out_idx, out_slot), floats,
-           (out_idx, out_slot))
-    if dy.dim() != 2 or w.dim() != 4:
-        raise ValueError("csd_spmm_dx_cuda: dy must be 2-D and w 4-D")
-    m, n_out = dy.shape
-    n_rb, d_in_b, bl, br = w.shape
-    n_lb, d_out_b = out_idx.shape
-    if bl % 64 or br % 64 or n_out != n_rb * br \
-            or tuple(out_slot.shape) != (n_lb, d_out_b) \
-            or n_lb * d_out_b != n_rb * d_in_b:
-        raise ValueError(
-            f"csd_spmm_dx_cuda: shapes not taken: dy {tuple(dy.shape)}, "
-            f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
-            f"out_idx {tuple(out_idx.shape)}")
-    dx = torch.empty((m, n_lb * bl), dtype=dy.dtype, device=dy.device)
-    if m > 0:
-        rc = _bind("csd_spmm_dx", 6, 9)(
-            dy.data_ptr(), _ptr(aux if activation else None), w.data_ptr(),
-            out_idx.data_ptr(), out_slot.data_ptr(), dx.data_ptr(),
-            m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
-            _DTYPE_CODE[dy.dtype], _ACT_CODE[activation],
-            torch.cuda.current_stream().cuda_stream)
-        _raise_on(rc, "csd_spmm_dx")
+    dx, launched = _launch_dx("csd_spmm_dx_cuda", dy, w, out_idx, out_slot,
+                              aux, activation, batched=False)
+    if launched:
         csd_spmm_dx_cuda.launches += 1
+    return dx
+
+
+def csd_spmm_dx_batched_cuda(dy: torch.Tensor, w: torch.Tensor,
+                             out_idx: torch.Tensor, out_slot: torch.Tensor,
+                             *, aux: Optional[torch.Tensor] = None,
+                             activation: Optional[str] = None
+                             ) -> torch.Tensor:
+    """Launch ``csrc/csd_spmm_dx.cu`` over E experts on the current stream.
+    Same contract as ``csd_spmm_dx_batched_plain``; out_idx/out_slot int32
+    on the device of dy."""
+    dx, launched = _launch_dx("csd_spmm_dx_batched_cuda", dy, w, out_idx,
+                              out_slot, aux, activation, batched=True)
+    if launched:
+        csd_spmm_dx_batched_cuda.launches += 1
     return dx
 
 
@@ -507,36 +615,28 @@ def csd_spmm_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
                      want_db: bool = False):
     """Launch ``csrc/csd_spmm_dw.cu`` on the current stream. Same contract
     as ``csd_spmm_dw_plain``; block_idx int32 on the device of x."""
-    _check_act("csd_spmm_dw_cuda", activation, aux, dy)
-    act_aux = () if activation is None else (aux,)
-    floats = (x, dy) + act_aux
-    _check("csd_spmm_dw_cuda", floats + (block_idx,), floats, (block_idx,))
-    if x.dim() != 2 or dy.dim() != 2 or block_idx.dim() != 2:
-        raise ValueError("csd_spmm_dw_cuda: x, dy and block_idx must be 2-D")
-    m, n_in = x.shape
-    n_rb, d_in_b = block_idx.shape
-    bl, br = block_in, block_out
-    if bl % 64 or br % 64 or n_in % bl or tuple(dy.shape) != (m, n_rb * br):
-        raise ValueError(
-            f"csd_spmm_dw_cuda: shapes not taken: x {tuple(x.shape)}, "
-            f"dy {tuple(dy.shape)}, block ({bl}, {br}) (bL and bR must be "
-            f"multiples of 64)")
-    dw = torch.empty((n_rb, d_in_b, bl, br), dtype=x.dtype, device=x.device)
-    db = torch.empty((n_rb * br,), dtype=torch.float32, device=x.device) \
-        if want_db else None
-    if m == 0:
-        dw.zero_()
-        if db is not None:
-            db.zero_()
-    else:
-        rc = _bind("csd_spmm_dw", 6, 8)(
-            x.data_ptr(), dy.data_ptr(), _ptr(aux if activation else None),
-            block_idx.data_ptr(), dw.data_ptr(), _ptr(db),
-            m, n_in, n_rb, d_in_b, bl, br,
-            _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
-            torch.cuda.current_stream().cuda_stream)
-        _raise_on(rc, "csd_spmm_dw")
+    dw, db, launched = _launch_dw("csd_spmm_dw_cuda", x, dy, block_idx,
+                                  block_in, block_out, aux, activation,
+                                  want_db, batched=False)
+    if launched:
         csd_spmm_dw_cuda.launches += 1
+    return (dw, db) if want_db else dw
+
+
+def csd_spmm_dw_batched_cuda(x: torch.Tensor, dy: torch.Tensor,
+                             block_idx: torch.Tensor, *, block_in: int,
+                             block_out: int,
+                             aux: Optional[torch.Tensor] = None,
+                             activation: Optional[str] = None,
+                             want_db: bool = False):
+    """Launch ``csrc/csd_spmm_dw.cu`` over E experts on the current stream.
+    Same contract as ``csd_spmm_dw_batched_plain``; block_idx int32 on the
+    device of x."""
+    dw, db, launched = _launch_dw("csd_spmm_dw_batched_cuda", x, dy,
+                                  block_idx, block_in, block_out, aux,
+                                  activation, want_db, batched=True)
+    if launched:
+        csd_spmm_dw_batched_cuda.launches += 1
     return (dw, db) if want_db else dw
 
 
@@ -545,4 +645,6 @@ csd_spmm_fwd_quant_cuda.launches = 0
 csd_spmm_fwd_batched_cuda.launches = 0
 csd_spmm_fwd_quant_batched_cuda.launches = 0
 csd_spmm_dx_cuda.launches = 0
+csd_spmm_dx_batched_cuda.launches = 0
 csd_spmm_dw_cuda.launches = 0
+csd_spmm_dw_batched_cuda.launches = 0

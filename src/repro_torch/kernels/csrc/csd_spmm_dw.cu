@@ -2,18 +2,22 @@
 // junction for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/csd_spmm.py:csd_spmm_dw (Pallas body
-// _dw_kernel), 4-D form:
-//   dw[rb, f] = x[:, block_idx[rb, f]]^T @ mask(dy)[:, rb]   summed over M,
+// _dw_kernel), in its 4-D and its expert-batched (5-D) form:
+//   dw[e, rb, f] = x[e, :, block_idx[rb, f]]^T @ mask(dy)[e, :, rb]
+// summed over each expert's M rows, the pattern shared by all E experts,
 // with the activation's derivative folded into dy from the saved aux (y for
 // relu, the pre-activation z for gelu), f32 accumulation and dw stored in
-// the dtype of x; with want_db also db[rb] = sum_m mask(dy)[m, rb] in f32.
+// the dtype of x; with want_db also db[e, rb] = sum_m mask(dy)[e, m, rb] in
+// f32. The 4-D form is E = 1.
 //
 // What bounds it on the card: every (bL x bR) block of the slab is a
 // product with depth M (4096 tokens for gemma3-4b at 2 x 2048), so the work
 // is 2 * M * (weights of the slab) operations, about 107 GFLOP for an
 // up/gate junction and 172 GFLOP for down, against ~70-130 MB of x, dy, aux
 // and dw: bound by operations, ~108 us (up/gate) and ~174 us (down) at
-// 989 TFLOP/s in bf16.
+// 989 TFLOP/s in bf16. The expert junctions of granite-moe-1b-a400m in
+// training (32 experts of C = 1280 rows, 128 x 256 blocks) are smaller
+// products, about 21 and 32 GFLOP against ~140-150 MB: bound by bytes.
 //
 // What the design does about it: the Pallas grid revisits one dw block
 // across the sequential M axis; here each CTA owns one 64 x 64 tile of one
@@ -26,7 +30,10 @@
 // fragments, f32 on the CUDA cores in full precision). db is the column sum
 // of the masked tiles, taken in one fixed order (ascending M) by the CTAs
 // of slot f = 0 and left-row tile 0 only, so each dy element is counted
-// once. Rows past M are zero-filled on load and add nothing.
+// once. Rows past M are zero-filled on load and add nothing. Experts are
+// folded into gridDim.z (blockIdx.z = e * n_rb * d_in_b + rb * d_in_b + f);
+// each CTA offsets x, dy, aux, dw and db by its expert's strides, reads the
+// one shared block_idx and still loops over all M rows of its expert.
 #include "csd_spmm_common.cuh"
 
 namespace {
@@ -53,7 +60,11 @@ struct DwTile {
       STAGES * (BK * XS + 2 * BK * DS) * static_cast<int>(sizeof(T));
 };
 
-template <typename T>
+// kExperts: E > 1, the expert index folded into gridDim.z. The single
+// junction (E = 1) is compiled without the expert offsets, and the blocks
+// per expert are derived here rather than passed: with either, its
+// gelu-masked form ran measurably slower on the card (PERF.md).
+template <typename T, bool kExperts>
 __global__ void __launch_bounds__(kThreads)
     csd_spmm_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                        const T* __restrict__ aux, const int* __restrict__ idx,
@@ -71,7 +82,17 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * kBJ;  // column offset inside the right block
   const int i0 = blockIdx.y * kBI;  // row offset inside the left block
-  const int blk = blockIdx.z;       // rb * d_in_b + f
+  int blk = blockIdx.z;  // rb * d_in_b + f
+  if constexpr (kExperts) {
+    const int n_blk = n_out / bR * d_in_b;  // slab blocks per expert
+    const int ex = blockIdx.z / n_blk;      // this CTA's expert
+    blk -= ex * n_blk;
+    x += static_cast<size_t>(ex) * M * n_in;
+    dy += static_cast<size_t>(ex) * M * n_out;
+    if (aux != nullptr) aux += static_cast<size_t>(ex) * M * n_out;
+    dw += static_cast<size_t>(ex) * n_blk * bL * bR;
+    if (db != nullptr) db += static_cast<size_t>(ex) * n_out;
+  }
   const int rb = blk / d_in_b;
   const int f = blk - rb * d_in_b;
   const int lb = __ldg(idx + blk);
@@ -220,21 +241,22 @@ __global__ void __launch_bounds__(kThreads)
   if (takes_db && tid < kBJ) db[dcol + tid] = colsum;
 }
 
-template <typename T>
+template <typename T, bool kExperts>
 int launch(const void* x, const void* dy, const void* aux, const int* idx,
-           void* dw, float* db, int M, int n_in, int n_rb, int d_in_b,
-           int bL, int bR, int act, cudaStream_t stream) {
+           void* dw, float* db, int E, int M, int n_in, int n_rb,
+           int d_in_b, int bL, int bR, int act, cudaStream_t stream) {
   constexpr int smem = DwTile<T>::SMEM;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        csd_spmm_dw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        csd_spmm_dw_kernel<T, kExperts>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid(bR / kBJ, bL / kBI, n_rb * d_in_b);
-  csd_spmm_dw_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(bR / kBJ, bL / kBI, E * n_rb * d_in_b);
+  csd_spmm_dw_kernel<T, kExperts><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy),
       static_cast<const T*>(aux), idx, static_cast<T*>(dw), db, M, n_in,
       n_rb * bR, d_in_b, bL, bR, act);
@@ -243,21 +265,33 @@ int launch(const void* x, const void* dy, const void* aux, const int* idx,
 
 }  // namespace
 
+// E expert junctions of M rows each over one shared pattern block_idx
+// (n_rb, d_in_b): x (E, M, n_in), dy and aux (E, M, n_rb * bR), dw (E, n_rb,
+// d_in_b, bL, bR); E = 1 is the single junction.
 // dtype: 0 float32, 1 bfloat16. act: 0 none (aux unused, may be null),
-// 1 relu (aux = y), 2 gelu (aux = z). db (nullable): n_rb * bR floats.
+// 1 relu (aux = y), 2 gelu (aux = z). db (nullable): E * n_rb * bR floats.
 // Preconditions (checked by the Python wrapper): contiguous tensors on one
 // device, 16-byte aligned, bL % 64 == 0, bR % 64 == 0, n_in % bL == 0,
-// M >= 1. Returns cudaGetLastError() after the launch.
+// M >= 1, E >= 1, E * n_rb * d_in_b <= 65535.
+// Returns cudaGetLastError() after the launch.
 extern "C" int csd_spmm_dw(const void* x, const void* dy, const void* aux,
-                           const int* block_idx, void* dw, float* db, int M,
-                           int n_in, int n_rb, int d_in_b, int bL, int bR,
-                           int dtype, int act, void* stream) {
+                           const int* block_idx, void* dw, float* db, int E,
+                           int M, int n_in, int n_rb, int d_in_b, int bL,
+                           int bR, int dtype, int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool experts = E > 1;
   if (dtype == 0)
-    return launch<float>(x, dy, aux, block_idx, dw, db, M, n_in, n_rb,
-                         d_in_b, bL, bR, act, s);
+    return experts ? launch<float, true>(x, dy, aux, block_idx, dw, db, E, M,
+                                         n_in, n_rb, d_in_b, bL, bR, act, s)
+                   : launch<float, false>(x, dy, aux, block_idx, dw, db, E,
+                                          M, n_in, n_rb, d_in_b, bL, bR, act,
+                                          s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dy, aux, block_idx, dw, db, M, n_in,
-                                 n_rb, d_in_b, bL, bR, act, s);
+    return experts ? launch<__nv_bfloat16, true>(x, dy, aux, block_idx, dw,
+                                                 db, E, M, n_in, n_rb,
+                                                 d_in_b, bL, bR, act, s)
+                   : launch<__nv_bfloat16, false>(x, dy, aux, block_idx, dw,
+                                                  db, E, M, n_in, n_rb,
+                                                  d_in_b, bL, bR, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

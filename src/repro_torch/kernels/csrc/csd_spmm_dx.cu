@@ -2,20 +2,23 @@
 // junction for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/csd_spmm.py:csd_spmm_dx (Pallas body
-// _dx_kernel), 4-D form:
-//   dx[m, lb] = sum_g mask(dy)[m, out_idx[lb, g]] @ w[out_idx[lb, g],
-//                                                     out_slot[lb, g]]^T
+// _dx_kernel), in its 4-D and its expert-batched (5-D) form:
+//   dx[e, m, lb] = sum_g mask(dy)[e, m, out_idx[lb, g]]
+//                        @ w[e, out_idx[lb, g], out_slot[lb, g]]^T
 // over the pattern's scatter form (each left block lb feeds d_out_b right
-// blocks), with the activation's derivative folded into dy from the saved
-// aux (y for relu, the pre-activation z for gelu), f32 accumulation and dx
-// in the dtype of dy.
+// blocks), shared by all E experts, with the activation's derivative folded
+// into dy from the saved aux (y for relu, the pre-activation z for gelu),
+// f32 accumulation and dx in the dtype of dy. The 4-D form is E = 1.
 //
 // What bounds it on the card: in training M is batch x sequence (4096 for
 // gemma3-4b at 2 x 2048). Each left block's K = d_out_b * bR is 5120 for
 // the up/gate junctions and 2048 for down, so the work is 2 * M * n_in * K
 // operations (about 107 GFLOP per junction) against ~90-130 MB of dy, aux,
 // w and dx: far above the bf16 ridge point. It is bound by operations,
-// ~108 us (up/gate) and ~174 us (down) at 989 TFLOP/s.
+// ~108 us (up/gate) and ~174 us (down) at 989 TFLOP/s. The expert junctions
+// of granite-moe-1b-a400m in training (32 experts of C = 1280 rows, 128 x 256
+// blocks at density 0.5 / 0.75) are smaller products, about 21 and 32 GFLOP
+// against ~140-150 MB, and sit below the bf16 ridge point: bound by bytes.
 //
 // What the design does about it: the Pallas grid revisits one dx tile
 // across the sequential g axis; here each CTA owns one (BM x 64) tile of dx
@@ -28,7 +31,9 @@
 // and before the tensor cores read it (bf16 through WMMA fragments, f32 on
 // the CUDA cores in full precision), so the masked cotangent never reaches
 // device memory. The ragged M edge is zero-filled on load and guarded on
-// store.
+// store. Experts are folded into gridDim.y (expert e owns row tiles
+// [e * m_tiles, (e + 1) * m_tiles)); each CTA offsets dy, aux, w and dx by
+// its expert's strides and reads the one shared out_idx / out_slot.
 #include "csd_spmm_common.cuh"
 
 namespace {
@@ -54,7 +59,10 @@ struct DxTile {
       STAGES * (2 * kBM * AS + kBN * WS) * static_cast<int>(sizeof(T));
 };
 
-template <typename T>
+// kExperts: E > 1, the expert index folded into gridDim.y. The single
+// junction (E = 1) is compiled without the expert offsets: with them its
+// gelu-masked form ran measurably slower on the card (PERF.md).
+template <typename T, bool kExperts>
 __global__ void __launch_bounds__(kThreads)
     csd_spmm_dx_kernel(const T* __restrict__ dy, const T* __restrict__ aux,
                        const T* __restrict__ w, const int* __restrict__ oidx,
@@ -73,7 +81,16 @@ __global__ void __launch_bounds__(kThreads)
   const int col0 = blockIdx.x * kBN;  // first dx column of the tile
   const int lb = col0 / bL;
   const int n0 = col0 - lb * bL;  // column offset inside the left block
-  const int m0 = blockIdx.y * kBM;
+  int m0 = blockIdx.y * kBM;
+  if constexpr (kExperts) {
+    const int m_tiles = (M + kBM - 1) / kBM;
+    const int ex = blockIdx.y / m_tiles;  // this CTA's expert
+    m0 -= ex * m_tiles * kBM;
+    dy += static_cast<size_t>(ex) * M * n_out;
+    if (aux != nullptr) aux += static_cast<size_t>(ex) * M * n_out;
+    w += static_cast<size_t>(ex) * n_out * d_in_b * bL;
+    dx += static_cast<size_t>(ex) * M * n_in;
+  }
   const int steps_per_slot = bR / BK;
   const int n_steps = d_out_b * steps_per_slot;
 
@@ -214,22 +231,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kExperts>
 int launch(const void* dy, const void* aux, const void* w, const int* oidx,
-           const int* oslot, void* dx, int M, int n_rb, int d_in_b, int bL,
-           int bR, int n_lb, int d_out_b, int act, cudaStream_t stream) {
+           const int* oslot, void* dx, int E, int M, int n_rb, int d_in_b,
+           int bL, int bR, int n_lb, int d_out_b, int act,
+           cudaStream_t stream) {
   constexpr int smem = DxTile<T>::SMEM;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        csd_spmm_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        csd_spmm_dx_kernel<T, kExperts>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const int n_in = n_lb * bL;
-  dim3 grid(n_in / kBN, (M + kBM - 1) / kBM);
-  csd_spmm_dx_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(n_in / kBN, E * ((M + kBM - 1) / kBM));
+  csd_spmm_dx_kernel<T, kExperts><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(dy), static_cast<const T*>(aux),
       static_cast<const T*>(w), oidx, oslot, static_cast<T*>(dx), M,
       n_rb * bR, n_in, d_in_b, bL, bR, d_out_b, act);
@@ -238,23 +257,36 @@ int launch(const void* dy, const void* aux, const void* w, const int* oidx,
 
 }  // namespace
 
+// E expert junctions of M rows each over one shared scatter pattern: dy and
+// aux (E, M, n_rb * bR), w (E, n_rb, d_in_b, bL, bR), dx (E, M, n_lb * bL);
+// E = 1 is the single junction.
 // dtype: 0 float32, 1 bfloat16. act: 0 none (aux unused, may be null),
 // 1 relu (aux = y), 2 gelu (aux = z).
 // Preconditions (checked by the Python wrapper): contiguous tensors on one
-// device, 16-byte aligned, bL % 64 == 0, bR % 64 == 0, M >= 1,
-// out_idx/out_slot (n_lb, d_out_b) int32 with n_lb * d_out_b == n_rb * d_in_b.
+// device, 16-byte aligned, bL % 64 == 0, bR % 64 == 0, M >= 1, E >= 1,
+// E * ceil(M / 64) <= 65535, out_idx/out_slot (n_lb, d_out_b) int32 with
+// n_lb * d_out_b == n_rb * d_in_b.
 // Returns cudaGetLastError() after the launch.
 extern "C" int csd_spmm_dx(const void* dy, const void* aux, const void* w,
                            const int* out_idx, const int* out_slot, void* dx,
-                           int M, int n_rb, int d_in_b, int bL, int bR,
+                           int E, int M, int n_rb, int d_in_b, int bL, int bR,
                            int n_lb, int d_out_b, int dtype, int act,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool experts = E > 1;
   if (dtype == 0)
-    return launch<float>(dy, aux, w, out_idx, out_slot, dx, M, n_rb, d_in_b,
-                         bL, bR, n_lb, d_out_b, act, s);
+    return experts ? launch<float, true>(dy, aux, w, out_idx, out_slot, dx,
+                                         E, M, n_rb, d_in_b, bL, bR, n_lb,
+                                         d_out_b, act, s)
+                   : launch<float, false>(dy, aux, w, out_idx, out_slot, dx,
+                                          E, M, n_rb, d_in_b, bL, bR, n_lb,
+                                          d_out_b, act, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(dy, aux, w, out_idx, out_slot, dx, M, n_rb,
-                                 d_in_b, bL, bR, n_lb, d_out_b, act, s);
+    return experts ? launch<__nv_bfloat16, true>(
+                         dy, aux, w, out_idx, out_slot, dx, E, M, n_rb,
+                         d_in_b, bL, bR, n_lb, d_out_b, act, s)
+                   : launch<__nv_bfloat16, false>(
+                         dy, aux, w, out_idx, out_slot, dx, E, M, n_rb,
+                         d_in_b, bL, bR, n_lb, d_out_b, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

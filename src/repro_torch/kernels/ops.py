@@ -9,13 +9,14 @@ that wires the paper's three operations as the JAX package's Pallas branch
 does (``_fwd_vjp``/``_bwd_vjp``): FF saves ``(x, w, b, aux)``, with aux the
 output y for relu and the pre-activation z for gelu (``save_preact``); BP
 runs dx over the transpose pattern and UP runs dw (and db) with the
-activation's derivative masked in. With ``w_scale`` the slab is int8
-(``core.quant``) and the call runs the int8 forward: inference only, so a
-gradient request raises, as the JAX package's quantized junction has no
-VJP. A 5-D slab (E, n_rb, d_in_b, bL, bR) selects the expert-batched form
-(MoE): x (E, ..., n_in) keeps its leading expert dim and flattens the rest
-to M; it is forward only so far, so a gradient request raises too. There
-is no backend option, no tuning and no sharding.
+activation's derivative masked in. A 5-D slab (E, n_rb, d_in_b, bL, bR)
+selects the expert-batched form (MoE): x (E, ..., n_in) keeps its leading
+expert dim and flattens the rest to M, and FF, BP and UP run the
+expert-batched kernels, db (E, n_out). With ``w_scale`` the slab is int8
+(``core.quant``) and the call runs the int8 forward, 4-D or 5-D:
+inference only, so a gradient request raises, as the JAX package's
+quantized junction has no VJP. There is no backend option, no tuning and
+no sharding.
 """
 from __future__ import annotations
 
@@ -27,23 +28,25 @@ from . import csd_spmm
 from .csd_spmm import apply_activation  # noqa: F401 — one definition for layers
 
 
-def _kernels(device: torch.device):
-    """(fwd, dx, dw) for tensors on ``device``."""
-    if device.type == "cuda":
-        return (csd_spmm.csd_spmm_fwd_cuda, csd_spmm.csd_spmm_dx_cuda,
-                csd_spmm.csd_spmm_dw_cuda)
-    if device.type == "cpu":
-        return (csd_spmm.csd_spmm_fwd_plain, csd_spmm.csd_spmm_dx_plain,
-                csd_spmm.csd_spmm_dw_plain)
-    raise ValueError(f"csd_matmul: no implementation for {device}")
+def _kernels(device: torch.device, batched: bool):
+    """(fwd, dx, dw) for tensors on ``device``, in the expert-batched form
+    when ``batched``. Looked up at each call, so that a caller can swap
+    them."""
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"csd_matmul: no implementation for {device}")
+    impl = "cuda" if device.type == "cuda" else "plain"
+    form = "_batched" if batched else ""
+    return tuple(getattr(csd_spmm, f"csd_spmm_{op}{form}_{impl}")
+                 for op in ("fwd", "dx", "dw"))
 
 
 class CsdMatmul(torch.autograd.Function):
-    """y = act(x @ W_sparse + b) on 2-D x, with FF/BP/UP as the kernels."""
+    """y = act(x @ W_sparse + b) on 2-D x and a 4-D slab, or on 3-D x and
+    a 5-D slab (expert-batched), with FF/BP/UP as the kernels."""
 
     @staticmethod
     def forward(ctx, x, w, bias, block_idx, out_idx, out_slot, activation):
-        fwd = _kernels(x.device)[0]
+        fwd = _kernels(x.device, w.dim() == 5)[0]
         if activation == "gelu":
             y, aux = fwd(x, w, block_idx, bias=bias, activation=activation,
                          save_preact=True)
@@ -58,14 +61,14 @@ class CsdMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, bias, aux, block_idx, out_idx, out_slot = ctx.saved_tensors
         act = ctx.activation
-        _, dx_fn, dw_fn = _kernels(x.device)
+        _, dx_fn, dw_fn = _kernels(x.device, w.dim() == 5)
         # backward traffic stays in the compute dtype, as in the JAX package
         dy = dy.to(x.dtype).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             dx = dx_fn(dy, w, out_idx, out_slot, aux=aux, activation=act)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            kw = dict(block_in=w.shape[2], block_out=w.shape[3], aux=aux,
+            kw = dict(block_in=w.shape[-2], block_out=w.shape[-1], aux=aux,
                       activation=act)
             if bias is not None:
                 dw, db = dw_fn(x, dy, block_idx, want_db=True, **kw)
@@ -74,15 +77,6 @@ class CsdMatmul(torch.autograd.Function):
                 dw = dw_fn(x, dy, block_idx, **kw)
             dw = dw.to(w.dtype)
         return dx, dw, db, None, None, None, None
-
-
-def _batched_fwd(device: torch.device):
-    """The expert-batched forward for tensors on ``device``."""
-    if device.type == "cuda":
-        return csd_spmm.csd_spmm_fwd_batched_cuda
-    if device.type == "cpu":
-        return csd_spmm.csd_spmm_fwd_batched_plain
-    raise ValueError(f"csd_matmul: no implementation for {device}")
 
 
 def csd_matmul(x: torch.Tensor, w: torch.Tensor, block_idx: torch.Tensor, *,
@@ -101,42 +95,35 @@ def csd_matmul(x: torch.Tensor, w: torch.Tensor, block_idx: torch.Tensor, *,
     Expert-batched form: ``w`` (E, n_rb, d_in_b, bL, bR) with ``x`` (E,
     ..., n_in), ``bias`` (E, n_out) and ``w_scale`` (E, n_rb, d_in_b) runs
     all E expert junctions over the one shared pattern and returns (E, ...,
-    n_out); forward only."""
+    n_out)."""
     if activation is not None and activation not in csd_spmm.ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation!r}")
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, w, bias))
-    if w.dim() == 5:
+    batched = w.dim() == 5
+    if batched:
         if x.dim() < 2 or x.shape[0] != w.shape[0]:
             raise ValueError(f"csd_matmul: batched junction: x leading dim "
                              f"{tuple(x.shape)} must match the expert count "
                              f"E={w.shape[0]}")
-        if needs_grad:
-            raise ValueError(
-                "csd_matmul: the expert-batched (5-D) junction is forward "
-                "only; MoE training (the 5-D csd_spmm_dx/csd_spmm_dw) is "
-                "not ported yet (ROADMAP.md, slice 4b)")
         xf = x.reshape(x.shape[0], -1, x.shape[-1])
-        if x.device.type == "cuda":
-            xf = xf.contiguous()
-        y = _batched_fwd(x.device)(xf, w, block_idx, bias=bias,
-                                   activation=activation, w_scale=w_scale)
-        return y.reshape(x.shape[:-1] + (y.shape[-1],))
-    xf = x.reshape(-1, x.shape[-1])
+    else:
+        xf = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda":
         xf = xf.contiguous()
     if w_scale is not None:
         if needs_grad:
             raise ValueError("csd_matmul: the int8 junction (w_scale) is "
                              "inference only and has no gradient")
-        y = _kernels(x.device)[0](xf, w, block_idx, bias=bias,
-                                  activation=activation, w_scale=w_scale)
+        y = _kernels(x.device, batched)[0](
+            xf, w, block_idx, bias=bias, activation=activation,
+            w_scale=w_scale)
     elif needs_grad:
         if out_idx is None or out_slot is None:
             raise ValueError("csd_matmul: a gradient needs out_idx/out_slot")
         y = CsdMatmul.apply(xf, w, bias, block_idx, out_idx, out_slot,
                             activation)
     else:
-        y = _kernels(x.device)[0](xf, w, block_idx, bias=bias,
-                                  activation=activation)
+        y = _kernels(x.device, batched)[0](xf, w, block_idx, bias=bias,
+                                           activation=activation)
     return y.reshape(x.shape[:-1] + (y.shape[-1],))

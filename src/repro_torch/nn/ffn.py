@@ -8,7 +8,9 @@ buffers of capacity C per expert, the expert FFN batched over all experts
 at once, and a combine that sums each token's weighted expert rows in a
 fixed order. With ``SparsityConfig.moe_sparsity`` every expert junction is
 a block-sparse slab (E, n_rb, d_in_b, bL, bR) over one pattern shared by
-all experts, run through the expert-batched ``csd_matmul``. The
+all experts, run through the expert-batched ``csd_matmul`` in the forward
+and in both backward operations. Gradients reach the router (through the
+gates and the aux values), the expert slabs and the input. The
 expert-parallel (shard_map / all-to-all) dispatch waits for the
 multi-device slice.
 """
@@ -36,6 +38,56 @@ def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
     and no larger id, without the host sync ``bincount`` makes on the card
     to size its output)."""
     return F.one_hot(ids, n).sum(dim=0)
+
+
+def _tokens_to_cells(x: torch.Tensor, buf_tok: torch.Tensor) -> torch.Tensor:
+    """x (T, d) -> (E, C, d): each expert buffer cell's token row, zeros in
+    the padding cells (token index T)."""
+    xp = torch.cat([x, x.new_zeros((1, x.shape[1]))], dim=0)
+    return xp[buf_tok]
+
+
+def _cells_to_tokens(cells: torch.Tensor, addr: torch.Tensor,
+                     kept: torch.Tensor) -> torch.Tensor:
+    """cells (E, C, d) -> (T, d): each token's kept cells (flat cells
+    ``addr`` (T, k), in increasing expert order) summed in that order."""
+    rows = cells.reshape(-1, cells.shape[-1])[torch.where(kept, addr, 0)]
+    return torch.where(kept[..., None], rows, 0.0).sum(dim=1)
+
+
+class _Dispatch(torch.autograd.Function):
+    """x (T, d) -> (E, C, d), the gather into the expert buffers. Its
+    backward sums each token's cells in a fixed order (``_cells_to_tokens``)
+    instead of scatter-adding them: PyTorch's index backward adds
+    duplicate indices one run at a time, and the padding row alone
+    collects thousands of cells."""
+
+    @staticmethod
+    def forward(ctx, x, buf_tok, addr, kept):
+        ctx.save_for_backward(addr, kept)
+        return _tokens_to_cells(x, buf_tok)
+
+    @staticmethod
+    def backward(ctx, grad):
+        addr, kept = ctx.saved_tensors
+        return _cells_to_tokens(grad, addr, kept), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """(E, C, d) -> (T, d), the fixed-order sum of each token's cells; its
+    backward is the gather of ``_Dispatch``'s forward (each kept cell
+    belongs to one token, a padding cell to none), so neither direction
+    scatters."""
+
+    @staticmethod
+    def forward(ctx, cells, buf_tok, addr, kept):
+        ctx.save_for_backward(buf_tok)
+        return _cells_to_tokens(cells, addr, kept)
+
+    @staticmethod
+    def backward(ctx, grad):
+        buf_tok, = ctx.saved_tensors
+        return _tokens_to_cells(grad, buf_tok), None, None, None
 
 
 class FFN(nn.Module):
@@ -81,12 +133,14 @@ class MoE(nn.Module):
     Parameters: ``router`` (d, E) and the stacked expert weights ``up``,
     ``gate`` (E, d -> d_e) and ``down`` (E, d_e -> d), each a slab (E, n_rb,
     d_in_b, bL, bR) when its junction has a pattern (its gather form in the
-    int32 buffer ``<name>_idx``; seeds +31 up, +32 gate, +33 down) and
-    dense (E, n_in, n_out) otherwise. ``core.quant.quantize_model`` makes
-    the slabs int8 with f32 scales ``<name>_scale`` (E, n_rb, d_in_b). A
-    dtype cast of the module leaves the router and the scales in their
-    dtype: routing runs in f32 from the f32 router, as in the JAX package,
-    and rounding the scales would change every block's values."""
+    int32 buffer ``<name>_idx`` and its scatter form, for the backward
+    pass, in ``<name>_out_idx``/``<name>_out_slot``; seeds +31 up, +32
+    gate, +33 down) and dense (E, n_in, n_out) otherwise.
+    ``core.quant.quantize_model`` makes the slabs int8 with f32 scales
+    ``<name>_scale`` (E, n_rb, d_in_b). A dtype cast of the module leaves
+    the router and the scales in their dtype: routing runs in f32 from the
+    f32 router, as in the JAX package, and rounding the scales would change
+    every block's values."""
 
     _KEEP_DTYPE = ("router", "up_scale", "gate_scale", "down_scale")
 
@@ -116,13 +170,15 @@ class MoE(nn.Module):
                 shape = (n_exp, pat.n_rb, pat.d_in_b, pat.block_in,
                          pat.block_out)
                 std = math.sqrt(1.0 / (pat.d_in_b * pat.block_in))
-                idx = torch.as_tensor(pat.block_idx, dtype=torch.int32,
-                                      device=device)
             else:
-                shape, std, idx = (n_exp, n_in, n_out), \
-                    math.sqrt(1.0 / n_in), None
+                shape, std = (n_exp, n_in, n_out), math.sqrt(1.0 / n_in)
             setattr(self, name, _normal(shape, std, generator, device, pd))
-            self.register_buffer(f"{name}_idx", idx)
+            for buf, field in (("idx", "block_idx"), ("out_idx", "out_idx"),
+                               ("out_slot", "out_slot")):
+                self.register_buffer(f"{name}_{buf}", None if pat is None
+                                     else torch.as_tensor(
+                                         getattr(pat, field),
+                                         dtype=torch.int32, device=device))
             self.register_buffer(f"{name}_scale", None)
         self.shared = FFN(cfg, seed=seed + 29, device=device,
                           generator=generator, d_ff=mc.n_shared * d_e) \
@@ -177,7 +233,8 @@ class MoE(nn.Module):
         cell (e, c) takes row starts[e] + c; cells past an expert's count
         hold the padding row T with gate 0, and assignments past C are
         dropped. Also returns each assignment's flat cell e * C + c and
-        whether it was kept, (T, k), for the combine."""
+        whether it was kept, (T, k), each token's k in increasing expert
+        order (the order in which ``jax.ops.segment_sum`` visits them)."""
         mc = self.mc
         t, k = ids.shape
         n_exp, cap = mc.n_routed, capacity
@@ -196,27 +253,11 @@ class MoE(nn.Module):
         pos = torch.empty_like(order).scatter_(
             0, order, torch.arange(t * k, device=ids.device))
         cell = pos - starts[flat_ids]
-        addr = (flat_ids * cap + cell).reshape(t, k)
-        kept = (cell < cap).reshape(t, k)
-        return buf_tok, buf_gate, addr, kept
-
-    @staticmethod
-    def _combine_local(ye: torch.Tensor, buf_gate: torch.Tensor,
-                       ids: torch.Tensor, addr: torch.Tensor,
-                       kept: torch.Tensor) -> torch.Tensor:
-        """Weight the expert rows by their gates (cast to the rows' dtype
-        first, as the JAX package does) and give each token the sum of its
-        kept rows, taken in increasing expert order (the order in which
-        ``jax.ops.segment_sum`` visits them). A gather and a fixed-order
-        sum: no scatter-add, so the result does not depend on scheduling."""
-        d = ye.shape[-1]
-        yw = ye.reshape(-1, d) * buf_gate.reshape(-1, 1).to(ye.dtype)
         by_expert = torch.argsort(ids, dim=1)
-        addr = torch.gather(addr, 1, by_expert)
-        kept = torch.gather(kept, 1, by_expert)
-        rows = yw[torch.where(kept, addr, 0)]                # (T, k, d)
-        rows = torch.where(kept[..., None], rows, 0.0)
-        return rows.sum(dim=1)
+        addr = torch.gather((flat_ids * cap + cell).reshape(t, k), 1,
+                            by_expert)
+        kept = torch.gather((cell < cap).reshape(t, k), 1, by_expert)
+        return buf_tok, buf_gate, addr, kept
 
     def _junction(self, xe: torch.Tensor, name: str,
                   act: Optional[str] = None) -> torch.Tensor:
@@ -234,7 +275,9 @@ class MoE(nn.Module):
                 raise ValueError(f"an int8 expert slab needs its "
                                  f"{name}_scale")
             return csd_matmul(xe, w, idx, activation=act, w_scale=scale)
-        return csd_matmul(xe, w.to(xe.dtype), idx, activation=act)
+        return csd_matmul(xe, w.to(xe.dtype), idx, activation=act,
+                          out_idx=getattr(self, f"{name}_out_idx"),
+                          out_slot=getattr(self, f"{name}_out_slot"))
 
     def _expert_ffn(self, xe: torch.Tensor) -> torch.Tensor:
         """xe (E, C, d) -> (E, C, d), all experts at once; a fusable
@@ -249,12 +292,18 @@ class MoE(nn.Module):
         return self._junction(g * h, "down")
 
     def _moe_local(self, x2d: torch.Tensor, capacity: int):
+        """Route, dispatch, run the experts and combine. The combine
+        weights the expert rows by their gates (cast to the rows' dtype
+        first, as the JAX package does) and gives each token the sum of its
+        kept rows in a fixed order: dispatch and combine are gathers in
+        both directions, with no scatter-add, so neither the result nor
+        its gradient depends on scheduling."""
         gates, ids, aux = self._route(x2d)
         buf_tok, buf_gate, addr, kept = self._dispatch_local(gates, ids,
                                                              capacity)
-        xp = torch.cat([x2d, x2d.new_zeros((1, x2d.shape[1]))], dim=0)
-        ye = self._expert_ffn(xp[buf_tok])                    # (E, C, d)
-        return self._combine_local(ye, buf_gate, ids, addr, kept), aux
+        ye = self._expert_ffn(_Dispatch.apply(x2d, buf_tok, addr, kept))
+        yw = ye * buf_gate[..., None].to(ye.dtype)           # (E, C, d)
+        return _Combine.apply(yw, buf_tok, addr, kept), aux
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

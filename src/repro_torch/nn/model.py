@@ -12,7 +12,10 @@ epilogue block ``i`` gets ``2000 + 10 * i``. MoE blocks (granite-moe) get
 the same seeds; the MoE prologue layer (deepseek-moe's dense layer 0) is
 not ported yet, and the paged step runs MoE over all B x C rows, inactive
 slots' rows included, as the JAX step does (serving needs dropless
-capacity for that, which the engine checks).
+capacity for that, which the engine checks). In training the MoE blocks'
+aux values are summed over layers and enter the loss as in the JAX
+package: ``moe_lb`` x 0.01 and ``moe_z`` x 1.0, each sum divided by the
+number of layers.
 
 With ``cfg.remat`` the training forward recomputes each layer, and the loss
 each sequence chunk, in the backward pass (``torch.utils.checkpoint``); the
@@ -31,6 +34,9 @@ from torch.utils.checkpoint import checkpoint
 from .common import ModelConfig, dtype_of, param_dtype_of
 from .layers import Embedding, RMSNorm
 from .transformer import TransformerBlock
+
+# weight of each MoE aux value in the loss, as in the JAX package
+_AUX_SCALE = {"moe_lb": 0.01, "moe_z": 1.0}
 
 
 def detect_unit(kinds: Tuple[str, ...]) -> int:
@@ -121,17 +127,22 @@ class LM(nn.Module):
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=cdt)
         return x
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int -> final-normed hidden states (B, S, d)."""
+    def forward(self, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens (B, S) int -> (final-normed hidden states (B, S, d), the
+        MoE blocks' aux values summed over layers, {} without MoE)."""
         x = self.embed_in(tokens)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        aux_tot: Dict[str, torch.Tensor] = {}
         for layer in self.layers:
             if self._remat():
-                x = checkpoint(layer, x, positions, use_reentrant=False)
+                x, aux = checkpoint(layer, x, positions, use_reentrant=False)
             else:
-                x = layer(x, positions)
-        return self.ln_f(x)
+                x, aux = layer(x, positions)
+            for k, v in aux.items():
+                aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
+        return self.ln_f(x), aux_tot
 
     def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor):
         logits = self.logits_fn(h).float()
@@ -146,12 +157,10 @@ class LM(nn.Module):
         """Next-token cross entropy of ``batch`` ({"tokens", "labels"},
         (B, S) int; a label < 0 is ignored), in f32, over ``loss_chunk``
         sequence chunks (a tail shorter than a chunk is dropped, as in the
-        JAX package). Returns (loss, {"loss", "tokens"})."""
-        if self.cfg.moe is not None:
-            raise NotImplementedError(
-                "MoE training (the aux losses in the loss, the 5-D "
-                "csd_spmm_dx/csd_spmm_dw) is not ported yet")
-        h = self.forward(batch["tokens"])
+        JAX package), plus the MoE aux terms. Returns (loss, {"loss",
+        "tokens"}, and for MoE "moe_lb" and "moe_z" summed over layers);
+        the metric "loss" is the cross entropy alone."""
+        h, aux = self.forward(batch["tokens"])
         labels = batch["labels"]
         s = labels.shape[1]
         chunk = min(self.cfg.loss_chunk, s)
@@ -165,7 +174,11 @@ class LM(nn.Module):
                 t, c = self._chunk_loss(h[:, sl], labels[:, sl])
             tot, cnt = tot + t, cnt + c
         loss = tot / torch.clamp_min(cnt, 1.0)
-        return loss, {"loss": loss, "tokens": cnt}
+        metrics = {"loss": loss, "tokens": cnt}
+        for k, v in aux.items():
+            loss = loss + _AUX_SCALE[k] * v.float() / len(self.layers)
+            metrics[k] = v
+        return loss, metrics
 
     # -- serving -------------------------------------------------------------
 

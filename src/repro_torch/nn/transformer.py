@@ -1,12 +1,12 @@
 """The decoder block (port of ``repro.nn.transformer.TransformerBlock``):
 pre-norm attention + FFN or MoE, with gemma's sandwich norms when
-``post_norms`` is set; ``forward`` runs the full sequence (training),
-``paged_step`` one serving step. An MoE block's aux values (load balance,
-router z-loss) are dropped here, as the JAX block drops them in serving:
-they enter the loss with MoE training, which is not ported yet."""
+``post_norms`` is set; ``forward`` runs the full sequence (training) and
+returns the MoE block's aux values (load balance, router z-loss) beside x
+for the loss, ``paged_step`` one serving step, which drops them as the JAX
+block does in serving."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -46,16 +46,19 @@ class TransformerBlock(nn.Module):
             self.ln_attn_post = norm()
             self.ln_ffn_post = norm()
 
-    def _ffn_res(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn_res(self, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         h = self.ffn(self.ln_ffn(x))
-        if self.is_moe:
-            h = h[0]
+        h, aux = h if self.is_moe else (h, {})
         if self.cfg.post_norms:
             h = self.ln_ffn_post(h)
-        return x + h
+        return x + h, aux
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward: x (B, S, d), positions (B, S)."""
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full-sequence forward: x (B, S, d), positions (B, S) -> (x, the
+        MoE block's aux values {"moe_lb", "moe_z"}, or {} for an FFN
+        block)."""
         h = self.attn(self.ln_attn(x), positions)
         if self.cfg.post_norms:
             h = self.ln_attn_post(h)
@@ -70,4 +73,4 @@ class TransformerBlock(nn.Module):
                                  page_table)
         if self.cfg.post_norms:
             h = self.ln_attn_post(h)
-        return self._ffn_res(x + h)
+        return self._ffn_res(x + h)[0]

@@ -309,3 +309,105 @@ def test_csd_spmm_batched_cuda_matches_plain(cuda_device, quant, activation,
     torch.cuda.synchronize()
     np.testing.assert_allclose(got[e].float().cpu(), one.float().cpu(),
                                atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the expert-batched (MoE) training kernels
+# ---------------------------------------------------------------------------
+
+
+def _batched_train_case(device, dtype, e, m, seed=9):
+    bp, x, w, b = _batched_junction(seed, e, m, **TRAIN_JUNCTION)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.normal(size=(e, m, bp.n_out)).astype(np.float32)
+    aux = rng.normal(size=(e, m, bp.n_out)).astype(np.float32)
+    to = lambda a: _t(a).to(device, dtype)  # noqa: E731
+    pat = {k: _t(getattr(bp, k)).to(device).int()
+           for k in ("block_idx", "out_idx", "out_slot")}
+    return bp, to(x), to(w), to(b), to(dy), to(aux), pat
+
+
+N_EXPERTS = 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [3, 100, 1280])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_spmm_fwd_batched_save_preact_cuda_matches_plain(
+        cuda_device, activation, m, dtype):
+    bp, x, w, b, _, _, pat = _batched_train_case(cuda_device, dtype,
+                                                 N_EXPERTS, m)
+    kw = dict(bias=b, activation=activation, save_preact=True)
+    n0 = csd_spmm.csd_spmm_fwd_batched_cuda.launches
+    y, z = csd_spmm.csd_spmm_fwd_batched_cuda(x, w, pat["block_idx"], **kw)
+    y_ref, z_ref = csd_spmm.csd_spmm_fwd_batched_plain(x, w,
+                                                       pat["block_idx"], **kw)
+    torch.cuda.synchronize()
+    assert csd_spmm.csd_spmm_fwd_batched_cuda.launches == n0 + 1
+    assert y.shape == z.shape == (N_EXPERTS, m, bp.n_out)
+    _close(y, y_ref, TRAIN_TOL[dtype])
+    _close(z, z_ref, TRAIN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [3, 100, 1280])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_spmm_dx_batched_cuda_matches_plain(cuda_device, activation, m,
+                                                dtype):
+    bp, _, w, _, dy, aux, pat = _batched_train_case(cuda_device, dtype,
+                                                    N_EXPERTS, m)
+    kw = dict(aux=aux, activation=activation)
+    oidx, oslot = pat["out_idx"], pat["out_slot"]
+    n0 = csd_spmm.csd_spmm_dx_batched_cuda.launches
+    got = csd_spmm.csd_spmm_dx_batched_cuda(dy, w, oidx, oslot, **kw)
+    ref = csd_spmm.csd_spmm_dx_batched_plain(dy, w, oidx, oslot, **kw)
+    torch.cuda.synchronize()
+    assert csd_spmm.csd_spmm_dx_batched_cuda.launches == n0 + 1
+    assert got.shape == (N_EXPERTS, m, bp.n_in) and got.dtype == dtype
+    _close(got, ref, TRAIN_TOL[dtype])
+    # expert e is the single junction on expert e's operands, bit for bit
+    e = 3
+    one = csd_spmm.csd_spmm_dx_cuda(
+        dy[e].contiguous(), w[e].contiguous(), oidx, oslot,
+        aux=aux[e].contiguous(), activation=activation)
+    torch.cuda.synchronize()
+    assert torch.equal(got[e], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [3, 100, 1280])
+@pytest.mark.parametrize("want_db", [False, True], ids=["nodb", "db"])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+def test_csd_spmm_dw_batched_cuda_matches_plain(cuda_device, activation,
+                                                want_db, m, dtype):
+    bp, x, _, _, dy, aux, pat = _batched_train_case(cuda_device, dtype,
+                                                    N_EXPERTS, m)
+    kw = dict(block_in=bp.block_in, block_out=bp.block_out, aux=aux,
+              activation=activation, want_db=want_db)
+    n0 = csd_spmm.csd_spmm_dw_batched_cuda.launches
+    got = csd_spmm.csd_spmm_dw_batched_cuda(x, dy, pat["block_idx"], **kw)
+    ref = csd_spmm.csd_spmm_dw_batched_plain(x, dy, pat["block_idx"], **kw)
+    e = 3
+    kw1 = dict(kw, aux=aux[e].contiguous())
+    one = csd_spmm.csd_spmm_dw_cuda(x[e].contiguous(), dy[e].contiguous(),
+                                    pat["block_idx"], **kw1)
+    torch.cuda.synchronize()
+    assert csd_spmm.csd_spmm_dw_batched_cuda.launches == n0 + 1
+    if want_db:
+        (got, db), (ref, db_ref), (one, db_one) = got, ref, one
+        assert db.dtype == torch.float32
+        assert db.shape == (N_EXPERTS, bp.n_out)
+        _close(db, db_ref, DB_TOL)
+        assert torch.equal(db[e], db_one)
+    assert got.shape == (N_EXPERTS, bp.n_rb, bp.d_in_b, bp.block_in,
+                         bp.block_out)
+    assert got.dtype == dtype
+    _close(got, ref, TRAIN_TOL[dtype])
+    # expert e is the single junction on expert e's operands, bit for bit
+    assert torch.equal(got[e], one)

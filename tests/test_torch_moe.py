@@ -8,7 +8,9 @@ dispatch, combine, shared expert, dropped tokens) against the JAX ``MoE``;
 the paged step and the engine's greedy tokens, full width and int8, on the
 granite-moe smoke config made dropless (``capacity_factor=4.0``); the
 checkpoint conversion; and what the port refuses (capacity-constrained
-serving, gradients through 5-D slabs). The CUDA kernels are held against
+serving, gradients through int8 5-D slabs). The training path through the
+5-D junctions is held against the JAX package by
+``tests/test_torch_moe_train.py``. The CUDA kernels are held against
 the plain versions by ``tests/test_torch_cuda.py`` (on a card) and
 ``chip_smoke.py``.
 """
@@ -416,23 +418,28 @@ def test_dropless_guard_raises_as_the_reference():
                      device="cpu"), EngineConfig(**knobs), device="cpu")
 
 
-def test_5d_junction_is_forward_only():
-    bp, x, w, _ = _batched_junction(7)
+def test_int8_5d_junction_refuses_a_gradient():
+    """The int8 expert-batched junction is inference only, as the JAX
+    package's quantized junction has no VJP; the full-width 5-D junction
+    trains (``tests/test_torch_moe_train.py``)."""
+    bp, x, w, b = _batched_junction(7)
     idx = _t(bp.block_idx).int()
-    with pytest.raises(ValueError, match="forward only"):
-        ops.csd_matmul(_t(x), _t(w).requires_grad_(True), idx)
-    with pytest.raises(ValueError, match="forward only"):
-        ops.csd_matmul(_t(x).requires_grad_(True), _t(w), idx)
+    q, s = quantize_slab(_t(w))
+    with pytest.raises(ValueError, match="no gradient"):
+        ops.csd_matmul(_t(x).requires_grad_(True), q, idx, w_scale=s)
+    with pytest.raises(ValueError, match="no gradient"):
+        ops.csd_matmul(_t(x), q, idx, bias=_t(b).requires_grad_(True),
+                       w_scale=s)
     with torch.no_grad(), pytest.raises(ValueError, match="expert count"):
         ops.csd_matmul(_t(x)[:2], _t(w), idx)
     model = LM(_port_cfg(capacity_factor=4.0).with_(n_layers=1),
                device="cpu", generator=torch.Generator().manual_seed(0))
+    quantize_model(model)
     tokens = torch.zeros((1, 16), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="MoE training"):
+    with pytest.raises(ValueError, match="no gradient"):
         model.loss({"tokens": tokens, "labels": tokens})
     # the CUDA wrappers refuse CPU tensors rather than running the plain
     # version in their place
-    q, s = quantize_slab(_t(w))
     with pytest.raises(ValueError, match="CUDA tensor"):
         csd_spmm.csd_spmm_fwd_batched_cuda(_t(x), _t(w), idx)
     with pytest.raises(ValueError, match="CUDA tensor"):
