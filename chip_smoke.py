@@ -34,7 +34,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
    vocab 262144; random weights from a seed; bf16) through
    ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
-   each, with both kernels' launch counts read around that run; then the
+   each, with every kernel's launch count read around that run (the
+   serving kernels must run, no training kernel may); then the
    decode step after the prefill drain run with the kernels and with the
    plain versions from one cache state, logits compared; then 4 decode
    steps under ``torch.profiler``;
@@ -69,20 +70,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    also once with the gelu epilogue (``save_preact``, masked cotangent),
    timed like phase 6 with one ``torch.bmm`` over the densified slabs as
    the yardstick;
+6c. hold the full-sequence attention kernels (``flash_attention_cuda`` and
+   ``flash_attention_bwd_cuda``) against their plain versions at the
+   training attention of gemma3-4b (B 2, S 2048, Hq 8, Hkv 4, Dh 256,
+   window 1024 and none) and of granite-moe-1b-a400m (Hq 16, Hkv 8, Dh 64,
+   no window), f32 and bf16, the backward from the kernel's own output and
+   lse, each output's error measured per block of 64 rows of one (batch,
+   head); three faulty controls made from the plain math must fail the same
+   limits; timed with the bound over the visible pairs and SDPA
+   (``enable_gqa``, causal or a window mask; its backward through autograd)
+   as the yardstick;
 7. free the serving model and train gemma3-4b at its full configuration
    (f32 parameters, bf16 compute, batch 2 x seq 2048, remat): one step's
-   loss and gradients with the kernels and with the plain versions
-   compared; two identical steps with bit-identical loss and gradients;
+   loss and gradients (the first and last layers' FFN and attention
+   parameters) with the kernels and with the plain versions compared; two identical steps with bit-identical loss and gradients;
    then 4 ``Trainer`` steps on ``BigramLM`` batches with the launch counts
    of every kernel read around them (exactly 3 junction launches per layer
-   for dx and dw, 6 for the forward with remat, none of any other
-   kernel); then one step under ``torch.profiler``;
+   for dx and dw, 6 for the forward with remat, 2 of the attention forward
+   and 1 of its backward, none of any other kernel); then one step under
+   ``torch.profiler``;
 7b. free that model and train granite-moe-1b-a400m at its full width and
    depth in its training configuration (the published capacity factor
    1.25, expert blocks 128 x 256) the same way: the kernels-vs-plain step
    also reports how many routing choices differ between the two runs, and
    the counts are of the expert-batched kernels (72 dx, 72 dw, 144
-   forwards per step), none of the 4-D or int8 ones;
+   forwards per step) and the attention kernels (48 forward, 24 backward),
+   none of the 4-D or int8 ones;
 8. print one JSON line describing each ported kernel;
 9. print the device line, last.
 
@@ -670,11 +683,6 @@ def engine_config(quant=None):
                         prefill_chunk=64, quant=quant)
 
 
-SERVE_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant",
-                 "csd_spmm_fwd_batched", "csd_spmm_fwd_quant_batched",
-                 "paged_decode_attention", "paged_decode_attention_quant")
-
-
 def serve_kernels(cfg, quant) -> tuple:
     """The (junction, paged decode) kernels a serving run of ``cfg`` must
     launch: the expert-batched forward for an MoE model, the int8 forms
@@ -683,10 +691,6 @@ def serve_kernels(cfg, quant) -> tuple:
         + ("_batched" if cfg.moe is not None else "")
     paged = "paged_decode_attention" + ("" if quant is None else "_quant")
     return fwd, paged
-
-
-def serve_launch_counts() -> dict:
-    return {k: v for k, v in launch_counts().items() if k in SERVE_KERNELS}
 
 
 def resident_bytes(eng) -> dict:
@@ -747,7 +751,11 @@ def plain_versions():
             mock.patch.object(csd_spmm, "csd_spmm_dw_batched_cuda",
                               csd_spmm.csd_spmm_dw_batched_plain), \
             mock.patch.object(attention, "paged_decode_attention",
-                              flash_attention.paged_decode_attention_plain):
+                              flash_attention.paged_decode_attention_plain), \
+            mock.patch.object(flash_attention, "flash_attention_cuda",
+                              flash_attention.flash_attention_plain), \
+            mock.patch.object(flash_attention, "flash_attention_bwd_cuda",
+                              flash_attention.flash_attention_bwd_plain):
         yield
 
 
@@ -798,7 +806,7 @@ def serve(model, device, out_dir, quant=None,
                 s.n_generated for s in eng.sched.active if s is not None)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = serve_launch_counts()
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     outs = [eng.outputs[i] for i in range(len(prompts))]
     toks = np.stack(outs)
@@ -819,7 +827,7 @@ def serve(model, device, out_dir, quant=None,
         fail(f"served tokens malformed: shape {toks.shape}")
     # the run went through this configuration's kernels and no others
     want = serve_kernels(cfg, quant)
-    never = [k for k in SERVE_KERNELS if k not in want]
+    never = [k for k in ALL_KERNELS if k not in want]
     if slab_bytes is not None and rec["ffn_slab_bytes"] != slab_bytes:
         fail(f"{cfg.name} {tag}: resident slab bytes "
              f"{rec['ffn_slab_bytes']}, expected {slab_bytes}")
@@ -856,7 +864,7 @@ def serve(model, device, out_dir, quant=None,
 
     reset_launch_counts()
     logits_k = run_step()
-    per_step = {k: v for k, v in serve_launch_counts().items() if v}
+    per_step = {k: v for k, v in launch_counts().items() if v}
     with plain_versions():
         logits_p = run_step()
     torch.cuda.synchronize()
@@ -1214,6 +1222,251 @@ def run_train_kernels_batched(cfg, device, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the full-sequence attention kernels at the training shapes
+# ---------------------------------------------------------------------------
+
+# (forward, backward) limits of the largest relative Frobenius error of a
+# block of FLASH_ROWS consecutive rows of one (batch, head) of o, dq, dk and
+# dv, and of the largest absolute error of lse: f32 sums in another order;
+# bf16 the rounding of P (and of dS) to bf16 for the tensor-core products
+# and of each output. Per block, not over the whole tensor: under causal
+# attention the first rows' |o| is ~sqrt(Dh) times a late row's, so a limit
+# scaled by max |plain| would be as large as a late row's values. Per block,
+# not per row: a row with one visible key has dq = 0 up to rounding noise.
+FLASH_TOL = {"torch.float32": (2e-5, 1e-4), "torch.bfloat16": (1e-2, 1e-2)}
+FLASH_ROWS = 64
+# faults the limits must catch, made from the plain math (flash_control)
+FLASH_CONTROLS = {"tile_dropped": ("o", "lse", "dq", "dk", "dv"),
+                  "p_ds_4bit": ("o", "dq", "dk", "dv"),
+                  "p_ds_4bit_late_rows": ("o", "dq", "dk", "dv")}
+FLASH_DROPPED_KEYS = slice(1024, 1088)
+FLASH_LATE_ROWS = 1024  # the first query row p_ds_4bit_late_rows spoils
+# (model, Hq, Hkv, Dh, windows): gemma3-4b (29 of 34 layers windowed) and
+# granite-moe-1b-a400m (all global)
+FLASH_SHAPES = (("gemma3-4b", 8, 4, 256, (1024, None)),
+                ("granite-moe-1b-a400m", 16, 8, 64, (None,)))
+
+
+def visible_pairs(s: int, window) -> int:
+    """Visible (query, key) pairs of causal attention over s tokens, each
+    query seeing at most ``window`` keys."""
+    return sum(min(i + 1, window or s) for i in range(s))
+
+
+def block_rel_err(got, ref) -> float:
+    """Largest relative Frobenius error of got against ref, (B, S, H, Dh),
+    over blocks of FLASH_ROWS consecutive rows of one (batch, head); a block
+    whose ref is all zero must be zero."""
+    import torch
+    import torch.nn.functional as F
+    e2 = (got.float() - ref.float()).square().sum(-1)          # (B, S, H)
+    r2 = ref.float().square().sum(-1)
+    pad = (-e2.shape[1]) % FLASH_ROWS
+    e2, r2 = (F.pad(t, (0, 0, 0, pad)).reshape(
+        t.shape[0], -1, FLASH_ROWS, t.shape[2]).sum(2) for t in (e2, r2))
+    rel = torch.where(r2 > 0, (e2 / r2.clamp_min(1e-30)).sqrt(),
+                      torch.where(e2 > 0, math.inf, 0.0))
+    return float(rel.max())
+
+
+def flash_errors(o, lse, grads, o_ref, lse_ref, grads_ref) -> dict:
+    """The gated errors of each output: block_rel_err for o, dq, dk, dv,
+    the largest absolute error for lse."""
+    errs = dict(o=block_rel_err(o, o_ref),
+                lse=float((lse - lse_ref).abs().max()))
+    errs.update((n, block_rel_err(a, r))
+                for n, a, r in zip(("dq", "dk", "dv"), grads, grads_ref))
+    return errs
+
+
+def round_significand(t, bits: int):
+    """t with its significand rounded to ``bits`` bits (no range limit)."""
+    import torch
+    m, e = torch.frexp(t)
+    return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits, e)
+
+
+def flash_control(q, k, v, do, o, lse, window, fault):
+    """What a faulty kernel would return, from the plain math in f32:
+    ``tile_dropped`` never sees keys FLASH_DROPPED_KEYS; ``p_ds_4bit``
+    rounds P and dS to 4 significant bits where the bf16 kernels round them
+    to 8, ``p_ds_4bit_late_rows`` only in query rows from FLASH_LATE_ROWS
+    on, whose |o| is ~sqrt(Dh) below the first rows'. -> (o, lse, dq, dk,
+    dv); the backward takes the kernel's o and lse, as the backward kernel
+    does."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    g, scale = hq // hkv, dh ** -0.5
+    logits, mask = fa._grouped_logits(q, k, causal=True, window=window,
+                                      logit_softcap=None, scale=scale,
+                                      q_offset=0)
+    if fault == "tile_dropped":
+        mask = mask.clone()
+        mask[:, FLASH_DROPPED_KEYS] = False
+    late = torch.arange(s, device=q.device)[:, None] >= (
+        FLASH_LATE_ROWS if fault == "p_ds_4bit_late_rows" else 0)
+
+    def rnd(t):  # (B, Hkv, G, Sq, Skv)
+        if not fault.startswith("p_ds_4bit"):
+            return t
+        return torch.where(late, round_significand(t, 4), t)
+    masked = torch.where(mask, logits, -1e30)
+    m = masked.amax(-1, keepdim=True)
+    p = torch.exp(masked - m)
+    del masked
+    l = p.sum(-1, keepdim=True)
+    o_c = torch.einsum("bhgqk,bkhd->bqhgd", rnd(p / l), v.float())
+    lse_c = (m + torch.log(l)).reshape(b, hq, s)
+    p = torch.where(mask, torch.exp(logits - lse.reshape(b, hkv, g, s, 1)),
+                    0.0)
+    del logits
+    dof = do.float().reshape(b, s, hkv, g, dh)
+    delta = (dof * o.float().reshape(b, s, hkv, g, dh)).sum(-1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", rnd(p), dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    ds = rnd(p * (dp - delta.permute(0, 2, 3, 1)[..., None]))
+    del p, dp
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                      q.float().reshape(b, s, hkv, g, dh)) * scale
+    return (o_c.reshape(b, s, hq, dh), lse_c,
+            (dq.reshape(b, s, hq, dh), dk, dv))
+
+
+def run_flash(device, results):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        fwd_tol, bwd_tol = FLASH_TOL[str(dtype)]
+        for model, hq, hkv, dh, windows in FLASH_SHAPES:
+            def randn(*size):
+                return torch.randn(size, generator=g, device=device).to(dtype)
+            q, do = randn(b, s, hq, dh), randn(b, s, hq, dh)
+            k, v = randn(b, s, hkv, dh), randn(b, s, hkv, dh)
+            # SDPA's layout (B, H, S, Dh), and leaves for its backward
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            for window in windows:
+                kw = dict(window=window)
+                o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                 **kw)
+                o_ref, lse_ref = fa.flash_attention_plain(
+                    q, k, v, return_lse=True, **kw)
+                grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+                grads_ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                         **kw)
+                torch.cuda.synchronize()
+
+                errs = flash_errors(o, lse, grads, o_ref, lse_ref,
+                                    grads_ref)
+                fwd_abs = float((o.float() - o_ref.float()).abs().max())
+                bwd_abs = max(float((a.float() - r.float()).abs().max())
+                              for a, r in zip(grads, grads_ref))
+                finite = all(bool(torch.isfinite(t).all())
+                             for t in (o, lse) + tuple(grads))
+                del grads
+                # each control must fail the limits on every output it
+                # spoils; the old measure (max |error| over max |plain|) is
+                # recorded beside the gated one
+                limit = dict(o=fwd_tol, lse=fwd_tol, dq=bwd_tol, dk=bwd_tol,
+                             dv=bwd_tol)
+                controls = {}
+                for fault, spoils in FLASH_CONTROLS.items():
+                    c_o, c_lse, c_grads = flash_control(q, k, v, do, o, lse,
+                                                        window, fault)
+                    c_errs = flash_errors(c_o, c_lse, c_grads, o_ref,
+                                          lse_ref, grads_ref)
+                    old = {n: float((a.float() - r.float()).abs().max()
+                                    / r.float().abs().max())
+                           for n, a, r in zip(
+                               ("o", "lse", "dq", "dk", "dv"),
+                               (c_o, c_lse) + c_grads,
+                               (o_ref, lse_ref) + grads_ref)}
+                    controls[fault] = dict(err=c_errs, old_measure=old)
+                    del c_o, c_lse, c_grads
+                    missed = [n for n in spoils if c_errs[n] <= limit[n]]
+                    if missed:
+                        fail(f"flash attention limits do not catch control "
+                             f"{fault} on {missed}: {model} {dtype_name} "
+                             f"window {window}: {controls[fault]}")
+                del o_ref, lse_ref, grads_ref
+                if window is None:
+                    sdpa_kw = dict(is_causal=True)
+                else:
+                    pos = torch.arange(s, device=device)
+                    sdpa_kw = dict(attn_mask=(pos[None] <= pos[:, None])
+                                   & (pos[None] > pos[:, None] - window))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, enable_gqa=True, **sdpa_kw)
+                out_t = sdpa()
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(out_t, (qt, kt, vt), dot,
+                                               retain_graph=True)
+                pairs = b * hq * visible_pairs(s, window)
+                el = dtype.itemsize
+                n_q, n_kv = b * s * hq * dh, b * s * hkv * dh
+                n_lse = 4 * b * hq * s
+                timed = (
+                    ("flash_attention",
+                     lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                     lambda: fa.flash_attention_plain(q, k, v, **kw), sdpa,
+                     el * (2 * n_q + 2 * n_kv) + n_lse, 4 * dh * pairs,
+                     ("o", "lse"), fwd_abs, fwd_tol),
+                    ("flash_attention_bwd",
+                     lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                         **kw),
+                     lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                          do, **kw),
+                     sdpa_bwd, el * (4 * n_q + 4 * n_kv) + n_lse,
+                     10 * dh * pairs, ("dq", "dk", "dv"), bwd_abs, bwd_tol))
+                for (kernel, run, plain, lib, nbytes, ops, outputs, abs_err,
+                     tol) in timed:
+                    err = {n: errs[n] for n in outputs}
+                    ok = max(err.values()) <= tol and finite
+                    ms, host_ms = bench([run], 10)
+                    plain_ms, _ = bench([plain], 2)
+                    lib_ms, _ = bench([lib], 10)
+                    bound_ms, bound_by = bound(nbytes, ops, dtype)
+                    rec = dict(kernel=kernel, model=model, dtype=dtype_name,
+                               b=b, s=s, hq=hq, hkv=hkv, dh=dh,
+                               window=window, visible_pairs=pairs,
+                               max_abs_err=abs_err, err=err, tol=tol,
+                               ok=ok, controls={
+                                   f: dict(err={n: c["err"][n]
+                                                for n in outputs},
+                                           old_measure={
+                                               n: c["old_measure"][n]
+                                               for n in outputs})
+                                   for f, c in controls.items()},
+                               ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=lib_ms,
+                               library="SDPA (enable_gqa, "
+                               + ("causal" if window is None
+                                  else "window mask")
+                               + (", backward through autograd)"
+                                  if kernel.endswith("bwd") else ")"))
+                    results.append(rec)
+                    log(json.dumps(rec))
+                    if not ok:
+                        fail(f"{kernel} disagrees with its plain version: "
+                             f"{rec}")
+                del o, lse, out_t
+            del q, k, v, do, qt, kt, vt, dot
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phases 7 and 7b: train gemma3-4b and granite-moe-1b-a400m at full width
 # ---------------------------------------------------------------------------
 
@@ -1224,7 +1477,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 # carry the flips on: the slab gradients differ by ~3% (relative Frobenius
 # norm) in the first layer as in the last. The same step in f32 compute
 # shows that this is rounding: there the kernels agree with the plain
-# versions to f32 summation order.
+# versions to f32 summation order. "slab_grad" holds each compared
+# parameter's gradient: the first and last layers' FFN (or MoE) and
+# attention parameters.
 STEP_TOL = {"bfloat16": {"loss": 1e-2, "grad_norm": 3e-2, "slab_grad": 5e-2},
             "float32": {"loss": 1e-5, "grad_norm": 1e-4, "slab_grad": 1e-3}}
 
@@ -1232,7 +1487,8 @@ STEP_TOL = {"bfloat16": {"loss": 1e-2, "grad_norm": 3e-2, "slab_grad": 5e-2},
 ALL_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant", "csd_spmm_fwd_batched",
                "csd_spmm_fwd_quant_batched", "csd_spmm_dx",
                "csd_spmm_dx_batched", "csd_spmm_dw", "csd_spmm_dw_batched",
-               "paged_decode_attention", "paged_decode_attention_quant")
+               "paged_decode_attention", "paged_decode_attention_quant",
+               "flash_attention", "flash_attention_bwd")
 
 
 def launch_counts() -> dict:
@@ -1252,11 +1508,15 @@ def train_launches_per_step(cfg) -> dict:
     """Every kernel's launches in one training step of ``cfg``: each of the
     3 junctions of a layer runs the forward (twice with remat: the
     recompute), dx and dw once; the expert-batched forms for an MoE
-    model; no other kernel."""
+    model; each layer's attention runs the flash forward (twice with remat)
+    and its backward once; no other kernel."""
     form = "_batched" if cfg.moe is not None else ""
     n = 3 * cfg.n_layers
-    want = {f"csd_spmm_fwd{form}": 2 * n if cfg.remat else n,
-            f"csd_spmm_dx{form}": n, f"csd_spmm_dw{form}": n}
+    fwd = 2 if cfg.remat else 1
+    want = {f"csd_spmm_fwd{form}": fwd * n,
+            f"csd_spmm_dx{form}": n, f"csd_spmm_dw{form}": n,
+            "flash_attention": fwd * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
     return {k: want.get(k, 0) for k in ALL_KERNELS}
 
 
@@ -1311,8 +1571,8 @@ def loss_and_grads(model, batch, names):
 def step_check(model, batch, cfg, dtype_name):
     """One step's loss and gradients with the kernels and with the plain
     versions, computing in ``dtype_name``; fails past ``STEP_TOL``. The
-    gradients compared are the first and last layers' FFN (or MoE)
-    parameters. For MoE the plain versions run twice: routing on their
+    gradients compared are the first and last layers' FFN (or MoE) and
+    attention parameters. For MoE the plain versions run twice: routing on their
     own, where the routing choices that differ from the kernels' run are
     counted and the gradients recorded, and with the kernels' run's
     routing replayed, which is the run held to ``STEP_TOL``: a flipped
@@ -1321,7 +1581,8 @@ def step_check(model, batch, cfg, dtype_name):
     import torch
     last = cfg.n_layers - 1
     names = [n for n, _ in model.named_parameters()
-             if any(n.startswith(f"layers.{i}.ffn.") for i in (0, last))]
+             if any(n.startswith(f"layers.{i}.{part}.") for i in (0, last)
+                    for part in ("ffn", "attn"))]
     routes_k, routes_p = [], []
     moe = cfg.moe is not None
     model.cfg = cfg.with_(dtype=dtype_name)  # the compute dtype of embed_in
@@ -1463,15 +1724,30 @@ def train(device, cfg, out_dir, trace="train_trace"):
     return chk, rec, prof
 
 
+# the port's kernels by the names of their CUDA functions
+KERNEL_FUNCTIONS = {"csd_spmm_fwd": ("csd_spmm_fwd_kernel",),
+                    "csd_spmm_dx": ("csd_spmm_dx_kernel",),
+                    "csd_spmm_dw": ("csd_spmm_dw_kernel",),
+                    "flash_attention": ("flash_fwd_kernel",),
+                    "flash_attention_bwd": ("flash_dq_kernel",
+                                            "flash_dkv_kernel")}
+
+
+def port_kernel(name: str):
+    """Which of the port's kernels a profiled CUDA function is, or None."""
+    return next((k for k, fns in KERNEL_FUNCTIONS.items()
+                 if any(f in name for f in fns)), None)
+
+
 def kernel_kind(name: str) -> str:
     """A kernel's kind, for the step's time breakdown: the port's junction
-    kernels by name; library matrix products in f32 (the attention
-    einsums) and in other types (projections, head); copies and casts;
-    reductions; other elementwise work."""
+    and attention kernels by name; library matrix products in f32 and in
+    other types (projections, head); copies and casts; reductions; other
+    elementwise work."""
     low = name.lower()
-    for k in ("csd_spmm_fwd", "csd_spmm_dx", "csd_spmm_dw"):
-        if f"{k}_kernel" in name:
-            return k
+    kernel = port_kernel(name)
+    if kernel is not None:
+        return kernel
     if any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "gemv",
                               "dot_kernel")):
         f32 = any(t in low for t in ("f32f32", "sgemm", "<float"))
@@ -1511,8 +1787,8 @@ def profile_train(trainer, params, opt, data, out_dir, trace):
                if e.device_type == DeviceType.CUDA]
     total_us = sum(dev_us(e) for e in kernels)
     by_kernel = {k: sum(dev_us(e) for e in kernels
-                        if f"{k}_kernel" in e.key) / 1e3
-                 for k in ("csd_spmm_fwd", "csd_spmm_dx", "csd_spmm_dw")}
+                        if port_kernel(e.key) == k) / 1e3
+                 for k in KERNEL_FUNCTIONS}
     by_kind = {}
     for e in kernels:
         kind = kernel_kind(e.key)
@@ -1524,7 +1800,7 @@ def profile_train(trainer, params, opt, data, out_dir, trace):
                device_idle_share=1 - total_us / 1e6 / wall
                if total_us else "not measured",
                kernel_launches=sum(e.count for e in kernels),
-               junction_kernel_ms=by_kernel, junction_launches=launches,
+               port_kernel_ms=by_kernel, port_launches=launches,
                by_kind={k: dict(ms=ms, launches=n)
                         for k, (ms, n) in sorted(by_kind.items(),
                                                  key=lambda kv: -kv[1][0])},
@@ -1644,6 +1920,9 @@ def main() -> int:
     run_train_kernels_batched(tcfg, device, results)
     torch.cuda.empty_cache()
     log(f"phase 6b done at {time.perf_counter() - t_all:.1f} s")
+    run_flash(device, results)
+    torch.cuda.empty_cache()
+    log(f"phase 6c done at {time.perf_counter() - t_all:.1f} s")
 
     # phase 7
     step_chk, train_rec, train_prof = train(device, cfg, out_dir)
@@ -1660,7 +1939,8 @@ def main() -> int:
 
     # phase 8: one entry per kernel: the junction kernels at the training
     # shape of the gelu gate junction, paged decode at a decode step's, the
-    # int8 kernels at the decode step's down junction and attention
+    # int8 kernels at the decode step's down junction and attention, the
+    # full-sequence attention kernels at gemma3-4b's global layer
     def pick(kernel, **want):
         return next(r for r in results if r["kernel"] == kernel and all(
             r.get(k) == v for k, v in want.items()))
@@ -1674,6 +1954,11 @@ def main() -> int:
                   f"4, 128, 256)")
     gate_shape = (f"gate junction (gelu), M {TRAIN_M} bf16, "
                   f"w (10, 5, 256, 1024)")
+    # gemma3-4b's global-layer attention
+    attn = dict(model="gemma3-4b", dtype="bfloat16", window=None)
+    attn_shape = (f"gemma3-4b global layer, q ({TRAIN_BATCH}, {TRAIN_SEQ}, "
+                  f"8, 256) bf16, k/v ({TRAIN_BATCH}, {TRAIN_SEQ}, 4, 256), "
+                  f"causal")
     entries = []
     for name, rec, src, replaces, launches, shape in (
             ("csd_spmm_fwd", pick("csd_spmm_fwd", **gate),
@@ -1737,7 +2022,16 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/csd_spmm_dw.cu",
              "src/repro/kernels/csd_spmm.py:679",
              g_train_rec["launches"]["csd_spmm_dw_batched"],
-             g_up_shape)):
+             g_up_shape),
+            ("flash_attention", pick("flash_attention", **attn),
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:87",
+             train_rec["launches"]["flash_attention"], attn_shape),
+            ("flash_attention_bwd", pick("flash_attention_bwd", **attn),
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "no TPU kernel: the reference differentiates "
+             "src/repro/nn/attention.py:70 chunked_attention through XLA",
+             train_rec["launches"]["flash_attention_bwd"], attn_shape)):
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
@@ -1747,6 +2041,8 @@ def main() -> int:
     entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
     next(e for e in entries if e["name"] == "csd_spmm_fwd_batched")[
         "launches_train"] = g_train_rec["launches"]["csd_spmm_fwd_batched"]
+    for e in entries[-2:]:  # the attention kernels in granite's training
+        e["launches_train_granite"] = g_train_rec["launches"][e["name"]]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cases=results,
              serve=serve_rec, logits_check=chk_rec, profile=prof_rec,

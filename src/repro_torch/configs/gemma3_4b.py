@@ -37,7 +37,7 @@ def smoke_config() -> ModelConfig:
     return config().with_(
         n_layers=6, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
         d_ff=256, vocab_size=512, max_seq_len=512, attn_window=16,
-        attn_chunk=16, loss_chunk=16, dtype="float32",
+        loss_chunk=16, dtype="float32",
         sparsity=SparsityConfig(enabled=True, rho_ffn=(0.5, 0.75),
                                 block_in=16, block_out=16),
     )

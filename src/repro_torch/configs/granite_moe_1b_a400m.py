@@ -44,7 +44,7 @@ def smoke_config() -> ModelConfig:
         d_ff=32, vocab_size=512, max_seq_len=512,
         moe=MoEConfig(n_routed=8, top_k=2, n_shared=0, d_expert=32,
                       capacity_factor=1.5),
-        attn_chunk=16, loss_chunk=16, dtype="float32",
+        loss_chunk=16, dtype="float32",
         sparsity=SparsityConfig(enabled=True, rho_ffn=(0.5, 0.75),
                                 block_in=16, block_out=16,
                                 moe_sparsity=True),

@@ -1,12 +1,51 @@
-"""Paged decode attention (serving): one grouped query token over a paged
-KV cache. Port of ``repro.kernels.flash_attention.paged_decode_attention``.
+"""Attention kernels of the port (``repro.kernels.flash_attention``): full-
+sequence GQA attention for training, and paged decode attention for
+serving. Each has a plain PyTorch version (what a CPU tensor runs and what
+the kernel is held against), a wrapper of its hand-written Hopper kernel
+(CUDA tensors only, no fallback, with a ``.launches`` count) and a function
+that dispatches on the device of ``q``.
+
+**Full-sequence attention** (TPU kernel ``flash_attention``, body
+``_flash_kernel``): q (B, Sq, Hq, Dh), k and v (B, Skv, Hkv, Dh), the
+reference's layout, keywords and defaults. Query head h reads KV head
+h // (Hq // Hkv); a key is visible when ``kpos <= qpos + q_offset`` (causal)
+and ``kpos > qpos + q_offset - window`` (window); logits are
+``softcap * tanh(s / softcap)`` under a softcap; the softmax runs in f32 and
+a row with no visible key gives 0.
+
+* ``flash_attention_plain`` — ``ref.mha_ref``'s math, with empty rows 0 and,
+  with ``return_lse``, the row log-sum-exp (B, Hq, Sq) in f32 (-1e30 for an
+  empty row).
+* ``flash_attention_bwd_plain`` — (dq, dk, dv) recomputed from ``lse``:
+  D = rowsum(do * o), P = exp(s - lse), dS = P (dP - D), times
+  1 - tanh^2 under a softcap, dk and dv summed over each KV head's G query
+  heads. The reference has no backward kernel; this is the math the CUDA
+  backward implements.
+* ``flash_attention_cuda`` / ``flash_attention_bwd_cuda`` — the kernels of
+  ``csrc/flash_attention.cu`` (forward; backward as two launches, dq then
+  dk/dv, counted as one call). What bounds them on the H100 is operations:
+  4 Dh per visible (query, key) pair forward and 10 Dh backward against
+  2 Dh bytes of K and V shared by a tile of queries. Their design: a CTA
+  owns 64 rows and loops only over the tiles that hold a visible pair; bf16
+  scores and products on the tensor cores with f32 accumulation (P rounded
+  to bf16 for P.V), f32 on the CUDA cores in full f32; no atomics, so a
+  result repeats bit for bit.
+* ``flash_attention`` — dispatches on the device; it keeps the reference's
+  ``block_q``/``block_k`` check (the sequence lengths must be multiples of
+  the blocks), while the CUDA kernel picks its own tile and masks the
+  ragged edge.
+* ``FlashAttention`` — the ``torch.autograd.Function`` of the training
+  path: its forward saves q, k, v, o and lse, its backward runs the backward
+  (the CUDA kernels for CUDA tensors, the plain versions on the CPU).
+
+**Paged decode attention** (TPU kernel ``paged_decode_attention``): one
+grouped query token over a paged KV cache.
 
 * ``paged_decode_attention_plain`` — the gather form (as the JAX package's
   ``_paged_decode_xla``): materialise each row's logical KV view from its
-  page table, then the masked softmax. What a CPU tensor runs and what the
-  kernel is held against.
+  page table, then the masked softmax.
 * ``paged_decode_attention_cuda`` — the hand-written Hopper kernel
-  ``csrc/paged_decode.cu``; CUDA tensors only, no fallback.
+  ``csrc/paged_decode.cu``.
 * ``paged_decode_attention`` — dispatches on the device of ``q``.
 
 Each takes ``k_scale``/``v_scale`` (both or neither): int8 pages with one
@@ -87,8 +126,11 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _bind(name: str, n_ptrs: int):
-    fn = getattr(build.load("paged_decode"), name)
+def _bind(source: str, name: str, n_ptrs: int):
+    """Entry point ``name`` of ``csrc/<source>.cu``: ``n_ptrs`` pointers,
+    nine ints, two floats, the dtype code and the stream (both sources'
+    entry points have this form)."""
+    fn = getattr(build.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9 \
             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
@@ -171,7 +213,7 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, scales, *,
         + [page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
            None if part_o is None else part_o.data_ptr(),
            None if part_ml is None else part_ml.data_ptr()]
-    rc = _bind(name, len(ptrs))(
+    rc = _bind("paged_decode", name, len(ptrs))(
         *ptrs, b, hkv, g, dh, page_size, n_pages, keys_per_tile,
         pages_per_split, -1 if window is None else int(window),
         0.0 if softcap is None else float(softcap), float(scale),
@@ -243,3 +285,242 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                                             lengths, **kw)
     raise ValueError(f"paged_decode_attention: no implementation for "
                      f"{q.device}")
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention (training): forward, backward, autograd Function
+# ---------------------------------------------------------------------------
+
+
+def _grouped_logits(q, k, *, causal, window, logit_softcap, scale, q_offset):
+    """f32 logits (B, Hkv, G, Sq, Skv) after scale and softcap, unmasked,
+    and the (Sq, Skv) visibility of key kpos to query qpos + q_offset."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg * scale, k.float())
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return s, mask
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          logit_softcap: Optional[float] = None,
+                          scale: Optional[float] = None, q_offset: int = 0,
+                          return_lse: bool = False):
+    """Attention in f32 (``ref.mha_ref``'s math; a row with no visible key
+    gives 0): q (B, Sq, Hq, Dh), k, v (B, Skv, Hkv, Dh) -> o like q, and
+    with ``return_lse`` also the row log-sum-exp (B, Hq, Sq) f32."""
+    b, sq, hq, dh = q.shape
+    s, mask = _grouped_logits(q, k, causal=causal, window=window,
+                              logit_softcap=logit_softcap, scale=scale,
+                              q_offset=q_offset)
+    s = torch.where(mask, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(m > _NEG_INF / 2, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    o = o.reshape(b, sq, hq, dh).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l > 0.0, m + torch.log(torch.where(l > 0.0, l, 1.0)),
+                      _NEG_INF)
+    return o, lse.reshape(b, hq, sq)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              logit_softcap: Optional[float] = None,
+                              scale: Optional[float] = None,
+                              q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention_plain`` for the cotangent ``do``,
+    recomputed from its output ``o`` and ``lse``: D = rowsum(do * o),
+    P = exp(s - lse) on visible keys, dS = P (dP - D), times
+    1 - tanh^2(s / softcap) under a softcap; dk and dv summed over the G
+    query heads of each KV head. In f32; the gradients in q's dtype."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    s, mask = _grouped_logits(q, k, causal=causal, window=window,
+                              logit_softcap=logit_softcap, scale=scale,
+                              q_offset=q_offset)
+    lse_g = lse.float().reshape(b, hkv, g, sq)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    dof = do.float().reshape(b, sq, hkv, g, dh)
+    delta = (dof * o.float().reshape(b, sq, hkv, g, dh)).sum(-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if logit_softcap is not None:
+        ds = ds * (1.0 - (s / logit_softcap) ** 2)
+    qf = q.float().reshape(b, sq, hkv, g, dh)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return (dq.reshape(b, sq, hq, dh).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
+
+
+def _check_flash(name: str, tensors, q, k) -> None:
+    """Raise on what ``csrc/flash_attention.cu`` does not take."""
+    if not q.is_cuda or any(t.device != q.device for t in tensors) \
+            or q.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: inputs must be CUDA tensors on the "
+                         f"current device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for t in tensors):
+        raise ValueError(f"{name}: q, k, v (and o, do) must all be float32 "
+                         f"or all bfloat16")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: q, k, v must be (B, S, H, Dh)")
+    b, _, hq, dh = q.shape
+    if k.shape[0] != b or k.shape[3] != dh or hq % max(k.shape[2], 1) \
+            or k.shape[2] == 0 or dh % 16 or not 16 <= dh <= 256:
+        raise ValueError(
+            f"{name}: shapes not taken: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)} (Hq a multiple of Hkv, Dh a multiple of 16 "
+            f"up to 256)")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
+                         f"aligned")
+
+
+def _flash_args(q, k, causal, window, logit_softcap, scale, q_offset):
+    b, sq, hq, dh = q.shape
+    return [b, sq, k.shape[1], hq, k.shape[2], dh, int(bool(causal)),
+            -1 if window is None else int(window), int(q_offset),
+            0.0 if logit_softcap is None else float(logit_softcap),
+            float(dh ** -0.5 if scale is None else scale),
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream]
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         logit_softcap: Optional[float] = None,
+                         scale: Optional[float] = None, q_offset: int = 0,
+                         return_lse: bool = False):
+    """Launch the forward of ``csrc/flash_attention.cu`` on the current
+    stream; the contract of ``flash_attention_plain``. Raises on what the
+    kernel does not take."""
+    _check_flash("flash_attention_cuda", (q, k, v), q, k)
+    if v.shape != k.shape:
+        raise ValueError(f"flash_attention_cuda: v {tuple(v.shape)} unlike "
+                         f"k {tuple(k.shape)}")
+    b, sq, hq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if out.numel():
+        rc = _bind("flash_attention", "flash_attention_fwd", 5)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *_flash_args(q, k, causal, window, logit_softcap,
+                                         scale, q_offset))
+        if rc != 0:
+            raise RuntimeError(f"flash_attention_fwd launch failed: CUDA "
+                               f"error {rc}")
+        flash_attention_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             logit_softcap: Optional[float] = None,
+                             scale: Optional[float] = None,
+                             q_offset: int = 0):
+    """Launch the backward of ``csrc/flash_attention.cu`` (dq, then dk/dv:
+    one call, one count); the contract of ``flash_attention_bwd_plain``.
+    ``lse`` is the forward's (B, Hq, Sq) f32. Raises on what the kernels
+    do not take."""
+    _check_flash("flash_attention_bwd_cuda", (q, k, v, o, do), q, k)
+    b, sq, hq, _ = q.shape
+    if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape \
+            or tuple(lse.shape) != (b, hq, sq) \
+            or lse.dtype != torch.float32 or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError("flash_attention_bwd_cuda: v like k, o and do like "
+                         "q, lse (B, Hq, Sq) contiguous float32 on q's "
+                         "device")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty_like(lse)
+    rc = _bind("flash_attention", "flash_attention_bwd", 10)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(),
+        *_flash_args(q, k, causal, window, logit_softcap, scale, q_offset))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{rc}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_cuda.launches = 0
+flash_attention_bwd_cuda.launches = 0
+
+
+def _flash_impl(device: torch.device, backward: bool):
+    """The forward or backward for tensors on ``device``, looked up at each
+    call, so that a caller can swap them."""
+    if device.type == "cuda":
+        return flash_attention_bwd_cuda if backward else flash_attention_cuda
+    if device.type == "cpu":
+        return flash_attention_bwd_plain if backward \
+            else flash_attention_plain
+    raise ValueError(f"flash_attention: no implementation for {device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    logit_softcap: Optional[float] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    block_q: int = 128, block_k: int = 128,
+                    return_lse: bool = False):
+    """Flash attention forward. Layout (B, S, H, Dh); returns like ``q``
+    (and the row log-sum-exp with ``return_lse``). As in the reference, the
+    sequence lengths must be multiples of ``block_q`` and ``block_k`` (each
+    capped at its length); the kernel's own tile is its choice."""
+    sq, skv = q.shape[1], k.shape[1]
+    block_q = min(block_q, sq) or 1
+    block_k = min(block_k, skv) or 1
+    if sq % block_q or skv % block_k:
+        raise ValueError("sequence lengths must divide block sizes")
+    return _flash_impl(q.device, False)(
+        q, k, v, causal=causal, window=window, logit_softcap=logit_softcap,
+        scale=scale, q_offset=q_offset, return_lse=return_lse)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention of the training path:
+    ``FlashAttention.apply(q, k, v, causal, window, logit_softcap, scale,
+    q_offset)`` -> o (B, Sq, Hq, Dh) like q."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_softcap, scale,
+                q_offset):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        kw = dict(causal=causal, window=window, logit_softcap=logit_softcap,
+                  scale=scale, q_offset=q_offset)
+        o, lse = _flash_impl(q.device, False)(q, k, v, return_lse=True, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_impl(do.device, True)(
+            q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

@@ -1,14 +1,20 @@
-"""GQA attention (port of ``repro.nn.attention``): ``chunked_attention`` and
-``Attention.forward`` for the full sequence (training), ``Attention._qkv``
-and ``Attention.paged_step`` for serving.
+"""GQA attention (port of ``repro.nn.attention``): ``Attention.forward`` for
+the full sequence (training) and ``chunked_attention``, its reference;
+``Attention._qkv`` and ``Attention.paged_step`` for serving.
 
-The full-sequence path is the JAX package's XLA form, not a kernel: a loop
-over query chunks, a static window span sliced out of KV for sliding-window
-layers, and for long KV an online-softmax merge over KV chunks, all in
-plain torch. Decode (one token per row) runs through the paged decode
-kernel; a prefill chunk gathers the row's logical KV view and runs masked
-grouped attention in plain torch, as the JAX package does with a gather
-and einsums.
+The full-sequence path runs ``kernels.flash_attention.FlashAttention``
+(forward, and a backward that recomputes the probabilities from the saved
+row log-sum-exp): the hand-written flash-attention kernels on the card,
+their plain versions on the CPU, so that both devices run the same wiring.
+This follows the JAX package's docstrings, where the Pallas kernel takes the
+place of its q-chunk scan on real hardware. ``chunked_attention`` is that
+scan, the JAX training path's XLA form in plain torch (a loop over query
+chunks, a static window span sliced out of KV for sliding-window layers,
+and for long KV an online-softmax merge over KV chunks); the model does not
+call it, and it stays as the reference the layer is held against. Decode
+(one token per row) runs through the paged decode kernel; a prefill chunk
+gathers the row's logical KV view and runs masked grouped attention in
+plain torch, as the JAX package does with a gather and einsums.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..kernels.flash_attention import paged_decode_attention
+from ..kernels.flash_attention import (FlashAttention,
+                                       paged_decode_attention)
 from ..serving import kv_cache
 from .common import ModelConfig, param_dtype_of
 from .layers import Linear, RMSNorm, apply_rope
@@ -167,15 +174,11 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
         """Full-sequence causal self-attention (training): x (B, S, d),
-        positions (B, S) -> (B, S, d)."""
-        cfg = self.cfg
+        positions (B, S) -> (B, S, d), through ``FlashAttention``."""
         b, sq, _ = x.shape
         q, k, v = self._qkv(x, positions)
-        qg = q.reshape(b, sq, self.kv, self.groups, self.dh)
-        o = chunked_attention(
-            qg, k, v, causal=True, window=self.window,
-            softcap=cfg.logit_softcap, chunk=cfg.attn_chunk,
-            kv_chunk=cfg.attn_kv_chunk, scale=self.dh ** -0.5)
+        o = FlashAttention.apply(q, k, v, True, self.window,
+                                 self.cfg.logit_softcap, self.dh ** -0.5, 0)
         return self.wo(o.reshape(b, sq, self.h * self.dh))
 
     def paged_step(self, x: torch.Tensor, pos: torch.Tensor,

@@ -88,8 +88,6 @@ class ModelConfig:
     dtype: str = "bfloat16"      # activation/compute dtype
     param_dtype: str = "float32"
     remat: bool = True           # recompute each layer and loss chunk
-    attn_chunk: int = 512        # query chunk of the full-sequence attention
-    attn_kv_chunk: int = 1024    # inner KV chunk for long sequences
     loss_chunk: int = 512        # sequence chunk of the cross-entropy
 
     def __post_init__(self):

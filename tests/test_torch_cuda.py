@@ -411,3 +411,211 @@ def test_csd_spmm_dw_batched_cuda_matches_plain(cuda_device, activation,
     _close(got, ref, TRAIN_TOL[dtype])
     # expert e is the single junction on expert e's operands, bit for bit
     assert torch.equal(got[e], one)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence attention (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+# (forward, backward) limits of the relative Frobenius error of each block of
+# FLASH_ROWS consecutive rows of one (batch, head) of o, dq, dk, dv, and of
+# the absolute error of lse: f32 sums in another order; bf16 the rounding of
+# P to bf16 for P.V (and of dS for dq, dk) and of each output. Per block:
+# a limit scaled by max |plain| would be set by the first causal rows, whose
+# |o| is far above a late row's; not per row, because a row with one
+# visible key has dq = 0 up to rounding noise.
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+FLASH_ROWS = 64
+# (B, Sq, Skv, Hq, Hkv, causal, window, softcap, q_offset): S 200 is not a
+# multiple of either CTA tile (64 rows, 32/64 streamed)
+FLASH_CASES = {
+    "causal_g2": (2, 200, 200, 4, 2, True, None, None, 0),
+    "window_g4": (1, 200, 200, 8, 2, True, 50, None, 0),
+    "softcap_g1": (2, 130, 130, 2, 2, True, None, 30.0, 0),
+    "offset": (1, 70, 150, 4, 2, True, None, None, 13),
+    "not_causal": (1, 100, 77, 4, 1, False, None, 50.0, 0),
+    # queries 56.. see none of the 40 keys: empty rows give 0
+    "empty_rows": (1, 100, 40, 2, 1, True, 16, None, 0),
+}
+
+
+def _block_close(got, ref, tol):
+    """Every block of FLASH_ROWS rows of one (batch, head) of (B, S, H, Dh)
+    within ``tol`` in relative Frobenius error; a zero block stays zero."""
+    e2 = (got.float() - ref.float()).square().sum(-1)          # (B, S, H)
+    r2 = ref.float().square().sum(-1)
+    pad = (-e2.shape[1]) % FLASH_ROWS
+    e2, r2 = (torch.nn.functional.pad(t, (0, 0, 0, pad)).reshape(
+        t.shape[0], -1, FLASH_ROWS, t.shape[2]).sum(2) for t in (e2, r2))
+    assert bool((e2[r2 == 0] == 0).all())
+    err = float((e2[r2 > 0] / r2[r2 > 0]).sqrt().max())
+    assert err <= tol, err
+
+
+def _flash_case(device, dtype, dh, case, seed=11):
+    b, sq, skv, hq, hkv, causal, window, softcap, off = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v = (_t(rng.normal(size=(b, s, h, dh)).astype(np.float32))
+               .to(device, dtype)
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    do = _t(rng.normal(size=(b, sq, hq, dh)).astype(np.float32)) \
+        .to(device, dtype)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap,
+              q_offset=off)
+    return q, k, v, do, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dh", [16, 64, 128, 256])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_cuda_matches_plain(cuda_device, case, dh, dtype):
+    q, k, v, do, kw = _flash_case(cuda_device, dtype, dh, case)
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    n = flash_attention.flash_attention_cuda.launches
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True,
+                                                  **kw)
+    o_ref, lse_ref = flash_attention.flash_attention_plain(
+        q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_cuda.launches == n + 1
+    _block_close(o, o_ref, fwd_tol)
+    seen = lse_ref > -1e29
+    assert torch.equal(lse > -1e29, seen)
+    assert float((lse[seen] - lse_ref[seen]).abs().max()) <= fwd_tol
+    if case == "empty_rows":
+        assert not seen.all() and (o.float()[:, 56:] == 0).all()
+    # the backward from the same (o, lse), kernel against plain
+    n = flash_attention.flash_attention_bwd_cuda.launches
+    got = flash_attention.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bwd_cuda.launches == n + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        _block_close(g, w, bwd_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bwd_cuda_is_bit_identical(cuda_device, dtype):
+    q, k, v, do, kw = _flash_case(cuda_device, dtype, 64, "window_g4")
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True,
+                                                  **kw)
+    first = flash_attention.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                     **kw)
+    second = flash_attention.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                      **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_refuses_dh_8(cuda_device):
+    q, k, v, do, kw = _flash_case(cuda_device, torch.bfloat16, 8,
+                                  "causal_g2")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention.flash_attention_cuda(q, k, v, **kw)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1],
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention.flash_attention_bwd_cuda(q, k, v, q, lse, do, **kw)
+
+
+@pytest.mark.cuda
+def test_attention_forward_runs_the_flash_kernels(cuda_device):
+    """On the card the training attention goes through the forward and
+    backward kernels, never chunked_attention."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn import attention
+    cfg = get_config("gemma3_4b", smoke=True).with_(
+        head_dim=64, sparsity=get_config("gemma3_4b").sparsity)
+    layer = attention.Attention(cfg, window=16, device=cuda_device,
+                                generator=torch.Generator(
+                                    device=cuda_device).manual_seed(0))
+    x = torch.randn((2, 100, cfg.d_model), device=cuda_device,
+                    requires_grad=True)
+    pos = torch.arange(100, device=cuda_device)[None].expand(2, 100)
+    n = (flash_attention.flash_attention_cuda.launches,
+         flash_attention.flash_attention_bwd_cuda.launches)
+    with mock.patch.object(attention, "chunked_attention",
+                           side_effect=AssertionError("chunked ran")):
+        layer(x, pos).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_attention_cuda.launches,
+            flash_attention.flash_attention_bwd_cuda.launches) \
+        == (n[0] + 1, n[1] + 1)
+    assert bool(torch.isfinite(x.grad).all())
+
+
+# (arch, window, logit softcap, qk-norm, KV heads): gemma3-4b's local and
+# global layers (G 2), and granite-moe's with G 4
+LAYER_CASES = {
+    "gemma3_window": ("gemma3_4b", 16, None, True, 2),
+    "gemma3_global_softcap": ("gemma3_4b", None, 30.0, True, 2),
+    "granite_g4": ("granite_moe_1b_a400m", None, None, False, 1),
+}
+
+
+def attention_layer_against_chunked(device, case):
+    """Output, x gradient and every parameter gradient of an ``Attention``
+    layer, f32, (B 2, S 100), against the same layer with its attention
+    computed by ``chunked_attention`` (the JAX training path's form) from
+    the case's own window, softcap and head grouping; returns the largest
+    relative Frobenius error."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import attention
+    arch, window, softcap, qk_norm, n_kv = LAYER_CASES[case]
+    cfg = get_config(arch, smoke=True).with_(
+        head_dim=64, n_kv_heads=n_kv, logit_softcap=softcap,
+        sparsity=get_config(arch).sparsity)
+    layer = attention.Attention(
+        cfg, window=window, qk_norm=qk_norm, device=device,
+        generator=torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(5)
+    b, s = 2, 100
+    x, dy = (_t(rng.normal(size=(b, s, cfg.d_model)).astype(np.float32))
+             .to(device) for _ in range(2))
+    pos = torch.arange(s, device=device)[None].expand(b, s)
+
+    def chunked(xs):
+        q, k, v = layer._qkv(xs, pos)
+        qg = q.reshape(b, s, n_kv, cfg.n_heads // n_kv, cfg.head_dim)
+        o = attention.chunked_attention(
+            qg, k, v, causal=True, window=window, softcap=softcap,
+            chunk=16, scale=cfg.head_dim ** -0.5)
+        return layer.wo(o.reshape(b, s, -1))
+
+    def run(forward):
+        xs = x.clone().requires_grad_()
+        layer.zero_grad(set_to_none=True)
+        y = forward(xs)
+        y.backward(dy)
+        return [y.detach(), xs.grad] + [p.grad.clone()
+                                        for p in layer.parameters()]
+
+    got = run(lambda xs: layer(xs, pos))
+    want = run(chunked)
+    assert len(got) > 2 + 3
+    return max(float(torch.linalg.vector_norm(g - w)
+                     / torch.linalg.vector_norm(w))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LAYER_CASES))
+def test_attention_forward_matches_chunked_attention(cuda_device, case):
+    """The model's call of the kernels (window, scale, softcap, head
+    grouping) against a reference that does not share that call."""
+    n = (flash_attention.flash_attention_cuda.launches,
+         flash_attention.flash_attention_bwd_cuda.launches)
+    err = attention_layer_against_chunked(cuda_device, case)
+    assert (flash_attention.flash_attention_cuda.launches,
+            flash_attention.flash_attention_bwd_cuda.launches) \
+        == (n[0] + 1, n[1] + 1)
+    assert err <= 1e-4, err

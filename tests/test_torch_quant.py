@@ -279,10 +279,9 @@ def _agreement_models():
     ``test_engine_int8_token_agreement``, in the port."""
     sp = dict(enabled=True, rho_ffn=(0.5, 1.0), block_in=16, block_out=16)
     kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-              vocab_size=256, attn_chunk=16, loss_chunk=16, dtype="float32",
-              remat=False)
+              vocab_size=256, loss_chunk=16, dtype="float32", remat=False)
     jmodel = build_model(JaxModelConfig(sparsity=JaxSparsityConfig(**sp),
-                                        **kw))
+                                        attn_chunk=16, **kw))
     params = jmodel.init(jax.random.key(0))
     cfg = ModelConfig(sparsity=SparsityConfig(**sp), **kw)
 
