@@ -96,6 +96,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the counts are of the expert-batched kernels (72 dx, 72 dw, 144
    forwards per step) and the attention kernels (48 forward, 24 backward),
    none of the 4-D or int8 ones;
+7c. run the port's sparselint (``python -m repro_torch.analysis.lint``)
+   on the card: clean it must exit 0 (grid, pattern and dispatch passes;
+   the dispatch pass runs both models' full-width paged steps, bf16 and
+   int8, and training steps under the sync debug mode), with
+   ``--selftest-inject`` exit 1 with exactly SL101 on the race-broken
+   forward and SL206 on the whole-slab upcast, launching the race-broken
+   kernel once; every kernel's launches are counted around the two runs.
+   Then hold every Python launch plan the run launched, and every lint
+   case's, against its library's ``<name>_plan``; launch every lint case
+   (each kernel family at demo and full-width shapes) twice into
+   NaN-filled outputs (nothing unwritten, runs bit-equal); and time TPU
+   kernel #9's counterpart (``csd_spmm_fwd_injected_alias``) at the demo
+   shape beside the shipped forward, its error above 10x the forward's f32
+   tolerance while the shipped forward at the same split passes;
 8. print one JSON line describing each ported kernel;
 9. print the device line, last.
 
@@ -530,11 +544,8 @@ def granite_training_config():
     drops the assignments past an expert's capacity, as the JAX trainer
     does) with 128 x 256 expert blocks: the default 256 x 1024 make both
     expert junctions dense at d_model 1024, d_expert 512."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    cfg = get_config("granite_moe_1b_a400m")
-    return cfg.with_(sparsity=dataclasses.replace(cfg.sparsity, block_in=128,
-                                                  block_out=256))
+    from repro_torch.configs import granite_moe_1b_a400m
+    return granite_moe_1b_a400m.card_config()
 
 
 def granite_serving_config():
@@ -575,7 +586,7 @@ def dense_of_experts(bp, w):
 def run_spmm_batched(cfg, device, results):
     import torch
     from repro_torch.core.quant import dequantize_slab, quantize_slab
-    from repro_torch.kernels import csd_spmm
+    from repro_torch.kernels import csd_spmm, launch
     g = torch.Generator(device=device).manual_seed(SEED + 5)
     n_exp = cfg.moe.n_routed
     up, down = expert_patterns(cfg)
@@ -649,9 +660,9 @@ def run_spmm_batched(cfg, device, results):
                 rec = dict(kernel=kernel, junction=name, experts=n_exp, m=m,
                            dtype=dtype_name, activation=act, bias=with_bias,
                            w_shape=list(shape),
-                           n_splits=csd_spmm.split_count(
+                           n_splits=launch.split_count(
                                m, bp.n_out, bp.d_in_b,
-                               csd_spmm._sm_count(device), n_exp),
+                               launch.sm_count(device), n_exp),
                            max_abs_err=abs_e, max_rel_err=rel_e,
                            max_abs_ref=float(ref.float().abs().max()),
                            **tol, ok=ok, ms=ms, host_ms=host_ms,
@@ -1488,20 +1499,27 @@ ALL_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant", "csd_spmm_fwd_batched",
                "csd_spmm_fwd_quant_batched", "csd_spmm_dx",
                "csd_spmm_dx_batched", "csd_spmm_dw", "csd_spmm_dw_batched",
                "paged_decode_attention", "paged_decode_attention_quant",
-               "flash_attention", "flash_attention_bwd")
+               "flash_attention", "flash_attention_bwd",
+               "csd_spmm_fwd_injected_alias")
+
+
+def wrapper(kernel: str):
+    """The wrapper that counts ``kernel``'s launches."""
+    from repro_torch.analysis import grid_pass
+    from repro_torch.kernels import csd_spmm, flash_attention
+    if kernel == grid_pass.INJECTED:
+        return grid_pass.csd_spmm_fwd_injected_alias_cuda
+    module = csd_spmm if kernel.startswith("csd") else flash_attention
+    return getattr(module, f"{kernel}_cuda")
 
 
 def launch_counts() -> dict:
-    from repro_torch.kernels import csd_spmm, flash_attention
-    return {k: getattr(csd_spmm if k.startswith("csd") else flash_attention,
-                       f"{k}_cuda").launches for k in ALL_KERNELS}
+    return {k: wrapper(k).launches for k in ALL_KERNELS}
 
 
 def reset_launch_counts():
-    from repro_torch.kernels import csd_spmm, flash_attention
     for k in ALL_KERNELS:
-        getattr(csd_spmm if k.startswith("csd") else flash_attention,
-                f"{k}_cuda").launches = 0
+        wrapper(k).launches = 0
 
 
 def train_launches_per_step(cfg) -> dict:
@@ -1811,6 +1829,205 @@ def profile_train(trainer, params, opt, data, out_dir, trace):
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: the port's sparselint on the card
+# ---------------------------------------------------------------------------
+
+# every plan the run launched, by (plan name, its arguments): what the
+# drift guard holds against the libraries' own plans
+LAUNCHED_PLANS = {}
+
+
+def record_plans():
+    """Wrap the launch hook so that every plan launched from here on is
+    kept in ``LAUNCHED_PLANS`` (the launch itself is unchanged)."""
+    from repro_torch.kernels import launch
+    real = launch.run
+
+    def run(plan, buffers, call):
+        LAUNCHED_PLANS.setdefault(
+            (plan.name, tuple(sorted(plan.args.items()))), plan)
+        return real(plan, buffers, call)
+
+    launch.run = run
+
+
+def lint_run(argv, out_dir: Path, name: str) -> tuple:
+    """``python -m repro_torch.analysis.lint`` in this process: (exit code,
+    report, seconds); the text report goes to ``chiprun_out/<name>``."""
+    import contextlib
+    import io
+    from repro_torch.analysis import lint
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = lint.main(list(argv) + ["--device", "cuda", "--format", "json"])
+    secs = time.perf_counter() - t0
+    (out_dir / name).write_text(buf.getvalue())
+    return rc, json.loads(buf.getvalue()), secs
+
+
+def run_lint(out_dir: Path) -> dict:
+    """Phase 7c(a): the lint on the card, clean (exit 0) and with
+    ``--selftest-inject`` (exit 1 with SL101 on the race-broken kernel and
+    SL206 on the whole-slab upcast and nothing else), with every kernel's
+    launches counted around the two runs: the dispatch pass drives both
+    models' full-width serving and training steps, the self-test launches
+    the race-broken kernel once."""
+    from repro_torch.analysis import grid_pass
+    reset_launch_counts()
+    rc, rep, secs = lint_run([], out_dir, "lint.json")
+    if rc != 0:
+        fail(f"lint on the card exited {rc}: "
+             f"{[f['code'] + ' ' + f['subject'] for f in rep['findings']]} "
+             f"errors {rep['errors']}")
+    rc_i, rep_i, secs_i = lint_run(["--selftest-inject"], out_dir,
+                                   "lint_selftest.json")
+    launches = launch_counts()
+    found = sorted((f["code"], f["subject"]) for f in rep_i["findings"]
+                   if not f.get("suppressed"))
+    want = [("SL101", grid_pass.INJECTED), ("SL206", "quant_inject[selftest]")]
+    if rc_i != 1 or found != want or rep_i["errors"]:
+        fail(f"lint --selftest-inject: exit {rc_i}, findings {found} "
+             f"(expected {want}), errors {rep_i['errors']}")
+    if launches[grid_pass.INJECTED] != 1:
+        fail(f"the self-test launched the race-broken kernel "
+             f"{launches[grid_pass.INJECTED]} times, expected 1")
+    idle = [k for k in ALL_KERNELS if launches[k] == 0]
+    if idle:
+        fail(f"the lint's full-width steps never launched {idle}")
+    rec = dict(check="lint", exit=rc, exit_selftest=rc_i, seconds=secs,
+               seconds_selftest=secs_i, covered={
+                   k: len(v) for k, v in rep["covered"].items()},
+               selftest_findings=[list(f) for f in found],
+               selftest_notes=rep_i["notes"], launches=launches)
+    log(json.dumps(rec))
+    for note in rep_i["notes"]:
+        log(f"lint: {note}")
+    return rec
+
+
+def plan_drift(device) -> dict:
+    """Phase 7c(b): every plan this run launched, and every lint case's plan
+    for this card's SM count, against the plan its kernel's library
+    computes with the launcher's own host code (``<name>_plan``)."""
+    from repro_torch.analysis import grid_pass
+    from repro_torch.kernels import launch
+    n_sm = launch.sm_count(device)
+    plans = dict(LAUNCHED_PLANS)
+    for case in grid_pass.kernel_cases() + [grid_pass.injected_alias_case()]:
+        p = case.build(n_sm)
+        plans.setdefault((p.name, tuple(sorted(p.args.items()))), p)
+    bad = []
+    for key, p in plans.items():
+        lib = [(tuple(g), t, m) for g, t, m in launch.library_dims(p)]
+        if lib != p.dims():
+            bad.append(dict(plan=key, python=p.dims(), library=lib))
+    if bad:
+        fail(f"{len(bad)} Python plan(s) disagree with their library: "
+             f"{bad[:3]}")
+    rec = dict(check="plan drift", plans=len(plans),
+               launched=len(LAUNCHED_PLANS),
+               by_kernel={n: sum(k[0] == n for k in plans)
+                          for n in sorted({k[0] for k in plans})})
+    log(json.dumps(rec))
+    return rec
+
+
+def nan_coverage(device) -> dict:
+    """Phase 7c(c): each lint case (every shipped kernel family, demo and
+    full-width shapes) launched twice from random inputs into outputs and
+    scratch buffers filled with NaN: nothing may stay unwritten (the
+    empirical side of SL101 and SL105) and the two runs must agree bit for
+    bit (no atomics, fixed summation orders)."""
+    import torch
+    from repro_torch.analysis import grid_pass
+    from repro_torch.kernels import launch
+    real = launch.run
+    written = []
+
+    def nan_run(plan, buffers, call):
+        outs = {k: t for k, t in buffers.items()
+                if t is not None and plan.buffers[k].role != "in"}
+        for t in outs.values():
+            t.fill_(float("nan"))
+        real(plan, buffers, call)
+        written.append((plan.name, outs))
+
+    checked, cases = 0, grid_pass.kernel_cases()
+    launch.run = nan_run
+    try:
+        for i, case in enumerate(cases):
+            args, kw = case.args(device, SEED + 100 + i)
+            runs = []
+            for _ in range(2):
+                written.clear()
+                case.fn(*args, **kw)
+                torch.cuda.synchronize()
+                runs.append([(n, k, t.clone()) for n, outs in written
+                             for k, t in outs.items()])
+            for (n, k, a), (_, _, b) in zip(*runs):
+                if bool(torch.isnan(a).any()):
+                    fail(f"{case.name}: {n} left {int(torch.isnan(a).sum())}"
+                         f" element(s) of {k} unwritten")
+                if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                    fail(f"{case.name}: two runs of {n} differ in {k}")
+                checked += 1
+            del args, kw, runs
+            torch.cuda.empty_cache()
+    finally:
+        launch.run = real
+    rec = dict(check="NaN-filled outputs, two runs", cases=len(cases),
+               buffers=checked)
+    log(json.dumps(rec))
+    return rec
+
+
+def run_injected(device) -> dict:
+    """Phase 7c(d): TPU kernel #9's counterpart at the demo shape (x (256,
+    512) f32, w (4, 2, 128, 128), fan-in 2): its error against the plain
+    version must exceed 10x the shipped forward's tolerance while the
+    shipped forward, forced to the same split, passes on the same inputs;
+    then its time beside the shipped forward's (at that split and at its
+    own), the plain version's, the bound (as the forward's at this shape)
+    and a dense ``torch.matmul``."""
+    import torch
+    from repro_torch.analysis import grid_pass
+    from repro_torch.kernels import csd_spmm
+    ev = grid_pass.injected_alias_evidence(device, SEED)
+    if not (ev["race_shows"] and ev["shipped_within"]):
+        fail(f"the race-broken kernel's error does not show as expected: "
+             f"{ev}")
+    bp = grid_pass._demo_pattern()
+    case = grid_pass.injected_alias_case()
+    (x0, w0, idx), _ = case.args(device, SEED)
+    n = copies_for(x0.numel() * 4 + w0.numel() * 4)
+    xs = [x0.clone() for _ in range(n)]
+    ws = [w0.clone() for _ in range(n)]
+    d_in_b = bp.d_in_b
+    bad = grid_pass.csd_spmm_fwd_injected_alias_cuda
+    ms, _ = bench([lambda i=i: bad(xs[i], ws[i], idx) for i in range(n)], 200)
+    split_ms, _ = bench([lambda i=i: csd_spmm._launch_fwd(
+        "csd_spmm_fwd_cuda", xs[i], ws[i], idx, None, None, False,
+        batched=False, n_splits=d_in_b) for i in range(n)], 200)
+    own_ms, _ = bench([lambda i=i: csd_spmm.csd_spmm_fwd_cuda(
+        xs[i], ws[i], idx) for i in range(n)], 200)
+    plain_ms, _ = bench([lambda i=i: csd_spmm.csd_spmm_fwd_plain(
+        xs[i], ws[i], idx) for i in range(n)], 20)
+    dense = [dense_of(bp, w) for w in ws]
+    lib_ms, _ = bench([lambda i=i: torch.matmul(xs[i], dense[i])
+                       for i in range(n)], 200)
+    m = x0.shape[0]
+    nbytes = 4 * (x0.numel() + w0.numel() + m * bp.n_out) + 4 * idx.numel()
+    bound_ms, bound_by = bound(nbytes, 2 * m * w0.numel(), torch.float32)
+    rec = dict(ev, check="race-broken forward (TPU kernel #9)", ms=ms,
+               shipped_same_split_ms=split_ms, shipped_ms=own_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    log(json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1847,6 +2064,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+    record_plans()
 
     # phases 3-4, 4b, 3c
     results = []
@@ -1936,6 +2155,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 7b done at {time.perf_counter() - t_all:.1f} s")
+
+    # phase 7c: the port's sparselint on the card, the plans against the
+    # libraries, NaN-filled outputs, and TPU kernel #9's race
+    lint_rec = run_lint(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    drift_rec = plan_drift(device)
+    nan_rec = nan_coverage(device)
+    inj_rec = run_injected(device)
+    torch.cuda.empty_cache()
+    log(f"phase 7c done at {time.perf_counter() - t_all:.1f} s")
 
     # phase 8: one entry per kernel: the junction kernels at the training
     # shape of the gelu gate junction, paged decode at a decode step's, the
@@ -2038,6 +2268,22 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             shape=shape))
+    entries.append(dict(
+        name="csd_spmm_fwd_injected_alias", route="cuda",
+        source="src/repro_torch/kernels/csrc/csd_spmm_fwd_injected_alias.cu",
+        replaces="src/repro/analysis/grid_pass.py:342",
+        launches=lint_rec["launches"]["csd_spmm_fwd_injected_alias"],
+        launches_serve=sum(r["launches"]["csd_spmm_fwd_injected_alias"]
+                           for r in (serve_rec, q_serve_rec, g_serve_rec,
+                                     gq_serve_rec)),
+        launches_train=sum(r["launches"]["csd_spmm_fwd_injected_alias"]
+                           for r in (train_rec, g_train_rec)),
+        max_abs_err=inj_rec["max_abs_err"], ms=inj_rec["ms"],
+        plain_ms=inj_rec["plain_ms"], bound_ms=inj_rec["bound_ms"],
+        bound_by=inj_rec["bound_by"], library_ms=inj_rec["library_ms"],
+        shape="lint self-test: x (256, 512) f32, w (4, 2, 128, 128), "
+              "2 fan-in splits storing into y; launches counted around "
+              "the lint phase (serving and training paths: 0)"))
     entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
     next(e for e in entries if e["name"] == "csd_spmm_fwd_batched")[
         "launches_train"] = g_train_rec["launches"]["csd_spmm_fwd_batched"]
@@ -2056,7 +2302,8 @@ def main() -> int:
              train_step_check=step_chk, train=train_rec,
              train_profile=train_prof, granite_train_step_check=g_step_chk,
              granite_train=g_train_rec, granite_train_profile=g_train_prof,
-             kernels=entries),
+             lint=lint_rec, plan_drift=drift_rec, nan_coverage=nan_rec,
+             injected_alias=inj_rec, kernels=entries),
         indent=1))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": entries}))

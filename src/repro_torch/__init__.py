@@ -12,5 +12,12 @@ kernels; and training it (``train.Trainer``, ``launch.train``) with the
 junction's forward, backward-data and backward-weights kernels
 (``csd_spmm_fwd``, ``csd_spmm_dx``, ``csd_spmm_dw``); and serving it in
 int8 (``core.quant``, ``EngineConfig.quant``) with the int8 forward kernel
-``csd_spmm_fwd_quant`` and paged decode over int8 pages.
+``csd_spmm_fwd_quant`` and paged decode over int8 pages; the same for
+granite_moe_1b_a400m through the expert-batched kernels; full-sequence
+attention through the flash-attention kernels; and sparselint
+(``analysis``, ``python -m repro_torch.analysis.lint``), which certifies
+the kernels' launch plans (``kernels.launch``), the serving and training
+steps and the sparsity patterns, with TPU kernel #9's counterpart (the
+race-broken forward of ``csrc/csd_spmm_fwd_injected_alias.cu``) as its
+self-test.
 """

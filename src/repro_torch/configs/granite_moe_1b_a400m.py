@@ -13,6 +13,8 @@ capacity factor and serving at the dropless ``capacity_factor=4.0``
 (``n_routed / top_k``) that paged serving needs, set with ``with_`` where
 it is used.
 """
+import dataclasses
+
 from ..nn.common import ModelConfig, MoEConfig, SparsityConfig
 
 
@@ -49,3 +51,12 @@ def smoke_config() -> ModelConfig:
                                 block_in=16, block_out=16,
                                 moe_sparsity=True),
     )
+
+
+def card_config() -> ModelConfig:
+    """The published configuration with the 128 x 256 expert blocks it is
+    trained and served with on the card (the published capacity factor;
+    paged serving sets the dropless 4.0 on top)."""
+    cfg = config()
+    return cfg.with_(sparsity=dataclasses.replace(cfg.sparsity, block_in=128,
+                                                  block_out=256))

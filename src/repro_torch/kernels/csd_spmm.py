@@ -25,7 +25,11 @@ Two implementations of each operation live here:
   what a CPU tensor runs and what the CUDA kernels are held against.
 * ``*_cuda`` — the hand-written Hopper kernels under ``csrc/``. They take
   CUDA tensors only and raise on anything they do not take; they never fall
-  back to the plain version. Each counts its launches in ``.launches``.
+  back to the plain version. Each counts its launches in ``.launches``,
+  builds its launch plan (``launch.fwd_plan``, ``dx_plan``, ``dw_plan``:
+  split count, grid, shared memory, what each CTA reads and writes) and
+  launches through ``launch.run``, the hook sparselint captures plans
+  through.
 
 The forward also has an int8 form for serving (``w_scale``): the slab is
 int8 with one f32 scale per (bL x bR) block (``core.quant``), each slot's
@@ -51,14 +55,13 @@ batched form with one expert.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, launch
 
 ACTIVATIONS = ("relu", "gelu")
 _ACT_CODE = {None: 0, "relu": 1, "gelu": 2}
@@ -261,30 +264,6 @@ def csd_spmm_dw_batched_plain(x: torch.Tensor, dy: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _block_m(m: int) -> int:
-    """The forward kernels' rows per CTA tile."""
-    return 16 if m <= 16 else 64
-
-
-def split_count(m: int, n_out: int, d_in_b: int, n_sm: int,
-                experts: int = 1) -> int:
-    """How many CTAs share one output tile's fan-in slots: 1 when the
-    (BM x 64) output tiles of all ``experts`` alone give about twice as
-    many CTAs as SMs, else enough splits to get there, every split owning
-    at least one slot."""
-    tiles = experts * (n_out // 64) * -(-m // _block_m(m))
-    want = -(-2 * n_sm // tiles)
-    if want <= 1:
-        return 1
-    per_split = -(-d_in_b // want)
-    return -(-d_in_b // per_split)
-
-
 def _bind(name: str, n_ptrs: int, n_ints: int):
     fn = getattr(build.load(name), name)
     if fn.argtypes is None:
@@ -294,23 +273,14 @@ def _bind(name: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-def _check(name: str, tensors, floats, ints) -> None:
-    """What every kernel takes: CUDA tensors on the current device,
-    contiguous and 16-byte aligned; float tensors of one dtype among
-    float32/bfloat16; int32 pattern tensors."""
-    dev = tensors[0].device
-    if not tensors[0].is_cuda or any(t.device != dev for t in tensors) \
-            or dev.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: every operand must be a CUDA tensor on "
-                         f"the current device")
+def _check_dtypes(name: str, floats, ints) -> None:
+    """Float tensors of one dtype among float32/bfloat16; int32 pattern
+    tensors."""
     dt = floats[0].dtype
     if dt not in _DTYPE_CODE or any(t.dtype != dt for t in floats) \
             or any(t.dtype != torch.int32 for t in ints):
         raise ValueError(f"{name}: float operands must share one dtype of "
                          f"float32/bfloat16 and pattern tensors be int32")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
-                         f"aligned")
 
 
 def _check_act(name: str, activation, aux, like) -> None:
@@ -325,9 +295,12 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+def _dtype(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _check_fwd_shapes(name: str, x, w, block_idx, bias,
@@ -345,7 +318,7 @@ def _check_fwd_shapes(name: str, x, w, block_idx, bias,
     if bl % 64 or br % 64 or n_in % bl or (batched and w.shape[0] != e) \
             or tuple(block_idx.shape) != (n_rb, d_in_b) \
             or (bias is not None and tuple(bias.shape) != bias_shape) \
-            or e * -(-m // _block_m(m)) > 65535:
+            or e * -(-m // launch.block_m(m)) > 65535:
         raise ValueError(
             f"{name}: shapes not taken: x {tuple(x.shape)}, "
             f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
@@ -353,21 +326,22 @@ def _check_fwd_shapes(name: str, x, w, block_idx, bias,
     return e, m, n_in, n_rb, d_in_b, bl, br
 
 
-def _splits(x: torch.Tensor, e: int, m: int, n_out: int, d_in_b: int):
-    """(n_splits, f32 partial-sum scratch or None) of a forward launch
-    over ``e`` experts of ``m`` rows."""
-    n_splits = split_count(m, n_out, d_in_b, _sm_count(x.device), e)
-    partial = torch.empty((n_splits, e * m, n_out), dtype=torch.float32,
-                          device=x.device) if n_splits > 1 else None
-    return n_splits, partial
+def _partial(plan, x, e: int, m: int, n_out: int):
+    """The f32 partial-sum scratch of a split forward launch, or None."""
+    if plan.n_splits == 1:
+        return None
+    return torch.empty((plan.n_splits, e * m, n_out), dtype=torch.float32,
+                       device=x.device)
 
 
 def _launch_fwd(name: str, x, w, block_idx, bias, activation, save_preact,
-                batched: bool):
-    """Check and launch ``csrc/csd_spmm_fwd.cu``; (y, z or None, whether
-    the kernel was launched)."""
+                batched: bool, n_splits: Optional[int] = None):
+    """Check and launch ``csrc/csd_spmm_fwd.cu`` through its plan; (y, z or
+    None, whether the kernel was launched). ``n_splits`` forces the plan's
+    split count (a test's comparison; the wrappers leave it to the plan)."""
     floats = (x, w) if bias is None else (x, w, bias)
-    _check(name, floats + (block_idx,), floats, (block_idx,))
+    launch.check_device(name, floats + (block_idx,))
+    _check_dtypes(name, floats, (block_idx,))
     e, m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
         name, x, w, block_idx, bias, batched)
     y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
@@ -375,26 +349,31 @@ def _launch_fwd(name: str, x, w, block_idx, bias, activation, save_preact,
     z = torch.empty_like(y) if save_preact else None
     if y.numel() == 0:
         return y, z, False
-    n_splits, partial = _splits(x, e, m, n_rb * br, d_in_b)
-    rc = _bind("csd_spmm_fwd", 7, 10)(
-        x.data_ptr(), w.data_ptr(), block_idx.data_ptr(), _ptr(bias),
-        y.data_ptr(), _ptr(z), _ptr(partial),
-        e, m, n_in, n_rb, d_in_b, bl, br, n_splits,
-        _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
-        torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "csd_spmm_fwd")
+    plan = launch.fwd_plan(
+        e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x), has_bias=bias is not None,
+        save_preact=save_preact, quant=False, n_sm=launch.sm_count(x.device),
+        n_splits=n_splits).with_patterns(block_idx=block_idx)
+    partial = _partial(plan, x, e, m, n_rb * br)
+    launch.run(plan, dict(x=x, w=w, block_idx=block_idx, bias=bias, y=y, z=z,
+                          partial=partial),
+               lambda: _bind("csd_spmm_fwd", 7, 10)(
+                   x.data_ptr(), w.data_ptr(), block_idx.data_ptr(),
+                   _ptr(bias), y.data_ptr(), _ptr(z), _ptr(partial),
+                   e, m, n_in, n_rb, d_in_b, bl, br, plan.n_splits,
+                   _DTYPE_CODE[x.dtype], _ACT_CODE[activation], _stream()))
     return y, z, True
 
 
 def _launch_fwd_quant(name: str, x, w, w_scale, block_idx, bias, activation,
                       batched: bool):
-    """Check and launch ``csrc/csd_spmm_fwd_quant.cu``; (y, whether the
-    kernel was launched)."""
+    """Check and launch ``csrc/csd_spmm_fwd_quant.cu`` through its plan;
+    (y, whether the kernel was launched)."""
     if activation not in _ACT_CODE:
         raise ValueError(f"unsupported fused activation {activation!r}")
     _check_quant(name, w, w_scale, False)
     floats = (x,) if bias is None else (x, bias)
-    _check(name, floats + (w, w_scale, block_idx), floats, (block_idx,))
+    launch.check_device(name, floats + (w, w_scale, block_idx))
+    _check_dtypes(name, floats, (block_idx,))
     if w_scale.dtype != torch.float32:
         raise ValueError(f"{name}: w_scale must be float32")
     e, m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
@@ -403,14 +382,19 @@ def _launch_fwd_quant(name: str, x, w, w_scale, block_idx, bias, activation,
                     device=x.device)
     if y.numel() == 0:
         return y, False
-    n_splits, partial = _splits(x, e, m, n_rb * br, d_in_b)
-    rc = _bind("csd_spmm_fwd_quant", 7, 10)(
-        x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
-        block_idx.data_ptr(), _ptr(bias), y.data_ptr(), _ptr(partial),
-        e, m, n_in, n_rb, d_in_b, bl, br, n_splits,
-        _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
-        torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "csd_spmm_fwd_quant")
+    plan = launch.fwd_plan(
+        e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x), has_bias=bias is not None,
+        save_preact=False, quant=True,
+        n_sm=launch.sm_count(x.device)).with_patterns(block_idx=block_idx)
+    partial = _partial(plan, x, e, m, n_rb * br)
+    launch.run(plan, dict(x=x, w=w, w_scale=w_scale, block_idx=block_idx,
+                          bias=bias, y=y, partial=partial),
+               lambda: _bind("csd_spmm_fwd_quant", 7, 10)(
+                   x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+                   block_idx.data_ptr(), _ptr(bias), y.data_ptr(),
+                   _ptr(partial), e, m, n_in, n_rb, d_in_b, bl, br,
+                   plan.n_splits, _DTYPE_CODE[x.dtype],
+                   _ACT_CODE[activation], _stream()))
     return y, True
 
 
@@ -503,13 +487,15 @@ def csd_spmm_fwd_quant_batched_cuda(x: torch.Tensor, w: torch.Tensor,
 
 def _launch_dx(name: str, dy, w, out_idx, out_slot, aux, activation,
                batched: bool):
-    """Check and launch ``csrc/csd_spmm_dx.cu``; (dx, whether the kernel
-    was launched). dy (M, n_out) with w (n_rb, d_in_b, bL, bR) as E = 1,
-    or with ``batched`` dy (E, M, n_out) and w (E, n_rb, d_in_b, bL, bR)."""
+    """Check and launch ``csrc/csd_spmm_dx.cu`` through its plan; (dx,
+    whether the kernel was launched). dy (M, n_out) with w (n_rb, d_in_b,
+    bL, bR) as E = 1, or with ``batched`` dy (E, M, n_out) and w (E, n_rb,
+    d_in_b, bL, bR)."""
     _check_act(name, activation, aux, dy)
     act_aux = () if activation is None else (aux,)
     floats = (dy, w) + act_aux
-    _check(name, floats + (out_idx, out_slot), floats, (out_idx, out_slot))
+    launch.check_device(name, floats + (out_idx, out_slot))
+    _check_dtypes(name, floats, (out_idx, out_slot))
     if (dy.dim(), w.dim()) != ((3, 5) if batched else (2, 4)):
         raise ValueError(f"{name}: dy must be {3 if batched else 2}-D and w "
                          f"{5 if batched else 4}-D")
@@ -528,25 +514,31 @@ def _launch_dx(name: str, dy, w, out_idx, out_slot, aux, activation,
                      device=dy.device)
     if dx.numel() == 0:
         return dx, False
-    rc = _bind("csd_spmm_dx", 6, 10)(
-        dy.data_ptr(), _ptr(aux if activation else None), w.data_ptr(),
-        out_idx.data_ptr(), out_slot.data_ptr(), dx.data_ptr(),
-        e, m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
-        _DTYPE_CODE[dy.dtype], _ACT_CODE[activation],
-        torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "csd_spmm_dx")
+    plan = launch.dx_plan(e, m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
+                          _dtype(dy), act=activation is not None) \
+        .with_patterns(out_idx=out_idx, out_slot=out_slot)
+    aux = aux if activation else None
+    launch.run(plan, dict(dy=dy, aux=aux, w=w, out_idx=out_idx,
+                          out_slot=out_slot, dx=dx),
+               lambda: _bind("csd_spmm_dx", 6, 10)(
+                   dy.data_ptr(), _ptr(aux), w.data_ptr(),
+                   out_idx.data_ptr(), out_slot.data_ptr(), dx.data_ptr(),
+                   e, m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
+                   _DTYPE_CODE[dy.dtype], _ACT_CODE[activation], _stream()))
     return dx, True
 
 
 def _launch_dw(name: str, x, dy, block_idx, bl: int, br: int, aux,
                activation, want_db: bool, batched: bool):
-    """Check and launch ``csrc/csd_spmm_dw.cu``; (dw, db or None, whether
-    the kernel was launched). x (M, n_in) and dy (M, n_out) as E = 1, or
-    with ``batched`` x (E, M, n_in) and dy (E, M, n_out)."""
+    """Check and launch ``csrc/csd_spmm_dw.cu`` through its plan; (dw, db
+    or None, whether the kernel was launched). x (M, n_in) and dy (M,
+    n_out) as E = 1, or with ``batched`` x (E, M, n_in) and dy (E, M,
+    n_out)."""
     _check_act(name, activation, aux, dy)
     act_aux = () if activation is None else (aux,)
     floats = (x, dy) + act_aux
-    _check(name, floats + (block_idx,), floats, (block_idx,))
+    launch.check_device(name, floats + (block_idx,))
+    _check_dtypes(name, floats, (block_idx,))
     rank = 3 if batched else 2
     if x.dim() != rank or dy.dim() != rank or block_idx.dim() != 2:
         raise ValueError(f"{name}: x and dy must be {rank}-D and block_idx "
@@ -570,13 +562,17 @@ def _launch_dw(name: str, x, dy, block_idx, bl: int, br: int, aux,
         if db is not None:
             db.zero_()
         return dw, db, False
-    rc = _bind("csd_spmm_dw", 6, 9)(
-        x.data_ptr(), dy.data_ptr(), _ptr(aux if activation else None),
-        block_idx.data_ptr(), dw.data_ptr(), _ptr(db),
-        e, m, n_in, n_rb, d_in_b, bl, br,
-        _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
-        torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "csd_spmm_dw")
+    plan = launch.dw_plan(e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x),
+                          act=activation is not None, want_db=want_db) \
+        .with_patterns(block_idx=block_idx)
+    aux = aux if activation else None
+    launch.run(plan, dict(x=x, dy=dy, aux=aux, block_idx=block_idx, dw=dw,
+                          db=db),
+               lambda: _bind("csd_spmm_dw", 6, 9)(
+                   x.data_ptr(), dy.data_ptr(), _ptr(aux),
+                   block_idx.data_ptr(), dw.data_ptr(), _ptr(db),
+                   e, m, n_in, n_rb, d_in_b, bl, br,
+                   _DTYPE_CODE[x.dtype], _ACT_CODE[activation], _stream()))
     return dw, db, True
 
 

@@ -13,6 +13,8 @@
 
 #include <type_traits>
 
+#include "plan.cuh"
+
 namespace csd {
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -135,6 +137,11 @@ __global__ void __launch_bounds__(256)
     if (zout != nullptr) store(z, zout + e);
     store(activate(z, act), y + e);
   }
+}
+
+// The second pass's launch over `total` output elements: one thread each.
+inline plan::Dims reduce_dims(size_t total) {
+  return {dim3(static_cast<unsigned>((total + 255) / 256)), 256, 0};
 }
 
 }  // namespace csd

@@ -241,22 +241,27 @@ __global__ void __launch_bounds__(kThreads)
   if (takes_db && tid < kBJ) db[dcol + tid] = colsum;
 }
 
+template <typename T>
+plan::Dims dw_dims(int E, int n_rb, int d_in_b, int bL, int bR) {
+  return {dim3(bR / kBJ, bL / kBI, E * n_rb * d_in_b), kThreads,
+          static_cast<size_t>(DwTile<T>::SMEM)};
+}
+
 template <typename T, bool kExperts>
 int launch(const void* x, const void* dy, const void* aux, const int* idx,
            void* dw, float* db, int E, int M, int n_in, int n_rb,
            int d_in_b, int bL, int bR, int act, cudaStream_t stream) {
-  constexpr int smem = DwTile<T>::SMEM;
+  const plan::Dims d = dw_dims<T>(E, n_rb, d_in_b, bL, bR);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         csd_spmm_dw_kernel<T, kExperts>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        static_cast<int>(d.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid(bR / kBJ, bL / kBI, E * n_rb * d_in_b);
-  csd_spmm_dw_kernel<T, kExperts><<<grid, kThreads, smem, stream>>>(
+  csd_spmm_dw_kernel<T, kExperts><<<d.grid, d.threads, d.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy),
       static_cast<const T*>(aux), idx, static_cast<T*>(dw), db, M, n_in,
       n_rb * bR, d_in_b, bL, bR, act);
@@ -294,4 +299,19 @@ extern "C" int csd_spmm_dw(const void* x, const void* dy, const void* aux,
                                                   db, E, M, n_in, n_rb,
                                                   d_in_b, bL, bR, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch csd_spmm_dw makes for these arguments, from the host code it
+// launches with: five ints (grid x, y, z, threads, dynamic shared memory
+// bytes) written to out. Returns the launch count (1), or -1 for an unknown
+// dtype.
+extern "C" int csd_spmm_dw_plan(int E, int n_rb, int d_in_b, int bL, int bR,
+                                int dtype, int* out) {
+  if (dtype == 0)
+    plan::put(out, 0, dw_dims<float>(E, n_rb, d_in_b, bL, bR));
+  else if (dtype == 1)
+    plan::put(out, 0, dw_dims<__nv_bfloat16>(E, n_rb, d_in_b, bL, bR));
+  else
+    return -1;
+  return 1;
 }

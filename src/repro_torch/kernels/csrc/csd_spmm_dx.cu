@@ -231,24 +231,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T>
+plan::Dims dx_dims(int E, int M, int n_in) {
+  return {dim3(n_in / kBN, E * ((M + kBM - 1) / kBM)), kThreads,
+          static_cast<size_t>(DxTile<T>::SMEM)};
+}
+
 template <typename T, bool kExperts>
 int launch(const void* dy, const void* aux, const void* w, const int* oidx,
            const int* oslot, void* dx, int E, int M, int n_rb, int d_in_b,
            int bL, int bR, int n_lb, int d_out_b, int act,
            cudaStream_t stream) {
-  constexpr int smem = DxTile<T>::SMEM;
+  const int n_in = n_lb * bL;
+  const plan::Dims d = dx_dims<T>(E, M, n_in);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         csd_spmm_dx_kernel<T, kExperts>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        static_cast<int>(d.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  const int n_in = n_lb * bL;
-  dim3 grid(n_in / kBN, E * ((M + kBM - 1) / kBM));
-  csd_spmm_dx_kernel<T, kExperts><<<grid, kThreads, smem, stream>>>(
+  csd_spmm_dx_kernel<T, kExperts><<<d.grid, d.threads, d.smem, stream>>>(
       static_cast<const T*>(dy), static_cast<const T*>(aux),
       static_cast<const T*>(w), oidx, oslot, static_cast<T*>(dx), M,
       n_rb * bR, n_in, d_in_b, bL, bR, d_out_b, act);
@@ -289,4 +294,19 @@ extern "C" int csd_spmm_dx(const void* dy, const void* aux, const void* w,
                          dy, aux, w, out_idx, out_slot, dx, E, M, n_rb,
                          d_in_b, bL, bR, n_lb, d_out_b, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch csd_spmm_dx makes for these arguments, from the host code it
+// launches with: five ints (grid x, y, z, threads, dynamic shared memory
+// bytes) written to out. Returns the launch count (1), or -1 for an unknown
+// dtype.
+extern "C" int csd_spmm_dx_plan(int E, int M, int n_lb, int bL, int dtype,
+                                int* out) {
+  if (dtype == 0)
+    plan::put(out, 0, dx_dims<float>(E, M, n_lb * bL));
+  else if (dtype == 1)
+    plan::put(out, 0, dx_dims<__nv_bfloat16>(E, M, n_lb * bL));
+  else
+    return -1;
+  return 1;
 }

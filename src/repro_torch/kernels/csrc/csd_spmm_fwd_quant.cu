@@ -273,35 +273,48 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int BM>
+plan::Dims split_dims(int E, int M, int n_rb, int bR, int n_splits) {
+  return {dim3(n_rb * bR / kBN, E * ((M + BM - 1) / BM), n_splits), kThreads,
+          static_cast<size_t>(QTile<T, BM>::SMEM)};
+}
+
+template <typename T, int BM>
 int launch(const void* x, const void* w, const float* scale, const int* idx,
            const void* bias, void* y, float* partial, int E, int M,
            int n_in, int n_rb, int d_in_b, int bL, int bR, int n_splits,
            int act, cudaStream_t stream) {
-  constexpr int smem = QTile<T, BM>::SMEM;
+  const plan::Dims d = split_dims<T, BM>(E, M, n_rb, bR, n_splits);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         csd_spmm_fwd_quant_kernel<T, BM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(d.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const int n_out = n_rb * bR;
   const int per_split = (d_in_b + n_splits - 1) / n_splits;
-  dim3 grid(n_out / kBN, E * ((M + BM - 1) / BM), n_splits);
-  csd_spmm_fwd_quant_kernel<T, BM><<<grid, kThreads, smem, stream>>>(
+  csd_spmm_fwd_quant_kernel<T, BM><<<d.grid, d.threads, d.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w), scale, idx,
       static_cast<const T*>(bias), static_cast<T*>(y),
       n_splits > 1 ? partial : nullptr, E, M, n_in, d_in_b, bL, bR, n_out,
       per_split, act);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return static_cast<int>(e);
-  const size_t total = static_cast<size_t>(E) * M * n_out;
-  const int blocks = static_cast<int>((total + 255) / 256);
-  csd::reduce_splits_kernel<T><<<blocks, 256, 0, stream>>>(
+  const plan::Dims r = csd::reduce_dims(static_cast<size_t>(E) * M * n_out);
+  csd::reduce_splits_kernel<T><<<r.grid, r.threads, r.smem, stream>>>(
       partial, static_cast<const T*>(bias), static_cast<T*>(y),
       static_cast<T*>(nullptr), E, M, n_out, n_splits, act);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int BM>
+int plan_of(int E, int M, int n_rb, int bR, int n_splits, int* out) {
+  plan::put(out, 0, split_dims<T, BM>(E, M, n_rb, bR, n_splits));
+  if (n_splits == 1) return 1;
+  plan::put(out, 1, csd::reduce_dims(static_cast<size_t>(E) * M * n_rb * bR));
+  return 2;
 }
 
 }  // namespace
@@ -341,4 +354,20 @@ extern "C" int csd_spmm_fwd_quant(const void* x, const void* w,
                                              partial, E, M, n_in, n_rb,
                                              d_in_b, bL, bR, n_splits, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launches csd_spmm_fwd_quant makes for these arguments, from the host
+// code it launches with: five ints each (grid x, y, z, threads, dynamic
+// shared memory bytes) written to out (room for 2). Returns the launch
+// count, or -1 for an unknown dtype.
+extern "C" int csd_spmm_fwd_quant_plan(int E, int M, int n_rb, int bR,
+                                       int n_splits, int dtype, int* out) {
+  const bool small = M <= 16;
+  if (dtype == 0)
+    return small ? plan_of<float, 16>(E, M, n_rb, bR, n_splits, out)
+                 : plan_of<float, 64>(E, M, n_rb, bR, n_splits, out);
+  if (dtype == 1)
+    return small ? plan_of<__nv_bfloat16, 16>(E, M, n_rb, bR, n_splits, out)
+                 : plan_of<__nv_bfloat16, 64>(E, M, n_rb, bR, n_splits, out);
+  return -1;
 }

@@ -815,36 +815,62 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename Kern>
-int launch_kernel(Kern kernel, dim3 grid, size_t smem, const Params& p,
+int launch_kernel(Kern kernel, const plan::Dims& d, const Params& p,
                   cudaStream_t stream) {
-  if (smem > static_cast<size_t>(kMaxSmem))
+  if (d.smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(d.smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<d.grid, d.threads, d.smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launches of the forward (fwd) or the backward (dq, then dk/dv).
+template <typename T, int DHMAX>
+plan::Dims fwd_dims(const Params& p) {
+  const Layout<T, DHMAX> L(p.Dh);
+  return {dim3((p.Sq + kRows - 1) / kRows, p.Hq, p.B), kThreads,
+          L.fwd_bytes(L.fwd_stages())};
+}
+template <typename T, int DHMAX>
+plan::Dims dq_dims(const Params& p) {
+  const Layout<T, DHMAX> L(p.Dh);
+  return {dim3((p.Sq + kRows - 1) / kRows, p.Hq, p.B), kThreads,
+          L.dq_bytes(L.dq_stages())};
+}
+template <typename T, int DHMAX>
+plan::Dims dkv_dims(const Params& p) {
+  const Layout<T, DHMAX> L(p.Dh);
+  return {dim3((p.Skv + kRows - 1) / kRows, p.Hkv, p.B), kThreads,
+          L.dkv_bytes(L.dkv_stages())};
 }
 
 template <typename T, int DHMAX>
 int run_fwd(const Params& p, cudaStream_t stream) {
-  const Layout<T, DHMAX> L(p.Dh);
-  return launch_kernel(flash_fwd_kernel<T, DHMAX>,
-                       dim3((p.Sq + kRows - 1) / kRows, p.Hq, p.B),
-                       L.fwd_bytes(L.fwd_stages()), p, stream);
+  return launch_kernel(flash_fwd_kernel<T, DHMAX>, fwd_dims<T, DHMAX>(p), p,
+                       stream);
 }
 
 template <typename T, int DHMAX>
 int run_bwd(const Params& p, cudaStream_t stream) {
-  const Layout<T, DHMAX> L(p.Dh);
-  int rc = launch_kernel(flash_dq_kernel<T, DHMAX>,
-                         dim3((p.Sq + kRows - 1) / kRows, p.Hq, p.B),
-                         L.dq_bytes(L.dq_stages()), p, stream);
+  int rc = launch_kernel(flash_dq_kernel<T, DHMAX>, dq_dims<T, DHMAX>(p), p,
+                         stream);
   if (rc != 0) return rc;
-  return launch_kernel(flash_dkv_kernel<T, DHMAX>,
-                       dim3((p.Skv + kRows - 1) / kRows, p.Hkv, p.B),
-                       L.dkv_bytes(L.dkv_stages()), p, stream);
+  return launch_kernel(flash_dkv_kernel<T, DHMAX>, dkv_dims<T, DHMAX>(p), p,
+                       stream);
+}
+
+template <typename T, int DHMAX>
+int plan_of(const Params& p, bool bwd, int* out) {
+  if (!bwd) {
+    plan::put(out, 0, fwd_dims<T, DHMAX>(p));
+    return 1;
+  }
+  plan::put(out, 0, dq_dims<T, DHMAX>(p));
+  plan::put(out, 1, dkv_dims<T, DHMAX>(p));
+  return 2;
 }
 
 // The head-dim bucket (Dh <= 64, 128, 256) picks the register arrays' size.
@@ -933,4 +959,27 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.dv = dv;
   p.delta = delta;
   return dispatch<true>(p, dtype, stream);
+}
+
+// The launches flash_attention_fwd (backward 0) or flash_attention_bwd
+// (backward 1) makes for these shapes, from the host code it launches
+// with: five ints each (grid x, y, z, threads, dynamic shared memory bytes)
+// written to out (room for 2). Returns the launch count, or -1 where the
+// entry point would refuse the shapes or the dtype.
+extern "C" int flash_attention_plan(int B, int Sq, int Skv, int Hq, int Hkv,
+                                    int Dh, int dtype, int backward,
+                                    int* out) {
+  const Params p = make_params(B, Sq, Skv, Hq, Hkv, Dh, 1, -1, 0, 0.f, 1.f);
+  if (p.Dh <= 0 || p.Dh > 256 || p.Dh % 16 != 0 || p.G <= 0 ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  const bool bwd = backward != 0;
+  if (dtype == 0) {
+    if (Dh <= 64) return plan_of<float, 64>(p, bwd, out);
+    if (Dh <= 128) return plan_of<float, 128>(p, bwd, out);
+    return plan_of<float, 256>(p, bwd, out);
+  }
+  if (Dh <= 64) return plan_of<bf16, 64>(p, bwd, out);
+  if (Dh <= 128) return plan_of<bf16, 128>(p, bwd, out);
+  return plan_of<bf16, 256>(p, bwd, out);
 }

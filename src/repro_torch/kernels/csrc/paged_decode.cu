@@ -47,6 +47,8 @@
 
 #include <type_traits>
 
+#include "plan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -335,6 +337,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename PT>
+plan::Dims split_dims(int B, int Hkv, int G, int Dh, int page_size,
+                      int n_pages, int keys_per_tile, int pages_per_split) {
+  const int n_splits = (n_pages + pages_per_split - 1) / pages_per_split;
+  return {dim3(n_splits, Hkv, B), kThreads,
+          smem_bytes<PT>(G, Dh, keys_per_tile, keys_per_tile / page_size)};
+}
+
+inline plan::Dims merge_dims(int B, int Hkv) {
+  return {dim3(Hkv, B), kThreads, 0};
+}
+
 template <typename T, typename PT>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const float* k_scale, const float* v_scale, const int* table,
@@ -342,26 +356,26 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
            int B, int Hkv, int G, int Dh, int page_size, int n_pages,
            int keys_per_tile, int pages_per_split, int window, float softcap,
            float scale, cudaStream_t stream) {
-  const int tile_pages = keys_per_tile / page_size;
-  const size_t smem = smem_bytes<PT>(G, Dh, keys_per_tile, tile_pages);
+  const plan::Dims d = split_dims<PT>(B, Hkv, G, Dh, page_size, n_pages,
+                                      keys_per_tile, pages_per_split);
   static size_t configured = 48 * 1024;  // the default dynamic limit
-  if (smem > configured) {
+  if (d.smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
         paged_decode_kernel<T, PT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(d.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = smem;
+    configured = d.smem;
   }
-  const int n_splits = (n_pages + pages_per_split - 1) / pages_per_split;
-  paged_decode_kernel<T, PT>
-      <<<dim3(n_splits, Hkv, B), kThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const PT*>(k_pages),
-          static_cast<const PT*>(v_pages), k_scale, v_scale, table, lengths,
-          static_cast<T*>(out), part_o, part_ml, Hkv, G, Dh, page_size,
-          n_pages, keys_per_tile, pages_per_split, window, softcap, scale);
+  const int n_splits = static_cast<int>(d.grid.x);
+  paged_decode_kernel<T, PT><<<d.grid, d.threads, d.smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const PT*>(k_pages),
+      static_cast<const PT*>(v_pages), k_scale, v_scale, table, lengths,
+      static_cast<T*>(out), part_o, part_ml, Hkv, G, Dh, page_size, n_pages,
+      keys_per_tile, pages_per_split, window, softcap, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return static_cast<int>(e);
-  paged_decode_merge_kernel<T><<<dim3(Hkv, B), kThreads, 0, stream>>>(
+  const plan::Dims m = merge_dims(B, Hkv);
+  paged_decode_merge_kernel<T><<<m.grid, m.threads, m.smem, stream>>>(
       part_o, part_ml, static_cast<T*>(out), Hkv, G, Dh, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
@@ -419,4 +433,28 @@ extern "C" int paged_decode_attention_quant(
         part_ml, B, Hkv, G, Dh, page_size, n_pages, keys_per_tile,
         pages_per_split, window, softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launches paged_decode_attention (quant 0) or
+// paged_decode_attention_quant (quant 1) makes for these arguments, from
+// the host code it launches with: five ints each (grid x, y, z, threads,
+// dynamic shared memory bytes) written to out (room for 2). Returns the
+// launch count.
+extern "C" int paged_decode_attention_plan(int B, int Hkv, int G, int Dh,
+                                           int page_size, int n_pages,
+                                           int keys_per_tile,
+                                           int pages_per_split, int dtype,
+                                           int quant, int* out) {
+  const plan::Dims d =
+      quant ? split_dims<int8_t>(B, Hkv, G, Dh, page_size, n_pages,
+                                 keys_per_tile, pages_per_split)
+      : dtype == 0 ? split_dims<float>(B, Hkv, G, Dh, page_size, n_pages,
+                                       keys_per_tile, pages_per_split)
+                   : split_dims<__nv_bfloat16>(B, Hkv, G, Dh, page_size,
+                                               n_pages, keys_per_tile,
+                                               pages_per_split);
+  plan::put(out, 0, d);
+  if (d.grid.x == 1) return 1;
+  plan::put(out, 1, merge_dims(B, Hkv));
+  return 2;
 }

@@ -65,17 +65,14 @@ key gives 0.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
-from . import build
+from . import build, launch
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232448  # a block's dynamic shared memory on Hopper
-_WARPS = 8          # warps per CTA of csrc/paged_decode.cu
 
 
 def _check_scales(k_scale, v_scale) -> None:
@@ -121,11 +118,6 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
     return o.to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _bind(source: str, name: str, n_ptrs: int):
     """Entry point ``name`` of ``csrc/<source>.cu``: ``n_ptrs`` pointers,
     nine ints, two floats, the dtype code and the stream (both sources'
@@ -138,29 +130,13 @@ def _bind(source: str, name: str, n_ptrs: int):
     return fn
 
 
-def split_plan(b: int, hkv: int, page_size: int, n_pages: int,
-               n_sm: int) -> tuple:
-    """(keys per tile, pages per split, splits) for the kernel: tiles of 64
-    keys (whole pages), and a row's pages split into contiguous ranges
-    until the (row, head, split) CTAs number about twice the SMs."""
-    tile_pages = max(1, 64 // page_size)
-    n_tiles = -(-n_pages // tile_pages)
-    want = max(1, -(-2 * n_sm // max(b * hkv, 1)))
-    pages_per_split = -(-n_tiles // min(n_tiles, want)) * tile_pages
-    return (tile_pages * page_size, pages_per_split,
-            -(-n_pages // pages_per_split))
-
-
 def _launch(name: str, q, k_pages, v_pages, page_table, lengths, scales, *,
             window, softcap, scale):
     """Check what the kernel takes, then launch ``csrc/paged_decode.cu``'s
     entry point ``name`` (``scales`` = (k_scale, v_scale) for int8 pages,
     else ``()``). Returns the output."""
     tensors = (q, k_pages, v_pages, page_table, lengths) + scales
-    if not q.is_cuda or any(t.device != q.device for t in tensors) \
-            or q.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: inputs must be CUDA tensors on the "
-                         f"current device")
+    launch.check_device(name, tensors)
     page_dtype = torch.int8 if scales else q.dtype
     if q.dtype not in _DTYPE_CODE or k_pages.dtype != page_dtype \
             or v_pages.dtype != page_dtype \
@@ -186,40 +162,48 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, scales, *,
             f"256 in whole 16-byte rows), pages {tuple(k_pages.shape)}, "
             f"table {tuple(page_table.shape)}, lengths "
             f"{tuple(lengths.shape)}")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
-                         f"aligned")
     scale = dh ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     n_pages = page_table.shape[1]
     if b == 0 or hkv == 0 or n_pages == 0:
         return out.zero_()
-    keys_per_tile, pages_per_split, n_splits = split_plan(
-        b, hkv, page_size, n_pages, _sm_count(q.device))
-    smem = 2 * keys_per_tile * dh * k_pages.element_size() \
-        + 4 * g * dh * (1 + _WARPS) + 8 * _WARPS * g \
-        + 8 * keys_per_tile * bool(scales) + 4 * keys_per_tile // page_size
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: page_size {page_size} needs {smem} bytes "
-                         f"of shared memory")
+    plan = launch.paged_decode_plan(
+        b, hkv, g, dh, page_size, n_pages, n_pool,
+        str(q.dtype).replace("torch.", ""), quant=bool(scales),
+        window=None if window is None else int(window),
+        n_sm=launch.sm_count(q.device)).with_patterns(
+            page_table=page_table, lengths=lengths)
+    split = plan.launches[0]
+    if split.smem > launch.SMEM_OPTIN:
+        raise ValueError(f"{name}: page_size {page_size} needs {split.smem} "
+                         f"bytes of shared memory")
+    keys_per_tile = plan.args["keys_per_tile"]
+    pages_per_split = plan.args["pages_per_split"]
     part_o = part_ml = None
-    if n_splits > 1:
-        part_o = torch.empty((b, hkv, n_splits, g, dh), dtype=torch.float32,
-                             device=q.device)
-        part_ml = torch.empty((b, hkv, n_splits, g, 2), dtype=torch.float32,
-                              device=q.device)
-    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()] \
-        + [t.data_ptr() for t in scales] \
-        + [page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-           None if part_o is None else part_o.data_ptr(),
-           None if part_ml is None else part_ml.data_ptr()]
-    rc = _bind("paged_decode", name, len(ptrs))(
-        *ptrs, b, hkv, g, dh, page_size, n_pages, keys_per_tile,
-        pages_per_split, -1 if window is None else int(window),
-        0.0 if softcap is None else float(softcap), float(scale),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    if plan.n_splits > 1:
+        part_o = torch.empty(plan.buffers["part_o"].shape,
+                             dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(plan.buffers["part_ml"].shape,
+                              dtype=torch.float32, device=q.device)
+    buffers = dict(q=q, k_pages=k_pages, v_pages=v_pages,
+                   page_table=page_table, lengths=lengths, out=out,
+                   part_o=part_o, part_ml=part_ml)
+    if scales:
+        buffers.update(k_scale=scales[0], v_scale=scales[1])
+
+    def call():
+        ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()] \
+            + [t.data_ptr() for t in scales] \
+            + [page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+               None if part_o is None else part_o.data_ptr(),
+               None if part_ml is None else part_ml.data_ptr()]
+        return _bind("paged_decode", name, len(ptrs))(
+            *ptrs, b, hkv, g, dh, page_size, n_pages, keys_per_tile,
+            pages_per_split, -1 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), float(scale),
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+
+    launch.run(plan, buffers, call)
     return out
 
 
@@ -375,10 +359,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 def _check_flash(name: str, tensors, q, k) -> None:
     """Raise on what ``csrc/flash_attention.cu`` does not take."""
-    if not q.is_cuda or any(t.device != q.device for t in tensors) \
-            or q.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: inputs must be CUDA tensors on the "
-                         f"current device")
+    launch.check_device(name, tensors)
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
                                          for t in tensors):
         raise ValueError(f"{name}: q, k, v (and o, do) must all be float32 "
@@ -392,9 +373,6 @@ def _check_flash(name: str, tensors, q, k) -> None:
             f"{name}: shapes not taken: q {tuple(q.shape)}, k "
             f"{tuple(k.shape)} (Hq a multiple of Hkv, Dh a multiple of 16 "
             f"up to 256)")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
-                         f"aligned")
 
 
 def _flash_args(q, k, causal, window, logit_softcap, scale, q_offset):
@@ -404,6 +382,15 @@ def _flash_args(q, k, causal, window, logit_softcap, scale, q_offset):
             0.0 if logit_softcap is None else float(logit_softcap),
             float(dh ** -0.5 if scale is None else scale),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream]
+
+
+def _flash_plan(q, k, causal, window, q_offset, backward: bool):
+    b, sq, hq, dh = q.shape
+    return launch.flash_plan(
+        b, sq, k.shape[1], hq, k.shape[2], dh,
+        str(q.dtype).replace("torch.", ""), causal=bool(causal),
+        window=None if window is None else int(window),
+        q_offset=int(q_offset), backward=backward)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
@@ -422,13 +409,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel():
-        rc = _bind("flash_attention", "flash_attention_fwd", 5)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), *_flash_args(q, k, causal, window, logit_softcap,
-                                         scale, q_offset))
-        if rc != 0:
-            raise RuntimeError(f"flash_attention_fwd launch failed: CUDA "
-                               f"error {rc}")
+        launch.run(_flash_plan(q, k, causal, window, q_offset, False),
+                   dict(q=q, k=k, v=v, out=out, lse=lse),
+                   lambda: _bind("flash_attention", "flash_attention_fwd", 5)(
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), lse.data_ptr(),
+                       *_flash_args(q, k, causal, window, logit_softcap,
+                                    scale, q_offset)))
         flash_attention_cuda.launches += 1
     return (out, lse) if return_lse else out
 
@@ -455,14 +442,15 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty_like(lse)
-    rc = _bind("flash_attention", "flash_attention_bwd", 10)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(),
-        *_flash_args(q, k, causal, window, logit_softcap, scale, q_offset))
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{rc}")
+    launch.run(_flash_plan(q, k, causal, window, q_offset, True),
+               dict(q=q, k=k, v=v, o=o, dout=do, lse=lse, dq=dq, dk=dk,
+                    dv=dv, delta=delta),
+               lambda: _bind("flash_attention", "flash_attention_bwd", 10)(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                   *_flash_args(q, k, causal, window, logit_softcap, scale,
+                                q_offset)))
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 

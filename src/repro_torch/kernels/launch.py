@@ -1,0 +1,892 @@
+"""Launch plans of the port's CUDA kernels: what each wrapper launches,
+as a pure function of shapes, dtypes, the pattern arrays, the activation
+and the SM count — the counterpart of what the JAX package's sparselint
+reads out of a ``pl.pallas_call`` (grid, BlockSpecs, index maps).
+
+A ``LaunchPlan`` holds one ``Launch`` per CUDA launch of a call (the
+forward with ``n_splits > 1`` is the split kernel, then
+``reduce_splits_kernel``; paged decode with more than one split is the
+split kernel, then the merge kernel). Each launch gives its kernel's name,
+grid (x, y, z), threads per CTA, dynamic shared memory in bytes, and two
+functions of CTA indices: ``writes(ctas)`` — the boxes of each output (and
+of each scratch buffer, such as the split partial sums) that the CTAs
+store — and ``reads(ctas, patterns)`` — the boxes of each input they load,
+including the blocks a pattern or page table selects. A box is a
+half-open index range per dimension of the tensor as the kernel indexes
+it. Each launch also names the loop or grid axis that carries its fan-in
+(the sum its outputs are made of) and whether its CTAs fire the epilogue
+(bias, activation, pre-activation, softmax normalisation), which is what
+sparselint's grid pass (``repro_torch.analysis.grid_pass``) certifies.
+
+The wrappers launch through this module: they build the plan, pass its
+split count to the kernel's library, and call ``run``, the one hook every
+launch goes through (``analysis.capture`` patches it, with ``sm_count`` and
+``check_device``, to record a plan without launching). Each ``csrc/*.cu``
+exports a ``<name>_plan`` function that fills grid, threads and shared
+memory from the host code its launcher uses; ``chip_smoke.py`` holds every
+plan against it on the card. The shared-memory formulas below are those of
+the sources' tile structs (``Tile``, ``QTile``, ``DxTile``, ``DwTile``,
+``smem_bytes``, ``Layout``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+H100_SMS = 132
+# the largest dynamic shared memory a CTA may opt into on the H100
+SMEM_OPTIN = 232448
+
+
+class Access(NamedTuple):
+    """One box per CTA of one buffer: ``lo``/``hi`` (N, rank) int arrays,
+    the half-open range of each dimension."""
+    buffer: str
+    lo: np.ndarray
+    hi: np.ndarray
+
+
+@dataclasses.dataclass(frozen=True)
+class Buffer:
+    shape: Tuple[int, ...]  # as the kernel indexes the tensor
+    itemsize: int
+    role: str               # "in", "out" (a result of the call), "scratch"
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    kernel: str
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+    writes: Callable[[np.ndarray], List[Access]]
+    reads: Callable[[np.ndarray, Dict[str, np.ndarray]], List[Access]]
+    # the fan-in the outputs sum over, and where it runs: "loop" (inside
+    # every CTA) or a grid axis ("x", "z"); slots(ctas) -> (lo, hi) arrays
+    fan_in: int
+    fan_in_axis: str
+    slots: Callable[[np.ndarray], Tuple[np.ndarray, np.ndarray]]
+    epilogue: bool
+    # (what, extent, tile, masked): a tile that must divide its extent
+    # unless the kernel masks that edge
+    tiles: Tuple[Tuple[str, int, int, bool], ...]
+
+    def ctas(self) -> np.ndarray:
+        """Every CTA index (x, y, z), (n, 3)."""
+        gx, gy, gz = self.grid
+        return np.stack(np.meshgrid(np.arange(gx), np.arange(gy),
+                                    np.arange(gz), indexing="ij"),
+                        -1).reshape(-1, 3)
+
+    @property
+    def n_ctas(self) -> int:
+        return int(np.prod(self.grid))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    name: str
+    buffers: Dict[str, Buffer]
+    launches: Tuple[Launch, ...]
+    n_splits: int = 1
+    # further scalar launch arguments the plan chose (paged decode: keys
+    # per tile and pages per split)
+    args: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # name -> int tensor or array whose values the reads follow (pattern,
+    # page table, lengths); read only when the plan is analysed
+    patterns: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    def with_patterns(self, **patterns) -> "LaunchPlan":
+        return dataclasses.replace(self, patterns=patterns)
+
+    def pattern_arrays(self) -> Dict[str, np.ndarray]:
+        return {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in self.patterns.items()}
+
+    def dims(self) -> List[Tuple[Tuple[int, int, int], int, int]]:
+        """(grid, threads, shared memory) of every launch, in order."""
+        return [(ln.grid, ln.threads, ln.smem) for ln in self.launches]
+
+
+# ---------------------------------------------------------------------------
+# the hooks every wrapper launches through
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count a wrapper plans for: the card's."""
+    return _device_sms(device)
+
+
+def check_device(name: str, tensors) -> None:
+    """What every kernel takes: CUDA tensors on the current device,
+    contiguous and 16-byte aligned."""
+    tensors = [t for t in tensors if t is not None]
+    dev = tensors[0].device
+    if not tensors[0].is_cuda or any(t.device != dev for t in tensors) \
+            or dev.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: inputs must be CUDA tensors on the "
+                         f"current device")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
+                         f"aligned")
+
+
+def run(plan: LaunchPlan, buffers: Dict[str, Optional[torch.Tensor]],
+        call: Callable[[], int]) -> None:
+    """Launch: ``call()`` enqueues the plan's launches through the kernel's
+    C entry point and returns its CUDA error code; raise on a nonzero one.
+    ``buffers`` maps the plan's buffer names to the tensors of this call
+    (None where the plan has no such buffer)."""
+    rc = call()
+    if rc != 0:
+        raise RuntimeError(f"{plan.name} launch failed: CUDA error {rc}")
+
+
+# ---------------------------------------------------------------------------
+# boxes
+# ---------------------------------------------------------------------------
+
+
+def _box(buffer: str, n: int, *ranges) -> Access:
+    """An Access from one (lo, hi) pair per dimension, each a scalar or an
+    (n,) array."""
+    lo = np.stack([np.broadcast_to(np.asarray(r[0], np.int64), (n,))
+                   for r in ranges], 1)
+    hi = np.stack([np.broadcast_to(np.asarray(r[1], np.int64), (n,))
+                   for r in ranges], 1)
+    return Access(buffer, lo, hi)
+
+
+def _empty_where(acc: Access, mask: np.ndarray) -> Access:
+    """The Access with the boxes of CTAs where ``mask`` is set emptied."""
+    hi = np.where(mask[:, None], acc.lo, acc.hi)
+    return Access(acc.buffer, acc.lo, hi)
+
+
+def _flat_boxes(buffer: str, a, b, ncols: int, lead=()) -> List[Access]:
+    """The rows x columns boxes of the flat element ranges [a, b) of a
+    (rows, ncols) tensor (a < b): a partial first row, whole middle rows and
+    a partial last row. ``lead`` prepends fixed (lo, hi) dimensions."""
+    n = len(a)
+    ra, ca = a // ncols, a % ncols
+    rl, cl = (b - 1) // ncols, (b - 1) % ncols + 1
+    one = ra == rl
+    first = _box(buffer, n, *lead, (ra, ra + 1),
+                 (ca, np.where(one, cl, ncols)))
+    middle = _box(buffer, n, *lead, (ra + 1, np.maximum(rl, ra + 1)),
+                  (0, ncols))
+    last = _empty_where(_box(buffer, n, *lead, (rl, rl + 1), (0, cl)), one)
+    return [first, middle, last]
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _itemsize(dtype: str) -> int:
+    return {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+
+
+def _code(dtype: str) -> int:
+    """The dtype argument of the C entry points."""
+    return {"float32": 0, "bfloat16": 1}[dtype]
+
+
+# ---------------------------------------------------------------------------
+# csrc/csd_spmm_fwd.cu, csrc/csd_spmm_fwd_quant.cu and the split reduce
+# ---------------------------------------------------------------------------
+
+_FWD_THREADS = 128
+_BN = 64  # output columns per CTA of the junction kernels
+
+
+def block_m(m: int) -> int:
+    """The forward kernels' rows per CTA tile."""
+    return 16 if m <= 16 else 64
+
+
+def split_count(m: int, n_out: int, d_in_b: int, n_sm: int,
+                experts: int = 1) -> int:
+    """How many CTAs share one output tile's fan-in slots: 1 when the
+    (BM x 64) output tiles of all ``experts`` alone give about twice as
+    many CTAs as SMs, else enough splits to get there, every split owning
+    at least one slot."""
+    tiles = experts * (n_out // _BN) * _ceil(m, block_m(m))
+    want = _ceil(2 * n_sm, tiles)
+    if want <= 1:
+        return 1
+    per_split = _ceil(d_in_b, want)
+    return _ceil(d_in_b, per_split)
+
+
+def _fwd_smem(dtype: str, bm: int, quant: bool) -> int:
+    """``Tile<T, BM>::SMEM`` (csd_spmm_fwd.cu) or ``QTile<T, BM>::SMEM``
+    (csd_spmm_fwd_quant.cu)."""
+    size = _itemsize(dtype)
+    bk = 32 if dtype == "float32" else 64
+    epc = 16 // size
+    stages = 6 if bm == 16 else 3
+    if not quant:
+        return stages * (bm * (bk + epc) + bk * (_BN + epc)) * size
+    ring = stages * (bm * (bk + epc) * size + bk * (_BN + 16))
+    return ring + (bk * (_BN + epc) * size if dtype != "float32" else 0)
+
+
+def _fwd_split_launch(kernel: str, e: int, m: int, n_rb: int, d_in_b: int,
+                      bl: int, br: int, dtype: str, *, n_splits: int,
+                      quant: bool, has_bias: bool, save_preact: bool,
+                      target: str) -> Launch:
+    """The forward kernel's launch: CTA (x, y, z) owns output columns
+    [64 x, 64 x + 64) of right block 64 x // bR, rows [m0, m0 + BM) of
+    expert y // m_tiles and fan-in slots [z per, z per + per). It stores
+    to ``target``: the partial sums of split z when ``target`` is
+    "partial", else y itself (and z with ``save_preact``)."""
+    bm = block_m(m)
+    m_tiles = _ceil(m, bm)
+    n_out = n_rb * br
+    per = _ceil(d_in_b, n_splits)
+    bk = 32 if dtype == "float32" else 64
+
+    def geo(c):
+        bx, by, bz = c[:, 0], c[:, 1], c[:, 2]
+        col0 = bx * _BN
+        rb = col0 // br
+        ex = by // m_tiles
+        m0 = (by % m_tiles) * bm
+        m1 = np.minimum(m0 + bm, m)
+        f0 = bz * per
+        nsl = np.clip(np.minimum(d_in_b - f0, per), 0, None)
+        return col0, rb, col0 - rb * br, ex, m0, m1, f0, nsl
+
+    def writes(c):
+        col0, _, _, ex, m0, m1, _, _ = geo(c)
+        n = len(c)
+        rows, cols = (ex * m + m0, ex * m + m1), (col0, col0 + _BN)
+        if target == "partial":
+            return [_box("partial", n, (c[:, 2], c[:, 2] + 1), rows, cols)]
+        out = [_box("y", n, rows, cols)]
+        if save_preact:
+            out.append(_box("z", n, rows, cols))
+        return out
+
+    def reads(c, pats):
+        col0, rb, n0, ex, m0, m1, f0, nsl = geo(c)
+        n = len(c)
+        idx = pats["block_idx"]
+        out = [_box("block_idx", n, (rb, rb + 1), (f0, f0 + nsl))]
+        for fl in range(per):
+            skip = fl >= nsl
+            f = np.where(skip, 0, f0 + fl)
+            lb = idx[np.minimum(rb, idx.shape[0] - 1),
+                     np.minimum(f, idx.shape[1] - 1)].astype(np.int64)
+            out.append(_empty_where(_box(
+                "x", n, (ex * m + m0, ex * m + m1), (lb * bl, lb * bl + bl)),
+                skip))
+            out.append(_empty_where(_box(
+                "w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1), (0, bl),
+                (n0, n0 + _BN)), skip))
+            if quant:
+                out.append(_empty_where(_box(
+                    "w_scale", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1)),
+                    skip))
+        if has_bias and target != "partial":
+            out.append(_box("bias", n, (ex, ex + 1), (col0, col0 + _BN)))
+        return out
+
+    def slots(c):
+        _, _, _, _, _, _, f0, nsl = geo(c)
+        return f0, f0 + nsl
+
+    return Launch(
+        kernel=kernel, grid=(n_out // _BN, e * m_tiles, n_splits),
+        threads=_FWD_THREADS, smem=_fwd_smem(dtype, bm, quant),
+        writes=writes, reads=reads, fan_in=d_in_b,
+        fan_in_axis="z" if n_splits > 1 else "loop", slots=slots,
+        epilogue=target != "partial",
+        tiles=(("n_out", n_out, _BN, False), ("bR", br, _BN, False),
+               ("bL", bl, bk, False), ("M", m, bm, True)))
+
+
+def _reduce_launch(e: int, m: int, n_out: int, n_splits: int,
+                   has_bias: bool, save_preact: bool) -> Launch:
+    """``reduce_splits_kernel``: thread i of CTA x adds the n_splits
+    partial sums of flat element 256 x + i of y (E * M, n_out) in split
+    order, adds the bias and applies the activation."""
+    total = e * m * n_out
+
+    def rng(c):
+        a = c[:, 0] * 256
+        return a, np.minimum(a + 256, total)
+
+    def writes(c):
+        a, b = rng(c)
+        out = _flat_boxes("y", a, b, n_out)
+        if save_preact:
+            out += _flat_boxes("z", a, b, n_out)
+        return out
+
+    def reads(c, pats):
+        a, b = rng(c)
+        out = []
+        for s in range(n_splits):
+            out += _flat_boxes("partial", a, b, n_out, lead=((s, s + 1),))
+        if has_bias:
+            r0, r1 = a // n_out, (b - 1) // n_out + 1
+            one = r1 - r0 == 1
+            out.append(_box("bias", len(c), (r0 // m, (r1 - 1) // m + 1),
+                            (np.where(one, a % n_out, 0),
+                             np.where(one, (b - 1) % n_out + 1, n_out))))
+        return out
+
+    return Launch(
+        kernel="reduce_splits_kernel", grid=(_ceil(total, 256), 1, 1),
+        threads=256, smem=0, writes=writes, reads=reads, fan_in=n_splits,
+        fan_in_axis="loop",
+        slots=lambda c: (np.zeros(len(c), np.int64),
+                         np.full(len(c), n_splits, np.int64)),
+        epilogue=True, tiles=(("E*M*n_out", total, 256, True),))
+
+
+@functools.lru_cache(maxsize=4096)
+def fwd_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
+             br: int, dtype: str, *, has_bias: bool, save_preact: bool,
+             quant: bool, n_sm: int, n_splits: Optional[int] = None
+             ) -> LaunchPlan:
+    """The plan of ``csd_spmm_fwd`` (``quant``: ``csd_spmm_fwd_quant``)
+    over E experts of M rows (E = 1: the 4-D junction). ``n_splits``
+    defaults to ``split_count``'s choice for ``n_sm``; a test may force it
+    (every split must own a slot)."""
+    n_out = n_rb * br
+    if n_splits is None:
+        n_splits = split_count(m, n_out, d_in_b, n_sm, e)
+    size = _itemsize(dtype)
+    buffers = {
+        "x": Buffer((e * m, n_in), size, "in"),
+        "w": Buffer((e, n_rb, d_in_b, bl, br), 1 if quant else size, "in"),
+        "block_idx": Buffer((n_rb, d_in_b), 4, "in"),
+        "y": Buffer((e * m, n_out), size, "out"),
+    }
+    if quant:
+        buffers["w_scale"] = Buffer((e, n_rb, d_in_b), 4, "in")
+    if has_bias:
+        buffers["bias"] = Buffer((e, n_out), size, "in")
+    if save_preact:
+        buffers["z"] = Buffer((e * m, n_out), size, "out")
+    name = "csd_spmm_fwd_quant" if quant else "csd_spmm_fwd"
+    kernel = f"{name}_kernel"
+    args = dict(E=e, M=m, n_rb=n_rb, bR=br, n_splits=n_splits,
+                dtype=_code(dtype))
+    kw = dict(quant=quant, has_bias=has_bias, save_preact=save_preact)
+    if n_splits == 1:
+        launches = (_fwd_split_launch(kernel, e, m, n_rb, d_in_b, bl, br,
+                                      dtype, n_splits=1, target="y", **kw),)
+    else:
+        buffers["partial"] = Buffer((n_splits, e * m, n_out), 4, "scratch")
+        launches = (
+            _fwd_split_launch(kernel, e, m, n_rb, d_in_b, bl, br, dtype,
+                              n_splits=n_splits, target="partial", **kw),
+            _reduce_launch(e, m, n_out, n_splits, has_bias, save_preact))
+    return LaunchPlan(name, buffers, launches, n_splits, args)
+
+
+# ---------------------------------------------------------------------------
+# csrc/csd_spmm_dx.cu and csrc/csd_spmm_dw.cu
+# ---------------------------------------------------------------------------
+
+
+def _bwd_smem(dtype: str, kind: str) -> int:
+    """``DxTile<T>::SMEM`` or ``DwTile<T>::SMEM``."""
+    size = _itemsize(dtype)
+    bk = 32 if dtype == "float32" else 64
+    epc = 16 // size
+    if kind == "dx":
+        return 3 * (2 * 64 * (bk + epc) + 64 * (bk + epc)) * size
+    return 3 * (bk * (64 + epc) + 2 * bk * (64 + epc)) * size
+
+
+@functools.lru_cache(maxsize=4096)
+def dx_plan(e: int, m: int, n_rb: int, d_in_b: int, bl: int, br: int,
+            n_lb: int, d_out_b: int, dtype: str, *, act: bool) -> LaunchPlan:
+    """The plan of ``csd_spmm_dx``: CTA (x, y) owns dx columns [64 x,
+    64 x + 64) of left block 64 x // bL and rows [m0, m0 + 64) of expert
+    y // m_tiles, and loops over the left block's d_out_b scatter slots."""
+    m_tiles = _ceil(m, 64)
+    n_in, n_out = n_lb * bl, n_rb * br
+    size = _itemsize(dtype)
+    buffers = {
+        "dy": Buffer((e * m, n_out), size, "in"),
+        "w": Buffer((e, n_rb, d_in_b, bl, br), size, "in"),
+        "out_idx": Buffer((n_lb, d_out_b), 4, "in"),
+        "out_slot": Buffer((n_lb, d_out_b), 4, "in"),
+        "dx": Buffer((e * m, n_in), size, "out"),
+    }
+    if act:
+        buffers["aux"] = Buffer((e * m, n_out), size, "in")
+
+    def geo(c):
+        col0 = c[:, 0] * _BN
+        lb = col0 // bl
+        ex = c[:, 1] // m_tiles
+        m0 = (c[:, 1] % m_tiles) * 64
+        return col0, lb, col0 - lb * bl, ex, m0, np.minimum(m0 + 64, m)
+
+    def writes(c):
+        col0, _, _, ex, m0, m1 = geo(c)
+        return [_box("dx", len(c), (ex * m + m0, ex * m + m1),
+                     (col0, col0 + _BN))]
+
+    def reads(c, pats):
+        col0, lb, n0, ex, m0, m1 = geo(c)
+        n = len(c)
+        oidx, oslot = pats["out_idx"], pats["out_slot"]
+        lbc = np.minimum(lb, oidx.shape[0] - 1)
+        out = [_box(k, n, (lb, lb + 1), (0, d_out_b))
+               for k in ("out_idx", "out_slot")]
+        for g in range(d_out_b):
+            rb = oidx[lbc, g].astype(np.int64)
+            f = oslot[lbc, g].astype(np.int64)
+            rows = (ex * m + m0, ex * m + m1)
+            out.append(_box("dy", n, rows, (rb * br, rb * br + br)))
+            if act:
+                out.append(_box("aux", n, rows, (rb * br, rb * br + br)))
+            out.append(_box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                            (n0, n0 + _BN), (0, br)))
+        return out
+
+    launch = Launch(
+        kernel="csd_spmm_dx_kernel", grid=(n_in // _BN, e * m_tiles, 1),
+        threads=128, smem=_bwd_smem(dtype, "dx"), writes=writes,
+        reads=reads, fan_in=d_out_b, fan_in_axis="loop",
+        slots=lambda c: (np.zeros(len(c), np.int64),
+                         np.full(len(c), d_out_b, np.int64)),
+        epilogue=True,
+        tiles=(("n_in", n_in, _BN, False), ("bL", bl, _BN, False),
+               ("bR", br, 32 if dtype == "float32" else 64, False),
+               ("M", m, 64, True)))
+    return LaunchPlan("csd_spmm_dx", buffers, (launch,), 1,
+                      dict(E=e, M=m, n_lb=n_lb, bL=bl, dtype=_code(dtype)))
+
+
+@functools.lru_cache(maxsize=4096)
+def dw_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
+            br: int, dtype: str, *, act: bool, want_db: bool) -> LaunchPlan:
+    """The plan of ``csd_spmm_dw``: CTA (x, y, z) owns the 64 x 64 tile
+    (rows 64 y, columns 64 x) of block (rb, f) of expert ex, z = (ex n_rb
+    + rb) d_in_b + f, and loops over all M rows; the CTAs of f = 0 and y =
+    0 also write db."""
+    n_out = n_rb * br
+    size = _itemsize(dtype)
+    buffers = {
+        "x": Buffer((e * m, n_in), size, "in"),
+        "dy": Buffer((e * m, n_out), size, "in"),
+        "block_idx": Buffer((n_rb, d_in_b), 4, "in"),
+        "dw": Buffer((e, n_rb, d_in_b, bl, br), size, "out"),
+    }
+    if act:
+        buffers["aux"] = Buffer((e * m, n_out), size, "in")
+    if want_db:
+        buffers["db"] = Buffer((e, n_out), 4, "out")
+
+    def geo(c):
+        j0, i0, z = c[:, 0] * 64, c[:, 1] * 64, c[:, 2]
+        ex, blk = z // (n_rb * d_in_b), z % (n_rb * d_in_b)
+        return j0, i0, ex, blk // d_in_b, blk % d_in_b
+
+    def writes(c):
+        j0, i0, ex, rb, f = geo(c)
+        n = len(c)
+        out = [_box("dw", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                    (i0, i0 + 64), (j0, j0 + 64))]
+        if want_db:
+            col = rb * br + j0
+            out.append(_empty_where(_box("db", n, (ex, ex + 1),
+                                         (col, col + 64)),
+                                    (f != 0) | (i0 != 0)))
+        return out
+
+    def reads(c, pats):
+        j0, i0, ex, rb, f = geo(c)
+        n = len(c)
+        idx = pats["block_idx"]
+        lb = idx[np.minimum(rb, idx.shape[0] - 1),
+                 np.minimum(f, idx.shape[1] - 1)].astype(np.int64)
+        rows = (ex * m, ex * m + m)
+        dcol = (rb * br + j0, rb * br + j0 + 64)
+        out = [_box("block_idx", n, (rb, rb + 1), (f, f + 1)),
+               _box("x", n, rows, (lb * bl + i0, lb * bl + i0 + 64)),
+               _box("dy", n, rows, dcol)]
+        if act:
+            out.append(_box("aux", n, rows, dcol))
+        return out
+
+    launch = Launch(
+        kernel="csd_spmm_dw_kernel",
+        grid=(br // 64, bl // 64, e * n_rb * d_in_b), threads=128,
+        smem=_bwd_smem(dtype, "dw"), writes=writes, reads=reads, fan_in=1,
+        fan_in_axis="loop",
+        slots=lambda c: (np.zeros(len(c), np.int64),
+                         np.ones(len(c), np.int64)),
+        epilogue=True,
+        tiles=(("bR", br, 64, False), ("bL", bl, 64, False),
+               ("n_in", n_in, bl, False),
+               ("M", m, 32 if dtype == "float32" else 64, True)))
+    return LaunchPlan("csd_spmm_dw", buffers, (launch,), 1,
+                      dict(E=e, n_rb=n_rb, d_in_b=d_in_b, bL=bl, bR=br,
+                           dtype=_code(dtype)))
+
+
+# ---------------------------------------------------------------------------
+# csrc/paged_decode.cu
+# ---------------------------------------------------------------------------
+
+_PAGED_THREADS = 256
+_PAGED_WARPS = 8
+
+
+def split_plan(b: int, hkv: int, page_size: int, n_pages: int,
+               n_sm: int) -> tuple:
+    """(keys per tile, pages per split, splits) of the paged-decode
+    kernel: tiles of 64 keys (whole pages), and a row's pages split into
+    contiguous ranges until the (row, head, split) CTAs number about twice
+    the SMs."""
+    tile_pages = max(1, 64 // page_size)
+    n_tiles = _ceil(n_pages, tile_pages)
+    want = max(1, _ceil(2 * n_sm, max(b * hkv, 1)))
+    pages_per_split = _ceil(n_tiles, min(n_tiles, want)) * tile_pages
+    return (tile_pages * page_size, pages_per_split,
+            _ceil(n_pages, pages_per_split))
+
+
+def paged_smem(g: int, dh: int, keys_per_tile: int, page_size: int,
+               page_itemsize: int, quant: bool) -> int:
+    """``smem_bytes<PT>`` of csrc/paged_decode.cu."""
+    return (2 * keys_per_tile * dh * page_itemsize
+            + 4 * g * dh * (1 + _PAGED_WARPS) + 8 * _PAGED_WARPS * g
+            + 8 * keys_per_tile * int(quant)
+            + 4 * (keys_per_tile // page_size))
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
+                      n_pages: int, pool: int, dtype: str, *, quant: bool,
+                      window: Optional[int], n_sm: int) -> LaunchPlan:
+    """The plan of ``paged_decode_attention`` (``quant``: int8 pages with
+    f32 per-token scales): CTA (s, h, b) walks pages [s pps, (s + 1) pps)
+    of row b that lie in its visible range and reads each mapped page's
+    keys of KV head h; with more than one split it writes unnormalised
+    partial outputs with their running max and sum, and the merge kernel's
+    CTA (h, b) combines them in split order."""
+    kt, pps, n_splits = split_plan(b, hkv, page_size, n_pages, n_sm)
+    size = _itemsize(dtype)
+    psize = 1 if quant else size
+    buffers = {
+        "q": Buffer((b, hkv, g, dh), size, "in"),
+        "k_pages": Buffer((pool, page_size, hkv, dh), psize, "in"),
+        "v_pages": Buffer((pool, page_size, hkv, dh), psize, "in"),
+        "page_table": Buffer((b, n_pages), 4, "in"),
+        "lengths": Buffer((b,), 4, "in"),
+        "out": Buffer((b, hkv, g, dh), size, "out"),
+    }
+    if quant:
+        buffers["k_scale"] = Buffer((pool, page_size), 4, "in")
+        buffers["v_scale"] = Buffer((pool, page_size), 4, "in")
+
+    def split_writes(c):
+        s, h, r = c[:, 0], c[:, 1], c[:, 2]
+        n = len(c)
+        if n_splits == 1:
+            return [_box("out", n, (r, r + 1), (h, h + 1), (0, g), (0, dh))]
+        part = ((r, r + 1), (h, h + 1), (s, s + 1), (0, g))
+        return [_box("part_o", n, *part, (0, dh)),
+                _box("part_ml", n, *part, (0, 2))]
+
+    def split_reads(c, pats):
+        s, h, r = c[:, 0], c[:, 1], c[:, 2]
+        n = len(c)
+        table, lengths = pats["page_table"], pats["lengths"]
+        out = [_box("q", n, (r, r + 1), (h, h + 1), (0, g), (0, dh)),
+               _box("lengths", n, (r, r + 1))]
+        ln = lengths[np.minimum(r, len(lengths) - 1)].astype(np.int64)
+        lo = np.maximum(0, ln - window) if window is not None \
+            else np.zeros(n, np.int64)
+        p_row_end = np.where(ln > 0, np.minimum(n_pages,
+                                                _ceil_arr(ln, page_size)), 0)
+        p_first = np.maximum(lo // page_size, s * pps)
+        p_end = np.minimum(p_row_end, (s + 1) * pps)
+        out.append(_box("page_table", n, (r, r + 1),
+                        (p_first, np.maximum(p_first, p_end))))
+        for p in range(pps):
+            page = s * pps + p
+            pc = np.minimum(page, n_pages - 1)
+            pid = table[np.minimum(r, table.shape[0] - 1), pc].astype(
+                np.int64)
+            skip = (page < p_first) | (page >= p_end) | (pid < 0)
+            for k in ("k_pages", "v_pages"):
+                out.append(_empty_where(_box(
+                    k, n, (pid, pid + 1), (0, page_size), (h, h + 1),
+                    (0, dh)), skip))
+            if quant:
+                for k in ("k_scale", "v_scale"):
+                    out.append(_empty_where(_box(
+                        k, n, (pid, pid + 1), (0, page_size)), skip))
+        return out
+
+    tiles = (("keys_per_tile", kt, page_size, False),
+             ("Dh bytes", dh * psize, 16, False),
+             ("n_pages", n_pages, pps, True))
+    split = Launch(
+        kernel="paged_decode_kernel", grid=(n_splits, hkv, b),
+        threads=_PAGED_THREADS,
+        smem=paged_smem(g, dh, kt, page_size, psize, quant),
+        writes=split_writes, reads=split_reads, fan_in=n_splits,
+        fan_in_axis="x" if n_splits > 1 else "loop",
+        slots=lambda c: (c[:, 0], c[:, 0] + 1), epilogue=n_splits == 1,
+        tiles=tiles)
+    name = "paged_decode_attention_quant" if quant \
+        else "paged_decode_attention"
+    args = dict(B=b, Hkv=hkv, G=g, Dh=dh, page_size=page_size,
+                n_pages=n_pages, keys_per_tile=kt, pages_per_split=pps,
+                dtype=_code(dtype), quant=int(quant))
+    if n_splits == 1:
+        return LaunchPlan(name, buffers, (split,), 1, args)
+    buffers["part_o"] = Buffer((b, hkv, n_splits, g, dh), 4, "scratch")
+    buffers["part_ml"] = Buffer((b, hkv, n_splits, g, 2), 4, "scratch")
+
+    def merge_writes(c):
+        h, r = c[:, 0], c[:, 1]
+        return [_box("out", len(c), (r, r + 1), (h, h + 1), (0, g),
+                     (0, dh))]
+
+    def merge_reads(c, pats):
+        h, r = c[:, 0], c[:, 1]
+        part = ((r, r + 1), (h, h + 1), (0, n_splits), (0, g))
+        return [_box("part_o", len(c), *part, (0, dh)),
+                _box("part_ml", len(c), *part, (0, 2))]
+
+    merge = Launch(
+        kernel="paged_decode_merge_kernel", grid=(hkv, b, 1),
+        threads=_PAGED_THREADS, smem=0, writes=merge_writes,
+        reads=merge_reads, fan_in=n_splits, fan_in_axis="loop",
+        slots=lambda c: (np.zeros(len(c), np.int64),
+                         np.full(len(c), n_splits, np.int64)),
+        epilogue=True, tiles=())
+    return LaunchPlan(name, buffers, (split, merge), n_splits, args)
+
+
+def _ceil_arr(a: np.ndarray, b: int) -> np.ndarray:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# csrc/flash_attention.cu
+# ---------------------------------------------------------------------------
+
+_FLASH_ROWS = 64
+
+
+def flash_smem(dtype: str, dh: int) -> Dict[str, int]:
+    """Dynamic shared memory of the forward, dq and dk/dv kernels at head
+    dim ``dh`` (``Layout<T, DHMAX>``: two stream stages where they fit)."""
+    size = _itemsize(dtype)
+    f32 = dtype == "float32"
+    c, pad = (32, 4) if f32 else (64, 8)
+    ld = dh + pad
+    own = _FLASH_ROWS * ld * size
+    stream = c * ld * size
+    scores = _FLASH_ROWS * (c + 4) * 4
+    probs = 0 if f32 else _FLASH_ROWS * (c + pad) * size
+    need = {
+        "fwd": lambda s: own + 2 * s * stream + scores + probs
+        + _FLASH_ROWS * 4,
+        "dq": lambda s: 2 * own + 2 * s * stream + 2 * scores + probs
+        + 2 * _FLASH_ROWS * 4,
+        "dkv": lambda s: 2 * own + s * (2 * stream + 2 * c * 4)
+        + 2 * scores + 2 * probs,
+    }
+    return {k: fn(2) if fn(2) <= SMEM_OPTIN else fn(1)
+            for k, fn in need.items()}
+
+
+def _key_range(q0, sq, skv, causal, window, q_offset):
+    """Keys [lo, hi) that some query of [q0, q0 + 64) may see."""
+    q_last = np.minimum(q0 + _FLASH_ROWS, sq) - 1
+    lo = np.zeros_like(q0)
+    hi = np.full_like(q0, skv)
+    if causal:
+        hi = np.minimum(hi, q_last + q_offset + 1)
+    if window is not None:
+        lo = np.maximum(lo, q0 + q_offset - window + 1)
+    return lo, np.maximum(lo, hi)
+
+
+def _query_range(k0, sq, skv, causal, window, q_offset):
+    """Queries [lo, hi) that may see some key of [k0, k0 + 64)."""
+    k_last = np.minimum(k0 + _FLASH_ROWS, skv) - 1
+    lo = np.zeros_like(k0)
+    hi = np.full_like(k0, sq)
+    if causal:
+        lo = np.maximum(lo, k0 - q_offset)
+    if window is not None:
+        hi = np.minimum(hi, k_last - q_offset + window)
+    lo = np.clip(lo, 0, sq)
+    return lo, np.clip(hi, lo, sq)
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int, dh: int,
+               dtype: str, *, causal: bool, window: Optional[int],
+               q_offset: int, backward: bool) -> LaunchPlan:
+    """The plan of ``flash_attention_fwd`` (CTA (t, h, b): query rows
+    [64 t, 64 t + 64) of head h, looping over the key tiles they can see)
+    or of ``flash_attention_bwd`` (dq as the forward's grid, writing D;
+    then dk/dv, CTA (t, hk, b): key rows [64 t, 64 t + 64) of KV head hk,
+    looping over the G query heads and the query tiles that see them)."""
+    size = _itemsize(dtype)
+    grp = hq // hkv
+    smem = flash_smem(dtype, dh)
+    qshape, kshape = (b, sq, hq, dh), (b, skv, hkv, dh)
+    buffers = {"q": Buffer(qshape, size, "in"),
+               "k": Buffer(kshape, size, "in"),
+               "v": Buffer(kshape, size, "in")}
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    args = dict(B=b, Sq=sq, Skv=skv, Hq=hq, Hkv=hkv, Dh=dh,
+                dtype=_code(dtype), backward=int(backward))
+    tiles = (("Dh", dh, 16, False), ("Sq", sq, _FLASH_ROWS, True),
+             ("Skv", skv, _FLASH_ROWS, True))
+    loop = dict(fan_in=1, fan_in_axis="loop", epilogue=True, tiles=tiles,
+                slots=lambda c: (np.zeros(len(c), np.int64),
+                                 np.ones(len(c), np.int64)))
+
+    def q_rows(c):
+        q0 = c[:, 0] * _FLASH_ROWS
+        return q0, np.minimum(q0 + _FLASH_ROWS, sq), c[:, 1], c[:, 2]
+
+    def q_side(c, names, lse_names):
+        q0, q1, h, r = q_rows(c)
+        n = len(c)
+        return ([_box(k, n, (r, r + 1), (q0, q1), (h, h + 1), (0, dh))
+                 for k in names]
+                + [_box(k, n, (r, r + 1), (h, h + 1), (q0, q1))
+                   for k in lse_names])
+
+    def kv_reads(c):
+        q0, _, h, r = q_rows(c)
+        lo, hi = _key_range(q0, sq, skv, **kw)
+        hk = h // grp
+        return [_box(k, len(c), (r, r + 1), (lo, hi), (hk, hk + 1), (0, dh))
+                for k in ("k", "v")]
+
+    if not backward:
+        buffers["out"] = Buffer(qshape, size, "out")
+        buffers["lse"] = Buffer((b, hq, sq), 4, "out")
+        fwd = Launch(
+            kernel="flash_fwd_kernel", grid=(_ceil(sq, _FLASH_ROWS), hq, b),
+            threads=256, smem=smem["fwd"],
+            writes=lambda c: q_side(c, ("out",), ("lse",)),
+            reads=lambda c, p: q_side(c, ("q",), ()) + kv_reads(c), **loop)
+        return LaunchPlan("flash_attention_fwd", buffers, (fwd,), 1, args)
+
+    for k in ("o", "dout"):
+        buffers[k] = Buffer(qshape, size, "in")
+    buffers["lse"] = Buffer((b, hq, sq), 4, "in")
+    buffers["dq"] = Buffer(qshape, size, "out")
+    buffers["dk"] = Buffer(kshape, size, "out")
+    buffers["dv"] = Buffer(kshape, size, "out")
+    buffers["delta"] = Buffer((b, hq, sq), 4, "scratch")
+    dq = Launch(
+        kernel="flash_dq_kernel", grid=(_ceil(sq, _FLASH_ROWS), hq, b),
+        threads=256, smem=smem["dq"],
+        writes=lambda c: q_side(c, ("dq",), ("delta",)),
+        reads=lambda c, p: q_side(c, ("q", "o", "dout"), ("lse",))
+        + kv_reads(c), **loop)
+
+    def dkv_writes(c):
+        k0 = c[:, 0] * _FLASH_ROWS
+        k1 = np.minimum(k0 + _FLASH_ROWS, skv)
+        hk, r = c[:, 1], c[:, 2]
+        return [_box(k, len(c), (r, r + 1), (k0, k1), (hk, hk + 1), (0, dh))
+                for k in ("dk", "dv")]
+
+    def dkv_reads(c, pats):
+        k0 = c[:, 0] * _FLASH_ROWS
+        hk, r = c[:, 1], c[:, 2]
+        n = len(c)
+        lo, hi = _query_range(k0, sq, skv, **kw)
+        out = [_box(k, n, (r, r + 1), (k0, np.minimum(k0 + _FLASH_ROWS,
+                                                      skv)),
+                    (hk, hk + 1), (0, dh)) for k in ("k", "v")]
+        for gi in range(grp):
+            h = hk * grp + gi
+            out += [_box(k, n, (r, r + 1), (lo, hi), (h, h + 1), (0, dh))
+                    for k in ("q", "dout")]
+            out += [_box(k, n, (r, r + 1), (h, h + 1), (lo, hi))
+                    for k in ("lse", "delta")]
+        return out
+
+    dkv = Launch(
+        kernel="flash_dkv_kernel", grid=(_ceil(skv, _FLASH_ROWS), hkv, b),
+        threads=256, smem=smem["dkv"], writes=dkv_writes, reads=dkv_reads,
+        **loop)
+    return LaunchPlan("flash_attention_bwd", buffers, (dq, dkv), 1, args)
+
+
+# ---------------------------------------------------------------------------
+# the libraries' own plans
+# ---------------------------------------------------------------------------
+
+# plan name -> (source, exported plan function, its int arguments in order)
+PLAN_EXPORTS = {
+    "csd_spmm_fwd": ("csd_spmm_fwd", "csd_spmm_fwd_plan",
+                     ("E", "M", "n_rb", "bR", "n_splits", "dtype")),
+    "csd_spmm_fwd_quant": ("csd_spmm_fwd_quant", "csd_spmm_fwd_quant_plan",
+                           ("E", "M", "n_rb", "bR", "n_splits", "dtype")),
+    "csd_spmm_dx": ("csd_spmm_dx", "csd_spmm_dx_plan",
+                    ("E", "M", "n_lb", "bL", "dtype")),
+    "csd_spmm_dw": ("csd_spmm_dw", "csd_spmm_dw_plan",
+                    ("E", "n_rb", "d_in_b", "bL", "bR", "dtype")),
+    "paged_decode_attention": (
+        "paged_decode", "paged_decode_attention_plan",
+        ("B", "Hkv", "G", "Dh", "page_size", "n_pages", "keys_per_tile",
+         "pages_per_split", "dtype", "quant")),
+    "flash_attention_fwd": ("flash_attention", "flash_attention_plan",
+                            ("B", "Sq", "Skv", "Hq", "Hkv", "Dh", "dtype",
+                             "backward")),
+    "csd_spmm_fwd_injected_alias": (
+        "csd_spmm_fwd_injected_alias", "csd_spmm_fwd_injected_alias_plan",
+        ("E", "M", "n_rb", "bR", "d_in_b", "dtype")),
+}
+PLAN_EXPORTS["paged_decode_attention_quant"] = \
+    PLAN_EXPORTS["paged_decode_attention"]
+PLAN_EXPORTS["flash_attention_bwd"] = PLAN_EXPORTS["flash_attention_fwd"]
+
+
+def library_dims(plan: LaunchPlan
+                 ) -> List[Tuple[Tuple[int, int, int], int, int]]:
+    """(grid, threads, shared memory) of every launch the kernel's library
+    makes for the plan's arguments, from its exported ``<name>_plan``
+    (which shares the launcher's host code); builds the library if
+    needed. ``plan.dims()`` must equal it."""
+    import ctypes
+
+    from . import build
+    source, export, names = PLAN_EXPORTS[plan.name]
+    fn = getattr(build.load(source), export)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(names) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 10)()
+    n = fn(*[int(plan.args[k]) for k in names], ctypes.addressof(out))
+    if n < 0:
+        raise ValueError(f"{export} refused {plan.args}")
+    return [((out[5 * i], out[5 * i + 1], out[5 * i + 2]), out[5 * i + 3],
+             out[5 * i + 4]) for i in range(n)]

@@ -21,7 +21,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..core.block_pattern import fit_block_pattern
 from ..kernels.ops import apply_activation, csd_matmul
@@ -35,9 +34,10 @@ _FUSABLE = {"relu": "relu", "gelu": "gelu", "gelu_tanh": "gelu"}
 
 def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
     """How often each of ``n`` ids occurs (``bincount`` with ``minlength``
-    and no larger id, without the host sync ``bincount`` makes on the card
-    to size its output)."""
-    return F.one_hot(ids, n).sum(dim=0)
+    and no larger id), without a host sync on any device: ``bincount``
+    reads its output size back from the card, and ``one_hot`` checks its
+    ids' range with ``.item()`` on the CPU (sparselint's SL201)."""
+    return (ids[:, None] == torch.arange(n, device=ids.device)).sum(dim=0)
 
 
 def _tokens_to_cells(x: torch.Tensor, buf_tok: torch.Tensor) -> torch.Tensor:
