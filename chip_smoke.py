@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. print the card (``nvidia-smi`` name and power limit) and the torch
    version; turn TF32 off so that f32 references run in full f32;
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all at once);
+   (one nvcc per source, all at once), and count the HGMMA (wgmma) and
+   UTMALDG (TMA load) instructions in the dx and dw libraries' SASS (none
+   fails the run);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
    bf16), and time kernel, plain version, bound and a dense ``torch.matmul``
@@ -61,15 +63,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. hold the training kernels against their plain versions at gemma3-4b's
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
-   ``csd_spmm_dx`` and ``csd_spmm_dw``, timed like phase 3;
+   ``csd_spmm_dx`` and ``csd_spmm_dw`` (with the gelu mask: the mask
+   kernel, then the product), timed like phase 3; for the gate junction
+   also the backward's pieces one by one as ``CsdMatmul`` launches them:
+   ``csd_mask_cotangent`` (equal element for element to its plain
+   version; the yardstick ``aten.gelu_backward``), then dx and dw on its
+   output;
 6b. hold the expert-batched training kernels against their plain versions
    at granite-moe-1b-a400m's training shapes (32 experts of C = 1280 rows:
    batch 2 x seq 2048 at top-8 and capacity factor 1.25; up/gate and down
    in 128 x 256 blocks, f32 and bf16): the 5-D ``csd_spmm_dx`` and
    ``csd_spmm_dw`` (with and without db) and the batched forward, each
-   also once with the gelu epilogue (``save_preact``, masked cotangent),
-   timed like phase 6 with one ``torch.bmm`` over the densified slabs as
-   the yardstick;
+   also once with the gelu epilogue (``save_preact``, masked cotangent,
+   and the mask kernel alone), timed like phase 6 with one ``torch.bmm``
+   over the densified slabs as the yardstick;
 6c. hold the full-sequence attention kernels (``flash_attention_cuda`` and
    ``flash_attention_bwd_cuda``) against their plain versions at the
    training attention of gemma3-4b (B 2, S 2048, Hq 8, Hkv 4, Dh 256,
@@ -86,8 +93,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    parameters) with the kernels and with the plain versions compared; two identical steps with bit-identical loss and gradients;
    then 4 ``Trainer`` steps on ``BigramLM`` batches with the launch counts
    of every kernel read around them (exactly 3 junction launches per layer
-   for dx and dw, 6 for the forward with remat, 2 of the attention forward
-   and 1 of its backward, none of any other kernel); then one step under
+   for dx and dw, 6 for the forward with remat, 1 of the mask kernel for
+   the gelu gate junction, 2 of the attention forward and 1 of its
+   backward, none of any other kernel); then one step under
    ``torch.profiler``;
 7b. free that model and train granite-moe-1b-a400m at its full width and
    depth in its training configuration (the published capacity factor
@@ -95,7 +103,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    also reports how many routing choices differ between the two runs, and
    the counts are of the expert-batched kernels (72 dx, 72 dw, 144
    forwards per step) and the attention kernels (48 forward, 24 backward),
-   none of the 4-D or int8 ones;
+   none of the 4-D or int8 ones and no mask (silu does not fuse);
 7c. run the port's sparselint (``python -m repro_torch.analysis.lint``)
    on the card: clean it must exit 0 (grid, pattern and dispatch passes;
    the dispatch pass runs both models' full-width paged steps, bf16 and
@@ -193,6 +201,33 @@ def max_err(got, ref) -> tuple:
 def within(got, ref, atol: float, rtol: float) -> bool:
     d = (got.float() - ref.float()).abs()
     return bool((d <= atol + rtol * ref.float().abs()).all())
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the backward's libraries were compiled to
+# ---------------------------------------------------------------------------
+
+# the instructions of Hopper's tensor-core path in SASS: HGMMA (wgmma) and
+# UTMALDG (a TMA tile load)
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def sass_counts() -> dict:
+    """``cuobjdump -sass`` of the built dx and dw libraries: how many
+    HGMMA and UTMALDG instructions each holds. Both must be there: their
+    bf16 kernels run on wgmma fed by TMA."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    rec = {}
+    for name in ("csd_spmm_dx", "csd_spmm_dw"):
+        sass = subprocess.run([str(tool), "-sass", str(build._lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        rec[name] = {op: sass.count(op) for op in SASS_OPS}
+    log(json.dumps(dict(check="sass", **rec)))
+    if any(n == 0 for r in rec.values() for n in r.values()):
+        fail(f"a backward library lacks wgmma or TMA instructions: {rec}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -761,6 +796,8 @@ def plain_versions():
                               csd_spmm.csd_spmm_dx_batched_plain), \
             mock.patch.object(csd_spmm, "csd_spmm_dw_batched_cuda",
                               csd_spmm.csd_spmm_dw_batched_plain), \
+            mock.patch.object(csd_spmm, "csd_mask_cotangent_cuda",
+                              csd_spmm.mask_cotangent), \
             mock.patch.object(attention, "paged_decode_attention",
                               flash_attention.paged_decode_attention_plain), \
             mock.patch.object(flash_attention, "flash_attention_cuda",
@@ -1040,7 +1077,48 @@ def dense_of(bp, w):
     return d.reshape(bp.n_in, bp.n_out)
 
 
+def hold_and_time(kernel, run, plain, lib, nbytes, ops, dtype,
+                  exact=False) -> dict:
+    """A kernel against its plain version on the same inputs (max |error|
+    within ``TRAIN_TOL`` of max |plain|, or equal element for element with
+    ``exact``), then the kernel's, the plain version's and the library
+    call's times and the bound for ``nbytes`` and ``ops``."""
+    import torch
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    if isinstance(got, tuple):  # (y, z) or (dw, db)
+        got, ref = (torch.cat([t.float().reshape(-1) for t in o])
+                    for o in (got, ref))
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    tol = 0.0 if exact else TRAIN_TOL[str(dtype)]
+    ok = (bool(torch.equal(got, ref)) if exact else err <= tol * scale) \
+        and bool(torch.isfinite(got).all())
+    del got, ref
+    ms, host_ms = bench([run], 10)
+    plain_ms, _ = bench([plain], 2)
+    lib_ms, _ = bench([lib], 10)
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    return dict(kernel=kernel, max_abs_err=err, max_abs_ref=scale, tol=tol,
+                exact=exact, ok=ok, ms=ms, host_ms=host_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
+
+
+def gelu_library(dy, z):
+    """The one PyTorch call that computes the gelu-masked cotangent:
+    autograd's own gelu backward (the yardstick of ``csd_mask_cotangent``,
+    which the smoke runs with gelu only)."""
+    import torch
+    return torch.ops.aten.gelu_backward(dy, z, approximate="tanh")
+
+
 def run_train_kernels(cfg, device, results):
+    """Phase 6. For the gelu gate junction the backward's pieces are also
+    held and timed one by one, as ``CsdMatmul`` launches them: the mask
+    kernel, then dx and dw on its output g (``on_g``); the dx and dw rows
+    with the activation are the wrappers' whole function, mask and
+    product."""
     import torch
     from repro_torch.kernels import csd_spmm
     g = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -1066,19 +1144,20 @@ def run_train_kernels(cfg, device, results):
             el = dtype.itemsize
             n_x, n_y = m * bp.n_in, m * bp.n_out
             n_aux = n_y if act else 0
-            kbw = dict(block_in=bp.block_in, block_out=bp.block_out,
-                       aux=aux, activation=act)
+            idx_bytes = 4 * pat["block_idx"].numel()
+            ops = 2 * m * n_w
+            kbw = dict(block_in=bp.block_in, block_out=bp.block_out)
             # the training forward saves z where the backward needs it
             kfw = dict(activation=act, save_preact=act == "gelu")
-            cases = (
-                ("csd_spmm_fwd",
+            cases = [
+                ("csd_spmm_fwd", False,
                  lambda: csd_spmm.csd_spmm_fwd_cuda(
                      x, w, pat["block_idx"], **kfw),
                  lambda: csd_spmm.csd_spmm_fwd_plain(
                      x, w, pat["block_idx"], **kfw),
                  lambda: torch.matmul(x, wd),
                  el * (n_x + n_w + (1 + kfw["save_preact"]) * n_y)),
-                ("csd_spmm_dx",
+                ("csd_spmm_dx", False,
                  lambda: csd_spmm.csd_spmm_dx_cuda(
                      dy, w, pat["out_idx"], pat["out_slot"], aux=aux,
                      activation=act),
@@ -1087,43 +1166,59 @@ def run_train_kernels(cfg, device, results):
                      activation=act),
                  lambda: torch.matmul(dy, wd.T),
                  el * (n_y + n_aux + n_w + n_x)),
-                ("csd_spmm_dw",
+                ("csd_spmm_dw", False,
                  lambda: csd_spmm.csd_spmm_dw_cuda(
-                     x, dy, pat["block_idx"], **kbw),
+                     x, dy, pat["block_idx"], aux=aux, activation=act,
+                     **kbw),
                  lambda: csd_spmm.csd_spmm_dw_plain(
-                     x, dy, pat["block_idx"], **kbw),
+                     x, dy, pat["block_idx"], aux=aux, activation=act,
+                     **kbw),
                  lambda: torch.matmul(x.T, dy),
-                 el * (n_x + n_y + n_aux + n_w)),
-            )
-            for kernel, run, plain, lib, nbytes in cases:
-                got, ref = run(), plain()
-                torch.cuda.synchronize()
-                if isinstance(got, tuple):  # y and the saved z
-                    got, ref = torch.cat(got, 1), torch.cat(ref, 1)
-                err = float((got.float() - ref.float()).abs().max())
-                scale = float(ref.float().abs().max())
-                tol = TRAIN_TOL[str(dtype)]
-                ok = err <= tol * scale and bool(torch.isfinite(got).all())
-                del got, ref
-                ms, host_ms = bench([run], 10)
-                plain_ms, _ = bench([plain], 2)
-                lib_ms, _ = bench([lib], 10)
-                bound_ms, bound_by = bound(
-                    nbytes + 4 * pat["block_idx"].numel(), 2 * m * n_w,
-                    dtype)
-                rec = dict(kernel=kernel, junction=name, m=m,
-                           dtype=dtype_name, activation=act,
+                 el * (n_x + n_y + n_aux + n_w))]
+            gm = csd_spmm.mask_cotangent(dy, aux, act) if act else None
+            if act:
+                cases += [
+                    ("csd_spmm_dx", True,
+                     lambda: csd_spmm.csd_spmm_dx_cuda(
+                         gm, w, pat["out_idx"], pat["out_slot"]),
+                     lambda: csd_spmm.csd_spmm_dx_plain(
+                         gm, w, pat["out_idx"], pat["out_slot"]),
+                     lambda: torch.matmul(gm, wd.T),
+                     el * (n_y + n_w + n_x)),
+                    ("csd_spmm_dw", True,
+                     lambda: csd_spmm.csd_spmm_dw_cuda(
+                         x, gm, pat["block_idx"], **kbw),
+                     lambda: csd_spmm.csd_spmm_dw_plain(
+                         x, gm, pat["block_idx"], **kbw),
+                     lambda: torch.matmul(x.T, gm),
+                     el * (n_x + n_y + n_w))]
+            for kernel, on_g, run, plain, lib, nbytes in cases:
+                rec = hold_and_time(kernel, run, plain, lib,
+                                    nbytes + idx_bytes, ops, dtype)
+                rec = dict(rec, junction=name, m=m, dtype=dtype_name,
+                           activation=None if on_g else act, on_g=on_g,
                            save_preact=kernel == "csd_spmm_fwd"
-                           and kfw["save_preact"],
-                           max_abs_err=err, max_abs_ref=scale, tol=tol,
-                           ok=ok, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=lib_ms)
+                           and kfw["save_preact"])
                 results.append(rec)
                 log(json.dumps(rec))
-                if not ok:
+                if not rec["ok"]:
                     fail(f"{kernel} disagrees with its plain version: {rec}")
-            del x, w, dy, aux, wd
+            if act:
+                rec = hold_and_time(
+                    "csd_mask_cotangent",
+                    lambda: csd_spmm.csd_mask_cotangent_cuda(dy, aux, act),
+                    lambda: csd_spmm.mask_cotangent(dy, aux, act),
+                    lambda: gelu_library(dy, aux), 3 * el * n_y, 0,
+                    dtype, exact=True)
+                rec = dict(rec, junction=name, m=m, dtype=dtype_name,
+                           activation=act,
+                           library="torch.ops.aten.gelu_backward")
+                results.append(rec)
+                log(json.dumps(rec))
+                if not rec["ok"]:
+                    fail(f"csd_mask_cotangent differs from its plain "
+                         f"version: {rec}")
+            del x, w, dy, aux, wd, gm
             torch.cuda.empty_cache()
 
 
@@ -1198,36 +1293,33 @@ def run_train_kernels_batched(cfg, device, results):
                     el * (n_x + n_y + n_aux + n_w)
                     + 4 * n_exp * bp.n_out * want_db))
             for kernel, want_db, run, plain, lib, nbytes in cases:
-                got, ref = run(), plain()
-                torch.cuda.synchronize()
-                if isinstance(got, tuple):  # (y, z) or (dw, db)
-                    got, ref = (torch.cat([t.float().reshape(n_exp, -1)
-                                           for t in o], 1)
-                                for o in (got, ref))
-                err = float((got.float() - ref.float()).abs().max())
-                scale = float(ref.float().abs().max())
-                tol = TRAIN_TOL[str(dtype)]
-                ok = err <= tol * scale and bool(torch.isfinite(got).all())
-                del got, ref
-                ms, host_ms = bench([run], 10)
-                plain_ms, _ = bench([plain], 2)
-                lib_ms, _ = bench([lib], 10)
-                bound_ms, bound_by = bound(
-                    nbytes + 4 * pat["block_idx"].numel(), 2 * m * n_w,
-                    dtype)
-                rec = dict(kernel=kernel, junction=name, experts=n_exp, m=m,
+                rec = hold_and_time(kernel, run, plain, lib,
+                                    nbytes + 4 * pat["block_idx"].numel(),
+                                    2 * m * n_w, dtype)
+                rec = dict(rec, junction=name, experts=n_exp, m=m,
                            dtype=dtype_name, activation=act, want_db=want_db,
                            save_preact=kernel == "csd_spmm_fwd_batched"
                            and sp, w_shape=list(shape),
-                           max_abs_err=err, max_abs_ref=scale, tol=tol,
-                           ok=ok, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=lib_ms,
                            library="torch.bmm over the densified slabs")
                 results.append(rec)
                 log(json.dumps(rec))
-                if not ok:
+                if not rec["ok"]:
                     fail(f"{kernel} disagrees with its plain version: {rec}")
+            if act:
+                rec = hold_and_time(
+                    "csd_mask_cotangent",
+                    lambda: csd_spmm.csd_mask_cotangent_cuda(dy, aux, act),
+                    lambda: csd_spmm.mask_cotangent(dy, aux, act),
+                    lambda: gelu_library(dy, aux), 3 * el * n_y, 0,
+                    dtype, exact=True)
+                rec = dict(rec, junction=name, experts=n_exp, m=m,
+                           dtype=dtype_name, activation=act,
+                           library="torch.ops.aten.gelu_backward")
+                results.append(rec)
+                log(json.dumps(rec))
+                if not rec["ok"]:
+                    fail(f"csd_mask_cotangent differs from its plain "
+                         f"version: {rec}")
             del x, w, dy, aux, wd
             torch.cuda.empty_cache()
 
@@ -1498,6 +1590,7 @@ STEP_TOL = {"bfloat16": {"loss": 1e-2, "grad_norm": 3e-2, "slab_grad": 5e-2},
 ALL_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant", "csd_spmm_fwd_batched",
                "csd_spmm_fwd_quant_batched", "csd_spmm_dx",
                "csd_spmm_dx_batched", "csd_spmm_dw", "csd_spmm_dw_batched",
+               "csd_mask_cotangent",
                "paged_decode_attention", "paged_decode_attention_quant",
                "flash_attention", "flash_attention_bwd",
                "csd_spmm_fwd_injected_alias")
@@ -1526,13 +1619,18 @@ def train_launches_per_step(cfg) -> dict:
     """Every kernel's launches in one training step of ``cfg``: each of the
     3 junctions of a layer runs the forward (twice with remat: the
     recompute), dx and dw once; the expert-batched forms for an MoE
-    model; each layer's attention runs the flash forward (twice with remat)
-    and its backward once; no other kernel."""
+    model; the junction whose epilogue carries a fused activation (one per
+    layer, where the activation fuses: gelu, not silu) runs the mask
+    kernel once; each layer's attention runs the flash forward (twice with
+    remat) and its backward once; no other kernel."""
+    from repro_torch.nn.ffn import _FUSABLE
     form = "_batched" if cfg.moe is not None else ""
     n = 3 * cfg.n_layers
     fwd = 2 if cfg.remat else 1
     want = {f"csd_spmm_fwd{form}": fwd * n,
             f"csd_spmm_dx{form}": n, f"csd_spmm_dw{form}": n,
+            "csd_mask_cotangent":
+                cfg.n_layers if _FUSABLE.get(cfg.act) else 0,
             "flash_attention": fwd * cfg.n_layers,
             "flash_attention_bwd": cfg.n_layers}
     return {k: want.get(k, 0) for k in ALL_KERNELS}
@@ -1744,8 +1842,11 @@ def train(device, cfg, out_dir, trace="train_trace"):
 
 # the port's kernels by the names of their CUDA functions
 KERNEL_FUNCTIONS = {"csd_spmm_fwd": ("csd_spmm_fwd_kernel",),
-                    "csd_spmm_dx": ("csd_spmm_dx_kernel",),
-                    "csd_spmm_dw": ("csd_spmm_dw_kernel",),
+                    "csd_spmm_dx": ("csd_spmm_dx_wgmma_kernel",
+                                    "csd_spmm_dx_f32_kernel"),
+                    "csd_spmm_dw": ("csd_spmm_dw_wgmma_kernel",
+                                    "csd_spmm_dw_f32_kernel"),
+                    "csd_mask_cotangent": ("csd_mask_cotangent_kernel",),
                     "flash_attention": ("flash_fwd_kernel",),
                     "flash_attention_bwd": ("flash_dq_kernel",
                                             "flash_dkv_kernel")}
@@ -2064,6 +2165,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    sass_rec = sass_counts()
 
     record_plans()
 
@@ -2175,7 +2277,7 @@ def main() -> int:
         return next(r for r in results if r["kernel"] == kernel and all(
             r.get(k) == v for k, v in want.items()))
 
-    gate = dict(junction="gate", m=TRAIN_M, dtype="bfloat16")
+    gate = dict(junction="gate", m=TRAIN_M, dtype="bfloat16", on_g=False)
     # granite's training up/gate junction: silu runs outside it, no bias
     g_up = dict(junction="up/gate", activation=None, dtype="bfloat16",
                 want_db=False)
@@ -2211,6 +2313,15 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/csd_spmm_dw.cu",
              "src/repro/kernels/csd_spmm.py:679",
              train_rec["launches"]["csd_spmm_dw"], gate_shape),
+            ("csd_mask_cotangent",
+             pick("csd_mask_cotangent", junction="gate", m=TRAIN_M,
+                  dtype="bfloat16"),
+             "src/repro_torch/kernels/csrc/csd_mask_cotangent.cu",
+             "src/repro/kernels/csd_spmm.py:526 (the mask inside #6's "
+             "_dx_kernel; :658 inside #7's _dw_kernel)",
+             train_rec["launches"]["csd_mask_cotangent"],
+             f"gate junction (gelu) cotangent, dy and z ({TRAIN_M}, 10240) "
+             f"bf16"),
             ("csd_spmm_fwd_quant",
              pick("csd_spmm_fwd_quant", junction="down", m=4,
                   dtype="bfloat16", activation=None),
@@ -2302,7 +2413,8 @@ def main() -> int:
              train_step_check=step_chk, train=train_rec,
              train_profile=train_prof, granite_train_step_check=g_step_chk,
              granite_train=g_train_rec, granite_train_profile=g_train_prof,
-             lint=lint_rec, plan_drift=drift_rec, nan_coverage=nan_rec,
+             sass=sass_rec, lint=lint_rec, plan_drift=drift_rec,
+             nan_coverage=nan_rec,
              injected_alias=inj_rec, kernels=entries),
         indent=1))
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -406,17 +406,17 @@ def _fwd_case(name: str, bp, m: int, dtype, *, experts: Optional[int] = None,
     return KernelCase(name, fn, make)
 
 
-def _dx_case(name: str, bp, m: int, dtype, *, experts: Optional[int] = None,
-             activation: Optional[str] = "relu") -> KernelCase:
+def _dx_case(name: str, bp, m: int, dtype, *,
+             experts: Optional[int] = None) -> KernelCase:
+    """``csd_spmm_dx`` on a masked cotangent, as the backward launches it
+    (the mask is its own launch: ``_mask_case``)."""
     lead = () if experts is None else (experts,)
 
     def make(mk: _Maker):
-        dy = mk.randn(lead + (m, bp.n_out), dtype)
+        g = mk.randn(lead + (m, bp.n_out), dtype)
         w = mk.randn(lead + (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out),
                      dtype, 1 / math.sqrt(bp.d_in_b * bp.block_in))
-        aux = mk.randn(dy.shape, dtype) if activation else None
-        return (dy, w, mk.pattern(bp.out_idx), mk.pattern(bp.out_slot)), \
-            dict(aux=aux, activation=activation)
+        return (g, w, mk.pattern(bp.out_idx), mk.pattern(bp.out_slot)), {}
 
     fn = csd_spmm.csd_spmm_dx_cuda if experts is None \
         else csd_spmm.csd_spmm_dx_batched_cuda
@@ -424,21 +424,34 @@ def _dx_case(name: str, bp, m: int, dtype, *, experts: Optional[int] = None,
 
 
 def _dw_case(name: str, bp, m: int, dtype, *, experts: Optional[int] = None,
-             activation: Optional[str] = "relu",
              want_db: bool = False) -> KernelCase:
+    """``csd_spmm_dw`` on a masked cotangent, as the backward launches
+    it."""
     lead = () if experts is None else (experts,)
 
     def make(mk: _Maker):
         x = mk.randn(lead + (m, bp.n_in), dtype)
-        dy = mk.randn(lead + (m, bp.n_out), dtype)
-        aux = mk.randn(dy.shape, dtype) if activation else None
-        return (x, dy, mk.pattern(bp.block_idx)), dict(
-            block_in=bp.block_in, block_out=bp.block_out, aux=aux,
-            activation=activation, want_db=want_db)
+        g = mk.randn(lead + (m, bp.n_out), dtype)
+        return (x, g, mk.pattern(bp.block_idx)), dict(
+            block_in=bp.block_in, block_out=bp.block_out, want_db=want_db)
 
     fn = csd_spmm.csd_spmm_dw_cuda if experts is None \
         else csd_spmm.csd_spmm_dw_batched_cuda
     return KernelCase(name, fn, make)
+
+
+def _mask_case(name: str, m: int, n_out: int, dtype, *,
+               experts: Optional[int] = None,
+               activation: str = "gelu") -> KernelCase:
+    """``csd_mask_cotangent``: the cotangent of an (experts x) M x n_out
+    junction output masked once per backward."""
+    lead = () if experts is None else (experts,)
+
+    def make(mk: _Maker):
+        dy = mk.randn(lead + (m, n_out), dtype)
+        return (dy, mk.randn(dy.shape, dtype), activation), {}
+
+    return KernelCase(name, csd_spmm.csd_mask_cotangent_cuda, make)
 
 
 def _flash_case(name: str, b: int, s: int, hq: int, hkv: int, dh: int,
@@ -507,8 +520,11 @@ def _paged_case(name: str, hkv: int, g: int, dh: int, dtype, *,
 
 def demo_cases() -> List[KernelCase]:
     """Every shipped kernel family at the reference's demo size: 128 x 128
-    blocks, 4 x 4 at density 0.5, M 256, two experts in the 5-D forms."""
+    blocks, 4 x 4 at density 0.5, M 256, two experts in the 5-D forms; the
+    bf16 backward also at a ragged M of 77 rows over 64 x 64 blocks and
+    over three experts."""
     bp = _demo_pattern()
+    bp64 = _demo_pattern(block_in=64, block_out=64, n_lb=4, n_rb=6)
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         _fwd_case("csd_spmm_fwd_4d_relu", bp, 256, f32, activation="relu",
@@ -526,6 +542,16 @@ def demo_cases() -> List[KernelCase]:
         _dx_case("csd_spmm_dx_5d_batched", bp, 256, f32, experts=2),
         _dw_case("csd_spmm_dw_4d_db", bp, 256, f32, want_db=True),
         _dw_case("csd_spmm_dw_5d_batched", bp, 256, f32, experts=2),
+        _dx_case("csd_spmm_dx_4d_bf16_bl64_m77", bp64, 77, bf16),
+        _dw_case("csd_spmm_dw_4d_bf16_bl64_m77_db", bp64, 77, bf16,
+                 want_db=True),
+        _dx_case("csd_spmm_dx_5d_bf16_e3_m77", bp, 77, bf16, experts=3),
+        _dw_case("csd_spmm_dw_5d_bf16_e3_m77_db", bp, 77, bf16, experts=3,
+                 want_db=True),
+        _mask_case("csd_mask_cotangent_relu", 256, bp.n_out, f32,
+                   activation="relu"),
+        _mask_case("csd_mask_cotangent_5d_gelu", 77, bp.n_out, bf16,
+                   experts=3),
         _flash_case("flash_attention_fwd", 2, 256, 4, 2, 64, bf16,
                     window=128, backward=False),
         _flash_case("flash_attention_bwd", 2, 256, 4, 2, 64, bf16,
@@ -574,12 +600,12 @@ def full_width_cases() -> List[KernelCase]:
         _fwd_case("gemma3_4b/train/fwd_gate_gelu_preact", gate, tm, bf16,
                   activation="gelu", save_preact=True),
         _fwd_case("gemma3_4b/train/fwd_down", down, tm, bf16),
-        _dx_case("gemma3_4b/train/dx_gate_gelu", gate, tm, bf16,
-                 activation="gelu"),
-        _dx_case("gemma3_4b/train/dx_down", down, tm, bf16, activation=None),
-        _dw_case("gemma3_4b/train/dw_gate_gelu", gate, tm, bf16,
-                 activation="gelu"),
-        _dw_case("gemma3_4b/train/dw_down", down, tm, bf16, activation=None),
+        # the gelu gate junction's backward: the mask, then dx and dw on g
+        _mask_case("gemma3_4b/train/mask_gate_gelu", tm, gate.n_out, bf16),
+        _dx_case("gemma3_4b/train/dx_gate_gelu", gate, tm, bf16),
+        _dx_case("gemma3_4b/train/dx_down", down, tm, bf16),
+        _dw_case("gemma3_4b/train/dw_gate_gelu", gate, tm, bf16),
+        _dw_case("gemma3_4b/train/dw_down", down, tm, bf16),
     ]
     for window in (None, g.attn_window):
         tag = "global" if window is None else "local"
@@ -614,9 +640,9 @@ def full_width_cases() -> List[KernelCase]:
             _fwd_case(f"granite/train/fwd_{jname}", bp, c_train, bf16,
                       experts=e),
             _dx_case(f"granite/train/dx_{jname}", bp, c_train, bf16,
-                     experts=e, activation=None),
+                     experts=e),
             _dw_case(f"granite/train/dw_{jname}", bp, c_train, bf16,
-                     experts=e, activation=None),
+                     experts=e),
         ]
     for backward in (False, True):
         cases.append(_flash_case(

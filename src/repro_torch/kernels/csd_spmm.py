@@ -14,7 +14,10 @@ major, the paper's edge numbering) and the pattern's gather form
   with ``want_db`` also ``db[rb] = sum_m mask(dy)[m, rb]`` in f32;
 
 where ``mask`` (``mask_cotangent``) folds the fused activation's derivative
-into the cotangent from the saved ``aux`` (y for relu, z for gelu).
+into the cotangent from the saved ``aux`` (y for relu, z for gelu). The
+backward (``ops.CsdMatmul``) masks once and hands the masked cotangent g to
+BP and UP without an activation; on the card the mask is its own kernel,
+``csrc/csd_mask_cotangent.cu`` (``csd_mask_cotangent_cuda``).
 Accumulation is in f32; y, z and dx come out in the dtype of their input,
 dw in the dtype of x.
 
@@ -26,7 +29,8 @@ Two implementations of each operation live here:
 * ``*_cuda`` — the hand-written Hopper kernels under ``csrc/``. They take
   CUDA tensors only and raise on anything they do not take; they never fall
   back to the plain version. Each counts its launches in ``.launches``,
-  builds its launch plan (``launch.fwd_plan``, ``dx_plan``, ``dw_plan``:
+  builds its launch plan (``launch.fwd_plan``, ``dx_plan``, ``dw_plan``,
+  ``mask_plan``:
   split count, grid, shared memory, what each CTA reads and writes) and
   launches through ``launch.run``, the hook sparselint captures plans
   through.
@@ -485,15 +489,42 @@ def csd_spmm_fwd_quant_batched_cuda(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def csd_mask_cotangent_cuda(dy: torch.Tensor, aux: Optional[torch.Tensor],
+                            activation: Optional[str]) -> torch.Tensor:
+    """Launch ``csrc/csd_mask_cotangent.cu`` on the current stream. Same
+    contract as ``mask_cotangent``: dy and aux of one shape and dtype on the
+    card -> g like dy; with no activation, dy itself and no launch."""
+    name = "csd_mask_cotangent_cuda"
+    if activation is None:
+        return dy
+    _check_act(name, activation, aux, dy)
+    launch.check_device(name, (dy, aux))
+    _check_dtypes(name, (dy, aux), ())
+    if dy.dim() < 1 or dy.shape[-1] % 8:
+        raise ValueError(f"{name}: shapes not taken: dy {tuple(dy.shape)} "
+                         f"(rows of a multiple of 8 elements)")
+    g = torch.empty_like(dy)
+    if g.numel() == 0:
+        return g
+    n_out = dy.shape[-1]
+    rows = dy.numel() // n_out
+    plan = launch.mask_plan(rows, n_out, _dtype(dy))
+    launch.run(plan, dict(dy=dy, aux=aux, g=g),
+               lambda: _bind("csd_mask_cotangent", 3, 4)(
+                   dy.data_ptr(), aux.data_ptr(), g.data_ptr(), rows, n_out,
+                   _DTYPE_CODE[dy.dtype], _ACT_CODE[activation], _stream()))
+    csd_mask_cotangent_cuda.launches += 1
+    return g
+
+
 def _launch_dx(name: str, dy, w, out_idx, out_slot, aux, activation,
                batched: bool):
-    """Check and launch ``csrc/csd_spmm_dx.cu`` through its plan; (dx,
-    whether the kernel was launched). dy (M, n_out) with w (n_rb, d_in_b,
-    bL, bR) as E = 1, or with ``batched`` dy (E, M, n_out) and w (E, n_rb,
-    d_in_b, bL, bR)."""
+    """Check and launch ``csrc/csd_spmm_dx.cu`` through its plan, after the
+    mask kernel when ``activation`` is given; (dx, whether the dx kernel was
+    launched). dy (M, n_out) with w (n_rb, d_in_b, bL, bR) as E = 1, or
+    with ``batched`` dy (E, M, n_out) and w (E, n_rb, d_in_b, bL, bR)."""
     _check_act(name, activation, aux, dy)
-    act_aux = () if activation is None else (aux,)
-    floats = (dy, w) + act_aux
+    floats = (dy, w)
     launch.check_device(name, floats + (out_idx, out_slot))
     _check_dtypes(name, floats, (out_idx, out_slot))
     if (dy.dim(), w.dim()) != ((3, 5) if batched else (2, 4)):
@@ -505,7 +536,8 @@ def _launch_dx(name: str, dy, w, out_idx, out_slot, aux, activation,
     if bl % 64 or br % 64 or n_out != n_rb * br \
             or (batched and w.shape[0] != e) \
             or tuple(out_slot.shape) != (n_lb, d_out_b) \
-            or n_lb * d_out_b != n_rb * d_in_b or e * -(-m // 64) > 65535:
+            or n_lb * d_out_b != n_rb * d_in_b or e > 65535 \
+            or -(-m // 64) > 65535:
         raise ValueError(
             f"{name}: shapes not taken: dy {tuple(dy.shape)}, "
             f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
@@ -514,29 +546,28 @@ def _launch_dx(name: str, dy, w, out_idx, out_slot, aux, activation,
                      device=dy.device)
     if dx.numel() == 0:
         return dx, False
+    g = csd_mask_cotangent_cuda(dy, aux, activation)
     plan = launch.dx_plan(e, m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
-                          _dtype(dy), act=activation is not None) \
+                          _dtype(dy), n_sm=launch.sm_count(dy.device)) \
         .with_patterns(out_idx=out_idx, out_slot=out_slot)
-    aux = aux if activation else None
-    launch.run(plan, dict(dy=dy, aux=aux, w=w, out_idx=out_idx,
-                          out_slot=out_slot, dx=dx),
-               lambda: _bind("csd_spmm_dx", 6, 10)(
-                   dy.data_ptr(), _ptr(aux), w.data_ptr(),
-                   out_idx.data_ptr(), out_slot.data_ptr(), dx.data_ptr(),
-                   e, m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
-                   _DTYPE_CODE[dy.dtype], _ACT_CODE[activation], _stream()))
+    launch.run(plan, dict(g=g, w=w, out_idx=out_idx, out_slot=out_slot,
+                          dx=dx),
+               lambda: _bind("csd_spmm_dx", 5, 10)(
+                   g.data_ptr(), w.data_ptr(), out_idx.data_ptr(),
+                   out_slot.data_ptr(), dx.data_ptr(), e, m, n_rb, d_in_b,
+                   bl, br, n_lb, d_out_b, _DTYPE_CODE[dy.dtype],
+                   plan.args["n_ctas"], _stream()))
     return dx, True
 
 
 def _launch_dw(name: str, x, dy, block_idx, bl: int, br: int, aux,
                activation, want_db: bool, batched: bool):
-    """Check and launch ``csrc/csd_spmm_dw.cu`` through its plan; (dw, db
-    or None, whether the kernel was launched). x (M, n_in) and dy (M,
-    n_out) as E = 1, or with ``batched`` x (E, M, n_in) and dy (E, M,
-    n_out)."""
+    """Check and launch ``csrc/csd_spmm_dw.cu`` through its plan, after the
+    mask kernel when ``activation`` is given; (dw, db or None, whether the
+    dw kernel was launched). x (M, n_in) and dy (M, n_out) as E = 1, or
+    with ``batched`` x (E, M, n_in) and dy (E, M, n_out)."""
     _check_act(name, activation, aux, dy)
-    act_aux = () if activation is None else (aux,)
-    floats = (x, dy) + act_aux
+    floats = (x, dy)
     launch.check_device(name, floats + (block_idx,))
     _check_dtypes(name, floats, (block_idx,))
     rank = 3 if batched else 2
@@ -562,17 +593,15 @@ def _launch_dw(name: str, x, dy, block_idx, bl: int, br: int, aux,
         if db is not None:
             db.zero_()
         return dw, db, False
+    g = csd_mask_cotangent_cuda(dy, aux, activation)
     plan = launch.dw_plan(e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x),
-                          act=activation is not None, want_db=want_db) \
+                          want_db=want_db) \
         .with_patterns(block_idx=block_idx)
-    aux = aux if activation else None
-    launch.run(plan, dict(x=x, dy=dy, aux=aux, block_idx=block_idx, dw=dw,
-                          db=db),
-               lambda: _bind("csd_spmm_dw", 6, 9)(
-                   x.data_ptr(), dy.data_ptr(), _ptr(aux),
-                   block_idx.data_ptr(), dw.data_ptr(), _ptr(db),
-                   e, m, n_in, n_rb, d_in_b, bl, br,
-                   _DTYPE_CODE[x.dtype], _ACT_CODE[activation], _stream()))
+    launch.run(plan, dict(x=x, g=g, block_idx=block_idx, dw=dw, db=db),
+               lambda: _bind("csd_spmm_dw", 5, 8)(
+                   x.data_ptr(), g.data_ptr(), block_idx.data_ptr(),
+                   dw.data_ptr(), _ptr(db), e, m, n_in, n_rb, d_in_b, bl, br,
+                   _DTYPE_CODE[x.dtype], _stream()))
     return dw, db, True
 
 
@@ -580,7 +609,8 @@ def csd_spmm_dx_cuda(dy: torch.Tensor, w: torch.Tensor,
                      out_idx: torch.Tensor, out_slot: torch.Tensor, *,
                      aux: Optional[torch.Tensor] = None,
                      activation: Optional[str] = None) -> torch.Tensor:
-    """Launch ``csrc/csd_spmm_dx.cu`` on the current stream. Same contract
+    """Launch ``csrc/csd_spmm_dx.cu`` on the current stream, after
+    ``csd_mask_cotangent_cuda`` when ``activation`` is given. Same contract
     as ``csd_spmm_dx_plain``; out_idx/out_slot int32 on the device of dy."""
     dx, launched = _launch_dx("csd_spmm_dx_cuda", dy, w, out_idx, out_slot,
                               aux, activation, batched=False)
@@ -594,9 +624,10 @@ def csd_spmm_dx_batched_cuda(dy: torch.Tensor, w: torch.Tensor,
                              *, aux: Optional[torch.Tensor] = None,
                              activation: Optional[str] = None
                              ) -> torch.Tensor:
-    """Launch ``csrc/csd_spmm_dx.cu`` over E experts on the current stream.
-    Same contract as ``csd_spmm_dx_batched_plain``; out_idx/out_slot int32
-    on the device of dy."""
+    """Launch ``csrc/csd_spmm_dx.cu`` over E experts on the current stream,
+    after ``csd_mask_cotangent_cuda`` when ``activation`` is given. Same
+    contract as ``csd_spmm_dx_batched_plain``; out_idx/out_slot int32 on the
+    device of dy."""
     dx, launched = _launch_dx("csd_spmm_dx_batched_cuda", dy, w, out_idx,
                               out_slot, aux, activation, batched=True)
     if launched:
@@ -609,7 +640,8 @@ def csd_spmm_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
                      block_out: int, aux: Optional[torch.Tensor] = None,
                      activation: Optional[str] = None,
                      want_db: bool = False):
-    """Launch ``csrc/csd_spmm_dw.cu`` on the current stream. Same contract
+    """Launch ``csrc/csd_spmm_dw.cu`` on the current stream, after
+    ``csd_mask_cotangent_cuda`` when ``activation`` is given. Same contract
     as ``csd_spmm_dw_plain``; block_idx int32 on the device of x."""
     dw, db, launched = _launch_dw("csd_spmm_dw_cuda", x, dy, block_idx,
                                   block_in, block_out, aux, activation,
@@ -625,8 +657,9 @@ def csd_spmm_dw_batched_cuda(x: torch.Tensor, dy: torch.Tensor,
                              aux: Optional[torch.Tensor] = None,
                              activation: Optional[str] = None,
                              want_db: bool = False):
-    """Launch ``csrc/csd_spmm_dw.cu`` over E experts on the current stream.
-    Same contract as ``csd_spmm_dw_batched_plain``; block_idx int32 on the
+    """Launch ``csrc/csd_spmm_dw.cu`` over E experts on the current stream,
+    after ``csd_mask_cotangent_cuda`` when ``activation`` is given. Same
+    contract as ``csd_spmm_dw_batched_plain``; block_idx int32 on the
     device of x."""
     dw, db, launched = _launch_dw("csd_spmm_dw_batched_cuda", x, dy,
                                   block_idx, block_in, block_out, aux,
@@ -644,3 +677,4 @@ csd_spmm_dx_cuda.launches = 0
 csd_spmm_dx_batched_cuda.launches = 0
 csd_spmm_dw_cuda.launches = 0
 csd_spmm_dw_batched_cuda.launches = 0
+csd_mask_cotangent_cuda.launches = 0

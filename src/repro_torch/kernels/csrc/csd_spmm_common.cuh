@@ -1,7 +1,8 @@
 // Device helpers shared by the block-sparse junction kernels
-// (csd_spmm_fwd.cu, csd_spmm_fwd_quant.cu, csd_spmm_dx.cu, csd_spmm_dw.cu):
-// 16-byte cp.async copies with zero fill, f32 <-> storage-type conversion,
-// the fused activation and its derivative folded into a cotangent, and the
+// (csd_spmm_fwd.cu, csd_spmm_fwd_quant.cu, csd_spmm_dx.cu, csd_spmm_dw.cu,
+// csd_mask_cotangent.cu): 16-byte cp.async copies with zero fill, f32 <->
+// storage-type conversion, the fused activation and its derivative folded
+// into a cotangent, and the
 // two forward kernels' epilogue and ordered second pass over fan-in splits
 // (for one junction or E expert junctions of one shared pattern).
 #pragma once
@@ -55,45 +56,31 @@ __device__ __forceinline__ float activate(float z, int act) {
 }
 
 // The cotangent with the activation's derivative folded in, rounded to the
-// storage type as the JAX package's mask_cotangent rounds it: relu keeps dy
-// where the saved output is positive; gelu multiplies dy by the analytic
-// derivative of the tanh approximation at the saved pre-activation, in f32.
+// storage type: relu keeps dy where the saved output is positive; gelu
+// multiplies dy by the analytic derivative of the tanh approximation at the
+// saved pre-activation, in f32. The gelu arithmetic is that of the plain
+// version (kernels/csd_spmm.py:mask_cotangent), one rounded f32 operation
+// at a time in its order, with its f32 constants and no fused
+// multiply-adds, so the two agree bit for bit where their tanhf does.
 template <typename T>
 __device__ __forceinline__ void mask_in_place(T* dy, T aux, int act) {
   const float a = to_f32(aux);
   if (act == 1) {
     if (!(a > 0.f)) store(0.f, dy);
   } else if (act == 2) {
-    const float t = tanhf(kGeluC * (a + kGeluA * a * a * a));
-    const float g = 0.5f * (1.f + t) +
-                    0.5f * a * (1.f - t * t) * kGeluC *
-                        (1.f + 3.f * kGeluA * a * a);
-    store(to_f32(*dy) * g, dy);
-  }
-}
-
-// Masks a ROWS x COLS tile of dy in shared memory, in place, from the aux
-// tile of the same layout (row stride LD elements, rows 16-byte aligned).
-// Each of the NT threads takes whole 16-byte chunks: one load of dy and one
-// of aux feed 8 (bf16) or 4 (f32) independent evaluations, which keeps the
-// pass from waiting on one shared-memory round trip per element.
-template <typename T, int ROWS, int COLS, int LD, int NT>
-__device__ __forceinline__ void mask_tile(T* dy, const T* aux, int act,
-                                          int tid) {
-  constexpr int N = 16 / sizeof(T);
-  constexpr int CPR = COLS / N;  // chunks per row
-  static_assert(COLS % N == 0 && (LD * sizeof(T)) % 16 == 0, "16-byte rows");
-#pragma unroll 2
-  for (int c = tid; c < ROWS * CPR; c += NT) {
-    const int r = c / CPR;
-    const int off = r * LD + (c - r * CPR) * N;
-    uint4 dv = *reinterpret_cast<const uint4*>(dy + off);
-    const uint4 av = *reinterpret_cast<const uint4*>(aux + off);
-    T* de = reinterpret_cast<T*>(&dv);
-    const T* ae = reinterpret_cast<const T*>(&av);
-#pragma unroll
-    for (int i = 0; i < N; ++i) mask_in_place(de + i, ae[i], act);
-    *reinterpret_cast<uint4*>(dy + off) = dv;
+    constexpr float kA = static_cast<float>(0.044715);
+    constexpr float kC = static_cast<float>(0.7978845608028654);
+    constexpr float kB = static_cast<float>(3.0 * 0.044715);
+    // t = tanh(C (a + A a a a))
+    const float a3 = __fmul_rn(__fmul_rn(__fmul_rn(kA, a), a), a);
+    const float t = tanhf(__fmul_rn(kC, __fadd_rn(a, a3)));
+    // d = 0.5 (1 + t) + 0.5 a (1 - t t) C (1 + 3 A a a)
+    const float lhs = __fmul_rn(0.5f, __fadd_rn(1.f, t));
+    float rhs = __fmul_rn(__fmul_rn(0.5f, a),
+                          __fsub_rn(1.f, __fmul_rn(t, t)));
+    rhs = __fmul_rn(rhs, kC);
+    rhs = __fmul_rn(rhs, __fadd_rn(1.f, __fmul_rn(__fmul_rn(kB, a), a)));
+    store(__fmul_rn(to_f32(*dy), __fadd_rn(lhs, rhs)), dy);
   }
 }
 

@@ -25,8 +25,8 @@ launch goes through (``analysis.capture`` patches it, with ``sm_count`` and
 exports a ``<name>_plan`` function that fills grid, threads and shared
 memory from the host code its launcher uses; ``chip_smoke.py`` holds every
 plan against it on the card. The shared-memory formulas below are those of
-the sources' tile structs (``Tile``, ``QTile``, ``DxTile``, ``DwTile``,
-``smem_bytes``, ``Layout``).
+the sources' tile structs (``Tile``, ``QTile``, ``DxRing``, ``DwRing``,
+``F32Tile``, ``smem_bytes``, ``Layout``).
 """
 from __future__ import annotations
 
@@ -400,105 +400,162 @@ def fwd_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
 
 
 # ---------------------------------------------------------------------------
-# csrc/csd_spmm_dx.cu and csrc/csd_spmm_dw.cu
+# csrc/csd_spmm_dx.cu, csrc/csd_spmm_dw.cu and csrc/csd_mask_cotangent.cu
 # ---------------------------------------------------------------------------
 
+_RING_BOX = 64 * 64 * 2  # one 64 x 64 bf16 box, bytes
+_F32_STAGES = 3    # cp.async ring of the f32 (CUDA-core) kernels
 
-def _bwd_smem(dtype: str, kind: str) -> int:
-    """``DxTile<T>::SMEM`` or ``DwTile<T>::SMEM``."""
-    size = _itemsize(dtype)
-    bk = 32 if dtype == "float32" else 64
-    epc = 16 // size
-    if kind == "dx":
-        return 3 * (2 * 64 * (bk + epc) + 64 * (bk + epc)) * size
-    return 3 * (bk * (64 + epc) + 2 * bk * (64 + epc)) * size
+
+def _ring_smem(stage_bytes: int) -> int:
+    """``DxRing``/``DwRing::SMEM``: 4 stages (``kRingStages``), 1024 bytes
+    to align the ring, a full and an empty barrier per stage."""
+    return 4 * stage_bytes + 1024 + 2 * 4 * 8
+
+
+def _widest(block: int) -> int:
+    """The widest of 256, 128 and 64 that divides ``block``."""
+    return next(t for t in (256, 128, 64) if block % t == 0)
+
+
+def dx_tile(bl: int, dtype: str) -> Tuple[int, int]:
+    """(rows, columns) of a dx tile: bf16 128 x the widest of 256, 128, 64
+    that divides bL; f32 64 x 64."""
+    if dtype == "float32":
+        return 64, 64
+    return 128, _widest(bl)
+
+
+def dw_tile(bl: int, br: int, dtype: str) -> Tuple[int, int]:
+    """(rows in bL, columns in bR) of a dw tile: bf16 128 (64 where
+    bL % 128 != 0) x the widest of 256, 128, 64 that divides bR; f32
+    64 x 64."""
+    if dtype == "float32":
+        return 64, 64
+    return (128 if bl % 128 == 0 else 64), _widest(br)
+
+
+def _rounds(n_tiles: int, n_ctas: int, c: np.ndarray):
+    """The tiles of persistent CTA x, round by round: (tile, skip) arrays
+    per round, tile = x + round * n_ctas, skip where it is past the last
+    tile."""
+    for r in range(_ceil(n_tiles, n_ctas)):
+        tile = c[:, 0] + r * n_ctas
+        skip = tile >= n_tiles
+        yield np.where(skip, 0, tile), skip
 
 
 @functools.lru_cache(maxsize=4096)
 def dx_plan(e: int, m: int, n_rb: int, d_in_b: int, bl: int, br: int,
-            n_lb: int, d_out_b: int, dtype: str, *, act: bool) -> LaunchPlan:
-    """The plan of ``csd_spmm_dx``: CTA (x, y) owns dx columns [64 x,
-    64 x + 64) of left block 64 x // bL and rows [m0, m0 + 64) of expert
-    y // m_tiles, and loops over the left block's d_out_b scatter slots."""
-    m_tiles = _ceil(m, 64)
+            n_lb: int, d_out_b: int, dtype: str, *, n_sm: int
+            ) -> LaunchPlan:
+    """The plan of ``csd_spmm_dx`` on the masked cotangent g. A tile is the
+    BM x BN block of dx at columns [BN x, BN x + BN) of left block
+    BN x // bL and rows [BM y, BM y + BM) of expert z (``dx_tile``); its
+    CTA loops over the left block's d_out_b scatter slots. f32: one CTA per
+    tile, grid (x, y, z). bf16: n_ctas = min(tiles, n_sm) persistent CTAs,
+    CTA b taking tiles b, b + n_ctas, ... in the order (z, x, y), y
+    fastest; a producer and two wgmma warpgroups on a TMA ring."""
+    bm, bn = dx_tile(bl, dtype)
+    m_tiles = _ceil(m, bm)
     n_in, n_out = n_lb * bl, n_rb * br
+    n_col = n_in // bn
+    n_tiles = n_col * m_tiles * e
     size = _itemsize(dtype)
+    f32 = dtype == "float32"
+    n_ctas = 0 if f32 else min(n_tiles, n_sm)
     buffers = {
-        "dy": Buffer((e * m, n_out), size, "in"),
+        "g": Buffer((e * m, n_out), size, "in"),
         "w": Buffer((e, n_rb, d_in_b, bl, br), size, "in"),
         "out_idx": Buffer((n_lb, d_out_b), 4, "in"),
         "out_slot": Buffer((n_lb, d_out_b), 4, "in"),
         "dx": Buffer((e * m, n_in), size, "out"),
     }
-    if act:
-        buffers["aux"] = Buffer((e * m, n_out), size, "in")
 
-    def geo(c):
-        col0 = c[:, 0] * _BN
+    def tiles(c):
+        """(tile geometry, skip) per round of the CTAs ``c``."""
+        if f32:
+            yield (c[:, 0], c[:, 1], c[:, 2]), np.zeros(len(c), bool)
+            return
+        for tile, skip in _rounds(n_tiles, n_ctas, c):
+            rest = tile // m_tiles
+            yield (rest % n_col, tile % m_tiles, rest // n_col), skip
+
+    def geo(t):
+        col0 = t[0] * bn
         lb = col0 // bl
-        ex = c[:, 1] // m_tiles
-        m0 = (c[:, 1] % m_tiles) * 64
-        return col0, lb, col0 - lb * bl, ex, m0, np.minimum(m0 + 64, m)
+        m0 = t[1] * bm
+        return col0, lb, col0 - lb * bl, t[2], m0, np.minimum(m0 + bm, m)
 
     def writes(c):
-        col0, _, _, ex, m0, m1 = geo(c)
-        return [_box("dx", len(c), (ex * m + m0, ex * m + m1),
-                     (col0, col0 + _BN))]
+        out = []
+        for t, skip in tiles(c):
+            col0, _, _, ex, m0, m1 = geo(t)
+            out.append(_empty_where(_box(
+                "dx", len(c), (ex * m + m0, ex * m + m1), (col0, col0 + bn)),
+                skip))
+        return out
 
     def reads(c, pats):
-        col0, lb, n0, ex, m0, m1 = geo(c)
         n = len(c)
         oidx, oslot = pats["out_idx"], pats["out_slot"]
-        lbc = np.minimum(lb, oidx.shape[0] - 1)
-        out = [_box(k, n, (lb, lb + 1), (0, d_out_b))
-               for k in ("out_idx", "out_slot")]
-        for g in range(d_out_b):
-            rb = oidx[lbc, g].astype(np.int64)
-            f = oslot[lbc, g].astype(np.int64)
-            rows = (ex * m + m0, ex * m + m1)
-            out.append(_box("dy", n, rows, (rb * br, rb * br + br)))
-            if act:
-                out.append(_box("aux", n, rows, (rb * br, rb * br + br)))
-            out.append(_box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
-                            (n0, n0 + _BN), (0, br)))
+        out = []
+        for t, skip in tiles(c):
+            col0, lb, n0, ex, m0, m1 = geo(t)
+            lbc = np.minimum(lb, oidx.shape[0] - 1)
+            out += [_empty_where(_box(k, n, (lb, lb + 1), (0, d_out_b)), skip)
+                    for k in ("out_idx", "out_slot")]
+            for g in range(d_out_b):
+                rb = oidx[lbc, g].astype(np.int64)
+                f = oslot[lbc, g].astype(np.int64)
+                out.append(_empty_where(_box(
+                    "g", n, (ex * m + m0, ex * m + m1),
+                    (rb * br, rb * br + br)), skip))
+                out.append(_empty_where(_box(
+                    "w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                    (n0, n0 + bn), (0, br)), skip))
         return out
 
     launch = Launch(
-        kernel="csd_spmm_dx_kernel", grid=(n_in // _BN, e * m_tiles, 1),
-        threads=128, smem=_bwd_smem(dtype, "dx"), writes=writes,
-        reads=reads, fan_in=d_out_b, fan_in_axis="loop",
+        kernel="csd_spmm_dx_f32_kernel" if f32 else "csd_spmm_dx_wgmma_kernel",
+        grid=(n_col, m_tiles, e) if f32 else (n_ctas, 1, 1),
+        threads=128 if f32 else 384,
+        smem=_F32_STAGES * 2 * 64 * 36 * 4 if f32
+        else _ring_smem((bm + bn) * 64 * 2),
+        writes=writes, reads=reads, fan_in=d_out_b, fan_in_axis="loop",
         slots=lambda c: (np.zeros(len(c), np.int64),
                          np.full(len(c), d_out_b, np.int64)),
         epilogue=True,
-        tiles=(("n_in", n_in, _BN, False), ("bL", bl, _BN, False),
-               ("bR", br, 32 if dtype == "float32" else 64, False),
-               ("M", m, 64, True)))
+        tiles=(("n_in", n_in, bn, False), ("bL", bl, bn, False),
+               ("bR", br, 32 if f32 else 64, False), ("M", m, bm, True)))
     return LaunchPlan("csd_spmm_dx", buffers, (launch,), 1,
-                      dict(E=e, M=m, n_lb=n_lb, bL=bl, dtype=_code(dtype)))
+                      dict(E=e, M=m, n_lb=n_lb, bL=bl, dtype=_code(dtype),
+                           n_ctas=n_ctas))
 
 
 @functools.lru_cache(maxsize=4096)
 def dw_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
-            br: int, dtype: str, *, act: bool, want_db: bool) -> LaunchPlan:
-    """The plan of ``csd_spmm_dw``: CTA (x, y, z) owns the 64 x 64 tile
-    (rows 64 y, columns 64 x) of block (rb, f) of expert ex, z = (ex n_rb
-    + rb) d_in_b + f, and loops over all M rows; the CTAs of f = 0 and y =
-    0 also write db."""
+            br: int, dtype: str, *, want_db: bool) -> LaunchPlan:
+    """The plan of ``csd_spmm_dw`` on the masked cotangent g: CTA (x, y, z)
+    owns the BI x BJ tile (rows BI y, columns BJ x; ``dw_tile``) of block
+    (rb, f) of expert ex, z = (ex n_rb + rb) d_in_b + f, and loops over all
+    M rows; the CTAs of f = 0 and y = 0 also write db (bf16: a producer
+    and one wgmma warpgroup per 64 rows on a TMA ring, f32: the CUDA
+    cores)."""
+    bi, bj = dw_tile(bl, br, dtype)
     n_out = n_rb * br
     size = _itemsize(dtype)
     buffers = {
         "x": Buffer((e * m, n_in), size, "in"),
-        "dy": Buffer((e * m, n_out), size, "in"),
+        "g": Buffer((e * m, n_out), size, "in"),
         "block_idx": Buffer((n_rb, d_in_b), 4, "in"),
         "dw": Buffer((e, n_rb, d_in_b, bl, br), size, "out"),
     }
-    if act:
-        buffers["aux"] = Buffer((e * m, n_out), size, "in")
     if want_db:
         buffers["db"] = Buffer((e, n_out), 4, "out")
 
     def geo(c):
-        j0, i0, z = c[:, 0] * 64, c[:, 1] * 64, c[:, 2]
+        j0, i0, z = c[:, 0] * bj, c[:, 1] * bi, c[:, 2]
         ex, blk = z // (n_rb * d_in_b), z % (n_rb * d_in_b)
         return j0, i0, ex, blk // d_in_b, blk % d_in_b
 
@@ -506,11 +563,11 @@ def dw_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
         j0, i0, ex, rb, f = geo(c)
         n = len(c)
         out = [_box("dw", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
-                    (i0, i0 + 64), (j0, j0 + 64))]
+                    (i0, i0 + bi), (j0, j0 + bj))]
         if want_db:
             col = rb * br + j0
             out.append(_empty_where(_box("db", n, (ex, ex + 1),
-                                         (col, col + 64)),
+                                         (col, col + bj)),
                                     (f != 0) | (i0 != 0)))
         return out
 
@@ -521,28 +578,63 @@ def dw_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
         lb = idx[np.minimum(rb, idx.shape[0] - 1),
                  np.minimum(f, idx.shape[1] - 1)].astype(np.int64)
         rows = (ex * m, ex * m + m)
-        dcol = (rb * br + j0, rb * br + j0 + 64)
-        out = [_box("block_idx", n, (rb, rb + 1), (f, f + 1)),
-               _box("x", n, rows, (lb * bl + i0, lb * bl + i0 + 64)),
-               _box("dy", n, rows, dcol)]
-        if act:
-            out.append(_box("aux", n, rows, dcol))
-        return out
+        return [_box("block_idx", n, (rb, rb + 1), (f, f + 1)),
+                _box("x", n, rows, (lb * bl + i0, lb * bl + i0 + bi)),
+                _box("g", n, rows, (rb * br + j0, rb * br + j0 + bj))]
 
+    f32 = dtype == "float32"
     launch = Launch(
-        kernel="csd_spmm_dw_kernel",
-        grid=(br // 64, bl // 64, e * n_rb * d_in_b), threads=128,
-        smem=_bwd_smem(dtype, "dw"), writes=writes, reads=reads, fan_in=1,
-        fan_in_axis="loop",
+        kernel="csd_spmm_dw_f32_kernel" if f32 else "csd_spmm_dw_wgmma_kernel",
+        grid=(br // bj, bl // bi, e * n_rb * d_in_b),
+        threads=128 if f32 else 128 * (1 + bi // 64),
+        smem=_F32_STAGES * 2 * 32 * 68 * 4 if f32
+        else _ring_smem((bi + bj) // 64 * _RING_BOX),
+        writes=writes, reads=reads, fan_in=1, fan_in_axis="loop",
         slots=lambda c: (np.zeros(len(c), np.int64),
                          np.ones(len(c), np.int64)),
         epilogue=True,
-        tiles=(("bR", br, 64, False), ("bL", bl, 64, False),
+        tiles=(("bR", br, bj, False), ("bL", bl, bi, False),
                ("n_in", n_in, bl, False),
-               ("M", m, 32 if dtype == "float32" else 64, True)))
+               ("M", m, 32 if f32 else 64, True)))
     return LaunchPlan("csd_spmm_dw", buffers, (launch,), 1,
                       dict(E=e, n_rb=n_rb, d_in_b=d_in_b, bL=bl, bR=br,
                            dtype=_code(dtype)))
+
+
+_MASK_THREADS = 256
+
+
+@functools.lru_cache(maxsize=4096)
+def mask_plan(rows: int, n_out: int, dtype: str) -> LaunchPlan:
+    """The plan of ``csd_mask_cotangent`` over a (rows, n_out) cotangent
+    (E x M rows of the expert-batched form): thread i of CTA x masks the
+    16-byte chunk 256 x + i of the flat cotangent, reading the same chunk
+    of dy and aux and writing it to g."""
+    size = _itemsize(dtype)
+    per = 16 // size  # elements per chunk
+    total = rows * n_out
+    buffers = {k: Buffer((rows, n_out), size, "out" if k == "g" else "in")
+               for k in ("dy", "aux", "g")}
+
+    def rng(c):
+        a = c[:, 0] * _MASK_THREADS * per
+        return a, np.minimum(a + _MASK_THREADS * per, total)
+
+    launch = Launch(
+        kernel="csd_mask_cotangent_kernel",
+        grid=(_ceil(total // per, _MASK_THREADS), 1, 1),
+        threads=_MASK_THREADS, smem=0,
+        writes=lambda c: _flat_boxes("g", *rng(c), n_out),
+        reads=lambda c, p: _flat_boxes("dy", *rng(c), n_out)
+        + _flat_boxes("aux", *rng(c), n_out),
+        fan_in=1, fan_in_axis="loop",
+        slots=lambda c: (np.zeros(len(c), np.int64),
+                         np.ones(len(c), np.int64)),
+        epilogue=True,
+        tiles=(("n_out", n_out, per, False),
+               ("rows*n_out", total, _MASK_THREADS * per, True)))
+    return LaunchPlan("csd_mask_cotangent", buffers, (launch,), 1,
+                      dict(rows=rows, n_out=n_out, dtype=_code(dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -851,9 +943,11 @@ PLAN_EXPORTS = {
     "csd_spmm_fwd_quant": ("csd_spmm_fwd_quant", "csd_spmm_fwd_quant_plan",
                            ("E", "M", "n_rb", "bR", "n_splits", "dtype")),
     "csd_spmm_dx": ("csd_spmm_dx", "csd_spmm_dx_plan",
-                    ("E", "M", "n_lb", "bL", "dtype")),
+                    ("E", "M", "n_lb", "bL", "dtype", "n_ctas")),
     "csd_spmm_dw": ("csd_spmm_dw", "csd_spmm_dw_plan",
                     ("E", "n_rb", "d_in_b", "bL", "bR", "dtype")),
+    "csd_mask_cotangent": ("csd_mask_cotangent", "csd_mask_cotangent_plan",
+                           ("rows", "n_out", "dtype")),
     "paged_decode_attention": (
         "paged_decode", "paged_decode_attention_plan",
         ("B", "Hkv", "G", "Dh", "page_size", "n_pages", "keys_per_tile",

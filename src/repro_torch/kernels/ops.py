@@ -7,9 +7,10 @@ hand-written kernels, and any other device raises. When a gradient is
 needed the call runs through ``CsdMatmul``, a ``torch.autograd.Function``
 that wires the paper's three operations as the JAX package's Pallas branch
 does (``_fwd_vjp``/``_bwd_vjp``): FF saves ``(x, w, b, aux)``, with aux the
-output y for relu and the pre-activation z for gelu (``save_preact``); BP
-runs dx over the transpose pattern and UP runs dw (and db) with the
-activation's derivative masked in. A 5-D slab (E, n_rb, d_in_b, bL, bR)
+output y for relu and the pre-activation z for gelu (``save_preact``); the
+backward folds the activation's derivative into the cotangent once, from
+aux, and hands that g to BP, dx over the transpose pattern, and to UP, dw
+(and db). A 5-D slab (E, n_rb, d_in_b, bL, bR)
 selects the expert-batched form (MoE): x (E, ..., n_in) keeps its leading
 expert dim and flattens the rest to M, and FF, BP and UP run the
 expert-batched kernels, db (E, n_out). With ``w_scale`` the slab is int8
@@ -29,15 +30,16 @@ from .csd_spmm import apply_activation  # noqa: F401 — one definition for laye
 
 
 def _kernels(device: torch.device, batched: bool):
-    """(fwd, dx, dw) for tensors on ``device``, in the expert-batched form
-    when ``batched``. Looked up at each call, so that a caller can swap
-    them."""
+    """(fwd, dx, dw, mask) for tensors on ``device``, in the expert-batched
+    form when ``batched`` (the mask is elementwise: one form). Looked up at
+    each call, so that a caller can swap them."""
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"csd_matmul: no implementation for {device}")
     impl = "cuda" if device.type == "cuda" else "plain"
     form = "_batched" if batched else ""
+    mask = "csd_mask_cotangent_cuda" if impl == "cuda" else "mask_cotangent"
     return tuple(getattr(csd_spmm, f"csd_spmm_{op}{form}_{impl}")
-                 for op in ("fwd", "dx", "dw"))
+                 for op in ("fwd", "dx", "dw")) + (getattr(csd_spmm, mask),)
 
 
 class CsdMatmul(torch.autograd.Function):
@@ -61,20 +63,21 @@ class CsdMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, bias, aux, block_idx, out_idx, out_slot = ctx.saved_tensors
         act = ctx.activation
-        _, dx_fn, dw_fn = _kernels(x.device, w.dim() == 5)
+        _, dx_fn, dw_fn, mask_fn = _kernels(x.device, w.dim() == 5)
         # backward traffic stays in the compute dtype, as in the JAX package
         dy = dy.to(x.dtype).contiguous()
+        # the activation's derivative, once for both products
+        g = mask_fn(dy, aux, act)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = dx_fn(dy, w, out_idx, out_slot, aux=aux, activation=act)
+            dx = dx_fn(g, w, out_idx, out_slot)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            kw = dict(block_in=w.shape[-2], block_out=w.shape[-1], aux=aux,
-                      activation=act)
+            kw = dict(block_in=w.shape[-2], block_out=w.shape[-1])
             if bias is not None:
-                dw, db = dw_fn(x, dy, block_idx, want_db=True, **kw)
+                dw, db = dw_fn(x, g, block_idx, want_db=True, **kw)
                 db = db.to(bias.dtype)
             else:
-                dw = dw_fn(x, dy, block_idx, **kw)
+                dw = dw_fn(x, g, block_idx, **kw)
             dw = dw.to(w.dtype)
         return dx, dw, db, None, None, None, None
 

@@ -414,6 +414,111 @@ def test_csd_spmm_dw_batched_cuda_matches_plain(cuda_device, activation,
 
 
 # ---------------------------------------------------------------------------
+# the backward's pieces: the mask once, dx and dw on the masked cotangent
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+@pytest.mark.parametrize("shape", [(100, 768), (5, 77, 1024)],
+                         ids=["2d", "3d"])
+def test_csd_mask_cotangent_cuda_equals_plain(cuda_device, shape, activation,
+                                              dtype):
+    """The mask kernel does the plain version's f32 arithmetic in its order
+    and rounds once to the dtype of dy: equal element for element."""
+    rng = np.random.default_rng(13)
+    dy, aux = (_t(rng.normal(size=shape).astype(np.float32) * 3)
+               .to(cuda_device, dtype) for _ in range(2))
+    n0 = csd_spmm.csd_mask_cotangent_cuda.launches
+    got = csd_spmm.csd_mask_cotangent_cuda(dy, aux, activation)
+    ref = csd_spmm.mask_cotangent(dy, aux, activation)
+    torch.cuda.synchronize()
+    assert csd_spmm.csd_mask_cotangent_cuda.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == dy.shape
+    assert torch.equal(got, ref)
+
+
+@pytest.fixture
+def nan_outputs(monkeypatch):
+    """Every launch's outputs filled with NaN just before the kernel runs,
+    so that an element a kernel leaves unwritten shows."""
+    from repro_torch.kernels import launch
+    real = launch.run
+
+    def run(plan, buffers, call):
+        for k, t in buffers.items():
+            if t is not None and plan.buffers[k].role != "in":
+                t.fill_(float("nan"))
+        return real(plan, buffers, call)
+
+    monkeypatch.setattr(launch, "run", run)
+
+
+# (experts or None, M, n_in, n_out, bL, bR): ragged M against the 128-row
+# bf16 tile, a single row, 64 x 64 blocks (the 64-wide tiles), three experts
+# with a ragged M
+BWD_CASES = {
+    "m1": (None, 1, 1024, 768, 128, 192),
+    "m77": (None, 77, 1024, 768, 128, 192),
+    "m1000": (None, 1000, 1024, 768, 128, 192),
+    "bl64_m77": (None, 77, 256, 384, 64, 64),
+    "e3_m77": (3, 77, 1024, 768, 128, 192),
+    "e3_m1000": (3, 1000, 512, 1024, 128, 256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_csd_spmm_bwd_cuda_ragged_nan_filled_repeatable(cuda_device, case,
+                                                        dtype, nan_outputs):
+    """The gelu backward as ``CsdMatmul`` runs it (the mask once, then dx
+    and dw with db on g) into NaN-filled outputs: every element written,
+    within the plain versions' tolerance, and two runs bit-equal."""
+    e, m, n_in, n_out, bl, br = BWD_CASES[case]
+    lead = () if e is None else (e,)
+    bp = make_block_pattern(n_in, n_out, 0.5, block_in=bl, block_out=br,
+                            seed=3)
+    rng = np.random.default_rng(4)
+    to = lambda a: _t(a.astype(np.float32)).to(cuda_device, dtype)  # noqa
+    x = to(rng.normal(size=lead + (m, n_in)))
+    w = to(rng.normal(size=lead + (bp.n_rb, bp.d_in_b, bl, br))
+           / np.sqrt(bp.d_in_b * bl))
+    dy, aux = (to(rng.normal(size=lead + (m, n_out))) for _ in range(2))
+    pat = {k: _t(getattr(bp, k)).to(cuda_device).int()
+           for k in ("block_idx", "out_idx", "out_slot")}
+    form = "" if e is None else "_batched"
+    dx_fn = getattr(csd_spmm, f"csd_spmm_dx{form}_cuda")
+    dw_fn = getattr(csd_spmm, f"csd_spmm_dw{form}_cuda")
+    kw = dict(block_in=bl, block_out=br, want_db=True)
+
+    def run():
+        g = csd_spmm.csd_mask_cotangent_cuda(dy, aux, "gelu")
+        dx = dx_fn(g, w, pat["out_idx"], pat["out_slot"])
+        dw, db = dw_fn(x, g, pat["block_idx"], **kw)
+        torch.cuda.synchronize()
+        return g, dx, dw, db
+
+    first, second = run(), run()
+    g_ref = csd_spmm.mask_cotangent(dy, aux, "gelu")
+    refs = (g_ref,
+            getattr(csd_spmm, f"csd_spmm_dx{form}_plain")(
+                g_ref, w, pat["out_idx"], pat["out_slot"]),
+            *getattr(csd_spmm, f"csd_spmm_dw{form}_plain")(
+                x, g_ref, pat["block_idx"], **kw))
+    for got, again in zip(first, second):
+        assert not bool(torch.isnan(got).any())
+        assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    assert torch.equal(first[0], refs[0])
+    for got, ref, tol in zip(first[1:], refs[1:],
+                             (TRAIN_TOL[dtype], TRAIN_TOL[dtype], DB_TOL)):
+        _close(got, ref, tol)
+
+
+# ---------------------------------------------------------------------------
 # full-sequence attention (csrc/flash_attention.cu)
 # ---------------------------------------------------------------------------
 

@@ -255,6 +255,47 @@ def test_csd_matmul_gradients_match_jax_vjp(activation, with_bias, backend):
         assert tb.grad is None
 
 
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+def test_csd_matmul_backward_masks_once(activation, with_bias, monkeypatch):
+    """``CsdMatmul.backward`` folds the activation's derivative into the
+    cotangent once and hands that one masked cotangent to dx and dw (here
+    the plain versions, on the card the mask kernel and the products), and
+    dx, dw and db still match the JAX package's csd_matmul VJP."""
+    calls = []
+    real = csd_spmm.mask_cotangent
+
+    def counting(dy, aux, act):
+        if act is not None:
+            calls.append(act)
+        return real(dy, aux, act)
+
+    monkeypatch.setattr(csd_spmm, "mask_cotangent", counting)
+    m = 24
+    bp, x, w, b = _junction(19, m)
+    dy = np.random.default_rng(20).normal(size=(m, bp.n_out)) \
+        .astype(np.float32)
+
+    def jfn(x_, w_, b_):
+        return jops.csd_matmul(x_, w_, bp, bias=b_ if with_bias else None,
+                               activation=activation, backend="xla")
+
+    _, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    rdx, rdw, rdb = vjp(jnp.asarray(dy))
+    tx, tw, tb = (torch.tensor(a, requires_grad=True) for a in (x, w, b))
+    got = ops.csd_matmul(tx, tw, _t(bp.block_idx).int(),
+                         bias=tb if with_bias else None,
+                         activation=activation, out_idx=_t(bp.out_idx).int(),
+                         out_slot=_t(bp.out_slot).int())
+    assert calls == []  # the forward masks nothing
+    got.backward(_t(dy))
+    assert calls == [activation]
+    _close_rel(tx.grad, rdx, TOL_BWD["float32"])
+    _close_rel(tw.grad, rdw, TOL_BWD["float32"])
+    if with_bias:
+        _close_rel(tb.grad, rdb, TOL_BWD["float32"])
+
+
 def test_training_cuda_wrappers_refuse_cpu_tensors():
     """The backward wrappers launch their kernels or raise, like the
     forward one: a CPU tensor never runs the plain version through them."""
