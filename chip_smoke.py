@@ -9,8 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version; turn TF32 off so that f32 references run in full f32;
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once), and count the HGMMA (wgmma) and
-   UTMALDG (TMA load) instructions in the dx and dw libraries' SASS (none
-   fails the run);
+   UTMALDG (TMA load) instructions in the dx, dw and flash-attention
+   libraries' SASS (none fails the run), and the HMMA (mma.sync) and
+   LDGSTS (cp.async) instructions of the bf16 flash-attention kernels (any
+   fails it);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
    bf16), and time kernel, plain version, bound and a dense ``torch.matmul``
@@ -86,7 +88,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    head); three faulty controls made from the plain math must fail the same
    limits; timed with the bound over the visible pairs and SDPA
    (``enable_gqa``, causal or a window mask; its backward through autograd)
-   as the yardstick;
+   as the yardstick; each record carries its launches' tiles (rows per CTA
+   and streamed rows, from the plan) and the share of the bound reached;
 7. free the serving model and train gemma3-4b at its full configuration
    (f32 parameters, bf16 compute, batch 2 x seq 2048, remat): one step's
    loss and gradients (the first and last layers' FFN and attention
@@ -204,29 +207,47 @@ def within(got, ref, atol: float, rtol: float) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: what the backward's libraries were compiled to
+# phase 2: what the wgmma libraries were compiled to
 # ---------------------------------------------------------------------------
 
 # the instructions of Hopper's tensor-core path in SASS: HGMMA (wgmma) and
 # UTMALDG (a TMA tile load)
 SASS_OPS = ("HGMMA", "UTMALDG")
+# the Ampere-era path: HMMA (mma.sync) and LDGSTS (cp.async)
+SASS_OLD_OPS = ("HMMA", "LDGSTS")
+SASS_LIBS = ("csd_spmm_dx", "csd_spmm_dw", "flash_attention")
 
 
 def sass_counts() -> dict:
-    """``cuobjdump -sass`` of the built dx and dw libraries: how many
-    HGMMA and UTMALDG instructions each holds. Both must be there: their
-    bf16 kernels run on wgmma fed by TMA."""
+    """``cuobjdump -sass`` of the built dx, dw and flash-attention
+    libraries: how many HGMMA and UTMALDG instructions each holds (all must
+    have both: their bf16 kernels run on wgmma fed by TMA), and, per
+    function, HMMA and LDGSTS, of which the bf16 flash-attention kernels
+    (``*_wgmma_kernel``: forward, dq, dk/dv) must hold none."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
     rec = {}
-    for name in ("csd_spmm_dx", "csd_spmm_dw"):
+    for name in SASS_LIBS:
         sass = subprocess.run([str(tool), "-sass", str(build._lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        rec[name] = {op: sass.count(op) for op in SASS_OPS}
+        rec[name] = {op: sass.count(op) for op in SASS_OPS + SASS_OLD_OPS}
+        if name == "flash_attention":
+            funcs = {}
+            for part in sass.split("Function : ")[1:]:
+                fn = part.split("\n", 1)[0].strip()
+                if "wgmma_kernel" in fn:
+                    funcs[fn] = {op: part.count(op)
+                                 for op in SASS_OPS + SASS_OLD_OPS}
+            rec[name]["wgmma_kernels"] = funcs
     log(json.dumps(dict(check="sass", **rec)))
-    if any(n == 0 for r in rec.values() for n in r.values()):
-        fail(f"a backward library lacks wgmma or TMA instructions: {rec}")
+    if any(rec[n][op] == 0 for n in SASS_LIBS for op in SASS_OPS):
+        fail(f"a wgmma library lacks wgmma or TMA instructions: {rec}")
+    flash = rec["flash_attention"]["wgmma_kernels"]
+    if len(flash) < 9 or any(c[op] for c in flash.values()
+                             for op in SASS_OLD_OPS):
+        fail(f"the bf16 flash-attention kernels are not all wgmma/TMA-only "
+             f"(forward, dq and dk/dv at Dh 64, 128, 256): {flash}")
     return rec
 
 
@@ -1540,9 +1561,15 @@ def run_flash(device, results):
                     plain_ms, _ = bench([plain], 2)
                     lib_ms, _ = bench([lib], 10)
                     bound_ms, bound_by = bound(nbytes, ops, dtype)
+                    plan = fa._flash_plan(q, k, True, window, 0,
+                                          kernel.endswith("bwd"))
+                    tiles = {ln.kernel: dict(
+                        (what, tile) for what, _, tile, _ in ln.tiles)
+                        for ln in plan.launches}
                     rec = dict(kernel=kernel, model=model, dtype=dtype_name,
                                b=b, s=s, hq=hq, hkv=hkv, dh=dh,
                                window=window, visible_pairs=pairs,
+                               tiles=tiles, bound_share=bound_ms / ms,
                                max_abs_err=abs_err, err=err, tol=tol,
                                ok=ok, controls={
                                    f: dict(err={n: c["err"][n]
@@ -1847,9 +1874,12 @@ KERNEL_FUNCTIONS = {"csd_spmm_fwd": ("csd_spmm_fwd_kernel",),
                     "csd_spmm_dw": ("csd_spmm_dw_wgmma_kernel",
                                     "csd_spmm_dw_f32_kernel"),
                     "csd_mask_cotangent": ("csd_mask_cotangent_kernel",),
-                    "flash_attention": ("flash_fwd_kernel",),
+                    "flash_attention": ("flash_fwd_kernel",
+                                        "flash_fwd_wgmma_kernel"),
                     "flash_attention_bwd": ("flash_dq_kernel",
-                                            "flash_dkv_kernel")}
+                                            "flash_dkv_kernel",
+                                            "flash_dq_wgmma_kernel",
+                                            "flash_dkv_wgmma_kernel")}
 
 
 def port_kernel(name: str):

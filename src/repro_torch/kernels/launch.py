@@ -26,7 +26,7 @@ exports a ``<name>_plan`` function that fills grid, threads and shared
 memory from the host code its launcher uses; ``chip_smoke.py`` holds every
 plan against it on the card. The shared-memory formulas below are those of
 the sources' tile structs (``Tile``, ``QTile``, ``DxRing``, ``DwRing``,
-``F32Tile``, ``smem_bytes``, ``Layout``).
+``F32Tile``, ``smem_bytes``, ``Layout``, ``Tiles``).
 """
 from __future__ import annotations
 
@@ -783,35 +783,77 @@ def _ceil_arr(a: np.ndarray, b: int) -> np.ndarray:
 # csrc/flash_attention.cu
 # ---------------------------------------------------------------------------
 
-_FLASH_ROWS = 64
+_FLASH_F32_ROWS = 64      # rows of an f32 CTA (all three kernels)
+_FLASH_F32_THREADS = 256
+_FLASH_THREADS = 384      # bf16: a producer warpgroup and two consumers
+_FLASH_BOX = 128          # bytes of one 128-byte-swizzled box row
+_FLASH_STAGES = 2
+
+
+def _flash_bucket(dh: int) -> int:
+    """The head-dim bucket of the kernels' register arrays and tiles."""
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
+
+
+def flash_tiles(dtype: str, dh: int) -> Dict[str, Dict[str, int]]:
+    """Per kernel (``fwd``, ``dq``, ``dkv``): the rows a CTA owns (queries,
+    keys for dk/dv), the rows it streams per stage (keys, queries for
+    dk/dv) and its threads (``flash_attention.cu``: ``Tiles<DH>`` for
+    bf16, ``Layout`` / ``Engine<float>`` for f32)."""
+    if dtype == "float32":
+        return {k: dict(rows=_FLASH_F32_ROWS, stream=32,
+                        threads=_FLASH_F32_THREADS)
+                for k in ("fwd", "dq", "dkv")}
+    wide = _flash_bucket(dh) == 256
+    return {"fwd": dict(rows=128, stream=64 if wide else 128,
+                        threads=_FLASH_THREADS),
+            "dq": dict(rows=128, stream=64, threads=_FLASH_THREADS),
+            "dkv": dict(rows=64 if wide else 128, stream=64,
+                        threads=_FLASH_THREADS)}
 
 
 def flash_smem(dtype: str, dh: int) -> Dict[str, int]:
     """Dynamic shared memory of the forward, dq and dk/dv kernels at head
-    dim ``dh`` (``Layout<T, DHMAX>``: two stream stages where they fit)."""
-    size = _itemsize(dtype)
-    f32 = dtype == "float32"
-    c, pad = (32, 4) if f32 else (64, 8)
+    dim ``dh``: bf16 ``Tiles<DH>`` (1024 bytes of alignment, the owned
+    tiles, two stages of the streamed ones, dk/dv's per-stage lse and D,
+    the mbarriers of one ring, or of separate K and V rings in the forward
+    and dq, dq's V ring of one stage at Dh 256); f32 ``Layout<float,
+    DHMAX>`` (two stream stages where they fit)."""
+    if dtype != "float32":
+        nb = _flash_bucket(dh) // 64
+        t = flash_tiles(dtype, dh)
+        box = _FLASH_BOX
+
+        def ring(k):
+            return _FLASH_STAGES * 2 * nb * t[k]["stream"] * box
+
+        def bars(rings):
+            return 8 * (1 + 2 * _FLASH_STAGES * rings)
+        v_slots = 1 if nb == 4 else _FLASH_STAGES  # dq's V at Dh 256
+        return {"fwd": 1024 + nb * 128 * box + ring("fwd") + bars(2),
+                "dq": 1024 + 2 * nb * 128 * box
+                + (_FLASH_STAGES + v_slots) * nb * t["dq"]["stream"] * box
+                + bars(2),
+                "dkv": 1024 + 2 * nb * t["dkv"]["rows"] * box + ring("dkv")
+                + _FLASH_STAGES * 2 * t["dkv"]["stream"] * 4 + bars(1)}
+    rows, c, pad = _FLASH_F32_ROWS, 32, 4
     ld = dh + pad
-    own = _FLASH_ROWS * ld * size
-    stream = c * ld * size
-    scores = _FLASH_ROWS * (c + 4) * 4
-    probs = 0 if f32 else _FLASH_ROWS * (c + pad) * size
+    own = rows * ld * 4
+    stream = c * ld * 4
+    scores = rows * (c + 4) * 4
     need = {
-        "fwd": lambda s: own + 2 * s * stream + scores + probs
-        + _FLASH_ROWS * 4,
-        "dq": lambda s: 2 * own + 2 * s * stream + 2 * scores + probs
-        + 2 * _FLASH_ROWS * 4,
+        "fwd": lambda s: own + 2 * s * stream + scores + rows * 4,
+        "dq": lambda s: 2 * own + 2 * s * stream + 2 * scores + 2 * rows * 4,
         "dkv": lambda s: 2 * own + s * (2 * stream + 2 * c * 4)
-        + 2 * scores + 2 * probs,
+        + 2 * scores,
     }
     return {k: fn(2) if fn(2) <= SMEM_OPTIN else fn(1)
             for k, fn in need.items()}
 
 
-def _key_range(q0, sq, skv, causal, window, q_offset):
-    """Keys [lo, hi) that some query of [q0, q0 + 64) may see."""
-    q_last = np.minimum(q0 + _FLASH_ROWS, sq) - 1
+def _key_range(q0, rows, sq, skv, causal, window, q_offset):
+    """Keys [lo, hi) that some query of [q0, q0 + rows) may see."""
+    q_last = np.minimum(q0 + rows, sq) - 1
     lo = np.zeros_like(q0)
     hi = np.full_like(q0, skv)
     if causal:
@@ -821,9 +863,9 @@ def _key_range(q0, sq, skv, causal, window, q_offset):
     return lo, np.maximum(lo, hi)
 
 
-def _query_range(k0, sq, skv, causal, window, q_offset):
-    """Queries [lo, hi) that may see some key of [k0, k0 + 64)."""
-    k_last = np.minimum(k0 + _FLASH_ROWS, skv) - 1
+def _query_range(k0, rows, sq, skv, causal, window, q_offset):
+    """Queries [lo, hi) that may see some key of [k0, k0 + rows)."""
+    k_last = np.minimum(k0 + rows, skv) - 1
     lo = np.zeros_like(k0)
     hi = np.full_like(k0, sq)
     if causal:
@@ -839,13 +881,20 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int, dh: int,
                dtype: str, *, causal: bool, window: Optional[int],
                q_offset: int, backward: bool) -> LaunchPlan:
     """The plan of ``flash_attention_fwd`` (CTA (t, h, b): query rows
-    [64 t, 64 t + 64) of head h, looping over the key tiles they can see)
-    or of ``flash_attention_bwd`` (dq as the forward's grid, writing D;
-    then dk/dv, CTA (t, hk, b): key rows [64 t, 64 t + 64) of KV head hk,
-    looping over the G query heads and the query tiles that see them)."""
+    [R t, R t + R) of head h, looping over the key tiles they can see; R =
+    128 in bf16, 64 in f32) or of ``flash_attention_bwd`` (dq as the
+    forward's grid, writing D; then dk/dv, CTA (t, hk, b): key rows
+    [R' t, R' t + R') of KV head hk, R' = 128 in bf16 up to Dh 128, else
+    64, looping over the G query heads and the query tiles that see them).
+    Each launch's ``tiles`` give its rows per
+    CTA and its streamed tile (``flash_tiles``). The bf16 kernels read
+    their (tile, head, batch row) from the linear CTA index, tile slowest
+    and longest first (``tile_of``); that is a permutation of the grid,
+    which changes no box this plan lists."""
     size = _itemsize(dtype)
     grp = hq // hkv
     smem = flash_smem(dtype, dh)
+    tl = flash_tiles(dtype, dh)
     qshape, kshape = (b, sq, hq, dh), (b, skv, hkv, dh)
     buffers = {"q": Buffer(qshape, size, "in"),
                "k": Buffer(kshape, size, "in"),
@@ -853,39 +902,50 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int, dh: int,
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     args = dict(B=b, Sq=sq, Skv=skv, Hq=hq, Hkv=hkv, Dh=dh,
                 dtype=_code(dtype), backward=int(backward))
-    tiles = (("Dh", dh, 16, False), ("Sq", sq, _FLASH_ROWS, True),
-             ("Skv", skv, _FLASH_ROWS, True))
-    loop = dict(fan_in=1, fan_in_axis="loop", epilogue=True, tiles=tiles,
-                slots=lambda c: (np.zeros(len(c), np.int64),
-                                 np.ones(len(c), np.int64)))
+    slots = dict(fan_in=1, fan_in_axis="loop", epilogue=True,
+                 slots=lambda c: (np.zeros(len(c), np.int64),
+                                  np.ones(len(c), np.int64)))
 
-    def q_rows(c):
-        q0 = c[:, 0] * _FLASH_ROWS
-        return q0, np.minimum(q0 + _FLASH_ROWS, sq), c[:, 1], c[:, 2]
+    def q_launch(key, writes, reads):
+        t = tl[key]
+        rows = t["rows"]
 
-    def q_side(c, names, lse_names):
-        q0, q1, h, r = q_rows(c)
-        n = len(c)
-        return ([_box(k, n, (r, r + 1), (q0, q1), (h, h + 1), (0, dh))
-                 for k in names]
-                + [_box(k, n, (r, r + 1), (h, h + 1), (q0, q1))
-                   for k in lse_names])
+        def q_rows(c):
+            q0 = c[:, 0] * rows
+            return q0, np.minimum(q0 + rows, sq), c[:, 1], c[:, 2]
 
-    def kv_reads(c):
-        q0, _, h, r = q_rows(c)
-        lo, hi = _key_range(q0, sq, skv, **kw)
-        hk = h // grp
-        return [_box(k, len(c), (r, r + 1), (lo, hi), (hk, hk + 1), (0, dh))
-                for k in ("k", "v")]
+        def q_side(c, names, lse_names):
+            q0, q1, h, r = q_rows(c)
+            n = len(c)
+            return ([_box(k, n, (r, r + 1), (q0, q1), (h, h + 1), (0, dh))
+                     for k in names]
+                    + [_box(k, n, (r, r + 1), (h, h + 1), (q0, q1))
+                       for k in lse_names])
 
+        def kv_reads(c):
+            q0, _, h, r = q_rows(c)
+            lo, hi = _key_range(q0, rows, sq, skv, **kw)
+            hk = h // grp
+            return [_box(k, len(c), (r, r + 1), (lo, hi), (hk, hk + 1),
+                         (0, dh)) for k in ("k", "v")]
+
+        return Launch(
+            kernel=names[key], grid=(_ceil(sq, rows), hq, b),
+            threads=t["threads"], smem=smem[key],
+            writes=lambda c: q_side(c, *writes),
+            reads=lambda c, p: q_side(c, *reads) + kv_reads(c),
+            tiles=(("Dh", dh, 16, False), ("Sq", sq, rows, True),
+                   ("Skv", skv, t["stream"], True)), **slots)
+
+    bf16 = dtype != "float32"
+    names = {"fwd": "flash_fwd_wgmma_kernel" if bf16 else "flash_fwd_kernel",
+             "dq": "flash_dq_wgmma_kernel" if bf16 else "flash_dq_kernel",
+             "dkv": "flash_dkv_wgmma_kernel" if bf16
+             else "flash_dkv_kernel"}
     if not backward:
         buffers["out"] = Buffer(qshape, size, "out")
         buffers["lse"] = Buffer((b, hq, sq), 4, "out")
-        fwd = Launch(
-            kernel="flash_fwd_kernel", grid=(_ceil(sq, _FLASH_ROWS), hq, b),
-            threads=256, smem=smem["fwd"],
-            writes=lambda c: q_side(c, ("out",), ("lse",)),
-            reads=lambda c, p: q_side(c, ("q",), ()) + kv_reads(c), **loop)
+        fwd = q_launch("fwd", (("out",), ("lse",)), (("q",), ()))
         return LaunchPlan("flash_attention_fwd", buffers, (fwd,), 1, args)
 
     for k in ("o", "dout"):
@@ -895,27 +955,23 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int, dh: int,
     buffers["dk"] = Buffer(kshape, size, "out")
     buffers["dv"] = Buffer(kshape, size, "out")
     buffers["delta"] = Buffer((b, hq, sq), 4, "scratch")
-    dq = Launch(
-        kernel="flash_dq_kernel", grid=(_ceil(sq, _FLASH_ROWS), hq, b),
-        threads=256, smem=smem["dq"],
-        writes=lambda c: q_side(c, ("dq",), ("delta",)),
-        reads=lambda c, p: q_side(c, ("q", "o", "dout"), ("lse",))
-        + kv_reads(c), **loop)
+    dq = q_launch("dq", (("dq",), ("delta",)),
+                  (("q", "o", "dout"), ("lse",)))
+    krows, qtile = tl["dkv"]["rows"], tl["dkv"]["stream"]
 
     def dkv_writes(c):
-        k0 = c[:, 0] * _FLASH_ROWS
-        k1 = np.minimum(k0 + _FLASH_ROWS, skv)
+        k0 = c[:, 0] * krows
+        k1 = np.minimum(k0 + krows, skv)
         hk, r = c[:, 1], c[:, 2]
         return [_box(k, len(c), (r, r + 1), (k0, k1), (hk, hk + 1), (0, dh))
                 for k in ("dk", "dv")]
 
     def dkv_reads(c, pats):
-        k0 = c[:, 0] * _FLASH_ROWS
+        k0 = c[:, 0] * krows
         hk, r = c[:, 1], c[:, 2]
         n = len(c)
-        lo, hi = _query_range(k0, sq, skv, **kw)
-        out = [_box(k, n, (r, r + 1), (k0, np.minimum(k0 + _FLASH_ROWS,
-                                                      skv)),
+        lo, hi = _query_range(k0, krows, sq, skv, **kw)
+        out = [_box(k, n, (r, r + 1), (k0, np.minimum(k0 + krows, skv)),
                     (hk, hk + 1), (0, dh)) for k in ("k", "v")]
         for gi in range(grp):
             h = hk * grp + gi
@@ -926,9 +982,11 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int, dh: int,
         return out
 
     dkv = Launch(
-        kernel="flash_dkv_kernel", grid=(_ceil(skv, _FLASH_ROWS), hkv, b),
-        threads=256, smem=smem["dkv"], writes=dkv_writes, reads=dkv_reads,
-        **loop)
+        kernel=names["dkv"], grid=(_ceil(skv, krows), hkv, b),
+        threads=tl["dkv"]["threads"], smem=smem["dkv"], writes=dkv_writes,
+        reads=dkv_reads,
+        tiles=(("Dh", dh, 16, False), ("Skv", skv, krows, True),
+               ("Sq", sq, qtile, True)), **slots)
     return LaunchPlan("flash_attention_bwd", buffers, (dq, dkv), 1, args)
 
 

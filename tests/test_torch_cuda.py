@@ -618,6 +618,87 @@ def test_flash_attention_bwd_cuda_is_bit_identical(cuda_device, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+# chip_smoke.py phase 6c's bf16 training attention: (B, S, Hq, Hkv, Dh,
+# window) of gemma3-4b's global and local layers and of granite-moe's
+FLASH_TRAIN = {
+    "gemma3_global": (2, 2048, 8, 4, 256, None),
+    "gemma3_local": (2, 2048, 8, 4, 256, 1024),
+    "granite": (2, 2048, 16, 8, 64, None),
+}
+
+
+def _flash_train_inputs(device, shape, seed=5):
+    b, s, hq, hkv, dh, window = FLASH_TRAIN[shape]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=device) \
+            .to(torch.bfloat16)
+    return (randn(b, s, hq, dh), randn(b, s, hkv, dh), randn(b, s, hkv, dh),
+            randn(b, s, hq, dh), dict(window=window))
+
+
+def _into_nan(fn, *args, **kw):
+    """``fn``'s result with every output and scratch buffer of its launch
+    filled with NaN before the kernels run."""
+    from unittest import mock
+
+    from repro_torch.kernels import launch
+    real = launch.run
+
+    def nan_run(plan, buffers, call):
+        for name, t in buffers.items():
+            if t is not None and plan.buffers[name].role != "in":
+                t.fill_(float("nan"))
+        real(plan, buffers, call)
+    with mock.patch.object(launch, "run", nan_run):
+        return fn(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(FLASH_TRAIN))
+def test_flash_attention_cuda_bf16_at_training_shapes(cuda_device, shape):
+    """The bf16 forward and backward at full training width, launched into
+    NaN-filled outputs, held per 64-row block against the plain versions."""
+    q, k, v, do, kw = _flash_train_inputs(cuda_device, shape)
+    fwd_tol, bwd_tol = FLASH_TOL[torch.bfloat16]
+    o, lse = _into_nan(flash_attention.flash_attention_cuda, q, k, v,
+                       return_lse=True, **kw)
+    o_ref, lse_ref = flash_attention.flash_attention_plain(
+        q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(o).any() or torch.isnan(lse).any())
+    _block_close(o, o_ref, fwd_tol)
+    assert float((lse - lse_ref).abs().max()) <= fwd_tol
+    del o_ref, lse_ref
+    got = _into_nan(flash_attention.flash_attention_bwd_cuda, q, k, v, o, lse,
+                    do, **kw)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert not bool(torch.isnan(g).any())
+        _block_close(g, w, bwd_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(FLASH_TRAIN))
+def test_flash_attention_cuda_bf16_is_bit_identical_at_training_shapes(
+        cuda_device, shape):
+    q, k, v, do, kw = _flash_train_inputs(cuda_device, shape)
+    first = flash_attention.flash_attention_cuda(q, k, v, return_lse=True,
+                                                 **kw)
+    second = flash_attention.flash_attention_cuda(q, k, v, return_lse=True,
+                                                  **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    o, lse = first
+    first = flash_attention.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                     **kw)
+    second = flash_attention.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                      **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.cuda
 def test_flash_attention_cuda_refuses_dh_8(cuda_device):
     q, k, v, do, kw = _flash_case(cuda_device, torch.bfloat16, 8,
