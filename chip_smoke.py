@@ -9,14 +9,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version; turn TF32 off so that f32 references run in full f32;
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once), and count the HGMMA (wgmma) and
-   UTMALDG (TMA load) instructions in the dx, dw and flash-attention
-   libraries' SASS (none fails the run), and the HMMA (mma.sync) and
-   LDGSTS (cp.async) instructions of the bf16 flash-attention kernels (any
-   fails it);
+   UTMALDG (TMA load) instructions in the forward, dx, dw and
+   flash-attention libraries' SASS (none fails the run), and the HMMA
+   (mma.sync) and LDGSTS (cp.async) instructions of the forward's wgmma
+   body and the bf16 flash-attention kernels (any fails it);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
    bf16), and time kernel, plain version, bound and a dense ``torch.matmul``
-   yardstick;
+   yardstick; each forward record of phases 3, 3c, 6 and 6b names the body
+   its plan runs (the grid body or the wgmma body and its tile);
 4. the same for ``paged_decode_attention`` (B = 4, Hkv = 4, G = 2, Dh = 256,
    page 16, lengths past 1024, window None and 1024, -1 table entries and an
    empty row), with SDPA over the gathered KV as the yardstick, and
@@ -206,6 +207,31 @@ def within(got, ref, atol: float, rtol: float) -> bool:
     return bool((d <= atol + rtol * ref.float().abs()).all())
 
 
+def fwd_body(fn, *args, **kw) -> dict:
+    """Which body of ``csrc/csd_spmm_fwd.cu`` the forward wrapper ``fn``
+    runs for these operands, read from the plan it builds for this card
+    (captured, not launched): the kernel, its grid, the output columns of
+    its tile and the fan-in splits."""
+    from repro_torch.analysis.capture import capture_launch
+    from repro_torch.kernels import launch
+    plan = capture_launch(fn, *args, n_sm=launch.sm_count(args[0].device),
+                          **kw)
+    ln = plan.launches[0]
+    return dict(body=ln.kernel, grid=list(ln.grid),
+                tile_n=dict((t[0], t[2]) for t in ln.tiles)["n_out"],
+                n_splits=plan.n_splits)
+
+
+def check_training_body(rec: dict) -> None:
+    """Fail if a bf16 forward at a training shape (a record of phases 6 and
+    6b with ``fwd_body``'s keys) would run another body than the wgmma
+    body on this card."""
+    if "body" in rec and rec["dtype"] == "bfloat16" \
+            and rec["body"] != "csd_spmm_fwd_wgmma_kernel":
+        fail(f"the bf16 training forward takes {rec['body']}, not the "
+             f"wgmma body: {rec}")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: what the wgmma libraries were compiled to
 # ---------------------------------------------------------------------------
@@ -215,15 +241,21 @@ def within(got, ref, atol: float, rtol: float) -> bool:
 SASS_OPS = ("HGMMA", "UTMALDG")
 # the Ampere-era path: HMMA (mma.sync) and LDGSTS (cp.async)
 SASS_OLD_OPS = ("HMMA", "LDGSTS")
-SASS_LIBS = ("csd_spmm_dx", "csd_spmm_dw", "flash_attention")
+SASS_LIBS = ("csd_spmm_fwd", "csd_spmm_dx", "csd_spmm_dw", "flash_attention")
+# libraries whose every ``*_wgmma_kernel`` must hold no Ampere-era
+# instruction, and how many such functions each has at least: the
+# forward's wgmma body (3 tile widths x 3 activations), the bf16
+# flash-attention kernels (forward, dq and dk/dv at Dh 64, 128, 256)
+SASS_WGMMA_ONLY = {"csd_spmm_fwd": 9, "flash_attention": 9}
 
 
 def sass_counts() -> dict:
-    """``cuobjdump -sass`` of the built dx, dw and flash-attention
+    """``cuobjdump -sass`` of the built forward, dx, dw and flash-attention
     libraries: how many HGMMA and UTMALDG instructions each holds (all must
-    have both: their bf16 kernels run on wgmma fed by TMA), and, per
-    function, HMMA and LDGSTS, of which the bf16 flash-attention kernels
-    (``*_wgmma_kernel``: forward, dq, dk/dv) must hold none."""
+    have both: their bf16 kernels at the training shapes run on wgmma fed
+    by TMA), and, per function, HMMA and LDGSTS, of which the forward's
+    wgmma body and the bf16 flash-attention kernels (``*_wgmma_kernel``)
+    must hold none."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
     rec = {}
@@ -232,7 +264,7 @@ def sass_counts() -> dict:
                               capture_output=True, text=True,
                               check=True).stdout
         rec[name] = {op: sass.count(op) for op in SASS_OPS + SASS_OLD_OPS}
-        if name == "flash_attention":
+        if name in SASS_WGMMA_ONLY:
             funcs = {}
             for part in sass.split("Function : ")[1:]:
                 fn = part.split("\n", 1)[0].strip()
@@ -243,11 +275,12 @@ def sass_counts() -> dict:
     log(json.dumps(dict(check="sass", **rec)))
     if any(rec[n][op] == 0 for n in SASS_LIBS for op in SASS_OPS):
         fail(f"a wgmma library lacks wgmma or TMA instructions: {rec}")
-    flash = rec["flash_attention"]["wgmma_kernels"]
-    if len(flash) < 9 or any(c[op] for c in flash.values()
-                             for op in SASS_OLD_OPS):
-        fail(f"the bf16 flash-attention kernels are not all wgmma/TMA-only "
-             f"(forward, dq and dk/dv at Dh 64, 128, 256): {flash}")
+    for name, least in SASS_WGMMA_ONLY.items():
+        funcs = rec[name]["wgmma_kernels"]
+        if len(funcs) < least or any(c[op] for c in funcs.values()
+                                     for op in SASS_OLD_OPS):
+            fail(f"the wgmma kernels of {name} are not all wgmma/TMA-only "
+                 f"(at least {least} of them): {funcs}")
     return rec
 
 
@@ -320,6 +353,8 @@ def run_spmm(cfg, device, results):
         bound_ms, bound_by = bound(nbytes, ops, dtype)
         rec = dict(kernel="csd_spmm_fwd", junction=name, m=m,
                    dtype=dtype_name, activation=act, bias=with_bias,
+                   **fwd_body(csd_spmm.csd_spmm_fwd_cuda, xs[0], ws[0], idx,
+                              **kw),
                    max_abs_err=abs_e, max_rel_err=rel_e, atol=atol,
                    rtol=rtol, ok=ok, ms=ms, host_ms=host_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -642,7 +677,7 @@ def dense_of_experts(bp, w):
 def run_spmm_batched(cfg, device, results):
     import torch
     from repro_torch.core.quant import dequantize_slab, quantize_slab
-    from repro_torch.kernels import csd_spmm, launch
+    from repro_torch.kernels import csd_spmm
     g = torch.Generator(device=device).manual_seed(SEED + 5)
     n_exp = cfg.moe.n_routed
     up, down = expert_patterns(cfg)
@@ -713,12 +748,13 @@ def run_spmm_batched(cfg, device, results):
                     + (el * n_exp * bp.n_out if with_bias else 0) \
                     + 4 * idx.numel()
                 bound_ms, bound_by = bound(nbytes, 2 * m * n_w, dtype)
+                w, sc = slabs[0]
                 rec = dict(kernel=kernel, junction=name, experts=n_exp, m=m,
                            dtype=dtype_name, activation=act, bias=with_bias,
                            w_shape=list(shape),
-                           n_splits=launch.split_count(
-                               m, bp.n_out, bp.d_in_b,
-                               launch.sm_count(device), n_exp),
+                           **fwd_body(csd_spmm.csd_spmm_fwd_batched_cuda, x,
+                                      w, idx, bias=bias, activation=act,
+                                      w_scale=sc),
                            max_abs_err=abs_e, max_rel_err=rel_e,
                            max_abs_ref=float(ref.float().abs().max()),
                            **tol, ok=ok, ms=ms, host_ms=host_ms,
@@ -1216,14 +1252,18 @@ def run_train_kernels(cfg, device, results):
             for kernel, on_g, run, plain, lib, nbytes in cases:
                 rec = hold_and_time(kernel, run, plain, lib,
                                     nbytes + idx_bytes, ops, dtype)
+                body = fwd_body(csd_spmm.csd_spmm_fwd_cuda, x, w,
+                                pat["block_idx"], **kfw) \
+                    if kernel == "csd_spmm_fwd" else {}
                 rec = dict(rec, junction=name, m=m, dtype=dtype_name,
                            activation=None if on_g else act, on_g=on_g,
                            save_preact=kernel == "csd_spmm_fwd"
-                           and kfw["save_preact"])
+                           and kfw["save_preact"], **body)
                 results.append(rec)
                 log(json.dumps(rec))
                 if not rec["ok"]:
                     fail(f"{kernel} disagrees with its plain version: {rec}")
+                check_training_body(rec)
             if act:
                 rec = hold_and_time(
                     "csd_mask_cotangent",
@@ -1317,15 +1357,20 @@ def run_train_kernels_batched(cfg, device, results):
                 rec = hold_and_time(kernel, run, plain, lib,
                                     nbytes + 4 * pat["block_idx"].numel(),
                                     2 * m * n_w, dtype)
+                body = fwd_body(csd_spmm.csd_spmm_fwd_batched_cuda, x, w,
+                                pat["block_idx"], **kfw) \
+                    if kernel == "csd_spmm_fwd_batched" else {}
                 rec = dict(rec, junction=name, experts=n_exp, m=m,
                            dtype=dtype_name, activation=act, want_db=want_db,
                            save_preact=kernel == "csd_spmm_fwd_batched"
                            and sp, w_shape=list(shape),
-                           library="torch.bmm over the densified slabs")
+                           library="torch.bmm over the densified slabs",
+                           **body)
                 results.append(rec)
                 log(json.dumps(rec))
                 if not rec["ok"]:
                     fail(f"{kernel} disagrees with its plain version: {rec}")
+                check_training_body(rec)
             if act:
                 rec = hold_and_time(
                     "csd_mask_cotangent",
@@ -1868,7 +1913,8 @@ def train(device, cfg, out_dir, trace="train_trace"):
 
 
 # the port's kernels by the names of their CUDA functions
-KERNEL_FUNCTIONS = {"csd_spmm_fwd": ("csd_spmm_fwd_kernel",),
+KERNEL_FUNCTIONS = {"csd_spmm_fwd": ("csd_spmm_fwd_kernel",
+                                     "csd_spmm_fwd_wgmma_kernel"),
                     "csd_spmm_dx": ("csd_spmm_dx_wgmma_kernel",
                                     "csd_spmm_dx_f32_kernel"),
                     "csd_spmm_dw": ("csd_spmm_dw_wgmma_kernel",
@@ -2408,7 +2454,7 @@ def main() -> int:
             launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            shape=shape))
+            shape=shape, **({"body": rec["body"]} if "body" in rec else {})))
     entries.append(dict(
         name="csd_spmm_fwd_injected_alias", route="cuda",
         source="src/repro_torch/kernels/csrc/csd_spmm_fwd_injected_alias.cu",

@@ -522,7 +522,8 @@ def demo_cases() -> List[KernelCase]:
     """Every shipped kernel family at the reference's demo size: 128 x 128
     blocks, 4 x 4 at density 0.5, M 256, two experts in the 5-D forms; the
     bf16 backward also at a ragged M of 77 rows over 64 x 64 blocks and
-    over three experts."""
+    over three experts; the bf16 forward's wgmma body at a ragged M of
+    1000 rows of three experts over 64 x 64 blocks (64-column tiles)."""
     bp = _demo_pattern()
     bp64 = _demo_pattern(block_in=64, block_out=64, n_lb=4, n_rb=6)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -534,6 +535,8 @@ def demo_cases() -> List[KernelCase]:
         _fwd_case("csd_spmm_fwd_4d_plain", bp, 256, f32),
         _fwd_case("csd_spmm_fwd_5d_batched", bp, 256, f32, experts=2,
                   activation="relu", bias=True),
+        _fwd_case("csd_spmm_fwd_5d_bf16_bl64_e3_m1000", bp64, 1000, bf16,
+                  experts=3, activation="gelu", bias=True, save_preact=True),
         _fwd_case("csd_spmm_fwd_quant_4d", bp, 256, f32, activation="relu",
                   bias=True, quant=True),
         _fwd_case("csd_spmm_fwd_quant_5d_batched", bp, 256, f32, experts=2,

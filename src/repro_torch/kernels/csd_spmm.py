@@ -28,10 +28,13 @@ Two implementations of each operation live here:
   what a CPU tensor runs and what the CUDA kernels are held against.
 * ``*_cuda`` — the hand-written Hopper kernels under ``csrc/``. They take
   CUDA tensors only and raise on anything they do not take; they never fall
-  back to the plain version. Each counts its launches in ``.launches``,
-  builds its launch plan (``launch.fwd_plan``, ``dx_plan``, ``dw_plan``,
-  ``mask_plan``:
-  split count, grid, shared memory, what each CTA reads and writes) and
+  back to the plain version. The full-width forward has two bodies, the
+  persistent ``wgmma`` body (bf16 at the training and most prefill
+  shapes) and the grid body, which ``launch.fwd_tile_n`` chooses between.
+  Each counts its launches in
+  ``.launches``, builds its launch plan (``launch.fwd_plan``,
+  ``dx_plan``, ``dw_plan``, ``mask_plan``: split count, grid, shared
+  memory, what each CTA reads and writes) and
   launches through ``launch.run``, the hook sparselint captures plans
   through.
 
@@ -308,11 +311,12 @@ def _stream():
 
 
 def _check_fwd_shapes(name: str, x, w, block_idx, bias,
-                      batched: bool) -> tuple:
+                      batched: bool, grid_body: bool = True) -> tuple:
     """(E, M, n_in, n_rb, d_in_b, bL, bR) of a forward launch: x (M, n_in)
     with w (n_rb, d_in_b, bL, bR) and bias (n_rb * bR,) as E = 1, or with
     ``batched`` x (E, M, n_in), w (E, n_rb, d_in_b, bL, bR) and bias (E,
-    n_rb * bR)."""
+    n_rb * bR). ``grid_body``: the launch runs ``csd_spmm_fwd.cuh``'s grid
+    body, whose row tiles of all experts fill gridDim.y (at most 65535)."""
     if (x.dim(), w.dim()) != ((3, 5) if batched else (2, 4)):
         raise ValueError(f"{name}: x must be {3 if batched else 2}-D and w "
                          f"{5 if batched else 4}-D")
@@ -322,7 +326,7 @@ def _check_fwd_shapes(name: str, x, w, block_idx, bias,
     if bl % 64 or br % 64 or n_in % bl or (batched and w.shape[0] != e) \
             or tuple(block_idx.shape) != (n_rb, d_in_b) \
             or (bias is not None and tuple(bias.shape) != bias_shape) \
-            or e * -(-m // launch.block_m(m)) > 65535:
+            or (grid_body and e * -(-m // launch.block_m(m)) > 65535):
         raise ValueError(
             f"{name}: shapes not taken: x {tuple(x.shape)}, "
             f"w {tuple(w.shape)} (bL and bR must be multiples of 64), "
@@ -341,30 +345,35 @@ def _partial(plan, x, e: int, m: int, n_out: int):
 def _launch_fwd(name: str, x, w, block_idx, bias, activation, save_preact,
                 batched: bool, n_splits: Optional[int] = None):
     """Check and launch ``csrc/csd_spmm_fwd.cu`` through its plan; (y, z or
-    None, whether the kernel was launched). ``n_splits`` forces the plan's
-    split count (a test's comparison; the wrappers leave it to the plan)."""
+    None, whether the kernel was launched). ``n_splits`` forces the grid
+    body's split count (a test's comparison; the wrappers leave it to the
+    plan)."""
     floats = (x, w) if bias is None else (x, w, bias)
     launch.check_device(name, floats + (block_idx,))
     _check_dtypes(name, floats, (block_idx,))
     e, m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
-        name, x, w, block_idx, bias, batched)
+        name, x, w, block_idx, bias, batched, grid_body=False)
     y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
                     device=x.device)
     z = torch.empty_like(y) if save_preact else None
     if y.numel() == 0:
         return y, z, False
+    n_sm = launch.sm_count(x.device)
     plan = launch.fwd_plan(
         e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x), has_bias=bias is not None,
-        save_preact=save_preact, quant=False, n_sm=launch.sm_count(x.device),
+        save_preact=save_preact, quant=False, n_sm=n_sm,
         n_splits=n_splits).with_patterns(block_idx=block_idx)
+    if plan.launches[0].kernel == "csd_spmm_fwd_kernel":
+        _check_fwd_shapes(name, x, w, block_idx, bias, batched)
     partial = _partial(plan, x, e, m, n_rb * br)
     launch.run(plan, dict(x=x, w=w, block_idx=block_idx, bias=bias, y=y, z=z,
                           partial=partial),
-               lambda: _bind("csd_spmm_fwd", 7, 10)(
+               lambda: _bind("csd_spmm_fwd", 7, 12)(
                    x.data_ptr(), w.data_ptr(), block_idx.data_ptr(),
                    _ptr(bias), y.data_ptr(), _ptr(z), _ptr(partial),
-                   e, m, n_in, n_rb, d_in_b, bl, br, plan.n_splits,
-                   _DTYPE_CODE[x.dtype], _ACT_CODE[activation], _stream()))
+                   e, m, n_in, n_rb, d_in_b, bl, br, plan.n_splits, n_sm,
+                   plan.args["tile_n"], _DTYPE_CODE[x.dtype],
+                   _ACT_CODE[activation], _stream()))
     return y, z, True
 
 

@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks of the wgmma/TMA kernels (csd_spmm_dx.cu,
-// csd_spmm_dw.cu, flash_attention.cu), in inline PTX: mbarriers, 3-D and
-// 4-D TMA tile loads, wgmma shared-memory descriptors for the 128-byte
-// swizzle, the bf16 m64nNk16 products with f32 accumulators in registers
-// (A from shared memory, or from registers), and the host side that
-// encodes a tensor map through the driver entry point (so the libraries
-// need no -lcuda).
+// Hopper (sm_90a) building blocks of the wgmma/TMA kernels (csd_spmm_fwd.cu,
+// csd_spmm_dx.cu, csd_spmm_dw.cu, flash_attention.cu), in inline PTX:
+// mbarriers, 3-D and 4-D TMA tile loads, 3-D TMA tile stores with their
+// bulk groups and proxy fence, named barriers, wgmma shared-memory
+// descriptors for the 128-byte swizzle, the bf16 m64nNk16 products with
+// f32 accumulators in registers (A from shared memory, or from registers),
+// and the host side that encodes a tensor map through the driver entry
+// point (so the libraries need no -lcuda).
 //
 // Every tile in shared memory is the one layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), row r of a box
@@ -106,6 +107,48 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A (64 x rows) box from shared memory to a 3-D tensor map at coordinates
+// (c0 innermost, c1, c2), in this thread's bulk async-group; coordinates
+// past the tensor's extents (a ragged M) are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory source (the source may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete (their
+// writes done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory stores visible to the TMA unit.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of `threads` threads on hardware barrier `id` (0 is
+// __syncthreads'): one warpgroup synchronises without the others.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor of an operand at `addr` (1024-byte

@@ -25,8 +25,8 @@ launch goes through (``analysis.capture`` patches it, with ``sm_count`` and
 exports a ``<name>_plan`` function that fills grid, threads and shared
 memory from the host code its launcher uses; ``chip_smoke.py`` holds every
 plan against it on the card. The shared-memory formulas below are those of
-the sources' tile structs (``Tile``, ``QTile``, ``DxRing``, ``DwRing``,
-``F32Tile``, ``smem_bytes``, ``Layout``, ``Tiles``).
+the sources' tile structs (``Tile``, ``QTile``, ``FwdRing``, ``DxRing``,
+``DwRing``, ``F32Tile``, ``smem_bytes``, ``Layout``, ``Tiles``).
 """
 from __future__ import annotations
 
@@ -357,18 +357,164 @@ def _reduce_launch(e: int, m: int, n_out: int, n_splits: int,
         epilogue=True, tiles=(("E*M*n_out", total, 256, True),))
 
 
+# the forward's wgmma body (csd_spmm_fwd_wgmma_kernel): 128-row tiles, a
+# producer warpgroup and two wgmma consumers, a ring of 64-deep stages
+_WGMMA_BM = 128
+_WGMMA_THREADS = 384
+
+
+def _rounds(n_tiles: int, n_ctas: int, c: np.ndarray):
+    """The tiles of persistent CTA x, round by round: (tile, skip) arrays
+    per round, tile = x + round * n_ctas, skip where it is past the last
+    tile."""
+    for r in range(_ceil(n_tiles, n_ctas)):
+        tile = c[:, 0] + r * n_ctas
+        skip = tile >= n_tiles
+        yield np.where(skip, 0, tile), skip
+
+
+def fwd_wgmma_smem(bn: int) -> int:
+    """``FwdRing<BN>::SMEM``: the ring of (x, w) stages (3 at BN 256, else
+    4), each consumer's staging tiles of y and z (one each below BN 256,
+    one for both at 256), 1024 bytes to align the ring, a full and an
+    empty barrier per stage."""
+    stages, bufs = (3, 1) if bn == 256 else (4, 2)
+    return stages * (_WGMMA_BM + bn) * 64 * 2 + 2 * bufs * 64 * bn * 2 \
+        + 1024 + 2 * stages * 8
+
+
+def _wgmma_tiles(e: int, m: int, n_rb: int, br: int, bn: int) -> int:
+    return e * _ceil(m, _WGMMA_BM) * (n_rb * br // bn)
+
+
+def fwd_full_tiles(n_tiles: int, n_ctas: int, bn: int) -> int:
+    """``fwd_full_tiles`` in ``csrc/csd_spmm_fwd.cu``, the schedule the
+    wgmma body runs: how many of its tiles the persistent CTAs run whole.
+    All, unless the last round's tiles would keep at most half the CTAs
+    busy; those then run as two halves of bn / 2 columns each (not at bn
+    64), so that the last round takes about half as long."""
+    rest = n_tiles % n_ctas
+    return n_tiles - rest if bn > 64 and rest and 2 * rest <= n_ctas \
+        else n_tiles
+
+
+def _schedule_cost(n_tiles: int, n_sm: int, bn: int) -> int:
+    """How long the wgmma body's persistent schedule of ``n_tiles`` tiles
+    of width ``bn`` runs on ``n_sm`` SMs, in columns: each round costs its
+    tiles' width (bn, or bn / 2 for a halved last round) plus 32 for the
+    fixed part of a tile (filling the ring, the epilogue)."""
+    n_ctas = min(n_tiles, n_sm)
+    n_full = fwd_full_tiles(n_tiles, n_ctas, bn)
+    return _ceil(n_full, n_ctas) * (bn + 32) \
+        + (bn // 2 + 32 if n_full < n_tiles else 0)
+
+
+def fwd_tile_n(dtype: str, e: int, m: int, n_rb: int, br: int,
+               n_sm: int) -> int:
+    """Which body the full-width forward runs: the wgmma body's tile
+    width, or 0 for the grid body. The width is the one of 256, 128 and 64
+    dividing bR whose schedule ``_schedule_cost`` rates shortest (the
+    widest of equals). bf16 takes the wgmma body from one whole 128-row
+    tile per expert (M >= 128), and below it where those tiles number at
+    least half of ``n_sm``, except the single junction's decode (E = 1, M
+    <= 16), which keeps the grid body's 16-row tile; f32 the grid body.
+    (Read off ``tools/time_forward.py --bodies``: PERF.md, section 6.)"""
+    if dtype != "bfloat16":
+        return 0
+    widths = [bn for bn in (256, 128, 64) if br % bn == 0]
+    bn = min(widths, key=lambda w: _schedule_cost(
+        _wgmma_tiles(e, m, n_rb, br, w), n_sm, w))
+    if m >= _WGMMA_BM:
+        return bn
+    fills = 2 * _wgmma_tiles(e, m, n_rb, br, bn) >= n_sm
+    return bn if fills and (e > 1 or m > 16) else 0
+
+
+def _fwd_wgmma_launch(e: int, m: int, n_rb: int, d_in_b: int, bl: int,
+                      br: int, bn: int, n_sm: int, *, has_bias: bool,
+                      save_preact: bool) -> Launch:
+    """``csd_spmm_fwd_wgmma_kernel``: n_ctas = min(tiles, n_sm) persistent
+    CTAs, CTA b taking units b, b + n_ctas, ... A tile is rows [128 i,
+    128 i + 128) of one expert by columns [BN j, BN j + BN) of right block
+    BN j // bR, in the order (expert, column tile, row tile), rows fastest;
+    a unit is a whole tile, or one BN / 2-column half of one of the tiles
+    that ``fwd_full_tiles`` leaves to halves, the two halves adjacent. The
+    CTA loops over the block's d_in_b fan-in slots."""
+    n_out = n_rb * br
+    m_tiles = _ceil(m, _WGMMA_BM)
+    n_col = n_out // bn
+    n_tiles = _wgmma_tiles(e, m, n_rb, br, bn)
+    n_ctas = min(n_tiles, n_sm)
+    n_full = fwd_full_tiles(n_tiles, n_ctas, bn)
+    n_units = n_full + 2 * (n_tiles - n_full)
+
+    def geo(u):
+        half = u >= n_full
+        tile = np.where(half, n_full + (u - n_full) // 2, u)
+        rest = tile // m_tiles
+        col0 = (rest % n_col) * bn \
+            + np.where(half, (u - n_full) % 2 * (bn // 2), 0)
+        rb = col0 // br
+        m0 = (tile % m_tiles) * _WGMMA_BM
+        return (col0, np.where(half, bn // 2, bn), rb, col0 - rb * br,
+                rest // n_col, m0, np.minimum(m0 + _WGMMA_BM, m))
+
+    def writes(c):
+        out = []
+        for u, skip in _rounds(n_units, n_ctas, c):
+            col0, width, _, _, ex, m0, m1 = geo(u)
+            rows, cols = (ex * m + m0, ex * m + m1), (col0, col0 + width)
+            out.append(_empty_where(_box("y", len(c), rows, cols), skip))
+            if save_preact:
+                out.append(_empty_where(_box("z", len(c), rows, cols), skip))
+        return out
+
+    def reads(c, pats):
+        n = len(c)
+        idx = pats["block_idx"]
+        out = []
+        for u, skip in _rounds(n_units, n_ctas, c):
+            col0, width, rb, n0, ex, m0, m1 = geo(u)
+            rbc = np.minimum(rb, idx.shape[0] - 1)
+            out.append(_empty_where(
+                _box("block_idx", n, (rb, rb + 1), (0, d_in_b)), skip))
+            for f in range(d_in_b):
+                lb = idx[rbc, min(f, idx.shape[1] - 1)].astype(np.int64)
+                out.append(_empty_where(_box(
+                    "x", n, (ex * m + m0, ex * m + m1),
+                    (lb * bl, lb * bl + bl)), skip))
+                out.append(_empty_where(_box(
+                    "w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1), (0, bl),
+                    (n0, n0 + width)), skip))
+            if has_bias:
+                out.append(_empty_where(_box(
+                    "bias", n, (ex, ex + 1), (col0, col0 + width)), skip))
+        return out
+
+    return Launch(
+        kernel="csd_spmm_fwd_wgmma_kernel", grid=(n_ctas, 1, 1),
+        threads=_WGMMA_THREADS, smem=fwd_wgmma_smem(bn),
+        writes=writes, reads=reads, fan_in=d_in_b, fan_in_axis="loop",
+        slots=lambda c: (np.zeros(len(c), np.int64),
+                         np.full(len(c), d_in_b, np.int64)),
+        epilogue=True,
+        tiles=(("n_out", n_out, bn, False), ("bR", br, bn, False),
+               ("bL", bl, 64, False), ("M", m, _WGMMA_BM, True)))
+
+
 @functools.lru_cache(maxsize=4096)
 def fwd_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
              br: int, dtype: str, *, has_bias: bool, save_preact: bool,
              quant: bool, n_sm: int, n_splits: Optional[int] = None
              ) -> LaunchPlan:
     """The plan of ``csd_spmm_fwd`` (``quant``: ``csd_spmm_fwd_quant``)
-    over E experts of M rows (E = 1: the 4-D junction). ``n_splits``
-    defaults to ``split_count``'s choice for ``n_sm``; a test may force it
-    (every split must own a slot)."""
+    over E experts of M rows (E = 1: the 4-D junction). The full-width
+    forward runs the body ``fwd_tile_n`` picks for ``n_sm`` SMs, passed to
+    the library as ``tile_n``: the persistent wgmma body, or the grid body,
+    whose ``n_splits`` defaults to ``split_count``'s choice (a test may
+    force it; every split must own a slot). The int8 forward has the grid
+    body only."""
     n_out = n_rb * br
-    if n_splits is None:
-        n_splits = split_count(m, n_out, d_in_b, n_sm, e)
     size = _itemsize(dtype)
     buffers = {
         "x": Buffer((e * m, n_in), size, "in"),
@@ -383,19 +529,33 @@ def fwd_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
     if save_preact:
         buffers["z"] = Buffer((e * m, n_out), size, "out")
     name = "csd_spmm_fwd_quant" if quant else "csd_spmm_fwd"
-    kernel = f"{name}_kernel"
+    kw = dict(has_bias=has_bias, save_preact=save_preact)
+    bn = 0 if quant else fwd_tile_n(dtype, e, m, n_rb, br, n_sm)
+    if bn:
+        if n_splits not in (None, 1):
+            raise ValueError("csd_spmm_fwd: the wgmma body does not split "
+                             "the fan-in")
+        n_splits = 1
+        launches = (_fwd_wgmma_launch(e, m, n_rb, d_in_b, bl, br, bn, n_sm,
+                                      **kw),)
+    else:
+        if n_splits is None:
+            n_splits = split_count(m, n_out, d_in_b, n_sm, e)
+        split = functools.partial(_fwd_split_launch, f"{name}_kernel", e, m,
+                                  n_rb, d_in_b, bl, br, dtype, quant=quant,
+                                  **kw)
+        if n_splits == 1:
+            launches = (split(n_splits=1, target="y"),)
+        else:
+            buffers["partial"] = Buffer((n_splits, e * m, n_out), 4,
+                                        "scratch")
+            launches = (
+                split(n_splits=n_splits, target="partial"),
+                _reduce_launch(e, m, n_out, n_splits, has_bias, save_preact))
     args = dict(E=e, M=m, n_rb=n_rb, bR=br, n_splits=n_splits,
                 dtype=_code(dtype))
-    kw = dict(quant=quant, has_bias=has_bias, save_preact=save_preact)
-    if n_splits == 1:
-        launches = (_fwd_split_launch(kernel, e, m, n_rb, d_in_b, bl, br,
-                                      dtype, n_splits=1, target="y", **kw),)
-    else:
-        buffers["partial"] = Buffer((n_splits, e * m, n_out), 4, "scratch")
-        launches = (
-            _fwd_split_launch(kernel, e, m, n_rb, d_in_b, bl, br, dtype,
-                              n_splits=n_splits, target="partial", **kw),
-            _reduce_launch(e, m, n_out, n_splits, has_bias, save_preact))
+    if not quant:
+        args.update(n_sm=n_sm, tile_n=bn)
     return LaunchPlan(name, buffers, launches, n_splits, args)
 
 
@@ -433,16 +593,6 @@ def dw_tile(bl: int, br: int, dtype: str) -> Tuple[int, int]:
     if dtype == "float32":
         return 64, 64
     return (128 if bl % 128 == 0 else 64), _widest(br)
-
-
-def _rounds(n_tiles: int, n_ctas: int, c: np.ndarray):
-    """The tiles of persistent CTA x, round by round: (tile, skip) arrays
-    per round, tile = x + round * n_ctas, skip where it is past the last
-    tile."""
-    for r in range(_ceil(n_tiles, n_ctas)):
-        tile = c[:, 0] + r * n_ctas
-        skip = tile >= n_tiles
-        yield np.where(skip, 0, tile), skip
 
 
 @functools.lru_cache(maxsize=4096)
@@ -997,7 +1147,8 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int, dh: int,
 # plan name -> (source, exported plan function, its int arguments in order)
 PLAN_EXPORTS = {
     "csd_spmm_fwd": ("csd_spmm_fwd", "csd_spmm_fwd_plan",
-                     ("E", "M", "n_rb", "bR", "n_splits", "dtype")),
+                     ("E", "M", "n_rb", "bR", "n_splits", "n_sm", "tile_n",
+                      "dtype")),
     "csd_spmm_fwd_quant": ("csd_spmm_fwd_quant", "csd_spmm_fwd_quant_plan",
                            ("E", "M", "n_rb", "bR", "n_splits", "dtype")),
     "csd_spmm_dx": ("csd_spmm_dx", "csd_spmm_dx_plan",

@@ -274,11 +274,13 @@ def _batched_junction(seed, e, m, n_in, n_out, bl, br, rho=0.5):
 @pytest.mark.parametrize("activation", [None, "gelu"])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16-slab", "int8"])
 def test_csd_spmm_batched_cuda_matches_plain(cuda_device, quant, activation,
-                                             m, dtype, tol):
+                                             m, dtype, tol, force_body):
     """Granite's down junction shape (128 x 256 blocks, fan-in 3) at 6
     experts, with bias; on 132 SMs the fan-in slots split over 3, 3 and 2
     CTAs at m = 3, 16 and 100, so the second pass runs with an expert
-    stride in the bias."""
+    stride in the bias (the grid body, forced: in bf16 the rule takes the
+    wgmma body for these 96 64-wide tiles)."""
+    force_body(0)
     bp, x, w, b = _batched_junction(7, 6, m, n_in=512, n_out=1024, bl=128,
                                     br=256, rho=0.75)
     xd = _t(x).to(cuda_device, dtype)
@@ -516,6 +518,162 @@ def test_csd_spmm_bwd_cuda_ragged_nan_filled_repeatable(cuda_device, case,
     for got, ref, tol in zip(first[1:], refs[1:],
                              (TRAIN_TOL[dtype], TRAIN_TOL[dtype], DB_TOL)):
         _close(got, ref, tol)
+
+
+# ---------------------------------------------------------------------------
+# the forward's wgmma body (csd_spmm_fwd_wgmma_kernel)
+# ---------------------------------------------------------------------------
+
+# three experts of a ragged M (three 128-row tiles, the last of 44 rows)
+# over 128 x 256 blocks, so that every tile width (64, 128, 256) divides bR
+WGMMA_E, WGMMA_M = 3, 300
+WGMMA_JUNCTION = dict(n_in=512, n_out=1024, bl=128, br=256, rho=0.5)
+
+
+@pytest.fixture
+def force_body(monkeypatch):
+    """``force_body(t)``: the forward's plans take the body of tile width
+    ``t`` (0 the grid body) whatever ``launch.fwd_tile_n``'s rule picks."""
+    from repro_torch.kernels import launch
+
+    def force(tile_n):
+        monkeypatch.setattr(launch, "fwd_tile_n", lambda *a: tile_n)
+        launch.fwd_plan.cache_clear()
+    yield force
+    launch.fwd_plan.cache_clear()
+
+
+def _wgmma_fwd(x, w, idx, **kw):
+    """The forward through its wrapper (with ``force_body`` the wgmma body
+    at a forced width: the rule would pick another for so few tiles)."""
+    fn = csd_spmm.csd_spmm_fwd_batched_cuda if x.dim() == 3 \
+        else csd_spmm.csd_spmm_fwd_cuda
+    return fn(x, w, idx, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [64, 128, 256])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("save_preact", [False, True])
+def test_csd_spmm_fwd_wgmma_matches_plain(cuda_device, save_preact,
+                                          with_bias, activation, tile_n,
+                                          nan_outputs, force_body):
+    """The wgmma body at each tile width against the plain version, three
+    experts of a ragged M, into NaN-filled outputs: every element written,
+    y and z within the training tolerance."""
+    bp, x, w, b = _batched_junction(13, WGMMA_E, WGMMA_M, **WGMMA_JUNCTION)
+    to = lambda a: _t(a).to(cuda_device, torch.bfloat16)  # noqa: E731
+    x, w = to(x), to(w)
+    idx = _t(bp.block_idx).to(cuda_device).int()
+    kw = dict(bias=to(b) if with_bias else None, activation=activation,
+              save_preact=save_preact)
+    force_body(tile_n)
+    got = _wgmma_fwd(x, w, idx, **kw)
+    ref = csd_spmm.csd_spmm_fwd_batched_plain(x, w, idx, **kw)
+    torch.cuda.synchronize()
+    got, ref = (o if save_preact else (o,) for o in (got, ref))
+    for g, r in zip(got, ref):
+        assert g.shape == (WGMMA_E, WGMMA_M, bp.n_out)
+        assert not bool(torch.isnan(g).any())
+        _close(g, r, TRAIN_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [64, 256])
+def test_csd_spmm_fwd_wgmma_4d_is_bit_identical(cuda_device, tile_n,
+                                                force_body):
+    """The single junction (E = 1) through the wgmma body, twice: the
+    fan-in stays inside each CTA, so the two runs agree bit for bit, and
+    both agree with the plain version."""
+    bp, x, w, b = _junction(14, 1000, 512, 1024, 128, 256)
+    to = lambda a: _t(a).to(cuda_device, torch.bfloat16)  # noqa: E731
+    x, w, b = to(x), to(w), to(b)
+    idx = _t(bp.block_idx).to(cuda_device).int()
+    kw = dict(bias=b, activation="gelu", save_preact=True)
+    force_body(tile_n)
+    (y1, z1), (y2, z2) = (_wgmma_fwd(x, w, idx, **kw) for _ in range(2))
+    y_ref, z_ref = csd_spmm.csd_spmm_fwd_plain(x, w, idx, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(z1, z2)
+    _close(y1, y_ref, TRAIN_TOL[torch.bfloat16])
+    _close(z1, z_ref, TRAIN_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sm", [5, 7])
+def test_csd_spmm_fwd_wgmma_halved_last_round(cuda_device, n_sm,
+                                              monkeypatch, nan_outputs,
+                                              force_body):
+    """Few persistent CTAs (the plan's SM count lowered to 5 or 7): the 36
+    tiles of 256 columns leave one tile for a last round, which runs as two
+    128-column halves on two CTAs; every element written, within the
+    training tolerance, two runs bit-equal."""
+    from repro_torch.kernels import launch
+    monkeypatch.setattr(launch, "sm_count", lambda device: n_sm)
+    assert launch.fwd_full_tiles(36, n_sm, 256) == 35
+    bp, x, w, b = _batched_junction(16, WGMMA_E, WGMMA_M, **WGMMA_JUNCTION)
+    to = lambda a: _t(a).to(cuda_device, torch.bfloat16)  # noqa: E731
+    x, w, b = to(x), to(w), to(b)
+    idx = _t(bp.block_idx).to(cuda_device).int()
+    kw = dict(bias=b, activation="gelu", save_preact=True)
+    force_body(256)
+    (y1, z1), (y2, z2) = (_wgmma_fwd(x, w, idx, **kw) for _ in range(2))
+    y_ref, z_ref = csd_spmm.csd_spmm_fwd_batched_plain(x, w, idx, **kw)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(y1).any() or torch.isnan(z1).any())
+    assert torch.equal(y1, y2) and torch.equal(z1, z2)
+    _close(y1, y_ref, TRAIN_TOL[torch.bfloat16])
+    _close(z1, z_ref, TRAIN_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m", [(32, 4), (3, 1), (1, 17), (1, 64)])
+def test_csd_spmm_fwd_wgmma_few_rows(cuda_device, e, m, nan_outputs,
+                                     force_body):
+    """The wgmma body where a 128-row tile holds only 1-64 rows of each
+    expert (the rule sends granite-moe's decode and gemma3-4b's serving
+    prefill there): the rows past M read as zeros and are not stored; into
+    NaN-filled outputs, within the training tolerance."""
+    bp, x, w, b = _batched_junction(17, e, m, **WGMMA_JUNCTION)
+    to = lambda a: _t(a).to(cuda_device, torch.bfloat16)  # noqa: E731
+    x, w, b = to(x), to(w), to(b)
+    if e == 1:
+        x, w, b = x[0], w[0], b[0]
+    idx = _t(bp.block_idx).to(cuda_device).int()
+    kw = dict(bias=b, activation="gelu", save_preact=True)
+    force_body(128)
+    y, z = _wgmma_fwd(x, w, idx, **kw)
+    plain = csd_spmm.csd_spmm_fwd_batched_plain if e > 1 \
+        else csd_spmm.csd_spmm_fwd_plain
+    y_ref, z_ref = plain(x, w, idx, **kw)
+    torch.cuda.synchronize()
+    for got, ref in ((y, y_ref), (z, z_ref)):
+        assert not bool(torch.isnan(got).any())
+        _close(got, ref, TRAIN_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_csd_spmm_fwd_rule_runs_wgmma_at_training_shapes(cuda_device):
+    """At a training shape the wrapper itself takes the wgmma body on this
+    card's SMs, counts one launch and agrees with the plain version; the
+    single junction's decode keeps the grid body."""
+    from repro_torch.kernels import launch
+    n_sm = launch.sm_count(cuda_device)
+    bp, x, w, b = _batched_junction(15, 32, 1280, **WGMMA_JUNCTION)
+    assert launch.fwd_tile_n("bfloat16", 32, 1280, bp.n_rb, 256, n_sm) == 256
+    assert launch.fwd_tile_n("bfloat16", 1, 4, bp.n_rb, 256, n_sm) == 0
+    to = lambda a: _t(a).to(cuda_device, torch.bfloat16)  # noqa: E731
+    x, w, b = to(x), to(w), to(b)
+    idx = _t(bp.block_idx).to(cuda_device).int()
+    n0 = csd_spmm.csd_spmm_fwd_batched_cuda.launches
+    got = csd_spmm.csd_spmm_fwd_batched_cuda(x, w, idx, bias=b,
+                                             activation="relu")
+    ref = csd_spmm.csd_spmm_fwd_batched_plain(x, w, idx, bias=b,
+                                              activation="relu")
+    torch.cuda.synchronize()
+    assert csd_spmm.csd_spmm_fwd_batched_cuda.launches == n0 + 1
+    _close(got, ref, TRAIN_TOL[torch.bfloat16])
 
 
 # ---------------------------------------------------------------------------

@@ -214,7 +214,7 @@ def test_capture_records_real_launch():
                                                    "reduce_splits_kernel"]
     assert plan.launches[0].grid == (bp.n_out // 64, 256 // 64, 2)
     assert plan.args == dict(E=1, M=256, n_rb=bp.n_rb, bR=128, n_splits=2,
-                             dtype=0)
+                             n_sm=132, tile_n=0, dtype=0)
     # few SMs: the output tiles alone fill them, no split
     small = capture_launch(csd_spmm.csd_spmm_fwd_cuda, *args, n_sm=4)
     assert small.n_splits == 1 and len(small.launches) == 1
