@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    UTMALDG (TMA load) instructions in the forward, dx, dw and
    flash-attention libraries' SASS (none fails the run), and the HMMA
    (mma.sync) and LDGSTS (cp.async) instructions of the forward's wgmma
-   body and the bf16 flash-attention kernels (any fails it);
+   body and the bf16 flash-attention kernels (any fails it); read every
+   paged decode kernel form's registers per thread from the compiler's
+   ``-Xptxas -v`` log (any spill fails the run);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
    bf16), and time kernel, plain version, bound and a dense ``torch.matmul``
@@ -22,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    page 16, lengths past 1024, window None and 1024, -1 table entries and an
    empty row), with SDPA over the gathered KV as the yardstick, and
    again at granite-moe-1b-a400m's heads (Hkv = 8, G = 2, Dh = 64,
-   no window);
+   no window); each record names the split its plan takes (keys per
+   tile, pages per split, launches);
 4b. the int8 serving kernels against their plain versions: the int8
    ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (M 4 and 256, f32
    and bf16, with and without the gelu epilogue; the yardstick a
@@ -43,7 +46,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    serving kernels must run, no training kernel may); then the
    decode step after the prefill drain run with the kernels and with the
    plain versions from one cache state, logits compared; then 4 decode
-   steps under ``torch.profiler``;
+   steps under ``torch.profiler`` (with the paged decode's CUDA launches
+   and device time per layer);
 5b. the same in int8 (``EngineConfig(quant=QuantConfig(weights=True,
    kv=True))``) from a fresh f32 model of the same seed, quantized at load:
    launch counts of all six serving kernels around the run (the bf16
@@ -284,6 +288,56 @@ def sass_counts() -> dict:
     return rec
 
 
+def ptxas_functions(log: str) -> dict:
+    """{mangled function: (registers per thread, spilled bytes)} from an
+    ``-Xptxas -v`` compiler log."""
+    import re
+    fn, out = None, {}
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, [0, 0])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def paged_registers() -> dict:
+    """Phase 2: registers per thread of every form of the paged decode
+    kernels (``paged_decode_kernel<T, PT, G, bucket>`` and the merge), read
+    from the library's compiler log; fails if any spills."""
+    from repro_torch.kernels import build
+    funcs = ptxas_functions(build.compiler_log("paged_decode"))
+    filt = Path(build._nvcc()).with_name("cu++filt")
+    names = list(funcs)
+    if filt.exists():
+        shown = subprocess.run([str(filt)], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    else:
+        shown = names
+    rec = {}
+    for name, pretty in zip(names, shown):
+        cut = pretty.find(">(")
+        pretty = pretty[:cut + 1] if cut >= 0 else pretty.split("(", 1)[0]
+        pretty = pretty.replace("void ", "").replace(
+            "(anonymous namespace)::", "")
+        rec[pretty] = dict(registers=funcs[name][0],
+                           spill_bytes=funcs[name][1])
+    log(json.dumps(dict(check="paged decode registers", kernels=rec)))
+    spilled = {k: v for k, v in rec.items() if v["spill_bytes"]}
+    if not rec or spilled:
+        fail(f"paged decode kernels spill (or none were found): {spilled}")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 3: csd_spmm_fwd
 # ---------------------------------------------------------------------------
@@ -383,14 +437,17 @@ def paged_cases():
                 yield dtype_name, hkv, dh, window
 
 
-def paged_inputs(device, dtype, window, g, hkv=4, dh=256):
-    """B=4 rows of lengths past 1024, one empty; unmapped entries -1 (the
-    table tail, and with a window the leading pages every query has left,
-    as the engine's window reclamation leaves them)."""
+PAGED_LENGTHS, PAGED_PAGES = (1100, 517, 0, 1040), 72
+
+
+def paged_inputs(device, dtype, window, g, hkv=4, dh=256,
+                 lengths=PAGED_LENGTHS, n_pages=PAGED_PAGES):
+    """B = len(lengths) rows (phases 4 and 4b: lengths past 1024, one
+    empty, a 72-page table) of G = 2 query heads, page 16; unmapped
+    entries -1 (the table tail, and with a window the leading pages every
+    query has left, as the engine's window reclamation leaves them)."""
     import torch
-    b, grp, page = 4, 2, 16
-    lengths = [1100, 517, 0, 1040]
-    n_pages = 72
+    b, grp, page = len(lengths), 2, 16
     pool = sum(-(-n // page) for n in lengths) + 1
     perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(1))
     table = torch.full((b, n_pages), -1, dtype=torch.int32)
@@ -409,9 +466,45 @@ def paged_inputs(device, dtype, window, g, hkv=4, dh=256):
         lengths, dtype=torch.int32, device=device)
 
 
-def run_paged(device, results):
+def paged_yardstick(q, kp, vp, table, lengths, window, scales=None):
+    """(SDPA over the gathered, GQA-expanded KV with the visibility mask,
+    dequantized to q's dtype for int8 pages; the mask's visible keys). The
+    gather is made here, outside the timed call."""
     import torch
     import torch.nn.functional as F
+    b, hkv, grp, dh = q.shape
+    idx = table.long().clamp_min(0)
+    kk, vv = kp[idx], vp[idx]
+    if scales is not None:
+        kk = (kk.float() * scales[0][idx][..., None, None]).to(q.dtype)
+        vv = (vv.float() * scales[1][idx][..., None, None]).to(q.dtype)
+    kk, vv = (t.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
+              .transpose(1, 2) for t in (kk, vv))
+    kpos = torch.arange(kk.shape[2], device=q.device)
+    mask = (kpos[None] < lengths[:, None].long()) & (
+        table >= 0).repeat_interleave(kp.shape[1], 1)
+    if window is not None:
+        mask &= kpos[None] >= lengths[:, None].long() - window
+    qq = q.reshape(b, hkv * grp, 1, dh)
+    return (lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask[:, None, None])), int(mask.sum())
+
+
+def paged_bound(q, table, lengths, visible, quant: bool) -> tuple:
+    """The bound of one paged decode call: the K and V rows of the visible
+    keys (int8: one byte a value and 8 bytes of scales a key), q read and
+    the output written in q's dtype, the table and the lengths; 4 G Dh
+    operations a key."""
+    b, hkv, grp, dh = q.shape
+    el = q.element_size()
+    kv = 2 * visible * hkv * dh + 8 * visible if quant \
+        else el * 2 * visible * hkv * dh
+    nbytes = kv + 2 * q.numel() * el + 4 * (table.numel() + lengths.numel())
+    return bound(nbytes, 4 * grp * dh * visible * hkv, q.dtype)
+
+
+def run_paged(device, results):
+    import torch
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     for dtype_name, hkv, dh, window in paged_cases():
@@ -434,37 +527,35 @@ def run_paged(device, results):
             q, p[0], p[1], table, lengths, **kw) for p in pools], 100)
         plain_ms, _ = bench([lambda p=p: fa.paged_decode_attention_plain(
             q, p[0], p[1], table, lengths, **kw) for p in pools], 10)
-        # yardstick: SDPA over the gathered (GQA-expanded) KV + mask
-        b, hkv, grp, dh = q.shape
-        idx = table.long().clamp_min(0)
-        kk = kp[idx].reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-        vv = vp[idx].reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-        kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
-        kpos = torch.arange(kk.shape[2], device=device)
-        mask = (kpos[None] < lengths[:, None].long()) & (
-            table >= 0).repeat_interleave(kp.shape[1], 1)
-        if window is not None:
-            mask &= kpos[None] >= lengths[:, None].long() - window
-        qq = q.reshape(b, hkv * grp, 1, dh)
-        lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask[:, None, None])], 50)
-        visible = int(mask.sum())
-        el = dtype.itemsize
-        nbytes = el * (2 * visible * hkv * dh + 2 * q.numel()) \
-            + 4 * (table.numel() + lengths.numel())
-        bound_ms, bound_by = bound(nbytes, 4 * grp * dh * visible * hkv,
-                                   dtype)
+        sdpa, visible = paged_yardstick(q, kp, vp, table, lengths, window)
+        lib_ms, _ = bench([sdpa], 50)
+        bound_ms, bound_by = paged_bound(q, table, lengths, visible, False)
         rec = dict(kernel="paged_decode_attention", dtype=dtype_name,
                    hkv=hkv, dh=dh, window=window, lengths=lengths.tolist(),
                    max_abs_err=abs_e, max_rel_err=rel_e, atol=atol,
                    rtol=rtol, ok=ok, ms=ms, host_ms=host_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=lib_ms)
+                   bound_by=bound_by, library_ms=lib_ms,
+                   **paged_split(fa.paged_decode_attention_cuda, q, kp, vp,
+                                 table, lengths, **kw))
         results.append(rec)
         log(json.dumps(rec))
         if not ok:
             fail(f"paged_decode_attention disagrees with its plain "
                  f"version: {rec}")
+
+
+def paged_split(fn, *args, **kw) -> dict:
+    """The split the paged-decode wrapper ``fn`` plans for these operands
+    on this card (captured, not launched): keys per tile, pages per split,
+    splits and launches."""
+    from repro_torch.analysis.capture import capture_launch
+    from repro_torch.kernels import launch
+    plan = capture_launch(fn, *args, n_sm=launch.sm_count(args[0].device),
+                          **kw)
+    return dict(keys_per_tile=plan.args["keys_per_tile"],
+                pages_per_split=plan.args["pages_per_split"],
+                n_splits=plan.n_splits, n_launches=len(plan.launches))
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +644,6 @@ def run_spmm_quant(cfg, device, results):
 
 def run_paged_quant(device, results):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.kv_cache import quantize_kv
     g = torch.Generator(device=device).manual_seed(SEED + 4)
@@ -585,44 +675,26 @@ def run_paged_quant(device, results):
             (got[2] == 0).all()) and bool(torch.isfinite(got).all())
         ms, host_ms = bench([lambda p=p: kern(p) for p in pools], 100)
         plain_ms, _ = bench([lambda p=p: plain(p) for p in pools], 10)
-        # yardstick: SDPA over the gathered, dequantized (GQA-expanded)
-        # KV in q's dtype, with the mask
-        b, hkv, grp, dh = q.shape
-        idx = table.long().clamp_min(0)
-        kk = (k8[idx].float() * ks[idx][..., None, None]).to(dtype)
-        vv = (v8[idx].float() * vs[idx][..., None, None]).to(dtype)
-        kk = kk.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-        vv = vv.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-        kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
-        kpos = torch.arange(kk.shape[2], device=device)
-        mask = (kpos[None] < lengths[:, None].long()) & (
-            table >= 0).repeat_interleave(k8.shape[1], 1)
-        if window is not None:
-            mask &= kpos[None] >= lengths[:, None].long() - window
-        qq = q.reshape(b, hkv * grp, 1, dh)
-        lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask[:, None, None])], 50)
-        visible = int(mask.sum())
-        # int8 K and V rows, one f32 K and V scale per visible token,
-        # q read and the output written in q's dtype
-        nbytes = 2 * visible * hkv * dh + 8 * visible \
-            + 2 * q.numel() * dtype.itemsize \
-            + 4 * (table.numel() + lengths.numel())
-        bound_ms, bound_by = bound(nbytes, 4 * grp * dh * visible * hkv,
-                                   dtype)
+        sdpa, visible = paged_yardstick(q, k8, v8, table, lengths, window,
+                                        (ks, vs))
+        lib_ms, _ = bench([sdpa], 50)
+        bound_ms, bound_by = paged_bound(q, table, lengths, visible, True)
         rec = dict(kernel="paged_decode_attention_quant",
                    dtype=dtype_name, hkv=hkv, dh=dh, window=window,
                    lengths=lengths.tolist(), max_abs_err=abs_e,
                    max_rel_err=rel_e, atol=atol, rtol=rtol, ok=ok, ms=ms,
                    host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=lib_ms,
-                   library="SDPA over the gathered, dequantized KV")
+                   library="SDPA over the gathered, dequantized KV",
+                   **paged_split(fa.paged_decode_attention_cuda, q, k8, v8,
+                                 table, lengths, window=window, k_scale=ks,
+                                 v_scale=vs))
         results.append(rec)
         log(json.dumps(rec))
         if not ok:
             fail(f"int8 paged_decode_attention disagrees with its plain "
                  f"version: {rec}")
-        del pools, kk, vv
+        del pools, sdpa
 
 
 # ---------------------------------------------------------------------------
@@ -1106,10 +1178,26 @@ def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
                if total_us else "not measured",
                kernel_launches_per_step=sum(e.count for e in kernels)
                / n_steps,
+               paged_per_layer=paged_per_layer(
+                   kernels, dev_us, n_steps * model.cfg.n_layers),
                top=[dict(name=e.key[:70], us_per_step=dev_us(e) / n_steps,
                          calls_per_step=e.count / n_steps) for e in top])
     log(json.dumps(rec))
     return rec
+
+
+def paged_per_layer(kernels, dev_us, n: int) -> dict:
+    """The paged decode's CUDA launches and device µs per layer, by
+    kernel (the split kernel's forms, the merge), over ``n`` layer-steps."""
+    out = {}
+    for e in kernels:
+        if "paged_decode" in e.key:
+            name = e.key.split("(", 1)[0] if "<" not in e.key else \
+                e.key[:e.key.find(">") + 1]
+            name = name.replace("void ", "").replace(
+                "(anonymous namespace)::", "")
+            out[name] = dict(launches=e.count / n, us=dev_us(e) / n)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2242,6 +2330,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     sass_rec = sass_counts()
+    paged_regs = paged_registers()
 
     record_plans()
 
@@ -2489,7 +2578,8 @@ def main() -> int:
              train_step_check=step_chk, train=train_rec,
              train_profile=train_prof, granite_train_step_check=g_step_chk,
              granite_train=g_train_rec, granite_train_profile=g_train_prof,
-             sass=sass_rec, lint=lint_rec, plan_drift=drift_rec,
+             sass=sass_rec, paged_registers=paged_regs, lint=lint_rec,
+             plan_drift=drift_rec,
              nan_coverage=nan_rec,
              injected_alias=inj_rec, kernels=entries),
         indent=1))

@@ -570,8 +570,10 @@ def demo_cases() -> List[KernelCase]:
 
 # chip_smoke.py's shapes: 4 decode slots, training batch 2 x seq 2048, its
 # paged-decode rows (lengths past 1024, one empty, page 16, 72-entry table)
+# and a decode step of its serving runs (lengths 97-160, 10-entry table)
 DECODE_M, TRAIN_B, TRAIN_S = 4, 2, 2048
 PAGED_LENGTHS, PAGED_PAGES, PAGE = (1100, 517, 0, 1040), 72, 16
+SERVING_LENGTHS, SERVING_PAGES = (150, 97, 128, 160), 10
 
 
 def _layer0_patterns(cfg) -> Dict[str, object]:
@@ -625,6 +627,12 @@ def full_width_cases() -> List[KernelCase]:
             g.n_heads // g.n_kv_heads, g.head_dim, bf16,
             lengths=PAGED_LENGTHS, n_pages=PAGED_PAGES, page=PAGE,
             window=window, quant=quant))
+    for quant in (False, True):
+        cases.append(_paged_case(
+            f"gemma3_4b/serve/paged{'_quant' if quant else ''}",
+            g.n_kv_heads, g.n_heads // g.n_kv_heads, g.head_dim, bf16,
+            lengths=SERVING_LENGTHS, n_pages=SERVING_PAGES, page=PAGE,
+            window=g.attn_window, quant=quant))
 
     r = granite_moe_1b_a400m.card_config()
     rp = _layer0_patterns(r)
@@ -657,6 +665,11 @@ def full_width_cases() -> List[KernelCase]:
             f"granite/decode/paged{'_quant' if quant else ''}", r.n_kv_heads,
             r.n_heads // r.n_kv_heads, r.head_dim, bf16,
             lengths=PAGED_LENGTHS, n_pages=PAGED_PAGES, page=PAGE,
+            window=None, quant=quant))
+        cases.append(_paged_case(
+            f"granite/serve/paged{'_quant' if quant else ''}", r.n_kv_heads,
+            r.n_heads // r.n_kv_heads, r.head_dim, bf16,
+            lengths=SERVING_LENGTHS, n_pages=SERVING_PAGES, page=PAGE,
             window=None, quant=quant))
     return cases
 

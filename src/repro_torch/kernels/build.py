@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root (the
 hash covers the source and the shared ``csrc/*.cuh`` headers, so an edited
-kernel is rebuilt). Nothing is built when this module is imported: ``load``
+kernel is rebuilt), its compiler log beside it as ``<name>-<hash>.log``. Nothing is built when this module is imported: ``load``
 builds one library at first use, ``build_all`` starts one nvcc per source at
 once and waits for all of them.
 """
@@ -70,6 +70,7 @@ def _finish(name: str, job) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     tmp.replace(out)
     return log
 
@@ -82,6 +83,11 @@ def build_all() -> Dict[str, str]:
         jobs = {name: _start(name) for name in sources()}
         return {name: _finish(name, job) for name, job in jobs.items()
                 if job is not None}
+
+
+def compiler_log(name: str) -> str:
+    """The compiler log (``-Xptxas -v``) of the built ``csrc/<name>.cu``."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

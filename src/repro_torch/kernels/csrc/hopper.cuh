@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the wgmma/TMA kernels (csd_spmm_fwd.cu,
-// csd_spmm_dx.cu, csd_spmm_dw.cu, flash_attention.cu), in inline PTX:
-// mbarriers, 3-D and 4-D TMA tile loads, 3-D TMA tile stores with their
+// csd_spmm_dx.cu, csd_spmm_dw.cu, flash_attention.cu; paged_decode.cu uses
+// the mbarriers and bulk loads), in inline PTX: mbarriers, 1-D bulk loads,
+// 3-D and 4-D TMA tile loads, 3-D TMA tile stores with their
 // bulk groups and proxy fence, named barriers, wgmma shared-memory
 // descriptors for the 128-byte swizzle, the bf16 m64nNk16 products with
 // f32 accumulators in registers (A from shared memory, or from registers),
@@ -107,6 +108,26 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, without a tensor map; completes
+// on `bar` by its byte count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One arrival on the barrier once this thread's earlier cp.async copies
+// have landed (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
 }
 
 // A (64 x rows) box from shared memory to a 3-D tensor map at coordinates

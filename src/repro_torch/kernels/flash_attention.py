@@ -45,15 +45,27 @@ grouped query token over a paged KV cache.
   ``_paged_decode_xla``): materialise each row's logical KV view from its
   page table, then the masked softmax.
 * ``paged_decode_attention_cuda`` — the hand-written Hopper kernel
-  ``csrc/paged_decode.cu``.
+  ``csrc/paged_decode.cu``. What bounds it on the H100 is latency at
+  serving lengths (a few hundred keys a row: the launch and the chain
+  lengths -> page table -> K/V) and bytes at long context. Its design: a
+  split kernel templated on the group size and a head-dim bucket, so its
+  registers fit the shape and several CTAs share an SM; Dh / 8 lanes a key,
+  so a warp step covers several keys at small Dh; one softmax max and
+  rescale per chunk of keys; a 3-stage ``cp.async`` ring of K/V tiles (and
+  int8 scales). ``launch.split_plan`` runs a short table in one launch with
+  the epilogue in the kernel, and cuts a long one into page ranges whose
+  partial outputs a merge kernel combines in split order; no atomics, so a
+  result repeats bit for bit.
 * ``paged_decode_attention`` — dispatches on the device of ``q``.
 
 Each takes ``k_scale``/``v_scale`` (both or neither): int8 pages with one
 f32 scale per stored token, (P, page), from ``serving.kv_cache.
-write_kv_quant``. K and V are dequantized per token in f32 (``float(q8) *
-scale``) before the dot products, as the JAX package's kernel does; on the
-card ``paged_decode_attention_cuda`` then runs the int8 kernel
-(``paged_decode_attention_quant_cuda``).
+write_kv_quant``. The plain version dequantizes K and V per token in f32
+(``float(q8) * scale``) before the dot products, as the JAX package's
+kernel does; on the card ``paged_decode_attention_cuda`` runs the int8
+kernel (``paged_decode_attention_quant_cuda``), which applies each token's
+K scale to its score and V scale to its probability instead (equal up to
+f32 rounding).
 
 A key is visible when ``kpos < lengths[b]``, with a window also when
 ``kpos > lengths[b] - 1 - window``, and when its page-table entry is not
@@ -118,13 +130,13 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
     return o.to(q.dtype)
 
 
-def _bind(source: str, name: str, n_ptrs: int):
+def _bind(source: str, name: str, n_ptrs: int, n_ints: int = 9):
     """Entry point ``name`` of ``csrc/<source>.cu``: ``n_ptrs`` pointers,
-    nine ints, two floats, the dtype code and the stream (both sources'
-    entry points have this form)."""
+    ``n_ints`` ints, two floats, the dtype code and the stream (both
+    sources' entry points have this form)."""
     fn = getattr(build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -197,8 +209,8 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, scales, *,
             + [page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                None if part_o is None else part_o.data_ptr(),
                None if part_ml is None else part_ml.data_ptr()]
-        return _bind("paged_decode", name, len(ptrs))(
-            *ptrs, b, hkv, g, dh, page_size, n_pages, keys_per_tile,
+        return _bind("paged_decode", name, len(ptrs), 10)(
+            *ptrs, b, hkv, g, dh, page_size, n_pages, n_pool, keys_per_tile,
             pages_per_split, -1 if window is None else int(window),
             0.0 if softcap is None else float(softcap), float(scale),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)

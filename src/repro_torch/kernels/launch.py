@@ -793,29 +793,76 @@ def mask_plan(rows: int, n_out: int, dtype: str) -> LaunchPlan:
 
 _PAGED_THREADS = 256
 _PAGED_WARPS = 8
+_PAGED_MERGE_THREADS = 256
+_PAGED_STAGES = 4            # K/V tiles in the ring at most (kMaxStages)
+_PAGED_RING_BYTES = 98304    # its shared memory at most (kRingBytes)
+_PAGED_TILE_BYTES = 16384    # bytes of K a tile holds at most
+_PAGED_MAX_PPS = 1024        # page-table entries a CTA holds at most
+# the split rule (measured with tools/time_decode.py --splits on the H100):
+# a row of at most _PAGED_ONE_LAUNCH_TILES tiles of table runs in one
+# launch; a longer one in splits of whole tiles until the (row, head,
+# split) CTAs number _PAGED_WAVES per SM
+_PAGED_ONE_LAUNCH_TILES = 8
+_PAGED_WAVES = 2
 
 
-def split_plan(b: int, hkv: int, page_size: int, n_pages: int,
-               n_sm: int) -> tuple:
-    """(keys per tile, pages per split, splits) of the paged-decode
-    kernel: tiles of 64 keys (whole pages), and a row's pages split into
-    contiguous ranges until the (row, head, split) CTAs number about twice
-    the SMs."""
-    tile_pages = max(1, 64 // page_size)
+def paged_bucket(dh: int) -> int:
+    """The head-dim bucket of the split kernel's register form."""
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
+
+
+def paged_tile(g: int, dh: int, page_size: int, page_itemsize: int) -> int:
+    """Keys per tile of the paged-decode kernel: one softmax chunk of
+    every consumer warp (8 warps x the keys a warp step covers, 256 /
+    bucket, x 4 slots, 2 from G 4 up), at most ``_PAGED_TILE_BYTES`` of K,
+    in whole pages (at least one)."""
+    keys = _PAGED_WARPS * (256 // paged_bucket(dh)) * (4 if g <= 2 else 2)
+    keys = min(keys, _PAGED_TILE_BYTES // (dh * page_itemsize))
+    return max(1, keys // page_size) * page_size
+
+
+def split_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
+               n_pages: int, page_itemsize: int, n_sm: int) -> tuple:
+    """(keys per tile, pages per split, splits) of the paged-decode kernel.
+    A split beyond the first costs the merge launch: on the card about as
+    much as three tiles of one CTA, and on the host a second launch in a
+    decode step that waits on the host. So a row whose table holds at most
+    ``_PAGED_ONE_LAUNCH_TILES`` tiles (the serving runs' 10-page tables)
+    runs in one launch with the epilogue in the kernel; a longer row is cut
+    into contiguous ranges of whole tiles until the (row, head, split) CTAs
+    number ``_PAGED_WAVES`` per SM. A CTA holds at most
+    ``_PAGED_MAX_PPS`` page-table entries."""
+    kt = paged_tile(g, dh, page_size, page_itemsize)
+    tile_pages = kt // page_size
     n_tiles = _ceil(n_pages, tile_pages)
-    want = max(1, _ceil(2 * n_sm, max(b * hkv, 1)))
-    pages_per_split = _ceil(n_tiles, min(n_tiles, want)) * tile_pages
-    return (tile_pages * page_size, pages_per_split,
-            _ceil(n_pages, pages_per_split))
+    splits = 1
+    if n_tiles > _PAGED_ONE_LAUNCH_TILES:
+        splits = min(n_tiles, _ceil(_PAGED_WAVES * n_sm, max(b * hkv, 1)))
+    tiles_per_split = min(_ceil(n_tiles, splits),
+                          max(1, _PAGED_MAX_PPS // tile_pages))
+    pps = tiles_per_split * tile_pages
+    return kt, pps, _ceil(n_pages, pps)
 
 
-def paged_smem(g: int, dh: int, keys_per_tile: int, page_size: int,
+def paged_smem(g: int, dh: int, keys_per_tile: int, pages_per_split: int,
                page_itemsize: int, quant: bool) -> int:
-    """``smem_bytes<PT>`` of csrc/paged_decode.cu."""
-    return (2 * keys_per_tile * dh * page_itemsize
-            + 4 * g * dh * (1 + _PAGED_WARPS) + 8 * _PAGED_WARPS * g
-            + 8 * keys_per_tile * int(quant)
-            + 4 * (keys_per_tile // page_size))
+    """``layout<PT>(...).total`` of csrc/paged_decode.cu: the ring of K/V
+    tiles (and int8 scales; 128-byte stages, up to 4 within 96 KiB, at
+    least one),
+    reused for the warps' states, then q in the Dh bucket, the stages'
+    full and empty mbarriers and key-visible bytes, and the CTA's page
+    ids."""
+    def r16(n):
+        return _ceil(n, 16) * 16
+    kt = keys_per_tile
+    stage = _ceil(2 * kt * dh * page_itemsize + 8 * kt * int(quant), 128) \
+        * 128
+    stages = min(_PAGED_STAGES, max(1, _PAGED_RING_BYTES // stage))
+    w = _PAGED_WARPS
+    merge = 4 * (w * g * dh + w * g * 2 + g * w + 2 * g)
+    bar = r16(max(stages * stage, merge)) + 4 * g * paged_bucket(dh)
+    return r16(bar + 16 * _PAGED_STAGES + _PAGED_STAGES * kt) \
+        + 4 * pages_per_split
 
 
 @functools.lru_cache(maxsize=4096)
@@ -823,21 +870,24 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
                       n_pages: int, pool: int, dtype: str, *, quant: bool,
                       window: Optional[int], n_sm: int) -> LaunchPlan:
     """The plan of ``paged_decode_attention`` (``quant``: int8 pages with
-    f32 per-token scales): CTA (s, h, b) walks pages [s pps, (s + 1) pps)
-    of row b that lie in its visible range and reads each mapped page's
-    keys of KV head h; with more than one split it writes unnormalised
-    partial outputs with their running max and sum, and the merge kernel's
-    CTA (h, b) combines them in split order."""
-    kt, pps, n_splits = split_plan(b, hkv, page_size, n_pages, n_sm)
+    f32 per-token scales): CTA (s, h, b) reads row b's page-table entries
+    [s pps, (s + 1) pps), then each mapped page of them that lies in its
+    visible range, KV head h; with more than one split it writes
+    unnormalised partial outputs with their running max and sum, and the
+    merge kernel's CTA (h, b, z) combines them in split order for 256
+    output elements of the row's G x Dh."""
     size = _itemsize(dtype)
     psize = 1 if quant else size
+    kt, pps, n_splits = split_plan(b, hkv, g, dh, page_size, n_pages, psize,
+                                   n_sm)
     buffers = {
         "q": Buffer((b, hkv, g, dh), size, "in"),
         "k_pages": Buffer((pool, page_size, hkv, dh), psize, "in"),
         "v_pages": Buffer((pool, page_size, hkv, dh), psize, "in"),
         "page_table": Buffer((b, n_pages), 4, "in"),
         "lengths": Buffer((b,), 4, "in"),
-        "out": Buffer((b, hkv, g, dh), size, "out"),
+        # as the kernels index it: (g, d) flattened
+        "out": Buffer((b, hkv, g * dh), size, "out"),
     }
     if quant:
         buffers["k_scale"] = Buffer((pool, page_size), 4, "in")
@@ -847,10 +897,10 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
         s, h, r = c[:, 0], c[:, 1], c[:, 2]
         n = len(c)
         if n_splits == 1:
-            return [_box("out", n, (r, r + 1), (h, h + 1), (0, g), (0, dh))]
-        part = ((r, r + 1), (h, h + 1), (s, s + 1), (0, g))
-        return [_box("part_o", n, *part, (0, dh)),
-                _box("part_ml", n, *part, (0, 2))]
+            return [_box("out", n, (r, r + 1), (h, h + 1), (0, g * dh))]
+        part = ((r, r + 1), (h, h + 1), (s, s + 1))
+        return [_box("part_o", n, *part, (0, g * dh)),
+                _box("part_ml", n, *part, (0, g), (0, 2))]
 
     def split_reads(c, pats):
         s, h, r = c[:, 0], c[:, 1], c[:, 2]
@@ -863,10 +913,11 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
             else np.zeros(n, np.int64)
         p_row_end = np.where(ln > 0, np.minimum(n_pages,
                                                 _ceil_arr(ln, page_size)), 0)
+        t_end = np.minimum(n_pages, (s + 1) * pps)
         p_first = np.maximum(lo // page_size, s * pps)
-        p_end = np.minimum(p_row_end, (s + 1) * pps)
-        out.append(_box("page_table", n, (r, r + 1),
-                        (p_first, np.maximum(p_first, p_end))))
+        p_end = np.minimum(p_row_end, t_end)
+        # every entry of the CTA's range, read before the row length
+        out.append(_box("page_table", n, (r, r + 1), (s * pps, t_end)))
         for p in range(pps):
             page = s * pps + p
             pc = np.minimum(page, n_pages - 1)
@@ -889,7 +940,7 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
     split = Launch(
         kernel="paged_decode_kernel", grid=(n_splits, hkv, b),
         threads=_PAGED_THREADS,
-        smem=paged_smem(g, dh, kt, page_size, psize, quant),
+        smem=paged_smem(g, dh, kt, pps, psize, quant),
         writes=split_writes, reads=split_reads, fan_in=n_splits,
         fan_in_axis="x" if n_splits > 1 else "loop",
         slots=lambda c: (c[:, 0], c[:, 0] + 1), epilogue=n_splits == 1,
@@ -901,27 +952,35 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
                 dtype=_code(dtype), quant=int(quant))
     if n_splits == 1:
         return LaunchPlan(name, buffers, (split,), 1, args)
-    buffers["part_o"] = Buffer((b, hkv, n_splits, g, dh), 4, "scratch")
+    buffers["part_o"] = Buffer((b, hkv, n_splits, g * dh), 4, "scratch")
     buffers["part_ml"] = Buffer((b, hkv, n_splits, g, 2), 4, "scratch")
+    # CTA (h, r, z) owns elements [256 z, 256 z + 256) of the row's g x dh
+    # output and reads the max and sum of every head
+    gd = g * dh
+
+    def elems(c):
+        e0 = c[:, 2] * _PAGED_MERGE_THREADS
+        return e0, np.minimum(e0 + _PAGED_MERGE_THREADS, gd)
 
     def merge_writes(c):
         h, r = c[:, 0], c[:, 1]
-        return [_box("out", len(c), (r, r + 1), (h, h + 1), (0, g),
-                     (0, dh))]
+        return [_box("out", len(c), (r, r + 1), (h, h + 1), elems(c))]
 
     def merge_reads(c, pats):
         h, r = c[:, 0], c[:, 1]
-        part = ((r, r + 1), (h, h + 1), (0, n_splits), (0, g))
-        return [_box("part_o", len(c), *part, (0, dh)),
-                _box("part_ml", len(c), *part, (0, 2))]
+        n = len(c)
+        part = ((r, r + 1), (h, h + 1), (0, n_splits))
+        return [_box("part_o", n, *part, elems(c)),
+                _box("part_ml", n, *part, (0, g), (0, 2))]
 
     merge = Launch(
-        kernel="paged_decode_merge_kernel", grid=(hkv, b, 1),
-        threads=_PAGED_THREADS, smem=0, writes=merge_writes,
+        kernel="paged_decode_merge_kernel",
+        grid=(hkv, b, _ceil(gd, _PAGED_MERGE_THREADS)),
+        threads=_PAGED_MERGE_THREADS, smem=0, writes=merge_writes,
         reads=merge_reads, fan_in=n_splits, fan_in_axis="loop",
         slots=lambda c: (np.zeros(len(c), np.int64),
                          np.full(len(c), n_splits, np.int64)),
-        epilogue=True, tiles=())
+        epilogue=True, tiles=(("g*dh", gd, _PAGED_MERGE_THREADS, True),))
     return LaunchPlan(name, buffers, (split, merge), n_splits, args)
 
 

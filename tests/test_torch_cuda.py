@@ -28,22 +28,39 @@ def _junction(seed, m, n_in, n_out, bl, br, rho=0.5):
     return bp, x, w, b
 
 
-def _paged_case(seed=0, b=4, hkv=2, g=3, dh=64, page=16, n_pages=13,
-                total=40):
+# (G, Dh, page size) of the paged cases: every group form of the kernel (1,
+# 2, 4 by G 3, 8 by G 7 and 8), every head-dim bucket (Dh 16 and 64 in the
+# 64 bucket, 128, 256), page sizes 8, 16 and 32 (one TMA load per page),
+# and 12 (not a multiple of 8: copied with cp.async instead)
+PAGED_GEOMETRIES = [(3, 64, 16), (1, 16, 8), (2, 64, 16), (7, 128, 32),
+                    (8, 256, 16), (2, 256, 8), (1, 128, 16), (8, 16, 32),
+                    (7, 64, 8), (2, 256, 32), (2, 64, 12), (3, 256, 12)]
+# keys a row's table holds: one launch (the serving rows' short tables) or
+# splits and the merge (the split rule cuts tables past 512 keys)
+PAGED_TABLE_KEYS = [208, 1040]
+
+
+def _paged_case(seed=0, b=4, hkv=2, g=3, dh=64, page=16, table_keys=208,
+                window=None):
     rng = np.random.default_rng(seed)
+    n_pages = table_keys // page
     q = rng.normal(size=(b, hkv, g, dh)).astype(np.float32)
+    # rows of different lengths (one empty, one of 3 keys, two spanning
+    # several tiles); unmapped entries are -1: the table tail and, with a
+    # window, the leading pages every query has left
+    lengths = np.minimum(np.asarray([3, 600, 0, 317], np.int32)[:b],
+                         n_pages * page)
+    total = sum(-(-int(n) // page) for n in lengths) + 1
     k_pages = rng.normal(size=(total, page, hkv, dh)).astype(np.float32)
     v_pages = rng.normal(size=(total, page, hkv, dh)).astype(np.float32)
-    # rows of different lengths (one empty, two spanning several 64-key
-    # tiles, so the split-and-merge path runs); unmapped entries are -1
-    lengths = np.minimum(np.asarray([3, 200, 0, 117], np.int32)[:b],
-                         n_pages * page)
     table = np.full((b, n_pages), -1, np.int32)
     perm = rng.permutation(total - 1)
     k = 0
     for i in range(b):
-        for pg in range(-(-int(lengths[i]) // page)):
-            table[i, pg] = perm[k]
+        n = int(lengths[i])
+        for pg in range(-(-n // page)):
+            if window is None or (pg + 1) * page > n - window:
+                table[i, pg] = perm[k]
             k += 1
     return q, k_pages, v_pages, table, lengths
 
@@ -86,9 +103,13 @@ def test_csd_spmm_cuda_matches_plain(cuda_device, activation, m, dtype, tol):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("window,softcap", [(None, None), (6, 30.0),
                                             (70, None)])
-def test_paged_decode_cuda_matches_plain(cuda_device, window, softcap,
+@pytest.mark.parametrize("table_keys", PAGED_TABLE_KEYS)
+@pytest.mark.parametrize("g,dh,page", PAGED_GEOMETRIES)
+def test_paged_decode_cuda_matches_plain(cuda_device, g, dh, page,
+                                         table_keys, window, softcap,
                                          dtype, tol):
-    case = _paged_case()
+    case = _paged_case(g=g, dh=dh, page=page, table_keys=table_keys,
+                       window=window)
     q, kp, vp = (_t(a).to(cuda_device, dtype) for a in case[:3])
     table, lengths = (_t(a).to(cuda_device) for a in case[3:])
     kw = dict(window=window, softcap=softcap)
@@ -225,11 +246,14 @@ def test_csd_spmm_quant_cuda_matches_plain(cuda_device, with_bias,
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("window,softcap", [(None, None), (6, 30.0),
                                             (70, None)])
-@pytest.mark.parametrize("dh", [64, 256])
-def test_paged_decode_quant_cuda_matches_plain(cuda_device, dh, window,
-                                               softcap, dtype, tol):
+@pytest.mark.parametrize("table_keys", PAGED_TABLE_KEYS)
+@pytest.mark.parametrize("g,dh,page", PAGED_GEOMETRIES)
+def test_paged_decode_quant_cuda_matches_plain(cuda_device, g, dh, page,
+                                               table_keys, window, softcap,
+                                               dtype, tol):
     from repro_torch.serving.kv_cache import quantize_kv
-    case = _paged_case(dh=dh)
+    case = _paged_case(g=g, dh=dh, page=page, table_keys=table_keys,
+                       window=window)
     q = _t(case[0]).to(cuda_device, dtype)
     # int8 pages with per-token scales, as write_kv_quant stores them
     k8, ks = quantize_kv(_t(case[1]))
@@ -248,6 +272,43 @@ def test_paged_decode_quant_cuda_matches_plain(cuda_device, dh, window,
     np.testing.assert_allclose(got.float().cpu(), ref.float().cpu(),
                                atol=tol, rtol=tol)
     assert (got[2] == 0).all()  # the empty row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("dh", [64, 256])
+def test_paged_decode_split_nan_filled_repeatable(cuda_device, dh, quant,
+                                                  nan_outputs):
+    """At a shape the split rule cuts (a 1040-key table, the split kernel
+    then the merge), into NaN-filled outputs and partials: every element
+    written, within the plain version's tolerance, two runs bit-equal."""
+    from repro_torch.analysis.capture import capture_launch
+    from repro_torch.serving.kv_cache import quantize_kv
+    q, kp, vp, table, lengths = _paged_case(g=2, dh=dh, table_keys=1040,
+                                            window=300)
+    q = _t(q).to(cuda_device, torch.bfloat16)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(_t(kp)), quantize_kv(_t(vp))
+        kw = dict(k_scale=ks.to(cuda_device), v_scale=vs.to(cuda_device))
+        kp, vp = kp.to(cuda_device), vp.to(cuda_device)
+    else:
+        kw = {}
+        kp, vp = (_t(a).to(cuda_device, torch.bfloat16) for a in (kp, vp))
+    table, lengths = (_t(a).to(cuda_device) for a in (table, lengths))
+    kw.update(window=300, softcap=30.0)
+    args = (q, kp, vp, table, lengths)
+    plan = capture_launch(flash_attention.paged_decode_attention_cuda,
+                          *args, **kw)
+    assert plan.n_splits > 1 and len(plan.launches) == 2
+    first, second = (flash_attention.paged_decode_attention_cuda(*args, **kw)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    ref = flash_attention.paged_decode_attention_plain(*args, **kw)
+    assert not bool(torch.isnan(first).any())
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+    np.testing.assert_allclose(first.float().cpu(), ref.float().cpu(),
+                               atol=1e-2, rtol=1e-2)
+    assert (first[2] == 0).all()
 
 
 # ---------------------------------------------------------------------------

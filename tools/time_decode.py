@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Time the paged decode attention kernels of the port on one card.
+
+    python3 tools/time_decode.py [--src DIR] [--label NAME] [--iters N]
+                                 [--splits]
+
+Times TPU kernels #2 and #8b (``paged_decode_attention_cuda`` over bf16
+pages and over int8 pages with per-token scales, q in bf16) through the
+wrapper, as a caller would call it, from one seed, at gemma3-4b's heads
+(Hkv 4, G 2, Dh 256; windowed layers at window 1024) and
+granite-moe-1b-a400m's (Hkv 8, G 2, Dh 64), page 16, at three shapes:
+
+- ``phase4``: ``chip_smoke.py`` phases 4 and 4b (B 4, lengths [1100, 517,
+  0, 1040], a 72-page table; gemma3 with and without its window);
+- ``serving``: a decode step of the serving runs (B 4, lengths 97-160, a
+  10-page table);
+- ``long``: B 4 rows of 8192 keys (a 512-page table, no window).
+
+The pages are cycled over enough copies to exceed the 50 MB L2, as phase
+4 does. ``--src`` names the ``src`` directory whose ``repro_torch`` is
+timed (default: this checkout's), so the same inputs and timing can be
+run against two versions of the kernel: run one process per version in
+turns (A, B, B, A) on one card and compare only the times of one such
+sequence.
+
+``--splits`` (this checkout's kernel only) times instead each shape with
+the split forced (``launch.split_plan`` replaced for the run): one launch,
+and every pages-per-split from one tile up, so that the rule's crossover
+can be read off; and the keys per tile halved and doubled at the rule's
+split. Each record carries the rule's own pick (``rule_pps``).
+
+Prints the card's ``nvidia-smi`` name and power limit, then one JSON
+record per case: device µs per call (``chip_smoke.bench``: behind a sleep
+kernel), the bound (``chip_smoke.paged_bound``: bytes), the share of the
+bound reached, SDPA over the gathered KV as ``library_us`` (the gather
+made outside the timed call), the plan's split and the version's label.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# (model, Hkv, Dh, windows)
+MODELS = (("gemma3-4b", 4, 256, (None, 1024)),
+          ("granite-moe-1b-a400m", 8, 64, (None,)))
+SERVING_LENGTHS, SERVING_PAGES = (150, 97, 128, 160), 10
+LONG_LENGTHS, LONG_PAGES = (8192,) * 4, 512
+
+
+def shapes():
+    """(shape name, lengths, table pages, windows of each model)."""
+    yield "phase4", None, None, lambda w: w
+    yield "serving", SERVING_LENGTHS, SERVING_PAGES, lambda w: (None,)
+    yield "long", LONG_LENGTHS, LONG_PAGES, lambda w: (None,)
+
+
+@contextlib.contextmanager
+def forced_split(launch, keys_per_tile: int, pages_per_split: int):
+    """The paged-decode plans take this tile and split for the run."""
+    real = launch.split_plan
+
+    def forced(b, hkv, g, dh, page_size, n_pages, page_itemsize, n_sm):
+        return (keys_per_tile, pages_per_split,
+                -(-n_pages // pages_per_split))
+    launch.split_plan = forced
+    launch.paged_decode_plan.cache_clear()
+    try:
+        yield
+    finally:
+        launch.split_plan = real
+        launch.paged_decode_plan.cache_clear()
+
+
+def sweep(n_pages: int, page: int, kt: int, pps: int):
+    """(keys per tile, pages per split) to force: one split, then one
+    tile and up (doubling), then the rule's split with the tile halved and
+    doubled (whole pages, the split a multiple of the tile)."""
+    tp = kt // page
+    out = [(kt, -(-n_pages // tp) * tp)]
+    k = 1
+    while k * tp < n_pages:
+        out.append((kt, k * tp))
+        k *= 2
+    for t in (tp // 2, 2 * tp):
+        if t >= 1:
+            out.append((t * page, -(-pps // t) * t))
+    return list(dict.fromkeys(out))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--splits", action="store_true")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_decode: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch
+    from repro_torch.serving.kv_cache import quantize_kv
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
+    bf16 = torch.bfloat16
+    for shape, lengths, n_pages, windows_of in shapes():
+        geo = {} if lengths is None else dict(lengths=lengths,
+                                               n_pages=n_pages)
+        for model, hkv, dh, windows in MODELS:
+            for window in windows_of(windows):
+                q, kp, vp, table, lens = cs.paged_inputs(
+                    dev, torch.float32, window, gen, hkv, dh, **geo)
+                q = q.to(bf16)
+                for kind in ("bfloat16", "int8"):
+                    if kind == "int8":
+                        (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+                        pages, scales = (k8, v8, ks, vs), (ks, vs)
+                    else:
+                        pages, scales = (kp.to(bf16), vp.to(bf16)), None
+                    nbytes = sum(t.numel() * t.element_size() for t in pages)
+                    pools = [tuple(t.clone() for t in pages)
+                             for _ in range(cs.copies_for(nbytes))]
+
+                    def kw_of(p):
+                        kw = dict(window=window)
+                        if len(p) == 4:
+                            kw.update(k_scale=p[2], v_scale=p[3])
+                        return kw
+
+                    def call(p):
+                        return fa.paged_decode_attention_cuda(
+                            q, p[0], p[1], table, lens, **kw_of(p))
+
+                    def split_of(p):
+                        return cs.paged_split(
+                            fa.paged_decode_attention_cuda, q, p[0], p[1],
+                            table, lens, **kw_of(p))
+                    sdpa, visible = cs.paged_yardstick(
+                        q, pages[0], pages[1], table, lens, window, scales)
+                    lib_ms, _ = cs.bench([sdpa], args.iters)
+                    bound_ms, bound_by = cs.paged_bound(
+                        q, table, lens, visible, kind == "int8")
+                    rule = split_of(pools[0])
+                    base = dict(label=args.label, shape=shape, model=model,
+                                kind=kind, hkv=hkv, dh=dh, window=window,
+                                b=len(lens), n_pages=table.shape[1],
+                                visible=visible, bound_us=bound_ms * 1e3,
+                                bound_by=bound_by,
+                                library_us=lib_ms * 1e3)
+                    forced = [(None, None)]
+                    if args.splits:
+                        forced = sweep(table.shape[1], kp.shape[1],
+                                       rule["keys_per_tile"],
+                                       rule["pages_per_split"])
+                    for kt, pps in forced:
+                        ctx = contextlib.nullcontext() if kt is None \
+                            else forced_split(launch, kt, pps)
+                        with ctx:
+                            plan = split_of(pools[0])
+                            ms, host_ms = cs.bench(
+                                [lambda p=p: call(p) for p in pools],
+                                args.iters)
+                        rec = dict(base, us=ms * 1e3, host_us=host_ms * 1e3,
+                                   bound_share=bound_ms / ms, **plan)
+                        if args.splits:
+                            rec["rule_pps"] = rule["pages_per_split"]
+                            rec["rule_kt"] = rule["keys_per_tile"]
+                        print(json.dumps(rec), flush=True)
+                    del pools, sdpa
+                del q, kp, vp
+                torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
