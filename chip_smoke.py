@@ -9,11 +9,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version; turn TF32 off so that f32 references run in full f32;
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once), and count the HGMMA (wgmma) and
-   UTMALDG (TMA load) instructions in the forward, dx, dw and
-   flash-attention libraries' SASS (none fails the run), and the HMMA
+   UTMALDG (TMA load) instructions in the forward, int8 forward, dx, dw
+   and flash-attention libraries' SASS (none fails the run), and the HMMA
    (mma.sync) and LDGSTS (cp.async) instructions of the forward's wgmma
-   body and the bf16 flash-attention kernels (any fails it); read every
-   paged decode kernel form's registers per thread from the compiler's
+   body (bf16 and int8 weights) and the bf16 flash-attention kernels (any
+   fails it); read every paged decode kernel form's and every form of the
+   int8 forward's decode body's registers per thread from the compiler's
    ``-Xptxas -v`` log (any spill fails the run);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
@@ -27,18 +28,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    no window); each record names the split its plan takes (keys per
    tile, pages per split, launches);
 4b. the int8 serving kernels against their plain versions: the int8
-   ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (M 4 and 256, f32
-   and bf16, with and without the gelu epilogue; the yardstick a
-   ``torch.matmul`` on the densified, dequantized slab), and paged decode
+   ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (M 4, 16, 32,
+   64, 128 and 256, f32 and bf16, with and without the gelu epilogue; the yardstick a
+   ``torch.matmul`` on the densified, dequantized slab; each record names
+   the body its plan runs, its tile and its cluster), and paged decode
    over int8 pages at phase 4's cases (the yardstick SDPA over the
    gathered, dequantized KV), timed like phase 3;
 3c. the expert-batched forward kernels against their plain versions at
    granite-moe-1b-a400m's serving shapes (32 experts, C = 4 and 256 rows
    each; up/gate 1024 -> 512 in 128 x 256 blocks at fan-in 4, down 512 ->
    1024 at fan-in 3; f32 and bf16): ``csd_spmm_fwd_batched`` with phase 3's
-   tolerances and ``csd_spmm_fwd_quant_batched`` with phase 4b's, timed
-   like phase 3 with one ``torch.bmm`` over the densified (dequantized)
-   slabs as the yardstick;
+   tolerances and ``csd_spmm_fwd_quant_batched`` with phase 4b's (also at
+   C = 16, 32, 64 and 128), timed like phase 3 with one ``torch.bmm`` over the
+   densified (dequantized) slabs as the yardstick;
 5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
    vocab 262144; random weights from a seed; bf16) through
    ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
@@ -53,9 +55,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launch counts of all six serving kernels around the run (the bf16
    forward and the full-width paged decode must not run), the kernels per
    decode step, the bytes of the int8 slabs and of the page pool, the
-   kernels-vs-plain decode step and 4 profiled decode steps; then the
-   teacher-forced top-1 agreement of the int8 model's logits with the bf16
-   model's on phase 5's prompts and tokens (recorded, not gated);
+   kernels-vs-plain decode step and 4 profiled decode steps; every int8
+   junction call of the decode step must be one launch of the int8
+   forward's decode body (``csd_spmm_fwd_quant_stream_kernel``, no f32
+   partial buffer), and no ``reduce_splits_kernel`` may run in the
+   profiled steps, whose junction kernels' µs per step are recorded; then
+   the teacher-forced top-1 agreement of the int8 model's logits with the
+   bf16 model's on phase 5's prompts and tokens (recorded, not gated);
 5c. serve granite-moe-1b-a400m at its full width (24 layers, d_model 1024,
    32 experts top-8 of d_expert 512, vocab 49155; random weights from a
    seed; bf16) in its serving configuration: expert blocks 128 x 256
@@ -65,8 +71,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    none of the 4-D forward, and the resident expert slab bytes;
 5d. the same weights quantized at load (weights and KV), as phase 5b:
    72 launches of the int8 expert-batched forward and 24 of the int8 paged
-   decode per decode step, none of the full-width kernels, the int8 slab
-   and scale bytes, and the top-1 agreement with 5c (recorded, not gated);
+   decode per decode step (each junction call one launch of the decode
+   body, no ``reduce_splits_kernel``), none of the full-width kernels, the
+   int8 slab and scale bytes, and the top-1 agreement with 5c (recorded,
+   not gated);
 6. hold the training kernels against their plain versions at gemma3-4b's
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
@@ -212,18 +220,20 @@ def within(got, ref, atol: float, rtol: float) -> bool:
 
 
 def fwd_body(fn, *args, **kw) -> dict:
-    """Which body of ``csrc/csd_spmm_fwd.cu`` the forward wrapper ``fn``
-    runs for these operands, read from the plan it builds for this card
-    (captured, not launched): the kernel, its grid, the output columns of
-    its tile and the fan-in splits."""
+    """Which body of ``csrc/csd_spmm_fwd.cu`` or (int8)
+    ``csrc/csd_spmm_fwd_quant.cu`` the forward wrapper ``fn`` runs for
+    these operands, read from the plan it builds for this card (captured,
+    not launched): the kernel, its grid, the rows and output columns of its
+    tile, its thread-block cluster, the fan-in splits and the launches."""
     from repro_torch.analysis.capture import capture_launch
     from repro_torch.kernels import launch
     plan = capture_launch(fn, *args, n_sm=launch.sm_count(args[0].device),
                           **kw)
     ln = plan.launches[0]
-    return dict(body=ln.kernel, grid=list(ln.grid),
-                tile_n=dict((t[0], t[2]) for t in ln.tiles)["n_out"],
-                n_splits=plan.n_splits)
+    tiles = dict((t[0], t[2]) for t in ln.tiles)
+    return dict(body=ln.kernel, grid=list(ln.grid), tile_m=tiles["M"],
+                tile_n=tiles["n_out"], cluster=ln.cluster[0],
+                n_splits=plan.n_splits, n_launches=len(plan.launches))
 
 
 def check_training_body(rec: dict) -> None:
@@ -245,21 +255,25 @@ def check_training_body(rec: dict) -> None:
 SASS_OPS = ("HGMMA", "UTMALDG")
 # the Ampere-era path: HMMA (mma.sync) and LDGSTS (cp.async)
 SASS_OLD_OPS = ("HMMA", "LDGSTS")
-SASS_LIBS = ("csd_spmm_fwd", "csd_spmm_dx", "csd_spmm_dw", "flash_attention")
+SASS_LIBS = ("csd_spmm_fwd", "csd_spmm_fwd_quant", "csd_spmm_dx",
+             "csd_spmm_dw", "flash_attention")
 # libraries whose every ``*_wgmma_kernel`` must hold no Ampere-era
 # instruction, and how many such functions each has at least: the
-# forward's wgmma body (3 tile widths x 3 activations), the bf16
-# flash-attention kernels (forward, dq and dk/dv at Dh 64, 128, 256)
-SASS_WGMMA_ONLY = {"csd_spmm_fwd": 9, "flash_attention": 9}
+# forward's wgmma body (3 tile widths x 3 activations), its int8
+# instantiation (2 widths x 3 activations), the bf16 flash-attention
+# kernels (forward, dq and dk/dv at Dh 64, 128, 256)
+SASS_WGMMA_ONLY = {"csd_spmm_fwd": 9, "csd_spmm_fwd_quant": 6,
+                   "flash_attention": 9}
 
 
 def sass_counts() -> dict:
-    """``cuobjdump -sass`` of the built forward, dx, dw and flash-attention
-    libraries: how many HGMMA and UTMALDG instructions each holds (all must
-    have both: their bf16 kernels at the training shapes run on wgmma fed
-    by TMA), and, per function, HMMA and LDGSTS, of which the forward's
-    wgmma body and the bf16 flash-attention kernels (``*_wgmma_kernel``)
-    must hold none."""
+    """``cuobjdump -sass`` of the built forward, int8 forward, dx, dw and
+    flash-attention libraries: how many HGMMA and UTMALDG instructions each
+    holds (all must have both: their bf16 kernels at the training and
+    prefill shapes run on wgmma fed by TMA), and, per function, HMMA and
+    LDGSTS, of which the forward's wgmma body (bf16 and int8 weights) and
+    the bf16 flash-attention kernels (``*_wgmma_kernel``) must hold
+    none."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
     rec = {}
@@ -309,12 +323,13 @@ def ptxas_functions(log: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
-def paged_registers() -> dict:
-    """Phase 2: registers per thread of every form of the paged decode
-    kernels (``paged_decode_kernel<T, PT, G, bucket>`` and the merge), read
-    from the library's compiler log; fails if any spills."""
+def kernel_registers(source: str, match: str, what: str) -> dict:
+    """Phase 2: registers per thread of every function of the library of
+    ``csrc/<source>.cu`` whose name holds ``match``, read from its
+    compiler log; fails if any spills (``what`` names them)."""
     from repro_torch.kernels import build
-    funcs = ptxas_functions(build.compiler_log("paged_decode"))
+    funcs = {k: v for k, v in ptxas_functions(
+        build.compiler_log(source)).items() if match in k}
     filt = Path(build._nvcc()).with_name("cu++filt")
     names = list(funcs)
     if filt.exists():
@@ -331,11 +346,24 @@ def paged_registers() -> dict:
             "(anonymous namespace)::", "")
         rec[pretty] = dict(registers=funcs[name][0],
                            spill_bytes=funcs[name][1])
-    log(json.dumps(dict(check="paged decode registers", kernels=rec)))
+    log(json.dumps(dict(check=f"{what} registers", kernels=rec)))
     spilled = {k: v for k, v in rec.items() if v["spill_bytes"]}
     if not rec or spilled:
-        fail(f"paged decode kernels spill (or none were found): {spilled}")
+        fail(f"{what} kernels spill (or none were found): {spilled}")
     return rec
+
+
+def paged_registers() -> dict:
+    """Every form of the paged decode kernels
+    (``paged_decode_kernel<T, PT, G, bucket>`` and the merge)."""
+    return kernel_registers("paged_decode", "paged_decode", "paged decode")
+
+
+def stream_registers() -> dict:
+    """Every row-tile form of the int8 forward's decode body
+    (``csd_spmm_fwd_quant_stream_kernel<MT>``)."""
+    return kernel_registers("csd_spmm_fwd_quant", "stream_kernel",
+                            "int8 decode body")
 
 
 # ---------------------------------------------------------------------------
@@ -565,6 +593,12 @@ def paged_split(fn, *args, **kw) -> dict:
 # max |kernel - plain|: f32 sums in another order, against the largest
 # |plain|; bf16 one rounding of the output
 QUANT_F32_TOL = 1e-4
+# rows (per expert in phase 3c) of the int8 forward's cases: a decode
+# step's 4 slots; prefill of 4 slots of 4, 8, 16, 32 and 64 tokens (the
+# engine's power-of-two chunks), so that every body the rule picks on the
+# serving path is held against plain: the stream body's 16-, 32- and
+# 64-row tiles, the wgmma body at one and at two 128-row tiles
+QUANT_M = (4, 16, 32, 64, 128, 256)
 
 
 def quant_close(got, ref, dtype) -> bool:
@@ -595,7 +629,7 @@ def run_spmm_quant(cfg, device, results):
             dense = dense_of(bp, dequantize_slab(*slabs[0], dtype))
             denses = [dense] + [dense.clone() for _ in range(
                 copies_for(dense.numel() * dense.element_size()) - 1)]
-            for m in (4, 256):
+            for m in QUANT_M:
                 x = torch.randn((m, bp.n_in), generator=g,
                                 device=device).to(dtype)
                 for act in (None, "gelu"):
@@ -624,8 +658,11 @@ def run_spmm_quant(cfg, device, results):
                     nbytes = el * m * (bp.n_in + bp.n_out) + n_w \
                         + 4 * 2 * idx.numel()  # slab, scales, pattern
                     bound_ms, bound_by = bound(nbytes, 2 * m * n_w, dtype)
+                    q, sc = slabs[0]
                     rec = dict(kernel="csd_spmm_fwd_quant", junction=name,
                                m=m, dtype=dtype_name, activation=act,
+                               **fwd_body(csd_spmm.csd_spmm_fwd_cuda, x, q,
+                                          idx, activation=act, w_scale=sc),
                                max_abs_err=abs_e, max_rel_err=rel_e,
                                max_abs_ref=float(ref.abs().max()), ok=ok,
                                ms=ms, host_ms=host_ms, plain_ms=plain_ms,
@@ -776,7 +813,7 @@ def run_spmm_batched(cfg, device, results):
         del w0
         variants = ((None, False), ("gelu", False)) if name == "up/gate" \
             else ((None, False), (None, True))
-        for m in (4, 256):
+        for m in QUANT_M if quant else (4, 256):
             x = torch.randn((n_exp, m, bp.n_in), generator=g,
                             device=device).to(dtype)
             for act, with_bias in variants:
@@ -1040,7 +1077,7 @@ def serve(model, device, out_dir, quant=None,
         return chk._run(tokens, chk.sched.state.seq_lens, n_new_a)
 
     reset_launch_counts()
-    logits_k = run_step()
+    logits_k, plans = launched_plans(run_step)
     per_step = {k: v for k, v in launch_counts().items() if v}
     with plain_versions():
         logits_p = run_step()
@@ -1056,6 +1093,8 @@ def serve(model, device, out_dir, quant=None,
                    tol=LOGIT_TOL * scale, argmax_agreement=agree,
                    finite=bool(torch.isfinite(lk).all()),
                    launches_per_decode_step=per_step)
+    if quant is not None:
+        chk_rec["int8_junction_bodies"] = check_int8_decode_body(plans, tag)
     log(json.dumps(chk_rec))
     if not chk_rec["finite"] or err > LOGIT_TOL * scale:
         fail(f"decode logits disagree: {chk_rec}")
@@ -1065,6 +1104,47 @@ def serve(model, device, out_dir, quant=None,
     return rec, chk_rec, profile_decode(
         model, prompts, n_new, device, out_dir, quant, trace=trace), \
         toks, prompts
+
+
+def launched_plans(fn) -> tuple:
+    """(fn(), the plans of every launch it made, in order)."""
+    from repro_torch.kernels import launch
+    real, plans = launch.run, []
+
+    def run(plan, buffers, call):
+        plans.append(plan)
+        return real(plan, buffers, call)
+
+    launch.run = run
+    try:
+        out = fn()
+    finally:
+        launch.run = real
+    return out, plans
+
+
+INT8_DECODE_BODY = "csd_spmm_fwd_quant_stream_kernel"
+
+
+def check_int8_decode_body(plans, tag) -> dict:
+    """Fail unless every int8 junction call of a bf16 decode step (the
+    plans of ``csd_spmm_fwd_quant``) is one launch of the decode body with
+    no f32 partial buffer; the distinct (cluster, rows, columns) the calls
+    ran, with their counts."""
+    seen = {}
+    for p in plans:
+        if p.name != "csd_spmm_fwd_quant":
+            continue
+        kernels = [ln.kernel for ln in p.launches]
+        if kernels != [INT8_DECODE_BODY] or "partial" in p.buffers:
+            fail(f"{tag}: an int8 decode junction call ran {kernels} "
+                 f"({p.args}), not one launch of {INT8_DECODE_BODY}")
+        key = f"cluster {p.args['cluster']}, {p.args['tile_m']} x " \
+              f"{p.args['tile_n']}, grid {list(p.launches[0].grid)}"
+        seen[key] = seen.get(key, 0) + 1
+    if not seen:
+        fail(f"{tag}: the decode step launched no int8 junction")
+    return seen
 
 
 def top1_agreement(ref_model, model, prompts, gen, device, quant,
@@ -1180,10 +1260,34 @@ def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
                / n_steps,
                paged_per_layer=paged_per_layer(
                    kernels, dev_us, n_steps * model.cfg.n_layers),
+               junction_per_step=junction_per_step(kernels, dev_us,
+                                                   n_steps),
                top=[dict(name=e.key[:70], us_per_step=dev_us(e) / n_steps,
                          calls_per_step=e.count / n_steps) for e in top])
     log(json.dumps(rec))
+    if quant is not None and any("reduce_splits" in k
+                                 for k in rec["junction_per_step"]):
+        fail(f"an int8 decode step ran reduce_splits_kernel: "
+             f"{rec['junction_per_step']}")
     return rec
+
+
+def junction_per_step(kernels, dev_us, n_steps: int) -> dict:
+    """The junction forward's CUDA launches and device µs per step, by
+    kernel (its bodies, the split forward's second pass), over
+    ``n_steps`` steps; ``total_us`` their sum."""
+    out, total = {}, 0.0
+    for e in kernels:
+        if "csd_spmm_fwd" in e.key or "reduce_splits" in e.key:
+            name = e.key.split("(", 1)[0] if "<" not in e.key else \
+                e.key[:e.key.find(">") + 1]
+            name = name.replace("void ", "").replace(
+                "(anonymous namespace)::", "")
+            out[name] = dict(launches=e.count / n_steps,
+                             us=dev_us(e) / n_steps)
+            total += dev_us(e) / n_steps
+    out["total_us"] = total
+    return out
 
 
 def paged_per_layer(kernels, dev_us, n: int) -> dict:
@@ -2184,7 +2288,8 @@ def plan_drift(device) -> dict:
         plans.setdefault((p.name, tuple(sorted(p.args.items()))), p)
     bad = []
     for key, p in plans.items():
-        lib = [(tuple(g), t, m) for g, t, m in launch.library_dims(p)]
+        lib = [(tuple(g), t, m, c)
+               for g, t, m, c in launch.library_dims(p)]
         if lib != p.dims():
             bad.append(dict(plan=key, python=p.dims(), library=lib))
     if bad:
@@ -2331,6 +2436,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     sass_rec = sass_counts()
     paged_regs = paged_registers()
+    stream_regs = stream_registers()
 
     record_plans()
 
@@ -2578,7 +2684,8 @@ def main() -> int:
              train_step_check=step_chk, train=train_rec,
              train_profile=train_prof, granite_train_step_check=g_step_chk,
              granite_train=g_train_rec, granite_train_profile=g_train_prof,
-             sass=sass_rec, paged_registers=paged_regs, lint=lint_rec,
+             sass=sass_rec, paged_registers=paged_regs,
+             int8_decode_registers=stream_regs, lint=lint_rec,
              plan_drift=drift_rec,
              nan_coverage=nan_rec,
              injected_alias=inj_rec, kernels=entries),

@@ -16,12 +16,15 @@ proves, per kernel case:
   sums has one writer), and a later launch may read only scratch an
   earlier launch of the call wrote.
 * **SL102 (divisibility)** — every tile divides the extent it cuts, unless
-  the plan declares that edge masked (the M tails).
+  the plan declares that edge masked (the M tails); a thread-block cluster
+  tiles its grid and holds at most 8 CTAs (the portable size).
 * **SL103 (epilogue)** — the bias / activation / pre-activation / softmax
   normalisation epilogue fires exactly once per element of each of the
   call's outputs, in a CTA that runs the whole fan-in: the CTA itself when
-  the fan-in is a loop inside it (``n_splits == 1``), else the reduce or
-  merge launch; never in a split CTA.
+  the fan-in is a loop inside it (``n_splits == 1``), the rank that adds
+  its thread-block cluster's sums when the cluster splits it (its slots
+  are the cluster's), else the reduce or merge launch; never in a split
+  CTA.
 * **SL104 (shared memory)** — dynamic shared memory per CTA within the
   budget: the H100's opt-in maximum of 227 KiB (232,448 B) by default; the
   CLI reads the card's own with ``--device cuda``.
@@ -163,6 +166,12 @@ def analyze_plan(plan: LaunchPlan, subject: str,
                     f"{where}: tile {tile} does not divide {what} = "
                     f"{extent} and the kernel does not mask that edge",
                     {"what": what, "extent": extent, "tile": tile}))
+        if any(g % c for g, c in zip(ln.grid, ln.cluster)) \
+                or math.prod(ln.cluster) > 8:
+            findings.append(Finding(
+                "SL102", subject,
+                f"{where}: cluster {ln.cluster} does not tile the grid or "
+                f"holds more than 8 CTAs", {"cluster": list(ln.cluster)}))
         ctas = ln.ctas()
         writes = ln.writes(ctas)
         reads = ln.reads(ctas, pats)
@@ -523,7 +532,10 @@ def demo_cases() -> List[KernelCase]:
     blocks, 4 x 4 at density 0.5, M 256, two experts in the 5-D forms; the
     bf16 backward also at a ragged M of 77 rows over 64 x 64 blocks and
     over three experts; the bf16 forward's wgmma body at a ragged M of
-    1000 rows of three experts over 64 x 64 blocks (64-column tiles)."""
+    1000 rows of three experts over 64 x 64 blocks (64-column tiles); the
+    bf16 int8 forward's stream body at M 5 (a cluster of 2) and 40 rows of
+    three experts, its wgmma body at 300 rows of three experts over 64 x
+    64 blocks."""
     bp = _demo_pattern()
     bp64 = _demo_pattern(block_in=64, block_out=64, n_lb=4, n_rb=6)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -540,6 +552,13 @@ def demo_cases() -> List[KernelCase]:
         _fwd_case("csd_spmm_fwd_quant_4d", bp, 256, f32, activation="relu",
                   bias=True, quant=True),
         _fwd_case("csd_spmm_fwd_quant_5d_batched", bp, 256, f32, experts=2,
+                  quant=True),
+        _fwd_case("csd_spmm_fwd_quant_4d_bf16_m5", bp, 5, bf16,
+                  activation="gelu", bias=True, quant=True),
+        _fwd_case("csd_spmm_fwd_quant_5d_bf16_e3_m40", bp, 40, bf16,
+                  experts=3, activation="relu", bias=True, quant=True),
+        _fwd_case("csd_spmm_fwd_quant_5d_bf16_bl64_e3_m300", bp64, 300,
+                  bf16, experts=3, activation="gelu", bias=True,
                   quant=True),
         _dx_case("csd_spmm_dx_4d", bp, 256, f32),
         _dx_case("csd_spmm_dx_5d_batched", bp, 256, f32, experts=2),
@@ -570,8 +589,12 @@ def demo_cases() -> List[KernelCase]:
 
 # chip_smoke.py's shapes: 4 decode slots, training batch 2 x seq 2048, its
 # paged-decode rows (lengths past 1024, one empty, page 16, 72-entry table)
-# and a decode step of its serving runs (lengths 97-160, 10-entry table)
+# and a decode step of its serving runs (lengths 97-160, 10-entry table);
+# the int8 forward's prefill rows: 4 slots of 8-token chunks (32, the
+# stream body's 32-row tile), one 64-token chunk, and 256 (4 slots of 64;
+# rows per expert in granite's batched form)
 DECODE_M, TRAIN_B, TRAIN_S = 4, 2, 2048
+PREFILL_SMALL, PREFILL_CHUNK, PREFILL_M = 32, 64, 256
 PAGED_LENGTHS, PAGED_PAGES, PAGE = (1100, 517, 0, 1040), 72, 16
 SERVING_LENGTHS, SERVING_PAGES = (150, 97, 128, 160), 10
 
@@ -601,6 +624,14 @@ def full_width_cases() -> List[KernelCase]:
         _fwd_case("gemma3_4b/decode/fwd_quant_gate_gelu", gate, DECODE_M,
                   bf16, activation="gelu", quant=True),
         _fwd_case("gemma3_4b/decode/fwd_quant_down", down, DECODE_M, bf16,
+                  quant=True),
+        _fwd_case("gemma3_4b/prefill/fwd_quant_down_m32", down,
+                  PREFILL_SMALL, bf16, quant=True),
+        _fwd_case("gemma3_4b/prefill/fwd_quant_gate_gelu_m64", gate,
+                  PREFILL_CHUNK, bf16, activation="gelu", quant=True),
+        _fwd_case("gemma3_4b/prefill/fwd_quant_gate_gelu", gate, PREFILL_M,
+                  bf16, activation="gelu", quant=True),
+        _fwd_case("gemma3_4b/prefill/fwd_quant_down", down, PREFILL_M, bf16,
                   quant=True),
         _fwd_case("gemma3_4b/train/fwd_gate_gelu_preact", gate, tm, bf16,
                   activation="gelu", save_preact=True),
@@ -647,6 +678,8 @@ def full_width_cases() -> List[KernelCase]:
             _fwd_case(f"granite/decode/fwd_{jname}", bp, c_decode, bf16,
                       experts=e),
             _fwd_case(f"granite/decode/fwd_quant_{jname}", bp, c_decode,
+                      bf16, experts=e, quant=True),
+            _fwd_case(f"granite/prefill/fwd_quant_{jname}", bp, PREFILL_M,
                       bf16, experts=e, quant=True),
             _fwd_case(f"granite/train/fwd_{jname}", bp, c_train, bf16,
                       experts=e),

@@ -42,7 +42,11 @@ The forward also has an int8 form for serving (``w_scale``): the slab is
 int8 with one f32 scale per (bL x bR) block (``core.quant``), each slot's
 partial sum is scaled before it is accumulated, and no gradient exists.
 Its kernel is ``csrc/csd_spmm_fwd_quant.cu`` (``csd_spmm_fwd_quant_cuda``,
-which ``csd_spmm_fwd_cuda`` calls when given ``w_scale``).
+which ``csd_spmm_fwd_cuda`` calls when given ``w_scale``), with three
+bodies that ``launch.quant_body`` chooses between: in bf16 the
+weight-streaming body for a few rows per expert (every decode call; one
+launch, the fan-in split over a thread-block cluster) and the wgmma body
+over int8 tiles for more; in f32 the grid body.
 
 And the forward has an expert-batched form for MoE (the JAX package's
 ``_csd_spmm_fwd_batched`` and ``_csd_spmm_fwd_quant_batched``): x (E, M,
@@ -390,24 +394,29 @@ def _launch_fwd_quant(name: str, x, w, w_scale, block_idx, bias, activation,
     if w_scale.dtype != torch.float32:
         raise ValueError(f"{name}: w_scale must be float32")
     e, m, n_in, n_rb, d_in_b, bl, br = _check_fwd_shapes(
-        name, x, w, block_idx, bias, batched)
+        name, x, w, block_idx, bias, batched, grid_body=False)
     y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
                     device=x.device)
     if y.numel() == 0:
         return y, False
+    n_sm = launch.sm_count(x.device)
     plan = launch.fwd_plan(
         e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x), has_bias=bias is not None,
         save_preact=False, quant=True,
-        n_sm=launch.sm_count(x.device)).with_patterns(block_idx=block_idx)
+        n_sm=n_sm).with_patterns(block_idx=block_idx)
+    if plan.args["body"] == launch.BODY_GRID:
+        _check_fwd_shapes(name, x, w, block_idx, bias, batched)
     partial = _partial(plan, x, e, m, n_rb * br)
+    a = plan.args
     launch.run(plan, dict(x=x, w=w, w_scale=w_scale, block_idx=block_idx,
                           bias=bias, y=y, partial=partial),
-               lambda: _bind("csd_spmm_fwd_quant", 7, 10)(
+               lambda: _bind("csd_spmm_fwd_quant", 7, 15)(
                    x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
                    block_idx.data_ptr(), _ptr(bias), y.data_ptr(),
                    _ptr(partial), e, m, n_in, n_rb, d_in_b, bl, br,
-                   plan.n_splits, _DTYPE_CODE[x.dtype],
-                   _ACT_CODE[activation], _stream()))
+                   plan.n_splits, n_sm, a["body"], a["tile_m"], a["tile_n"],
+                   a["cluster"], _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+                   _stream()))
     return y, True
 
 

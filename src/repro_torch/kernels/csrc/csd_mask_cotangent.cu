@@ -81,9 +81,9 @@ extern "C" int csd_mask_cotangent(const void* dy, const void* aux, void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch csd_mask_cotangent makes for these arguments, from the host
-// code it launches with: five ints (grid x, y, z, threads, dynamic shared
-// memory bytes) written to out. Returns the launch count (1), or -1 for an
+// The launch csd_mask_cotangent makes for these arguments, from the host code
+// it launches with: six ints (grid x, y, z, threads, dynamic shared memory
+// bytes, cluster) written to out. Returns the launch count (1), or -1 for an
 // unknown dtype.
 extern "C" int csd_mask_cotangent_plan(int rows, int n_out, int dtype,
                                        int* out) {

@@ -428,8 +428,8 @@ extern "C" int csd_spmm_dw(const void* x, const void* g, const int* block_idx,
 }
 
 // The launch csd_spmm_dw makes for these arguments, from the host code it
-// launches with: five ints (grid x, y, z, threads, dynamic shared memory
-// bytes) written to out. Returns the launch count (1), or -1 for an unknown
+// launches with: six ints (grid x, y, z, threads, dynamic shared memory bytes,
+// cluster) written to out. Returns the launch count (1), or -1 for an unknown
 // dtype.
 extern "C" int csd_spmm_dw_plan(int E, int n_rb, int d_in_b, int bL, int bR,
                                 int dtype, int* out) {

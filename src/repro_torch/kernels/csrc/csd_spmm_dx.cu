@@ -404,8 +404,8 @@ extern "C" int csd_spmm_dx(const void* g, const void* w, const int* out_idx,
 }
 
 // The launch csd_spmm_dx makes for these arguments, from the host code it
-// launches with: five ints (grid x, y, z, threads, dynamic shared memory
-// bytes) written to out. Returns the launch count (1), or -1 for an unknown
+// launches with: six ints (grid x, y, z, threads, dynamic shared memory bytes,
+// cluster) written to out. Returns the launch count (1), or -1 for an unknown
 // dtype.
 extern "C" int csd_spmm_dx_plan(int E, int M, int n_lb, int bL, int dtype,
                                 int n_ctas, int* out) {

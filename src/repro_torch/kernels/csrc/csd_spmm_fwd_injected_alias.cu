@@ -65,9 +65,10 @@ extern "C" int csd_spmm_fwd_injected_alias(const void* x, const void* w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The launch csd_spmm_fwd_injected_alias makes for these arguments: five
-// ints (grid x, y, z, threads, dynamic shared memory bytes) written to out.
-// Returns the launch count (1), or -1 for an unknown dtype.
+// The launch csd_spmm_fwd_injected_alias makes for these arguments: six
+// ints (grid x, y, z, threads, dynamic shared memory bytes, cluster)
+// written to out. Returns the launch count (1), or -1 for an unknown
+// dtype.
 extern "C" int csd_spmm_fwd_injected_alias_plan(int E, int M, int n_rb,
                                                 int bR, int d_in_b,
                                                 int dtype, int* out) {

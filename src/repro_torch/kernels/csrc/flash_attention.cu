@@ -1650,9 +1650,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 
 // The launches flash_attention_fwd (backward 0) or flash_attention_bwd
 // (backward 1) makes for these shapes, from the host code it launches
-// with: five ints each (grid x, y, z, threads, dynamic shared memory bytes)
-// written to out (room for 2). Returns the launch count, or -1 where the
-// entry point would refuse the shapes or the dtype.
+// with: six ints each (grid x, y, z, threads, dynamic shared memory bytes,
+// cluster) written to out (room for 2). Returns the launch count, or -1
+// where the entry point would refuse the shapes or the dtype.
 extern "C" int flash_attention_plan(int B, int Sq, int Skv, int Hq, int Hkv,
                                     int Dh, int dtype, int backward,
                                     int* out) {

@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks of the wgmma/TMA kernels (csd_spmm_fwd.cu,
-// csd_spmm_dx.cu, csd_spmm_dw.cu, flash_attention.cu; paged_decode.cu uses
-// the mbarriers and bulk loads), in inline PTX: mbarriers, 1-D bulk loads,
-// 3-D and 4-D TMA tile loads, 3-D TMA tile stores with their
-// bulk groups and proxy fence, named barriers, wgmma shared-memory
-// descriptors for the 128-byte swizzle, the bf16 m64nNk16 products with
-// f32 accumulators in registers (A from shared memory, or from registers),
-// and the host side that encodes a tensor map through the driver entry
-// point (so the libraries need no -lcuda).
+// csd_spmm_fwd_quant.cu, csd_spmm_dx.cu, csd_spmm_dw.cu, flash_attention.cu;
+// paged_decode.cu uses the mbarriers, bulk loads and the int8 conversion),
+// in inline PTX: mbarriers, 1-D bulk loads, 3-D and 4-D TMA tile loads,
+// 3-D TMA tile stores with their bulk groups and proxy fence, named
+// barriers, thread-block cluster barriers and distributed shared memory
+// loads, wgmma shared-memory descriptors for the 128-byte swizzle, the bf16
+// m64nNk16 products with f32 accumulators in registers (A from shared
+// memory, or from registers), the bf16 m16n8k16 mma.sync product, the
+// exact int8 -> f32 / bf16 conversion by byte permute, and the host side
+// that encodes a tensor map through the driver entry point (so the
+// libraries need no -lcuda).
 //
 // Every tile in shared memory is the one layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), row r of a box
@@ -170,6 +173,79 @@ __device__ __forceinline__ void fence_proxy_async() {
 // __syncthreads'): one warpgroup synchronises without the others.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A barrier of every thread of every CTA of the cluster: shared-memory
+// writes before it (release) are visible to distributed shared-memory
+// reads after it (acquire). Every thread of the cluster must reach it, with
+// its warp converged.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The address of shared-memory address `addr` in the CTA of cluster rank
+// `rank`, for ld.shared::cluster.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes of another CTA's shared memory (an address from map_to_rank).
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// int8 -> f32 exactly without the conversion unit. `flipped` is a word of
+// four int8 values XOR-ed with 0x80808080 (each byte b + 128 as unsigned);
+// byte i placed in the mantissa of 2^23 (0x4B000000) gives 2^23 + 128 + b,
+// from which 2^23 + 128 is subtracted.
+__device__ __forceinline__ float s8_to_f32(uint32_t flipped, int i) {
+  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u + i)) -
+         8388736.f;
+}
+
+// Two int8 values, bytes 0 and 2 of t (bytes 1 and 3 are ignored), as an
+// exact bf16 pair (byte 0 in the low half), without the conversion unit:
+// for a byte b, bf16 128 + (b & 127) (bits 0x4300 | (b & 0x7F)) minus 128,
+// or 256 where b < 0 (bits 0x4300 | (b & 0x80)), is b, exactly, since both
+// operands and their difference are integers of at most 8 significant
+// bits. Two bitwise operations and one bf16x2 fma for the pair.
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t t) {
+  const uint32_t v = (t & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (t & 0x00800080u) | 0x43004300u;
+  uint32_t out;  // v - c, as c * -1 + v
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(out)
+      : "r"(c), "r"(0xBF80BF80u), "r"(v));
+  return out;
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16, row-major) B (16 x 8, bf16), the
+// fragments in mma.sync's layout for lane l = 4 g + t: a[0] A[g][2t, 2t+1],
+// a[1] A[g+8][2t, 2t+1], a[2] A[g][2t+8, 2t+9], a[3] A[g+8][2t+8, 2t+9];
+// b0 B[2t, 2t+1][g], b1 B[2t+8, 2t+9][g]; d[0..1] D[g][2t, 2t+1], d[2..3]
+// D[g+8][2t, 2t+1] (each pair low half first).
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // wgmma shared-memory descriptor of an operand at `addr` (1024-byte
@@ -521,22 +597,42 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor (d2, d1, d0) (d0 innermost, contiguous) as a 3-D map whose
-// boxes are (1, rows, 64) with the 128-byte swizzle; coordinates past d1
-// (a ragged M) read as zeros. Returns false if the driver refuses it.
-bool encode_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-               uint64_t d2, uint32_t rows) {
+// A tensor (d2, d1, d0) (d0 innermost, contiguous) of `type`, `elem`
+// bytes an element, as a 3-D map whose boxes are (1, rows, box0) with
+// `swizzle`; coordinates past d1 (a ragged M) read as zeros. Returns false
+// if the driver refuses it.
+bool encode_3d_of(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                  const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                  uint32_t box0, uint32_t rows, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1, 2
-  const cuuint32_t box[3] = {64, rows, 1};
+  const cuuint64_t strides[2] = {d0 * elem, d0 * d1 * elem};  // bytes
+  const cuuint32_t box[3] = {box0, rows, 1};
   const cuuint32_t one[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(base), dims, strides, box, one,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor (d2, d1, d0) as a 3-D map whose boxes are (1, rows, 64)
+// with the 128-byte swizzle.
+bool encode_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+               uint64_t d2, uint32_t rows) {
+  return encode_3d_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d0, d1,
+                      d2, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An int8 tensor (d2, d1, d0) as a 3-D map whose boxes are (1, rows,
+// box0): box0 128 with the 128-byte swizzle, or 64 unswizzled (rows of 64
+// bytes one after the other).
+bool encode_3d_s8(CUtensorMap* map, const void* base, uint64_t d0,
+                  uint64_t d1, uint64_t d2, uint32_t box0, uint32_t rows) {
+  return encode_3d_of(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, d0, d1,
+                      d2, box0, rows,
+                      box0 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // A bf16 tensor (d3, d2, d1, d0) (d0 innermost, contiguous) as a 4-D map

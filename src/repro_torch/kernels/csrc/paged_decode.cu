@@ -143,8 +143,7 @@ struct Row8<__nv_bfloat16> {
     for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
   }
 };
-// int8 -> f32 exactly without the conversion unit: byte b + 128 placed in
-// the mantissa of 2^23 (0x4B000000), then 2^23 + 128 subtracted.
+// int8 -> f32 exactly without the conversion unit (hopper::s8_to_f32).
 template <>
 struct Row8<int8_t> {
   __device__ static void load(const int8_t* p, int n, float* out) {
@@ -152,10 +151,7 @@ struct Row8<int8_t> {
     if (n > 0) v = *reinterpret_cast<const uint2*>(p);
     const uint32_t w[2] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u};
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      out[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u,
-                                           0x7540u + i % 4)) -
-               8388736.f;
+    for (int i = 0; i < 8; ++i) out[i] = hopper::s8_to_f32(w[i / 4], i % 4);
   }
 };
 
@@ -798,9 +794,9 @@ extern "C" int paged_decode_attention_quant(
 }
 
 // The launches paged_decode_attention (quant 0) or
-// paged_decode_attention_quant (quant 1) makes for these arguments, from
-// the host code it launches with: five ints each (grid x, y, z, threads,
-// dynamic shared memory bytes) written to out (room for 2). Returns the
+// paged_decode_attention_quant (quant 1) makes for these arguments, from the
+// host code it launches with: six ints each (grid x, y, z, threads, dynamic
+// shared memory bytes, cluster) written to out (room for 2). Returns the
 // launch count.
 extern "C" int paged_decode_attention_plan(int B, int Hkv, int G, int Dh,
                                            int page_size, int n_pages,

@@ -30,6 +30,7 @@ the sources' tile structs (``Tile``, ``QTile``, ``FwdRing``, ``DxRing``,
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -74,6 +75,9 @@ class Launch:
     # (what, extent, tile, masked): a tile that must divide its extent
     # unless the kernel masks that edge
     tiles: Tuple[Tuple[str, int, int, bool], ...]
+    # CTAs per thread-block cluster along (x, y, z); a cluster shares
+    # distributed shared memory and must tile the grid
+    cluster: Tuple[int, int, int] = (1, 1, 1)
 
     def ctas(self) -> np.ndarray:
         """Every CTA index (x, y, z), (n, 3)."""
@@ -107,9 +111,11 @@ class LaunchPlan:
         return {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
                 for k, v in self.patterns.items()}
 
-    def dims(self) -> List[Tuple[Tuple[int, int, int], int, int]]:
-        """(grid, threads, shared memory) of every launch, in order."""
-        return [(ln.grid, ln.threads, ln.smem) for ln in self.launches]
+    def dims(self) -> List[Tuple[Tuple[int, int, int], int, int, int]]:
+        """(grid, threads, shared memory, cluster size) of every launch, in
+        order."""
+        return [(ln.grid, ln.threads, ln.smem, ln.cluster[0])
+                for ln in self.launches]
 
 
 # ---------------------------------------------------------------------------
@@ -230,16 +236,15 @@ def split_count(m: int, n_out: int, d_in_b: int, n_sm: int,
 
 
 def _fwd_smem(dtype: str, bm: int, quant: bool) -> int:
-    """``Tile<T, BM>::SMEM`` (csd_spmm_fwd.cu) or ``QTile<T, BM>::SMEM``
-    (csd_spmm_fwd_quant.cu)."""
+    """``Tile<T, BM>::SMEM`` (csd_spmm_fwd.cuh) or ``QTile<BM>::SMEM``
+    (csd_spmm_fwd_quant.cu, f32 x only)."""
     size = _itemsize(dtype)
     bk = 32 if dtype == "float32" else 64
     epc = 16 // size
     stages = 6 if bm == 16 else 3
     if not quant:
         return stages * (bm * (bk + epc) + bk * (_BN + epc)) * size
-    ring = stages * (bm * (bk + epc) * size + bk * (_BN + 16))
-    return ring + (bk * (_BN + epc) * size if dtype != "float32" else 0)
+    return stages * (bm * (bk + epc) * size + bk * (_BN + 16))
 
 
 def _fwd_split_launch(kernel: str, e: int, m: int, n_rb: int, d_in_b: int,
@@ -373,14 +378,17 @@ def _rounds(n_tiles: int, n_ctas: int, c: np.ndarray):
         yield np.where(skip, 0, tile), skip
 
 
-def fwd_wgmma_smem(bn: int) -> int:
-    """``FwdRing<BN>::SMEM``: the ring of (x, w) stages (3 at BN 256, else
-    4), each consumer's staging tiles of y and z (one each below BN 256,
-    one for both at 256), 1024 bytes to align the ring, a full and an
-    empty barrier per stage."""
+def fwd_wgmma_smem(bn: int, quant: bool = False) -> int:
+    """``FwdRing<BN, W>::SMEM`` (``csd_spmm_fwd_wgmma.cuh``): the ring of
+    (x, w) stages (3 at BN 256, else 4; w int8 with ``quant``), with
+    ``quant`` three widened bf16 w tiles, each consumer's staging tiles of
+    y and z (one each below BN 256, one for both at 256), 1024 bytes to
+    align the ring, a full and an empty barrier per stage."""
     stages, bufs = (3, 1) if bn == 256 else (4, 2)
-    return stages * (_WGMMA_BM + bn) * 64 * 2 + 2 * bufs * 64 * bn * 2 \
-        + 1024 + 2 * stages * 8
+    w_size, wide = (1, 3) if quant else (2, 0)
+    return stages * (_WGMMA_BM * 2 + bn * w_size) * 64 \
+        + wide * bn * 64 * 2 + 2 * bufs * 64 * bn * 2 + 1024 \
+        + 2 * stages * 8
 
 
 def _wgmma_tiles(e: int, m: int, n_rb: int, br: int, bn: int) -> int:
@@ -409,37 +417,45 @@ def _schedule_cost(n_tiles: int, n_sm: int, bn: int) -> int:
         + (bn // 2 + 32 if n_full < n_tiles else 0)
 
 
+def _wgmma_width(widths, e: int, m: int, n_rb: int, br: int,
+                 n_sm: int) -> Tuple[int, bool]:
+    """The wgmma body's tile width: the one of ``widths`` (widest first)
+    dividing bR whose schedule ``_schedule_cost`` rates shortest (the
+    widest of equals), and whether its tiles number at least half of
+    ``n_sm``."""
+    bn = min((w for w in widths if br % w == 0), key=lambda w:
+             _schedule_cost(_wgmma_tiles(e, m, n_rb, br, w), n_sm, w))
+    return bn, 2 * _wgmma_tiles(e, m, n_rb, br, bn) >= n_sm
+
+
 def fwd_tile_n(dtype: str, e: int, m: int, n_rb: int, br: int,
                n_sm: int) -> int:
     """Which body the full-width forward runs: the wgmma body's tile
-    width, or 0 for the grid body. The width is the one of 256, 128 and 64
-    dividing bR whose schedule ``_schedule_cost`` rates shortest (the
-    widest of equals). bf16 takes the wgmma body from one whole 128-row
-    tile per expert (M >= 128), and below it where those tiles number at
-    least half of ``n_sm``, except the single junction's decode (E = 1, M
-    <= 16), which keeps the grid body's 16-row tile; f32 the grid body.
-    (Read off ``tools/time_forward.py --bodies``: PERF.md, section 6.)"""
+    width (``_wgmma_width`` of 256, 128 and 64), or 0 for the grid body.
+    bf16 takes the wgmma body from one whole 128-row tile per expert (M >=
+    128), and below it where those tiles number at least half of ``n_sm``,
+    except the single junction's decode (E = 1, M <= 16), which keeps the
+    grid body's 16-row tile; f32 the grid body. (Read off
+    ``tools/time_forward.py --bodies``: PERF.md, section 6.)"""
     if dtype != "bfloat16":
         return 0
-    widths = [bn for bn in (256, 128, 64) if br % bn == 0]
-    bn = min(widths, key=lambda w: _schedule_cost(
-        _wgmma_tiles(e, m, n_rb, br, w), n_sm, w))
+    bn, fills = _wgmma_width((256, 128, 64), e, m, n_rb, br, n_sm)
     if m >= _WGMMA_BM:
         return bn
-    fills = 2 * _wgmma_tiles(e, m, n_rb, br, bn) >= n_sm
     return bn if fills and (e > 1 or m > 16) else 0
 
 
 def _fwd_wgmma_launch(e: int, m: int, n_rb: int, d_in_b: int, bl: int,
                       br: int, bn: int, n_sm: int, *, has_bias: bool,
-                      save_preact: bool) -> Launch:
-    """``csd_spmm_fwd_wgmma_kernel``: n_ctas = min(tiles, n_sm) persistent
-    CTAs, CTA b taking units b, b + n_ctas, ... A tile is rows [128 i,
-    128 i + 128) of one expert by columns [BN j, BN j + BN) of right block
-    BN j // bR, in the order (expert, column tile, row tile), rows fastest;
-    a unit is a whole tile, or one BN / 2-column half of one of the tiles
-    that ``fwd_full_tiles`` leaves to halves, the two halves adjacent. The
-    CTA loops over the block's d_in_b fan-in slots."""
+                      save_preact: bool, quant: bool = False) -> Launch:
+    """``csd_spmm_fwd_wgmma_kernel`` (``quant``: its int8 instantiation,
+    which also reads each slot's scale): n_ctas = min(tiles, n_sm)
+    persistent CTAs, CTA b taking units b, b + n_ctas, ... A tile is rows
+    [128 i, 128 i + 128) of one expert by columns [BN j, BN j + BN) of right
+    block BN j // bR, in the order (expert, column tile, row tile), rows
+    fastest; a unit is a whole tile, or one BN / 2-column half of one of
+    the tiles that ``fwd_full_tiles`` leaves to halves, the two halves
+    adjacent. The CTA loops over the block's d_in_b fan-in slots."""
     n_out = n_rb * br
     m_tiles = _ceil(m, _WGMMA_BM)
     n_col = n_out // bn
@@ -486,6 +502,10 @@ def _fwd_wgmma_launch(e: int, m: int, n_rb: int, d_in_b: int, bl: int,
                 out.append(_empty_where(_box(
                     "w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1), (0, bl),
                     (n0, n0 + width)), skip))
+                if quant:
+                    out.append(_empty_where(_box(
+                        "w_scale", n, (ex, ex + 1), (rb, rb + 1),
+                        (f, f + 1)), skip))
             if has_bias:
                 out.append(_empty_where(_box(
                     "bias", n, (ex, ex + 1), (col0, col0 + width)), skip))
@@ -493,7 +513,7 @@ def _fwd_wgmma_launch(e: int, m: int, n_rb: int, d_in_b: int, bl: int,
 
     return Launch(
         kernel="csd_spmm_fwd_wgmma_kernel", grid=(n_ctas, 1, 1),
-        threads=_WGMMA_THREADS, smem=fwd_wgmma_smem(bn),
+        threads=_WGMMA_THREADS, smem=fwd_wgmma_smem(bn, quant),
         writes=writes, reads=reads, fan_in=d_in_b, fan_in_axis="loop",
         slots=lambda c: (np.zeros(len(c), np.int64),
                          np.full(len(c), d_in_b, np.int64)),
@@ -502,18 +522,189 @@ def _fwd_wgmma_launch(e: int, m: int, n_rb: int, d_in_b: int, bl: int,
                ("bL", bl, 64, False), ("M", m, _WGMMA_BM, True)))
 
 
+# the forward's bodies, as the int8 forward's library takes them
+# (csrc/csd_spmm_fwd_quant.cu, `body`): the grid body (the int8 forward's
+# for f32 x), the int8 forward's bf16 weight-streaming body for a few rows
+# per expert, and the wgmma body (csd_spmm_fwd_wgmma.cuh; int8 tiles in the
+# int8 forward)
+BODY_GRID, BODY_STREAM, BODY_WGMMA = 0, 1, 2
+_STREAM_THREADS = 160   # a copying warp and four multiplying warps
+_STREAM_BN = 128        # output columns per CTA
+_STREAM_BK = 64         # fan-in rows per stage
+_STREAM_ROWS = (16, 32, 64)  # the row tiles it is built for
+_MAX_CLUSTER = 8        # the portable thread-block cluster size
+# the rows per expert up to which the stream body always runs, and the
+# most it takes where the wgmma body's tiles would fill less than half the
+# SMs (read off tools/time_quant.py --bodies: PERF.md, section 6)
+STREAM_M, STREAM_MAX_M = 32, 64
+
+
+def stream_smem(tile_m: int) -> int:
+    """``StreamRing<MT>::SMEM`` (csd_spmm_fwd_quant.cu): a ring of stages
+    (4 at 64 rows, else 6), each the x box (tile_m rows of 64 bf16) and the
+    weight box (64 rows of 128 int8), 1024 bytes to align the ring, a full
+    and an empty barrier per stage."""
+    stages = 4 if tile_m == 64 else 6
+    return stages * (tile_m * 128 + _STREAM_BK * _STREAM_BN) + 1024 \
+        + 2 * stages * 8
+
+
+def stream_cluster(e: int, n_out: int, d_in_b: int, n_sm: int) -> int:
+    """How many CTAs of a thread-block cluster share one 128-column tile's
+    fan-in slots in the stream body: 1 when the tiles of all ``e`` experts
+    alone give at least three CTAs for every four SMs, else enough (at
+    most 8) to get about twice as many CTAs as SMs, every rank owning at
+    least one slot. (Read off ``tools/time_quant.py --splits``: PERF.md,
+    section 6.)"""
+    tiles = e * (n_out // _STREAM_BN)
+    if 4 * tiles >= 3 * n_sm:
+        return 1
+    want = min(_ceil(2 * n_sm, tiles), _MAX_CLUSTER, d_in_b)
+    per = _ceil(d_in_b, want)
+    return _ceil(d_in_b, per)
+
+
+def quant_body(dtype: str, e: int, m: int, n_rb: int, d_in_b: int, br: int,
+               n_sm: int) -> Tuple[int, int, int, int]:
+    """Which body the int8 forward runs: (body, tile_m, tile_n, cluster).
+    bf16 x takes the stream body where 128 divides bR for up to
+    ``STREAM_M`` rows per expert, and up to ``STREAM_MAX_M`` where the
+    wgmma body's tiles would number less than half of ``n_sm`` (gemma3-4b's
+    down junction), with the smallest of its row tiles that holds M and the
+    cluster of ``stream_cluster``; else the wgmma body, at the width
+    ``_wgmma_width`` picks of 128 and 64. f32 x takes the grid body. (Read
+    off ``tools/time_quant.py --bodies`` and ``--splits``: PERF.md,
+    section 6.)"""
+    if dtype != "bfloat16":
+        return BODY_GRID, 0, 0, 1
+    bn, fills = _wgmma_width((128, 64), e, m, n_rb, br, n_sm)
+    if br % _STREAM_BN == 0 and (m <= STREAM_M
+                                 or (m <= STREAM_MAX_M and not fills)):
+        tile_m = next(t for t in _STREAM_ROWS if m <= t)
+        return BODY_STREAM, tile_m, _STREAM_BN, \
+            stream_cluster(e, n_rb * br, d_in_b, n_sm)
+    return BODY_WGMMA, _WGMMA_BM, bn, 1
+
+
+_FORCED: Dict[bool, Tuple[int, int, int, int]] = {}
+
+
+def fwd_body(dtype: str, e: int, m: int, n_rb: int, d_in_b: int, br: int,
+             n_sm: int, quant: bool) -> Tuple[int, int, int, int]:
+    """The body a forward runs, as (body, tile_m, tile_n, cluster): the
+    int8 forward's (``quant``) from ``quant_body``, the full-width one's
+    from ``fwd_tile_n`` (the wgmma body at its width, or the grid body);
+    inside ``forced_body``, the forced one."""
+    if quant in _FORCED:
+        return _FORCED[quant]
+    if quant:
+        return quant_body(dtype, e, m, n_rb, d_in_b, br, n_sm)
+    return body_of_tile_n(fwd_tile_n(dtype, e, m, n_rb, br, n_sm))
+
+
+def body_of_tile_n(tile_n: int) -> Tuple[int, int, int, int]:
+    """The full-width forward's body of tile width ``tile_n`` (0: the grid
+    body), as ``fwd_body`` gives it."""
+    return (BODY_WGMMA, _WGMMA_BM, tile_n, 1) if tile_n \
+        else (BODY_GRID, 0, 0, 1)
+
+
+@contextlib.contextmanager
+def forced_body(body: Optional[Tuple[int, int, int, int]],
+                quant: bool = True):
+    """Inside, the forward's plans (``quant``: the int8 forward's) run
+    ``body`` ((body, tile_m, tile_n, cluster); None: the rule's pick)
+    whatever the rule picks. For the tests and the timing tools."""
+    if body is not None:
+        _FORCED[quant] = tuple(body)
+    fwd_plan.cache_clear()
+    try:
+        yield
+    finally:
+        _FORCED.pop(quant, None)
+        fwd_plan.cache_clear()
+
+
+def _fwd_quant_stream_launch(e: int, m: int, n_rb: int, d_in_b: int,
+                             bl: int, br: int, tile_m: int, cluster: int, *,
+                             has_bias: bool) -> Launch:
+    """``csd_spmm_fwd_quant_stream_kernel``: CTA (rank, j, ex) of a
+    (cluster, n_out / 128, E) grid, clusters along x, reads columns [128 j,
+    128 j + 128) of right block 128 j // bR of expert ex for its rows (at
+    most tile_m) over fan-in slots [rank per, rank per + per); rank 0 adds
+    the other ranks' sums through distributed shared memory and alone
+    writes y, so its slots are the cluster's: all d_in_b."""
+    n_out = n_rb * br
+    per = _ceil(d_in_b, cluster)
+    rows = min(m, tile_m)
+
+    def geo(c):
+        rank, col0, ex = c[:, 0], c[:, 1] * _STREAM_BN, c[:, 2]
+        rb = col0 // br
+        f0 = rank * per
+        nsl = np.clip(np.minimum(d_in_b - f0, per), 0, None)
+        return rank, col0, rb, col0 - rb * br, ex, f0, nsl
+
+    def writes(c):
+        rank, col0, _, _, ex, _, _ = geo(c)
+        return [_empty_where(_box("y", len(c), (ex * m, ex * m + rows),
+                                  (col0, col0 + _STREAM_BN)), rank != 0)]
+
+    def reads(c, pats):
+        rank, col0, rb, n0, ex, f0, nsl = geo(c)
+        n = len(c)
+        idx = pats["block_idx"]
+        out = [_box("block_idx", n, (rb, rb + 1), (f0, f0 + nsl))]
+        for fl in range(per):
+            skip = fl >= nsl
+            f = np.where(skip, 0, f0 + fl)
+            lb = idx[np.minimum(rb, idx.shape[0] - 1),
+                     np.minimum(f, idx.shape[1] - 1)].astype(np.int64)
+            out.append(_empty_where(_box(
+                "x", n, (ex * m, ex * m + rows), (lb * bl, lb * bl + bl)),
+                skip))
+            out.append(_empty_where(_box(
+                "w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1), (0, bl),
+                (n0, n0 + _STREAM_BN)), skip))
+            out.append(_empty_where(_box(
+                "w_scale", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1)),
+                skip))
+        if has_bias:
+            out.append(_empty_where(_box(
+                "bias", n, (ex, ex + 1), (col0, col0 + _STREAM_BN)),
+                rank != 0))
+        return out
+
+    def slots(c):
+        rank, _, _, _, _, f0, nsl = geo(c)
+        first = rank == 0
+        return np.where(first, 0, f0), np.where(first, d_in_b, f0 + nsl)
+
+    return Launch(
+        kernel="csd_spmm_fwd_quant_stream_kernel",
+        grid=(cluster, n_out // _STREAM_BN, e), threads=_STREAM_THREADS,
+        smem=stream_smem(tile_m), writes=writes, reads=reads,
+        fan_in=d_in_b, fan_in_axis="cluster" if cluster > 1 else "loop",
+        slots=slots, epilogue=True,
+        tiles=(("n_out", n_out, _STREAM_BN, False),
+               ("bR", br, _STREAM_BN, False), ("bL", bl, _STREAM_BK, False),
+               ("M", m, tile_m, True)),
+        cluster=(cluster, 1, 1))
+
+
 @functools.lru_cache(maxsize=4096)
 def fwd_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
              br: int, dtype: str, *, has_bias: bool, save_preact: bool,
              quant: bool, n_sm: int, n_splits: Optional[int] = None
              ) -> LaunchPlan:
     """The plan of ``csd_spmm_fwd`` (``quant``: ``csd_spmm_fwd_quant``)
-    over E experts of M rows (E = 1: the 4-D junction). The full-width
-    forward runs the body ``fwd_tile_n`` picks for ``n_sm`` SMs, passed to
-    the library as ``tile_n``: the persistent wgmma body, or the grid body,
-    whose ``n_splits`` defaults to ``split_count``'s choice (a test may
-    force it; every split must own a slot). The int8 forward has the grid
-    body only."""
+    over E experts of M rows (E = 1: the 4-D junction), running the body
+    ``fwd_body`` picks for ``n_sm`` SMs. The full-width forward passes it
+    to the library as ``tile_n``: the persistent wgmma body, or (0) the
+    grid body, whose ``n_splits`` defaults to ``split_count``'s choice (a
+    test may force it; every split must own a slot). The int8 forward (the
+    stream body, the wgmma body over int8 tiles, or for f32 the grid body)
+    passes ``body``, ``tile_m``, ``tile_n`` and ``cluster``."""
     n_out = n_rb * br
     size = _itemsize(dtype)
     buffers = {
@@ -530,14 +721,20 @@ def fwd_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
         buffers["z"] = Buffer((e * m, n_out), size, "out")
     name = "csd_spmm_fwd_quant" if quant else "csd_spmm_fwd"
     kw = dict(has_bias=has_bias, save_preact=save_preact)
-    bn = 0 if quant else fwd_tile_n(dtype, e, m, n_rb, br, n_sm)
-    if bn:
+    body, tile_m, bn, cluster = fwd_body(dtype, e, m, n_rb, d_in_b, br,
+                                         n_sm, quant)
+    if body != BODY_GRID:
         if n_splits not in (None, 1):
-            raise ValueError("csd_spmm_fwd: the wgmma body does not split "
-                             "the fan-in")
+            what = "stream" if body == BODY_STREAM else "wgmma"
+            raise ValueError(f"{name}: the {what} body does not split the "
+                             f"fan-in over launches")
         n_splits = 1
-        launches = (_fwd_wgmma_launch(e, m, n_rb, d_in_b, bl, br, bn, n_sm,
-                                      **kw),)
+        launches = (
+            _fwd_quant_stream_launch(e, m, n_rb, d_in_b, bl, br, tile_m,
+                                     cluster, has_bias=has_bias)
+            if body == BODY_STREAM else
+            _fwd_wgmma_launch(e, m, n_rb, d_in_b, bl, br, bn, n_sm,
+                              quant=quant, **kw),)
     else:
         if n_splits is None:
             n_splits = split_count(m, n_out, d_in_b, n_sm, e)
@@ -552,10 +749,11 @@ def fwd_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int, bl: int,
             launches = (
                 split(n_splits=n_splits, target="partial"),
                 _reduce_launch(e, m, n_out, n_splits, has_bias, save_preact))
-    args = dict(E=e, M=m, n_rb=n_rb, bR=br, n_splits=n_splits,
-                dtype=_code(dtype))
-    if not quant:
-        args.update(n_sm=n_sm, tile_n=bn)
+    args = dict(E=e, M=m, n_rb=n_rb, bR=br, n_splits=n_splits, n_sm=n_sm,
+                tile_n=bn, dtype=_code(dtype))
+    if quant:
+        args.update(d_in_b=d_in_b, body=body, tile_m=tile_m,
+                    cluster=cluster)
     return LaunchPlan(name, buffers, launches, n_splits, args)
 
 
@@ -1209,7 +1407,9 @@ PLAN_EXPORTS = {
                      ("E", "M", "n_rb", "bR", "n_splits", "n_sm", "tile_n",
                       "dtype")),
     "csd_spmm_fwd_quant": ("csd_spmm_fwd_quant", "csd_spmm_fwd_quant_plan",
-                           ("E", "M", "n_rb", "bR", "n_splits", "dtype")),
+                           ("E", "M", "n_rb", "d_in_b", "bR", "n_splits",
+                            "n_sm", "body", "tile_m", "tile_n", "cluster",
+                            "dtype")),
     "csd_spmm_dx": ("csd_spmm_dx", "csd_spmm_dx_plan",
                     ("E", "M", "n_lb", "bL", "dtype", "n_ctas")),
     "csd_spmm_dw": ("csd_spmm_dw", "csd_spmm_dw_plan",
@@ -1233,11 +1433,11 @@ PLAN_EXPORTS["flash_attention_bwd"] = PLAN_EXPORTS["flash_attention_fwd"]
 
 
 def library_dims(plan: LaunchPlan
-                 ) -> List[Tuple[Tuple[int, int, int], int, int]]:
-    """(grid, threads, shared memory) of every launch the kernel's library
-    makes for the plan's arguments, from its exported ``<name>_plan``
-    (which shares the launcher's host code); builds the library if
-    needed. ``plan.dims()`` must equal it."""
+                 ) -> List[Tuple[Tuple[int, int, int], int, int, int]]:
+    """(grid, threads, shared memory, cluster size) of every launch the
+    kernel's library makes for the plan's arguments, from its exported
+    ``<name>_plan`` (which shares the launcher's host code); builds the
+    library if needed. ``plan.dims()`` must equal it."""
     import ctypes
 
     from . import build
@@ -1246,9 +1446,10 @@ def library_dims(plan: LaunchPlan
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * len(names) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 10)()
-    n = fn(*[int(plan.args[k]) for k in names], ctypes.addressof(out))
+    k = 6  # ints per launch (plan.cuh, plan::put)
+    out = (ctypes.c_int * (2 * k))()
+    n = fn(*[int(plan.args[a]) for a in names], ctypes.addressof(out))
     if n < 0:
         raise ValueError(f"{export} refused {plan.args}")
-    return [((out[5 * i], out[5 * i + 1], out[5 * i + 2]), out[5 * i + 3],
-             out[5 * i + 4]) for i in range(n)]
+    return [((out[k * i], out[k * i + 1], out[k * i + 2]), out[k * i + 3],
+             out[k * i + 4], out[k * i + 5]) for i in range(n)]

@@ -5,6 +5,8 @@ import neither JAX nor the JAX package, so they run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -592,16 +594,14 @@ WGMMA_JUNCTION = dict(n_in=512, n_out=1024, bl=128, br=256, rho=0.5)
 
 
 @pytest.fixture
-def force_body(monkeypatch):
+def force_body():
     """``force_body(t)``: the forward's plans take the body of tile width
-    ``t`` (0 the grid body) whatever ``launch.fwd_tile_n``'s rule picks."""
+    ``t`` (0 the grid body) whatever ``launch.fwd_tile_n``'s rule picks,
+    for the rest of the test (``launch.forced_body``)."""
     from repro_torch.kernels import launch
-
-    def force(tile_n):
-        monkeypatch.setattr(launch, "fwd_tile_n", lambda *a: tile_n)
-        launch.fwd_plan.cache_clear()
-    yield force
-    launch.fwd_plan.cache_clear()
+    with contextlib.ExitStack() as stack:
+        yield lambda tile_n: stack.enter_context(launch.forced_body(
+            launch.body_of_tile_n(tile_n), quant=False))
 
 
 def _wgmma_fwd(x, w, idx, **kw):
@@ -1024,3 +1024,134 @@ def test_attention_forward_matches_chunked_attention(cuda_device, case):
             flash_attention.flash_attention_bwd_cuda.launches) \
         == (n[0] + 1, n[1] + 1)
     assert err <= 1e-4, err
+
+
+# ---------------------------------------------------------------------------
+# the int8 forward's bodies (csrc/csd_spmm_fwd_quant.cu)
+# ---------------------------------------------------------------------------
+
+# (experts or None, M, n_in, n_out, bL, bR): the stream body at decode M
+# (a deep fan-in split over a cluster; three experts of 4 rows) and at
+# prefill chunks of 16-64 rows (each row tile), the wgmma body at 200 and
+# 300 rows (ragged against its 128-row tile) with 128- and 64-wide tiles
+QUANT_BODY_CASES = {
+    "stream_m4": (None, 4, 4096, 1024, 256, 512),
+    "stream_m13": (None, 13, 2048, 1024, 256, 256),
+    "stream_m30": (None, 30, 2048, 1024, 256, 512),
+    "stream_m64": (None, 64, 1024, 2048, 256, 1024),
+    "stream_e3_m4": (3, 4, 1024, 512, 128, 256),
+    "stream_e3_m40": (3, 40, 512, 1024, 128, 256),
+    "wgmma_m200": (None, 200, 2048, 1024, 256, 512),
+    "wgmma_e3_m300": (3, 300, 512, 1024, 128, 256),
+    "wgmma64_e3_m300": (3, 300, 256, 384, 64, 64),
+}
+QUANT_TOL_F32 = 1e-4  # of max |plain|: f32 sums in another order
+SPMM_TOL_BF16 = (1e-2, 1e-2)  # atol, rtol: + one bf16 rounding of y
+
+
+def _quant_case(device, case, dtype, with_bias, seed=21):
+    e, m, n_in, n_out, bl, br = QUANT_BODY_CASES[case]
+    lead = () if e is None else (e,)
+    bp = make_block_pattern(n_in, n_out, 0.5, block_in=bl, block_out=br,
+                            seed=seed)
+    rng = np.random.default_rng(seed)
+    x = _t(rng.normal(size=lead + (m, n_in)).astype(np.float32))
+    w = (rng.normal(size=lead + (bp.n_rb, bp.d_in_b, bl, br))
+         / np.sqrt(bp.d_in_b * bl)).astype(np.float32)
+    q, s = (t.to(device) for t in _quantize(w))
+    b = _t(rng.normal(size=lead + (n_out,)).astype(np.float32))
+    idx = _t(bp.block_idx).to(device).int()
+    bias = b.to(device, dtype) if with_bias else None
+    return bp, x.to(device, dtype), q, s, idx, bias
+
+
+def _quant_close(got, ref, dtype):
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32:
+        assert float((got - ref).abs().max()) \
+            <= QUANT_TOL_F32 * float(ref.abs().max())
+    else:
+        np.testing.assert_allclose(got.cpu(), ref.cpu(),
+                                   atol=SPMM_TOL_BF16[0],
+                                   rtol=SPMM_TOL_BF16[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", [None, "gelu"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("case", list(QUANT_BODY_CASES))
+def test_csd_spmm_quant_bodies_nan_filled_repeatable(cuda_device, case,
+                                                     with_bias, activation,
+                                                     nan_outputs):
+    """Each bf16 body of the int8 forward the rule picks, 4-D and 5-D, into
+    NaN-filled outputs twice: one launch per call, every element written,
+    within the bf16 tolerance of the plain version, two runs bit-equal."""
+    from repro_torch.analysis.capture import capture_launch
+    from repro_torch.kernels import launch
+    bp, x, q, s, idx, bias = _quant_case(cuda_device, case, torch.bfloat16,
+                                         with_bias)
+    batched = x.dim() == 3
+    fn = csd_spmm.csd_spmm_fwd_batched_cuda if batched \
+        else csd_spmm.csd_spmm_fwd_cuda
+    counter = csd_spmm.csd_spmm_fwd_quant_batched_cuda if batched \
+        else csd_spmm.csd_spmm_fwd_quant_cuda
+    kw = dict(bias=bias, activation=activation, w_scale=s)
+    plan = capture_launch(fn, x, q, idx.cpu(), n_sm=launch.sm_count(x.device),
+                          **kw)
+    (ln,) = plan.launches
+    want = "wgmma" if case.startswith("wgmma") else "stream"
+    assert want in ln.kernel, (case, ln.kernel)
+    n0 = counter.launches
+    first, second = fn(x, q, idx, **kw), fn(x, q, idx, **kw)
+    ref = (csd_spmm.csd_spmm_fwd_batched_plain if batched
+           else csd_spmm.csd_spmm_fwd_plain)(x, q, idx, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert first.shape == x.shape[:-1] + (bp.n_out,)
+    assert not bool(torch.isnan(first).any())
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+    _quant_close(first, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", ["stream_m4", "stream_e3_m4"])
+def test_csd_spmm_quant_stream_cluster_sizes(cuda_device, case, cluster,
+                                             nan_outputs):
+    """The stream body with its cluster forced to 1, 2, 3 or 8 CTAs (no
+    larger than the fan-in): rank 0 adds the ranks' sums, every element is
+    written, within the bf16 tolerance, two runs bit-equal."""
+    from repro_torch.kernels import launch
+    bp, x, q, s, idx, bias = _quant_case(cuda_device, case, torch.bfloat16,
+                                         True)
+    cluster = min(cluster, bp.d_in_b)
+    e = x.shape[0] if x.dim() == 3 else 1
+    rule = launch.quant_body("bfloat16", e, x.shape[-2], bp.n_rb, bp.d_in_b,
+                             bp.block_out, launch.sm_count(x.device))
+    fn = csd_spmm.csd_spmm_fwd_batched_cuda if x.dim() == 3 \
+        else csd_spmm.csd_spmm_fwd_cuda
+    kw = dict(bias=bias, activation="gelu", w_scale=s)
+    with launch.forced_body(rule[:3] + (cluster,)):
+        first, second = fn(x, q, idx, **kw), fn(x, q, idx, **kw)
+    ref = (csd_spmm.csd_spmm_fwd_batched_plain if x.dim() == 3
+           else csd_spmm.csd_spmm_fwd_plain)(x, q, idx, **kw)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(first).any())
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+    _quant_close(first, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stream_m4", "wgmma_e3_m300"])
+def test_csd_spmm_quant_f32_grid_body_matches_plain(cuda_device, case):
+    """f32 x keeps the grid body: within 1e-4 of max |plain|."""
+    bp, x, q, s, idx, bias = _quant_case(cuda_device, case, torch.float32,
+                                         True)
+    fn = csd_spmm.csd_spmm_fwd_batched_cuda if x.dim() == 3 \
+        else csd_spmm.csd_spmm_fwd_cuda
+    kw = dict(bias=bias, activation="gelu", w_scale=s)
+    got = fn(x, q, idx, **kw)
+    ref = (csd_spmm.csd_spmm_fwd_batched_plain if x.dim() == 3
+           else csd_spmm.csd_spmm_fwd_plain)(x, q, idx, **kw)
+    torch.cuda.synchronize()
+    _quant_close(got, ref, torch.float32)

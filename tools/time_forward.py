@@ -19,8 +19,8 @@ turns (A, B, B, A) on one card and compare only the times of one such
 sequence.
 
 ``--bodies`` (this checkout's kernel only) times instead each body of the
-forward forced at the same inputs (``launch.fwd_tile_n`` replaced for the
-run: 0 the grid body, 64/128/256 the wgmma body at that tile width):
+forward forced at the same inputs (``launch.forced_body`` for the run:
+0 the grid body, 64/128/256 the wgmma body at that tile width):
 gemma3-4b's gate and down junctions at M 4 to 4096, granite-moe's up/gate
 and down at 4, 64, 256 and 1280 rows per expert, so that the rule between
 the bodies and the tile width can be read off; each record carries the
@@ -149,7 +149,9 @@ def time_case(args, rec, fn, bp, act, save_preact, x, ws, idx,
     calls = [lambda w=w: fn(x, w, idx, activation=act,
                             save_preact=save_preact) for w in ws]
     for tile_n in bodies:
-        with forced_body(launch, tile_n):
+        with contextlib.nullcontext() if tile_n is None else \
+                launch.forced_body(launch.body_of_tile_n(tile_n),
+                                   quant=False):
             ms, host_ms = cs.bench(calls, args.iters)
         print(json.dumps(dict(
             label=args.label, kernel="csd_spmm_fwd"
@@ -159,22 +161,6 @@ def time_case(args, rec, fn, bp, act, save_preact, x, ws, idx,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)),
             flush=True)
 
-
-@contextlib.contextmanager
-def forced_body(launch, tile_n):
-    """Inside, the forward's plans take the body of width ``tile_n`` (0 the
-    grid body; None: the rule's) whatever ``launch.fwd_tile_n`` picks."""
-    if tile_n is None:
-        yield
-        return
-    rule = launch.fwd_tile_n
-    launch.fwd_tile_n = lambda *a: tile_n
-    launch.fwd_plan.cache_clear()
-    try:
-        yield
-    finally:
-        launch.fwd_tile_n = rule
-        launch.fwd_plan.cache_clear()
 
 
 if __name__ == "__main__":
