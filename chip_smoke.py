@@ -41,6 +41,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tolerances and ``csd_spmm_fwd_quant_batched`` with phase 4b's (also at
    C = 16, 32, 64 and 128), timed like phase 3 with one ``torch.bmm`` over the
    densified (dequantized) slabs as the yardstick;
+3d. the small-block forms (``csrc/csd_spmm_small.cu``: blocks whose bL or
+   bR is not a multiple of 64) through the shipped wrappers at the paper
+   MLP's junctions: the forward (bias and relu), dx and dw with db against
+   their plain versions at Table I's 800 -> 100 (16 x 4 blocks) and
+   CIFAR_MLP's 4000 -> 500 at 256 and 8000 rows, MNIST_4J's 100 -> 100
+   (4 x 4) and TIMIT's 39 -> 390 (1 x 2) and 390 -> 39 (2 x 1) at 256, f32
+   and (256 rows) bf16; and at the smoke configurations' 16 x 16 junctions
+   as phase 3f runs them, f32: gemma3-4b's gate (gelu with ``save_preact``;
+   dx and dw through the gelu mask) and down at 64 rows and their forwards
+   at a decode step's 4, granite-moe's expert-batched up and down (8
+   experts of 24 rows); each timed like phase 6, cycling through copies of
+   the data inputs, with a dense ``torch.matmul`` (``torch.bmm``) as the
+   yardstick; the mask kernel at the widths 100, 390 and 39 and past its
+   last whole chunk (77 x 39 bf16), equal element for element;
+3e. train the paper's MLP (Table I's sparse column, Table II's MNIST_4J
+   row d_out (80, 80, 80, 10), TIMIT at rho 0.2; block_gather at the
+   published widths; ``synthetic_mnist(8000, 2000)``, TIMIT on
+   ``synthetic_features``) from one seed: the first step with the kernels
+   and with the plain versions (phase 7's f32 gates), two identical steps
+   bit-equal, exact launches per step, 3 epochs of batch 256 through
+   ``train_mlp`` with the kernels (every launch counted) and with the plain
+   versions, both test accuracies recorded;
+3f. the LM smoke configurations (16 x 16 FFN and expert blocks): gemma3-4b's
+   served through ``launch.serve.generate`` and trained through
+   ``launch.train.main``, granite-moe's trained, each again with the plain
+   versions (losses and gradient norms compared; served first tokens
+   equal and every served step's logits, teacher-forced, within 1e-4 of
+   the largest), exact training launches;
 5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
    vocab 262144; random weights from a seed; bf16) through
    ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
@@ -129,7 +157,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel once; every kernel's launches are counted around the two runs.
    Then hold every Python launch plan the run launched, and every lint
    case's, against its library's ``<name>_plan``; launch every lint case
-   (each kernel family at demo and full-width shapes) twice into
+   (each kernel family at demo and full-width shapes, the small-block forms
+   at the paper MLP's and the smoke configurations' shapes) twice into
    NaN-filled outputs (nothing unwritten, runs bit-equal); and time TPU
    kernel #9's counterpart (``csd_spmm_fwd_injected_alias``) at the demo
    shape beside the shipped forward, its error above 10x the forward's f32
@@ -881,6 +910,538 @@ def run_spmm_batched(cfg, device, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the small-block forms at the paper MLP's junctions
+# ---------------------------------------------------------------------------
+
+SMALL_KERNELS = ("csd_spmm_fwd_small", "csd_spmm_dx_small",
+                 "csd_spmm_dw_small")
+MLP_BATCH, MLP_FULL = 256, 8000  # train_mlp's batch; the training set
+SMOKE_DECODE_M = 4  # phase 3f's decode step: 4 slots
+SMALL_MAX_COPIES = 256  # of phase 3d's data inputs (<= 512 launches queued)
+
+
+def small_junctions():
+    """(name, pattern, rows, options) of phase 3d. The paper MLP's hidden
+    junctions as ``train_mlp`` runs them (bias and relu fused; dx and dw
+    with db on the masked cotangent): Table I's 800 -> 100 (16 x 4 blocks,
+    fan-in 10) and CIFAR_MLP's 4000 -> 500 (16 x 4, fan-in 50) at the batch
+    and the full training set, MNIST_4J's 100 -> 100 (4 x 4, fan-in 20) and
+    TIMIT's 39 -> 390 (1 x 2) and 390 -> 39 (2 x 1) at the batch. Then the
+    LM smoke configurations' 16 x 16 junctions as phase 3f runs them, f32:
+    gemma3-4b's gate (gelu fused with ``save_preact``; dx and dw through
+    the gelu mask) and down at the training step's rows, both forwards at
+    a decode step's 4 slots, and granite-moe's expert-batched up and down
+    at its 8 experts' training capacity. ``options``: ``experts``,
+    ``act``, ``bias``, ``preact``, ``bwd_act`` (dx and dw take the saved
+    output and the activation, as ``CsdMatmul`` launches them), ``ops``
+    and ``bf16`` (also run in bf16 at the batch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs import paper_mlp as pm
+    from repro_torch.nn.mlp import mlp_patterns
+    mlp = dict(act="relu", bias=True, bf16=True)
+    t_in, t_out = mlp_patterns(pm.TIMIT, (0.2, 0.2))
+    gate, down = junction_patterns(get_config("gemma3_4b", smoke=True))
+    rcfg = get_config("granite_moe_1b_a400m", smoke=True)
+    up_e, down_e = expert_patterns(rcfg)
+    train_m = SMOKE_BATCH * SMOKE_SEQ
+    experts = dict(experts=rcfg.moe.n_routed)
+    cap = expert_capacity(rcfg, train_m)
+    return [
+        ("table1 800->100", mlp_patterns(pm.MNIST_2J, pm.rho_from_dout(
+            pm.MNIST_2J, (20, 10)))[0], (MLP_BATCH, MLP_FULL), mlp),
+        ("cifar 4000->500", mlp_patterns(pm.CIFAR_MLP, (0.2, 0.5))[0],
+         (MLP_BATCH, MLP_FULL), mlp),
+        ("mnist4j 100->100", mlp_patterns(pm.MNIST_4J, pm.rho_from_dout(
+            pm.MNIST_4J, pm.TABLE2_MNIST[0][0]))[1], (MLP_BATCH,), mlp),
+        ("timit 39->390", t_in, (MLP_BATCH,), mlp),
+        ("timit 390->39", t_out, (MLP_BATCH,), mlp),
+        ("gemma3 smoke gate", gate, (train_m,),
+         dict(act="gelu", preact=True, bwd_act=True)),
+        ("gemma3 smoke gate", gate, (SMOKE_DECODE_M,),
+         dict(act="gelu", ops=("fwd",))),
+        ("gemma3 smoke down", down, (train_m,), {}),
+        ("gemma3 smoke down", down, (SMOKE_DECODE_M,), dict(ops=("fwd",))),
+        ("granite smoke up", up_e, (cap,), experts),
+        ("granite smoke down", down_e, (cap,), experts),
+    ]
+
+
+def small_copies(bp, m: int, dtype, opt: dict) -> int:
+    """Copies of phase 3d's data inputs (x, dy and the saved output) that
+    together pass the L2, at most ``SMALL_MAX_COPIES`` (the slab is
+    shared)."""
+    per_copy = (opt.get("experts") or 1) * m * (
+        bp.n_in + bp.n_out * (2 if opt.get("bwd_act") else 1))
+    return min(copies_for(dtype.itemsize * per_copy), SMALL_MAX_COPIES)
+
+
+def small_calls(bp, m, dtype, gen, device, *, experts=None, act=None,
+                bias=False, preact=False, bwd_act=False,
+                ops=("fwd", "dx", "dw"), copies=1, **_):
+    """Phase 3d's calls at one junction of ``m`` rows (per expert with
+    ``experts``): (kernel, runs, plains, libraries, bytes, operations) for
+    each of ``ops``. Each of runs, plains and libraries holds one call per
+    copy of the data inputs (the slab is shared); the library is a dense
+    ``torch.matmul`` (``torch.bmm`` over experts) on the densified slab.
+    The wrappers are the shipped ones, which send these blocks to the
+    small-block forms."""
+    import torch
+    from repro_torch.kernels import csd_spmm as k
+    lead = (experts,) if experts else ()
+    shape = lead + (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
+    w = (torch.randn(shape, generator=gen, device=device)
+         * math.sqrt(2 / (bp.d_in_b * bp.block_in))).to(dtype)
+    b = (0.1 + 0.01 * torch.randn(lead + (bp.n_out,), generator=gen,
+                                  device=device)).to(dtype) if bias else None
+
+    def data(n_col, fn):
+        return [fn(lead + (m, n_col), generator=gen, device=device).to(dtype)
+                for _ in range(copies)]
+    xs, gs = data(bp.n_in, torch.rand), data(bp.n_out, torch.randn)
+    zs = data(bp.n_out, torch.randn) if bwd_act else [None] * copies
+    pat = {f: torch.as_tensor(getattr(bp, f), dtype=torch.int32,
+                              device=device)
+           for f in ("block_idx", "out_idx", "out_slot")}
+    wd = dense_of_experts(bp, w) if experts else dense_of(bp, w)
+    wt = wd.transpose(-2, -1)
+    batched = "_batched" if experts else ""
+    fwd = {kind: getattr(k, f"csd_spmm_fwd{batched}_{kind}")
+           for kind in ("cuda", "plain")}
+    dx = {kind: getattr(k, f"csd_spmm_dx{batched}_{kind}")
+          for kind in ("cuda", "plain")}
+    dw = {kind: getattr(k, f"csd_spmm_dw{batched}_{kind}")
+          for kind in ("cuda", "plain")}
+    el = dtype.itemsize
+    n_x, n_y, n_w = (math.prod(lead) * m * bp.n_in,
+                     math.prod(lead) * m * bp.n_out, w.numel())
+    n_aux = n_y if bwd_act else 0
+    bwd = dict(aux=None, activation=act if bwd_act else None)
+    kbw = dict(block_in=bp.block_in, block_out=bp.block_out,
+               want_db=bool(bias))
+    calls = {
+        "fwd": ("csd_spmm_fwd_small",
+                lambda kind, i: fwd[kind](
+                    xs[i], w, pat["block_idx"], bias=b, activation=act,
+                    save_preact=preact),
+                lambda i: torch.matmul(xs[i], wd),
+                el * (n_x + n_w + (b.numel() if bias else 0)
+                      + n_y * (2 if preact else 1))
+                + 4 * pat["block_idx"].numel()),
+        "dx": ("csd_spmm_dx_small",
+               lambda kind, i: dx[kind](
+                   gs[i], w, pat["out_idx"], pat["out_slot"],
+                   **dict(bwd, aux=zs[i])),
+               lambda i: torch.matmul(gs[i], wt),
+               el * (n_y + n_aux + n_w + n_x) + 8 * pat["out_idx"].numel()),
+        "dw": ("csd_spmm_dw_small",
+               lambda kind, i: dw[kind](
+                   xs[i], gs[i], pat["block_idx"], **dict(bwd, aux=zs[i]),
+                   **kbw),
+               lambda i: torch.matmul(xs[i].transpose(-2, -1), gs[i]),
+               el * (n_x + n_y + n_aux + n_w)
+               + (4 * b.numel() if bias else 0)
+               + 4 * pat["block_idx"].numel())}
+    out = []
+    for op in ops:
+        kernel, fn, lib, nbytes = calls[op]
+        out.append((kernel,
+                    [lambda i=i, fn=fn: fn("cuda", i) for i in range(copies)],
+                    [lambda i=i, fn=fn: fn("plain", i)
+                     for i in range(copies)],
+                    [lambda i=i, lib=lib: lib(i) for i in range(copies)],
+                    nbytes, 2 * m * n_w))
+    return out
+
+
+def run_small_kernels(device, results):
+    """Phase 3d. The small-block forms at ``small_junctions``, each through
+    the shipped wrapper, held against its plain version on the first copy
+    of the inputs (f32 1e-4, bf16 1e-2 of max |plain|) and timed cycling
+    through copies of the data inputs that together pass the L2 (at most
+    ``SMALL_MAX_COPIES``; the slab is shared), beside the plain version, a
+    dense ``torch.matmul`` (``torch.bmm``) on the densified slab and the
+    bound; then the mask kernel at the MLP's widths 100, 390 and 39 (equal
+    element for element; the yardstick autograd's relu backward) and once
+    at 77 x 39 bf16, past its last whole 16-byte chunk."""
+    import torch
+    from repro_torch.kernels import csd_spmm
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    for name, bp, rows, opt in small_junctions():
+        for m in rows:
+            dtypes = ("float32", "bfloat16") \
+                if m == MLP_BATCH and opt.get("bf16") else ("float32",)
+            for dtype_name in dtypes:
+                dtype = getattr(torch, dtype_name)
+                copies = small_copies(bp, m, dtype, opt)
+                for kernel, runs, plains, libs, nbytes, ops in small_calls(
+                        bp, m, dtype, g, device, copies=copies, **opt):
+                    before = wrapper(kernel).launches
+                    rec = hold_and_time(kernel, runs, plains, libs, nbytes,
+                                        ops, dtype)
+                    rec = dict(rec, junction=name, m=m, dtype=dtype_name,
+                               experts=opt.get("experts"),
+                               activation=opt.get("act"),
+                               bias=bool(opt.get("bias")),
+                               save_preact=bool(opt.get("preact")),
+                               masked_in_wrapper=bool(opt.get("bwd_act"))
+                               and kernel != "csd_spmm_fwd_small",
+                               block=[bp.block_in, bp.block_out],
+                               fan_in=bp.d_in_b, copies=copies,
+                               plan=captured_plan(runs[0]))
+                    results.append(rec)
+                    log(json.dumps(rec))
+                    if not rec["ok"]:
+                        fail(f"{kernel} disagrees with its plain version: "
+                             f"{rec}")
+                    if wrapper(kernel).launches == before:
+                        fail(f"{name}: the wrapper did not run {kernel}")
+                    del runs, plains, libs
+                torch.cuda.empty_cache()
+    for rows, n_out, dtype_name in ((MLP_BATCH, 100, "float32"),
+                                    (MLP_BATCH, 390, "float32"),
+                                    (MLP_BATCH, 39, "float32"),
+                                    (77, 39, "bfloat16")):
+        dtype = getattr(torch, dtype_name)
+        dy = torch.randn((rows, n_out), generator=g, device=device).to(dtype)
+        aux = torch.randn((rows, n_out), generator=g, device=device) \
+            .to(dtype)
+        rec = hold_and_time(
+            "csd_mask_cotangent",
+            lambda: csd_spmm.csd_mask_cotangent_cuda(dy, aux, "relu"),
+            lambda: csd_spmm.mask_cotangent(dy, aux, "relu"),
+            lambda: torch.ops.aten.threshold_backward(dy, aux, 0.0),
+            3 * dtype.itemsize * rows * n_out, 0, dtype, exact=True)
+        rec = dict(rec, junction=f"mlp hidden {n_out}", m=rows,
+                   dtype=dtype_name, activation="relu",
+                   library="torch.ops.aten.threshold_backward")
+        results.append(rec)
+        log(json.dumps(rec))
+        if not rec["ok"]:
+            fail(f"csd_mask_cotangent differs from its plain version: {rec}")
+    torch.cuda.empty_cache()
+
+
+def captured_plan(run) -> dict:
+    """The kernel, grid, threads and shared memory of the plan ``run``
+    launches on this card (captured, not launched)."""
+    from repro_torch.analysis.capture import capture_launch
+    import torch
+    plan = capture_launch(run, n_sm=torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    ln = plan.launches[0]
+    return dict(name=plan.name, kernel=ln.kernel, grid=list(ln.grid),
+                threads=ln.threads, smem=ln.smem)
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: train the paper's MLP
+# ---------------------------------------------------------------------------
+
+MLP_EPOCHS = 3
+MLP_MIN_ACC = 0.5  # the kernels' run, on held-out data; chance is 1/10, 1/39
+
+
+def mlp_runs():
+    """(name, MLPConfig, data) of phase 3e: Table I's sparse column, Table
+    II's MNIST_4J row d_out (80, 80, 80, 10), and TIMIT at rho (0.2, 0.2)
+    (1 x 2 and 2 x 1 blocks), all block_gather at the paper's widths, on
+    ``synthetic_mnist(8000, 2000)`` and, for TIMIT, ``synthetic_features``
+    of 39 features and 39 classes."""
+    import dataclasses
+    from repro_torch.configs import paper_mlp as pm
+    from repro_torch.data import synthetic_features, synthetic_mnist
+    from repro_torch.nn.mlp import MLPConfig
+    mnist = synthetic_mnist(MLP_FULL, 2000)
+    timit = synthetic_features(MLP_FULL, 2000, n_classes=39, n_features=39)
+    return [
+        ("table1_sparse", dataclasses.replace(pm.table1_sparse(),
+                                              mode="block_gather"), mnist),
+        ("table2_mnist4j_d80", MLPConfig(
+            n_net=pm.MNIST_4J, rho=pm.rho_from_dout(
+                pm.MNIST_4J, pm.TABLE2_MNIST[0][0]), mode="block_gather"),
+         mnist),
+        ("timit", MLPConfig(n_net=pm.TIMIT, rho=(0.2, 0.2),
+                            mode="block_gather"), timit),
+    ]
+
+
+def mlp_launches_per_step(model) -> dict:
+    """Every kernel's launches in one training step of a paper MLP: each
+    block junction runs the small-block forward and dw once and dx once
+    unless it is the first (the data needs no gradient); each block
+    junction but the last fuses the hidden relu, so its backward runs the
+    mask kernel once; dense junctions are ``torch.matmul``."""
+    block = [l.mode.startswith("block") for l in model.layers]
+    want = {"csd_spmm_fwd_small": sum(block),
+            "csd_spmm_dx_small": sum(block[1:]),
+            "csd_spmm_dw_small": sum(block),
+            "csd_mask_cotangent": sum(block[:-1])}
+    return {k: want.get(k, 0) for k in ALL_KERNELS}
+
+
+def mlp_step(model, x, y, l2):
+    """One step's loss tensor and every gradient (copies)."""
+    import torch
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(x, y, l2)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return loss.detach(), grads
+
+
+def run_mlp(device) -> list:
+    """Phase 3e: each paper MLP on the card from one init (seed 0): its
+    first step with the kernels and with the plain versions (f32 gates of
+    phase 7's f32 step: loss 1e-5, gradient norm 1e-4, each gradient 1e-3
+    relative Frobenius), two identical steps bit-equal, one step's exact
+    launches, then ``train_mlp`` for ``MLP_EPOCHS`` epochs of batch 256
+    with the kernels (the launches of every step and of the held-out
+    evaluation exact) and with the plain versions; both test accuracies
+    recorded, the kernels' above ``MLP_MIN_ACC``."""
+    import numpy as np
+    import torch
+    from repro_torch.nn.mlp import SparseMLP, train_mlp
+    out = []
+    for name, cfg, data in mlp_runs():
+        model = SparseMLP(cfg, device=device)
+        init = model.init(SEED)
+        model.load_params(init)
+        l2 = 1e-4 * model.density()
+        idx = torch.as_tensor(np.random.default_rng(SEED).permutation(
+            data[0].shape[0])[:MLP_BATCH], device=device)
+        x = torch.as_tensor(data[0], device=device)[idx]
+        y = torch.as_tensor(data[1], device=device)[idx]
+        loss_k, grads_k = mlp_step(model, x, y, l2)
+        with plain_versions():
+            loss_p, grads_p = mlp_step(model, x, y, l2)
+        loss_k2, grads_k2 = mlp_step(model, x, y, l2)
+
+        def norm(gs):
+            return float(torch.sqrt(sum((t.double() ** 2).sum()
+                                        for t in gs.values())))
+        gn_k, gn_p = norm(grads_k), norm(grads_p)
+        rel = {n: float(torch.linalg.vector_norm(grads_k[n] - grads_p[n])
+                        / torch.linalg.vector_norm(grads_p[n]))
+               for n in grads_k}
+        tol = STEP_TOL["float32"]
+        chk = dict(check=f"paper MLP {name}: first step, kernels vs plain",
+                   loss_kernels=float(loss_k), loss_plain=float(loss_p),
+                   loss_rel_err=abs(float(loss_k) - float(loss_p))
+                   / abs(float(loss_p)),
+                   grad_norm_kernels=gn_k, grad_norm_plain=gn_p,
+                   grad_norm_rel_err=abs(gn_k - gn_p) / gn_p,
+                   grad_rel_fro_err=rel, tol=tol,
+                   bit_identical_rerun=bool(torch.equal(loss_k, loss_k2))
+                   and all(torch.equal(grads_k[n], grads_k2[n])
+                           for n in grads_k))
+        log(json.dumps(chk))
+        if not math.isfinite(chk["loss_kernels"]) \
+                or chk["loss_rel_err"] > tol["loss"] \
+                or chk["grad_norm_rel_err"] > tol["grad_norm"] \
+                or max(rel.values()) > tol["slab_grad"]:
+            fail(f"paper MLP {name}: the kernels' step disagrees with "
+                 f"plain: {chk}")
+        if not chk["bit_identical_rerun"]:
+            fail(f"paper MLP {name}: two identical steps differ: {chk}")
+        per_step = mlp_launches_per_step(model)
+        reset_launch_counts()
+        mlp_step(model, x, y, l2)
+        if launch_counts() != per_step:
+            fail(f"paper MLP {name}: a step launched {launch_counts()}, "
+                 f"expected {per_step}")
+        steps = MLP_EPOCHS * (data[0].shape[0] // MLP_BATCH)
+        reset_launch_counts()
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, acc_k = train_mlp(model, data, epochs=MLP_EPOCHS, batch=MLP_BATCH,
+                             seed=SEED, params=init,
+                             on_step=lambda t, l: losses.append(l))
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        launches = launch_counts()
+        n_block = per_step["csd_spmm_fwd_small"]
+        want = {k: v * steps + (n_block if k == "csd_spmm_fwd_small" else 0)
+                for k, v in per_step.items()}
+        if launches != want:
+            fail(f"paper MLP {name}: training launched {launches}, "
+                 f"expected {want} ({steps} steps and one evaluation)")
+        with plain_versions():
+            t0 = time.perf_counter()
+            _, acc_p = train_mlp(model, data, epochs=MLP_EPOCHS,
+                                 batch=MLP_BATCH, seed=SEED, params=init)
+            torch.cuda.synchronize()
+            t_p = time.perf_counter() - t0
+        losses = [float(v) for v in losses]
+        rec = dict(
+            check=f"paper MLP {name}: train_mlp", n_net=list(cfg.n_net),
+            rho=list(cfg.rho), blocks=[
+                [l.pattern.block_in, l.pattern.block_out, l.pattern.d_in_b]
+                if l.mode.startswith("block") else "dense"
+                for l in model.layers],
+            n_weights=model.n_weights(), epochs=MLP_EPOCHS,
+            batch=MLP_BATCH, steps=steps, first_loss=losses[0],
+            last_loss=losses[-1], test_acc_kernels=acc_k,
+            test_acc_plain=acc_p, step_ms_kernels=t_k / steps * 1e3,
+            step_ms_plain=t_p / steps * 1e3, launches=launches,
+            launches_per_step={k: v for k, v in per_step.items() if v},
+            first_step=chk)
+        log(json.dumps(dict(
+            {k: v for k, v in rec.items() if k != "first_step"},
+            launches={k: v for k, v in launches.items() if v})))
+        if not all(math.isfinite(v) for v in losses) or acc_k < MLP_MIN_ACC:
+            fail(f"paper MLP {name}: training failed: {rec}")
+        out.append(rec)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the LM smoke configurations (16 x 16 blocks) through the CLIs
+# ---------------------------------------------------------------------------
+
+SMOKE_STEPS, SMOKE_BATCH, SMOKE_SEQ = 3, 2, 32
+# f32, 3 AdamW steps: phase 7's f32 step gates
+SMOKE_TOL = {"loss": 1e-5, "grad_norm": 1e-4}
+# max |kernels - plain| of the served steps' logits over max |plain|: f32
+# sums in another order (``TRAIN_TOL``'s f32 gate)
+SMOKE_LOGIT_TOL = 1e-4
+
+
+def smoke_train(arch: str, plain: bool) -> list:
+    """``repro_torch.launch.train.main`` on the smoke configuration of
+    ``arch`` on the card; its printed metrics per step."""
+    import ast
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_cli
+    buf = io.StringIO()
+    argv = ["--arch", arch, "--steps", str(SMOKE_STEPS), "--batch",
+            str(SMOKE_BATCH), "--seq", str(SMOKE_SEQ), "--device", "cuda"]
+    with contextlib.redirect_stdout(buf), \
+            (plain_versions() if plain else contextlib.nullcontext()):
+        train_cli.main(argv)
+    return [ast.literal_eval(line.split(": ", 1)[1])
+            for line in buf.getvalue().splitlines()
+            if line.startswith("step ")]
+
+
+def forced_logits(model, prompt, gen, device, page_size=16):
+    """The logits from which a greedy engine chose ``gen`` (B, G): the
+    model's paged steps fed ``prompt`` (B, P) as one prefill chunk, then
+    ``gen`` one token a step; (B, G, vocab) f32."""
+    import torch
+    from repro_torch.nn.common import dtype_of
+    b, p = prompt.shape
+    n_gen = gen.shape[1]
+    per_row = -(-(p + n_gen) // page_size)
+    table = torch.arange(b * per_row, dtype=torch.int32,
+                         device=device).reshape(b, per_row)
+    cache = model.init_paged_cache(b * per_row, page_size,
+                                   dtype_of(model.cfg), device)
+
+    def step(toks, pos, n):
+        return model.paged_step(
+            torch.as_tensor(toks, device=device),
+            torch.full((b,), pos, dtype=torch.int32, device=device),
+            torch.full((b,), n, dtype=torch.int32, device=device), cache,
+            table)[:, 0].float()
+
+    with torch.no_grad():
+        out = [step(prompt, 0, p)]
+        for j in range(n_gen - 1):
+            out.append(step(gen[:, j:j + 1], p + j, 1))
+    return torch.stack(out, 1)
+
+
+def run_smoke_configs(device) -> dict:
+    """Phase 3f: gemma3-4b's smoke configuration served through
+    ``launch.serve.generate`` (4 prompts of 32 tokens, 16 new) and trained
+    through ``launch.train.main`` (3 steps of 2 x 32 tokens), and
+    granite-moe's trained the same way, on the card: their 16 x 16 FFN and
+    expert blocks run the small-block forms (no "multiples of 64"
+    refusal). Training launches exactly those of ``train_launches_per_step``
+    with the junction kernels' small-block forms in place of the full-width
+    ones; each run is repeated with the plain versions: the losses and
+    gradient norms within ``SMOKE_TOL``. Serving is repeated with the plain
+    versions: the first token of every row equal, and the logits of every
+    served step, teacher-forced on the kernels' tokens, within
+    ``SMOKE_LOGIT_TOL`` of the plain versions'; whole-row token agreement
+    recorded."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.nn.model import LM
+    out = {}
+    cfg = get_config("gemma3_4b", smoke=True)
+    model = LM(cfg, device=device,
+               generator=torch.Generator(device=device).manual_seed(SEED))
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                  (4, 32))
+    reset_launch_counts()
+    toks, tps = generate(model, prompt, 48, 16, device=device, seed=SEED)
+    launches = launch_counts()
+    logits = forced_logits(model, prompt, toks, device)
+    with plain_versions():
+        toks_p, _ = generate(model, prompt, 48, 16, device=device, seed=SEED)
+        logits_p = forced_logits(model, prompt, toks, device)
+    err = float((logits - logits_p).abs().max())
+    scale = float(logits_p.abs().max())
+    rec = dict(check="gemma3-4b smoke: launch.serve.generate",
+               tokens=list(toks.shape), tok_per_s=tps, launches={
+                   k: v for k, v in launches.items() if v},
+               token_agreement=float((toks == toks_p).mean()),
+               first_tokens_equal=bool((toks[:, 0] == toks_p[:, 0]).all()),
+               logits_max_abs_err=err, logits_max_abs_ref=scale,
+               logits_tol=SMOKE_LOGIT_TOL,
+               forced_argmax_agreement=float(
+                   (logits.argmax(-1).cpu().numpy() == toks).mean()))
+    log(json.dumps(rec))
+    if launches["csd_spmm_fwd_small"] == 0 \
+            or launches["paged_decode_attention"] == 0 \
+            or any(launches[k] for k in ("csd_spmm_fwd", "csd_spmm_dx_small",
+                                         "csd_spmm_dw_small")) \
+            or not rec["first_tokens_equal"] \
+            or not err <= SMOKE_LOGIT_TOL * scale:
+        fail(f"the gemma3-4b smoke configuration did not serve as "
+             f"expected: {rec}")
+    out["gemma3_4b_serve"] = rec
+    del model
+    for arch in ("gemma3_4b", "granite_moe_1b_a400m"):
+        c = get_config(arch, smoke=True)
+        reset_launch_counts()
+        hist = smoke_train(arch, plain=False)
+        launches = launch_counts()
+        hist_p = smoke_train(arch, plain=True)
+        want = train_launches_per_step(c)
+        form = "_batched" if c.moe is not None else ""
+        for op in ("fwd", "dx", "dw"):
+            want[f"csd_spmm_{op}_small"] = want.pop(f"csd_spmm_{op}{form}")
+        want = {k: want.get(k, 0) * SMOKE_STEPS for k in ALL_KERNELS}
+        err = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                      zip(hist, hist_p)) for k in ("loss", "grad_norm")}
+        rec = dict(check=f"{c.name} smoke: launch.train.main", steps=len(hist),
+                   losses=[h["loss"] for h in hist],
+                   losses_plain=[h["loss"] for h in hist_p],
+                   grad_norms=[h["grad_norm"] for h in hist],
+                   rel_err=err, tol=SMOKE_TOL, launches=launches)
+        log(json.dumps(dict(rec, launches={k: v for k, v in launches.items()
+                                           if v})))
+        if len(hist) != SMOKE_STEPS or launches != want \
+                or any(err[k] > SMOKE_TOL[k] for k in SMOKE_TOL) \
+                or not all(math.isfinite(h["loss"]) for h in hist):
+            fail(f"{c.name} smoke training: {rec}; expected launches "
+                 f"{want}")
+        out[f"{arch}_train"] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: serve gemma3-4b at full width
 # ---------------------------------------------------------------------------
 
@@ -1331,9 +1892,14 @@ def hold_and_time(kernel, run, plain, lib, nbytes, ops, dtype,
     """A kernel against its plain version on the same inputs (max |error|
     within ``TRAIN_TOL`` of max |plain|, or equal element for element with
     ``exact``), then the kernel's, the plain version's and the library
-    call's times and the bound for ``nbytes`` and ``ops``."""
+    call's times and the bound for ``nbytes`` and ``ops``. ``run``,
+    ``plain`` and ``lib`` are each a call or a list of calls, one per copy
+    of the inputs: held on the first copy; the kernel and the library
+    timed cycling through every copy, the plain version on the first two."""
     import torch
-    got, ref = run(), plain()
+    runs, plains, libs = ([c] if callable(c) else c
+                          for c in (run, plain, lib))
+    got, ref = runs[0](), plains[0]()
     torch.cuda.synchronize()
     if isinstance(got, tuple):  # (y, z) or (dw, db)
         got, ref = (torch.cat([t.float().reshape(-1) for t in o])
@@ -1344,9 +1910,10 @@ def hold_and_time(kernel, run, plain, lib, nbytes, ops, dtype,
     ok = (bool(torch.equal(got, ref)) if exact else err <= tol * scale) \
         and bool(torch.isfinite(got).all())
     del got, ref
-    ms, host_ms = bench([run], 10)
-    plain_ms, _ = bench([plain], 2)
-    lib_ms, _ = bench([lib], 10)
+    iters = max(10, len(runs))
+    ms, host_ms = bench(runs, iters)
+    plain_ms, _ = bench(plains[:2], 2)
+    lib_ms, _ = bench(libs, iters)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     return dict(kernel=kernel, max_abs_err=err, max_abs_ref=scale, tol=tol,
                 exact=exact, ok=ok, ms=ms, host_ms=host_ms,
@@ -1854,7 +2421,8 @@ STEP_TOL = {"bfloat16": {"loss": 1e-2, "grad_norm": 3e-2, "slab_grad": 5e-2},
 ALL_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant", "csd_spmm_fwd_batched",
                "csd_spmm_fwd_quant_batched", "csd_spmm_dx",
                "csd_spmm_dx_batched", "csd_spmm_dw", "csd_spmm_dw_batched",
-               "csd_mask_cotangent",
+               "csd_mask_cotangent", "csd_spmm_fwd_small",
+               "csd_spmm_dx_small", "csd_spmm_dw_small",
                "paged_decode_attention", "paged_decode_attention_quant",
                "flash_attention", "flash_attention_bwd",
                "csd_spmm_fwd_injected_alias")
@@ -2261,7 +2829,9 @@ def run_lint(out_dir: Path) -> dict:
     if launches[grid_pass.INJECTED] != 1:
         fail(f"the self-test launched the race-broken kernel "
              f"{launches[grid_pass.INJECTED]} times, expected 1")
-    idle = [k for k in ALL_KERNELS if launches[k] == 0]
+    # the small-block forms run no full-width step (phases 3d-3f)
+    idle = [k for k in ALL_KERNELS if launches[k] == 0
+            and k not in SMALL_KERNELS]
     if idle:
         fail(f"the lint's full-width steps never launched {idle}")
     rec = dict(check="lint", exit=rc, exit_selftest=rc_i, seconds=secs,
@@ -2451,6 +3021,14 @@ def main() -> int:
     run_spmm_batched(gcfg, device, results)
     torch.cuda.empty_cache()
     log(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
+
+    # phases 3d-3f: the small-block forms, the paper MLP, the smoke configs
+    run_small_kernels(device, results)
+    log(f"phase 3d done at {time.perf_counter() - t_all:.1f} s")
+    mlp_recs = run_mlp(device)
+    log(f"phase 3e done at {time.perf_counter() - t_all:.1f} s")
+    smoke_recs = run_smoke_configs(device)
+    log(f"phase 3f done at {time.perf_counter() - t_all:.1f} s")
 
     # phase 5
     from repro_torch.core.quant import QuantConfig
@@ -2650,6 +3228,39 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             shape=shape, **({"body": rec["body"]} if "body" in rec else {})))
+    # the small-block forms at the Table I junction's batch, f32, with
+    # their launches in the paper MLP's training runs (phase 3e, the three
+    # configurations summed) and in the smoke configurations' (phase 3f)
+    table1 = dict(junction="table1 800->100", m=MLP_BATCH, dtype="float32")
+    t1_shape = ("Table I junction 800 -> 100, x (256, 800) f32, w (25, 10, "
+                "16, 4)")
+    for name, src_shape in (
+            ("csd_spmm_fwd_small", t1_shape + ", bias + relu"),
+            ("csd_spmm_dx_small", "MNIST_4J junction 100 -> 100 (the "
+             "first junction runs no dx), g (256, 100) f32, w (25, 20, 4, "
+             "4)"),
+            ("csd_spmm_dw_small", t1_shape + ", with db")):
+        rec = pick(name, **(table1 if name != "csd_spmm_dx_small" else dict(
+            junction="mnist4j 100->100", m=MLP_BATCH, dtype="float32")))
+        entries.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/csd_spmm_small.cu",
+            replaces={"csd_spmm_fwd_small": "src/repro/kernels/csd_spmm.py:"
+                      "385 (and :337, the expert-batched form)",
+                      "csd_spmm_dx_small": "src/repro/kernels/csd_spmm.py:"
+                      "539",
+                      "csd_spmm_dw_small": "src/repro/kernels/csd_spmm.py:"
+                      "679"}[name],
+            launches=sum(r["launches"][name] for r in mlp_recs),
+            launches_smoke=sum(r["launches"].get(name, 0)
+                               for r in smoke_recs.values()),
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            shape=src_shape, body=rec["plan"]["kernel"]))
+    next(e for e in entries if e["name"] == "csd_mask_cotangent")[
+        "launches_mlp"] = sum(r["launches"]["csd_mask_cotangent"]
+                              for r in mlp_recs)
     entries.append(dict(
         name="csd_spmm_fwd_injected_alias", route="cuda",
         source="src/repro_torch/kernels/csrc/csd_spmm_fwd_injected_alias.cu",
@@ -2669,8 +3280,9 @@ def main() -> int:
     entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
     next(e for e in entries if e["name"] == "csd_spmm_fwd_batched")[
         "launches_train"] = g_train_rec["launches"]["csd_spmm_fwd_batched"]
-    for e in entries[-2:]:  # the attention kernels in granite's training
-        e["launches_train_granite"] = g_train_rec["launches"][e["name"]]
+    for e in entries:  # the attention kernels in granite's training
+        if e["name"] in ("flash_attention", "flash_attention_bwd"):
+            e["launches_train_granite"] = g_train_rec["launches"][e["name"]]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cases=results,
              serve=serve_rec, logits_check=chk_rec, profile=prof_rec,
@@ -2688,7 +3300,8 @@ def main() -> int:
              int8_decode_registers=stream_regs, lint=lint_rec,
              plan_drift=drift_rec,
              nan_coverage=nan_rec,
-             injected_alias=inj_rec, kernels=entries),
+             injected_alias=inj_rec, paper_mlp=mlp_recs,
+             smoke_configs=smoke_recs, kernels=entries),
         indent=1))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": entries}))

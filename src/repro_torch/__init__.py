@@ -19,5 +19,8 @@ attention through the flash-attention kernels; and sparselint
 the kernels' launch plans (``kernels.launch``), the serving and training
 steps and the sparsity patterns, with TPU kernel #9's counterpart (the
 race-broken forward of ``csrc/csd_spmm_fwd_injected_alias.cu``) as its
-self-test.
+self-test; and the paper's own sparse MLP (``core.sparse_linear``,
+``nn.mlp``, ``configs.paper_mlp``, ``core.storage``), whose small blocks
+(and the smoke configurations' 16 x 16) run the small-block forms of the
+junction kernels (``csrc/csd_spmm_small.cu``).
 """

@@ -707,10 +707,83 @@ def full_width_cases() -> List[KernelCase]:
     return cases
 
 
+# the paper MLP's batch (train_mlp's default) and the LM smoke runs'
+# shapes: training batch 2 x seq 32, 4 decode slots
+MLP_BATCH, SMOKE_TRAIN_M = 256, 2 * 32
+
+
+def small_block_cases() -> List[KernelCase]:
+    """The small-block forms (``csrc/csd_spmm_small.cu``) and the mask's
+    tail at the paper MLP's junctions, f32 at its batch of 256 rows: Table
+    I's 800 -> 100 in 16 x 4 blocks (fan-in 10), Table II's MNIST_4J
+    100 -> 100 in 4 x 4 (fan-in 20), TIMIT's 39 -> 390 in 1 x 2 and
+    390 -> 39 in 2 x 1, CIFAR's 4000 -> 500 (fan-in 50); and at the LM
+    smoke configurations' 16 x 16 blocks: gemma3-4b's gelu gate and its
+    down junction, training (64 rows) and decode (4), and granite-moe's
+    expert-batched up junction (8 experts)."""
+    from ..configs import get_config
+    from ..configs import paper_mlp as pm
+    from ..nn.mlp import mlp_patterns
+    f32 = torch.float32
+    m = MLP_BATCH
+    table1 = mlp_patterns(pm.MNIST_2J, pm.rho_from_dout(pm.MNIST_2J,
+                                                         (20, 10)))[0]
+    mnist4 = mlp_patterns(pm.MNIST_4J, pm.rho_from_dout(
+        pm.MNIST_4J, (80, 80, 80, 10)))[1]
+    t_in, t_out = mlp_patterns(pm.TIMIT, (0.2, 0.2))
+    cifar = mlp_patterns(pm.CIFAR_MLP, (0.2, 0.5))[0]
+    cases = [
+        _fwd_case("paper_mlp/table1/fwd_relu", table1, m, f32,
+                  activation="relu", bias=True),
+        _mask_case("paper_mlp/table1/mask_relu", m, table1.n_out, f32,
+                   activation="relu"),
+        _dw_case("paper_mlp/table1/dw_db", table1, m, f32, want_db=True),
+        _fwd_case("paper_mlp/mnist4j/fwd_relu", mnist4, m, f32,
+                  activation="relu", bias=True),
+        _dx_case("paper_mlp/mnist4j/dx", mnist4, m, f32),
+        _dw_case("paper_mlp/mnist4j/dw_db", mnist4, m, f32, want_db=True),
+        _fwd_case("paper_mlp/timit/fwd_in_relu", t_in, m, f32,
+                  activation="relu", bias=True),
+        _mask_case("paper_mlp/timit/mask_relu_390", m, t_in.n_out, f32,
+                   activation="relu"),
+        _dw_case("paper_mlp/timit/dw_in_db", t_in, m, f32, want_db=True),
+        _fwd_case("paper_mlp/timit/fwd_out", t_out, m, f32, bias=True),
+        _dx_case("paper_mlp/timit/dx_out", t_out, m, f32),
+        _dw_case("paper_mlp/timit/dw_out_db", t_out, m, f32, want_db=True),
+        _mask_case("paper_mlp/timit/mask_relu_39", 33, 39, f32,
+                   activation="relu"),
+        _fwd_case("paper_mlp/cifar/fwd_relu", cifar, m, f32,
+                  activation="relu", bias=True),
+    ]
+    g = _layer0_patterns(get_config("gemma3_4b", smoke=True))
+    gate, down = g["ffn.gate.pattern"], g["ffn.down.pattern"]
+    cases += [
+        _fwd_case("gemma3_4b_smoke/train/fwd_gate_gelu_preact", gate,
+                  SMOKE_TRAIN_M, f32, activation="gelu", save_preact=True),
+        _mask_case("gemma3_4b_smoke/train/mask_gate_gelu", SMOKE_TRAIN_M,
+                   gate.n_out, f32),
+        _dx_case("gemma3_4b_smoke/train/dx_gate", gate, SMOKE_TRAIN_M, f32),
+        _dw_case("gemma3_4b_smoke/train/dw_gate", gate, SMOKE_TRAIN_M, f32),
+        _dx_case("gemma3_4b_smoke/train/dx_down", down, SMOKE_TRAIN_M, f32),
+        _fwd_case("gemma3_4b_smoke/decode/fwd_down", down, DECODE_M, f32),
+    ]
+    r = get_config("granite_moe_1b_a400m", smoke=True)
+    up = _layer0_patterns(r)["ffn.up_pat"]
+    e = r.moe.n_routed
+    c = max(math.ceil(SMOKE_TRAIN_M * r.moe.top_k / e
+                      * r.moe.capacity_factor), 1)
+    cases += [
+        _fwd_case("granite_smoke/train/fwd_up", up, c, f32, experts=e),
+        _dx_case("granite_smoke/train/dx_up", up, c, f32, experts=e),
+        _dw_case("granite_smoke/train/dw_up", up, c, f32, experts=e),
+    ]
+    return cases
+
+
 def kernel_cases() -> List[KernelCase]:
-    """Every shipped kernel family: the demo cases and the full-width
-    shapes of the two models."""
-    return demo_cases() + full_width_cases()
+    """Every shipped kernel family: the demo cases, the full-width shapes
+    of the two models and the small-block forms' cases."""
+    return demo_cases() + full_width_cases() + small_block_cases()
 
 
 # ---------------------------------------------------------------------------

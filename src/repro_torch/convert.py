@@ -21,15 +21,23 @@ An MoE block's tree ``ffn: {router, up, gate, down[, shared]}`` maps onto
 expert's ``FFN`` under ``ffn.shared``), and the ``up_scale``,
 ``gate_scale`` and ``down_scale`` siblings that ``quantize_tree`` writes for
 int8 expert slabs onto the buffers of those names.
+
+``mlp_from_jax_params`` does the same for the paper's MLP: the JAX
+``SparseMLP`` tree ``{"j{i}": {"w", "b"}}`` maps onto ``layers.{i}.weight``
+and ``layers.{i}.bias`` in every mode (a dense or masked (n_in, n_out)
+weight, a gather (n_out, d_in) weight, a block slab).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import TYPE_CHECKING, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
 from .nn.model import LM, detect_unit
+
+if TYPE_CHECKING:
+    from .nn.mlp import SparseMLP
 
 _LEAF = {"w": "weight", "b": "bias"}
 _ATTN = {"q": "wq", "k": "wk", "v": "wv", "o": "wo"}
@@ -90,4 +98,28 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
                              f"tensor (int8 slabs load from a quantized "
                              f"tree into a quantized model)")
         sd[name] = torch.as_tensor(np.array(arr), dtype=p.dtype)
+    return sd
+
+
+def mlp_from_jax_params(np_tree: dict, model: "SparseMLP"
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's parameters for ``model`` (a ``nn.mlp.SparseMLP``) from the
+    JAX ``SparseMLP`` parameter tree (or a gradient tree of the same
+    structure) as numpy arrays, on the model's device. Raises if a
+    parameter is missing, left over, or of another shape."""
+    out = {f"layers.{k[1:]}.{_LEAF[leaf]}": arr
+           for k, sub in np_tree.items() for leaf, arr in sub.items()}
+    params = dict(model.named_parameters())
+    if set(out) != set(params):
+        raise ValueError(
+            f"parameter mismatch: missing {sorted(set(params) - set(out))}, "
+            f"unexpected {sorted(set(out) - set(params))}")
+    sd = {}
+    for name, arr in out.items():
+        p = params[name]
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        sd[name] = torch.as_tensor(np.array(arr), dtype=p.dtype,
+                                   device=p.device)
     return sd

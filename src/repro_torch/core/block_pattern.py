@@ -76,6 +76,10 @@ class BlockPattern:
     def d_in_b(self) -> int:
         return int(self.block_idx.shape[1])
 
+    @property
+    def n_weight_elems(self) -> int:
+        return self.n_rb * self.d_in_b * self.block_in * self.block_out
+
 
 def make_block_pattern(
     n_in: int,

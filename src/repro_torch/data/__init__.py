@@ -1,2 +1,2 @@
 """Synthetic data of the port (``repro.data``)."""
-from .synthetic import BigramLM  # noqa: F401
+from .synthetic import BigramLM, synthetic_features, synthetic_mnist  # noqa: F401

@@ -38,6 +38,15 @@ Two implementations of each operation live here:
   launches through ``launch.run``, the hook sparselint captures plans
   through.
 
+Blocks whose bL or bR is not a multiple of 64 (the paper MLP's 16 x 4,
+4 x 4, 1 x 2 and 2 x 1, the smoke configurations' 16 x 16) are below the
+64-wide tiles of those bodies: ``launch.small_block`` sends them to the
+small-block forms of ``csrc/csd_spmm_small.cu`` (CUDA cores, f32
+accumulation, any block shape, 4-D and expert-batched),
+``csd_spmm_fwd_small_cuda``, ``csd_spmm_dx_small_cuda`` and
+``csd_spmm_dw_small_cuda``, which the wrappers above call and which count
+their own launches. The int8 forward has no small-block form yet.
+
 The forward also has an int8 form for serving (``w_scale``): the slab is
 int8 with one f32 scale per (bL x bR) block (``core.quant``), each slot's
 partial sum is scaled before it is accumulated, and no gradient exists.
@@ -275,8 +284,11 @@ def csd_spmm_dw_batched_plain(x: torch.Tensor, dy: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _bind(name: str, n_ptrs: int, n_ints: int):
-    fn = getattr(build.load(name), name)
+def _bind(name: str, n_ptrs: int, n_ints: int, fn_name: str = ""):
+    """The C entry point ``fn_name`` (default: ``name``) of the library of
+    ``csrc/<name>.cu``, typed as n_ptrs pointers, n_ints ints and the
+    stream."""
+    fn = getattr(build.load(name), fn_name or name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
             + [ctypes.c_void_p]
@@ -320,14 +332,16 @@ def _check_fwd_shapes(name: str, x, w, block_idx, bias,
     with w (n_rb, d_in_b, bL, bR) and bias (n_rb * bR,) as E = 1, or with
     ``batched`` x (E, M, n_in), w (E, n_rb, d_in_b, bL, bR) and bias (E,
     n_rb * bR). ``grid_body``: the launch runs ``csd_spmm_fwd.cuh``'s grid
-    body, whose row tiles of all experts fill gridDim.y (at most 65535)."""
+    body, whose row tiles of all experts fill gridDim.y (at most 65535).
+    bL and bR must be multiples of 64."""
     if (x.dim(), w.dim()) != ((3, 5) if batched else (2, 4)):
         raise ValueError(f"{name}: x must be {3 if batched else 2}-D and w "
                          f"{5 if batched else 4}-D")
     e, m, n_in = x.shape if batched else (1,) + tuple(x.shape)
     n_rb, d_in_b, bl, br = w.shape[-4:]
     bias_shape = (e, n_rb * br) if batched else (n_rb * br,)
-    if bl % 64 or br % 64 or n_in % bl or (batched and w.shape[0] != e) \
+    if bl % 64 or br % 64 or n_in % bl \
+            or (batched and w.shape[0] != e) \
             or tuple(block_idx.shape) != (n_rb, d_in_b) \
             or (bias is not None and tuple(bias.shape) != bias_shape) \
             or (grid_body and e * -(-m // launch.block_m(m)) > 65535):
@@ -349,9 +363,20 @@ def _partial(plan, x, e: int, m: int, n_out: int):
 def _launch_fwd(name: str, x, w, block_idx, bias, activation, save_preact,
                 batched: bool, n_splits: Optional[int] = None):
     """Check and launch ``csrc/csd_spmm_fwd.cu`` through its plan; (y, z or
-    None, whether the kernel was launched). ``n_splits`` forces the grid
-    body's split count (a test's comparison; the wrappers leave it to the
-    plan)."""
+    None, whether that kernel was launched). Blocks that
+    ``launch.small_block`` sends to the small-block form run
+    ``csd_spmm_fwd_small_cuda`` instead, which counts its own launch.
+    ``n_splits`` forces the grid body's split count (a test's comparison;
+    the wrappers leave it to the plan)."""
+    if w.dim() >= 4 and launch.small_block(*w.shape[-2:]):
+        if n_splits not in (None, 1):
+            raise ValueError(f"{name}: the small-block form does not split "
+                             f"the fan-in over launches")
+        out = csd_spmm_fwd_small_cuda(x, w, block_idx, bias=bias,
+                                      activation=activation,
+                                      save_preact=save_preact,
+                                      batched=batched)
+        return (out if save_preact else (out, None)) + (False,)
     floats = (x, w) if bias is None else (x, w, bias)
     launch.check_device(name, floats + (block_idx,))
     _check_dtypes(name, floats, (block_idx,))
@@ -507,6 +532,59 @@ def csd_spmm_fwd_quant_batched_cuda(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def csd_spmm_fwd_small_cuda(x: torch.Tensor, w: torch.Tensor,
+                            block_idx: torch.Tensor, *,
+                            bias: Optional[torch.Tensor] = None,
+                            activation: Optional[str] = None,
+                            save_preact: bool = False,
+                            batched: Optional[bool] = None):
+    """Launch the small-block forward of ``csrc/csd_spmm_small.cu`` on the
+    current stream: the form ``csd_spmm_fwd_cuda`` and
+    ``csd_spmm_fwd_batched_cuda`` run for blocks whose bL or bR is not a
+    multiple of 64 (``launch.small_block``); it takes any block shape.
+    Same contract as ``csd_spmm_fwd_plain`` (4-D w) or
+    ``csd_spmm_fwd_batched_plain`` (5-D w, or ``batched``). Raises on what
+    the kernel does not take."""
+    name = "csd_spmm_fwd_small_cuda"
+    if activation not in _ACT_CODE:
+        raise ValueError(f"unsupported fused activation {activation!r}")
+    if batched is None:
+        batched = w.dim() == 5
+    floats = (x, w) if bias is None else (x, w, bias)
+    launch.check_device(name, floats + (block_idx,))
+    _check_dtypes(name, floats, (block_idx,))
+    _rank(name, batched, (x, 2), (w, 4))
+    e, m, n_in = x.shape if batched else (1,) + tuple(x.shape)
+    n_rb, d_in_b, bl, br = w.shape[-4:]
+    if n_in % bl or (batched and w.shape[0] != e) \
+            or tuple(block_idx.shape) != (n_rb, d_in_b) \
+            or (bias is not None
+                and tuple(bias.shape) != x.shape[:-2] + (n_rb * br,)) \
+            or e > 65535 or -(-m // 32) > 65535:
+        raise ValueError(
+            f"{name}: shapes not taken: x {tuple(x.shape)}, "
+            f"w {tuple(w.shape)}, block_idx {tuple(block_idx.shape)}")
+    _check_slab_size(name, w, batched)
+    y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
+                    device=x.device)
+    z = torch.empty_like(y) if save_preact else None
+    if y.numel() > 0:
+        plan = launch.fwd_small_plan(
+            e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x),
+            has_bias=bias is not None,
+            save_preact=save_preact).with_patterns(block_idx=block_idx)
+        launch.run(plan, dict(x=x, w=w, block_idx=block_idx, bias=bias, y=y,
+                              z=z),
+                   lambda: _bind("csd_spmm_small", 6, 9,
+                                 "csd_spmm_small_fwd")(
+                       x.data_ptr(), w.data_ptr(), block_idx.data_ptr(),
+                       _ptr(bias), y.data_ptr(), _ptr(z), e, m, n_in, n_rb,
+                       d_in_b, bl, br, _DTYPE_CODE[x.dtype],
+                       _ACT_CODE[activation], _stream()))
+        csd_spmm_fwd_small_cuda.launches += 1
+    return (y, z) if save_preact else y
+
+
 def csd_mask_cotangent_cuda(dy: torch.Tensor, aux: Optional[torch.Tensor],
                             activation: Optional[str]) -> torch.Tensor:
     """Launch ``csrc/csd_mask_cotangent.cu`` on the current stream. Same
@@ -518,9 +596,8 @@ def csd_mask_cotangent_cuda(dy: torch.Tensor, aux: Optional[torch.Tensor],
     _check_act(name, activation, aux, dy)
     launch.check_device(name, (dy, aux))
     _check_dtypes(name, (dy, aux), ())
-    if dy.dim() < 1 or dy.shape[-1] % 8:
-        raise ValueError(f"{name}: shapes not taken: dy {tuple(dy.shape)} "
-                         f"(rows of a multiple of 8 elements)")
+    if dy.dim() < 1:
+        raise ValueError(f"{name}: shapes not taken: dy {tuple(dy.shape)}")
     g = torch.empty_like(dy)
     if g.numel() == 0:
         return g
@@ -540,7 +617,13 @@ def _launch_dx(name: str, dy, w, out_idx, out_slot, aux, activation,
     """Check and launch ``csrc/csd_spmm_dx.cu`` through its plan, after the
     mask kernel when ``activation`` is given; (dx, whether the dx kernel was
     launched). dy (M, n_out) with w (n_rb, d_in_b, bL, bR) as E = 1, or
-    with ``batched`` dy (E, M, n_out) and w (E, n_rb, d_in_b, bL, bR)."""
+    with ``batched`` dy (E, M, n_out) and w (E, n_rb, d_in_b, bL, bR).
+    Blocks that ``launch.small_block`` sends to the small-block form run
+    ``csd_spmm_dx_small_cuda`` instead, which counts its own launch."""
+    if w.dim() >= 4 and launch.small_block(*w.shape[-2:]):
+        return csd_spmm_dx_small_cuda(dy, w, out_idx, out_slot, aux=aux,
+                                      activation=activation,
+                                      batched=batched), False
     _check_act(name, activation, aux, dy)
     floats = (dy, w)
     launch.check_device(name, floats + (out_idx, out_slot))
@@ -583,7 +666,15 @@ def _launch_dw(name: str, x, dy, block_idx, bl: int, br: int, aux,
     """Check and launch ``csrc/csd_spmm_dw.cu`` through its plan, after the
     mask kernel when ``activation`` is given; (dw, db or None, whether the
     dw kernel was launched). x (M, n_in) and dy (M, n_out) as E = 1, or
-    with ``batched`` x (E, M, n_in) and dy (E, M, n_out)."""
+    with ``batched`` x (E, M, n_in) and dy (E, M, n_out). Blocks that
+    ``launch.small_block`` sends to the small-block form run
+    ``csd_spmm_dw_small_cuda`` instead, which counts its own launch."""
+    if launch.small_block(bl, br):
+        out = csd_spmm_dw_small_cuda(x, dy, block_idx, block_in=bl,
+                                     block_out=br, aux=aux,
+                                     activation=activation, want_db=want_db,
+                                     batched=batched)
+        return (out if want_db else (out, None)) + (False,)
     _check_act(name, activation, aux, dy)
     floats = (x, dy)
     launch.check_device(name, floats + (block_idx,))
@@ -621,6 +712,127 @@ def _launch_dw(name: str, x, dy, block_idx, bl: int, br: int, aux,
                    dw.data_ptr(), _ptr(db), e, m, n_in, n_rb, d_in_b, bl, br,
                    _DTYPE_CODE[x.dtype], _stream()))
     return dw, db, True
+
+
+def _check_slab_size(name: str, w, batched: bool) -> None:
+    """The small-block forward and dx index an expert's slab with 32-bit
+    offsets."""
+    per_expert = w.numel() // max(w.shape[0], 1) if batched else w.numel()
+    if per_expert >= 2 ** 31:
+        raise ValueError(f"{name}: shapes not taken: an expert's slab "
+                         f"{tuple(w.shape[-4:])} holds 2^31 elements or "
+                         f"more")
+
+
+def _rank(name: str, batched: bool, *pairs) -> None:
+    """Every (tensor, rank of the 4-D form) pair has that rank, one more
+    when ``batched``."""
+    if any(t.dim() != r + batched for t, r in pairs):
+        raise ValueError(f"{name}: operands of ranks "
+                         f"{[t.dim() for t, _ in pairs]}, expected "
+                         f"{[r + batched for _, r in pairs]}")
+
+
+def csd_spmm_dx_small_cuda(dy: torch.Tensor, w: torch.Tensor,
+                           out_idx: torch.Tensor, out_slot: torch.Tensor, *,
+                           aux: Optional[torch.Tensor] = None,
+                           activation: Optional[str] = None,
+                           batched: Optional[bool] = None) -> torch.Tensor:
+    """Launch the small-block dx of ``csrc/csd_spmm_small.cu`` on the
+    current stream, after ``csd_mask_cotangent_cuda`` when ``activation``
+    is given: the form ``csd_spmm_dx_cuda`` and
+    ``csd_spmm_dx_batched_cuda`` run for blocks whose bL or bR is not a
+    multiple of 64; it takes any block shape. Same contract as
+    ``csd_spmm_dx_plain`` (4-D w) or ``csd_spmm_dx_batched_plain`` (5-D
+    w, or ``batched``)."""
+    name = "csd_spmm_dx_small_cuda"
+    if batched is None:
+        batched = w.dim() == 5
+    _check_act(name, activation, aux, dy)
+    launch.check_device(name, (dy, w, out_idx, out_slot))
+    _check_dtypes(name, (dy, w), (out_idx, out_slot))
+    _rank(name, batched, (dy, 2), (w, 4))
+    e, m, n_out = dy.shape if batched else (1,) + tuple(dy.shape)
+    n_rb, d_in_b, bl, br = w.shape[-4:]
+    n_lb, d_out_b = out_idx.shape
+    if n_out != n_rb * br or (batched and w.shape[0] != e) \
+            or tuple(out_slot.shape) != (n_lb, d_out_b) \
+            or n_lb * d_out_b != n_rb * d_in_b or e > 65535 \
+            or -(-m // 32) > 65535:
+        raise ValueError(
+            f"{name}: shapes not taken: dy {tuple(dy.shape)}, "
+            f"w {tuple(w.shape)}, out_idx {tuple(out_idx.shape)}")
+    _check_slab_size(name, w, batched)
+    dx = torch.empty(dy.shape[:-1] + (n_lb * bl,), dtype=dy.dtype,
+                     device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    g = csd_mask_cotangent_cuda(dy, aux, activation)
+    plan = launch.dx_small_plan(e, m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
+                                _dtype(dy)) \
+        .with_patterns(out_idx=out_idx, out_slot=out_slot)
+    launch.run(plan, dict(g=g, w=w, out_idx=out_idx, out_slot=out_slot,
+                          dx=dx),
+               lambda: _bind("csd_spmm_small", 5, 9, "csd_spmm_small_dx")(
+                   g.data_ptr(), w.data_ptr(), out_idx.data_ptr(),
+                   out_slot.data_ptr(), dx.data_ptr(), e, m, n_rb, d_in_b,
+                   bl, br, n_lb, d_out_b, _DTYPE_CODE[dy.dtype], _stream()))
+    csd_spmm_dx_small_cuda.launches += 1
+    return dx
+
+
+def csd_spmm_dw_small_cuda(x: torch.Tensor, dy: torch.Tensor,
+                           block_idx: torch.Tensor, *, block_in: int,
+                           block_out: int, aux: Optional[torch.Tensor] = None,
+                           activation: Optional[str] = None,
+                           want_db: bool = False,
+                           batched: Optional[bool] = None):
+    """Launch the small-block dw (and db) of ``csrc/csd_spmm_small.cu`` on
+    the current stream, after ``csd_mask_cotangent_cuda`` when
+    ``activation`` is given: the form ``csd_spmm_dw_cuda`` and
+    ``csd_spmm_dw_batched_cuda`` run for blocks whose bL or bR is not a
+    multiple of 64; it takes any block shape. Same contract as
+    ``csd_spmm_dw_plain`` (2-D x) or ``csd_spmm_dw_batched_plain`` (3-D x,
+    or ``batched``)."""
+    name = "csd_spmm_dw_small_cuda"
+    if batched is None:
+        batched = x.dim() == 3
+    bl, br = block_in, block_out
+    _check_act(name, activation, aux, dy)
+    launch.check_device(name, (x, dy, block_idx))
+    _check_dtypes(name, (x, dy), (block_idx,))
+    _rank(name, batched, (x, 2), (dy, 2))
+    if block_idx.dim() != 2:
+        raise ValueError(f"{name}: block_idx must be 2-D")
+    e, m, n_in = x.shape if batched else (1,) + tuple(x.shape)
+    n_rb, d_in_b = block_idx.shape
+    if n_in % bl or tuple(dy.shape) != x.shape[:-1] + (n_rb * br,) \
+            or e * n_rb > 65535 \
+            or launch.small_dw_geo(d_in_b, bl, br)["p_tiles"] > 65535:
+        raise ValueError(
+            f"{name}: shapes not taken: x {tuple(x.shape)}, "
+            f"dy {tuple(dy.shape)}, block ({bl}, {br})")
+    lead = (e,) if batched else ()
+    dw = torch.empty(lead + (n_rb, d_in_b, bl, br), dtype=x.dtype,
+                     device=x.device)
+    db = torch.empty(lead + (n_rb * br,), dtype=torch.float32,
+                     device=x.device) if want_db else None
+    if m == 0 or dw.numel() == 0:
+        dw.zero_()
+        if db is not None:
+            db.zero_()
+        return (dw, db) if want_db else dw
+    g = csd_mask_cotangent_cuda(dy, aux, activation)
+    plan = launch.dw_small_plan(e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x),
+                                want_db=want_db) \
+        .with_patterns(block_idx=block_idx)
+    launch.run(plan, dict(x=x, g=g, block_idx=block_idx, dw=dw, db=db),
+               lambda: _bind("csd_spmm_small", 5, 8, "csd_spmm_small_dw")(
+                   x.data_ptr(), g.data_ptr(), block_idx.data_ptr(),
+                   dw.data_ptr(), _ptr(db), e, m, n_in, n_rb, d_in_b, bl, br,
+                   _DTYPE_CODE[x.dtype], _stream()))
+    csd_spmm_dw_small_cuda.launches += 1
+    return (dw, db) if want_db else dw
 
 
 def csd_spmm_dx_cuda(dy: torch.Tensor, w: torch.Tensor,
@@ -696,3 +908,6 @@ csd_spmm_dx_batched_cuda.launches = 0
 csd_spmm_dw_cuda.launches = 0
 csd_spmm_dw_batched_cuda.launches = 0
 csd_mask_cotangent_cuda.launches = 0
+csd_spmm_fwd_small_cuda.launches = 0
+csd_spmm_dx_small_cuda.launches = 0
+csd_spmm_dw_small_cuda.launches = 0

@@ -445,6 +445,17 @@ def fwd_tile_n(dtype: str, e: int, m: int, n_rb: int, br: int,
     return bn if fills and (e > 1 or m > 16) else 0
 
 
+def small_block(bl: int, br: int) -> bool:
+    """Whether a junction of (bL x bR) blocks runs the small-block forms of
+    ``csrc/csd_spmm_small.cu`` (forward, dx and dw, CUDA cores, f32
+    accumulation): every block shape the 64-wide tiles of the other bodies
+    refuse, bL or bR not a multiple of 64 (the paper MLP's 16 x 4, 4 x 4,
+    1 x 2 and 2 x 1, the smoke configurations' 16 x 16). Shapes that are
+    multiples of 64 keep their bodies (``fwd_tile_n``, ``dx_plan``,
+    ``dw_plan``)."""
+    return bl % 64 != 0 or br % 64 != 0
+
+
 def _fwd_wgmma_launch(e: int, m: int, n_rb: int, d_in_b: int, bl: int,
                       br: int, bn: int, n_sm: int, *, has_bias: bool,
                       save_preact: bool, quant: bool = False) -> Launch:
@@ -956,21 +967,30 @@ _MASK_THREADS = 256
 def mask_plan(rows: int, n_out: int, dtype: str) -> LaunchPlan:
     """The plan of ``csd_mask_cotangent`` over a (rows, n_out) cotangent
     (E x M rows of the expert-batched form): thread i of CTA x masks the
-    16-byte chunk 256 x + i of the flat cotangent, reading the same chunk
-    of dy and aux and writing it to g."""
+    16-byte chunk t = 256 x + i of the flat cotangent, reading the same
+    chunk of dy and aux and writing it to g; past the whole chunks, thread
+    t masks one element of the tail (rows x n_out not a multiple of the
+    chunk), so CTA x covers the flat elements [start(256 x),
+    start(256 x + 256)), start(t) = t x chunk up to the last whole chunk,
+    one element a thread after it."""
     size = _itemsize(dtype)
     per = 16 // size  # elements per chunk
     total = rows * n_out
+    n_chunks, tail = divmod(total, per)
     buffers = {k: Buffer((rows, n_out), size, "out" if k == "g" else "in")
                for k in ("dy", "aux", "g")}
 
+    def start(t):
+        return np.where(t <= n_chunks, t * per, n_chunks * per + t - n_chunks)
+
     def rng(c):
-        a = c[:, 0] * _MASK_THREADS * per
-        return a, np.minimum(a + _MASK_THREADS * per, total)
+        t = c[:, 0] * _MASK_THREADS
+        return start(t), start(np.minimum(t + _MASK_THREADS,
+                                          n_chunks + tail))
 
     launch = Launch(
         kernel="csd_mask_cotangent_kernel",
-        grid=(_ceil(total // per, _MASK_THREADS), 1, 1),
+        grid=(_ceil(n_chunks + tail, _MASK_THREADS), 1, 1),
         threads=_MASK_THREADS, smem=0,
         writes=lambda c: _flat_boxes("g", *rng(c), n_out),
         reads=lambda c, p: _flat_boxes("dy", *rng(c), n_out)
@@ -979,10 +999,292 @@ def mask_plan(rows: int, n_out: int, dtype: str) -> LaunchPlan:
         slots=lambda c: (np.zeros(len(c), np.int64),
                          np.ones(len(c), np.int64)),
         epilogue=True,
-        tiles=(("n_out", n_out, per, False),
-               ("rows*n_out", total, _MASK_THREADS * per, True)))
+        tiles=(("rows*n_out", total, _MASK_THREADS * per, True),))
     return LaunchPlan("csd_mask_cotangent", buffers, (launch,), 1,
                       dict(rows=rows, n_out=n_out, dtype=_code(dtype)))
+
+
+# ---------------------------------------------------------------------------
+# csrc/csd_spmm_small.cu: the small-block forward, dx and dw
+# ---------------------------------------------------------------------------
+
+_SMALL_THREADS = 256
+_SMALL_COLS = 64   # output columns per CTA (kCols)
+_SMALL_ROWS = 32   # rows per CTA of the forward and dx (kRows)
+_SMALL_TABLES = 2 * 4 * _SMALL_THREADS
+
+
+def small_gather_geo(n_ob: int, ow: int, k: int) -> Tuple[int, int, int,
+                                                          int]:
+    """``gather_geo`` (csd_spmm_small.cu): (nb, chunks, bk, tiles_x) of the
+    gather kernel over n_ob output blocks of width ow, each summing k =
+    fan-in x input-block elements (its slots' blocks one after another):
+    nb whole output blocks a CTA (ow <= 64), else one 64-column chunk of a
+    block (``chunks`` a block); bk of the k elements a stage, a multiple of
+    4 with nb x bk <= 256 (several slots a stage for narrow blocks)."""
+    if ow <= _SMALL_COLS:
+        nb, chunks = _SMALL_COLS // ow, 1
+        tiles_x = _ceil(n_ob, nb)
+    else:
+        nb, chunks = 1, _ceil(ow, _SMALL_COLS)
+        tiles_x = n_ob * chunks
+    cap = max(1, min(16, _SMALL_COLS // nb))
+    return nb, chunks, 4 * min(_ceil(k, 4), cap), tiles_x
+
+
+def small_gather_smem(nb: int, bk: int) -> int:
+    """``gather_smem``: the stage's tables (256 input columns and slab
+    offsets), nb staged input blocks of 32 rows x bk (4 floats apart) and
+    bk x 64 slab values, f32."""
+    return _SMALL_TABLES + 4 * (nb * (_SMALL_ROWS * bk + 4)
+                                + bk * _SMALL_COLS)
+
+
+def _small_gather_launch(kernel: str, e: int, m: int, n_ob: int, ow: int,
+                         iw: int, n_slots: int, *, outs, reads_slot,
+                         extra_reads) -> Launch:
+    """The gather kernel's launch: CTA (x, y, z) owns rows [32 y, 32 y +
+    32) of expert z by output blocks [nb x, nb x + nb) (or the 64-column
+    chunk x % chunks of block x // chunks), looping over the n_slots
+    slots. ``reads_slot(ob, s, ex, rows, j0, width, n)`` gives the boxes one
+    output block reads at slot s; ``extra_reads`` those of the tables and
+    the bias."""
+    nb, chunks, bk, tiles_x = small_gather_geo(n_ob, ow, n_slots * iw)
+    narrow = ow <= _SMALL_COLS
+
+    def geo(c):
+        x, y, ex = c[:, 0], c[:, 1], c[:, 2]
+        if narrow:
+            ob0 = x * nb
+            nbh = np.minimum(nb, n_ob - ob0)
+            j0, width = np.zeros_like(x), nbh * ow
+        else:
+            ob0 = x // chunks
+            nbh = np.ones_like(x)
+            j0 = (x % chunks) * _SMALL_COLS
+            width = np.minimum(_SMALL_COLS, ow - j0)
+        m0 = y * _SMALL_ROWS
+        return ob0, nbh, j0, width, ex, (ex * m + m0,
+                                         ex * m + np.minimum(m0 + _SMALL_ROWS,
+                                                             m))
+
+    def writes(c):
+        ob0, _, j0, width, _, rows = geo(c)
+        col0 = ob0 * ow + j0
+        return [_box(k, len(c), rows, (col0, col0 + width)) for k in outs]
+
+    def reads(c, pats):
+        ob0, nbh, j0, width, ex, rows = geo(c)
+        n = len(c)
+        out = extra_reads(c, pats, ob0, nbh, j0, width, ex)
+        for b in range(nb):
+            skip = b >= nbh
+            ob = np.minimum(ob0 + b, n_ob - 1)
+            bw = width if not narrow else np.full(n, ow)
+            for s in range(n_slots):
+                out += [_empty_where(a, skip) for a in
+                        reads_slot(ob, s, ex, rows, j0, bw, pats, n)]
+        return out
+
+    return Launch(
+        kernel=kernel, grid=(tiles_x, _ceil(m, _SMALL_ROWS), e),
+        threads=_SMALL_THREADS, smem=small_gather_smem(nb, bk),
+        writes=writes, reads=reads, fan_in=n_slots, fan_in_axis="loop",
+        slots=lambda c: (np.zeros(len(c), np.int64),
+                         np.full(len(c), n_slots, np.int64)),
+        epilogue=True,
+        tiles=(("output blocks", n_ob, nb, True),
+               ("block width", ow, min(ow, _SMALL_COLS), True),
+               ("fan-in elements", n_slots * iw, bk, True),
+               ("M", m, _SMALL_ROWS, True)))
+
+
+@functools.lru_cache(maxsize=4096)
+def fwd_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
+                   bl: int, br: int, dtype: str, *, has_bias: bool,
+                   save_preact: bool) -> LaunchPlan:
+    """The plan of the small-block forward (``csd_spmm_small_fwd``): the
+    gather kernel over the n_rb right blocks (width bR), each reading
+    x[:, block_idx[rb, f]] and w[rb, f] slot by slot."""
+    n_out = n_rb * br
+    size = _itemsize(dtype)
+    buffers = {
+        "x": Buffer((e * m, n_in), size, "in"),
+        "w": Buffer((e, n_rb, d_in_b, bl, br), size, "in"),
+        "block_idx": Buffer((n_rb, d_in_b), 4, "in"),
+        "y": Buffer((e * m, n_out), size, "out"),
+    }
+    if has_bias:
+        buffers["bias"] = Buffer((e, n_out), size, "in")
+    if save_preact:
+        buffers["z"] = Buffer((e * m, n_out), size, "out")
+
+    def reads_slot(rb, f, ex, rows, j0, width, pats, n):
+        lb = pats["block_idx"][rb, f].astype(np.int64)
+        return [_box("x", n, rows, (lb * bl, lb * bl + bl)),
+                _box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                     (0, bl), (j0, j0 + width))]
+
+    def extra_reads(c, pats, ob0, nbh, j0, width, ex):
+        n = len(c)
+        out = [_box("block_idx", n, (ob0, ob0 + nbh), (0, d_in_b))]
+        if has_bias:
+            col0 = ob0 * br + j0
+            out.append(_box("bias", n, (ex, ex + 1), (col0, col0 + width)))
+        return out
+
+    outs = ("y", "z") if save_preact else ("y",)
+    ln = _small_gather_launch(
+        "csd_spmm_small_gather_kernel", e, m, n_rb, br, bl, d_in_b,
+        outs=outs, reads_slot=reads_slot, extra_reads=extra_reads)
+    return LaunchPlan("csd_spmm_fwd_small", buffers, (ln,), 1,
+                      dict(E=e, M=m, n_ob=n_rb, k=d_in_b * bl, ow=br,
+                           dtype=_code(dtype)))
+
+
+@functools.lru_cache(maxsize=4096)
+def dx_small_plan(e: int, m: int, n_rb: int, d_in_b: int, bl: int, br: int,
+                  n_lb: int, d_out_b: int, dtype: str) -> LaunchPlan:
+    """The plan of the small-block dx (``csd_spmm_small_dx``) on the masked
+    cotangent g: the gather kernel over the n_lb left blocks (width bL),
+    each reading g[:, out_idx[lb, s]] and w[out_idx, out_slot] transposed
+    slot by slot."""
+    n_in, n_out = n_lb * bl, n_rb * br
+    size = _itemsize(dtype)
+    buffers = {
+        "g": Buffer((e * m, n_out), size, "in"),
+        "w": Buffer((e, n_rb, d_in_b, bl, br), size, "in"),
+        "out_idx": Buffer((n_lb, d_out_b), 4, "in"),
+        "out_slot": Buffer((n_lb, d_out_b), 4, "in"),
+        "dx": Buffer((e * m, n_in), size, "out"),
+    }
+
+    def reads_slot(lb, s, ex, rows, j0, width, pats, n):
+        rb = pats["out_idx"][lb, s].astype(np.int64)
+        f = pats["out_slot"][lb, s].astype(np.int64)
+        return [_box("g", n, rows, (rb * br, rb * br + br)),
+                _box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                     (j0, j0 + width), (0, br))]
+
+    def extra_reads(c, pats, ob0, nbh, j0, width, ex):
+        return [_box(k, len(c), (ob0, ob0 + nbh), (0, d_out_b))
+                for k in ("out_idx", "out_slot")]
+
+    ln = _small_gather_launch(
+        "csd_spmm_small_gather_kernel", e, m, n_lb, bl, br, d_out_b,
+        outs=("dx",), reads_slot=reads_slot, extra_reads=extra_reads)
+    return LaunchPlan("csd_spmm_dx_small", buffers, (ln,), 1,
+                      dict(E=e, M=m, n_ob=n_lb, k=d_out_b * br, ow=bl,
+                           dtype=_code(dtype)))
+
+
+def small_dw_geo(d_in_b: int, bl: int, br: int) -> dict:
+    """``dw_geo`` (csd_spmm_small.cu): a CTA's share of dw. qw = min(bR,
+    64) columns of one right block (n_qc chunks), and either nf whole
+    slots (bL <= 256 / qw) or rows [i0, i0 + blc) of one slot (n_ic chunks
+    a slot); p_tiles CTAs a right block; outs = nf blc qw <= 256 outputs;
+    rp row phases (256 // outs); mc rows of M a stage."""
+    qw = min(br, _SMALL_COLS)
+    pmax = _SMALL_THREADS // qw
+    if bl <= pmax:
+        nf, blc, n_ic = min(pmax // bl, d_in_b), bl, 1
+        p_tiles = _ceil(d_in_b, nf)
+    else:
+        nf, blc, n_ic = 1, pmax, _ceil(bl, pmax)
+        p_tiles = d_in_b * n_ic
+    p = nf * blc
+    mc = 64
+    while mc > 8 and mc * p > 4096:
+        mc //= 2
+    return dict(qw=qw, n_qc=_ceil(br, qw), nf=nf, blc=blc, n_ic=n_ic,
+                p_tiles=p_tiles, outs=p * qw,
+                rp=_SMALL_THREADS // (p * qw), mc=mc)
+
+
+def small_dw_smem(g: dict) -> int:
+    """``dw_smem``: the x column table (256 ints), mc rows of the staged x
+    (nf blc columns) and g (qw columns), and the row phases' sums, f32."""
+    p = g["nf"] * g["blc"]
+    return 4 * _SMALL_THREADS + 4 * (g["mc"] * p + g["mc"] * g["qw"]
+                                     + (g["rp"] * g["outs"] if g["rp"] > 1
+                                        else 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def dw_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
+                  bl: int, br: int, dtype: str, *, want_db: bool
+                  ) -> LaunchPlan:
+    """The plan of the small-block dw (``csd_spmm_small_dw``) on the masked
+    cotangent g: CTA (x, y, z) owns columns [qw x, qw x + qw) of right
+    block rb = z % n_rb of expert z // n_rb by slot group y (slots [nf y,
+    nf y + nf), or slot y // n_ic's rows chunk y % n_ic), and loops over
+    all M rows; the CTAs of y = 0 also write db."""
+    geo = small_dw_geo(d_in_b, bl, br)
+    qw, nf, blc, n_ic = geo["qw"], geo["nf"], geo["blc"], geo["n_ic"]
+    n_out = n_rb * br
+    size = _itemsize(dtype)
+    buffers = {
+        "x": Buffer((e * m, n_in), size, "in"),
+        "g": Buffer((e * m, n_out), size, "in"),
+        "block_idx": Buffer((n_rb, d_in_b), 4, "in"),
+        "dw": Buffer((e, n_rb, d_in_b, bl, br), size, "out"),
+    }
+    if want_db:
+        buffers["db"] = Buffer((e, n_out), 4, "out")
+
+    def geo_of(c):
+        x, y, z = c[:, 0], c[:, 1], c[:, 2]
+        ex, rb = z // n_rb, z % n_rb
+        q0 = x * qw
+        q1 = np.minimum(q0 + qw, br)
+        if n_ic == 1:
+            f0, i0 = y * nf, np.zeros_like(y)
+            f1, i1 = np.minimum(f0 + nf, d_in_b), np.full_like(y, bl)
+        else:
+            f0, i0 = y // n_ic, (y % n_ic) * blc
+            f1, i1 = f0 + 1, np.minimum(i0 + blc, bl)
+        return ex, rb, q0, q1, f0, f1, i0, i1
+
+    def writes(c):
+        ex, rb, q0, q1, f0, f1, i0, i1 = geo_of(c)
+        n = len(c)
+        out = [_box("dw", n, (ex, ex + 1), (rb, rb + 1), (f0, f1), (i0, i1),
+                    (q0, q1))]
+        if want_db:
+            out.append(_empty_where(_box(
+                "db", n, (ex, ex + 1), (rb * br + q0, rb * br + q1)),
+                c[:, 1] != 0))
+        return out
+
+    def reads(c, pats):
+        ex, rb, q0, q1, f0, f1, i0, i1 = geo_of(c)
+        n = len(c)
+        idx = pats["block_idx"]
+        rows = (ex * m, ex * m + m)
+        out = [_box("block_idx", n, (rb, rb + 1), (f0, f1)),
+               _box("g", n, rows, (rb * br + q0, rb * br + q1))]
+        for fl in range(nf):
+            f = f0 + fl
+            skip = f >= f1
+            lb = idx[np.minimum(rb, idx.shape[0] - 1),
+                     np.minimum(f, idx.shape[1] - 1)].astype(np.int64)
+            out.append(_empty_where(_box(
+                "x", n, rows, (lb * bl + i0, lb * bl + i1)), skip))
+        return out
+
+    ln = Launch(
+        kernel="csd_spmm_small_dw_kernel",
+        grid=(geo["n_qc"], geo["p_tiles"], e * n_rb),
+        threads=_SMALL_THREADS, smem=small_dw_smem(geo), writes=writes,
+        reads=reads, fan_in=1, fan_in_axis="loop",
+        slots=lambda c: (np.zeros(len(c), np.int64),
+                         np.ones(len(c), np.int64)),
+        epilogue=True,
+        tiles=(("bR", br, qw, True), ("bL", bl, blc, True),
+               ("d_in_b", d_in_b, nf, True), ("M", m, geo["mc"], True)))
+    return LaunchPlan("csd_spmm_dw_small", buffers, (ln,), 1,
+                      dict(E=e, n_rb=n_rb, d_in_b=d_in_b, bL=bl, bR=br,
+                           dtype=_code(dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -1423,6 +1725,10 @@ PLAN_EXPORTS = {
     "flash_attention_fwd": ("flash_attention", "flash_attention_plan",
                             ("B", "Sq", "Skv", "Hq", "Hkv", "Dh", "dtype",
                              "backward")),
+    "csd_spmm_fwd_small": ("csd_spmm_small", "csd_spmm_small_gather_plan",
+                           ("E", "M", "n_ob", "k", "ow", "dtype")),
+    "csd_spmm_dw_small": ("csd_spmm_small", "csd_spmm_small_dw_plan",
+                          ("E", "n_rb", "d_in_b", "bL", "bR", "dtype")),
     "csd_spmm_fwd_injected_alias": (
         "csd_spmm_fwd_injected_alias", "csd_spmm_fwd_injected_alias_plan",
         ("E", "M", "n_rb", "bR", "d_in_b", "dtype")),
@@ -1430,6 +1736,7 @@ PLAN_EXPORTS = {
 PLAN_EXPORTS["paged_decode_attention_quant"] = \
     PLAN_EXPORTS["paged_decode_attention"]
 PLAN_EXPORTS["flash_attention_bwd"] = PLAN_EXPORTS["flash_attention_fwd"]
+PLAN_EXPORTS["csd_spmm_dx_small"] = PLAN_EXPORTS["csd_spmm_fwd_small"]
 
 
 def library_dims(plan: LaunchPlan
