@@ -41,8 +41,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tolerances and ``csd_spmm_fwd_quant_batched`` with phase 4b's (also at
    C = 16, 32, 64 and 128), timed like phase 3 with one ``torch.bmm`` over the
    densified (dequantized) slabs as the yardstick;
-3d. the small-block forms (``csrc/csd_spmm_small.cu``: blocks whose bL or
-   bR is not a multiple of 64) through the shipped wrappers at the paper
+3d. the small-block forms (``csrc/csd_spmm_small.cu``, the forward and dx,
+   and ``csrc/csd_spmm_small_dw.cu``: blocks whose bL or bR is not a
+   multiple of 64) through the shipped wrappers at the paper
    MLP's junctions: the forward (bias and relu), dx and dw with db against
    their plain versions at Table I's 800 -> 100 (16 x 4 blocks) and
    CIFAR_MLP's 4000 -> 500 at 256 and 8000 rows, MNIST_4J's 100 -> 100
@@ -1122,15 +1123,16 @@ def run_small_kernels(device, results):
 
 
 def captured_plan(run) -> dict:
-    """The kernel, grid, threads and shared memory of the plan ``run``
-    launches on this card (captured, not launched)."""
+    """The kernel, grid, threads, shared memory, cluster and arguments of
+    the plan ``run`` launches on this card (captured, not launched)."""
     from repro_torch.analysis.capture import capture_launch
     import torch
     plan = capture_launch(run, n_sm=torch.cuda.get_device_properties(
         0).multi_processor_count)
     ln = plan.launches[0]
     return dict(name=plan.name, kernel=ln.kernel, grid=list(ln.grid),
-                threads=ln.threads, smem=ln.smem)
+                threads=ln.threads, smem=ln.smem, cluster=ln.cluster[0],
+                args=dict(plan.args))
 
 
 # ---------------------------------------------------------------------------
@@ -3244,7 +3246,9 @@ def main() -> int:
             junction="mnist4j 100->100", m=MLP_BATCH, dtype="float32")))
         entries.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/csd_spmm_small.cu",
+            source="src/repro_torch/kernels/csrc/" + (
+                "csd_spmm_small_dw.cu" if name == "csd_spmm_dw_small"
+                else "csd_spmm_small.cu"),
             replaces={"csd_spmm_fwd_small": "src/repro/kernels/csd_spmm.py:"
                       "385 (and :337, the expert-batched form)",
                       "csd_spmm_dx_small": "src/repro/kernels/csd_spmm.py:"

@@ -173,7 +173,7 @@ def analyze_plan(plan: LaunchPlan, subject: str,
                 f"{where}: cluster {ln.cluster} does not tile the grid or "
                 f"holds more than 8 CTAs", {"cluster": list(ln.cluster)}))
         ctas = ln.ctas()
-        writes = ln.writes(ctas)
+        writes = ln.written(ctas, pats)
         reads = ln.reads(ctas, pats)
         bytes_read += _bytes(plan, reads)
         bytes_written += _bytes(plan, writes)
@@ -707,9 +707,9 @@ def full_width_cases() -> List[KernelCase]:
     return cases
 
 
-# the paper MLP's batch (train_mlp's default) and the LM smoke runs'
-# shapes: training batch 2 x seq 32, 4 decode slots
-MLP_BATCH, SMOKE_TRAIN_M = 256, 2 * 32
+# the paper MLP's batch (train_mlp's default) and training set, and the LM
+# smoke runs' shapes: training batch 2 x seq 32, 4 decode slots
+MLP_BATCH, MLP_FULL, SMOKE_TRAIN_M = 256, 8000, 2 * 32
 
 
 def small_block_cases() -> List[KernelCase]:
@@ -717,9 +717,12 @@ def small_block_cases() -> List[KernelCase]:
     tail at the paper MLP's junctions, f32 at its batch of 256 rows: Table
     I's 800 -> 100 in 16 x 4 blocks (fan-in 10), Table II's MNIST_4J
     100 -> 100 in 4 x 4 (fan-in 20), TIMIT's 39 -> 390 in 1 x 2 and
-    390 -> 39 in 2 x 1, CIFAR's 4000 -> 500 (fan-in 50); and at the LM
-    smoke configurations' 16 x 16 blocks: gemma3-4b's gelu gate and its
-    down junction, training (64 rows) and decode (4), and granite-moe's
+    390 -> 39 in 2 x 1, CIFAR's 4000 -> 500 (fan-in 50); Table I's and
+    CIFAR's forward, dx and dw also at the training set's 8000 rows (the
+    gather kernel's tall tiles and ring, the dw kernel's M split); and at
+    the LM smoke configurations' 16 x 16 blocks: gemma3-4b's gelu gate and
+    its down junction, training (64 rows) and decode (4: one tile, the
+    down forward's fan-in split over ranks of the CTA), and granite-moe's
     expert-batched up junction (8 experts)."""
     from ..configs import get_config
     from ..configs import paper_mlp as pm
@@ -755,6 +758,14 @@ def small_block_cases() -> List[KernelCase]:
         _fwd_case("paper_mlp/cifar/fwd_relu", cifar, m, f32,
                   activation="relu", bias=True),
     ]
+    for jname, bp in (("table1", table1), ("cifar", cifar)):
+        cases += [
+            _fwd_case(f"paper_mlp/{jname}/fwd_relu_m{MLP_FULL}", bp,
+                      MLP_FULL, f32, activation="relu", bias=True),
+            _dx_case(f"paper_mlp/{jname}/dx_m{MLP_FULL}", bp, MLP_FULL, f32),
+            _dw_case(f"paper_mlp/{jname}/dw_db_m{MLP_FULL}", bp, MLP_FULL,
+                     f32, want_db=True),
+        ]
     g = _layer0_patterns(get_config("gemma3_4b", smoke=True))
     gate, down = g["ffn.gate.pattern"], g["ffn.down.pattern"]
     cases += [

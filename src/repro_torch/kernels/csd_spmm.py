@@ -41,8 +41,9 @@ Two implementations of each operation live here:
 Blocks whose bL or bR is not a multiple of 64 (the paper MLP's 16 x 4,
 4 x 4, 1 x 2 and 2 x 1, the smoke configurations' 16 x 16) are below the
 64-wide tiles of those bodies: ``launch.small_block`` sends them to the
-small-block forms of ``csrc/csd_spmm_small.cu`` (CUDA cores, f32
-accumulation, any block shape, 4-D and expert-batched),
+small-block forms of ``csrc/csd_spmm_small.cu`` (the forward and dx)
+and ``csrc/csd_spmm_small_dw.cu`` (dw) (CUDA cores, f32 accumulation, any
+block shape, 4-D and expert-batched),
 ``csd_spmm_fwd_small_cuda``, ``csd_spmm_dx_small_cuda`` and
 ``csd_spmm_dw_small_cuda``, which the wrappers above call and which count
 their own launches. The int8 forward has no small-block form yet.
@@ -560,10 +561,12 @@ def csd_spmm_fwd_small_cuda(x: torch.Tensor, w: torch.Tensor,
             or tuple(block_idx.shape) != (n_rb, d_in_b) \
             or (bias is not None
                 and tuple(bias.shape) != x.shape[:-2] + (n_rb * br,)) \
-            or e > 65535 or -(-m // 32) > 65535:
+            or e > 65535 or not launch.small_gather_fits(
+                n_in, bl, x.element_size()):
         raise ValueError(
             f"{name}: shapes not taken: x {tuple(x.shape)}, "
-            f"w {tuple(w.shape)}, block_idx {tuple(block_idx.shape)}")
+            f"w {tuple(w.shape)}, block_idx {tuple(block_idx.shape)} "
+            f"(8 rows of x must fit the kernel's shared memory)")
     _check_slab_size(name, w, batched)
     y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
                     device=x.device)
@@ -571,16 +574,18 @@ def csd_spmm_fwd_small_cuda(x: torch.Tensor, w: torch.Tensor,
     if y.numel() > 0:
         plan = launch.fwd_small_plan(
             e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x),
-            has_bias=bias is not None,
-            save_preact=save_preact).with_patterns(block_idx=block_idx)
+            has_bias=bias is not None, save_preact=save_preact,
+            n_sm=launch.sm_count(x.device)) \
+            .with_patterns(block_idx=block_idx)
         launch.run(plan, dict(x=x, w=w, block_idx=block_idx, bias=bias, y=y,
                               z=z),
-                   lambda: _bind("csd_spmm_small", 6, 9,
+                   lambda: _bind("csd_spmm_small", 6, 14,
                                  "csd_spmm_small_fwd")(
                        x.data_ptr(), w.data_ptr(), block_idx.data_ptr(),
                        _ptr(bias), y.data_ptr(), _ptr(z), e, m, n_in, n_rb,
                        d_in_b, bl, br, _DTYPE_CODE[x.dtype],
-                       _ACT_CODE[activation], _stream()))
+                       _ACT_CODE[activation], *_gather_args(plan),
+                       _stream()))
         csd_spmm_fwd_small_cuda.launches += 1
     return (y, z) if save_preact else y
 
@@ -724,6 +729,12 @@ def _check_slab_size(name: str, w, batched: bool) -> None:
                          f"more")
 
 
+def _gather_args(plan) -> tuple:
+    """The gather kernel's geometry from its plan, in the C entry points'
+    order."""
+    return tuple(plan.args[k] for k in ("R", "ncg", "ks", "stages", "Y"))
+
+
 def _rank(name: str, batched: bool, *pairs) -> None:
     """Every (tensor, rank of the 4-D form) pair has that rank, one more
     when ``batched``."""
@@ -758,10 +769,11 @@ def csd_spmm_dx_small_cuda(dy: torch.Tensor, w: torch.Tensor,
     if n_out != n_rb * br or (batched and w.shape[0] != e) \
             or tuple(out_slot.shape) != (n_lb, d_out_b) \
             or n_lb * d_out_b != n_rb * d_in_b or e > 65535 \
-            or -(-m // 32) > 65535:
+            or not launch.small_gather_fits(n_out, br, dy.element_size()):
         raise ValueError(
             f"{name}: shapes not taken: dy {tuple(dy.shape)}, "
-            f"w {tuple(w.shape)}, out_idx {tuple(out_idx.shape)}")
+            f"w {tuple(w.shape)}, out_idx {tuple(out_idx.shape)} (8 rows "
+            f"of dy must fit the kernel's shared memory)")
     _check_slab_size(name, w, batched)
     dx = torch.empty(dy.shape[:-1] + (n_lb * bl,), dtype=dy.dtype,
                      device=dy.device)
@@ -769,14 +781,15 @@ def csd_spmm_dx_small_cuda(dy: torch.Tensor, w: torch.Tensor,
         return dx
     g = csd_mask_cotangent_cuda(dy, aux, activation)
     plan = launch.dx_small_plan(e, m, n_rb, d_in_b, bl, br, n_lb, d_out_b,
-                                _dtype(dy)) \
+                                _dtype(dy), n_sm=launch.sm_count(dy.device)) \
         .with_patterns(out_idx=out_idx, out_slot=out_slot)
     launch.run(plan, dict(g=g, w=w, out_idx=out_idx, out_slot=out_slot,
                           dx=dx),
-               lambda: _bind("csd_spmm_small", 5, 9, "csd_spmm_small_dx")(
+               lambda: _bind("csd_spmm_small", 5, 14, "csd_spmm_small_dx")(
                    g.data_ptr(), w.data_ptr(), out_idx.data_ptr(),
                    out_slot.data_ptr(), dx.data_ptr(), e, m, n_rb, d_in_b,
-                   bl, br, n_lb, d_out_b, _DTYPE_CODE[dy.dtype], _stream()))
+                   bl, br, n_lb, d_out_b, _DTYPE_CODE[dy.dtype],
+                   *_gather_args(plan), _stream()))
     csd_spmm_dx_small_cuda.launches += 1
     return dx
 
@@ -787,7 +800,7 @@ def csd_spmm_dw_small_cuda(x: torch.Tensor, dy: torch.Tensor,
                            activation: Optional[str] = None,
                            want_db: bool = False,
                            batched: Optional[bool] = None):
-    """Launch the small-block dw (and db) of ``csrc/csd_spmm_small.cu`` on
+    """Launch the small-block dw (and db) of ``csrc/csd_spmm_small_dw.cu`` on
     the current stream, after ``csd_mask_cotangent_cuda`` when
     ``activation`` is given: the form ``csd_spmm_dw_cuda`` and
     ``csd_spmm_dw_batched_cuda`` run for blocks whose bL or bR is not a
@@ -807,8 +820,8 @@ def csd_spmm_dw_small_cuda(x: torch.Tensor, dy: torch.Tensor,
     e, m, n_in = x.shape if batched else (1,) + tuple(x.shape)
     n_rb, d_in_b = block_idx.shape
     if n_in % bl or tuple(dy.shape) != x.shape[:-1] + (n_rb * br,) \
-            or e * n_rb > 65535 \
-            or launch.small_dw_geo(d_in_b, bl, br)["p_tiles"] > 65535:
+            or e > 65535 or n_in // bl > 65535 \
+            or not launch.small_dw_fits(bl, br, x.element_size()):
         raise ValueError(
             f"{name}: shapes not taken: x {tuple(x.shape)}, "
             f"dy {tuple(dy.shape)}, block ({bl}, {br})")
@@ -824,13 +837,14 @@ def csd_spmm_dw_small_cuda(x: torch.Tensor, dy: torch.Tensor,
         return (dw, db) if want_db else dw
     g = csd_mask_cotangent_cuda(dy, aux, activation)
     plan = launch.dw_small_plan(e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x),
-                                want_db=want_db) \
+                                want_db=want_db,
+                                n_sm=launch.sm_count(x.device)) \
         .with_patterns(block_idx=block_idx)
     launch.run(plan, dict(x=x, g=g, block_idx=block_idx, dw=dw, db=db),
-               lambda: _bind("csd_spmm_small", 5, 8, "csd_spmm_small_dw")(
+               lambda: _bind("csd_spmm_small_dw", 5, 9)(
                    x.data_ptr(), g.data_ptr(), block_idx.data_ptr(),
                    dw.data_ptr(), _ptr(db), e, m, n_in, n_rb, d_in_b, bl, br,
-                   _DTYPE_CODE[x.dtype], _stream()))
+                   _DTYPE_CODE[x.dtype], plan.args["cluster"], _stream()))
     csd_spmm_dw_small_cuda.launches += 1
     return (dw, db) if want_db else dw
 

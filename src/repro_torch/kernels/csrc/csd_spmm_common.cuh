@@ -1,10 +1,12 @@
 // Device helpers shared by the block-sparse junction kernels
 // (csd_spmm_fwd.cu, csd_spmm_fwd_quant.cu, csd_spmm_dx.cu, csd_spmm_dw.cu,
-// csd_mask_cotangent.cu): 16-byte cp.async copies with zero fill, f32 <->
-// storage-type conversion, the fused activation and its derivative folded
-// into a cotangent, and the
-// two forward kernels' epilogue and ordered second pass over fan-in splits
-// (for one junction or E expert junctions of one shared pattern).
+// csd_mask_cotangent.cu, csd_spmm_small.cu, csd_spmm_small_dw.cu): 16-byte
+// cp.async copies with zero fill, 4- to 16-byte ones without and the rows
+// of segments they copy, vector loads as f32, f32 <-> storage-type
+// conversion, the fused activation and its derivative folded into a
+// cotangent, and the two forward kernels' epilogue and ordered second pass
+// over fan-in splits (for one junction or E expert junctions of one shared
+// pattern).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +33,125 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A V-byte (4, 8 or 16) cp.async piece, no zero fill.
+template <int V>
+__device__ __forceinline__ void cp_async_v(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(V));
+}
+
+// The widest cp.async piece that tiles rows of `bytes` bytes (0: none).
+__host__ __device__ inline int piece_bytes(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 0;
+}
+
+// Copies `rows` rows of nseg segments of len elements: segment k of row r
+// from src + r srs + src_off(k) to dst + r drs + dst_off(k), in V-byte
+// cp.async pieces (V = 4, 8 or 16, dividing every segment's bytes, offset
+// and row stride) shared by the CTA's threads, or for V = 0 element by
+// element with plain loads and stores. The caller commits and waits.
+template <int V, typename T, typename SrcOff, typename DstOff>
+__device__ __forceinline__ void copy_segments(T* dst, int drs, const T* src,
+                                              size_t srs, int rows, int nseg,
+                                              int len, SrcOff src_off,
+                                              DstOff dst_off) {
+  if constexpr (V == 0) {
+    const int per_row = nseg * len;
+    for (int q = threadIdx.x; q < rows * per_row; q += blockDim.x) {
+      const int r = q / per_row, c = q % per_row;
+      const int k = c / len, i = c % len;
+      dst[r * drs + dst_off(k) + i] = src[r * srs + src_off(k) + i];
+    }
+  } else {
+    const int pieces = len * static_cast<int>(sizeof(T)) / V;
+    const int per_row = nseg * pieces;
+    for (int q = threadIdx.x; q < rows * per_row; q += blockDim.x) {
+      const int r = q / per_row, c = q % per_row;
+      const int k = c / pieces, p = c % pieces;
+      cp_async_v<V>(
+          reinterpret_cast<unsigned char*>(dst + r * drs + dst_off(k)) +
+              p * V,
+          reinterpret_cast<const unsigned char*>(src + r * srs +
+                                                 src_off(k)) +
+              p * V);
+    }
+  }
+}
+
+// copy_segments with the piece size vbytes (piece_bytes) chosen at run
+// time.
+template <typename T, typename SrcOff, typename DstOff>
+__device__ __forceinline__ void copy_segments(int vbytes, T* dst, int drs,
+                                              const T* src, size_t srs,
+                                              int rows, int nseg, int len,
+                                              SrcOff src_off,
+                                              DstOff dst_off) {
+  if (vbytes == 16)
+    copy_segments<16>(dst, drs, src, srs, rows, nseg, len, src_off, dst_off);
+  else if (vbytes == 8)
+    copy_segments<8>(dst, drs, src, srs, rows, nseg, len, src_off, dst_off);
+  else if (vbytes == 4)
+    copy_segments<4>(dst, drs, src, srs, rows, nseg, len, src_off, dst_off);
+  else
+    copy_segments<0>(dst, drs, src, srs, rows, nseg, len, src_off, dst_off);
+}
+
+// N (1, 2 or 4) consecutive elements at p, aligned to N elements, as f32:
+// `G` through the read-only path (global memory), else an ordinary load
+// (shared memory).
+template <bool G, int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = G ? __ldg(reinterpret_cast<const float4*>(p))
+                       : *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = G ? __ldg(reinterpret_cast<const float2*>(p))
+                       : *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = G ? __ldg(p) : *p;
+  }
+}
+
+template <bool G, int N>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&v)[N]) {
+  if constexpr (N == 4) {
+    const uint2 t = G ? __ldg(reinterpret_cast<const uint2*>(p))
+                      : *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  } else if constexpr (N == 2) {
+    const unsigned t = G ? __ldg(reinterpret_cast<const unsigned*>(p))
+                         : *reinterpret_cast<const unsigned*>(p);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t));
+    v[0] = a.x;
+    v[1] = a.y;
+  } else {
+    const unsigned short t =
+        G ? __ldg(reinterpret_cast<const unsigned short*>(p))
+          : *reinterpret_cast<const unsigned short*>(p);
+    v[0] = __bfloat162float(__ushort_as_bfloat16(t));
+  }
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

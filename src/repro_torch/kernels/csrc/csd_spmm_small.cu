@@ -1,139 +1,240 @@
-// csd_spmm_small — the block-sparse junction's forward, backward-data and
-// backward-weights for blocks whose bL or bR is not a multiple of 64, on
-// Hopper's CUDA cores (sm_90a), f32 accumulation; one junction (E = 1) or
-// E expert junctions of one shared pattern.
+// csd_spmm_small — the block-sparse junction's forward and backward-data
+// for blocks whose bL or bR is not a multiple of 64, on Hopper's CUDA
+// cores (sm_90a), f32 accumulation; one junction (E = 1) or E expert
+// junctions of one shared pattern. The backward-weights of these blocks is
+// csd_spmm_small_dw.cu.
 //
 // Replaces, for these block shapes, the TPU kernels of
 // repro/kernels/csd_spmm.py: csd_spmm_fwd (#1) and _csd_spmm_fwd_batched
-// (#3), csd_spmm_dx (#6) and csd_spmm_dw (#7). The paper's own MLP runs
-// blocks of 16 x 4, 4 x 4, 1 x 2 and 2 x 1 (shrink_to_divisor of a 16 cap at
-// widths 800, 100, 390, 39), and the LM smoke configurations 16 x 16: below
-// the 64-wide tiles of every wgmma/TMA body (csd_spmm_fwd.cu, _dx.cu,
-// _dw.cu), and with rows of 39, 100 or 390 elements whose byte strides are
-// not multiples of 16, so TMA cannot address them. These forms read global
-// memory with 4- and 2-byte loads and compute in f32 on the CUDA cores.
-// Plain versions: kernels/csd_spmm.py csd_spmm_{fwd,dx,dw}(_batched)_plain.
+// (#3), and csd_spmm_dx (#6). The paper's own MLP runs blocks of 16 x 4,
+// 4 x 4, 1 x 2 and 2 x 1 (shrink_to_divisor of a 16 cap at widths 800,
+// 100, 390, 39), and the LM smoke configurations 16 x 16: below the 64-wide
+// tiles of every wgmma/TMA body (csd_spmm_fwd.cu, _dx.cu), with rows of 39,
+// 100 or 390 elements whose byte strides are not all multiples of 16.
+// Plain versions: kernels/csd_spmm.py csd_spmm_{fwd,dx}(_batched)_plain.
 //
-//   FF  y[m, rb bR + j] = act(sum_f sum_i x[m, blk[rb, f] bL + i] w[rb, f, i, j]
-//                             + b[rb bR + j]),  with z the pre-activation;
-//   BP  dx[m, lb bL + i] = sum_g sum_j g[m, rb bR + j] w[rb, f, i, j],
-//                          (rb, f) = (out_idx, out_slot)[lb, g];
-//   UP  dw[rb, f, i, j] = sum_m x[m, blk[rb, f] bL + i] g[m, rb bR + j],
-//       db[rb bR + j] = sum_m g[m, rb bR + j] (f32).
+// FF and BP are one gather kernel, csd_spmm_small_gather_kernel:
 //
-// What bounds them on the card: at the paper's batch (256 rows) launch
-// latency (the Table I junction moves about 1 MB, 0.3 us at 3.35 TB/s);
-// at full-set rows (8000) f32 operations (CIFAR's 4000 -> 500 junction,
-// 6.4 GFLOP, 95 us at 67 TFLOP/s) or bytes in bf16.
+//   out[e, m, ob ow + j] = act(sum_s sum_k in[e, m, src(ob, s) iw + k]
+//                              W(ob, s)[k, j] + bias[e, ob ow + j])
 //
-// What the design does about it (simple first, speed later):
-// * FF and BP are one kernel, a gather of input blocks against the slab of
-//   each output block (BP reads the slab transposed through strides). A
-//   CTA owns 32 rows by a run of whole output blocks, about 64 columns
-//   (64 / bR blocks of bR <= 64; a 64-column chunk of a wider block), so a
-//   1- or 2-column block does not idle a warp. Each output block sums its
-//   slots' input blocks one after another, K = fan-in x block elements, in
-//   a fixed order; a stage takes bk of them (several slots at once when the
-//   blocks are narrow, so TIMIT's 40 slots of 2 run in 20 stages, not 40),
-//   staged in shared memory as f32 through a per-stage table of input
-//   columns and slab offsets, the loads issued 8 at a time before they are
-//   stored. Each thread owns one column and 8 rows and reads 4 inputs at
-//   once (one 16-byte shared load) for 4 slab values kept in registers.
-//   No split, no atomics: each output is one thread's ordered sum.
-// * UP: a CTA owns one right block's columns (at most 64) by a group of its
-//   fan-in slots (at most 256 outputs), and loops over every row of M in
-//   stages; where it has fewer than 256 outputs the threads split the rows
-//   by phase and add the phases' sums in order through shared memory. The
-//   loads go 8 at a time, as in FF. db is a sequential f32 column sum by
-//   the slot group's first CTA.
+// FF: in = x, ob a right block (ow = bR), src = block_idx[ob, s], iw = bL,
+// W(ob, s) = w[ob, s] (bL x bR, k-major). BP: in = the masked cotangent g,
+// ob a left block (ow = bL), src = out_idx[ob, s] (a right block, iw = bR),
+// W(ob, s)[k, j] = w[src, out_slot[ob, s], j, k]: the slab read transposed.
+//
+// What bounds it on the card (f32, the paper MLP's junctions):
+// * 8000 rows (the full training set): operations and L2 traffic. CIFAR's
+//   4000 -> 500 junction is 6.4 GFLOP (95 us at 67 TFLOP/s); its x is 128
+//   MB, its slab 1.6 MB. Table I's 800 -> 100 is 256 MFLOP over 29 MB of
+//   x and y (8.6 us at 3.35 TB/s): bytes.
+// * 256 rows (the batch): latency. Table I moves 1 MB (0.3 us); a launch
+//   and one round trip to device memory cost several us, so what counts is
+//   how few dependent steps a CTA takes and how many SMs share the work.
+//
+// What the design does about it:
+// * Staged rows avoid bank conflicts: rows are 16 bytes past a multiple of
+//   128 apart (a warp's rows of one column fall in distinct bank groups),
+//   and in 8-row tiles, where every lane of a warp reads the same row,
+//   input blocks whose bytes are an even number of 16-byte bank groups
+//   (bL 16 f32: 64 bytes) get 16 bytes of padding, so the blocks the lanes
+//   gather spread over all 8 groups instead of 2 (4-way conflicts on every
+//   x read; CIFAR's forward at 8000 rows 852 -> 697 us, PERF.md).
+// * Input rows are staged once per CTA. A CTA owns a tile of R rows (8,
+//   16, 32 or 64) and a range of output columns up to the whole output
+//   width; the tile's whole input rows go into shared memory once, and
+//   every output block of the range gathers its slots' input blocks from
+//   there. So x is read from L2 once per output range, not once per output
+//   block: at CIFAR's 8000 rows x costs 128 MB (whole-width ranges, one
+//   read; gathered per output block it is read fan-out = 25 times, 3.3
+//   GB), the slab 1.6 MB per 8-row tile (1.6 GB of L2 reads: R is 8
+//   because one CIFAR row is 16 KB, 20 padded, and two tiles do not fit),
+//   y 16 MB. Table I at 8000 rows: x 25.6 MB once (32-row tiles, the
+//   whole output width 100), the slab 64 KB per tile (16 MB), y 3.2 MB.
+// * Copies overlap arithmetic. A CTA walks its row tiles (y, y + gridDim.y,
+//   ...) through a ring of up to 3 stages filled with cp.async (16-byte
+//   copies where a row's byte width allows, else 8 or 4; plain loads for
+//   bf16 rows of odd width), one commit group per tile, the next tiles in
+//   flight while the current one is consumed.
+// * The product is register-tiled: a thread owns 8 rows (strided R / 8
+//   apart) by CW = 4 (2, 1) columns of one output block, and steps the
+//   fan-in KQ = 4 (2, 1) input elements at a time. Per 4 input elements it
+//   reads 8 x vectors from shared memory and 4 slab vectors (through L1;
+//   the threads of one column group are one warp's neighbours and share
+//   them) for 128 FMAs: 12 loads per 128 FMAs, 3 per 32 (a thread of one
+//   column and 8 rows issues 12 shared loads per 32). A slot's pattern
+//   entries are read one slot ahead, so its slab loads wait for one round
+//   trip to L2, not two; where shared memory holds one CTA an SM (CIFAR's
+//   forward), the 4 x 4 form is built for one CTA and loads the next
+//   slot's slab while it sums this one.
+// * The card fills at small M. Fewer rows a tile, output ranges split
+//   over CTAs, and the fan-in (whole slots) split over ks ranks of the
+//   CTA's 256 threads: the ranks leave f32 partial sums in the consumed
+//   stage and the CTA adds them in rank order. launch.small_gather_split
+//   picks R, the range, ks and the stages (a rule read off
+//   tools/time_small.py --splits). A split of the fan-in over a
+//   thread-block cluster, the ranks' sums added through distributed shared
+//   memory, was built and swept at every phase-3d shape (clusters of 2-8):
+//   it lost to the split inside the CTA everywhere, 1.2-10x (PERF.md,
+//   section 6), and went.
+// * No atomics: each output is one thread's ordered sum (slots in order,
+//   input elements in order), or the ranks' sums added in fixed order, so
+//   two runs are bit-equal.
 #include "csd_spmm_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCols = 64;                            // output columns per CTA
-constexpr int kRows = 32;                            // rows per CTA (FF, BP)
-constexpr int kRowGroups = kThreads / kCols;         // 4
-constexpr int kRowsPerThread = kRows / kRowGroups;   // 8
-constexpr int kBatch = 8;  // global loads a thread keeps in flight
-// the per-stage tables of FF/BP: input column and slab offset of each of
-// the at most 256 (block, k) pairs of a stage
-constexpr int kTables = 2 * 4 * kThreads;
+constexpr int kTR = 8;           // rows a thread
+constexpr int kMaxStages = 3;
+constexpr int kSmemOptin = 232448;
+constexpr int kSmemPerSm = 233472;   // an H100 SM's shared memory
+constexpr int kSmemReserved = 1024;  // the system's share of each CTA
+constexpr int kRegCtas = 2;          // CTAs an SM holds by registers
 
-// (row, col) of the flat index tid + kThreads u of a row-major array of
-// `cols` columns, stepped u by u without a division
-struct Walk {
-  int row, col, drow, dcol, cols;
-  __device__ Walk(int t, int n) : row(t / n), col(t % n),
-                                  drow(kThreads / n), dcol(kThreads % n),
-                                  cols(n) {}
-  __device__ void next() {
-    row += drow;
-    col += dcol;
-    if (col >= cols) {
-      col -= cols;
-      ++row;
-    }
-  }
-};
-
-// ---------------------------------------------------------------------------
-// FF and BP: the gather kernel
-// ---------------------------------------------------------------------------
-
-// A CTA's share of n_ob output blocks of width ow, each summing K = n_slots
-// iw input elements (its slots' input blocks one after another): nb whole
-// blocks (ow <= 64) or one 64-column chunk of a block (ow > 64, `chunks`
-// per block); bk of the K elements per stage, a multiple of 4 with nb bk
-// <= 256, so that narrow blocks take several slots a stage.
+// The launch geometry (the host picks R, ncg, ks and stages; the rest
+// follows): a tile of R rows by ncg column groups of cw columns (rc
+// columns), the fan-in split over ks ranks in the CTA (per_ks slots each);
+// bs elements between staged input blocks of iw, rs between staged rows; a
+// stage of `stage` bytes holds a tile's input rows, and afterwards the
+// ranks' partial sums.
 struct GatherGeo {
-  int nb;
-  int chunks;
-  int bk;
-  int tiles_x;
+  int R, ncg, rc, ks, stages;
+  int per_ks;
+  int bs, rs;
+  int stage;
 };
 
-__host__ __device__ inline GatherGeo gather_geo(int n_ob, int ow, int k) {
+__host__ __device__ inline int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+__host__ __device__ inline int column_group(int ow) {
+  return ow % 4 == 0 ? 4 : ow % 2 == 0 ? 2 : 1;
+}
+
+// Elements between staged input blocks of iw elements: iw, and 16 bytes
+// more in 8-row tiles (where a warp's lanes read one row) where the
+// block's bytes are an even number of 16-byte groups.
+__host__ __device__ inline int block_stride(int iw, int size, int R) {
+  const int b = iw * size;
+  return R == kTR && b % 16 == 0 && (b / 16) % 2 == 0 ? iw + 16 / size : iw;
+}
+
+__host__ __device__ inline GatherGeo gather_geo(int in_cols, int size,
+                                                int n_slots, int iw, int ow,
+                                                int R, int ncg, int ks,
+                                                int stages) {
   GatherGeo g;
-  if (ow <= kCols) {
-    g.nb = kCols / ow;
-    g.chunks = 1;
-    g.tiles_x = (n_ob + g.nb - 1) / g.nb;
-  } else {
-    g.nb = 1;
-    g.chunks = (ow + kCols - 1) / kCols;
-    g.tiles_x = n_ob * g.chunks;
-  }
-  const int quads = (k + 3) / 4;
-  int cap = kCols / g.nb;
-  if (cap > 16) cap = 16;
-  if (cap < 1) cap = 1;
-  g.bk = 4 * (quads < cap ? quads : cap);
+  g.R = R;
+  g.ncg = ncg;
+  g.rc = ncg * column_group(ow);
+  g.ks = ks;
+  g.stages = stages;
+  g.per_ks = ceil_div(n_slots, ks);
+  g.bs = block_stride(iw, size, R);
+  // rows 16 bytes past a multiple of 128: a warp's 8 rows of one column
+  // land in distinct bank groups
+  g.rs = ceil_div(in_cols / iw * g.bs, 128 / size) * (128 / size) +
+         16 / size;
+  const long x_bytes = static_cast<long>(R) * g.rs * size;
+  const long red_bytes = ks > 1 ? 4L * ks * R * g.rc : 0;
+  const long b = x_bytes > red_bytes ? x_bytes : red_bytes;
+  g.stage = static_cast<int>((b + 15) / 16 * 16);
   return g;
 }
 
-// floats of one staged input block: kRows rows of bk, 4 more so that
-// consecutive blocks start 16 bytes apart in the shared-memory banks
-__host__ __device__ inline int x_stride(int bk) { return kRows * bk + 4; }
-
-inline size_t gather_smem(const GatherGeo& g) {
-  return kTables + 4 * (static_cast<size_t>(g.nb) * x_stride(g.bk) +
-                        static_cast<size_t>(g.bk) * kCols);
+bool gather_ok(const GatherGeo& g, int n_slots, int ow) {
+  const int nrg = g.R / kTR;
+  return (g.R == 8 || g.R == 16 || g.R == 32 || g.R == 64) && g.ncg >= 1 &&
+         g.ks >= 1 && g.ks <= n_slots && nrg * g.ncg * g.ks <= kThreads &&
+         g.stages >= 1 && g.stages <= kMaxStages && ow >= 1 &&
+         static_cast<long>(g.stages) * g.stage <= kSmemOptin;
 }
 
-plan::Dims gather_dims(int E, int M, int n_ob, int k, int ow) {
-  const GatherGeo g = gather_geo(n_ob, ow, k);
-  return {dim3(g.tiles_x, (M + kRows - 1) / kRows, E), kThreads,
-          gather_smem(g)};
+plan::Dims gather_dims(const GatherGeo& g, int E, int n_cg, int Y) {
+  return {dim3(ceil_div(n_cg, g.ncg), Y, E), kThreads,
+          static_cast<size_t>(g.stages) * g.stage};
 }
 
-// out[e, m, ob ow + j] = act(sum_s sum_k in[e, m, src(ob, s) iw + k]
-//                            W(ob, s)[k, j] + bias[e, ob ow + j]).
-// FF (DX false): src = idx[ob, s], slab ob n_slots + s, W[k, j] at
-// k ow + j. BP (DX true): src = idx[ob, s] (out_idx), slab src d_in_b +
-// slot[ob, s] (out_slot), W[k, j] = w[.., j, k] at j iw + k.
-template <typename T, bool DX>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// the ring
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n <= 0)
+    csd::cp_async_wait<0>();
+  else if (n == 1)
+    csd::cp_async_wait<1>();
+  else
+    csd::cp_async_wait<2>();
+}
+
+// ---------------------------------------------------------------------------
+// the gather kernel
+// ---------------------------------------------------------------------------
+
+// N consecutive f32 values stored as T at p (aligned to N elements).
+template <int N>
+__device__ __forceinline__ void store_vec(const float (&v)[N], float* p) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (N == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(const float (&v)[N],
+                                          __nv_bfloat16* p) {
+  if constexpr (N == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&a),
+                   *reinterpret_cast<const unsigned*>(&b));
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16(v[0]);
+  }
+}
+
+// A 16 x 4 slab (rows ow apart) into registers, through the read-only path.
+template <typename T>
+__device__ __forceinline__ void load_slab16(const T* p, int ow,
+                                            float (&w)[16][4]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) csd::load_vec<true>(p + k * ow, w[k]);
+}
+
+// acc[i][j] += sum_k x[row i][k] w[k][j] over a slot's 16 staged inputs
+// (rows rstr elements apart), k in order.
+template <typename T>
+__device__ __forceinline__ void sum_slab16(float (&acc)[kTR][4],
+                                           const T* xp, int rstr,
+                                           const float (&w)[16][4]) {
+#pragma unroll
+  for (int k0 = 0; k0 < 16; k0 += 4)
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      float xv[4];
+      csd::load_vec<false>(xp + i * rstr + k0, xv);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(xv[kk], w[k0 + kk][j], acc[i][j]);
+    }
+}
+
+// CTA (grp, y, e): column groups [grp ncg, grp ncg + ncg) of expert e, row
+// tiles y, y + gridDim.y, ... Thread tid: rows rg + nrg i (i < 8) of the
+// tile, column group cgl, fan-in rank kr (slots [kr per_ks, kr per_ks +
+// per_ks)), tid = rg + nrg (cgl + ncg kr).
+template <typename T, bool DX, int CW, int KQ, int OCC>
+__global__ void __launch_bounds__(kThreads, OCC)
     csd_spmm_small_gather_kernel(const T* __restrict__ in,
                                  const T* __restrict__ w,
                                  const int* __restrict__ idx,
@@ -142,284 +243,239 @@ __global__ void __launch_bounds__(kThreads)
                                  T* __restrict__ out, T* __restrict__ zout,
                                  int M, int in_cols, int out_cols, int n_ob,
                                  int n_slots, int iw, int ow, int d_in_b,
-                                 int act) {
+                                 int act, int R, int ncg, int ks,
+                                 int stages) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* s_xoff = reinterpret_cast<int*>(smem);  // input column, or -1
-  int* s_woff = s_xoff + kThreads;             // slab offset of row k
-  float* xs = reinterpret_cast<float*>(smem + kTables);
-  const int K = n_slots * iw;
-  const GatherGeo geo = gather_geo(n_ob, ow, K);
-  const int nb = geo.nb, bk = geo.bk, xst = x_stride(bk);
-  float* ws = xs + nb * xst;
-
-  const bool narrow = ow <= kCols;
-  const int ob0 = narrow ? blockIdx.x * nb : blockIdx.x / geo.chunks;
-  const int j0 = narrow ? 0 : (blockIdx.x % geo.chunks) * kCols;
-  const int nb_here = narrow ? min(nb, n_ob - ob0) : 1;
-  const int n_valid = narrow ? nb_here * ow : min(kCols, ow - j0);
+  const GatherGeo geo = gather_geo(in_cols, sizeof(T), n_slots, iw, ow, R,
+                                   ncg, ks, stages);
+  const int nrg = R / kTR;
+  const int cg0 = blockIdx.x * ncg;
+  const int n_cg = out_cols / CW;
   const int e = blockIdx.z;
-  const int m0 = blockIdx.y * kRows;
-  const int rows = min(kRows, M - m0);
+  const int tid = threadIdx.x;
+  const int rg = tid % nrg;
+  const int cgl = (tid / nrg) % ncg;
+  const int kr = tid / (nrg * ncg);
+  const int cg = cg0 + cgl;
+  const bool mine = kr < ks && cg < n_cg;  // a column group to sum
+  const int col = cg * CW;                 // its first output column
+  const int ob = col / ow, j0 = col % ow;
+  const int s_lo = kr * geo.per_ks;
+  const int s_hi = mine ? min(s_lo + geo.per_ks, n_slots) : s_lo;
   const T* in_e = in + static_cast<size_t>(e) * M * in_cols;
   const T* w_e = w + static_cast<size_t>(e) * n_ob * n_slots * iw * ow;
-  const int slab_size = iw * ow;
-  const int wsk = DX ? 1 : ow;   // stride of k in a slab
-  const int wsj = DX ? iw : 1;   // stride of j in a slab
+  const int slab = iw * ow;
+  const bool reduce = ks > 1;
+  // whole rows as one segment, or block by block where blocks are padded
+  const int seg = geo.bs == iw ? in_cols : iw;
+  const int vbytes = csd::piece_bytes(seg * static_cast<int>(sizeof(T)));
+  const int n_tiles = ceil_div(M, R);
+  const int y0 = blockIdx.y, ys = gridDim.y;
+  const int my_tiles = y0 < n_tiles ? (n_tiles - 1 - y0) / ys + 1 : 0;
+  auto stage_ptr = [&](int u) {
+    return smem + static_cast<size_t>(u % stages) * geo.stage;
+  };
+  const int sstride = geo.bs == iw ? in_cols : geo.bs;
+  auto issue = [&](int u) {
+    if (u < my_tiles) {
+      const int m0 = (y0 + u * ys) * R;
+      csd::copy_segments(
+          vbytes, reinterpret_cast<T*>(stage_ptr(u)), geo.rs,
+          in_e + static_cast<size_t>(m0) * in_cols,
+          static_cast<size_t>(in_cols), min(R, M - m0), in_cols / seg, seg,
+          [&](int b) { return b * seg; },
+          [&](int b) { return b * sstride; });
+    }
+    csd::cp_async_commit();
+  };
 
-  const int tid = threadIdx.x;
-  const int c = tid % kCols;
-  const int rg = tid / kCols;
-  const int b = narrow ? min(c / ow, nb - 1) : 0;  // past n_valid: unused
-  // the slab values this thread stages: column wc of the tile (of block
-  // wb, column wj within it), rows wk0 + 4 u of the stage
-  const int wc = tid % kCols, wk0 = tid / kCols;
-  const bool w_col = wc < n_valid;
-  const int wb = narrow ? min(wc / ow, nb - 1) : 0;
-  const int wj_off = (narrow ? wc % ow : j0 + wc) * wsj;
-  const int x_lines = nb * kRows;
-  float acc[kRowsPerThread];
+  float bv[CW];
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
+  for (int j = 0; j < CW; ++j)
+    bv[j] = bias != nullptr && mine
+                ? csd::to_f32(bias[static_cast<size_t>(e) * out_cols + col +
+                                   j])
+                : 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += bk) {
-    // the stage's tables: (block bb, element kl) = k0 + kl of block bb
-    if (tid < nb * bk) {
-      const int bb = tid / bk, k = k0 + tid % bk;
-      int xo = -1, wo = 0;
-      if (bb < nb_here && k < K) {
-        const int ob = ob0 + bb, s = k / iw, kk = k % iw;
-        const int src = idx[ob * n_slots + s];
-        xo = src * iw + kk;
-        wo = (DX ? src * d_in_b + slot[ob * n_slots + s] : ob * n_slots + s)
-                 * slab_size + kk * wsk;
-      }
-      s_xoff[tid] = xo;
-      s_woff[tid] = wo;
-    }
+  for (int u = 0; u < stages - 1; ++u) issue(u);
+  for (int u = 0; u < my_tiles; ++u) {
+    issue(u + stages - 1);
+    cp_async_wait_n(stages - 1);
     __syncthreads();
-    // x: nb blocks x 32 rows x bk, kBatch loads in flight, then stored
-    Walk wl(tid, bk), ws_(tid, bk);
-    for (int q0 = 0; q0 < x_lines * bk; q0 += kThreads * kBatch) {
-      float v[kBatch];
+    const int m0 = (y0 + u * ys) * R;
+    const T* xs = reinterpret_cast<const T*>(stage_ptr(u));
+    float acc[kTR][CW];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int bb = wl.row / kRows, r = wl.row % kRows;
-        const int xo = wl.row < x_lines ? s_xoff[bb * bk + wl.col] : -1;
-        v[u] = xo >= 0 && r < rows
-                   ? csd::to_f32(in_e[static_cast<size_t>(m0 + r) * in_cols +
-                                      xo])
-                   : 0.f;
-        wl.next();
-      }
+    for (int i = 0; i < kTR; ++i)
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (ws_.row < x_lines)
-          xs[(ws_.row / kRows) * xst + (ws_.row % kRows) * bk + ws_.col] =
-              v[u];
-        ws_.next();
-      }
-    }
-    // w: bk rows x 64 columns, thread (wk0 + 4 u, wc)
-    for (int k1 = wk0; k1 < bk; k1 += 4 * kBatch) {
-      float v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int kl = k1 + 4 * u;
-        const bool ok = w_col && kl < bk && s_xoff[wb * bk + kl] >= 0;
-        v[u] = ok ? csd::to_f32(w_e[static_cast<size_t>(
-                        s_woff[wb * bk + kl] + wj_off)])
-                  : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (k1 + 4 * u < bk) ws[(k1 + 4 * u) * kCols + wc] = v[u];
-    }
-    __syncthreads();
-    const float* xb = xs + b * xst + rg * kRowsPerThread * bk;
-    for (int k = 0; k < bk; k += 4) {
-      const float w0 = ws[k * kCols + c], w1 = ws[(k + 1) * kCols + c];
-      const float w2 = ws[(k + 2) * kCols + c], w3 = ws[(k + 3) * kCols + c];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(xb + i * bk + k);
-        acc[i] = fmaf(xv.x, w0, acc[i]);
-        acc[i] = fmaf(xv.y, w1, acc[i]);
-        acc[i] = fmaf(xv.z, w2, acc[i]);
-        acc[i] = fmaf(xv.w, w3, acc[i]);
+      for (int j = 0; j < CW; ++j) acc[i][j] = 0.f;
+
+    // the slot's pattern entries are loaded one slot ahead, so a slot's
+    // slab loads wait for one round trip, not two
+    const int* idx_ob = idx + ob * n_slots;
+    const int* slot_ob = DX ? slot + ob * n_slots : nullptr;
+    int src_n = s_lo < s_hi ? __ldg(idx_ob + s_lo) : 0;
+    int f_n = DX && s_lo < s_hi ? __ldg(slot_ob + s_lo) : 0;
+    bool summed = false;
+    if constexpr (OCC == 1 && !DX && CW == 4 && KQ == 4) {
+      // FF at 16-element input blocks where one CTA holds the SM (CIFAR's
+      // 16 x 4): a slot's whole slab in registers, the next slot's loaded
+      // while this one is summed (two register sets in turn)
+      if (iw == 16 && s_lo < s_hi) {
+        const T* w_ob = w_e + static_cast<size_t>(ob) * n_slots * slab + j0;
+        const T* x_rg = xs + rg * geo.rs;
+        const int rstr = nrg * geo.rs;
+        float wa[16][4], wb[16][4];
+        load_slab16(w_ob + static_cast<size_t>(s_lo) * slab, ow, wa);
+        int src_a = src_n, src_b = 0;
+        for (int s = s_lo; s < s_hi; s += 2) {
+          if (s + 1 < s_hi) {
+            load_slab16(w_ob + static_cast<size_t>(s + 1) * slab, ow, wb);
+            src_b = __ldg(idx_ob + s + 1);
+          }
+          sum_slab16(acc, x_rg + src_a * geo.bs, rstr, wa);
+          if (s + 1 >= s_hi) break;
+          if (s + 2 < s_hi) {
+            load_slab16(w_ob + static_cast<size_t>(s + 2) * slab, ow, wa);
+            src_a = __ldg(idx_ob + s + 2);
+          }
+          sum_slab16(acc, x_rg + src_b * geo.bs, rstr, wb);
+        }
+        summed = true;
       }
     }
-    __syncthreads();
-  }
-  if (c >= n_valid) return;
-  const int col = ob0 * ow + j0 + c;
-  const float bv =
-      bias != nullptr ? csd::to_f32(bias[static_cast<size_t>(e) * out_cols +
-                                         col])
-                      : 0.f;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = rg * kRowsPerThread + i;
-    if (r >= rows) break;
-    const size_t o =
-        (static_cast<size_t>(e) * M + m0 + r) * out_cols + col;
-    const float z = acc[i] + bv;
-    if (zout != nullptr) csd::store(z, zout + o);
-    csd::store(csd::activate(z, act), out + o);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// UP: dw and db
-// ---------------------------------------------------------------------------
-
-// A CTA's share of dw: columns [q0, q0 + qw) of right block rb (n_qc chunks
-// of qw = min(bR, 64)), and either nf whole slots (bL <= 256 / qw) or one
-// slot's rows [i0, i0 + blc) (n_ic chunks); at most 256 outputs = P x qw,
-// P = nf blc. rp row phases when there are fewer outputs than threads;
-// mc rows of M per stage.
-struct DwGeo {
-  int qw, n_qc, nf, blc, n_ic, p_tiles, outs, rp, mc;
-};
-
-__host__ __device__ inline DwGeo dw_geo(int d_in_b, int bl, int br) {
-  DwGeo g;
-  g.qw = br < kCols ? br : kCols;
-  g.n_qc = (br + g.qw - 1) / g.qw;
-  const int pmax = kThreads / g.qw;
-  if (bl <= pmax) {
-    g.nf = pmax / bl < d_in_b ? pmax / bl : d_in_b;
-    g.blc = bl;
-    g.n_ic = 1;
-    g.p_tiles = (d_in_b + g.nf - 1) / g.nf;
-  } else {
-    g.nf = 1;
-    g.blc = pmax;
-    g.n_ic = (bl + pmax - 1) / pmax;
-    g.p_tiles = d_in_b * g.n_ic;
-  }
-  const int p = g.nf * g.blc;
-  g.outs = p * g.qw;
-  g.rp = kThreads / g.outs;
-  g.mc = 64;
-  while (g.mc > 8 && g.mc * p > 4096) g.mc /= 2;
-  return g;
-}
-
-// bytes of the x column table: one int for each of the at most 256 staged
-// x columns
-constexpr int kDwTable = 4 * kThreads;
-
-inline size_t dw_smem(const DwGeo& g) {
-  const size_t p = static_cast<size_t>(g.nf) * g.blc;
-  return kDwTable +
-         4 * (g.mc * p + static_cast<size_t>(g.mc) * g.qw +
-              (g.rp > 1 ? static_cast<size_t>(g.rp) * g.outs : 0));
-}
-
-plan::Dims dw_dims(int E, int n_rb, int d_in_b, int bl, int br) {
-  const DwGeo g = dw_geo(d_in_b, bl, br);
-  return {dim3(g.n_qc, g.p_tiles, E * n_rb), kThreads, dw_smem(g)};
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    csd_spmm_small_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                             const int* __restrict__ block_idx,
-                             T* __restrict__ dw, float* __restrict__ db,
-                             int M, int n_in, int n_rb, int d_in_b, int bl,
-                             int br) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const DwGeo geo = dw_geo(d_in_b, bl, br);
-  const int p_len = geo.nf * geo.blc;
-  int* s_col = reinterpret_cast<int*>(smem);  // x column, or -1: no block
-  float* xs = reinterpret_cast<float*>(smem + kDwTable);
-  float* gs = xs + geo.mc * p_len;
-  float* red = gs + geo.mc * geo.qw;
-
-  const int e = blockIdx.z / n_rb, rb = blockIdx.z % n_rb;
-  const int q0 = blockIdx.x * geo.qw;
-  const int qn = min(geo.qw, br - q0);
-  const int f0 = geo.n_ic == 1 ? blockIdx.y * geo.nf : blockIdx.y / geo.n_ic;
-  const int i0 = geo.n_ic == 1 ? 0 : (blockIdx.y % geo.n_ic) * geo.blc;
-  const int n_out = n_rb * br;
-  const T* x_e = x + static_cast<size_t>(e) * M * n_in;
-  const T* g_e = g + static_cast<size_t>(e) * M * n_out;
-  const int tid = threadIdx.x;
-  if (tid < p_len) {
-    const int f = f0 + tid / geo.blc, i = i0 + tid % geo.blc;
-    s_col[tid] = f < d_in_b && i < bl ? block_idx[rb * d_in_b + f] * bl + i
-                                      : -1;
-  }
-
-  const int o = tid % geo.outs;
-  const int ph = tid / geo.outs;  // < rp for the threads that compute
-  const int p = o / geo.qw, q = o % geo.qw;
-  const bool want_db = db != nullptr && blockIdx.y == 0;
-  float acc = 0.f, dbacc = 0.f;
-  __syncthreads();
-  for (int m0 = 0; m0 < M; m0 += geo.mc) {
-    const int rows = min(geo.mc, M - m0);
-    // x and g: at most 4096 elements each, kBatch loads in flight
-    Walk wx(tid, p_len), sx(tid, p_len), wg(tid, geo.qw), sg(tid, geo.qw);
-    for (int u0 = 0; u0 < 4096 / kThreads; u0 += kBatch) {
-      float xv[kBatch], gv[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int col = wx.row < rows ? s_col[wx.col] : -1;
-        xv[u] = col >= 0 ? csd::to_f32(x_e[static_cast<size_t>(m0 + wx.row) *
-                                               n_in + col])
-                         : 0.f;
-        gv[u] = wg.row < rows && wg.col < qn
-                    ? csd::to_f32(g_e[static_cast<size_t>(m0 + wg.row) *
-                                          n_out +
-                                      static_cast<size_t>(rb) * br + q0 +
-                                      wg.col])
-                    : 0.f;
-        wx.next();
-        wg.next();
+    for (int s = s_lo; s < (summed ? s_lo : s_hi); ++s) {
+      const int src = src_n, f = f_n;
+      if (s + 1 < s_hi) {
+        src_n = __ldg(idx_ob + s + 1);
+        if (DX) f_n = __ldg(slot_ob + s + 1);
       }
+      const size_t wb =
+          DX ? (static_cast<size_t>(src) * d_in_b + f) * slab
+             : (static_cast<size_t>(ob) * n_slots + s) * slab;
+      const T* wp = w_e + wb;
+      const T* xp = xs + rg * geo.rs + src * geo.bs;
+#pragma unroll(OCC == 1 ? 4 : 1)
+      for (int k0 = 0; k0 < iw; k0 += KQ) {
+        float wv[KQ][CW];
+        if constexpr (DX) {
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (sx.row < geo.mc) xs[sx.row * p_len + sx.col] = xv[u];
-        if (sg.row < geo.mc) gs[sg.row * geo.qw + sg.col] = gv[u];
-        sx.next();
-        sg.next();
+          for (int j = 0; j < CW; ++j) {
+            float t[KQ];
+            csd::load_vec<true>(wp + (j0 + j) * iw + k0, t);
+#pragma unroll
+            for (int kk = 0; kk < KQ; ++kk) wv[kk][j] = t[kk];
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < KQ; ++kk) csd::load_vec<true>(
+              wp + (k0 + kk) * ow + j0, wv[kk]);
+        }
+#pragma unroll
+        for (int i = 0; i < kTR; ++i) {
+          float xv[KQ];
+          csd::load_vec<false>(xp + i * nrg * geo.rs + k0, xv);
+#pragma unroll
+          for (int kk = 0; kk < KQ; ++kk)
+#pragma unroll
+            for (int j = 0; j < CW; ++j)
+              acc[i][j] = fmaf(xv[kk], wv[kk][j], acc[i][j]);
+        }
       }
     }
-    __syncthreads();
-    if (ph < geo.rp)
-      for (int r = ph; r < rows; r += geo.rp)
-        acc = fmaf(xs[r * p_len + p], gs[r * geo.qw + q], acc);
-    if (want_db && tid < qn)
-      for (int r = 0; r < rows; ++r) dbacc += gs[r * geo.qw + tid];
-    __syncthreads();
+
+    if (!reduce) {
+      if (mine) {
+#pragma unroll
+        for (int i = 0; i < kTR; ++i) {
+          const int m = m0 + rg + nrg * i;
+          if (m >= M) break;
+          const size_t o =
+              (static_cast<size_t>(e) * M + m) * out_cols + col;
+          float z[CW], y[CW];
+#pragma unroll
+          for (int j = 0; j < CW; ++j) {
+            z[j] = acc[i][j] + bv[j];
+            y[j] = csd::activate(z[j], act);
+          }
+          if (zout != nullptr) store_vec(z, zout + o);
+          store_vec(y, out + o);
+        }
+      }
+    } else {
+      // the ranks' partial sums: red[(kr R + r) rc + c], in this stage
+      __syncthreads();  // every thread has read the staged rows
+      float* red = reinterpret_cast<float*>(stage_ptr(u));
+      if (mine) {
+#pragma unroll
+        for (int i = 0; i < kTR; ++i)
+#pragma unroll
+          for (int j = 0; j < CW; ++j)
+            red[(kr * R + rg + nrg * i) * geo.rc + cgl * CW + j] = acc[i][j];
+      }
+      __syncthreads();
+      // the tile's outputs, the ranks' sums added in rank order
+      const int c_n = min(geo.rc, out_cols - cg0 * CW);
+      for (int q = tid; q < R * c_n; q += kThreads) {
+        const int r = q / c_n, c = q % c_n;
+        const int m = m0 + r;
+        if (m >= M) continue;
+        float z = 0.f;
+        for (int k2 = 0; k2 < ks; ++k2) z += red[(k2 * R + r) * geo.rc + c];
+        const int oc = cg0 * CW + c;
+        if (bias != nullptr)
+          z += csd::to_f32(bias[static_cast<size_t>(e) * out_cols + oc]);
+        const size_t o = (static_cast<size_t>(e) * M + m) * out_cols + oc;
+        if (zout != nullptr) csd::store(z, zout + o);
+        csd::store(csd::activate(z, act), out + o);
+      }
+    }
+    __syncthreads();  // the stage is free for the tile u + stages
   }
-  if (geo.rp > 1) {
-    if (ph < geo.rp) red[ph * geo.outs + o] = acc;
-    __syncthreads();
-    if (tid >= geo.outs) return;
-    acc = 0.f;
-    for (int r = 0; r < geo.rp; ++r) acc += red[r * geo.outs + o];
-  }
-  if (want_db && tid < qn)
-    db[static_cast<size_t>(e) * n_out + static_cast<size_t>(rb) * br + q0 +
-       tid] = dbacc;
-  if (ph != 0) return;
-  const int f = f0 + p / geo.blc, i = i0 + p % geo.blc, j = q0 + q;
-  if (f >= d_in_b || i >= bl || j >= br) return;
-  csd::store(acc, dw + ((((static_cast<size_t>(e) * n_rb + rb) * d_in_b + f) *
-                             bl + i) * br + j));
+  csd::cp_async_wait<0>();
 }
 
-template <typename T>
-int launch_gather(bool dx, const void* in, const void* w, const int* idx,
+template <typename T, bool DX>
+using GatherFn = void (*)(const T*, const T*, const int*, const int*,
+                          const T*, T*, T*, int, int, int, int, int, int, int,
+                          int, int, int, int, int, int);
+
+template <typename T, bool DX, int CW>
+GatherFn<T, DX> pick_kq(int kq) {
+  return kq == 4   ? csd_spmm_small_gather_kernel<T, DX, CW, 4, kRegCtas>
+         : kq == 2 ? csd_spmm_small_gather_kernel<T, DX, CW, 2, kRegCtas>
+                   : csd_spmm_small_gather_kernel<T, DX, CW, 1, kRegCtas>;
+}
+
+// The kernel for CW x KQ. Where shared memory holds one CTA an SM, the 4 x
+// 4 product (the paper MLP's 16 x 4 and 4 x 4 blocks) is built for one CTA:
+// it keeps the registers two would share, unrolls the fan-in 4 steps deep
+// and, at 16-element input blocks, holds a slot's slab in registers while
+// the next slot's loads (CIFAR's forward at 8000 rows, the fan-in whole:
+// 643 us against 861 with the two-CTA form, PERF.md).
+template <typename T, bool DX>
+GatherFn<T, DX> pick(int cw, int kq, bool one_cta) {
+  if (one_cta && cw == 4 && kq == 4)
+    return csd_spmm_small_gather_kernel<T, DX, 4, 4, 1>;
+  return cw == 4   ? pick_kq<T, DX, 4>(kq)
+         : cw == 2 ? pick_kq<T, DX, 2>(kq)
+                   : pick_kq<T, DX, 1>(kq);
+}
+
+template <typename T, bool DX>
+int launch_gather(const void* in, const void* w, const int* idx,
                   const int* slot, const void* bias, void* out, void* zout,
                   int E, int M, int in_cols, int out_cols, int n_ob,
-                  int n_slots, int iw, int ow, int d_in_b, int act,
-                  cudaStream_t s) {
-  const plan::Dims d = gather_dims(E, M, n_ob, n_slots * iw, ow);
-  auto k = dx ? csd_spmm_small_gather_kernel<T, true>
-              : csd_spmm_small_gather_kernel<T, false>;
+                  int n_slots, int iw, int ow, int d_in_b, int act, int R,
+                  int ncg, int ks, int stages, int Y, cudaStream_t s) {
+  const GatherGeo g = gather_geo(in_cols, sizeof(T), n_slots, iw, ow, R,
+                                 ncg, ks, stages);
+  if (!gather_ok(g, n_slots, ow) || Y < 1 || Y > 65535 || E > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const plan::Dims d = gather_dims(g, E, out_cols / column_group(ow), Y);
+  const GatherFn<T, DX> k = pick<T, DX>(
+      column_group(ow), column_group(iw),
+      kSmemPerSm / (static_cast<int>(d.smem) + kSmemReserved) < 2);
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(d.smem));
@@ -428,22 +484,7 @@ int launch_gather(bool dx, const void* in, const void* w, const int* idx,
       static_cast<const T*>(in), static_cast<const T*>(w), idx, slot,
       static_cast<const T*>(bias), static_cast<T*>(out),
       static_cast<T*>(zout), M, in_cols, out_cols, n_ob, n_slots, iw, ow,
-      d_in_b, act);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dw(const void* x, const void* g, const int* block_idx, void* dw,
-              float* db, int E, int M, int n_in, int n_rb, int d_in_b, int bl,
-              int br, cudaStream_t s) {
-  const plan::Dims d = dw_dims(E, n_rb, d_in_b, bl, br);
-  cudaError_t err = cudaFuncSetAttribute(
-      csd_spmm_small_dw_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(d.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  csd_spmm_small_dw_kernel<T><<<d.grid, d.threads, d.smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), block_idx,
-      static_cast<T*>(dw), db, M, n_in, n_rb, d_in_b, bl, br);
+      d_in_b, act, R, ncg, ks, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -452,88 +493,70 @@ int launch_dw(const void* x, const void* g, const int* block_idx, void* dw,
 // y = act(x W + b) (and z = x W + b when z is given) over E experts of M
 // rows: x (E, M, n_in), w (E, n_rb, d_in_b, bL, bR), block_idx (n_rb,
 // d_in_b) int32, bias (E, n_rb bR) or null, y and z (E, M, n_rb bR); dtype
-// 0 float32, 1 bfloat16; act 0 none, 1 relu, 2 gelu (tanh). Preconditions
-// (checked by the Python wrapper): contiguous tensors on one device, n_in a
-// multiple of bL, E and ceil(M / 32) at most 65535, an expert's slab
-// fewer than 2^31 elements. Returns
-// cudaGetLastError() after the launch.
+// 0 float32, 1 bfloat16; act 0 none, 1 relu, 2 gelu (tanh). The geometry
+// (launch.small_gather_split): R rows a tile, ncg column groups a CTA, ks
+// fan-in ranks in a CTA, stages, Y CTAs along the row tiles.
+// Preconditions (checked by the Python wrapper): contiguous tensors on one
+// device, n_in a multiple of bL, an expert's slab fewer than 2^31
+// elements. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a geometry the kernel does not take).
 extern "C" int csd_spmm_small_fwd(const void* x, const void* w,
                                   const int* block_idx, const void* bias,
                                   void* y, void* z, int E, int M, int n_in,
                                   int n_rb, int d_in_b, int bl, int br,
-                                  int dtype, int act, void* stream) {
+                                  int dtype, int act, int R, int ncg, int ks,
+                                  int stages, int Y, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (act < 0 || act > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int n_out = n_rb * br;
   if (dtype == 0)
-    return launch_gather<float>(false, x, w, block_idx, nullptr, bias, y, z,
-                                E, M, n_in, n_out, n_rb, d_in_b, bl, br,
-                                d_in_b, act, s);
+    return launch_gather<float, false>(
+        x, w, block_idx, nullptr, bias, y, z, E, M, n_in, n_out, n_rb,
+        d_in_b, bl, br, d_in_b, act, R, ncg, ks, stages, Y, s);
   if (dtype == 1)
-    return launch_gather<__nv_bfloat16>(false, x, w, block_idx, nullptr,
-                                        bias, y, z, E, M, n_in, n_out, n_rb,
-                                        d_in_b, bl, br, d_in_b, act, s);
+    return launch_gather<__nv_bfloat16, false>(
+        x, w, block_idx, nullptr, bias, y, z, E, M, n_in, n_out, n_rb,
+        d_in_b, bl, br, d_in_b, act, R, ncg, ks, stages, Y, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dx = g W^T over the scatter form: g (E, M, n_rb bR) (the masked
 // cotangent), w (E, n_rb, d_in_b, bL, bR), out_idx/out_slot (n_lb, d_out_b)
-// int32, dx (E, M, n_lb bL). Preconditions as csd_spmm_small_fwd's.
+// int32, dx (E, M, n_lb bL). Geometry and preconditions as
+// csd_spmm_small_fwd's.
 extern "C" int csd_spmm_small_dx(const void* g, const void* w,
                                  const int* out_idx, const int* out_slot,
                                  void* dx, int E, int M, int n_rb, int d_in_b,
                                  int bl, int br, int n_lb, int d_out_b,
-                                 int dtype, void* stream) {
+                                 int dtype, int R, int ncg, int ks,
+                                 int stages, int Y, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_in = n_lb * bl, n_out = n_rb * br;
   if (dtype == 0)
-    return launch_gather<float>(true, g, w, out_idx, out_slot, nullptr, dx,
-                                nullptr, E, M, n_out, n_in, n_lb, d_out_b,
-                                br, bl, d_in_b, 0, s);
+    return launch_gather<float, true>(
+        g, w, out_idx, out_slot, nullptr, dx, nullptr, E, M, n_out, n_in,
+        n_lb, d_out_b, br, bl, d_in_b, 0, R, ncg, ks, stages, Y, s);
   if (dtype == 1)
-    return launch_gather<__nv_bfloat16>(true, g, w, out_idx, out_slot,
-                                        nullptr, dx, nullptr, E, M, n_out,
-                                        n_in, n_lb, d_out_b, br, bl, d_in_b,
-                                        0, s);
+    return launch_gather<__nv_bfloat16, true>(
+        g, w, out_idx, out_slot, nullptr, dx, nullptr, E, M, n_out, n_in,
+        n_lb, d_out_b, br, bl, d_in_b, 0, R, ncg, ks, stages, Y, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dw = x^T g per block, summed over each expert's M rows: x (E, M, n_in), g
-// (E, M, n_rb bR), block_idx (n_rb, d_in_b) int32, dw (E, n_rb, d_in_b,
-// bL, bR) in the dtype of x; db (E, n_rb bR) f32 or null. Preconditions:
-// as csd_spmm_small_fwd's, E n_rb at most 65535 and the slot tiles
-// (dw_geo) at most 65535.
-extern "C" int csd_spmm_small_dw(const void* x, const void* g,
-                                 const int* block_idx, void* dw, float* db,
-                                 int E, int M, int n_in, int n_rb,
-                                 int d_in_b, int bl, int br, int dtype,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dw<float>(x, g, block_idx, dw, db, E, M, n_in, n_rb,
-                            d_in_b, bl, br, s);
-  if (dtype == 1)
-    return launch_dw<__nv_bfloat16>(x, g, block_idx, dw, db, E, M, n_in,
-                                    n_rb, d_in_b, bl, br, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The launch csd_spmm_small_fwd (n_ob = n_rb, k = d_in_b bL, ow = bR) or
-// csd_spmm_small_dx (n_ob = n_lb, k = d_out_b bR, ow = bL) makes, from the
-// host code it launches with: six ints (plan.cuh) written to out. Returns
-// 1, or -1 for an unknown dtype.
-extern "C" int csd_spmm_small_gather_plan(int E, int M, int n_ob, int k,
-                                          int ow, int dtype, int* out) {
+// The launch csd_spmm_small_fwd (n_ob = n_rb, ow = bR, iw = bL, in_cols =
+// n_in, n_slots = d_in_b) or csd_spmm_small_dx (n_ob = n_lb, ow = bL, iw =
+// bR, in_cols = n_out, n_slots = d_out_b) makes with the given geometry,
+// from the host code it launches with: six ints (plan.cuh) written to out.
+// Returns 1, or -1 for an unknown dtype or a geometry the kernel does not
+// take.
+extern "C" int csd_spmm_small_gather_plan(int E, int n_ob, int ow, int iw,
+                                          int in_cols, int n_slots,
+                                          int dtype, int R, int ncg, int ks,
+                                          int stages, int Y, int* out) {
   if (dtype != 0 && dtype != 1) return -1;
-  plan::put(out, 0, gather_dims(E, M, n_ob, k, ow));
-  return 1;
-}
-
-// The launch csd_spmm_small_dw makes: six ints written to out. Returns 1,
-// or -1 for an unknown dtype.
-extern "C" int csd_spmm_small_dw_plan(int E, int n_rb, int d_in_b, int bl,
-                                      int br, int dtype, int* out) {
-  if (dtype != 0 && dtype != 1) return -1;
-  plan::put(out, 0, dw_dims(E, n_rb, d_in_b, bl, br));
+  const GatherGeo g = gather_geo(in_cols, dtype == 0 ? 4 : 2, n_slots, iw,
+                                 ow, R, ncg, ks, stages);
+  if (!gather_ok(g, n_slots, ow)) return -1;
+  plan::put(out, 0, gather_dims(g, E, n_ob * ow / column_group(ow), Y));
   return 1;
 }

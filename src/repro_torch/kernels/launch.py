@@ -78,6 +78,15 @@ class Launch:
     # CTAs per thread-block cluster along (x, y, z); a cluster shares
     # distributed shared memory and must tile the grid
     cluster: Tuple[int, int, int] = (1, 1, 1)
+    # whether the writes follow the pattern: writes(ctas, patterns) (the
+    # small-block dw, whose CTAs own the slabs of one input block)
+    pattern_writes: bool = False
+
+    def written(self, ctas: np.ndarray,
+                patterns: Dict[str, np.ndarray]) -> List[Access]:
+        """The boxes of each buffer the CTAs store."""
+        return self.writes(ctas, patterns) if self.pattern_writes \
+            else self.writes(ctas)
 
     def ctas(self) -> np.ndarray:
         """Every CTA index (x, y, z), (n, 3)."""
@@ -1005,107 +1014,297 @@ def mask_plan(rows: int, n_out: int, dtype: str) -> LaunchPlan:
 
 
 # ---------------------------------------------------------------------------
-# csrc/csd_spmm_small.cu: the small-block forward, dx and dw
+# csrc/csd_spmm_small.cu (forward and dx) and csrc/csd_spmm_small_dw.cu (dw):
+# the small-block forms
 # ---------------------------------------------------------------------------
 
-_SMALL_THREADS = 256
-_SMALL_COLS = 64   # output columns per CTA (kCols)
-_SMALL_ROWS = 32   # rows per CTA of the forward and dx (kRows)
-_SMALL_TABLES = 2 * 4 * _SMALL_THREADS
+_SMALL_THREADS = 256            # the gather kernel's CTA (kThreads)
+_SMALL_TR = 8                   # rows a thread of it (kTR)
+_SMALL_ROWS = (64, 32, 16, 8)   # its tile heights
+_SMALL_MAX_STAGES = 3
+_DW_THREADS = 256
+_SMALL_MAX_CLUSTER = 8
+# an H100 SM's shared memory, the part the system keeps per CTA, and the
+# gather kernel's CTAs an SM holds by registers (__launch_bounds__(256, 2))
+SMEM_PER_SM, _SMEM_RESERVED, _SMALL_REG_CTAS = 233472, 1024, 2
+# the rules' knobs: an output range keeps at least _SMALL_MIN_NCG column
+# groups (a floor, not swept); dw's M splits over a cluster while the CTAs
+# stay at most twice the SMs and each rank keeps _DW_MIN_ROWS rows (read
+# off tools/time_small.py --splits: PERF.md, section 6)
+_SMALL_MIN_NCG = 8
+_DW_MIN_ROWS = 16
+# the dw kernel: a ring of 3 stages of 32 KiB behind a header of the
+# batch's slabs (256 ints), the warps' counts and a resume position
+_DW_STAGES, _DW_STAGE_BYTES = 3, 32768
+_DW_HEADER = 4 * (_DW_THREADS + 16)
+
+_FORCED_SMALL: Dict[str, int] = {}
 
 
-def small_gather_geo(n_ob: int, ow: int, k: int) -> Tuple[int, int, int,
-                                                          int]:
-    """``gather_geo`` (csd_spmm_small.cu): (nb, chunks, bk, tiles_x) of the
-    gather kernel over n_ob output blocks of width ow, each summing k =
-    fan-in x input-block elements (its slots' blocks one after another):
-    nb whole output blocks a CTA (ow <= 64), else one 64-column chunk of a
-    block (``chunks`` a block); bk of the k elements a stage, a multiple of
-    4 with nb x bk <= 256 (several slots a stage for narrow blocks)."""
-    if ow <= _SMALL_COLS:
-        nb, chunks = _SMALL_COLS // ow, 1
-        tiles_x = _ceil(n_ob, nb)
-    else:
-        nb, chunks = 1, _ceil(ow, _SMALL_COLS)
-        tiles_x = n_ob * chunks
-    cap = max(1, min(16, _SMALL_COLS // nb))
-    return nb, chunks, 4 * min(_ceil(k, 4), cap), tiles_x
+class GatherSplit(NamedTuple):
+    """The gather kernel's launch geometry: ``rows`` a tile, ``ncg``
+    column groups a CTA (``groups`` ranges), the fan-in split over ``ks``
+    ranks of the CTA, ``stages`` in the ring, ``y`` CTAs along the row
+    tiles (each walks tiles y, y + Y, ...)."""
+    rows: int
+    ncg: int
+    groups: int
+    ks: int
+    stages: int
+    y: int
 
 
-def small_gather_smem(nb: int, bk: int) -> int:
-    """``gather_smem``: the stage's tables (256 input columns and slab
-    offsets), nb staged input blocks of 32 rows x bk (4 floats apart) and
-    bk x 64 slab values, f32."""
-    return _SMALL_TABLES + 4 * (nb * (_SMALL_ROWS * bk + 4)
-                                + bk * _SMALL_COLS)
+def small_column_group(width: int) -> int:
+    """``column_group`` (csd_spmm_small.cu): the output columns a thread of
+    the gather kernel owns (CW, of the output block width) and the fan-in
+    elements it steps at once (KQ, of the input block width): the largest
+    of 4, 2, 1 that divides ``width``."""
+    return 4 if width % 4 == 0 else 2 if width % 2 == 0 else 1
 
 
-def _small_gather_launch(kernel: str, e: int, m: int, n_ob: int, ow: int,
-                         iw: int, n_slots: int, *, outs, reads_slot,
-                         extra_reads) -> Launch:
-    """The gather kernel's launch: CTA (x, y, z) owns rows [32 y, 32 y +
-    32) of expert z by output blocks [nb x, nb x + nb) (or the 64-column
-    chunk x % chunks of block x // chunks), looping over the n_slots
-    slots. ``reads_slot(ob, s, ex, rows, j0, width, n)`` gives the boxes one
-    output block reads at slot s; ``extra_reads`` those of the tables and
-    the bias."""
-    nb, chunks, bk, tiles_x = small_gather_geo(n_ob, ow, n_slots * iw)
-    narrow = ow <= _SMALL_COLS
+def small_block_stride(iw: int, size: int, rows: int) -> int:
+    """``block_stride``: elements between staged input blocks of ``iw``
+    elements, with 16 bytes of padding in 8-row tiles (where a warp's lanes
+    read one row) where a block's bytes are an even number of 16-byte bank
+    groups (bL 16 f32), so the blocks the lanes gather spread over all 8
+    groups."""
+    b = iw * size
+    return iw + 16 // size if rows == _SMALL_TR and b % 16 == 0 \
+        and (b // 16) % 2 == 0 else iw
+
+
+def small_gather_rs(in_cols: int, iw: int, size: int, rows: int) -> int:
+    """Elements between staged input rows (of padded blocks): a multiple
+    of 128 bytes and 16 more, so a warp's rows of one column fall in
+    distinct bank groups."""
+    return _ceil(in_cols // iw * small_block_stride(iw, size, rows),
+                 128 // size) * (128 // size) + 16 // size
+
+
+def small_gather_stage(in_cols: int, iw: int, size: int, rows: int,
+                       rc: int, ks: int) -> int:
+    """``GatherGeo::stage``: bytes of one ring stage, the tile's staged
+    input rows or (when the fan-in is split) the ranks' f32 partial sums
+    of its rows x ``rc`` columns, whichever is larger."""
+    x = rows * small_gather_rs(in_cols, iw, size, rows) * size
+    red = 4 * ks * rows * rc if ks > 1 else 0
+    return _ceil(max(x, red), 16) * 16
+
+
+def small_gather_fits(in_cols: int, iw: int, size: int) -> bool:
+    """Whether 8 rows of ``in_cols`` inputs in blocks of ``iw`` fit one
+    stage: the widest input the gather kernel takes."""
+    return small_gather_stage(in_cols, iw, size, 8, 1, 1) <= SMEM_OPTIN
+
+
+def _occupancy(smem: int) -> int:
+    """The gather kernel's CTAs an SM holds: by registers, and by shared
+    memory."""
+    return max(1, min(_SMALL_REG_CTAS,
+                      SMEM_PER_SM // (smem + _SMEM_RESERVED)))
+
+
+def small_gather_split(e: int, m: int, n_ob: int, ow: int, iw: int,
+                       in_cols: int, n_slots: int, size: int,
+                       n_sm: int) -> GatherSplit:
+    """The rule that picks the gather kernel's geometry for E experts of M
+    rows, n_ob output blocks of width ``ow`` over ``n_slots`` fan-in slots
+    of ``iw``-wide blocks of an ``in_cols``-wide input (``size`` bytes an
+    element), on ``n_sm`` SMs:
+
+    * rows: the tallest tile (64 to 8, at most M rounded up to 8) whose
+      stage leaves room for a second and whose tiles, with the output
+      split only as the threads need, give at least one CTA an SM; else 8
+      (more rows re-read the slab less often, fewer fill the card);
+    * output ranges: doubled while the CTAs number fewer than the SMs and a
+      range keeps at least ``_SMALL_MIN_NCG`` column groups;
+    * ks: the threads left over split the slots, every rank owning one,
+      except where they would only double it in an 8-row tile (each
+      thread's rows the whole tile), whose ranks' pass over the tile costs
+      more than it saves (``forced_small_split`` overrides it);
+    * y: the CTAs the SMs hold at once (two where shared memory allows),
+      each walking its tiles; stages: as many (up to 3) as a CTA has tiles
+      and the SM holds without losing a resident CTA.
+    """
+    cw = small_column_group(ow)
+    n_cg = n_ob * ow // cw
+    top = _ceil(m, _SMALL_TR) * _SMALL_TR
+
+    def groups_at(rows):
+        cap = _SMALL_THREADS // (rows // _SMALL_TR)
+        return _ceil(n_cg, min(n_cg, cap))
+
+    rows = _SMALL_TR
+    for r in _SMALL_ROWS[:-1]:
+        if r <= top and 2 * small_gather_stage(
+                in_cols, iw, size, r, 1, 1) <= SMEM_OPTIN \
+                and e * groups_at(r) * _ceil(m, r) >= n_sm:
+            rows = r
+            break
+    nrg = rows // _SMALL_TR
+    tiles = _ceil(m, rows)
+    groups = groups_at(rows)
+    while e * groups * tiles < n_sm \
+            and _ceil(n_cg, 2 * groups) >= _SMALL_MIN_NCG:
+        groups *= 2
+    ncg = _ceil(n_cg, groups)
+    groups = _ceil(n_cg, ncg)
+    spare = _SMALL_THREADS // (nrg * ncg)
+    room = max(1, min(n_slots, spare))
+    ks = _FORCED_SMALL.get("gather",
+                           1 if spare <= 2 and rows == _SMALL_TR else room)
+    ks = max(1, min(ks, room))
+    ks = _ceil(n_slots, _ceil(n_slots, ks))
+    stage = small_gather_stage(in_cols, iw, size, rows, ncg * cw, ks)
+    occ = _occupancy(stage)
+    y = min(tiles, _ceil(occ * n_sm, groups * e))
+    stages = 1
+    for st in range(min(_SMALL_MAX_STAGES, _ceil(tiles, y)), 1, -1):
+        if st * stage <= SMEM_OPTIN and _occupancy(st * stage) == occ:
+            stages = st
+            break
+    return GatherSplit(rows, ncg, groups, ks, stages, y)
+
+
+def small_dw_tile(bl: int, br: int) -> Tuple[int, int]:
+    """``tile_rows``/``tile_cols`` (csd_spmm_small_dw.cu): the TI x TJ part
+    of one slab a dw thread owns (16 x 4 at the paper's 16 x 4 blocks)."""
+    ti = 16 if bl % 16 == 0 else 4 if bl % 4 == 0 else 2 if bl % 2 == 0 \
+        else 1
+    return ti, small_column_group(br)
+
+
+def small_dw_batch(bl: int, br: int) -> int:
+    """Slabs a dw batch holds (``qg``): as many whole slabs as give at most
+    256 thread tiles, at least one."""
+    ti, tj = small_dw_tile(bl, br)
+    return max(1, _DW_THREADS // ((bl // ti) * (br // tj)))
+
+
+def small_dw_fits(bl: int, br: int, size: int) -> bool:
+    """Whether one row of a dw stage (the x strip and a batch's g strips)
+    fits a 32 KiB stage."""
+    step = 16 // size
+    row = _ceil(bl, step) * step + _ceil(small_dw_batch(bl, br) * br,
+                                         step) * step
+    return row * size <= _DW_STAGE_BYTES
+
+
+def small_dw_cluster(e: int, m: int, n_lb: int, n_sm: int) -> int:
+    """The rule that picks the dw kernel's M split: the largest cluster of
+    1, 2, 4 or 8 CTAs whose CTAs (``e`` x ``n_lb`` x C) stay at most twice
+    ``n_sm`` and whose ranks keep at least ``_DW_MIN_ROWS`` rows each
+    (``forced_small_split`` overrides it)."""
+    c = _FORCED_SMALL.get("dw")
+    if c is None:
+        c = 1
+        while 2 * c <= _SMALL_MAX_CLUSTER and e * n_lb * 2 * c <= 2 * n_sm \
+                and m // (2 * c) >= _DW_MIN_ROWS:
+            c *= 2
+    return max(1, min(c, _SMALL_MAX_CLUSTER, m))
+
+
+@contextlib.contextmanager
+def forced_small_split(gather: Optional[int] = None,
+                       dw: Optional[int] = None):
+    """Inside, the small-block plans split the gather kernel's fan-in over
+    ``gather`` ranks of the CTA and the dw kernel's M over a cluster of
+    ``dw`` CTAs (None: the rule's; both clamped to what the shape takes)
+    whatever the rules pick. For the tests and the timing tools."""
+    for k, v in (("gather", gather), ("dw", dw)):
+        if v is not None:
+            _FORCED_SMALL[k] = v
+    for f in (fwd_small_plan, dx_small_plan, dw_small_plan):
+        f.cache_clear()
+    try:
+        yield
+    finally:
+        _FORCED_SMALL.clear()
+        for f in (fwd_small_plan, dx_small_plan, dw_small_plan):
+            f.cache_clear()
+
+
+def _small_gather_launch(e: int, m: int, n_ob: int, ow: int, iw: int,
+                         n_slots: int, in_name: str, in_cols: int, size: int,
+                         sp: GatherSplit, *, outs, reads_slot, table_reads,
+                         has_bias: bool) -> Launch:
+    """The gather kernel's launch: CTA (grp, y, ex) owns output columns
+    [grp ncg CW, ...) of expert ex and row tiles y, y + Y, ...; it stages
+    each tile's whole input rows, sums every slot of its column groups
+    (over ks ranks, added in rank order) and stores its tiles' rows.
+    ``reads_slot(ob, s, ex, j0, j1, pats, n)`` gives the slab boxes one
+    output block reads at slot s, ``table_reads`` those of the pattern
+    tables."""
+    cw = small_column_group(ow)
+    out_cols = n_ob * ow
+    R, Y = sp.rows, sp.y
+    tiles = _ceil(m, R)
+    rounds = _ceil(tiles, Y)
+    width = sp.ncg * cw
+    nob = _ceil(width, ow) + 1
 
     def geo(c):
-        x, y, ex = c[:, 0], c[:, 1], c[:, 2]
-        if narrow:
-            ob0 = x * nb
-            nbh = np.minimum(nb, n_ob - ob0)
-            j0, width = np.zeros_like(x), nbh * ow
-        else:
-            ob0 = x // chunks
-            nbh = np.ones_like(x)
-            j0 = (x % chunks) * _SMALL_COLS
-            width = np.minimum(_SMALL_COLS, ow - j0)
-        m0 = y * _SMALL_ROWS
-        return ob0, nbh, j0, width, ex, (ex * m + m0,
-                                         ex * m + np.minimum(m0 + _SMALL_ROWS,
-                                                             m))
+        col0 = c[:, 0] * width
+        return col0, np.minimum(col0 + width, out_cols), c[:, 1], c[:, 2]
+
+    def rows_of(y, k):
+        t = y + k * Y
+        lo = np.minimum(t * R, m)
+        return lo, np.where(t < tiles, np.minimum(t * R + R, m), lo)
 
     def writes(c):
-        ob0, _, j0, width, _, rows = geo(c)
-        col0 = ob0 * ow + j0
-        return [_box(k, len(c), rows, (col0, col0 + width)) for k in outs]
+        col0, col1, y, ex = geo(c)
+        n = len(c)
+        out = []
+        for k in range(rounds):
+            lo, hi = rows_of(y, k)
+            out += [_box(name, n, (ex * m + lo, ex * m + hi), (col0, col1))
+                    for name in outs]
+        return out
 
     def reads(c, pats):
-        ob0, nbh, j0, width, ex, rows = geo(c)
+        col0, col1, y, ex = geo(c)
         n = len(c)
-        out = extra_reads(c, pats, ob0, nbh, j0, width, ex)
-        for b in range(nb):
-            skip = b >= nbh
-            ob = np.minimum(ob0 + b, n_ob - 1)
-            bw = width if not narrow else np.full(n, ow)
+        ob0 = col0 // ow
+        out = list(table_reads(ob0, (col1 - 1) // ow + 1, n))
+        for k in range(rounds):
+            lo, hi = rows_of(y, k)
+            out.append(_box(in_name, n, (ex * m + lo, ex * m + hi),
+                            (0, in_cols)))
+        for b in range(nob):
+            ob = ob0 + b
+            obc = np.minimum(ob, n_ob - 1)
+            j0 = np.clip(col0 - ob * ow, 0, ow)
+            j1 = np.maximum(np.clip(col1 - ob * ow, 0, ow), j0)
+            skip = ob * ow >= col1
             for s in range(n_slots):
                 out += [_empty_where(a, skip) for a in
-                        reads_slot(ob, s, ex, rows, j0, bw, pats, n)]
+                        reads_slot(obc, s, ex, j0, j1, pats, n)]
+        if has_bias:
+            out.append(_box("bias", n, (ex, ex + 1), (col0, col1)))
         return out
 
     return Launch(
-        kernel=kernel, grid=(tiles_x, _ceil(m, _SMALL_ROWS), e),
-        threads=_SMALL_THREADS, smem=small_gather_smem(nb, bk),
+        kernel="csd_spmm_small_gather_kernel",
+        grid=(sp.groups, Y, e), threads=_SMALL_THREADS,
+        smem=sp.stages * small_gather_stage(in_cols, iw, size, R, width,
+                                            sp.ks),
         writes=writes, reads=reads, fan_in=n_slots, fan_in_axis="loop",
         slots=lambda c: (np.zeros(len(c), np.int64),
                          np.full(len(c), n_slots, np.int64)),
         epilogue=True,
-        tiles=(("output blocks", n_ob, nb, True),
-               ("block width", ow, min(ow, _SMALL_COLS), True),
-               ("fan-in elements", n_slots * iw, bk, True),
-               ("M", m, _SMALL_ROWS, True)))
+        tiles=(("output columns", out_cols, width, True),
+               ("block width", ow, cw, False), ("M", m, R, True)))
 
 
 @functools.lru_cache(maxsize=4096)
 def fwd_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
                    bl: int, br: int, dtype: str, *, has_bias: bool,
-                   save_preact: bool) -> LaunchPlan:
+                   save_preact: bool, n_sm: int = H100_SMS) -> LaunchPlan:
     """The plan of the small-block forward (``csd_spmm_small_fwd``): the
-    gather kernel over the n_rb right blocks (width bR), each reading
-    x[:, block_idx[rb, f]] and w[rb, f] slot by slot."""
+    gather kernel over the n_rb right blocks (width bR), each summing
+    x[:, block_idx[rb, f]] w[rb, f] over its slots, in the geometry
+    ``small_gather_split`` picks for ``n_sm`` SMs."""
     n_out = n_rb * br
     size = _itemsize(dtype)
     buffers = {
@@ -1118,37 +1317,33 @@ def fwd_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
         buffers["bias"] = Buffer((e, n_out), size, "in")
     if save_preact:
         buffers["z"] = Buffer((e * m, n_out), size, "out")
+    sp = small_gather_split(e, m, n_rb, br, bl, n_in, d_in_b, size, n_sm)
 
-    def reads_slot(rb, f, ex, rows, j0, width, pats, n):
-        lb = pats["block_idx"][rb, f].astype(np.int64)
-        return [_box("x", n, rows, (lb * bl, lb * bl + bl)),
-                _box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
-                     (0, bl), (j0, j0 + width))]
+    def reads_slot(rb, f, ex, j0, j1, pats, n):
+        return [_box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                     (0, bl), (j0, j1))]
 
-    def extra_reads(c, pats, ob0, nbh, j0, width, ex):
-        n = len(c)
-        out = [_box("block_idx", n, (ob0, ob0 + nbh), (0, d_in_b))]
-        if has_bias:
-            col0 = ob0 * br + j0
-            out.append(_box("bias", n, (ex, ex + 1), (col0, col0 + width)))
-        return out
+    def table_reads(ob0, ob1, n):
+        return [_box("block_idx", n, (ob0, ob1), (0, d_in_b))]
 
-    outs = ("y", "z") if save_preact else ("y",)
     ln = _small_gather_launch(
-        "csd_spmm_small_gather_kernel", e, m, n_rb, br, bl, d_in_b,
-        outs=outs, reads_slot=reads_slot, extra_reads=extra_reads)
+        e, m, n_rb, br, bl, d_in_b, "x", n_in, size, sp,
+        outs=("y", "z") if save_preact else ("y",), reads_slot=reads_slot,
+        table_reads=table_reads, has_bias=has_bias)
     return LaunchPlan("csd_spmm_fwd_small", buffers, (ln,), 1,
-                      dict(E=e, M=m, n_ob=n_rb, k=d_in_b * bl, ow=br,
-                           dtype=_code(dtype)))
+                      dict(E=e, n_ob=n_rb, ow=br, iw=bl, in_cols=n_in,
+                           n_slots=d_in_b, dtype=_code(dtype), R=sp.rows,
+                           ncg=sp.ncg, ks=sp.ks, stages=sp.stages, Y=sp.y))
 
 
 @functools.lru_cache(maxsize=4096)
 def dx_small_plan(e: int, m: int, n_rb: int, d_in_b: int, bl: int, br: int,
-                  n_lb: int, d_out_b: int, dtype: str) -> LaunchPlan:
+                  n_lb: int, d_out_b: int, dtype: str, *,
+                  n_sm: int = H100_SMS) -> LaunchPlan:
     """The plan of the small-block dx (``csd_spmm_small_dx``) on the masked
     cotangent g: the gather kernel over the n_lb left blocks (width bL),
-    each reading g[:, out_idx[lb, s]] and w[out_idx, out_slot] transposed
-    slot by slot."""
+    each summing g[:, out_idx[lb, s]] w[out_idx, out_slot]^T over its
+    slots, in the geometry ``small_gather_split`` picks."""
     n_in, n_out = n_lb * bl, n_rb * br
     size = _itemsize(dtype)
     buffers = {
@@ -1158,71 +1353,69 @@ def dx_small_plan(e: int, m: int, n_rb: int, d_in_b: int, bl: int, br: int,
         "out_slot": Buffer((n_lb, d_out_b), 4, "in"),
         "dx": Buffer((e * m, n_in), size, "out"),
     }
+    sp = small_gather_split(e, m, n_lb, bl, br, n_out, d_out_b, size, n_sm)
 
-    def reads_slot(lb, s, ex, rows, j0, width, pats, n):
+    def reads_slot(lb, s, ex, j0, j1, pats, n):
         rb = pats["out_idx"][lb, s].astype(np.int64)
         f = pats["out_slot"][lb, s].astype(np.int64)
-        return [_box("g", n, rows, (rb * br, rb * br + br)),
-                _box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
-                     (j0, j0 + width), (0, br))]
+        return [_box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                     (j0, j1), (0, br))]
 
-    def extra_reads(c, pats, ob0, nbh, j0, width, ex):
-        return [_box(k, len(c), (ob0, ob0 + nbh), (0, d_out_b))
+    def table_reads(ob0, ob1, n):
+        return [_box(k, n, (ob0, ob1), (0, d_out_b))
                 for k in ("out_idx", "out_slot")]
 
     ln = _small_gather_launch(
-        "csd_spmm_small_gather_kernel", e, m, n_lb, bl, br, d_out_b,
-        outs=("dx",), reads_slot=reads_slot, extra_reads=extra_reads)
+        e, m, n_lb, bl, br, d_out_b, "g", n_out, size, sp, outs=("dx",),
+        reads_slot=reads_slot, table_reads=table_reads, has_bias=False)
     return LaunchPlan("csd_spmm_dx_small", buffers, (ln,), 1,
-                      dict(E=e, M=m, n_ob=n_lb, k=d_out_b * br, ow=bl,
-                           dtype=_code(dtype)))
+                      dict(E=e, n_ob=n_lb, ow=bl, iw=br, in_cols=n_out,
+                           n_slots=d_out_b, dtype=_code(dtype), R=sp.rows,
+                           ncg=sp.ncg, ks=sp.ks, stages=sp.stages, Y=sp.y))
 
 
-def small_dw_geo(d_in_b: int, bl: int, br: int) -> dict:
-    """``dw_geo`` (csd_spmm_small.cu): a CTA's share of dw. qw = min(bR,
-    64) columns of one right block (n_qc chunks), and either nf whole
-    slots (bL <= 256 / qw) or rows [i0, i0 + blc) of one slot (n_ic chunks
-    a slot); p_tiles CTAs a right block; outs = nf blc qw <= 256 outputs;
-    rp row phases (256 // outs); mc rows of M a stage."""
-    qw = min(br, _SMALL_COLS)
-    pmax = _SMALL_THREADS // qw
-    if bl <= pmax:
-        nf, blc, n_ic = min(pmax // bl, d_in_b), bl, 1
-        p_tiles = _ceil(d_in_b, nf)
-    else:
-        nf, blc, n_ic = 1, pmax, _ceil(bl, pmax)
-        p_tiles = d_in_b * n_ic
-    p = nf * blc
-    mc = 64
-    while mc > 8 and mc * p > 4096:
-        mc //= 2
-    return dict(qw=qw, n_qc=_ceil(br, qw), nf=nf, blc=blc, n_ic=n_ic,
-                p_tiles=p_tiles, outs=p * qw,
-                rp=_SMALL_THREADS // (p * qw), mc=mc)
-
-
-def small_dw_smem(g: dict) -> int:
-    """``dw_smem``: the x column table (256 ints), mc rows of the staged x
-    (nf blc columns) and g (qw columns), and the row phases' sums, f32."""
-    p = g["nf"] * g["blc"]
-    return 4 * _SMALL_THREADS + 4 * (g["mc"] * p + g["mc"] * g["qw"]
-                                     + (g["rp"] * g["outs"] if g["rp"] > 1
-                                        else 0))
+def small_dw_items(block_idx: np.ndarray, lb: int, bl: int, br: int,
+                   cluster: int, rank: int) -> List[Tuple[int, int, int]]:
+    """The (flat slab rb d_in_b + f, ti, tj) thread tiles whose sums rank
+    ``rank`` of left block ``lb``'s dw cluster stores: the slabs of lb in
+    flat order, in batches of ``small_dw_batch`` slabs, each batch's tiles
+    (slab-major) in groups of at most 256, rank ``rank`` taking its
+    ceil(ni / C) share of each group (csd_spmm_small_dw_kernel)."""
+    ti, tj = small_dw_tile(bl, br)
+    ntj = br // tj
+    tp = (bl // ti) * ntj
+    qg = small_dw_batch(bl, br)
+    pairs = np.flatnonzero(np.asarray(block_idx).reshape(-1) == lb)
+    out = []
+    for b0 in range(0, len(pairs), qg):
+        batch = pairs[b0:b0 + qg]
+        items = len(batch) * tp
+        for it0 in range(0, items, _DW_THREADS):
+            ni = min(_DW_THREADS, items - it0)
+            ipr = _ceil(ni, cluster)
+            lo = min(ni, rank * ipr)
+            for it in range(it0 + lo, it0 + min(ni, lo + ipr)):
+                t2 = it % tp
+                out.append((int(batch[it // tp]), t2 // ntj, t2 % ntj))
+    return out
 
 
 @functools.lru_cache(maxsize=4096)
 def dw_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
-                  bl: int, br: int, dtype: str, *, want_db: bool
-                  ) -> LaunchPlan:
+                  bl: int, br: int, dtype: str, *, want_db: bool,
+                  n_sm: int = H100_SMS) -> LaunchPlan:
     """The plan of the small-block dw (``csd_spmm_small_dw``) on the masked
-    cotangent g: CTA (x, y, z) owns columns [qw x, qw x + qw) of right
-    block rb = z % n_rb of expert z // n_rb by slot group y (slots [nf y,
-    nf y + nf), or slot y // n_ic's rows chunk y % n_ic), and loops over
-    all M rows; the CTAs of y = 0 also write db."""
-    geo = small_dw_geo(d_in_b, bl, br)
-    qw, nf, blc, n_ic = geo["qw"], geo["nf"], geo["blc"], geo["n_ic"]
-    n_out = n_rb * br
+    cotangent g: CTA (rank, lb, ex) of a (C, n_lb, E) grid, C from
+    ``small_dw_cluster``, clusters along x, sums rows [rank ceil(M / C),
+    ...) of expert ex for every slab whose input block is lb and stores
+    the cluster's sums for its share of their thread tiles
+    (``small_dw_items``); the tiles of slot 0 also store db. Its writes
+    follow the pattern."""
+    n_lb, n_out = n_in // bl, n_rb * br
     size = _itemsize(dtype)
+    C = small_dw_cluster(e, m, n_lb, n_sm)
+    ti, tj = small_dw_tile(bl, br)
+    mpr = _ceil(m, C)
     buffers = {
         "x": Buffer((e * m, n_in), size, "in"),
         "g": Buffer((e * m, n_out), size, "in"),
@@ -1232,59 +1425,67 @@ def dw_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
     if want_db:
         buffers["db"] = Buffer((e, n_out), 4, "out")
 
-    def geo_of(c):
-        x, y, z = c[:, 0], c[:, 1], c[:, 2]
-        ex, rb = z // n_rb, z % n_rb
-        q0 = x * qw
-        q1 = np.minimum(q0 + qw, br)
-        if n_ic == 1:
-            f0, i0 = y * nf, np.zeros_like(y)
-            f1, i1 = np.minimum(f0 + nf, d_in_b), np.full_like(y, bl)
-        else:
-            f0, i0 = y // n_ic, (y % n_ic) * blc
-            f1, i1 = f0 + 1, np.minimum(i0 + blc, bl)
-        return ex, rb, q0, q1, f0, f1, i0, i1
-
-    def writes(c):
-        ex, rb, q0, q1, f0, f1, i0, i1 = geo_of(c)
+    def writes(c, pats):
+        idx = np.asarray(pats["block_idx"])
+        per = {}
+        for rank, lb in {(int(r), int(b)) for r, b in c[:, :2]}:
+            per[rank, lb] = small_dw_items(idx, lb, bl, br, C, rank)
+        k_max = max((len(v) for v in per.values()), default=0)
         n = len(c)
-        out = [_box("dw", n, (ex, ex + 1), (rb, rb + 1), (f0, f1), (i0, i1),
-                    (q0, q1))]
-        if want_db:
+        lists = [per[int(r), int(b)] for r, b in c[:, :2]]
+        ex = c[:, 2]
+        out = []
+        for k in range(k_max):
+            have = np.array([k < len(v) for v in lists])
+            fl = np.array([v[k][0] if k < len(v) else 0 for v in lists])
+            t_i = np.array([v[k][1] if k < len(v) else 0 for v in lists])
+            t_j = np.array([v[k][2] if k < len(v) else 0 for v in lists])
+            rb, f = fl // d_in_b, fl % d_in_b
             out.append(_empty_where(_box(
-                "db", n, (ex, ex + 1), (rb * br + q0, rb * br + q1)),
-                c[:, 1] != 0))
+                "dw", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                (t_i * ti, t_i * ti + ti), (t_j * tj, t_j * tj + tj)),
+                ~have))
+            if want_db:
+                out.append(_empty_where(_box(
+                    "db", n, (ex, ex + 1),
+                    (rb * br + t_j * tj, rb * br + t_j * tj + tj)),
+                    ~have | (f != 0) | (t_i != 0)))
         return out
 
     def reads(c, pats):
-        ex, rb, q0, q1, f0, f1, i0, i1 = geo_of(c)
+        idx = np.asarray(pats["block_idx"]).reshape(-1)
+        rank, lb, ex = c[:, 0], c[:, 1], c[:, 2]
         n = len(c)
-        idx = pats["block_idx"]
-        rows = (ex * m, ex * m + m)
-        out = [_box("block_idx", n, (rb, rb + 1), (f0, f1)),
-               _box("g", n, rows, (rb * br + q0, rb * br + q1))]
-        for fl in range(nf):
-            f = f0 + fl
-            skip = f >= f1
-            lb = idx[np.minimum(rb, idx.shape[0] - 1),
-                     np.minimum(f, idx.shape[1] - 1)].astype(np.int64)
-            out.append(_empty_where(_box(
-                "x", n, rows, (lb * bl + i0, lb * bl + i1)), skip))
+        lo = np.minimum(rank * mpr, m)
+        hi = np.minimum(lo + mpr, m)
+        rows = (ex * m + lo, ex * m + hi)
+        slabs = {int(b): np.flatnonzero(idx == b) for b in np.unique(lb)}
+        k_max = max((len(v) for v in slabs.values()), default=0)
+        out = [_box("block_idx", n, (0, n_rb), (0, d_in_b)),
+               _empty_where(_box("x", n, rows, (lb * bl, lb * bl + bl)),
+                            np.array([len(slabs[int(b)]) == 0
+                                      for b in lb]))]
+        for k in range(k_max):
+            have = np.array([k < len(slabs[int(b)]) for b in lb])
+            rb = np.array([slabs[int(b)][k] // d_in_b
+                           if k < len(slabs[int(b)]) else 0 for b in lb])
+            out.append(_empty_where(_box("g", n, rows,
+                                         (rb * br, rb * br + br)), ~have))
         return out
 
     ln = Launch(
-        kernel="csd_spmm_small_dw_kernel",
-        grid=(geo["n_qc"], geo["p_tiles"], e * n_rb),
-        threads=_SMALL_THREADS, smem=small_dw_smem(geo), writes=writes,
-        reads=reads, fan_in=1, fan_in_axis="loop",
+        kernel="csd_spmm_small_dw_kernel", grid=(C, n_lb, e),
+        threads=_DW_THREADS, smem=_DW_HEADER + _DW_STAGES * _DW_STAGE_BYTES,
+        writes=writes, reads=reads, fan_in=C,
+        fan_in_axis="cluster" if C > 1 else "loop",
         slots=lambda c: (np.zeros(len(c), np.int64),
-                         np.ones(len(c), np.int64)),
+                         np.full(len(c), C, np.int64)),
         epilogue=True,
-        tiles=(("bR", br, qw, True), ("bL", bl, blc, True),
-               ("d_in_b", d_in_b, nf, True), ("M", m, geo["mc"], True)))
+        tiles=(("bL", bl, ti, False), ("bR", br, tj, False),
+               ("M", m, mpr, True)),
+        cluster=(C, 1, 1), pattern_writes=True)
     return LaunchPlan("csd_spmm_dw_small", buffers, (ln,), 1,
-                      dict(E=e, n_rb=n_rb, d_in_b=d_in_b, bL=bl, bR=br,
-                           dtype=_code(dtype)))
+                      dict(E=e, n_lb=n_lb, cluster=C, dtype=_code(dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -1726,9 +1927,10 @@ PLAN_EXPORTS = {
                             ("B", "Sq", "Skv", "Hq", "Hkv", "Dh", "dtype",
                              "backward")),
     "csd_spmm_fwd_small": ("csd_spmm_small", "csd_spmm_small_gather_plan",
-                           ("E", "M", "n_ob", "k", "ow", "dtype")),
-    "csd_spmm_dw_small": ("csd_spmm_small", "csd_spmm_small_dw_plan",
-                          ("E", "n_rb", "d_in_b", "bL", "bR", "dtype")),
+                           ("E", "n_ob", "ow", "iw", "in_cols", "n_slots",
+                            "dtype", "R", "ncg", "ks", "stages", "Y")),
+    "csd_spmm_dw_small": ("csd_spmm_small_dw", "csd_spmm_small_dw_plan",
+                          ("E", "n_lb", "cluster", "dtype")),
     "csd_spmm_fwd_injected_alias": (
         "csd_spmm_fwd_injected_alias", "csd_spmm_fwd_injected_alias_plan",
         ("E", "M", "n_rb", "bR", "d_in_b", "dtype")),

@@ -112,36 +112,53 @@ def test_small_forms_match_plain(cuda_device, junction, experts, dtype):
     assert [fwd.launches, dx.launches, dw.launches] == n0[3:]
 
 
+# forced splits: the gather kernel's fan-in over ranks of the CTA and the dw
+# kernel's M over a cluster of CTAs (None: the rules' own picks)
+SPLITS = [None, (4, 4), (8, 8)]
+SPLIT_IDS = ["rule", "split4", "split8"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 33, 8000])
-def test_small_forms_ragged_and_long_m(cuda_device, m):
-    """Table I's junction at 1 row, 33 rows (a partial 32-row tile) and the
-    full-set evaluation's 8000 rows, f32."""
+@pytest.mark.parametrize("split", SPLITS, ids=SPLIT_IDS)
+@pytest.mark.parametrize("m", [1, 33, 8000, 8001])
+def test_small_forms_ragged_and_long_m(cuda_device, m, split):
+    """Table I's junction at 1 row, 33 rows (a partial tile) and the
+    full-set evaluation's 8000 rows (tall tiles, the ring, dw's M split
+    over a cluster by the rule) and 8001 (the last tile and the last rank's
+    rows ragged), f32; also with the fan-in forced over 4 and 8 ranks and
+    M over clusters of 4 and 8."""
     bp, *arrays = _case(SMALL_JUNCTIONS[0], m, None, seed=m)
     x, w, b, dy = _to(cuda_device, torch.float32, *arrays)
     pat = _pat(bp, cuda_device)
     kb = dict(block_in=bp.block_in, block_out=bp.block_out)
-    _close(csd_spmm.csd_spmm_fwd_small_cuda(x, w, pat["block_idx"], bias=b,
-                                            activation="relu"),
-           csd_spmm.csd_spmm_fwd_plain(x, w, pat["block_idx"], bias=b,
-                                       activation="relu"), torch.float32)
-    _close(csd_spmm.csd_spmm_dx_small_cuda(dy, w, pat["out_idx"],
-                                           pat["out_slot"]),
-           csd_spmm.csd_spmm_dx_plain(dy, w, pat["out_idx"],
-                                      pat["out_slot"]), torch.float32)
-    _close(csd_spmm.csd_spmm_dw_small_cuda(x, dy, pat["block_idx"],
-                                           want_db=True, **kb),
-           csd_spmm.csd_spmm_dw_plain(x, dy, pat["block_idx"], want_db=True,
-                                      **kb), torch.float32)
+    gather, dw = split or (None, None)
+    with launch.forced_small_split(gather=gather, dw=dw):
+        got = (csd_spmm.csd_spmm_fwd_small_cuda(x, w, pat["block_idx"],
+                                                bias=b, activation="relu"),
+               csd_spmm.csd_spmm_dx_small_cuda(dy, w, pat["out_idx"],
+                                               pat["out_slot"]),
+               csd_spmm.csd_spmm_dw_small_cuda(x, dy, pat["block_idx"],
+                                               want_db=True, **kb))
+    _close(got[0], csd_spmm.csd_spmm_fwd_plain(x, w, pat["block_idx"],
+                                               bias=b, activation="relu"),
+           torch.float32)
+    _close(got[1], csd_spmm.csd_spmm_dx_plain(dy, w, pat["out_idx"],
+                                              pat["out_slot"]),
+           torch.float32)
+    _close(got[2], csd_spmm.csd_spmm_dw_plain(x, dy, pat["block_idx"],
+                                              want_db=True, **kb),
+           torch.float32)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("split", SPLITS, ids=SPLIT_IDS)
 @pytest.mark.parametrize("junction", SMALL_JUNCTIONS[:4], ids=IDS[:4])
-def test_small_forms_nan_filled_repeatable(cuda_device, junction,
+def test_small_forms_nan_filled_repeatable(cuda_device, junction, split,
                                            monkeypatch):
     """Outputs filled with NaN before each launch: every element written
     (no hole in a plan's tiling), and two runs bit-equal (fixed summation
-    orders, no atomics)."""
+    orders, no atomics), with the rules' splits and with the fan-in forced
+    over 4 and 8 ranks and M over clusters of 4 and 8."""
     real = launch.run
 
     def nan_run(plan, buffers, call):
@@ -166,7 +183,9 @@ def test_small_forms_nan_filled_repeatable(cuda_device, junction,
                                                   want_db=True, **kb)
         return y, z, dxv, dwv, db
 
-    a, c = once(), once()
+    gather, dw = split or (None, None)
+    with launch.forced_small_split(gather=gather, dw=dw):
+        a, c = once(), once()
     torch.cuda.synchronize()
     for u, v in zip(a, c):
         assert not bool(torch.isnan(u.float()).any())
