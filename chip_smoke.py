@@ -18,15 +18,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``-Xptxas -v`` log (any spill fails the run);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
-   bf16), and time kernel, plain version, bound and a dense ``torch.matmul``
-   yardstick; each forward record of phases 3, 3c, 6 and 6b names the body
-   its plan runs (the grid body or the wgmma body and its tile);
+   bf16) and at the dense decoders' (gemma2-9b, qwen2-7b, granite-34b:
+   fan-ins 7-74, M 4 and 256, bf16), and time kernel, plain version, bound
+   and a dense ``torch.matmul`` yardstick; each forward record of phases
+   3, 3c, 4b, 6 and 6b names the body its plan runs (the grid body or the
+   wgmma body and its tile);
 4. the same for ``paged_decode_attention`` (B = 4, Hkv = 4, G = 2, Dh = 256,
    page 16, lengths past 1024, window None and 1024, -1 table entries and an
-   empty row), with SDPA over the gathered KV as the yardstick, and
-   again at granite-moe-1b-a400m's heads (Hkv = 8, G = 2, Dh = 64,
-   no window); each record names the split its plan takes (keys per
-   tile, pages per split, launches);
+   empty row), with SDPA over the gathered KV (``enable_gqa``) as the
+   yardstick, and again at granite-moe-1b-a400m's heads (Hkv = 8, G = 2,
+   Dh = 64, no window), gemma2-9b's (Hkv 8, G 2, Dh 256, softcap 50,
+   window 4096 over rows past it), qwen2-7b's (Hkv 4, G 7, Dh 128),
+   granite-34b's (Hkv 1, G 48, Dh 128) and a group of 12: the last two on
+   the grouped form, whose launches its own wrapper counts; each record
+   names the split its plan takes (keys per tile, pages per split,
+   launches);
 4b. the int8 serving kernels against their plain versions: the int8
    ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (M 4, 16, 32,
    64, 128 and 256, f32 and bf16, with and without the gelu epilogue; the yardstick a
@@ -64,9 +70,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bit-equal, exact launches per step, 3 epochs of batch 256 through
    ``train_mlp`` with the kernels (every launch counted) and with the plain
    versions, both test accuracies recorded;
-3f. the LM smoke configurations (16 x 16 FFN and expert blocks): gemma3-4b's
-   served through ``launch.serve.generate`` and trained through
-   ``launch.train.main``, granite-moe's trained, each again with the plain
+3f. the LM smoke configurations (16 x 16 FFN and expert blocks): gemma3-4b's,
+   gemma2-9b's, qwen2-7b's and granite-34b's served through
+   ``launch.serve.generate`` and trained through ``launch.train.main``,
+   granite-moe's trained, each again with the plain
    versions (losses and gradient norms compared; served first tokens
    equal and every served step's logits, teacher-forced, within 1e-4 of
    the largest), exact training launches;
@@ -104,6 +111,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    body, no ``reduce_splits_kernel``), none of the full-width kernels, the
    int8 slab and scale bytes, and the top-1 agreement with 5c (recorded,
    not gated);
+5e. serve gemma2-9b at full width and depth (42 layers, bf16; random
+   weights from a seed) as phase 5 does, 16 new tokens a request, with a
+   fifth request of 4,160 prompt tokens: the decode step held against the
+   plain versions has a row past the 4096 window, which its local layers
+   mask; exactly 126 junction and 42 paged-decode launches a decode step;
+5f. the same weights quantized at load (weights and KV), as phase 5b
+   (126 int8 junction and 42 int8 paged launches a step, each junction
+   call one launch of the decode body), top-1 agreement with 5e on the
+   four short requests (recorded, not gated);
+5g. serve qwen2-7b at full width and depth (28 layers, bf16; QKV bias,
+   untied head, G 7): 84 junction and 28 paged launches a decode step;
+5h. serve granite-34b at full width and depth (88 layers), its parameters
+   built in bf16 (in f32 they would not fit the card): 264 junction
+   launches and 88 launches of the grouped paged decode a decode step;
+   each model is freed before the next;
 6. hold the training kernels against their plain versions at gemma3-4b's
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
@@ -414,21 +436,47 @@ def junction_patterns(cfg):
     return up, down
 
 
+# the dense decoders of phases 5e-5h, whose FFN junctions phases 3 and 4b
+# also hold at their decode (M 4) and prefill (M 256) shapes, bf16: fan-ins
+# 7 and 40 (gemma2-9b, gelu), 14 and 74 (qwen2-7b, dense patterns), 12 and
+# 64 (granite-34b)
+DENSE_ARCHS = ("gemma2_9b", "qwen2_7b", "granite_34b")
+
+
+def dense_junctions():
+    """(model, junction, pattern, activation of the gate's epilogue) of the
+    dense decoders' full-width FFN junctions."""
+    from repro_torch.configs import get_config
+    for arch in DENSE_ARCHS:
+        c = get_config(arch)
+        up, down = junction_patterns(c)
+        act = "gelu" if c.act.startswith("gelu") else None
+        yield c.name, "up/gate", up, act
+        yield c.name, "down", down, None
+
+
 def spmm_cases(cfg):
+    """(model, junction, pattern, M, dtype, activation, bias) of phase 3:
+    gemma3-4b's junctions in f32 and bf16, with and without the epilogue,
+    then the dense decoders' in bf16."""
     up, down = junction_patterns(cfg)
     for dtype_name in ("float32", "bfloat16"):
         for m in (4, 256):
             for act in (None, "gelu"):
-                yield ("up/gate", up, m, dtype_name, act, False)
+                yield (cfg.name, "up/gate", up, m, dtype_name, act, False)
             for with_bias in (False, True):
-                yield ("down", down, m, dtype_name, None, with_bias)
+                yield (cfg.name, "down", down, m, dtype_name, None,
+                       with_bias)
+    for model, name, bp, act in dense_junctions():
+        for m in (4, 256):
+            yield model, name, bp, m, "bfloat16", act, False
 
 
 def run_spmm(cfg, device, results):
     import torch
     from repro_torch.kernels import csd_spmm
     g = torch.Generator(device=device).manual_seed(SEED)
-    for name, bp, m, dtype_name, act, with_bias in spmm_cases(cfg):
+    for model, name, bp, m, dtype_name, act, with_bias in spmm_cases(cfg):
         dtype = getattr(torch, dtype_name)
         shape = (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
         slab_bytes = math.prod(shape) * dtype.itemsize
@@ -463,8 +511,9 @@ def run_spmm(cfg, device, results):
                        + (bp.n_out if with_bias else 0)) + 4 * idx.numel()
         ops = 2 * m * math.prod(shape)
         bound_ms, bound_by = bound(nbytes, ops, dtype)
-        rec = dict(kernel="csd_spmm_fwd", junction=name, m=m,
-                   dtype=dtype_name, activation=act, bias=with_bias,
+        rec = dict(kernel="csd_spmm_fwd", model=model, junction=name, m=m,
+                   fan_in=bp.d_in_b, dtype=dtype_name, activation=act,
+                   bias=with_bias,
                    **fwd_body(csd_spmm.csd_spmm_fwd_cuda, xs[0], ws[0], idx,
                               **kw),
                    max_abs_err=abs_e, max_rel_err=rel_e, atol=atol,
@@ -482,30 +531,44 @@ def run_spmm(cfg, device, results):
 # ---------------------------------------------------------------------------
 
 PAGED_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (1e-2, 1e-2)}
-# (Hkv, Dh, windows): gemma3-4b's heads (5 of 6 layers windowed), then
-# granite-moe-1b-a400m's (all global); G = 2 for both
-PAGED_SHAPES = ((4, 256, (None, 1024)), (8, 64, (None,)))
+PAGED_LENGTHS, PAGED_PAGES = (1100, 517, 0, 1040), 72
+# gemma2-9b's rows: one past its 4096 window, a 300-page table
+GEMMA2_LENGTHS, GEMMA2_PAGES = (4160, 517, 0, 4097), 300
+# (model, Hkv, G, Dh, windows, softcap, lengths, table pages):
+# gemma3-4b's heads (5 of 6 layers windowed), granite-moe-1b-a400m's (all
+# global), gemma2-9b's (alternating 4096 window, softcap 50, rows crossing
+# the window), qwen2-7b's (a group of 7: the 8 form, its last row masked),
+# granite-34b's (48 query heads over one KV head: the grouped form, 6
+# chunks of 8) and a group of 12 (the grouped form, a last chunk of 4)
+PAGED_SHAPES = (
+    ("gemma3-4b", 4, 2, 256, (None, 1024), None, PAGED_LENGTHS, PAGED_PAGES),
+    ("granite-moe-1b-a400m", 8, 2, 64, (None,), None, PAGED_LENGTHS,
+     PAGED_PAGES),
+    ("gemma2-9b", 8, 2, 256, (4096,), 50.0, GEMMA2_LENGTHS, GEMMA2_PAGES),
+    ("qwen2-7b", 4, 7, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES),
+    ("granite-34b", 1, 48, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES),
+    ("g12", 4, 12, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES))
 
 
 def paged_cases():
-    """(dtype name, Hkv, Dh, window) of phases 4 and 4b."""
+    """(dtype name, model, Hkv, G, Dh, window, softcap, lengths, table
+    pages) of phases 4 and 4b."""
     for dtype_name in ("float32", "bfloat16"):
-        for hkv, dh, windows in PAGED_SHAPES:
+        for model, hkv, grp, dh, windows, cap, lens, pages in PAGED_SHAPES:
             for window in windows:
-                yield dtype_name, hkv, dh, window
-
-
-PAGED_LENGTHS, PAGED_PAGES = (1100, 517, 0, 1040), 72
+                yield dtype_name, model, hkv, grp, dh, window, cap, lens, \
+                    pages
 
 
 def paged_inputs(device, dtype, window, g, hkv=4, dh=256,
-                 lengths=PAGED_LENGTHS, n_pages=PAGED_PAGES):
+                 lengths=PAGED_LENGTHS, n_pages=PAGED_PAGES, grp=2):
     """B = len(lengths) rows (phases 4 and 4b: lengths past 1024, one
-    empty, a 72-page table) of G = 2 query heads, page 16; unmapped
-    entries -1 (the table tail, and with a window the leading pages every
-    query has left, as the engine's window reclamation leaves them)."""
+    empty, a 72-page table) of ``grp`` query heads a KV head, page 16;
+    unmapped entries -1 (the table tail, and with a window the leading
+    pages every query has left, as the engine's window reclamation leaves
+    them)."""
     import torch
-    b, grp, page = len(lengths), 2, 16
+    b, page = len(lengths), 16
     pool = sum(-(-n // page) for n in lengths) + 1
     perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(1))
     table = torch.full((b, n_pages), -1, dtype=torch.int32)
@@ -525,9 +588,11 @@ def paged_inputs(device, dtype, window, g, hkv=4, dh=256,
 
 
 def paged_yardstick(q, kp, vp, table, lengths, window, scales=None):
-    """(SDPA over the gathered, GQA-expanded KV with the visibility mask,
-    dequantized to q's dtype for int8 pages; the mask's visible keys). The
-    gather is made here, outside the timed call."""
+    """(SDPA over the gathered KV with the visibility mask and
+    ``enable_gqa`` (each KV head under its group of query heads),
+    dequantized to q's dtype for int8 pages, without a softcap, which SDPA
+    has not; the mask's visible keys). The gather is made here, outside
+    the timed call."""
     import torch
     import torch.nn.functional as F
     b, hkv, grp, dh = q.shape
@@ -536,8 +601,8 @@ def paged_yardstick(q, kp, vp, table, lengths, window, scales=None):
     if scales is not None:
         kk = (kk.float() * scales[0][idx][..., None, None]).to(q.dtype)
         vv = (vv.float() * scales[1][idx][..., None, None]).to(q.dtype)
-    kk, vv = (t.reshape(b, -1, hkv, dh).repeat_interleave(grp, 2)
-              .transpose(1, 2) for t in (kk, vv))
+    kk, vv = (t.reshape(b, -1, hkv, dh).transpose(1, 2).contiguous()
+              for t in (kk, vv))
     kpos = torch.arange(kk.shape[2], device=q.device)
     mask = (kpos[None] < lengths[:, None].long()) & (
         table >= 0).repeat_interleave(kp.shape[1], 1)
@@ -545,7 +610,8 @@ def paged_yardstick(q, kp, vp, table, lengths, window, scales=None):
         mask &= kpos[None] >= lengths[:, None].long() - window
     qq = q.reshape(b, hkv * grp, 1, dh)
     return (lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask[:, None, None])), int(mask.sum())
+        qq, kk, vv, attn_mask=mask[:, None, None], enable_gqa=True)), \
+        int(mask.sum())
 
 
 def paged_bound(q, table, lengths, visible, quant: bool) -> tuple:
@@ -565,13 +631,16 @@ def run_paged(device, results):
     import torch
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=device).manual_seed(SEED + 1)
-    for dtype_name, hkv, dh, window in paged_cases():
+    for dtype_name, model, hkv, grp, dh, window, cap, lens, n_pages in \
+            paged_cases():
         dtype = getattr(torch, dtype_name)
         q, kp, vp, table, lengths = paged_inputs(device, dtype, window, g,
-                                                 hkv, dh)
+                                                 hkv, dh, lens, n_pages, grp)
         n = copies_for(2 * kp.numel() * kp.element_size())
         pools = [(kp.clone(), vp.clone()) for _ in range(n)]
-        kw = dict(window=window)
+        kw = dict(window=window, softcap=cap)
+        counter = paged_counter(fa, grp, False)
+        n0 = counter.launches
         got = fa.paged_decode_attention_cuda(q, kp, vp, table, lengths,
                                              **kw)
         ref = fa.paged_decode_attention_plain(q, kp, vp, table, lengths,
@@ -580,7 +649,8 @@ def run_paged(device, results):
         atol, rtol = PAGED_TOL[str(dtype)]
         abs_e, rel_e = max_err(got, ref)
         ok = within(got, ref, atol, rtol) and bool(
-            (got[2] == 0).all()) and bool(torch.isfinite(got).all())
+            (got[2] == 0).all()) and bool(torch.isfinite(got).all()) \
+            and counter.launches == n0 + 1
         ms, host_ms = bench([lambda p=p: fa.paged_decode_attention_cuda(
             q, p[0], p[1], table, lengths, **kw) for p in pools], 100)
         plain_ms, _ = bench([lambda p=p: fa.paged_decode_attention_plain(
@@ -588,8 +658,9 @@ def run_paged(device, results):
         sdpa, visible = paged_yardstick(q, kp, vp, table, lengths, window)
         lib_ms, _ = bench([sdpa], 50)
         bound_ms, bound_by = paged_bound(q, table, lengths, visible, False)
-        rec = dict(kernel="paged_decode_attention", dtype=dtype_name,
-                   hkv=hkv, dh=dh, window=window, lengths=lengths.tolist(),
+        rec = dict(kernel=counter.__name__[:-5], model=model,
+                   dtype=dtype_name, hkv=hkv, g=grp, dh=dh, window=window,
+                   softcap=cap, lengths=lengths.tolist(),
                    max_abs_err=abs_e, max_rel_err=rel_e, atol=atol,
                    rtol=rtol, ok=ok, ms=ms, host_ms=host_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms,
@@ -601,6 +672,14 @@ def run_paged(device, results):
         if not ok:
             fail(f"paged_decode_attention disagrees with its plain "
                  f"version: {rec}")
+
+
+def paged_counter(fa, grp: int, quant: bool):
+    """The wrapper that counts a paged decode call's launch: the grouped
+    form's for a group above 8 query heads."""
+    name = "paged_decode_attention" + ("_quant" if quant else "") + (
+        "_grouped" if grp > 8 else "")
+    return getattr(fa, f"{name}_cuda")
 
 
 def paged_split(fn, *args, **kw) -> dict:
@@ -644,69 +723,76 @@ def run_spmm_quant(cfg, device, results):
     from repro_torch.kernels import csd_spmm
     g = torch.Generator(device=device).manual_seed(SEED + 3)
     up, down = junction_patterns(cfg)
-    for dtype_name in ("float32", "bfloat16"):
+    # gemma3-4b's junctions at every M and both epilogues, f32 and bf16;
+    # the dense decoders' at M 4 and 256 with their own epilogue, bf16
+    cases = [(cfg.name, name, bp, dtype_name, QUANT_M, (None, "gelu"))
+             for dtype_name in ("float32", "bfloat16")
+             for name, bp in (("up/gate", up), ("down", down))]
+    cases += [(model, name, bp, "bfloat16", (4, 256), (act,))
+              for model, name, bp, act in dense_junctions()]
+    for model, name, bp, dtype_name, rows, acts in cases:
         dtype = getattr(torch, dtype_name)
-        for name, bp in (("up/gate", up), ("down", down)):
-            shape = (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
-            n_w = math.prod(shape)
-            n = copies_for(n_w)
-            slabs = [quantize_slab(torch.randn(shape, generator=g,
-                                               device=device)
-                                   / math.sqrt(bp.d_in_b * bp.block_in))
-                     for _ in range(n)]
-            idx = torch.as_tensor(bp.block_idx, dtype=torch.int32,
-                                  device=device)
-            dense = dense_of(bp, dequantize_slab(*slabs[0], dtype))
-            denses = [dense] + [dense.clone() for _ in range(
-                copies_for(dense.numel() * dense.element_size()) - 1)]
-            for m in QUANT_M:
-                x = torch.randn((m, bp.n_in), generator=g,
-                                device=device).to(dtype)
-                for act in (None, "gelu"):
-                    def kern(i=0):
-                        q, sc = slabs[i]
-                        return csd_spmm.csd_spmm_fwd_cuda(
-                            x, q, idx, activation=act, w_scale=sc)
+        shape = (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
+        n_w = math.prod(shape)
+        n = copies_for(n_w)
+        slabs = [quantize_slab(torch.randn(shape, generator=g,
+                                           device=device)
+                               / math.sqrt(bp.d_in_b * bp.block_in))
+                 for _ in range(n)]
+        idx = torch.as_tensor(bp.block_idx, dtype=torch.int32,
+                              device=device)
+        dense = dense_of(bp, dequantize_slab(*slabs[0], dtype))
+        denses = [dense] + [dense.clone() for _ in range(
+            copies_for(dense.numel() * dense.element_size()) - 1)]
+        for m in rows:
+            x = torch.randn((m, bp.n_in), generator=g,
+                            device=device).to(dtype)
+            for act in acts:
+                def kern(i=0):
+                    q, sc = slabs[i]
+                    return csd_spmm.csd_spmm_fwd_cuda(
+                        x, q, idx, activation=act, w_scale=sc)
 
-                    def plain(i=0):
-                        q, sc = slabs[i]
-                        return csd_spmm.csd_spmm_fwd_plain(
-                            x, q, idx, activation=act, w_scale=sc)
-                    got, ref = kern(), plain()
-                    torch.cuda.synchronize()
-                    got, ref = got.float(), ref.float()
-                    ok = quant_close(got, ref, dtype_name) and bool(
-                        torch.isfinite(got).all())
-                    abs_e, rel_e = max_err(got, ref)
-                    ms, host_ms = bench([lambda i=i: kern(i)
-                                         for i in range(n)], 60)
-                    plain_ms, _ = bench([lambda i=i: plain(i)
-                                         for i in range(n)], 6)
-                    lib_ms, _ = bench([lambda d=d: torch.matmul(x, d)
-                                       for d in denses], 30)
-                    el = dtype.itemsize
-                    nbytes = el * m * (bp.n_in + bp.n_out) + n_w \
-                        + 4 * 2 * idx.numel()  # slab, scales, pattern
-                    bound_ms, bound_by = bound(nbytes, 2 * m * n_w, dtype)
-                    q, sc = slabs[0]
-                    rec = dict(kernel="csd_spmm_fwd_quant", junction=name,
-                               m=m, dtype=dtype_name, activation=act,
-                               **fwd_body(csd_spmm.csd_spmm_fwd_cuda, x, q,
-                                          idx, activation=act, w_scale=sc),
-                               max_abs_err=abs_e, max_rel_err=rel_e,
-                               max_abs_ref=float(ref.abs().max()), ok=ok,
-                               ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=lib_ms,
-                               library="torch.matmul, densified "
-                                       "dequantized slab")
-                    results.append(rec)
-                    log(json.dumps(rec))
-                    if not ok:
-                        fail(f"int8 csd_spmm_fwd disagrees with its plain "
-                             f"version: {rec}")
-            del slabs, dense, denses
-            torch.cuda.empty_cache()
+                def plain(i=0):
+                    q, sc = slabs[i]
+                    return csd_spmm.csd_spmm_fwd_plain(
+                        x, q, idx, activation=act, w_scale=sc)
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                got, ref = got.float(), ref.float()
+                ok = quant_close(got, ref, dtype_name) and bool(
+                    torch.isfinite(got).all())
+                abs_e, rel_e = max_err(got, ref)
+                ms, host_ms = bench([lambda i=i: kern(i)
+                                     for i in range(n)], 60)
+                plain_ms, _ = bench([lambda i=i: plain(i)
+                                     for i in range(n)], 6)
+                lib_ms, _ = bench([lambda d=d: torch.matmul(x, d)
+                                   for d in denses], 30)
+                el = dtype.itemsize
+                nbytes = el * m * (bp.n_in + bp.n_out) + n_w \
+                    + 4 * 2 * idx.numel()  # slab, scales, pattern
+                bound_ms, bound_by = bound(nbytes, 2 * m * n_w, dtype)
+                q, sc = slabs[0]
+                rec = dict(kernel="csd_spmm_fwd_quant", model=model,
+                           junction=name, m=m, fan_in=bp.d_in_b,
+                           dtype=dtype_name, activation=act,
+                           **fwd_body(csd_spmm.csd_spmm_fwd_cuda, x, q,
+                                      idx, activation=act, w_scale=sc),
+                           max_abs_err=abs_e, max_rel_err=rel_e,
+                           max_abs_ref=float(ref.abs().max()), ok=ok,
+                           ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_ms,
+                           library="torch.matmul, densified "
+                                   "dequantized slab")
+                results.append(rec)
+                log(json.dumps(rec))
+                if not ok:
+                    fail(f"int8 csd_spmm_fwd disagrees with its plain "
+                         f"version: {rec}")
+        del slabs, dense, denses
+        torch.cuda.empty_cache()
 
 
 def run_paged_quant(device, results):
@@ -714,10 +800,12 @@ def run_paged_quant(device, results):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.kv_cache import quantize_kv
     g = torch.Generator(device=device).manual_seed(SEED + 4)
-    for dtype_name, hkv, dh, window in paged_cases():
+    for dtype_name, model, hkv, grp, dh, window, cap, lens, n_pages in \
+            paged_cases():
         dtype = getattr(torch, dtype_name)
         q, kp, vp, table, lengths = paged_inputs(device, torch.float32,
-                                                 window, g, hkv, dh)
+                                                 window, g, hkv, dh, lens,
+                                                 n_pages, grp)
         q = q.to(dtype)
         (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
         del kp, vp
@@ -727,35 +815,38 @@ def run_paged_quant(device, results):
 
         def kern(p):
             return fa.paged_decode_attention_cuda(
-                q, p[0], p[1], table, lengths, window=window,
+                q, p[0], p[1], table, lengths, window=window, softcap=cap,
                 k_scale=p[2], v_scale=p[3])
 
         def plain(p):
             return fa.paged_decode_attention_plain(
-                q, p[0], p[1], table, lengths, window=window,
+                q, p[0], p[1], table, lengths, window=window, softcap=cap,
                 k_scale=p[2], v_scale=p[3])
+        counter = paged_counter(fa, grp, True)
+        n0 = counter.launches
         got, ref = kern(pools[0]), plain(pools[0])
         torch.cuda.synchronize()
         atol, rtol = PAGED_TOL[str(dtype)]
         abs_e, rel_e = max_err(got, ref)
         ok = within(got, ref, atol, rtol) and bool(
-            (got[2] == 0).all()) and bool(torch.isfinite(got).all())
+            (got[2] == 0).all()) and bool(torch.isfinite(got).all()) \
+            and counter.launches == n0 + 1
         ms, host_ms = bench([lambda p=p: kern(p) for p in pools], 100)
         plain_ms, _ = bench([lambda p=p: plain(p) for p in pools], 10)
         sdpa, visible = paged_yardstick(q, k8, v8, table, lengths, window,
                                         (ks, vs))
         lib_ms, _ = bench([sdpa], 50)
         bound_ms, bound_by = paged_bound(q, table, lengths, visible, True)
-        rec = dict(kernel="paged_decode_attention_quant",
-                   dtype=dtype_name, hkv=hkv, dh=dh, window=window,
-                   lengths=lengths.tolist(), max_abs_err=abs_e,
+        rec = dict(kernel=counter.__name__[:-5], model=model,
+                   dtype=dtype_name, hkv=hkv, g=grp, dh=dh, window=window,
+                   softcap=cap, lengths=lengths.tolist(), max_abs_err=abs_e,
                    max_rel_err=rel_e, atol=atol, rtol=rtol, ok=ok, ms=ms,
                    host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=lib_ms,
                    library="SDPA over the gathered, dequantized KV",
                    **paged_split(fa.paged_decode_attention_cuda, q, k8, v8,
-                                 table, lengths, window=window, k_scale=ks,
-                                 v_scale=vs))
+                                 table, lengths, window=window, softcap=cap,
+                                 k_scale=ks, v_scale=vs))
         results.append(rec)
         log(json.dumps(rec))
         if not ok:
@@ -1359,8 +1450,16 @@ def forced_logits(model, prompt, gen, device, page_size=16):
     return torch.stack(out, 1)
 
 
+# the smoke configurations phase 3f serves (the MoE one is trained only:
+# its published capacity is not dropless) and trains
+SMOKE_SERVED = ("gemma3_4b", "gemma2_9b", "qwen2_7b", "granite_34b")
+SMOKE_TRAINED = ("gemma3_4b", "granite_moe_1b_a400m", "gemma2_9b",
+                 "qwen2_7b", "granite_34b")
+
+
 def run_smoke_configs(device) -> dict:
-    """Phase 3f: gemma3-4b's smoke configuration served through
+    """Phase 3f: the smoke configurations of gemma3-4b and of the dense
+    decoders (gemma2-9b, qwen2-7b, granite-34b) served through
     ``launch.serve.generate`` (4 prompts of 32 tokens, 16 new) and trained
     through ``launch.train.main`` (3 steps of 2 x 32 tokens), and
     granite-moe's trained the same way, on the card: their 16 x 16 FFN and
@@ -1373,47 +1472,12 @@ def run_smoke_configs(device) -> dict:
     served step, teacher-forced on the kernels' tokens, within
     ``SMOKE_LOGIT_TOL`` of the plain versions'; whole-row token agreement
     recorded."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import generate
-    from repro_torch.nn.model import LM
     out = {}
-    cfg = get_config("gemma3_4b", smoke=True)
-    model = LM(cfg, device=device,
-               generator=torch.Generator(device=device).manual_seed(SEED))
-    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
-                                                  (4, 32))
-    reset_launch_counts()
-    toks, tps = generate(model, prompt, 48, 16, device=device, seed=SEED)
-    launches = launch_counts()
-    logits = forced_logits(model, prompt, toks, device)
-    with plain_versions():
-        toks_p, _ = generate(model, prompt, 48, 16, device=device, seed=SEED)
-        logits_p = forced_logits(model, prompt, toks, device)
-    err = float((logits - logits_p).abs().max())
-    scale = float(logits_p.abs().max())
-    rec = dict(check="gemma3-4b smoke: launch.serve.generate",
-               tokens=list(toks.shape), tok_per_s=tps, launches={
-                   k: v for k, v in launches.items() if v},
-               token_agreement=float((toks == toks_p).mean()),
-               first_tokens_equal=bool((toks[:, 0] == toks_p[:, 0]).all()),
-               logits_max_abs_err=err, logits_max_abs_ref=scale,
-               logits_tol=SMOKE_LOGIT_TOL,
-               forced_argmax_agreement=float(
-                   (logits.argmax(-1).cpu().numpy() == toks).mean()))
-    log(json.dumps(rec))
-    if launches["csd_spmm_fwd_small"] == 0 \
-            or launches["paged_decode_attention"] == 0 \
-            or any(launches[k] for k in ("csd_spmm_fwd", "csd_spmm_dx_small",
-                                         "csd_spmm_dw_small")) \
-            or not rec["first_tokens_equal"] \
-            or not err <= SMOKE_LOGIT_TOL * scale:
-        fail(f"the gemma3-4b smoke configuration did not serve as "
-             f"expected: {rec}")
-    out["gemma3_4b_serve"] = rec
-    del model
-    for arch in ("gemma3_4b", "granite_moe_1b_a400m"):
+    for arch in SMOKE_SERVED:
+        out[f"{arch}_serve"] = smoke_serve(arch, device)
+    for arch in SMOKE_TRAINED:
         c = get_config(arch, smoke=True)
         reset_launch_counts()
         hist = smoke_train(arch, plain=False)
@@ -1443,28 +1507,82 @@ def run_smoke_configs(device) -> dict:
     return out
 
 
+def smoke_serve(arch: str, device) -> dict:
+    """Phase 3f's served run of ``arch``'s smoke configuration (see
+    ``run_smoke_configs``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.nn.model import LM
+    cfg = get_config(arch, smoke=True)
+    model = LM(cfg, device=device,
+               generator=torch.Generator(device=device).manual_seed(SEED))
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                  (4, 32))
+    reset_launch_counts()
+    toks, tps = generate(model, prompt, 48, 16, device=device, seed=SEED)
+    launches = launch_counts()
+    logits = forced_logits(model, prompt, toks, device)
+    with plain_versions():
+        toks_p, _ = generate(model, prompt, 48, 16, device=device, seed=SEED)
+        logits_p = forced_logits(model, prompt, toks, device)
+    err = float((logits - logits_p).abs().max())
+    scale = float(logits_p.abs().max())
+    paged = "paged_decode_attention" + (
+        "_grouped" if cfg.n_heads // cfg.n_kv_heads > 8 else "")
+    rec = dict(check=f"{cfg.name} smoke: launch.serve.generate",
+               tokens=list(toks.shape), tok_per_s=tps, launches={
+                   k: v for k, v in launches.items() if v},
+               token_agreement=float((toks == toks_p).mean()),
+               first_tokens_equal=bool((toks[:, 0] == toks_p[:, 0]).all()),
+               logits_max_abs_err=err, logits_max_abs_ref=scale,
+               logits_tol=SMOKE_LOGIT_TOL,
+               forced_argmax_agreement=float(
+                   (logits.argmax(-1).cpu().numpy() == toks).mean()))
+    log(json.dumps(rec))
+    if launches["csd_spmm_fwd_small"] == 0 \
+            or launches[paged] == 0 \
+            or any(launches[k] for k in ("csd_spmm_fwd", "csd_spmm_dx_small",
+                                         "csd_spmm_dw_small")) \
+            or not rec["first_tokens_equal"] \
+            or not err <= SMOKE_LOGIT_TOL * scale:
+        fail(f"the {cfg.name} smoke configuration did not serve as "
+             f"expected: {rec}")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serve gemma3-4b at full width
 # ---------------------------------------------------------------------------
 
 LOGIT_TOL = 5e-2  # of the largest |logit|: 34 bf16 layers of rounding
+# phases 5e-5h: 4 requests of 64-128 prompt tokens, 16 new tokens each;
+# gemma2-9b also serves one of GEMMA2_LONG prompt tokens, past its window
+DENSE_PROMPTS, DENSE_NEW, GEMMA2_LONG = (64, 96, 112, 128), 16, 4160
 NEAR_TIE_MARGIN = 0.05  # top-2 logit gap below which a flip is a near tie
 
 
-def engine_config(quant=None):
+def engine_config(quant=None, **knobs):
+    """The serving runs' engine: 4 slots of up to 10 pages of 16 tokens
+    (``knobs`` override, as phases 5e and 5f do for the 4,160-token
+    request)."""
     from repro_torch.serving.engine import EngineConfig
-    return EngineConfig(max_slots=4, page_size=16, total_pages=40,
-                        max_pages_per_seq=10, token_budget=256,
-                        prefill_chunk=64, quant=quant)
+    kw = dict(max_slots=4, page_size=16, total_pages=40,
+              max_pages_per_seq=10, token_budget=256, prefill_chunk=64)
+    kw.update(knobs)
+    return EngineConfig(quant=quant, **kw)
 
 
 def serve_kernels(cfg, quant) -> tuple:
     """The (junction, paged decode) kernels a serving run of ``cfg`` must
     launch: the expert-batched forward for an MoE model, the int8 forms
-    with ``quant``."""
+    with ``quant``, the grouped paged decode for more than 8 query heads a
+    KV head."""
     fwd = "csd_spmm_fwd" + ("" if quant is None else "_quant") \
         + ("_batched" if cfg.moe is not None else "")
-    paged = "paged_decode_attention" + ("" if quant is None else "_quant")
+    paged = "paged_decode_attention" + ("" if quant is None else "_quant") \
+        + ("_grouped" if cfg.n_heads // cfg.n_kv_heads > 8 else "")
     return fwd, paged
 
 
@@ -1538,9 +1656,11 @@ def plain_versions():
 
 def serve(model, device, out_dir, quant=None,
           prompt_lens=(64, 96, 112, 128), n_new=32, trace="decode_trace",
-          slab_bytes=None):
-    """Serve ``model`` (phases 5 and 5c; with ``quant`` 5b and 5d) and
-    check it; with ``slab_bytes`` the resident slab bytes must be those."""
+          slab_bytes=None, knobs=None):
+    """Serve ``model`` (phases 5, 5c, 5e, 5g and 5h; with ``quant`` 5b, 5d
+    and 5f) and check it; with ``slab_bytes`` the resident slab bytes must
+    be those; ``knobs`` override the engine's (``engine_config``)."""
+    knobs = knobs or {}
     import numpy as np
     import torch
     from repro_torch.serving.engine import ServingEngine
@@ -1549,7 +1669,8 @@ def serve(model, device, out_dir, quant=None,
     tag = "int8" if quant is not None else cfg.dtype
     t0 = time.perf_counter()
     n_params = sum(p.numel() for p in model.parameters())
-    warm = ServingEngine(model, engine_config(quant), device=device)
+    warm = ServingEngine(model, engine_config(quant, **knobs),
+                         device=device)
     warm.run([np.arange(16, dtype=np.int32)], 2)  # cuBLAS handles, smem attrs
     torch.cuda.synchronize()
     log(f"built {cfg.name} ({n_params / 1e9:.3f} B params, "
@@ -1560,7 +1681,7 @@ def serve(model, device, out_dir, quant=None,
     lens = list(prompt_lens)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
-    eng = ServingEngine(model, engine_config(quant), device=device)
+    eng = ServingEngine(model, engine_config(quant, **knobs), device=device)
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -1618,7 +1739,7 @@ def serve(model, device, out_dir, quant=None,
 
     # the decode step after the prefill drain, run from one cache state with
     # the kernels and with their plain versions
-    chk = ServingEngine(model, engine_config(quant), device=device)
+    chk = ServingEngine(model, engine_config(quant, **knobs), device=device)
     for i, p in enumerate(prompts):
         chk.add_request(p, n_new, req_id=i)
     while chk.sched.waiting or any(s is not None and s.prefilling
@@ -1646,13 +1767,15 @@ def serve(model, device, out_dir, quant=None,
         logits_p = run_step()
     torch.cuda.synchronize()
     rows = list(plan.decode_slots)
+    seq_lens = [int(chk.sched.state.seq_lens[r]) for r in rows]
     lk, lp = logits_k[rows, 0].float(), logits_p[rows, 0].float()
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     chk_rec = dict(check=f"{cfg.name} {tag} decode logits after the "
                          f"prefill drain, kernels vs plain versions",
-                   rows=len(rows), max_abs_err=err, max_abs_logit=scale,
+                   rows=len(rows), seq_lens=seq_lens, window=cfg.attn_window,
+                   max_abs_err=err, max_abs_logit=scale,
                    tol=LOGIT_TOL * scale, argmax_agreement=agree,
                    finite=bool(torch.isfinite(lk).all()),
                    launches_per_decode_step=per_step)
@@ -1661,12 +1784,16 @@ def serve(model, device, out_dir, quant=None,
     log(json.dumps(chk_rec))
     if not chk_rec["finite"] or err > LOGIT_TOL * scale:
         fail(f"decode logits disagree: {chk_rec}")
+    if cfg.attn_window is not None and max(lens) > cfg.attn_window \
+            and max(seq_lens) <= cfg.attn_window:
+        fail(f"the checked decode step has no row past the window: "
+             f"{chk_rec}")
     expect = {want[0]: 3 * cfg.n_layers, want[1]: cfg.n_layers}
     if per_step != expect:
         fail(f"{tag} decode step launched {per_step}, expected {expect}")
     return rec, chk_rec, profile_decode(
-        model, prompts, n_new, device, out_dir, quant, trace=trace), \
-        toks, prompts
+        model, prompts, n_new, device, out_dir, quant, trace=trace,
+        knobs=knobs), toks, prompts
 
 
 def launched_plans(fn) -> tuple:
@@ -1777,7 +1904,7 @@ def export_trace(prof, path: Path) -> None:
 
 
 def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
-                   n_steps=4, trace="decode_trace"):
+                   n_steps=4, trace="decode_trace", knobs=None):
     """Where a decode step's time goes: ``n_steps`` engine decode steps
     under ``torch.profiler``, kernel time summed by name."""
     import torch
@@ -1785,7 +1912,8 @@ def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ServingEngine
 
-    eng = ServingEngine(model, engine_config(quant), device=device)
+    eng = ServingEngine(model, engine_config(quant, **(knobs or {})),
+                        device=device)
     for i, p in enumerate(prompts):
         eng.add_request(p, n_new, req_id=i)
     while eng.sched.waiting or any(s is not None and s.prefilling
@@ -2426,6 +2554,8 @@ ALL_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant", "csd_spmm_fwd_batched",
                "csd_mask_cotangent", "csd_spmm_fwd_small",
                "csd_spmm_dx_small", "csd_spmm_dw_small",
                "paged_decode_attention", "paged_decode_attention_quant",
+               "paged_decode_attention_grouped",
+               "paged_decode_attention_quant_grouped",
                "flash_attention", "flash_attention_bwd",
                "csd_spmm_fwd_injected_alias")
 
@@ -3085,6 +3215,56 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phases 5e-5h: the dense decoders at full width and depth, 16 new
+    # tokens a request; gemma2-9b with a fifth request of 4,160 prompt
+    # tokens, past its 4096 window, in bf16 (5e) and int8 (5f)
+    dense = {}
+    g2cfg = get_config("gemma2_9b")
+    g2_knobs = dict(max_slots=5, total_pages=320,
+                    max_pages_per_seq=-(-(GEMMA2_LONG + DENSE_NEW) // 16),
+                    token_budget=1024, prefill_chunk=512)
+    g2_lens = DENSE_PROMPTS + (GEMMA2_LONG,)
+    g2_bf16 = fresh_model(g2cfg)
+    dense["5e"] = serve(g2_bf16, device, out_dir, prompt_lens=g2_lens,
+                        n_new=DENSE_NEW, trace="decode_trace_gemma2",
+                        knobs=g2_knobs)
+    log(f"phase 5e done at {time.perf_counter() - t_all:.1f} s")
+    g2_int8 = fresh_model(g2cfg)
+    dense["5f"] = serve(g2_int8, device, out_dir, quant=quant,
+                        prompt_lens=g2_lens, n_new=DENSE_NEW,
+                        trace="decode_trace_gemma2", knobs=g2_knobs)
+    n_short = len(DENSE_PROMPTS)
+    g2_agree_rec = top1_agreement(g2_bf16, g2_int8,
+                                  dense["5e"][4][:n_short],
+                                  dense["5e"][3][:n_short], device, quant)
+    log(json.dumps(g2_agree_rec))
+    log(f"phase 5f done at {time.perf_counter() - t_all:.1f} s")
+    del g2_bf16, g2_int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 5g: qwen2-7b, bf16
+    q2_model = fresh_model(get_config("qwen2_7b"))
+    dense["5g"] = serve(q2_model, device, out_dir, prompt_lens=DENSE_PROMPTS,
+                        n_new=DENSE_NEW, trace="decode_trace_qwen2")
+    log(f"phase 5g done at {time.perf_counter() - t_all:.1f} s")
+    del q2_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 5h: granite-34b, bf16, 88 layers, its parameters built in bf16 (in
+    # f32 they would not fit the card)
+    g34_model = fresh_model(get_config("granite_34b").with_(
+        param_dtype="bfloat16"))
+    dense["5h"] = serve(g34_model, device, out_dir,
+                        prompt_lens=DENSE_PROMPTS, n_new=DENSE_NEW,
+                        trace="decode_trace_granite34b")
+    log(f"phase 5h done at {time.perf_counter() - t_all:.1f} s")
+    del g34_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_recs = {k: dict(serve=v[0], logits_check=v[1], profile=v[2])
+                  for k, v in dense.items()}
+    dense_recs["5f"]["top1_agreement_int8"] = g2_agree_rec
+
     # phases 6 and 6b
     run_train_kernels(cfg, device, results)
     log(f"phase 6 done at {time.perf_counter() - t_all:.1f} s")
@@ -3272,7 +3452,9 @@ def main() -> int:
         launches=lint_rec["launches"]["csd_spmm_fwd_injected_alias"],
         launches_serve=sum(r["launches"]["csd_spmm_fwd_injected_alias"]
                            for r in (serve_rec, q_serve_rec, g_serve_rec,
-                                     gq_serve_rec)),
+                                     gq_serve_rec)) + sum(
+            v[0]["launches"]["csd_spmm_fwd_injected_alias"]
+            for v in dense.values()),
         launches_train=sum(r["launches"]["csd_spmm_fwd_injected_alias"]
                            for r in (train_rec, g_train_rec)),
         max_abs_err=inj_rec["max_abs_err"], ms=inj_rec["ms"],
@@ -3281,6 +3463,37 @@ def main() -> int:
         shape="lint self-test: x (256, 512) f32, w (4, 2, 128, 128), "
               "2 fan-in splits storing into y; launches counted around "
               "the lint phase (serving and training paths: 0)"))
+    # the grouped form of paged decode (G above 8): granite-34b's decode
+    # (phase 5h) over bf16 pages; over int8 pages no serving phase runs it
+    # (granite-34b is served in bf16), so its launches are the lint's
+    # (its dispatch pass steps granite-34b's int8 decode on the card)
+    for name, lrec, where in (
+            ("paged_decode_attention_grouped", dense["5h"][0],
+             "phase 5h (granite-34b served, bf16)"),
+            ("paged_decode_attention_quant_grouped", lint_rec,
+             "the lint's dispatch pass (granite-34b's int8 paged step on "
+             "the card, 2 layers)")):
+        rec = pick(name, model="granite-34b", dtype="bfloat16")
+        entries.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_decode.cu",
+            replaces="src/repro/kernels/flash_attention.py:214",
+            launches=lrec["launches"][name], launches_from=where,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            shape=f"q (4, 1, 48, 128) bf16, "
+                  f"{'int8' if 'quant' in name else 'bf16'} pages, page 16, "
+                  f"lengths [1100, 517, 0, 1040]; 6 chunks of 8 query "
+                  f"heads"))
+    # the dense decoders' serving launches of the forms they share with
+    # the earlier models
+    for e in entries:
+        if e["name"] in ("csd_spmm_fwd", "paged_decode_attention",
+                         "csd_spmm_fwd_quant",
+                         "paged_decode_attention_quant"):
+            e["launches_serve_dense"] = sum(
+                v[0]["launches"][e["name"]] for v in dense.values())
     entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
     next(e for e in entries if e["name"] == "csd_spmm_fwd_batched")[
         "launches_train"] = g_train_rec["launches"]["csd_spmm_fwd_batched"]
@@ -3305,7 +3518,8 @@ def main() -> int:
              plan_drift=drift_rec,
              nan_coverage=nan_rec,
              injected_alias=inj_rec, paper_mlp=mlp_recs,
-             smoke_configs=smoke_recs, kernels=entries),
+             smoke_configs=smoke_recs, dense_decoders=dense_recs,
+             kernels=entries),
         indent=1))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": entries}))

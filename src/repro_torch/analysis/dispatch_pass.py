@@ -206,6 +206,26 @@ def _dropless(cfg):
         moe, capacity_factor=moe.n_routed / moe.top_k))
 
 
+# the f32 training state (parameters, gradients and AdamW's two moments,
+# 16 bytes a parameter) the card's steps may hold at full depth; a config
+# past it (gemma2-9b, qwen2-7b, granite-34b) runs its full-width steps at
+# the depth of two of its repeating units, at least two layers (every
+# layer of a unit runs the same ops)
+CARD_STATE_BYTES = 64e9
+
+
+def card_depth(cfg):
+    """``cfg`` at the depth the card's dispatch-pass steps run: its own
+    where the f32 training state fits ``CARD_STATE_BYTES``, else two of its
+    repeating units of layers."""
+    from ..nn.model import LM, detect_unit
+    n = sum(p.numel() for p in LM(cfg, device="meta").parameters())
+    if 16 * n <= CARD_STATE_BYTES:
+        return cfg
+    return cfg.with_(n_layers=min(cfg.n_layers,
+                                  max(2, 2 * detect_unit(cfg.layer_kinds))))
+
+
 def _model(cfg, device):
     from ..nn.model import LM
     gen = torch.Generator(device=device).manual_seed(0)
@@ -299,9 +319,9 @@ def run(config_names: Optional[Sequence[str]] = None,
         ) -> Tuple[List[Finding], List[str], List[str]]:
     """Lint the paged steps (full width and int8) and the training step of
     every registered config: the smoke size on the CPU, full width on the
-    card. Returns (findings, covered subjects, errors); a step that fails
-    to run is an error (gating): a hot path the linter cannot see is not a
-    certified hot path."""
+    card (at ``card_depth``). Returns (findings, covered subjects,
+    errors); a step that fails to run is an error (gating): a hot path the
+    linter cannot see is not a certified hot path."""
     from ..configs import ARCHS, canonical, get_config
 
     dev = torch.device(device)
@@ -332,6 +352,9 @@ def run(config_names: Optional[Sequence[str]] = None,
         arch = canonical(arch)
         cfg = get_config(arch, smoke=not full)
         size = "full" if full else "smoke"
+        if full and card_depth(cfg) is not cfg:
+            cfg = card_depth(cfg)
+            size = f"full@{cfg.n_layers}L"
         for quant in (False, True):
             def make(cfg=cfg, quant=quant):
                 pre, dec, shapes = paged_steps(cfg, dev, quant)

@@ -707,6 +707,61 @@ def full_width_cases() -> List[KernelCase]:
     return cases
 
 
+# gemma2-9b's paged rows: one past its 4096 window (the 4,160-token request
+# of chip_smoke.py phase 5e), 300-page tables
+GEMMA2_LENGTHS, GEMMA2_PAGES = (4160, 517, 0, 4097), 300
+
+
+def dense_decoder_cases() -> List[KernelCase]:
+    """The decode (M 4) and prefill (M 256) forwards of gemma2-9b's,
+    qwen2-7b's and granite-34b's FFN junctions at full width (bf16; gemma2
+    also int8, as it is served), and their paged decode: gemma2's G 2 at
+    Dh 256 over rows past its window, qwen2's G 7 at Dh 128, granite-34b's
+    48 query heads over one KV head and a group of 12 (the grouped form),
+    bf16 and int8 pages."""
+    from ..configs import get_config
+    bf16 = torch.bfloat16
+    cases = []
+    for arch in ("gemma2_9b", "qwen2_7b", "granite_34b"):
+        cfg = get_config(arch)
+        pats = _layer0_patterns(cfg)
+        act = "gelu" if cfg.act.startswith("gelu") else None
+        quants = (False, True) if arch == "gemma2_9b" else (False,)
+        for quant in quants:
+            q = "_quant" if quant else ""
+            for tag, m in (("decode", DECODE_M), ("prefill", PREFILL_M)):
+                cases += [
+                    _fwd_case(f"{arch}/{tag}/fwd{q}_gate", pats[
+                        "ffn.gate.pattern"], m, bf16, activation=act,
+                        quant=quant),
+                    _fwd_case(f"{arch}/{tag}/fwd{q}_down", pats[
+                        "ffn.down.pattern"], m, bf16, quant=quant)]
+    heads = {a: (c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim)
+             for a in ("gemma2_9b", "qwen2_7b", "granite_34b")
+             for c in (get_config(a),)}
+    for quant in (False, True):
+        q = "_quant" if quant else ""
+        cases += [
+            _paged_case(f"gemma2_9b/decode/paged{q}_window",
+                        *heads["gemma2_9b"], bf16, lengths=GEMMA2_LENGTHS,
+                        n_pages=GEMMA2_PAGES, page=PAGE, window=4096,
+                        quant=quant),
+            _paged_case(f"qwen2_7b/decode/paged{q}", *heads["qwen2_7b"],
+                        bf16, lengths=PAGED_LENGTHS, n_pages=PAGED_PAGES,
+                        page=PAGE, window=None, quant=quant),
+            _paged_case(f"granite_34b/decode/paged{q}",
+                        *heads["granite_34b"], bf16, lengths=PAGED_LENGTHS,
+                        n_pages=PAGED_PAGES, page=PAGE, window=None,
+                        quant=quant),
+            _paged_case(f"granite_34b/serve/paged{q}", *heads["granite_34b"],
+                        bf16, lengths=SERVING_LENGTHS, n_pages=SERVING_PAGES,
+                        page=PAGE, window=None, quant=quant),
+            _paged_case(f"g12/decode/paged{q}", 4, 12, 128, bf16,
+                        lengths=PAGED_LENGTHS, n_pages=PAGED_PAGES,
+                        page=PAGE, window=None, quant=quant)]
+    return cases
+
+
 # the paper MLP's batch (train_mlp's default) and training set, and the LM
 # smoke runs' shapes: training batch 2 x seq 32, 4 decode slots
 MLP_BATCH, MLP_FULL, SMOKE_TRAIN_M = 256, 8000, 2 * 32
@@ -793,8 +848,10 @@ def small_block_cases() -> List[KernelCase]:
 
 def kernel_cases() -> List[KernelCase]:
     """Every shipped kernel family: the demo cases, the full-width shapes
-    of the two models and the small-block forms' cases."""
-    return demo_cases() + full_width_cases() + small_block_cases()
+    of the two models, the dense decoders' and the small-block forms'
+    cases."""
+    return demo_cases() + full_width_cases() + dense_decoder_cases() \
+        + small_block_cases()
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ import importlib
 
 from ..nn.common import ModelConfig
 
-ARCHS = ["gemma3_4b", "granite_moe_1b_a400m"]
+ARCHS = ["gemma3_4b", "granite_moe_1b_a400m", "gemma2_9b", "qwen2_7b",
+         "granite_34b"]
 
 
 def canonical(name: str) -> str:

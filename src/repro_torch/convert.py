@@ -4,8 +4,9 @@ The JAX ``LM`` keeps its layers as ``params["stack"]["scan"][u]`` (trees
 whose leaves carry a leading group axis g, one entry per slot u of the
 repeating unit) and ``params["stack"]["epilogue"][i]``. The port's flat
 ``layers`` list holds scan slot u of group g at index ``g * unit + u`` and
-epilogue block i after all scanned layers. The tree is passed in as numpy
-arrays, so this module needs no JAX.
+epilogue block i after all scanned layers; an untied head
+``params["head"]["w"]`` (d_model, vocab) maps onto ``head.weight``. The
+tree is passed in as numpy arrays, so this module needs no JAX.
 
 A gradient tree from ``jax.grad`` of the LM's loss has the parameter
 tree's structure, so the same function maps it onto the port's parameter
@@ -74,6 +75,13 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
         "embed.table": np.asarray(np_tree["embed"]["table"]),
         "ln_f.scale": np.asarray(np_tree["ln_f"]["scale"]),
     }
+    if ("head" in np_tree) != (model.head is not None):
+        has = "has" if "head" in np_tree else "lacks"
+        raise ValueError(
+            f"head mismatch: the tree {has} an untied head ('head'), the "
+            f"model's tie_embeddings is {model.cfg.tie_embeddings}")
+    if "head" in np_tree:
+        out["head.weight"] = np.asarray(np_tree["head"]["w"])
     for u, slot_tree in enumerate(stack["scan"]):
         for path, arr in _items(slot_tree):
             for g in range(n_groups):

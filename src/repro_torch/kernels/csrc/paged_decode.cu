@@ -40,6 +40,14 @@
 //   row masked) and on a head-dim bucket (64, 128, 256): a lane holds 8
 //   head dims of the output (and of q, except at bucket 64 and G 8, where
 //   q is read from shared memory) for each head.
+// - Groups above 8 (granite-34b's 48 query heads over one KV head). The
+//   grid's y coordinate runs over (KV head, chunk of 8 query heads), and
+//   each CTA runs the 8 form on heads [8c, 8c + 8) of its group, the last
+//   chunk masked as a group of 7 is. A CTA reads its KV head's pages
+//   itself, so the pages are read ceil(G / 8) times, the later reads mostly
+//   from L2; the split outputs and the merge index the whole group. No
+//   tensor cores here: at G 48 the scores are a (48 x Dh) . (Dh x keys)
+//   product an mma tile could take, which is later work.
 // - Several keys per warp at small Dh. A key takes bucket / 8 lanes (8 at
 //   Dh 64, 16 at 128, 32 at 256), so a warp step covers 32 / (bucket / 8)
 //   keys, and each dot product is reduced by log2(bucket / 8) shuffles
@@ -92,7 +100,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 4;     // K/V tiles in the ring
 constexpr int kRingBytes = 98304;  // its shared memory at most
 constexpr int kMaxG = 8;
-constexpr int kMergeChunk = 256;  // splits whose weights the merge holds
+constexpr int kMergeChunk = 256;  // x kMaxG: split weights the merge stages
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -217,16 +225,18 @@ __host__ __device__ constexpr int chunk_slots() {
   return G <= 2 ? 4 : 2;
 }
 
-// CTA (split, h, b). G is the group-size form (Gr <= G the real group
-// size), DHB the head-dim bucket (Dh <= DHB). Warp 0 also fills the ring:
+// CTA (split, h * n_chunks + c, b): heads [8c, 8c + Gr) of KV head h's
+// group of G (n_chunks = ceil(G / 8); for G <= 8 one chunk, c = 0 and
+// Gr = G). GF is the group-size form (Gr <= GF), DHB the head-dim bucket
+// (Dh <= DHB). Warp 0 also fills the ring:
 // before it scores tile t it waits for stage (t - 1) % S to be read, then
 // copies tile t + S - 1 there with one TMA load per mapped page of K and
 // of V (the int8 scales with one bulk load each) that completes on the
 // stage's full barrier. Pages that are not whole multiples of 8 keys
 // (their TMA boxes would not be 128-byte aligned) are copied with cp.async
 // instead (`tma` false).
-template <typename T, typename PT, int G, int DHB>
-__global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
+template <typename T, typename PT, int GF, int DHB>
+__global__ void __launch_bounds__(kThreads, (min_ctas<PT, GF>()))
     paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
                         const T* __restrict__ q,
@@ -237,20 +247,23 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
                         const int* __restrict__ table,
                         const int* __restrict__ lengths, T* __restrict__ out,
                         float* __restrict__ part_o, float* __restrict__ part_ml,
-                        int Hkv, int Gr, int Dh, int page_size, int n_pages,
+                        int Hkv, int G, int Dh, int page_size, int n_pages,
                         int KT, int pps, int window, float softcap,
                         float scale, bool tma) {
   constexpr bool kQuant = std::is_same<PT, int8_t>::value;
   constexpr int L = DHB / 8;     // lanes per key
   constexpr int KPW = 32 / L;    // keys per warp step
-  constexpr int KC = chunk_slots<G>();
+  constexpr int KC = chunk_slots<GF>();
   constexpr int EPV = 16 / static_cast<int>(sizeof(PT));  // per 16 B copy
   // q's 8 dims per head in registers, or read from shared memory per key:
   // at bucket 64, where the lane segments read the same q rows, and for 8
   // heads, whose q would not fit beside the output
-  constexpr bool kQRegs = DHB > 64 && G <= 4;
+  constexpr bool kQRegs = DHB > 64 && GF <= 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = layout<PT>(Gr, Dh, KT, pps);
+  const int n_chunks = (G + kMaxG - 1) / kMaxG;
+  const int h = blockIdx.y / n_chunks, g0 = (blockIdx.y % n_chunks) * kMaxG;
+  const int Gr = min(kMaxG, G - g0);  // the chunk's heads
+  const Layout lay = layout<PT>(min(G, kMaxG), Dh, KT, pps);
   const int S = lay.stages;
   float* q_s = reinterpret_cast<float*>(smem + lay.q);
   unsigned char* ok_s = smem + lay.ok;
@@ -258,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
   const uint32_t full0 = smem_addr(smem + lay.bar);
   const uint32_t empty0 = full0 + 8 * kMaxStages;
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int n_splits = gridDim.x;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const size_t bh = static_cast<size_t>(b) * Hkv + h;
@@ -279,7 +292,7 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
   const float qscale = softcap > 0.f ? scale : scale * kLog2e;
   for (int e = tid; e < Gr * DHB; e += kThreads) {
     const int g = e / DHB, d = e - g * DHB;
-    q_s[e] = d < Dh ? to_f32(q[(bh * Gr + g) * Dh + d]) * qscale : 0.f;
+    q_s[e] = d < Dh ? to_f32(q[(bh * G + g0 + g) * Dh + d]) * qscale : 0.f;
   }
   const int len = lengths[b];
   __syncthreads();
@@ -377,9 +390,9 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
   const int grp = lane / L, sub = lane % L;  // key of the step, dim chunk
   const int d0 = 8 * sub;
   const int nd = min(8, max(0, Dh - d0));
-  float qr[kQRegs ? G : 1][8], acc[G][8], m[G], l[G];
+  float qr[kQRegs ? GF : 1][8], acc[GF][8], m[GF], l[GF];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GF; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -406,8 +419,8 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
     const unsigned char* ok_t = ok_s + st * KT;
 
     for (int i0 = 0; i0 < my_slots; i0 += KC) {
-      // scores of the chunk's keys for the G heads
-      float s[KC][G];
+      // scores of the chunk's keys for the GF heads
+      float s[KC][GF];
       int row[KC];
       bool ok[KC];
 #pragma unroll
@@ -418,7 +431,7 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
         float kf[8];
         Row8<PT>::load(k_s + row[k] * Dh + d0, ok[k] ? nd : 0, kf);
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < GF; ++g) {
           float qg[8];
           if constexpr (kQRegs) {
 #pragma unroll
@@ -437,19 +450,19 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
 #pragma unroll
         for (int k = 0; k < KC; ++k)
 #pragma unroll
-          for (int g = 0; g < G; ++g) s[k][g] *= sc[row[k]];
+          for (int g = 0; g < GF; ++g) s[k][g] *= sc[row[k]];
       }
 #pragma unroll
       for (int o = 1; o < L; o <<= 1)
 #pragma unroll
         for (int k = 0; k < KC; ++k)
 #pragma unroll
-          for (int g = 0; g < G; ++g)
+          for (int g = 0; g < GF; ++g)
             s[k][g] += __shfl_xor_sync(kFull, s[k][g], o);
 #pragma unroll
       for (int k = 0; k < KC; ++k)
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < GF; ++g) {
           float v = s[k][g];
           if (softcap > 0.f) v = softcap * tanhf(v / softcap) * kLog2e;
           s[k][g] = ok[k] ? v : kNegInf;
@@ -458,7 +471,7 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
       // one max per head over the chunk and the warp's lane segments,
       // one rescale of the running output; s becomes the probabilities
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GF; ++g) {
         float cm = s[0][g];
 #pragma unroll
         for (int k = 1; k < KC; ++k) cm = fmaxf(cm, s[k][g]);
@@ -489,7 +502,7 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
         Row8<PT>::load(v_s + row[k] * Dh + d0, nd, vf);
         const float vs = kQuant ? sc[KT + row[k]] : 1.f;
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < GF; ++g) {
           const float pv = s[k][g] * vs;
 #pragma unroll
           for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
@@ -505,7 +518,7 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
 #pragma unroll
   for (int o = L; o < 32; o <<= 1)
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GF; ++g) {
       l[g] += __shfl_xor_sync(kFull, l[g], o);
 #pragma unroll
       for (int e = 0; e < 8; ++e)
@@ -519,7 +532,7 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
   float* wf = wml + kWarps * Gr * 2;             // [g][warp] weights
   float* wsum = wf + Gr * kWarps;                // [g][M, sum]
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GF; ++g) {
     if (g >= Gr) break;
     if (grp == 0)
 #pragma unroll
@@ -554,14 +567,15 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
       o = fmaf(wf[g * kWarps + w], wacc[(w * Gr + g) * Dh + d], o);
     const float lsum = wsum[2 * g + 1];
     if (n_splits > 1) {
-      const size_t prow = (bh * n_splits + split) * Gr + g;
+      const size_t prow = (bh * n_splits + split) * G + g0 + g;
       part_o[prow * Dh + d] = o;
       if (d == 0) {
         part_ml[2 * prow] = wsum[2 * g];
         part_ml[2 * prow + 1] = lsum;
       }
     } else {
-      store(o / (lsum == 0.f ? 1.f : lsum), out + bh * Gr * Dh + e);
+      store(o / (lsum == 0.f ? 1.f : lsum),
+            out + (bh * G + g0) * Dh + e);
     }
   }
 }
@@ -569,29 +583,32 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<PT, G>()))
 // Merges the splits of one (row, head): o = sum_s 2^(m_s - M) acc_s /
 // sum_s 2^(m_s - M) l_s with M the largest m_s; an empty row gives 0. CTA
 // (h, b, z) owns elements [256 z, 256 z + 256) of the row's G x Dh output,
-// one a thread; warp w finds M, the sum and each split's weight for the
-// w-th head those elements touch, once, and the threads add the splits in
-// order.
+// one a thread; those elements touch nh heads (at most 8 for G <= 8, up to
+// 256 / Dh + 1 above), and warp w finds M, the sum and each split's weight
+// for heads w, w + 8, ... of them, once; the weights of as many splits as
+// the shared buffer holds for nh heads are staged at a time, and the
+// threads add the splits in order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_merge_kernel(const float* __restrict__ part_o,
                               const float* __restrict__ part_ml,
                               T* __restrict__ out, int Hkv, int G, int Dh,
                               int n_splits) {
-  __shared__ float w_s[kMaxG][kMergeChunk];
-  __shared__ float inv_s[kMaxG];
+  __shared__ float w_s[kMaxG * kMergeChunk];
+  __shared__ float mx_s[kThreads + 1], inv_s[kThreads + 1];
   const size_t bh = static_cast<size_t>(blockIdx.y) * Hkv + blockIdx.x;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int GD = G * Dh;
   const int e0 = blockIdx.z * kThreads, e = e0 + tid;
   const int g_lo = e0 / Dh;
-  const int g_hi = min(G, (e0 + kThreads - 1) / Dh + 1);
-  const int gw = g_lo + warp;  // the head this warp weighs
+  const int nh = min(G, (e0 + kThreads - 1) / Dh + 1) - g_lo;
+  const int chunk = kMaxG * kMergeChunk / nh;  // splits staged per round
   const float* ml = part_ml + 2 * bh * n_splits * G;
   const float* po = part_o + bh * n_splits * GD;
 
-  float mx = kNegInf;
-  if (gw < g_hi) {
+  for (int gi = warp; gi < nh; gi += kWarps) {
+    const int gw = g_lo + gi;
+    float mx = kNegInf;
     for (int s = lane; s < n_splits; s += 32)
       mx = fmaxf(mx, ml[2 * (s * G + gw)]);
 #pragma unroll
@@ -605,21 +622,24 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       lsum += __shfl_xor_sync(kFull, lsum, o);
-    if (lane == 0) inv_s[warp] = lsum == 0.f ? 0.f : 1.f / lsum;
+    if (lane == 0) {
+      mx_s[gi] = mx;
+      inv_s[gi] = lsum == 0.f ? 0.f : 1.f / lsum;
+    }
   }
 
   float o = 0.f;
-  for (int c0 = 0; c0 < n_splits; c0 += kMergeChunk) {
-    const int nc = min(kMergeChunk, n_splits - c0);
-    __syncthreads();  // the previous chunk's weights are consumed
-    if (gw < g_hi)
+  for (int c0 = 0; c0 < n_splits; c0 += chunk) {
+    const int nc = min(chunk, n_splits - c0);
+    __syncthreads();  // the maxima are written; the last round consumed
+    for (int gi = warp; gi < nh; gi += kWarps)
       for (int s = lane; s < nc; s += 32) {
-        const float m = ml[2 * ((c0 + s) * G + gw)];
-        w_s[warp][s] = m > kNegInf / 2 ? exp2f(m - mx) : 0.f;
+        const float m = ml[2 * ((c0 + s) * G + g_lo + gi)];
+        w_s[gi * chunk + s] = m > kNegInf / 2 ? exp2f(m - mx_s[gi]) : 0.f;
       }
     __syncthreads();
     if (e < GD) {
-      const float* w = w_s[e / Dh - g_lo];
+      const float* w = w_s + (e / Dh - g_lo) * chunk;
       for (int s = 0; s < nc; ++s)
         o = fmaf(w[s], po[static_cast<size_t>(c0 + s) * GD + e], o);
     }
@@ -631,9 +651,11 @@ template <typename PT>
 plan::Dims split_dims(int B, int Hkv, int G, int Dh, int n_pages,
                       int keys_per_tile, int pages_per_split) {
   const int n_splits = (n_pages + pages_per_split - 1) / pages_per_split;
-  return {dim3(n_splits, Hkv, B), kThreads,
-          static_cast<size_t>(
-              layout<PT>(G, Dh, keys_per_tile, pages_per_split).total)};
+  const int n_chunks = (G + kMaxG - 1) / kMaxG;  // of 8 query heads
+  return {dim3(n_splits, Hkv * n_chunks, B), kThreads,
+          static_cast<size_t>(layout<PT>(G < kMaxG ? G : kMaxG, Dh,
+                                         keys_per_tile, pages_per_split)
+                                  .total)};
 }
 
 inline plan::Dims merge_dims(int B, int Hkv, int G, int Dh) {
@@ -730,6 +752,7 @@ template <typename T, typename PT>
 int launch(const Args& a, cudaStream_t stream) {
   const plan::Dims d = split_dims<PT>(a.B, a.Hkv, a.G, a.Dh, a.n_pages,
                                       a.keys_per_tile, a.pages_per_split);
+  // groups above 8 run the 8 form over chunks of 8 heads
   const int e = a.G <= 1   ? by_bucket<T, PT, 1>(a, d, stream)
                 : a.G <= 2 ? by_bucket<T, PT, 2>(a, d, stream)
                 : a.G <= 4 ? by_bucket<T, PT, 4>(a, d, stream)
@@ -752,7 +775,7 @@ int launch(const Args& a, cudaStream_t stream) {
 // part_o holds B*Hkv*n_splits*G*Dh floats and part_ml twice
 // B*Hkv*n_splits*G.
 // Preconditions (checked by the Python wrapper): contiguous tensors,
-// 16-byte aligned, G <= 8, Dh <= 256, Dh * sizeof(dtype) % 16 == 0,
+// 16-byte aligned, G >= 1, Dh <= 256, Dh * sizeof(dtype) % 16 == 0,
 // table entries in [-1, n_pool).
 // Returns cudaGetLastError() after the launches.
 extern "C" int paged_decode_attention(

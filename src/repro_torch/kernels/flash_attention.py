@@ -55,7 +55,10 @@ grouped query token over a paged KV cache.
   int8 scales). ``launch.split_plan`` runs a short table in one launch with
   the epilogue in the kernel, and cuts a long one into page ranges whose
   partial outputs a merge kernel combines in split order; no atomics, so a
-  result repeats bit for bit.
+  result repeats bit for bit. A group above 8 query heads a KV head
+  (granite-34b's 48) goes to ``paged_decode_attention_grouped_cuda``: the
+  same kernel with one CTA per chunk of 8 heads, each reading the KV
+  head's pages (ceil(G / 8) reads of them, the later ones mostly from L2).
 * ``paged_decode_attention`` — dispatches on the device of ``q``.
 
 Each takes ``k_scale``/``v_scale`` (both or neither): int8 pages with one
@@ -167,10 +170,10 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, scales, *,
             or v_pages.shape != k_pages.shape \
             or any(tuple(t.shape) != (n_pool, page_size) for t in scales) \
             or page_table.shape[0] != b or tuple(lengths.shape) != (b,) \
-            or g > 8 or dh > 256 or (dh * k_pages.element_size()) % 16 \
+            or g < 1 or dh > 256 or (dh * k_pages.element_size()) % 16 \
             or (dh * q.element_size()) % 16:
         raise ValueError(
-            f"{name}: shapes not taken: q {tuple(q.shape)} (G <= 8, Dh <= "
+            f"{name}: shapes not taken: q {tuple(q.shape)} (G >= 1, Dh <= "
             f"256 in whole 16-byte rows), pages {tuple(k_pages.shape)}, "
             f"table {tuple(page_table.shape)}, lengths "
             f"{tuple(lengths.shape)}")
@@ -229,14 +232,18 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
     of ``paged_decode_attention_plain``. ``page_table`` and ``lengths`` are
     int32 tensors on the device of ``q``; table entries must lie in
     ``[-1, P)``. With ``k_scale``/``v_scale`` the int8 kernel runs
-    (``paged_decode_attention_quant_cuda``). Raises on what the kernel does
-    not take."""
+    (``paged_decode_attention_quant_cuda``); a group above 8 query heads
+    runs the grouped form (``paged_decode_attention_grouped_cuda``). Raises
+    on what the kernel does not take."""
     _check_scales(k_scale, v_scale)
     kw = dict(window=window, softcap=softcap, scale=scale)
     if k_scale is not None:
         return paged_decode_attention_quant_cuda(
             q, k_pages, v_pages, page_table, lengths, k_scale=k_scale,
             v_scale=v_scale, **kw)
+    if _grouped(q):
+        return paged_decode_attention_grouped_cuda(
+            q, k_pages, v_pages, page_table, lengths, **kw)
     out = _launch("paged_decode_attention", q, k_pages, v_pages, page_table,
                   lengths, (), **kw)
     paged_decode_attention_cuda.launches += 1
@@ -251,7 +258,13 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, page_table,
                                       scale: Optional[float] = None):
     """Launch the int8-page kernel of ``csrc/paged_decode.cu``: q f32/bf16
     (B, Hkv, G, Dh), int8 pages (P, page, Hkv, Dh) with f32 scales
-    (P, page); otherwise the contract of ``paged_decode_attention_cuda``."""
+    (P, page); otherwise the contract of ``paged_decode_attention_cuda``
+    (a group above 8 query heads runs
+    ``paged_decode_attention_quant_grouped_cuda``)."""
+    if _grouped(q):
+        return paged_decode_attention_quant_grouped_cuda(
+            q, k_pages, v_pages, page_table, lengths, k_scale=k_scale,
+            v_scale=v_scale, window=window, softcap=softcap, scale=scale)
     out = _launch("paged_decode_attention_quant", q, k_pages, v_pages,
                   page_table, lengths, (k_scale, v_scale), window=window,
                   softcap=softcap, scale=scale)
@@ -259,8 +272,53 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, page_table,
     return out
 
 
+def _grouped(q) -> bool:
+    """Whether q (B, Hkv, G, Dh) has more query heads a KV head than one
+    CTA holds, so that the grouped form runs."""
+    return q.dim() == 4 and q.shape[2] > launch.PAGED_MAX_G
+
+
+def _check_grouped(name: str, q) -> None:
+    if not _grouped(q):
+        raise ValueError(f"{name}: the grouped form takes groups above "
+                         f"{launch.PAGED_MAX_G} query heads, q "
+                         f"{tuple(q.shape)}")
+
+
+def paged_decode_attention_grouped_cuda(q, k_pages, v_pages, page_table,
+                                        lengths, *,
+                                        window: Optional[int] = None,
+                                        softcap: Optional[float] = None,
+                                        scale: Optional[float] = None):
+    """The grouped form of ``csrc/paged_decode.cu`` for G above 8 (q (B,
+    Hkv, G, Dh)): the split kernel's 8-head form on CTAs (split, (h,
+    chunk), b), one per chunk of 8 query heads, the last chunk masked;
+    otherwise the contract of ``paged_decode_attention_cuda``."""
+    _check_grouped("paged_decode_attention_grouped", q)
+    out = _launch("paged_decode_attention", q, k_pages, v_pages, page_table,
+                  lengths, (), window=window, softcap=softcap, scale=scale)
+    paged_decode_attention_grouped_cuda.launches += 1
+    return out
+
+
+def paged_decode_attention_quant_grouped_cuda(
+        q, k_pages, v_pages, page_table, lengths, *, k_scale: torch.Tensor,
+        v_scale: torch.Tensor, window: Optional[int] = None,
+        softcap: Optional[float] = None, scale: Optional[float] = None):
+    """The grouped form over int8 pages (f32 per-token scales (P, page));
+    otherwise the contract of ``paged_decode_attention_grouped_cuda``."""
+    _check_grouped("paged_decode_attention_quant_grouped", q)
+    out = _launch("paged_decode_attention_quant", q, k_pages, v_pages,
+                  page_table, lengths, (k_scale, v_scale), window=window,
+                  softcap=softcap, scale=scale)
+    paged_decode_attention_quant_grouped_cuda.launches += 1
+    return out
+
+
 paged_decode_attention_cuda.launches = 0
 paged_decode_attention_quant_cuda.launches = 0
+paged_decode_attention_grouped_cuda.launches = 0
+paged_decode_attention_quant_grouped_cuda.launches = 0
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,

@@ -1499,10 +1499,13 @@ _PAGED_STAGES = 4            # K/V tiles in the ring at most (kMaxStages)
 _PAGED_RING_BYTES = 98304    # its shared memory at most (kRingBytes)
 _PAGED_TILE_BYTES = 16384    # bytes of K a tile holds at most
 _PAGED_MAX_PPS = 1024        # page-table entries a CTA holds at most
+# query heads a CTA holds (kMaxG); a larger group runs in chunks of 8 over
+# grid y, the grouped form
+PAGED_MAX_G = 8
 # the split rule (measured with tools/time_decode.py --splits on the H100):
 # a row of at most _PAGED_ONE_LAUNCH_TILES tiles of table runs in one
 # launch; a longer one in splits of whole tiles until the (row, head,
-# split) CTAs number _PAGED_WAVES per SM
+# chunk of 8 query heads, split) CTAs number _PAGED_WAVES per SM
 _PAGED_ONE_LAUNCH_TILES = 8
 _PAGED_WAVES = 2
 
@@ -1512,11 +1515,17 @@ def paged_bucket(dh: int) -> int:
     return 64 if dh <= 64 else 128 if dh <= 128 else 256
 
 
+def paged_chunks(g: int) -> int:
+    """Chunks of 8 query heads a group runs in: one CTA each per (row, KV
+    head, split)."""
+    return _ceil(g, PAGED_MAX_G)
+
+
 def paged_tile(g: int, dh: int, page_size: int, page_itemsize: int) -> int:
     """Keys per tile of the paged-decode kernel: one softmax chunk of
     every consumer warp (8 warps x the keys a warp step covers, 256 /
-    bucket, x 4 slots, 2 from G 4 up), at most ``_PAGED_TILE_BYTES`` of K,
-    in whole pages (at least one)."""
+    bucket, x 4 slots, 2 from G 4 up, groups above 8 as the 8 form), at
+    most ``_PAGED_TILE_BYTES`` of K, in whole pages (at least one)."""
     keys = _PAGED_WARPS * (256 // paged_bucket(dh)) * (4 if g <= 2 else 2)
     keys = min(keys, _PAGED_TILE_BYTES // (dh * page_itemsize))
     return max(1, keys // page_size) * page_size
@@ -1530,15 +1539,16 @@ def split_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
     decode step that waits on the host. So a row whose table holds at most
     ``_PAGED_ONE_LAUNCH_TILES`` tiles (the serving runs' 10-page tables)
     runs in one launch with the epilogue in the kernel; a longer row is cut
-    into contiguous ranges of whole tiles until the (row, head, split) CTAs
-    number ``_PAGED_WAVES`` per SM. A CTA holds at most
-    ``_PAGED_MAX_PPS`` page-table entries."""
+    into contiguous ranges of whole tiles until the (row, KV head, chunk
+    of 8 query heads, split) CTAs number ``_PAGED_WAVES`` per SM. A CTA
+    holds at most ``_PAGED_MAX_PPS`` page-table entries."""
     kt = paged_tile(g, dh, page_size, page_itemsize)
     tile_pages = kt // page_size
     n_tiles = _ceil(n_pages, tile_pages)
     splits = 1
     if n_tiles > _PAGED_ONE_LAUNCH_TILES:
-        splits = min(n_tiles, _ceil(_PAGED_WAVES * n_sm, max(b * hkv, 1)))
+        splits = min(n_tiles, _ceil(_PAGED_WAVES * n_sm,
+                                    max(b * hkv * paged_chunks(g), 1)))
     tiles_per_split = min(_ceil(n_tiles, splits),
                           max(1, _PAGED_MAX_PPS // tile_pages))
     pps = tiles_per_split * tile_pages
@@ -1552,9 +1562,10 @@ def paged_smem(g: int, dh: int, keys_per_tile: int, pages_per_split: int,
     least one),
     reused for the warps' states, then q in the Dh bucket, the stages'
     full and empty mbarriers and key-visible bytes, and the CTA's page
-    ids."""
+    ids; for at most 8 heads (a CTA's chunk of a larger group)."""
     def r16(n):
         return _ceil(n, 16) * 16
+    g = min(g, PAGED_MAX_G)
     kt = keys_per_tile
     stage = _ceil(2 * kt * dh * page_itemsize + 8 * kt * int(quant), 128) \
         * 128
@@ -1571,12 +1582,13 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
                       n_pages: int, pool: int, dtype: str, *, quant: bool,
                       window: Optional[int], n_sm: int) -> LaunchPlan:
     """The plan of ``paged_decode_attention`` (``quant``: int8 pages with
-    f32 per-token scales): CTA (s, h, b) reads row b's page-table entries
-    [s pps, (s + 1) pps), then each mapped page of them that lies in its
-    visible range, KV head h; with more than one split it writes
-    unnormalised partial outputs with their running max and sum, and the
-    merge kernel's CTA (h, b, z) combines them in split order for 256
-    output elements of the row's G x Dh."""
+    f32 per-token scales): CTA (s, h * nc + c, b), nc = ceil(G / 8), reads
+    row b's page-table entries [s pps, (s + 1) pps), then each mapped page
+    of them that lies in its visible range, KV head h, for query heads
+    [8c, min(G, 8c + 8)); with more than one split it writes unnormalised
+    partial outputs with their running max and sum, and the merge kernel's
+    CTA (h, b, z) combines them in split order for 256 output elements of
+    the row's G x Dh."""
     size = _itemsize(dtype)
     psize = 1 if quant else size
     kt, pps, n_splits = split_plan(b, hkv, g, dh, page_size, n_pages, psize,
@@ -1594,20 +1606,30 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
         buffers["k_scale"] = Buffer((pool, page_size), 4, "in")
         buffers["v_scale"] = Buffer((pool, page_size), 4, "in")
 
+    nc = paged_chunks(g)
+
+    def heads(c):
+        """(KV head, first query head, one past the last) of CTAs c."""
+        h, g0 = c[:, 1] // nc, c[:, 1] % nc * PAGED_MAX_G
+        return h, g0, np.minimum(g0 + PAGED_MAX_G, g)
+
     def split_writes(c):
-        s, h, r = c[:, 0], c[:, 1], c[:, 2]
+        s, r = c[:, 0], c[:, 2]
+        h, g0, g1 = heads(c)
         n = len(c)
         if n_splits == 1:
-            return [_box("out", n, (r, r + 1), (h, h + 1), (0, g * dh))]
+            return [_box("out", n, (r, r + 1), (h, h + 1),
+                         (g0 * dh, g1 * dh))]
         part = ((r, r + 1), (h, h + 1), (s, s + 1))
-        return [_box("part_o", n, *part, (0, g * dh)),
-                _box("part_ml", n, *part, (0, g), (0, 2))]
+        return [_box("part_o", n, *part, (g0 * dh, g1 * dh)),
+                _box("part_ml", n, *part, (g0, g1), (0, 2))]
 
     def split_reads(c, pats):
-        s, h, r = c[:, 0], c[:, 1], c[:, 2]
+        s, r = c[:, 0], c[:, 2]
+        h, g0, g1 = heads(c)
         n = len(c)
         table, lengths = pats["page_table"], pats["lengths"]
-        out = [_box("q", n, (r, r + 1), (h, h + 1), (0, g), (0, dh)),
+        out = [_box("q", n, (r, r + 1), (h, h + 1), (g0, g1), (0, dh)),
                _box("lengths", n, (r, r + 1))]
         ln = lengths[np.minimum(r, len(lengths) - 1)].astype(np.int64)
         lo = np.maximum(0, ln - window) if window is not None \
@@ -1639,7 +1661,7 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
              ("Dh bytes", dh * psize, 16, False),
              ("n_pages", n_pages, pps, True))
     split = Launch(
-        kernel="paged_decode_kernel", grid=(n_splits, hkv, b),
+        kernel="paged_decode_kernel", grid=(n_splits, hkv * nc, b),
         threads=_PAGED_THREADS,
         smem=paged_smem(g, dh, kt, pps, psize, quant),
         writes=split_writes, reads=split_reads, fan_in=n_splits,

@@ -4,10 +4,23 @@
 
 runs random-init weights (from ``--seed``) at the full configuration on the
 card; without ``--full`` it serves the smoke configuration. ``--device cpu``
-runs the plain versions of the kernels on the CPU. ``--arch
-granite_moe_1b_a400m`` is accepted, but its published expert capacity
-(``capacity_factor`` 1.25) is not dropless, so the engine refuses it; the
-JAX CLI falls back to its dense-cache loop there, which is not ported.
+runs the plain versions of the kernels on the CPU. The model is built in
+its compute dtype (bf16 at full width: the values of an f32 build cast
+once), so ``--full`` serves on one 80 GB card
+
+* ``--arch gemma3_4b``: ~2.8 B parameters, ~5.6 GB;
+* ``--arch gemma2_9b``: alternating 4096-window and global layers,
+  attention softcap 50 and final softcap 30, ~6.5 B parameters, ~13 GB;
+* ``--arch qwen2_7b``: QKV bias, untied head, 7 query heads a KV head, its
+  FFN patterns dense at full width (coprime block counts), ~7.6 B, ~15 GB;
+* ``--arch granite_34b``: 88 layers, 48 query heads over one KV head (the
+  grouped form of the paged decode kernel), untied head, ~29.5 B, ~59 GB
+  (its f32 parameters, ~118 GB, would not fit).
+
+``--arch granite_moe_1b_a400m`` is accepted, but its published expert
+capacity (``capacity_factor`` 1.25) is not dropless, so the engine refuses
+it; the JAX CLI falls back to its dense-cache loop there, which is not
+ported.
 """
 from __future__ import annotations
 
@@ -75,6 +88,7 @@ def main():
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=not args.full)
+    cfg = cfg.with_(param_dtype=cfg.dtype)  # what the engine serves in
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = LM(cfg, device=device, generator=gen)
     rng = np.random.default_rng(args.seed)

@@ -32,7 +32,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, dtype_of, param_dtype_of
-from .layers import Embedding, RMSNorm
+from .layers import Embedding, Linear, RMSNorm
 from .transformer import TransformerBlock
 
 # weight of each MoE aux value in the loss, as in the JAX package
@@ -62,13 +62,15 @@ def layer_seeds(kinds: Tuple[str, ...]) -> List[int]:
 
 
 class LM(nn.Module):
-    """Decoder-only token LM with the tied embedding head."""
+    """Decoder-only token LM. With ``tie_embeddings`` the logits are
+    ``h @ embed.table^T``; without, a dense ``head`` ``Linear(d_model,
+    vocab_size)`` without bias in the parameter dtype computes them (the
+    JAX ``LM.head``), its product a ``torch.matmul`` as the JAX package's
+    is an XLA dot. The final softcap applies to either."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("the port serves tied-head models only")
         self.cfg = cfg
         pd = param_dtype_of(cfg)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, pd, device,
@@ -79,6 +81,9 @@ class LM(nn.Module):
                              generator=generator)
             for kind, seed in zip(kinds, layer_seeds(kinds)))
         self.ln_f = RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)
+        self.head = None if cfg.tie_embeddings else Linear(
+            cfg.d_model, cfg.vocab_size, dtype=pd, device=device,
+            generator=generator)
 
     def init_paged_cache(self, total_pages: int, page_size: int,
                          dtype: Optional[torch.dtype] = None,
@@ -107,7 +112,7 @@ class LM(nn.Module):
         return [pool() for _ in self.layers]
 
     def logits_fn(self, h: torch.Tensor) -> torch.Tensor:
-        logits = self.embed.attend(h)
+        logits = self.embed.attend(h) if self.head is None else self.head(h)
         cap = self.cfg.final_softcap
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)

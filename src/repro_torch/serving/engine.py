@@ -10,9 +10,13 @@ plain versions.
 
 At load the engine moves the model to its device and compute dtype once
 (bf16 for the full configs): the JAX ``Linear`` casts its f32 weight on
-every call, which here would triple the bytes each junction reads. The
-allocator stays on the host; each step sends the page table, the positions
-and the valid counts to the device.
+every call, which here would triple the bytes each junction reads. It moves
+and casts one part at a time (the embedding, each layer, the final norm,
+the head), so that a model given on the host never lies on the card whole
+in its parameter dtype: granite-34b's f32 parameters (~118 GB) would not
+fit an 80 GB card, its bf16 ones do. The allocator stays on the host; each
+step sends the page table, the positions and the valid counts to the
+device.
 
 int8 serving (``EngineConfig.quant``, or the model's
 ``SparsityConfig.quant`` when that is None): with ``weights`` every sparse
@@ -59,6 +63,25 @@ class EngineConfig:
     quant: Optional[QuantConfig] = None
 
 
+def load(model, device: torch.device, dtype: torch.dtype, *,
+          quantize: bool = False):
+    """``model`` on ``device`` in ``dtype``, one part at a time: each of
+    its top-level modules (and each layer of a ``ModuleList``) is moved to
+    the device, its sparse junctions quantized from the weights as given
+    when ``quantize`` is set (the scales stay f32 through the cast), then
+    cast. Returns ``model``, changed in place."""
+    parts = []
+    for child in model.children():
+        parts += list(child) if isinstance(child, torch.nn.ModuleList) \
+            else [child]
+    for part in parts:
+        part.to(device=device)
+        if quantize:
+            quantize_model(part)
+        part.to(dtype=dtype)
+    return model.to(device=device, dtype=dtype)
+
+
 class ServingEngine:
     """Continuous-batching engine: add requests any time, call ``step()``
     (or ``run()``) and collect finished generations."""
@@ -80,10 +103,8 @@ class ServingEngine:
         self.device = resolve_device(device)
         qc = cfg.quant if cfg.quant is not None else mc.sparsity.quant
         self.quant = qc
-        model = model.to(device=self.device)
-        if qc is not None and qc.weights:
-            quantize_model(model)  # the scales stay f32 through the cast
-        self.model = model.to(dtype=dtype_of(mc))
+        self.model = model = load(model, self.device, dtype_of(mc),
+                                  quantize=qc is not None and qc.weights)
         self.config = cfg
         self.seed = seed
         self.sched = Scheduler(

@@ -313,6 +313,92 @@ def test_paged_decode_split_nan_filled_repeatable(cuda_device, dh, quant,
     assert (first[2] == 0).all()
 
 
+# (G, Dh, page size) of the grouped form (groups above 8 query heads, one
+# CTA per chunk of 8): granite-34b's 48 at Dh 128, a group of 12 (a last
+# chunk of 4), 9 (a last chunk of one head) at Dh 64 and 256; at Dh 16 a
+# merge CTA's 256 output elements span more than 8 heads
+GROUPED_GEOMETRIES = [(48, 128, 16), (12, 128, 16), (9, 64, 8),
+                      (12, 256, 32), (9, 16, 8), (48, 16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["pages", "int8"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (70, 50.0)])
+@pytest.mark.parametrize("table_keys", PAGED_TABLE_KEYS)
+@pytest.mark.parametrize("g,dh,page", GROUPED_GEOMETRIES)
+def test_paged_decode_grouped_cuda_matches_plain(cuda_device, g, dh, page,
+                                                 table_keys, window,
+                                                 softcap, quant, dtype, tol):
+    """The grouped form through ``paged_decode_attention_cuda`` (it routes
+    G above 8 there, one launch counted on the grouped wrapper), in one
+    launch and in splits, against the plain version."""
+    from repro_torch.serving.kv_cache import quantize_kv
+    case = _paged_case(b=4, hkv=1 if g == 48 else 2, g=g, dh=dh, page=page,
+                       table_keys=table_keys, window=window)
+    q = _t(case[0]).to(cuda_device, dtype)
+    kw = dict(window=window, softcap=softcap)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(_t(case[1])), quantize_kv(
+            _t(case[2]))
+        kp, vp = kp.to(cuda_device), vp.to(cuda_device)
+        kw.update(k_scale=ks.to(cuda_device), v_scale=vs.to(cuda_device))
+        counter = flash_attention.paged_decode_attention_quant_grouped_cuda
+    else:
+        kp, vp = (_t(a).to(cuda_device, dtype) for a in case[1:3])
+        counter = flash_attention.paged_decode_attention_grouped_cuda
+    table, lengths = (_t(a).to(cuda_device) for a in case[3:])
+    n0 = counter.launches
+    got = flash_attention.paged_decode_attention_cuda(q, kp, vp, table,
+                                                      lengths, **kw)
+    ref = flash_attention.paged_decode_attention_plain(q, kp, vp, table,
+                                                       lengths, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu(), ref.float().cpu(),
+                               atol=tol, rtol=tol)
+    assert (got[2] == 0).all()  # the empty row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("g", [12, 48])
+def test_paged_decode_grouped_nan_filled_repeatable(cuda_device, g, quant,
+                                                    nan_outputs):
+    """The grouped form at a shape the split rule cuts, into NaN-filled
+    outputs and partials: every element written by its chunk's CTA,
+    within tolerance of plain, two runs bit-equal."""
+    from repro_torch.analysis.capture import capture_launch
+    from repro_torch.serving.kv_cache import quantize_kv
+    q, kp, vp, table, lengths = _paged_case(hkv=1, g=g, dh=128,
+                                            table_keys=1040, window=300)
+    q = _t(q).to(cuda_device, torch.bfloat16)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(_t(kp)), quantize_kv(_t(vp))
+        kw = dict(k_scale=ks.to(cuda_device), v_scale=vs.to(cuda_device))
+        kp, vp = kp.to(cuda_device), vp.to(cuda_device)
+    else:
+        kw = {}
+        kp, vp = (_t(a).to(cuda_device, torch.bfloat16) for a in (kp, vp))
+    table, lengths = (_t(a).to(cuda_device) for a in (table, lengths))
+    kw.update(window=300, softcap=50.0)
+    args = (q, kp, vp, table, lengths)
+    plan = capture_launch(flash_attention.paged_decode_attention_cuda,
+                          *args, **kw)
+    assert plan.n_splits > 1 and plan.launches[0].grid[1] == -(-g // 8)
+    first, second = (flash_attention.paged_decode_attention_cuda(*args, **kw)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    ref = flash_attention.paged_decode_attention_plain(*args, **kw)
+    assert not bool(torch.isnan(first).any())
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+    np.testing.assert_allclose(first.float().cpu(), ref.float().cpu(),
+                               atol=1e-2, rtol=1e-2)
+    assert (first[2] == 0).all()
+
+
 # ---------------------------------------------------------------------------
 # the expert-batched (MoE) forward kernels, full width and int8
 # ---------------------------------------------------------------------------

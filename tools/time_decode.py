@@ -6,12 +6,16 @@
 
 Times TPU kernels #2 and #8b (``paged_decode_attention_cuda`` over bf16
 pages and over int8 pages with per-token scales, q in bf16) through the
-wrapper, as a caller would call it, from one seed, at gemma3-4b's heads
-(Hkv 4, G 2, Dh 256; windowed layers at window 1024) and
-granite-moe-1b-a400m's (Hkv 8, G 2, Dh 64), page 16, at three shapes:
+wrapper, as a caller would call it, from one seed, at the heads of
+``chip_smoke.PAGED_SHAPES``: gemma3-4b's (Hkv 4, G 2, Dh 256; windowed
+layers at window 1024), granite-moe-1b-a400m's (Hkv 8, G 2, Dh 64),
+gemma2-9b's (Hkv 8, G 2, Dh 256, window 4096, softcap 50), qwen2-7b's (Hkv
+4, G 7, Dh 128), granite-34b's (Hkv 1, G 48, Dh 128: the grouped form) and
+a group of 12 (Hkv 4, Dh 128), page 16, at three shapes:
 
 - ``phase4``: ``chip_smoke.py`` phases 4 and 4b (B 4, lengths [1100, 517,
-  0, 1040], a 72-page table; gemma3 with and without its window);
+  0, 1040], a 72-page table; gemma3 with and without its window; gemma2's
+  rows [4160, 517, 0, 4097] past its window, a 300-page table);
 - ``serving``: a decode step of the serving runs (B 4, lengths 97-160, a
   10-page table);
 - ``long``: B 4 rows of 8192 keys (a 512-page table, no window).
@@ -31,9 +35,11 @@ split. Each record carries the rule's own pick (``rule_pps``).
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON
 record per case: device µs per call (``chip_smoke.bench``: behind a sleep
-kernel), the bound (``chip_smoke.paged_bound``: bytes), the share of the
-bound reached, SDPA over the gathered KV as ``library_us`` (the gather
-made outside the timed call), the plan's split and the version's label.
+kernel), the plain version's (``plain_us``), the bound
+(``chip_smoke.paged_bound``: bytes), the share of the bound reached, SDPA
+over the gathered KV with ``enable_gqa`` as ``library_us`` (the gather
+made outside the timed call; no softcap), the plan's split and the
+version's label.
 """
 from __future__ import annotations
 
@@ -46,9 +52,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# (model, Hkv, Dh, windows)
-MODELS = (("gemma3-4b", 4, 256, (None, 1024)),
-          ("granite-moe-1b-a400m", 8, 64, (None,)))
 SERVING_LENGTHS, SERVING_PAGES = (150, 97, 128, 160), 10
 LONG_LENGTHS, LONG_PAGES = (8192,) * 4, 512
 
@@ -58,6 +61,14 @@ def shapes():
     yield "phase4", None, None, lambda w: w
     yield "serving", SERVING_LENGTHS, SERVING_PAGES, lambda w: (None,)
     yield "long", LONG_LENGTHS, LONG_PAGES, lambda w: (None,)
+
+
+def models(cs):
+    """(model, Hkv, G, Dh, windows, softcap, phase-4 lengths and table
+    pages) of ``chip_smoke.PAGED_SHAPES``."""
+    for model, hkv, grp, dh, windows, cap, lens, pages in cs.PAGED_SHAPES:
+        yield model, hkv, grp, dh, windows, cap, dict(lengths=lens,
+                                                      n_pages=pages)
 
 
 @contextlib.contextmanager
@@ -119,12 +130,13 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
     bf16 = torch.bfloat16
     for shape, lengths, n_pages, windows_of in shapes():
-        geo = {} if lengths is None else dict(lengths=lengths,
-                                               n_pages=n_pages)
-        for model, hkv, dh, windows in MODELS:
+        for model, hkv, grp, dh, windows, cap, p4 in models(cs):
+            geo = p4 if lengths is None else dict(lengths=lengths,
+                                                  n_pages=n_pages)
             for window in windows_of(windows):
                 q, kp, vp, table, lens = cs.paged_inputs(
-                    dev, torch.float32, window, gen, hkv, dh, **geo)
+                    dev, torch.float32, window, gen, hkv, dh, grp=grp,
+                    **geo)
                 q = q.to(bf16)
                 for kind in ("bfloat16", "int8"):
                     if kind == "int8":
@@ -137,13 +149,17 @@ def main(argv=None) -> int:
                              for _ in range(cs.copies_for(nbytes))]
 
                     def kw_of(p):
-                        kw = dict(window=window)
+                        kw = dict(window=window, softcap=cap)
                         if len(p) == 4:
                             kw.update(k_scale=p[2], v_scale=p[3])
                         return kw
 
                     def call(p):
                         return fa.paged_decode_attention_cuda(
+                            q, p[0], p[1], table, lens, **kw_of(p))
+
+                    def plain(p):
+                        return fa.paged_decode_attention_plain(
                             q, p[0], p[1], table, lens, **kw_of(p))
 
                     def split_of(p):
@@ -153,14 +169,17 @@ def main(argv=None) -> int:
                     sdpa, visible = cs.paged_yardstick(
                         q, pages[0], pages[1], table, lens, window, scales)
                     lib_ms, _ = cs.bench([sdpa], args.iters)
+                    plain_ms, _ = cs.bench([lambda p=p: plain(p)
+                                            for p in pools[:2]], 10)
                     bound_ms, bound_by = cs.paged_bound(
                         q, table, lens, visible, kind == "int8")
                     rule = split_of(pools[0])
                     base = dict(label=args.label, shape=shape, model=model,
-                                kind=kind, hkv=hkv, dh=dh, window=window,
+                                kind=kind, hkv=hkv, g=grp, dh=dh,
+                                window=window, softcap=cap,
                                 b=len(lens), n_pages=table.shape[1],
                                 visible=visible, bound_us=bound_ms * 1e3,
-                                bound_by=bound_by,
+                                bound_by=bound_by, plain_us=plain_ms * 1e3,
                                 library_us=lib_ms * 1e3)
                     forced = [(None, None)]
                     if args.splits:
