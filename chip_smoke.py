@@ -13,9 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and flash-attention libraries' SASS (none fails the run), and the HMMA
    (mma.sync) and LDGSTS (cp.async) instructions of the forward's wgmma
    body (bf16 and int8 weights) and the bf16 flash-attention kernels (any
-   fails it); read every paged decode kernel form's and every form of the
-   int8 forward's decode body's registers per thread from the compiler's
-   ``-Xptxas -v`` log (any spill fails the run);
+   fails it); read every paged decode kernel form's (the CUDA-core
+   ``paged_decode_kernel`` and the tensor-core ``paged_decode_mma_kernel``,
+   which must be there) and every form of the int8 forward's decode body's
+   registers per thread from the compiler's ``-Xptxas -v`` log (any spill
+   fails the run);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
    bf16) and at the dense decoders' (gemma2-9b, qwen2-7b, granite-34b:
@@ -29,17 +31,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    yardstick, and again at granite-moe-1b-a400m's heads (Hkv = 8, G = 2,
    Dh = 64, no window), gemma2-9b's (Hkv 8, G 2, Dh 256, softcap 50,
    window 4096 over rows past it), qwen2-7b's (Hkv 4, G 7, Dh 128),
-   granite-34b's (Hkv 1, G 48, Dh 128) and a group of 12: the last two on
-   the grouped form, whose launches its own wrapper counts; each record
-   names the split its plan takes (keys per tile, pages per split,
-   launches);
+   granite-34b's (Hkv 1, G 48, Dh 128) and a group of 12: in bf16 these
+   three run the tensor-core form (``paged_decode_mma_kernel``), in f32
+   the CUDA-core form, and a case that runs another split kernel than
+   ``launch.paged_rule`` gives fails; the last two count on the grouped
+   wrapper; each record names the split kernel and the split its plan
+   takes (keys per tile, pages per split, launches);
 4b. the int8 serving kernels against their plain versions: the int8
    ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (M 4, 16, 32,
    64, 128 and 256, f32 and bf16, with and without the gelu epilogue; the yardstick a
    ``torch.matmul`` on the densified, dequantized slab; each record names
    the body its plan runs, its tile and its cluster), and paged decode
    over int8 pages at phase 4's cases (the yardstick SDPA over the
-   gathered, dequantized KV), timed like phase 3;
+   gathered, dequantized KV; bf16 q at G 7, 12 and 48 on the tensor-core
+   form), timed like phase 3;
 3c. the expert-batched forward kernels against their plain versions at
    granite-moe-1b-a400m's serving shapes (32 experts, C = 4 and 256 rows
    each; up/gate 1024 -> 512 in 128 x 256 blocks at fan-in 4, down 512 ->
@@ -125,7 +130,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5h. serve granite-34b at full width and depth (88 layers), its parameters
    built in bf16 (in f32 they would not fit the card): 264 junction
    launches and 88 launches of the grouped paged decode a decode step;
-   each model is freed before the next;
+   each model is freed before the next; in every serving phase each paged
+   decode launch, of the run and of the checked decode step, must be of
+   the split kernel ``launch.paged_rule`` gives the model (the tensor-core
+   form for qwen2-7b and granite-34b);
 6. hold the training kernels against their plain versions at gemma3-4b's
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
@@ -181,8 +189,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Then hold every Python launch plan the run launched, and every lint
    case's, against its library's ``<name>_plan``; launch every lint case
    (each kernel family at demo and full-width shapes, the small-block forms
-   at the paper MLP's and the smoke configurations' shapes) twice into
-   NaN-filled outputs (nothing unwritten, runs bit-equal); and time TPU
+   at the paper MLP's and the smoke configurations' shapes, both forms of
+   the paged decode's split kernel) twice into NaN-filled outputs
+   (nothing unwritten, runs bit-equal); and time TPU
    kernel #9's counterpart (``csd_spmm_fwd_injected_alias``) at the demo
    shape beside the shipped forward, its error above 10x the forward's f32
    tolerance while the shipped forward at the same split passes;
@@ -407,8 +416,13 @@ def kernel_registers(source: str, match: str, what: str) -> dict:
 
 def paged_registers() -> dict:
     """Every form of the paged decode kernels
-    (``paged_decode_kernel<T, PT, G, bucket>`` and the merge)."""
-    return kernel_registers("paged_decode", "paged_decode", "paged decode")
+    (``paged_decode_kernel<T, PT, G, bucket>``, the tensor-core
+    ``paged_decode_mma_kernel<PT, row tiles, Dh>`` and the merge); fails
+    if a spill or no tensor-core form is found."""
+    rec = kernel_registers("paged_decode", "paged_decode", "paged decode")
+    if not any("paged_decode_mma_kernel" in k for k in rec):
+        fail("no paged_decode_mma_kernel in the paged decode library")
+    return rec
 
 
 def stream_registers() -> dict:
@@ -537,9 +551,10 @@ GEMMA2_LENGTHS, GEMMA2_PAGES = (4160, 517, 0, 4097), 300
 # (model, Hkv, G, Dh, windows, softcap, lengths, table pages):
 # gemma3-4b's heads (5 of 6 layers windowed), granite-moe-1b-a400m's (all
 # global), gemma2-9b's (alternating 4096 window, softcap 50, rows crossing
-# the window), qwen2-7b's (a group of 7: the 8 form, its last row masked),
-# granite-34b's (48 query heads over one KV head: the grouped form, 6
-# chunks of 8) and a group of 12 (the grouped form, a last chunk of 4)
+# the window), qwen2-7b's (a group of 7), granite-34b's (48 query heads
+# over one KV head) and a group of 12: from G 5 in bf16 the tensor-core
+# form (one row tile for 7 and 12, three for 48); in f32 the CUDA-core
+# form (7 as its 8 form with a row masked, 12 and 48 in chunks of 8)
 PAGED_SHAPES = (
     ("gemma3-4b", 4, 2, 256, (None, 1024), None, PAGED_LENGTHS, PAGED_PAGES),
     ("granite-moe-1b-a400m", 8, 2, 64, (None,), None, PAGED_LENGTHS,
@@ -672,6 +687,20 @@ def run_paged(device, results):
         if not ok:
             fail(f"paged_decode_attention disagrees with its plain "
                  f"version: {rec}")
+        check_paged_form(rec, grp, dh, dtype_name, False)
+
+
+def check_paged_form(rec: dict, grp: int, dh: int, dtype_name: str,
+                     quant: bool) -> None:
+    """Fail unless a phase 4/4b case ran the split kernel the form rule
+    gives it: the tensor-core form for bf16 q with G0 (5) to 48 query
+    heads a KV head, the CUDA-core form for the rest (G 1, 2, 4 and f32)."""
+    from repro_torch.kernels import launch
+    want = "paged_decode_mma_kernel" if launch.paged_rule(
+        grp, dh, 16, dtype_name, quant) == "mma" else "paged_decode_kernel"
+    if rec["split_kernel"] != want:
+        fail(f"a paged decode case ran {rec['split_kernel']}, the rule "
+             f"gives {want}: {rec}")
 
 
 def paged_counter(fa, grp: int, quant: bool):
@@ -684,13 +713,14 @@ def paged_counter(fa, grp: int, quant: bool):
 
 def paged_split(fn, *args, **kw) -> dict:
     """The split the paged-decode wrapper ``fn`` plans for these operands
-    on this card (captured, not launched): keys per tile, pages per split,
-    splits and launches."""
+    on this card (captured, not launched): the split kernel (its form),
+    keys per tile, pages per split, splits and launches."""
     from repro_torch.analysis.capture import capture_launch
     from repro_torch.kernels import launch
     plan = capture_launch(fn, *args, n_sm=launch.sm_count(args[0].device),
                           **kw)
-    return dict(keys_per_tile=plan.args["keys_per_tile"],
+    return dict(split_kernel=plan.launches[0].kernel,
+                keys_per_tile=plan.args["keys_per_tile"],
                 pages_per_split=plan.args["pages_per_split"],
                 n_splits=plan.n_splits, n_launches=len(plan.launches))
 
@@ -852,6 +882,7 @@ def run_paged_quant(device, results):
         if not ok:
             fail(f"int8 paged_decode_attention disagrees with its plain "
                  f"version: {rec}")
+        check_paged_form(rec, grp, dh, dtype_name, True)
         del pools, sdpa
 
 
@@ -1705,6 +1736,7 @@ def serve(model, device, out_dir, quant=None,
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = launch_counts()
+    forms = paged_form_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     outs = [eng.outputs[i] for i in range(len(prompts))]
     toks = np.stack(outs)
@@ -1718,7 +1750,8 @@ def serve(model, device, out_dir, quant=None,
                tok_per_s=gen_total / (t_end - t_start),
                decode_tok_per_s=(gen_total - gen_at) / (t_end - t_prefilled),
                ttft_s=[ttft[i] for i in range(len(prompts))],
-               peak_mem_gb=peak_gb, launches=launches, **resident_bytes(eng))
+               peak_mem_gb=peak_gb, launches=launches,
+               paged_forms=forms, **resident_bytes(eng))
     log(json.dumps(rec))
     if toks.shape != (len(prompts), n_new) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
@@ -1736,6 +1769,10 @@ def serve(model, device, out_dir, quant=None,
         if launches[name] != 0:
             fail(f"the {tag} served run launched {name} {launches[name]} "
                  f"times")
+    form = paged_form_of(cfg, quant)
+    if forms != {k: launches[want[1]] if k == form else 0 for k in forms}:
+        fail(f"the {tag} served run's paged decode ran {forms}, the rule "
+             f"gives {form} for all {launches[want[1]]}")
 
     # the decode step after the prefill drain, run from one cache state with
     # the kernels and with their plain versions
@@ -1763,6 +1800,7 @@ def serve(model, device, out_dir, quant=None,
     reset_launch_counts()
     logits_k, plans = launched_plans(run_step)
     per_step = {k: v for k, v in launch_counts().items() if v}
+    forms_per_step = paged_form_counts()
     with plain_versions():
         logits_p = run_step()
     torch.cuda.synchronize()
@@ -1772,13 +1810,19 @@ def serve(model, device, out_dir, quant=None,
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    # how far below the plain top logit the kernels' pick lies (0 where the
+    # two agree): a flip within max_abs_err is a near-tie
+    gap = float((lp.max(-1).values
+                 - lp.gather(-1, lk.argmax(-1, keepdim=True))[:, 0]).max())
     chk_rec = dict(check=f"{cfg.name} {tag} decode logits after the "
                          f"prefill drain, kernels vs plain versions",
                    rows=len(rows), seq_lens=seq_lens, window=cfg.attn_window,
                    max_abs_err=err, max_abs_logit=scale,
                    tol=LOGIT_TOL * scale, argmax_agreement=agree,
+                   argmax_gap=gap,
                    finite=bool(torch.isfinite(lk).all()),
-                   launches_per_decode_step=per_step)
+                   launches_per_decode_step=per_step,
+                   paged_forms_per_decode_step=forms_per_step)
     if quant is not None:
         chk_rec["int8_junction_bodies"] = check_int8_decode_body(plans, tag)
     log(json.dumps(chk_rec))
@@ -1791,6 +1835,9 @@ def serve(model, device, out_dir, quant=None,
     expect = {want[0]: 3 * cfg.n_layers, want[1]: cfg.n_layers}
     if per_step != expect:
         fail(f"{tag} decode step launched {per_step}, expected {expect}")
+    if forms_per_step[form] != cfg.n_layers:
+        fail(f"{tag} decode step's paged decode ran {forms_per_step}, "
+             f"expected {cfg.n_layers} of {form}")
     return rec, chk_rec, profile_decode(
         model, prompts, n_new, device, out_dir, quant, trace=trace,
         knobs=knobs), toks, prompts
@@ -2575,8 +2622,29 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
+    from repro_torch.kernels import flash_attention
     for k in ALL_KERNELS:
         wrapper(k).launches = 0
+    for k in flash_attention.PAGED_FORM_LAUNCHES:
+        flash_attention.PAGED_FORM_LAUNCHES[k] = 0
+
+
+def paged_form_counts() -> dict:
+    """The paged decode wrappers' launches by split kernel (the
+    CUDA-core ``paged_decode_kernel``, the tensor-core
+    ``paged_decode_mma_kernel``) since the last ``reset_launch_counts``."""
+    from repro_torch.kernels import flash_attention
+    return dict(flash_attention.PAGED_FORM_LAUNCHES)
+
+
+def paged_form_of(cfg, quant) -> str:
+    """The split kernel ``launch.paged_rule`` gives ``cfg``'s paged decode
+    (bf16 q; int8 pages with ``quant``)."""
+    from repro_torch.kernels import launch
+    form = launch.paged_rule(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                             16, "bfloat16", quant is not None)
+    return "paged_decode_mma_kernel" if form == "mma" \
+        else "paged_decode_kernel"
 
 
 def train_launches_per_step(cfg) -> dict:
@@ -3024,8 +3092,9 @@ def nan_coverage(device) -> dict:
             t.fill_(float("nan"))
         real(plan, buffers, call)
         written.append((plan.name, outs))
+        kernels.add(plan.launches[0].kernel)
 
-    checked, cases = 0, grid_pass.kernel_cases()
+    checked, cases, kernels = 0, grid_pass.kernel_cases(), set()
     launch.run = nan_run
     try:
         for i, case in enumerate(cases):
@@ -3049,8 +3118,11 @@ def nan_coverage(device) -> dict:
     finally:
         launch.run = real
     rec = dict(check="NaN-filled outputs, two runs", cases=len(cases),
-               buffers=checked)
+               buffers=checked, kernels=sorted(kernels))
     log(json.dumps(rec))
+    missing = {"paged_decode_kernel", "paged_decode_mma_kernel"} - kernels
+    if missing:
+        fail(f"the NaN runs launched no {sorted(missing)}")
     return rec
 
 
@@ -3409,7 +3481,9 @@ def main() -> int:
             launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            shape=shape, **({"body": rec["body"]} if "body" in rec else {})))
+            shape=shape, **({"body": rec["body"]} if "body" in rec else {}),
+            **({"split_kernel": rec["split_kernel"]}
+               if "split_kernel" in rec else {})))
     # the small-block forms at the Table I junction's batch, f32, with
     # their launches in the paper MLP's training runs (phase 3e, the three
     # configurations summed) and in the smoke configurations' (phase 3f)
@@ -3463,10 +3537,11 @@ def main() -> int:
         shape="lint self-test: x (256, 512) f32, w (4, 2, 128, 128), "
               "2 fan-in splits storing into y; launches counted around "
               "the lint phase (serving and training paths: 0)"))
-    # the grouped form of paged decode (G above 8): granite-34b's decode
-    # (phase 5h) over bf16 pages; over int8 pages no serving phase runs it
-    # (granite-34b is served in bf16), so its launches are the lint's
-    # (its dispatch pass steps granite-34b's int8 decode on the card)
+    # paged decode above G 8 (the tensor-core form at granite-34b's 48
+    # heads): granite-34b's decode (phase 5h) over bf16 pages; over int8
+    # pages no serving phase runs it (granite-34b is served in bf16), so
+    # its launches are the lint's (its dispatch pass steps granite-34b's
+    # int8 decode on the card)
     for name, lrec, where in (
             ("paged_decode_attention_grouped", dense["5h"][0],
              "phase 5h (granite-34b served, bf16)"),
@@ -3482,10 +3557,11 @@ def main() -> int:
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            split_kernel=rec["split_kernel"],
             shape=f"q (4, 1, 48, 128) bf16, "
                   f"{'int8' if 'quant' in name else 'bf16'} pages, page 16, "
-                  f"lengths [1100, 517, 0, 1040]; 6 chunks of 8 query "
-                  f"heads"))
+                  f"lengths [1100, 517, 0, 1040]; the tensor-core form, "
+                  f"3 row tiles of 16 query heads"))
     # the dense decoders' serving launches of the forms they share with
     # the earlier models
     for e in entries:
@@ -3494,6 +3570,15 @@ def main() -> int:
                          "paged_decode_attention_quant"):
             e["launches_serve_dense"] = sum(
                 v[0]["launches"][e["name"]] for v in dense.values())
+    # the tensor-core form's launches in the serving runs (qwen2-7b's G 7
+    # on paged_decode_attention, granite-34b's 48 on the grouped wrapper)
+    for e in entries:
+        if e["name"].startswith("paged_decode_attention"):
+            e["launches_serve_mma"] = sum(
+                r["paged_forms"]["paged_decode_mma_kernel"]
+                for r in [serve_rec, q_serve_rec, g_serve_rec, gq_serve_rec]
+                + [v[0] for v in dense.values()]
+                if r["launches"][e["name"]])
     entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
     next(e for e in entries if e["name"] == "csd_spmm_fwd_batched")[
         "launches_train"] = g_train_rec["launches"]["csd_spmm_fwd_batched"]

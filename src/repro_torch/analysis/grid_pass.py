@@ -535,7 +535,8 @@ def demo_cases() -> List[KernelCase]:
     1000 rows of three experts over 64 x 64 blocks (64-column tiles); the
     bf16 int8 forward's stream body at M 5 (a cluster of 2) and 40 rows of
     three experts, its wgmma body at 300 rows of three experts over 64 x
-    64 blocks."""
+    64 blocks; the paged decode's tensor-core form over 12-key pages and
+    over int8 pages in splits."""
     bp = _demo_pattern()
     bp64 = _demo_pattern(block_in=64, block_out=64, n_lb=4, n_rb=6)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -583,6 +584,14 @@ def demo_cases() -> List[KernelCase]:
                     quant=False),
         _paged_case("paged_decode_attention_quant", 2, 2, 64, bf16,
                     lengths=(19, 10), n_pages=4, page=8, window=None,
+                    quant=True),
+        # the tensor-core form: 12-key pages (its cp.async copies) under a
+        # window in one launch; 48 heads over int8 pages in splits
+        _paged_case("paged_decode_attention_mma", 2, 12, 64, bf16,
+                    lengths=(150, 37, 0), n_pages=16, page=12, window=100,
+                    quant=False),
+        _paged_case("paged_decode_attention_quant_mma", 1, 48, 128, bf16,
+                    lengths=(600, 3), n_pages=40, page=16, window=None,
                     quant=True),
     ]
 
@@ -710,6 +719,8 @@ def full_width_cases() -> List[KernelCase]:
 # gemma2-9b's paged rows: one past its 4096 window (the 4,160-token request
 # of chip_smoke.py phase 5e), 300-page tables
 GEMMA2_LENGTHS, GEMMA2_PAGES = (4160, 517, 0, 4097), 300
+# long context: 4 rows of 8192 keys, 512-page tables
+LONG_LENGTHS, LONG_PAGES = (8192,) * 4, 512
 
 
 def dense_decoder_cases() -> List[KernelCase]:
@@ -717,8 +728,9 @@ def dense_decoder_cases() -> List[KernelCase]:
     qwen2-7b's and granite-34b's FFN junctions at full width (bf16; gemma2
     also int8, as it is served), and their paged decode: gemma2's G 2 at
     Dh 256 over rows past its window, qwen2's G 7 at Dh 128, granite-34b's
-    48 query heads over one KV head and a group of 12 (the grouped form),
-    bf16 and int8 pages."""
+    48 query heads over one KV head (also at 4 x 8192 keys) and a group of
+    12 (the tensor-core form from G 5), bf16 and int8 pages; the group of
+    12 also under f32 q (the chunked CUDA-core form)."""
     from ..configs import get_config
     bf16 = torch.bfloat16
     cases = []
@@ -758,7 +770,17 @@ def dense_decoder_cases() -> List[KernelCase]:
                         page=PAGE, window=None, quant=quant),
             _paged_case(f"g12/decode/paged{q}", 4, 12, 128, bf16,
                         lengths=PAGED_LENGTHS, n_pages=PAGED_PAGES,
-                        page=PAGE, window=None, quant=quant)]
+                        page=PAGE, window=None, quant=quant),
+            _paged_case(f"granite_34b/long/paged{q}",
+                        *heads["granite_34b"], bf16, lengths=LONG_LENGTHS,
+                        n_pages=LONG_PAGES, page=PAGE, window=None,
+                        quant=quant),
+            # f32 q keeps the chunked CUDA-core form (a CTA per chunk of 8
+            # query heads) above G 8
+            _paged_case(f"g12/decode/paged{q}_f32", 4, 12, 128,
+                        torch.float32, lengths=PAGED_LENGTHS,
+                        n_pages=PAGED_PAGES, page=PAGE, window=None,
+                        quant=quant)]
     return cases
 
 

@@ -47,18 +47,23 @@ grouped query token over a paged KV cache.
 * ``paged_decode_attention_cuda`` — the hand-written Hopper kernel
   ``csrc/paged_decode.cu``. What bounds it on the H100 is latency at
   serving lengths (a few hundred keys a row: the launch and the chain
-  lengths -> page table -> K/V) and bytes at long context. Its design: a
-  split kernel templated on the group size and a head-dim bucket, so its
-  registers fit the shape and several CTAs share an SM; Dh / 8 lanes a key,
-  so a warp step covers several keys at small Dh; one softmax max and
-  rescale per chunk of keys; a 3-stage ``cp.async`` ring of K/V tiles (and
-  int8 scales). ``launch.split_plan`` runs a short table in one launch with
-  the epilogue in the kernel, and cuts a long one into page ranges whose
-  partial outputs a merge kernel combines in split order; no atomics, so a
-  result repeats bit for bit. A group above 8 query heads a KV head
-  (granite-34b's 48) goes to ``paged_decode_attention_grouped_cuda``: the
-  same kernel with one CTA per chunk of 8 heads, each reading the KV
-  head's pages (ceil(G / 8) reads of them, the later ones mostly from L2).
+  lengths -> page table -> K/V) and bytes at long context. It has two
+  forms of its split kernel, picked by ``launch.paged_rule`` (the source's
+  ``mma_rule``). The tensor-core form (``paged_decode_mma_kernel``) takes
+  bf16 q over bf16 or int8 pages with 5 to 48 query heads a KV head
+  (qwen2-7b's 7, granite-34b's 48): the group's query rows are the rows of
+  ``mma.sync`` tiles, one CTA per (split, KV head, row) reads each page of
+  its range once, P is rounded to bf16 for P.V. The CUDA-core form
+  (``paged_decode_kernel``) takes the rest (groups of 1, 2 and 4, and f32):
+  templated on the group size and a head-dim bucket, Dh / 8 lanes a key,
+  one softmax max and rescale per chunk of keys; above 8 heads (f32) one
+  CTA per chunk of 8 heads. Both fill a TMA ring of K/V tiles (and int8
+  scales) from one warp. ``launch.split_plan`` / ``mma_split_plan`` run a
+  short table in one launch with the epilogue in the kernel, and cut a
+  long one into page ranges whose partial outputs a merge kernel combines
+  in split order; no atomics, so a result repeats bit for bit. A group
+  above 8 query heads a KV head is counted on
+  ``paged_decode_attention_grouped_cuda``.
 * ``paged_decode_attention`` — dispatches on the device of ``q``.
 
 Each takes ``k_scale``/``v_scale`` (both or neither): int8 pages with one
@@ -212,13 +217,15 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, scales, *,
             + [page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                None if part_o is None else part_o.data_ptr(),
                None if part_ml is None else part_ml.data_ptr()]
-        return _bind("paged_decode", name, len(ptrs), 10)(
+        return _bind("paged_decode", name, len(ptrs), 11)(
             *ptrs, b, hkv, g, dh, page_size, n_pages, n_pool, keys_per_tile,
             pages_per_split, -1 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), float(scale),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+            plan.args["form"], 0.0 if softcap is None else float(softcap),
+            float(scale), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
 
     launch.run(plan, buffers, call)
+    PAGED_FORM_LAUNCHES[split.kernel] += 1
     return out
 
 
@@ -290,10 +297,11 @@ def paged_decode_attention_grouped_cuda(q, k_pages, v_pages, page_table,
                                         window: Optional[int] = None,
                                         softcap: Optional[float] = None,
                                         scale: Optional[float] = None):
-    """The grouped form of ``csrc/paged_decode.cu`` for G above 8 (q (B,
-    Hkv, G, Dh)): the split kernel's 8-head form on CTAs (split, (h,
-    chunk), b), one per chunk of 8 query heads, the last chunk masked;
-    otherwise the contract of ``paged_decode_attention_cuda``."""
+    """``csrc/paged_decode.cu`` for G above 8 (q (B, Hkv, G, Dh)): the
+    tensor-core form up to 48 heads over bf16 pages (``launch.paged_rule``),
+    else the CUDA-core form's 8-head form on CTAs (split, (h, chunk), b),
+    one per chunk of 8 query heads, the last chunk masked; otherwise the
+    contract of ``paged_decode_attention_cuda``."""
     _check_grouped("paged_decode_attention_grouped", q)
     out = _launch("paged_decode_attention", q, k_pages, v_pages, page_table,
                   lengths, (), window=window, softcap=softcap, scale=scale)
@@ -305,7 +313,7 @@ def paged_decode_attention_quant_grouped_cuda(
         q, k_pages, v_pages, page_table, lengths, *, k_scale: torch.Tensor,
         v_scale: torch.Tensor, window: Optional[int] = None,
         softcap: Optional[float] = None, scale: Optional[float] = None):
-    """The grouped form over int8 pages (f32 per-token scales (P, page));
+    """G above 8 over int8 pages (f32 per-token scales (P, page));
     otherwise the contract of ``paged_decode_attention_grouped_cuda``."""
     _check_grouped("paged_decode_attention_quant_grouped", q)
     out = _launch("paged_decode_attention_quant", q, k_pages, v_pages,
@@ -319,6 +327,11 @@ paged_decode_attention_cuda.launches = 0
 paged_decode_attention_quant_cuda.launches = 0
 paged_decode_attention_grouped_cuda.launches = 0
 paged_decode_attention_quant_grouped_cuda.launches = 0
+# the paged decode wrappers' launches by the split kernel's form (the
+# CUDA-core ``paged_decode_kernel``, the tensor-core
+# ``paged_decode_mma_kernel``), counted where they launch
+PAGED_FORM_LAUNCHES = {"paged_decode_kernel": 0,
+                       "paged_decode_mma_kernel": 0}
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,

@@ -26,13 +26,15 @@ exports a ``<name>_plan`` function that fills grid, threads and shared
 memory from the host code its launcher uses; ``chip_smoke.py`` holds every
 plan against it on the card. The shared-memory formulas below are those of
 the sources' tile structs (``Tile``, ``QTile``, ``FwdRing``, ``DxRing``,
-``DwRing``, ``F32Tile``, ``smem_bytes``, ``Layout``, ``Tiles``).
+``DwRing``, ``F32Tile``, ``smem_bytes``, ``Layout``, ``MmaLayout``,
+``Tiles``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -1499,8 +1501,8 @@ _PAGED_STAGES = 4            # K/V tiles in the ring at most (kMaxStages)
 _PAGED_RING_BYTES = 98304    # its shared memory at most (kRingBytes)
 _PAGED_TILE_BYTES = 16384    # bytes of K a tile holds at most
 _PAGED_MAX_PPS = 1024        # page-table entries a CTA holds at most
-# query heads a CTA holds (kMaxG); a larger group runs in chunks of 8 over
-# grid y, the grouped form
+# query heads a CTA of the CUDA-core form holds (kMaxG); a larger group
+# runs there in chunks of 8 over grid y
 PAGED_MAX_G = 8
 # the split rule (measured with tools/time_decode.py --splits on the H100):
 # a row of at most _PAGED_ONE_LAUNCH_TILES tiles of table runs in one
@@ -1508,6 +1510,26 @@ PAGED_MAX_G = 8
 # chunk of 8 query heads, split) CTAs number _PAGED_WAVES per SM
 _PAGED_ONE_LAUNCH_TILES = 8
 _PAGED_WAVES = 2
+
+# the tensor-core form (paged_decode_mma_kernel; the source's mma_rule):
+# bf16 q over bf16 or int8 pages, G0 to 48 query heads a KV head as the
+# rows of up to 3 mma tiles, whole 128-byte rows of K and V, one CTA per
+# (split, KV head, row) for the whole group
+PAGED_MMA_MIN_G = 5            # G0 (kMmaMinG)
+PAGED_MMA_MAX_G = 48           # 3 row tiles of 16 heads (kMmaMaxMT)
+_PAGED_MMA_TILE_KEYS = 64      # keys a tile at least (kMmaTileKeys)
+_PAGED_MMA_STAGE_BYTES = 65536  # K and V of a tile at most (kMmaStageBytes)
+_PAGED_MMA_RING_BYTES = 98304  # the ring, at least 2 stages (kMmaRingBytes)
+# its split rule (measured with tools/time_decode.py --splits on the H100):
+# a row of at most _PAGED_MMA_ONE_LAUNCH_TILES tiles runs in one launch, in
+# one tile where the shared memory holds two stages of it; a longer one in
+# splits of whole tiles until the (row, KV head, split) CTAs
+# number _PAGED_MMA_WAVES per SM for a CTA of 4 warps (one row tile), one
+# per SM for the larger CTAs (which an SM's registers hold one of)
+_PAGED_MMA_ONE_LAUNCH_TILES = 4
+_PAGED_MMA_WAVES = 2
+PAGED_FORMS = ("cores", "mma")  # the form codes of the sources: 0, 1
+_FORCED_FORM: List[Optional[str]] = [None]
 
 
 def paged_bucket(dh: int) -> int:
@@ -1529,6 +1551,127 @@ def paged_tile(g: int, dh: int, page_size: int, page_itemsize: int) -> int:
     keys = _PAGED_WARPS * (256 // paged_bucket(dh)) * (4 if g <= 2 else 2)
     keys = min(keys, _PAGED_TILE_BYTES // (dh * page_itemsize))
     return max(1, keys // page_size) * page_size
+
+
+def paged_mma_dh(dh: int, quant: bool) -> bool:
+    """Whether rows of ``dh`` values are whole 128-byte column blocks the
+    tensor-core form is built for (bf16 Dh 64, 128, 256; int8 128, 256)."""
+    return dh in (128, 256) or (dh == 64 and not quant)
+
+
+def paged_mma_tile(page_size: int) -> int:
+    """Keys a tile of the tensor-core form: 64 rounded up to whole pages
+    and 16-key chunks."""
+    lcm = 16 // math.gcd(16, page_size) * page_size
+    return _ceil(_PAGED_MMA_TILE_KEYS, lcm) * lcm
+
+
+def paged_mma_warps(g: int, dh: int) -> Tuple[int, int, int]:
+    """(row tiles, head-dim slices, key slices) of the tensor-core form's
+    warps: ceil(G / 16) row tiles; 2 slices of the output's head dims from
+    Dh 256; 4 key slices, 2 where row tiles x dim slices pass 3."""
+    mt, ds = _ceil(g, 16), 2 if dh > 128 else 1
+    return mt, ds, 4 if mt * ds <= 3 else 2
+
+
+def paged_mma_legal(g: int, dh: int, dtype: str, quant: bool) -> bool:
+    """Whether the tensor-core form can take the call when it is forced
+    (``mma_legal``): bf16 q, 1 to 48 heads, rows of whole 128-byte
+    blocks."""
+    return dtype == "bfloat16" and 1 <= g <= PAGED_MMA_MAX_G \
+        and paged_mma_dh(dh, quant)
+
+
+def paged_rule(g: int, dh: int, page_size: int, dtype: str,
+               quant: bool) -> str:
+    """The form a paged decode call runs (``mma_rule`` of
+    csrc/paged_decode.cu): ``"mma"``, the tensor-core form, for bf16 q over
+    bf16 or int8 pages with G0 (5) to 48 query heads a KV head, rows of
+    whole 128-byte blocks and a tile of K and V within 64 KiB; else
+    ``"cores"``: groups of 1, 2 and 4 (below SDPA on the H100 already),
+    f32 (its 2e-5 gate would not survive bf16 rounding of q or P) and
+    what the tensor-core form is not built for."""
+    itemsize = 1 if quant else 2
+    ok = dtype == "bfloat16" and PAGED_MMA_MIN_G <= g <= PAGED_MMA_MAX_G \
+        and paged_mma_dh(dh, quant) \
+        and 2 * paged_mma_tile(page_size) * dh * itemsize \
+        <= _PAGED_MMA_STAGE_BYTES
+    return "mma" if ok else "cores"
+
+
+@contextlib.contextmanager
+def forced_paged_form(form: Optional[str]):
+    """Inside, paged decode plans run ``form`` (``"cores"`` or ``"mma"``;
+    None: the rule's), passed to the library as its form code. For the
+    tests and the timing tools."""
+    if form is not None and form not in PAGED_FORMS:
+        raise ValueError(f"no paged decode form {form!r}")
+    old, _FORCED_FORM[0] = _FORCED_FORM[0], form
+    paged_decode_plan.cache_clear()
+    try:
+        yield
+    finally:
+        _FORCED_FORM[0] = old
+        paged_decode_plan.cache_clear()
+
+
+def mma_split_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
+                   n_pages: int, page_itemsize: int, n_sm: int) -> tuple:
+    """(keys per tile, pages per split, splits) of the tensor-core form:
+    ``split_plan``'s rule over its own tiles and CTAs (one per row, KV
+    head and split; no chunks of the group): one launch up to
+    ``_PAGED_MMA_ONE_LAUNCH_TILES`` tiles of table, there the whole table
+    in one tile where two stages of it fit the shared memory (the serving
+    runs' short tables: each warp's chunks in one round of the ring);
+    else
+    contiguous ranges of whole tiles until the CTAs number
+    ``_PAGED_MMA_WAVES`` per SM where a CTA is 4 warps, one per SM where it
+    is larger, a CTA holding at most ``_PAGED_MAX_PPS`` page-table
+    entries."""
+    kt = paged_mma_tile(page_size)
+    tile_pages = kt // page_size
+    n_tiles = _ceil(n_pages, tile_pages)
+    splits = 1
+    if n_tiles <= _PAGED_MMA_ONE_LAUNCH_TILES:
+        for k in range(n_tiles, 1, -1):  # the whole table in one tile
+            if paged_mma_smem(g, dh, k * kt, k * tile_pages, page_itemsize,
+                              page_itemsize == 1) <= SMEM_OPTIN:
+                kt, tile_pages = k * kt, k * tile_pages
+                break
+        n_tiles = _ceil(n_pages, tile_pages)
+    else:
+        waves = _PAGED_MMA_WAVES if np.prod(paged_mma_warps(g, dh)) == 4 \
+            else 1
+        splits = min(n_tiles, _ceil(waves * n_sm, max(b * hkv, 1)))
+    tiles_per_split = min(_ceil(n_tiles, splits),
+                          max(1, _PAGED_MAX_PPS // tile_pages))
+    pps = tiles_per_split * tile_pages
+    return kt, pps, _ceil(n_pages, pps)
+
+
+def paged_mma_smem(g: int, dh: int, keys_per_tile: int,
+                   pages_per_split: int, page_itemsize: int,
+                   quant: bool) -> int:
+    """``mma_layout(...).total`` of csrc/paged_decode.cu: 1024 bytes of
+    alignment slack; the ring (1024-byte stages of a K and a V tile in
+    128-byte column blocks, and int8 scales; up to 4 within 96 KiB, at
+    least 2), reused for the key slices' outputs (rows of Dh floats and 8,
+    int8 16, of padding), maxima, sums and weights; q (16 rows a row tile,
+    Dh bf16 each padded by 16 bytes), the
+    mbarriers and key-visible bytes of 4 stages, and the page ids."""
+    def r16(n):
+        return _ceil(n, 16) * 16
+    mt, _, ks = paged_mma_warps(g, dh)
+    rows, kt = 16 * mt, keys_per_tile
+    kv = kt * dh * page_itemsize
+    stage = _ceil(2 * kv + 8 * kt * int(quant), 1024) * 1024
+    stages = min(_PAGED_STAGES, max(2, _PAGED_MMA_RING_BYTES // stage))
+    # the slices' output rows padded by 8 floats (int8: 16)
+    merge = 4 * (ks * rows * (dh + (16 if quant else 8)) + ks * rows * 2
+                 + rows * ks + 2 * rows)
+    bar = r16(max(stages * stage, merge)) + rows * (2 * dh + 16)
+    return r16(bar + 16 * _PAGED_STAGES + _PAGED_STAGES * kt) \
+        + 4 * pages_per_split + 1024
 
 
 def split_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
@@ -1582,17 +1725,26 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
                       n_pages: int, pool: int, dtype: str, *, quant: bool,
                       window: Optional[int], n_sm: int) -> LaunchPlan:
     """The plan of ``paged_decode_attention`` (``quant``: int8 pages with
-    f32 per-token scales): CTA (s, h * nc + c, b), nc = ceil(G / 8), reads
-    row b's page-table entries [s pps, (s + 1) pps), then each mapped page
-    of them that lies in its visible range, KV head h, for query heads
-    [8c, min(G, 8c + 8)); with more than one split it writes unnormalised
-    partial outputs with their running max and sum, and the merge kernel's
-    CTA (h, b, z) combines them in split order for 256 output elements of
-    the row's G x Dh."""
+    f32 per-token scales) in ``paged_rule``'s form, left to the library's
+    own rule, which must agree (inside ``forced_paged_form``, the forced
+    form, passed to the library). The CUDA-core form: CTA (s, h *
+    nc + c, b), nc = ceil(G / 8), reads row b's page-table entries [s pps,
+    (s + 1) pps), then each mapped page of them that lies in its visible
+    range, KV head h, for query heads [8c, min(G, 8c + 8)). The
+    tensor-core form: CTA (s, h, b) the same for the whole group. With more
+    than one split a CTA writes unnormalised partial outputs with their
+    running max and sum, and the merge kernel's CTA (h, b, z) combines them
+    in split order for 256 output elements of the row's G x Dh."""
     size = _itemsize(dtype)
     psize = 1 if quant else size
-    kt, pps, n_splits = split_plan(b, hkv, g, dh, page_size, n_pages, psize,
-                                   n_sm)
+    forced = _FORCED_FORM[0]
+    form = forced or paged_rule(g, dh, page_size, dtype, quant)
+    mma = form == "mma"
+    if forced == "mma" and not paged_mma_legal(g, dh, dtype, quant):
+        raise ValueError(f"the tensor-core form cannot take G {g}, Dh {dh} "
+                         f"of {dtype} (int8 pages: {quant})")
+    kt, pps, n_splits = (mma_split_plan if mma else split_plan)(
+        b, hkv, g, dh, page_size, n_pages, psize, n_sm)
     buffers = {
         "q": Buffer((b, hkv, g, dh), size, "in"),
         "k_pages": Buffer((pool, page_size, hkv, dh), psize, "in"),
@@ -1606,10 +1758,12 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
         buffers["k_scale"] = Buffer((pool, page_size), 4, "in")
         buffers["v_scale"] = Buffer((pool, page_size), 4, "in")
 
-    nc = paged_chunks(g)
+    nc = 1 if mma else paged_chunks(g)
 
     def heads(c):
         """(KV head, first query head, one past the last) of CTAs c."""
+        if mma:
+            return c[:, 1], np.zeros(len(c), np.int64), np.full(len(c), g)
         h, g0 = c[:, 1] // nc, c[:, 1] % nc * PAGED_MAX_G
         return h, g0, np.minimum(g0 + PAGED_MAX_G, g)
 
@@ -1658,12 +1812,19 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
         return out
 
     tiles = (("keys_per_tile", kt, page_size, False),
-             ("Dh bytes", dh * psize, 16, False),
+             ("Dh bytes", dh * psize, 128 if mma else 16, False),
              ("n_pages", n_pages, pps, True))
+    if mma:
+        tiles += (("keys_per_tile (16-key chunks)", kt, 16, False),)
+        kernel, threads = "paged_decode_mma_kernel", 32 * int(
+            np.prod(paged_mma_warps(g, dh)))
+        smem = paged_mma_smem(g, dh, kt, pps, psize, quant)
+    else:
+        kernel, threads = "paged_decode_kernel", _PAGED_THREADS
+        smem = paged_smem(g, dh, kt, pps, psize, quant)
     split = Launch(
-        kernel="paged_decode_kernel", grid=(n_splits, hkv * nc, b),
-        threads=_PAGED_THREADS,
-        smem=paged_smem(g, dh, kt, pps, psize, quant),
+        kernel=kernel, grid=(n_splits, hkv * nc, b), threads=threads,
+        smem=smem,
         writes=split_writes, reads=split_reads, fan_in=n_splits,
         fan_in_axis="x" if n_splits > 1 else "loop",
         slots=lambda c: (c[:, 0], c[:, 0] + 1), epilogue=n_splits == 1,
@@ -1672,7 +1833,8 @@ def paged_decode_plan(b: int, hkv: int, g: int, dh: int, page_size: int,
         else "paged_decode_attention"
     args = dict(B=b, Hkv=hkv, G=g, Dh=dh, page_size=page_size,
                 n_pages=n_pages, keys_per_tile=kt, pages_per_split=pps,
-                dtype=_code(dtype), quant=int(quant))
+                dtype=_code(dtype), quant=int(quant),
+                form=-1 if forced is None else PAGED_FORMS.index(form))
     if n_splits == 1:
         return LaunchPlan(name, buffers, (split,), 1, args)
     buffers["part_o"] = Buffer((b, hkv, n_splits, g * dh), 4, "scratch")
@@ -1944,7 +2106,7 @@ PLAN_EXPORTS = {
     "paged_decode_attention": (
         "paged_decode", "paged_decode_attention_plan",
         ("B", "Hkv", "G", "Dh", "page_size", "n_pages", "keys_per_tile",
-         "pages_per_split", "dtype", "quant")),
+         "pages_per_split", "dtype", "quant", "form")),
     "flash_attention_fwd": ("flash_attention", "flash_attention_plan",
                             ("B", "Sq", "Skv", "Hq", "Hkv", "Dh", "dtype",
                              "backward")),

@@ -371,6 +371,7 @@ def test_paged_decode_grouped_nan_filled_repeatable(cuda_device, g, quant,
     outputs and partials: every element written by its chunk's CTA,
     within tolerance of plain, two runs bit-equal."""
     from repro_torch.analysis.capture import capture_launch
+    from repro_torch.kernels import launch
     from repro_torch.serving.kv_cache import quantize_kv
     q, kp, vp, table, lengths = _paged_case(hkv=1, g=g, dh=128,
                                             table_keys=1040, window=300)
@@ -385,11 +386,14 @@ def test_paged_decode_grouped_nan_filled_repeatable(cuda_device, g, quant,
     table, lengths = (_t(a).to(cuda_device) for a in (table, lengths))
     kw.update(window=300, softcap=50.0)
     args = (q, kp, vp, table, lengths)
-    plan = capture_launch(flash_attention.paged_decode_attention_cuda,
-                          *args, **kw)
-    assert plan.n_splits > 1 and plan.launches[0].grid[1] == -(-g // 8)
-    first, second = (flash_attention.paged_decode_attention_cuda(*args, **kw)
-                     for _ in range(2))
+    # the chunked form (f32's, and bf16's where the tensor-core form does
+    # not take the case), forced over these bf16 q
+    with launch.forced_paged_form("cores"):
+        plan = capture_launch(flash_attention.paged_decode_attention_cuda,
+                              *args, **kw)
+        assert plan.n_splits > 1 and plan.launches[0].grid[1] == -(-g // 8)
+        first, second = (flash_attention.paged_decode_attention_cuda(
+            *args, **kw) for _ in range(2))
     torch.cuda.synchronize()
     ref = flash_attention.paged_decode_attention_plain(*args, **kw)
     assert not bool(torch.isnan(first).any())
@@ -1241,3 +1245,95 @@ def test_csd_spmm_quant_f32_grid_body_matches_plain(cuda_device, case):
            else csd_spmm.csd_spmm_fwd_plain)(x, q, idx, **kw)
     torch.cuda.synchronize()
     _quant_close(got, ref, torch.float32)
+
+
+# (G, Dh, page size) of the tensor-core form (bf16 q over bf16 or int8
+# pages, G 5 to 48): qwen2-7b's 7, a group of 12 and granite-34b's 48 at Dh
+# 128 with 16-key pages (TMA), 12-key pages (cp.async) and 32-key ones; G
+# 48 also at Dh 256 (two slices of the output's head dims)
+MMA_GEOMETRIES = [(7, 128, 16), (12, 128, 16), (48, 128, 16),
+                  (7, 128, 12), (48, 128, 12), (12, 128, 32),
+                  (48, 256, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (70, 50.0)])
+@pytest.mark.parametrize("table_keys", PAGED_TABLE_KEYS)
+@pytest.mark.parametrize("g,dh,page", MMA_GEOMETRIES)
+def test_paged_decode_mma_cuda_matches_plain(cuda_device, g, dh, page,
+                                             table_keys, window, softcap,
+                                             quant):
+    """The tensor-core form (``paged_decode_mma_kernel``, picked by the
+    rule) through ``paged_decode_attention_cuda`` in one launch and in
+    splits, bf16 q over bf16 or int8 pages, against the plain version at
+    the bf16 gate; the same call on the CUDA-core form forced agrees too."""
+    from repro_torch.kernels import launch
+    from repro_torch.serving.kv_cache import quantize_kv
+    case = _paged_case(b=4, hkv=1 if g == 48 else 2, g=g, dh=dh, page=page,
+                       table_keys=table_keys, window=window)
+    q = _t(case[0]).to(cuda_device, torch.bfloat16)
+    kw = dict(window=window, softcap=softcap)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(_t(case[1])), quantize_kv(
+            _t(case[2]))
+        kp, vp = kp.to(cuda_device), vp.to(cuda_device)
+        kw.update(k_scale=ks.to(cuda_device), v_scale=vs.to(cuda_device))
+    else:
+        kp, vp = (_t(a).to(cuda_device, torch.bfloat16) for a in case[1:3])
+    table, lengths = (_t(a).to(cuda_device) for a in case[3:])
+    forms = flash_attention.PAGED_FORM_LAUNCHES
+    n0 = forms["paged_decode_mma_kernel"]
+    got = flash_attention.paged_decode_attention_cuda(q, kp, vp, table,
+                                                      lengths, **kw)
+    with launch.forced_paged_form("cores"):
+        cores = flash_attention.paged_decode_attention_cuda(
+            q, kp, vp, table, lengths, **kw)
+    ref = flash_attention.paged_decode_attention_plain(q, kp, vp, table,
+                                                       lengths, **kw)
+    torch.cuda.synchronize()
+    assert forms["paged_decode_mma_kernel"] == n0 + 1
+    for out in (got, cores):
+        np.testing.assert_allclose(out.float().cpu(), ref.float().cpu(),
+                                   atol=1e-2, rtol=1e-2)
+    assert (got[2] == 0).all()  # the empty row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("g", [7, 12, 48])
+def test_paged_decode_mma_nan_filled_repeatable(cuda_device, g, quant,
+                                                nan_outputs):
+    """The tensor-core form at a shape the split rule cuts, into NaN-filled
+    outputs and partials: one CTA per (split, KV head, row) for the whole
+    group, every element written, within tolerance of plain, two runs
+    bit-equal."""
+    from repro_torch.analysis.capture import capture_launch
+    from repro_torch.serving.kv_cache import quantize_kv
+    q, kp, vp, table, lengths = _paged_case(hkv=2, g=g, dh=128,
+                                            table_keys=1040, window=300)
+    q = _t(q).to(cuda_device, torch.bfloat16)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(_t(kp)), quantize_kv(_t(vp))
+        kw = dict(k_scale=ks.to(cuda_device), v_scale=vs.to(cuda_device))
+        kp, vp = kp.to(cuda_device), vp.to(cuda_device)
+    else:
+        kw = {}
+        kp, vp = (_t(a).to(cuda_device, torch.bfloat16) for a in (kp, vp))
+    table, lengths = (_t(a).to(cuda_device) for a in (table, lengths))
+    kw.update(window=300, softcap=50.0)
+    args = (q, kp, vp, table, lengths)
+    plan = capture_launch(flash_attention.paged_decode_attention_cuda,
+                          *args, **kw)
+    split = plan.launches[0]
+    assert plan.n_splits > 1 and split.kernel == "paged_decode_mma_kernel"
+    assert split.grid == (plan.n_splits, 2, 4)
+    first, second = (flash_attention.paged_decode_attention_cuda(*args, **kw)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    ref = flash_attention.paged_decode_attention_plain(*args, **kw)
+    assert not bool(torch.isnan(first).any())
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+    np.testing.assert_allclose(first.float().cpu(), ref.float().cpu(),
+                               atol=1e-2, rtol=1e-2)
+    assert (first[2] == 0).all()
