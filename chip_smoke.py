@@ -15,9 +15,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    body (bf16 and int8 weights) and the bf16 flash-attention kernels (any
    fails it); read every paged decode kernel form's (the CUDA-core
    ``paged_decode_kernel`` and the tensor-core ``paged_decode_mma_kernel``,
-   which must be there) and every form of the int8 forward's decode body's
-   registers per thread from the compiler's ``-Xptxas -v`` log (any spill
-   fails the run);
+   which must be there), every form of the int8 forward's decode body's
+   and of the small-block gather kernel's registers per thread from the
+   compiler's ``-Xptxas -v`` log (any spill of the first two and of the
+   gather kernel's one-CTA int8 forms fails the run);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
    bf16) and at the dense decoders' (gemma2-9b, qwen2-7b, granite-34b:
@@ -66,7 +67,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    experts of 24 rows); each timed like phase 6, cycling through copies of
    the data inputs, with a dense ``torch.matmul`` (``torch.bmm``) as the
    yardstick; the mask kernel at the widths 100, 390 and 39 and past its
-   last whole chunk (77 x 39 bf16), equal element for element;
+   last whole chunk (77 x 39 bf16), equal element for element; then the
+   int8 small-block forward (``csd_spmm_fwd_quant_small``, the gather
+   kernel over an int8 slab with per-block scales) through the shipped
+   int8 wrappers at Table I's and CIFAR_MLP's junctions (256 and 8000
+   rows), TIMIT's two (256), the gemma3 smoke down junction at a decode
+   step's 4 rows and granite-moe's 8 smoke experts at 4 rows each, f32 and
+   bf16 x, at the int8 gates (f32 1e-4, bf16 1e-2 of max |plain|), the
+   yardstick the matmul over the dequantized dense slab;
 3e. train the paper's MLP (Table I's sparse column, Table II's MNIST_4J
    row d_out (80, 80, 80, 10), TIMIT at rho 0.2; block_gather at the
    published widths; ``synthetic_mnist(8000, 2000)``, TIMIT on
@@ -74,14 +82,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and with the plain versions (phase 7's f32 gates), two identical steps
    bit-equal, exact launches per step, 3 epochs of batch 256 through
    ``train_mlp`` with the kernels (every launch counted) and with the plain
-   versions, both test accuracies recorded;
+   versions, both test accuracies recorded; between the two, a copy of the
+   kernels' trained model quantized by ``quantize_model`` evaluated on the
+   test set with the kernels and the plain versions (logits within 1e-4 of
+   max |plain|, exactly one launch of the int8 small-block forward per
+   block junction and no other junction kernel), its int8 and f32 test
+   accuracies and the resident slab bytes (f32 against int8 plus scales)
+   recorded;
 3f. the LM smoke configurations (16 x 16 FFN and expert blocks): gemma3-4b's,
    gemma2-9b's, qwen2-7b's and granite-34b's served through
    ``launch.serve.generate`` and trained through ``launch.train.main``,
    granite-moe's trained, each again with the plain
    versions (losses and gradient norms compared; served first tokens
    equal and every served step's logits, teacher-forced, within 1e-4 of
-   the largest), exact training launches;
+   the largest), exact training launches; then the four served ones and
+   granite-moe's (at the dropless capacity factor 4.0: the 5-D form) served
+   again in int8 (``SparsityConfig.quant``: weights and KV), with the same
+   checks against the int8 plain versions (the logits of each step from
+   one cache state: over int8 KV pages two free-running caches may hold a
+   token quantized a level apart, recorded), the int8 small-block forward
+   launched and no other junction kernel (no f32 forward, no full-width
+   int8 body);
 5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
    vocab 262144; random weights from a seed; bf16) through
    ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
@@ -189,9 +210,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Then hold every Python launch plan the run launched, and every lint
    case's, against its library's ``<name>_plan``; launch every lint case
    (each kernel family at demo and full-width shapes, the small-block forms
-   at the paper MLP's and the smoke configurations' shapes, both forms of
-   the paged decode's split kernel) twice into NaN-filled outputs
-   (nothing unwritten, runs bit-equal); and time TPU
+   at the paper MLP's and the smoke configurations' shapes, their int8
+   forward among them, both forms of the paged decode's split kernel)
+   twice into NaN-filled outputs (nothing unwritten, runs bit-equal); and
+   time TPU
    kernel #9's counterpart (``csd_spmm_fwd_injected_alias``) at the demo
    shape beside the shipped forward, its error above 10x the forward's f32
    tolerance while the shipped forward at the same split passes;
@@ -384,10 +406,12 @@ def ptxas_functions(log: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
-def kernel_registers(source: str, match: str, what: str) -> dict:
+def kernel_registers(source: str, match: str, what: str,
+                     gated=None) -> dict:
     """Phase 2: registers per thread of every function of the library of
     ``csrc/<source>.cu`` whose name holds ``match``, read from its
-    compiler log; fails if any spills (``what`` names them)."""
+    compiler log; fails if any spills (``what`` names them), or with
+    ``gated`` any whose demangled name it accepts."""
     from repro_torch.kernels import build
     funcs = {k: v for k, v in ptxas_functions(
         build.compiler_log(source)).items() if match in k}
@@ -408,7 +432,8 @@ def kernel_registers(source: str, match: str, what: str) -> dict:
         rec[pretty] = dict(registers=funcs[name][0],
                            spill_bytes=funcs[name][1])
     log(json.dumps(dict(check=f"{what} registers", kernels=rec)))
-    spilled = {k: v for k, v in rec.items() if v["spill_bytes"]}
+    spilled = {k: v for k, v in rec.items() if v["spill_bytes"]
+               and (gated is None or gated(k))}
     if not rec or spilled:
         fail(f"{what} kernels spill (or none were found): {spilled}")
     return rec
@@ -430,6 +455,21 @@ def stream_registers() -> dict:
     (``csd_spmm_fwd_quant_stream_kernel<MT>``)."""
     return kernel_registers("csd_spmm_fwd_quant", "stream_kernel",
                             "int8 decode body")
+
+
+def small_registers() -> dict:
+    """Every instantiation of the small-block gather kernel
+    (``csd_spmm_small_gather_kernel<T, WT, DX, CW, KQ, OCC>``), recorded;
+    fails if one of its int8 forms built for one CTA an SM (WT ``signed
+    char``, OCC 1: the 4 x 4 product with a 16 x 4 slot's slab in
+    registers) spills. The two-CTA 4 x 4 forms spill a few words under
+    their 128 registers (f32 and int8 alike); forms that do not (the int8
+    slot's tile summed a half of the rows at a time) were slower (PERF.md,
+    section 6)."""
+    return kernel_registers(
+        "csd_spmm_small", "gather_kernel", "small-block gather",
+        gated=lambda name: "signed char" in name
+        and name.endswith("(int)1>"))
 
 
 # ---------------------------------------------------------------------------
@@ -1037,7 +1077,7 @@ def run_spmm_batched(cfg, device, results):
 # ---------------------------------------------------------------------------
 
 SMALL_KERNELS = ("csd_spmm_fwd_small", "csd_spmm_dx_small",
-                 "csd_spmm_dw_small")
+                 "csd_spmm_dw_small", "csd_spmm_fwd_quant_small")
 MLP_BATCH, MLP_FULL = 256, 8000  # train_mlp's batch; the training set
 SMOKE_DECODE_M = 4  # phase 3f's decode step: 4 slots
 SMALL_MAX_COPIES = 256  # of phase 3d's data inputs (<= 512 launches queued)
@@ -1054,10 +1094,16 @@ def small_junctions():
     gemma3-4b's gate (gelu fused with ``save_preact``; dx and dw through
     the gelu mask) and down at the training step's rows, both forwards at
     a decode step's 4 slots, and granite-moe's expert-batched up and down
-    at its 8 experts' training capacity. ``options``: ``experts``,
-    ``act``, ``bias``, ``preact``, ``bwd_act`` (dx and dw take the saved
-    output and the activation, as ``CsdMatmul`` launches them), ``ops``
-    and ``bf16`` (also run in bf16 at the batch)."""
+    at its 8 experts' training capacity. Then the int8 small-block forward
+    (``ops`` ``fwd_quant``) at the junctions the lint certifies for it, f32
+    and bf16 x: Table I's and CIFAR_MLP's at the batch and the training
+    set, TIMIT's two at the batch (as ``SparseMLP.logits`` runs them: relu
+    on the hidden one), the gemma3 smoke down junction at a decode step's 4
+    rows and granite-moe's 8 smoke experts at 4 rows each. ``options``:
+    ``experts``, ``act``, ``bias``, ``preact``, ``bwd_act`` (dx and dw take
+    the saved output and the activation, as ``CsdMatmul`` launches them),
+    ``ops``, ``bf16`` (also run in bf16 at the batch) and ``dtypes`` (run
+    in each of these at every row count)."""
     from repro_torch.configs import get_config
     from repro_torch.configs import paper_mlp as pm
     from repro_torch.nn.mlp import mlp_patterns
@@ -1069,11 +1115,12 @@ def small_junctions():
     train_m = SMOKE_BATCH * SMOKE_SEQ
     experts = dict(experts=rcfg.moe.n_routed)
     cap = expert_capacity(rcfg, train_m)
+    table1 = mlp_patterns(pm.MNIST_2J, pm.rho_from_dout(pm.MNIST_2J,
+                                                         (20, 10)))[0]
+    cifar = mlp_patterns(pm.CIFAR_MLP, (0.2, 0.5))[0]
     return [
-        ("table1 800->100", mlp_patterns(pm.MNIST_2J, pm.rho_from_dout(
-            pm.MNIST_2J, (20, 10)))[0], (MLP_BATCH, MLP_FULL), mlp),
-        ("cifar 4000->500", mlp_patterns(pm.CIFAR_MLP, (0.2, 0.5))[0],
-         (MLP_BATCH, MLP_FULL), mlp),
+        ("table1 800->100", table1, (MLP_BATCH, MLP_FULL), mlp),
+        ("cifar 4000->500", cifar, (MLP_BATCH, MLP_FULL), mlp),
         ("mnist4j 100->100", mlp_patterns(pm.MNIST_4J, pm.rho_from_dout(
             pm.MNIST_4J, pm.TABLE2_MNIST[0][0]))[1], (MLP_BATCH,), mlp),
         ("timit 39->390", t_in, (MLP_BATCH,), mlp),
@@ -1086,7 +1133,15 @@ def small_junctions():
         ("gemma3 smoke down", down, (SMOKE_DECODE_M,), dict(ops=("fwd",))),
         ("granite smoke up", up_e, (cap,), experts),
         ("granite smoke down", down_e, (cap,), experts),
-    ]
+    ] + [(name, bp, rows, dict(opt, ops=("fwd_quant",),
+                               dtypes=("float32", "bfloat16")))
+         for name, bp, rows, opt in (
+             ("table1 800->100", table1, (MLP_BATCH, MLP_FULL), mlp),
+             ("cifar 4000->500", cifar, (MLP_BATCH, MLP_FULL), mlp),
+             ("timit 39->390", t_in, (MLP_BATCH,), mlp),
+             ("timit 390->39", t_out, (MLP_BATCH,), dict(bias=True)),
+             ("gemma3 smoke down", down, (SMOKE_DECODE_M,), {}),
+             ("granite smoke up", up_e, (SMOKE_DECODE_M,), experts))]
 
 
 def small_copies(bp, m: int, dtype, opt: dict) -> int:
@@ -1107,8 +1162,11 @@ def small_calls(bp, m, dtype, gen, device, *, experts=None, act=None,
     copy of the data inputs (the slab is shared); the library is a dense
     ``torch.matmul`` (``torch.bmm`` over experts) on the densified slab.
     The wrappers are the shipped ones, which send these blocks to the
-    small-block forms."""
+    small-block forms. ``fwd_quant``: the int8 forward over the slab
+    quantized per block (``w_scale``), its library the matmul over the
+    densified slab dequantized to x's dtype."""
     import torch
+    from repro_torch.core.quant import dequantize_slab, quantize_slab
     from repro_torch.kernels import csd_spmm as k
     lead = (experts,) if experts else ()
     shape = lead + (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
@@ -1125,8 +1183,11 @@ def small_calls(bp, m, dtype, gen, device, *, experts=None, act=None,
     pat = {f: torch.as_tensor(getattr(bp, f), dtype=torch.int32,
                               device=device)
            for f in ("block_idx", "out_idx", "out_slot")}
-    wd = dense_of_experts(bp, w) if experts else dense_of(bp, w)
+    densify = dense_of_experts if experts else dense_of
+    wd = densify(bp, w)
     wt = wd.transpose(-2, -1)
+    q, sc = quantize_slab(w.float()) if "fwd_quant" in ops else (None, None)
+    wq = None if q is None else densify(bp, dequantize_slab(q, sc, dtype))
     batched = "_batched" if experts else ""
     fwd = {kind: getattr(k, f"csd_spmm_fwd{batched}_{kind}")
            for kind in ("cuda", "plain")}
@@ -1163,7 +1224,15 @@ def small_calls(bp, m, dtype, gen, device, *, experts=None, act=None,
                lambda i: torch.matmul(xs[i].transpose(-2, -1), gs[i]),
                el * (n_x + n_y + n_aux + n_w)
                + (4 * b.numel() if bias else 0)
-               + 4 * pat["block_idx"].numel())}
+               + 4 * pat["block_idx"].numel()),
+        "fwd_quant": ("csd_spmm_fwd_quant_small",
+                      lambda kind, i: fwd[kind](
+                          xs[i], q, pat["block_idx"], bias=b,
+                          activation=act, w_scale=sc),
+                      lambda i: torch.matmul(xs[i], wq),
+                      el * (n_x + (b.numel() if bias else 0) + n_y) + n_w
+                      + 4 * (0 if sc is None else sc.numel())
+                      + 4 * pat["block_idx"].numel())}
     out = []
     for op in ops:
         kernel, fn, lib, nbytes = calls[op]
@@ -1179,20 +1248,22 @@ def small_calls(bp, m, dtype, gen, device, *, experts=None, act=None,
 def run_small_kernels(device, results):
     """Phase 3d. The small-block forms at ``small_junctions``, each through
     the shipped wrapper, held against its plain version on the first copy
-    of the inputs (f32 1e-4, bf16 1e-2 of max |plain|) and timed cycling
-    through copies of the data inputs that together pass the L2 (at most
-    ``SMALL_MAX_COPIES``; the slab is shared), beside the plain version, a
-    dense ``torch.matmul`` (``torch.bmm``) on the densified slab and the
-    bound; then the mask kernel at the MLP's widths 100, 390 and 39 (equal
-    element for element; the yardstick autograd's relu backward) and once
-    at 77 x 39 bf16, past its last whole 16-byte chunk."""
+    of the inputs (f32 1e-4, bf16 1e-2 of max |plain|: the int8 gates too)
+    and timed cycling through copies of the data inputs that together pass
+    the L2 (at most ``SMALL_MAX_COPIES``; the slab is shared), beside the
+    plain version, a dense ``torch.matmul`` (``torch.bmm``) on the
+    densified (int8: dequantized) slab and the bound; then the mask kernel
+    at the MLP's widths 100, 390 and 39 (equal element for element; the
+    yardstick autograd's relu backward) and once at 77 x 39 bf16, past its
+    last whole 16-byte chunk."""
     import torch
     from repro_torch.kernels import csd_spmm
     g = torch.Generator(device=device).manual_seed(SEED + 3)
     for name, bp, rows, opt in small_junctions():
         for m in rows:
-            dtypes = ("float32", "bfloat16") \
-                if m == MLP_BATCH and opt.get("bf16") else ("float32",)
+            dtypes = opt.get("dtypes") or (("float32", "bfloat16")
+                                           if m == MLP_BATCH and opt.get(
+                                               "bf16") else ("float32",))
             for dtype_name in dtypes:
                 dtype = getattr(torch, dtype_name)
                 copies = small_copies(bp, m, dtype, opt)
@@ -1323,7 +1394,8 @@ def run_mlp(device) -> list:
     launches, then ``train_mlp`` for ``MLP_EPOCHS`` epochs of batch 256
     with the kernels (the launches of every step and of the held-out
     evaluation exact) and with the plain versions; both test accuracies
-    recorded, the kernels' above ``MLP_MIN_ACC``."""
+    recorded, the kernels' above ``MLP_MIN_ACC``; between the two runs the
+    kernels' trained model evaluated in int8 (``mlp_int8``)."""
     import numpy as np
     import torch
     from repro_torch.nn.mlp import SparseMLP, train_mlp
@@ -1392,6 +1464,7 @@ def run_mlp(device) -> list:
         if launches != want:
             fail(f"paper MLP {name}: training launched {launches}, "
                  f"expected {want} ({steps} steps and one evaluation)")
+        int8_rec = mlp_int8(name, model, data, device)
         with plain_versions():
             t0 = time.perf_counter()
             _, acc_p = train_mlp(model, data, epochs=MLP_EPOCHS,
@@ -1411,9 +1484,9 @@ def run_mlp(device) -> list:
             test_acc_plain=acc_p, step_ms_kernels=t_k / steps * 1e3,
             step_ms_plain=t_p / steps * 1e3, launches=launches,
             launches_per_step={k: v for k, v in per_step.items() if v},
-            first_step=chk)
+            first_step=chk, int8=int8_rec)
         log(json.dumps(dict(
-            {k: v for k, v in rec.items() if k != "first_step"},
+            {k: v for k, v in rec.items() if k not in ("first_step", "int8")},
             launches={k: v for k, v in launches.items() if v})))
         if not all(math.isfinite(v) for v in losses) or acc_k < MLP_MIN_ACC:
             fail(f"paper MLP {name}: training failed: {rec}")
@@ -1421,6 +1494,59 @@ def run_mlp(device) -> list:
         del model
         torch.cuda.empty_cache()
     return out
+
+
+# max |kernels - plain| of the int8 MLP's test-set logits over max |plain|:
+# f32 sums in another order (the int8 gate)
+MLP_INT8_TOL = 1e-4
+
+
+def mlp_int8(name, model, data, device) -> dict:
+    """Phase 3e's int8 evaluation: a copy of the trained ``model``
+    quantized by ``quantize_model`` (each block junction an int8 slab with
+    per-block f32 scales), its test-set logits with the kernels and with
+    the plain versions (within ``MLP_INT8_TOL`` of max |plain|), exactly one
+    launch of the int8 small-block forward per block junction and no other
+    junction kernel; the int8 and f32 test accuracies and the resident slab
+    bytes, f32 against int8 plus scales."""
+    import copy
+    import torch
+    from repro_torch.core.quant import quantize_model
+    qmodel = quantize_model(copy.deepcopy(model))
+    blocks = [(f, q) for f, q in zip(model.layers, qmodel.layers)
+              if f.mode.startswith("block")]
+    x = torch.as_tensor(data[2], device=device)
+    y = torch.as_tensor(data[3], device=device).long()
+    with torch.no_grad():
+        reset_launch_counts()
+        logits = qmodel.logits(x)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        with plain_versions():
+            logits_p = qmodel.logits(x)
+        acc_f32 = model.accuracy(x, y)
+    err = float((logits - logits_p).abs().max())
+    scale = float(logits_p.abs().max())
+    want = {k: len(blocks) if k == "csd_spmm_fwd_quant_small" else 0
+            for k in ALL_KERNELS}
+    rec = dict(
+        check=f"paper MLP {name}: int8 evaluation", test_rows=x.shape[0],
+        test_acc_int8=float((logits.argmax(-1) == y).float().mean()),
+        test_acc_int8_plain=float((logits_p.argmax(-1) == y).float().mean()),
+        test_acc_f32=acc_f32, logits_max_abs_err=err,
+        logits_max_abs_ref=scale, tol=MLP_INT8_TOL,
+        slab_bytes_f32=sum(f.weight.numel() * f.weight.element_size()
+                           for f, _ in blocks),
+        slab_bytes_int8=sum(q.weight.numel() for _, q in blocks),
+        scale_bytes=sum(q.w_scale.numel() * 4 for _, q in blocks),
+        launches={k: v for k, v in launches.items() if v})
+    log(json.dumps(rec))
+    if launches != want or not err <= MLP_INT8_TOL * scale \
+            or not bool(torch.isfinite(logits).all()) \
+            or any(q.weight.dtype != torch.int8 for _, q in blocks):
+        fail(f"paper MLP {name}: the int8 evaluation is not as expected: "
+             f"{rec}; expected launches {want}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1453,10 +1579,11 @@ def smoke_train(arch: str, plain: bool) -> list:
             if line.startswith("step ")]
 
 
-def forced_logits(model, prompt, gen, device, page_size=16):
+def forced_logits(model, prompt, gen, device, page_size=16, quant_kv=False):
     """The logits from which a greedy engine chose ``gen`` (B, G): the
     model's paged steps fed ``prompt`` (B, P) as one prefill chunk, then
-    ``gen`` one token a step; (B, G, vocab) f32."""
+    ``gen`` one token a step (over int8 pages with ``quant_kv``); ((B, G,
+    vocab) f32, the cache the steps filled)."""
     import torch
     from repro_torch.nn.common import dtype_of
     b, p = prompt.shape
@@ -1465,7 +1592,8 @@ def forced_logits(model, prompt, gen, device, page_size=16):
     table = torch.arange(b * per_row, dtype=torch.int32,
                          device=device).reshape(b, per_row)
     cache = model.init_paged_cache(b * per_row, page_size,
-                                   dtype_of(model.cfg), device)
+                                   dtype_of(model.cfg), device,
+                                   quant_kv=quant_kv)
 
     def step(toks, pos, n):
         return model.paged_step(
@@ -1478,12 +1606,56 @@ def forced_logits(model, prompt, gen, device, page_size=16):
         out = [step(prompt, 0, p)]
         for j in range(n_gen - 1):
             out.append(step(gen[:, j:j + 1], p + j, 1))
-    return torch.stack(out, 1)
+    return torch.stack(out, 1), cache
 
 
-# the smoke configurations phase 3f serves (the MoE one is trained only:
-# its published capacity is not dropless) and trains
+def state_logits(model, prompt, gen, device, page_size=16):
+    """The logits of ``forced_logits``'s steps over int8 KV pages, each step
+    run with the kernels and with the plain versions from one cache state
+    (the plain run's): ((B, G, vocab) kernels, (B, G, vocab) plain, the
+    int8 K/V entries the two wrote differently in all steps). Over int8
+    pages the free-running comparison of ``forced_logits`` compares two
+    caches: a K or V token quantized a level apart (an f32 rounding
+    difference upstream) moves every later step by a quantization step,
+    which is not the kernels' error; inside one step the new token's K and
+    V are quantized too, so such a flip can still reach the step's later
+    layers."""
+    import torch
+    from repro_torch.nn.common import dtype_of
+    b, p = prompt.shape
+    n_gen = gen.shape[1]
+    per_row = -(-(p + n_gen) // page_size)
+    table = torch.arange(b * per_row, dtype=torch.int32,
+                         device=device).reshape(b, per_row)
+    cache = model.init_paged_cache(b * per_row, page_size,
+                                   dtype_of(model.cfg), device, quant_kv=True)
+
+    def step(c, toks, pos, n):
+        return model.paged_step(
+            torch.as_tensor(toks, device=device),
+            torch.full((b,), pos, dtype=torch.int32, device=device),
+            torch.full((b,), n, dtype=torch.int32, device=device), c,
+            table)[:, 0].float()
+
+    kern, plain, flips = [], [], 0
+    with torch.no_grad():
+        for j in range(n_gen):
+            toks, pos, n = (prompt, 0, p) if j == 0 \
+                else (gen[:, j - 1:j], p + j - 1, 1)
+            trial = [{k: t.clone() for k, t in c.items()} for c in cache]
+            kern.append(step(trial, toks, pos, n))
+            with plain_versions():
+                plain.append(step(cache, toks, pos, n))
+            flips += sum(int((a[k] != c[k]).sum())
+                         for a, c in zip(trial, cache) for k in a
+                         if a[k].dtype == torch.int8)
+    return torch.stack(kern, 1), torch.stack(plain, 1), flips
+
+
+# the smoke configurations phase 3f serves (the MoE one in int8 only, at
+# the dropless capacity factor: its published one drops) and trains
 SMOKE_SERVED = ("gemma3_4b", "gemma2_9b", "qwen2_7b", "granite_34b")
+SMOKE_SERVED_INT8 = SMOKE_SERVED + ("granite_moe_1b_a400m",)
 SMOKE_TRAINED = ("gemma3_4b", "granite_moe_1b_a400m", "gemma2_9b",
                  "qwen2_7b", "granite_34b")
 
@@ -1502,12 +1674,20 @@ def run_smoke_configs(device) -> dict:
     versions: the first token of every row equal, and the logits of every
     served step, teacher-forced on the kernels' tokens, within
     ``SMOKE_LOGIT_TOL`` of the plain versions'; whole-row token agreement
-    recorded."""
+    recorded. Then each is served again in int8 (``SparsityConfig.quant``:
+    weights and KV), granite-moe's too at the dropless capacity factor, with
+    the same checks against the int8 plain versions, through the int8
+    small-block forward and the int8 paged decode; there the logits are
+    compared step by step from one cache state (``state_logits``), the
+    free-running teacher-forced difference recorded with the int8 KV
+    entries the two runs quantized differently."""
     import torch
     from repro_torch.configs import get_config
     out = {}
     for arch in SMOKE_SERVED:
         out[f"{arch}_serve"] = smoke_serve(arch, device)
+    for arch in SMOKE_SERVED_INT8:
+        out[f"{arch}_serve_int8"] = smoke_serve(arch, device, quant=True)
     for arch in SMOKE_TRAINED:
         c = get_config(arch, smoke=True)
         reset_launch_counts()
@@ -1538,15 +1718,26 @@ def run_smoke_configs(device) -> dict:
     return out
 
 
-def smoke_serve(arch: str, device) -> dict:
+def smoke_serve(arch: str, device, quant: bool = False) -> dict:
     """Phase 3f's served run of ``arch``'s smoke configuration (see
-    ``run_smoke_configs``)."""
+    ``run_smoke_configs``); with ``quant`` in int8 (weights and KV pages,
+    the configuration's ``SparsityConfig.quant``, which the engine reads
+    and applies at load), an MoE configuration at the dropless capacity
+    factor n_routed / top_k."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
     from repro_torch.launch.serve import generate
     from repro_torch.nn.model import LM
     cfg = get_config(arch, smoke=True)
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
+    if quant:
+        cfg = cfg.with_(sparsity=dataclasses.replace(
+            cfg.sparsity, quant=QuantConfig(weights=True, kv=True)))
     model = LM(cfg, device=device,
                generator=torch.Generator(device=device).manual_seed(SEED))
     prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
@@ -1554,15 +1745,40 @@ def smoke_serve(arch: str, device) -> dict:
     reset_launch_counts()
     toks, tps = generate(model, prompt, 48, 16, device=device, seed=SEED)
     launches = launch_counts()
-    logits = forced_logits(model, prompt, toks, device)
+    # the engine quantized the model in place at load
+    logits, cache = forced_logits(model, prompt, toks, device,
+                                  quant_kv=quant)
     with plain_versions():
         toks_p, _ = generate(model, prompt, 48, 16, device=device, seed=SEED)
-        logits_p = forced_logits(model, prompt, toks, device)
+        logits_p, cache_p = forced_logits(model, prompt, toks, device,
+                                          quant_kv=quant)
     err = float((logits - logits_p).abs().max())
     scale = float(logits_p.abs().max())
-    paged = "paged_decode_attention" + (
+    gated = (err, scale)
+    if quant:
+        # int8 KV: each step from one cache state (``state_logits``); the
+        # free-running difference and the int8 KV entries it rests on
+        # recorded
+        lk, lp, flips = state_logits(model, prompt, toks, device)
+        gated = (float((lk - lp).abs().max()), float(lp.abs().max()))
+        pages = [(a[k], c[k]) for a, c in zip(cache, cache_p) for k in a
+                 if a[k].dtype == torch.int8]
+        kv_diff = dict(
+            entries=sum(int((a != c).sum()) for a, c in pages),
+            of=sum(a.numel() for a, _ in pages),
+            max_levels=max(int((a.int() - c.int()).abs().max())
+                           for a, c in pages))
+    fwd = "csd_spmm_fwd_quant_small" if quant else "csd_spmm_fwd_small"
+    paged = "paged_decode_attention" + ("_quant" if quant else "") + (
         "_grouped" if cfg.n_heads // cfg.n_kv_heads > 8 else "")
-    rec = dict(check=f"{cfg.name} smoke: launch.serve.generate",
+    # no other junction kernel: no full-width body, no f32/bf16 forward in
+    # the int8 run, nothing of training
+    others = [k for k in ALL_KERNELS if k.startswith("csd_") and k != fwd
+              and launches[k]]
+    rec = dict(check=f"{cfg.name} smoke{' int8' if quant else ''}: "
+                     f"launch.serve.generate",
+               capacity_factor=None if cfg.moe is None
+               else cfg.moe.capacity_factor,
                tokens=list(toks.shape), tok_per_s=tps, launches={
                    k: v for k, v in launches.items() if v},
                token_agreement=float((toks == toks_p).mean()),
@@ -1571,13 +1787,15 @@ def smoke_serve(arch: str, device) -> dict:
                logits_tol=SMOKE_LOGIT_TOL,
                forced_argmax_agreement=float(
                    (logits.argmax(-1).cpu().numpy() == toks).mean()))
+    if quant:
+        rec.update(state_logits_max_abs_err=gated[0],
+                   state_logits_max_abs_ref=gated[1],
+                   state_kv_int8_differ=flips,
+                   free_running_kv_int8_differ=kv_diff)
     log(json.dumps(rec))
-    if launches["csd_spmm_fwd_small"] == 0 \
-            or launches[paged] == 0 \
-            or any(launches[k] for k in ("csd_spmm_fwd", "csd_spmm_dx_small",
-                                         "csd_spmm_dw_small")) \
+    if launches[fwd] == 0 or launches[paged] == 0 or others \
             or not rec["first_tokens_equal"] \
-            or not err <= SMOKE_LOGIT_TOL * scale:
+            or not gated[0] <= SMOKE_LOGIT_TOL * gated[1]:
         fail(f"the {cfg.name} smoke configuration did not serve as "
              f"expected: {rec}")
     return rec
@@ -2600,6 +2818,7 @@ ALL_KERNELS = ("csd_spmm_fwd", "csd_spmm_fwd_quant", "csd_spmm_fwd_batched",
                "csd_spmm_dx_batched", "csd_spmm_dw", "csd_spmm_dw_batched",
                "csd_mask_cotangent", "csd_spmm_fwd_small",
                "csd_spmm_dx_small", "csd_spmm_dw_small",
+               "csd_spmm_fwd_quant_small",
                "paged_decode_attention", "paged_decode_attention_quant",
                "paged_decode_attention_grouped",
                "paged_decode_attention_quant_grouped",
@@ -3093,8 +3312,10 @@ def nan_coverage(device) -> dict:
         real(plan, buffers, call)
         written.append((plan.name, outs))
         kernels.add(plan.launches[0].kernel)
+        names.add(plan.name)
 
-    checked, cases, kernels = 0, grid_pass.kernel_cases(), set()
+    checked, cases = 0, grid_pass.kernel_cases()
+    kernels, names = set(), set()
     launch.run = nan_run
     try:
         for i, case in enumerate(cases):
@@ -3118,9 +3339,10 @@ def nan_coverage(device) -> dict:
     finally:
         launch.run = real
     rec = dict(check="NaN-filled outputs, two runs", cases=len(cases),
-               buffers=checked, kernels=sorted(kernels))
+               buffers=checked, kernels=sorted(kernels), plans=sorted(names))
     log(json.dumps(rec))
-    missing = {"paged_decode_kernel", "paged_decode_mma_kernel"} - kernels
+    missing = ({"paged_decode_kernel", "paged_decode_mma_kernel"} - kernels) \
+        | ({"csd_spmm_fwd_quant_small"} - names)
     if missing:
         fail(f"the NaN runs launched no {sorted(missing)}")
     return rec
@@ -3211,6 +3433,7 @@ def main() -> int:
     sass_rec = sass_counts()
     paged_regs = paged_registers()
     stream_regs = stream_registers()
+    small_regs = small_registers()
 
     record_plans()
 
@@ -3519,6 +3742,26 @@ def main() -> int:
     next(e for e in entries if e["name"] == "csd_mask_cotangent")[
         "launches_mlp"] = sum(r["launches"]["csd_mask_cotangent"]
                               for r in mlp_recs)
+    # the int8 small-block form at the Table I junction's batch, f32 x, with
+    # its launches in the paper MLPs' int8 evaluations (phase 3e) and the
+    # smoke configurations' int8 serving (phase 3f)
+    rec = pick("csd_spmm_fwd_quant_small", **table1)
+    q_mlp = sum(r["int8"]["launches"].get("csd_spmm_fwd_quant_small", 0)
+                for r in mlp_recs)
+    q_smoke = sum(r["launches"].get("csd_spmm_fwd_quant_small", 0)
+                  for r in smoke_recs.values())
+    entries.append(dict(
+        name="csd_spmm_fwd_quant_small", route="cuda",
+        source="src/repro_torch/kernels/csrc/csd_spmm_small.cu",
+        replaces="src/repro/kernels/csd_spmm.py:253 (and :295, the "
+                 "expert-batched form)",
+        launches=q_mlp + q_smoke, launches_mlp=q_mlp, launches_smoke=q_smoke,
+        max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+        plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+        bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+        shape="Table I junction 800 -> 100, x (256, 800) f32, w int8 (25, "
+              "10, 16, 4), w_scale f32 (25, 10), bias + relu",
+        body=rec["plan"]["kernel"]))
     entries.append(dict(
         name="csd_spmm_fwd_injected_alias", route="cuda",
         source="src/repro_torch/kernels/csrc/csd_spmm_fwd_injected_alias.cu",
@@ -3599,7 +3842,8 @@ def main() -> int:
              train_profile=train_prof, granite_train_step_check=g_step_chk,
              granite_train=g_train_rec, granite_train_profile=g_train_prof,
              sass=sass_rec, paged_registers=paged_regs,
-             int8_decode_registers=stream_regs, lint=lint_rec,
+             int8_decode_registers=stream_regs,
+             small_gather_registers=small_regs, lint=lint_rec,
              plan_drift=drift_rec,
              nan_coverage=nan_rec,
              injected_alias=inj_rec, paper_mlp=mlp_recs,

@@ -800,7 +800,10 @@ def small_block_cases() -> List[KernelCase]:
     the LM smoke configurations' 16 x 16 blocks: gemma3-4b's gelu gate and
     its down junction, training (64 rows) and decode (4: one tile, the
     down forward's fan-in split over ranks of the CTA), and granite-moe's
-    expert-batched up junction (8 experts)."""
+    expert-batched up junction (8 experts). The int8 small-block forward
+    (``csd_spmm_fwd_quant_small``) at Table I's and CIFAR's junctions and
+    TIMIT's two at the batch, the smoke down junction at a decode step
+    and granite-moe's smoke experts at 4 rows each."""
     from ..configs import get_config
     from ..configs import paper_mlp as pm
     from ..nn.mlp import mlp_patterns
@@ -864,6 +867,18 @@ def small_block_cases() -> List[KernelCase]:
         _fwd_case("granite_smoke/train/fwd_up", up, c, f32, experts=e),
         _dx_case("granite_smoke/train/dx_up", up, c, f32, experts=e),
         _dw_case("granite_smoke/train/dw_up", up, c, f32, experts=e),
+    ]
+    q = dict(activation="relu", bias=True, quant=True)
+    cases += [
+        _fwd_case("paper_mlp/table1/fwd_quant_relu", table1, m, f32, **q),
+        _fwd_case("paper_mlp/cifar/fwd_quant_relu", cifar, m, f32, **q),
+        _fwd_case("paper_mlp/timit/fwd_quant_in_relu", t_in, m, f32, **q),
+        _fwd_case("paper_mlp/timit/fwd_quant_out", t_out, m, f32, bias=True,
+                  quant=True),
+        _fwd_case("gemma3_4b_smoke/decode/fwd_quant_down", down, DECODE_M,
+                  f32, quant=True),
+        _fwd_case("granite_smoke/decode/fwd_quant_up", up, DECODE_M, f32,
+                  experts=e, quant=True),
     ]
     return cases
 

@@ -26,7 +26,10 @@ int8 expert slabs onto the buffers of those names.
 ``mlp_from_jax_params`` does the same for the paper's MLP: the JAX
 ``SparseMLP`` tree ``{"j{i}": {"w", "b"}}`` maps onto ``layers.{i}.weight``
 and ``layers.{i}.bias`` in every mode (a dense or masked (n_in, n_out)
-weight, a gather (n_out, d_in) weight, a block slab).
+weight, a gather (n_out, d_in) weight, a block slab), and a block
+junction's int8 slab with its ``w_scale`` sibling onto the int8 weight and
+the ``layers.{i}.w_scale`` buffer of a model ``quantize_model`` has
+quantized.
 """
 from __future__ import annotations
 
@@ -113,11 +116,15 @@ def mlp_from_jax_params(np_tree: dict, model: "SparseMLP"
                         ) -> Dict[str, torch.Tensor]:
     """The port's parameters for ``model`` (a ``nn.mlp.SparseMLP``) from the
     JAX ``SparseMLP`` parameter tree (or a gradient tree of the same
-    structure) as numpy arrays, on the model's device. Raises if a
-    parameter is missing, left over, or of another shape."""
-    out = {f"layers.{k[1:]}.{_LEAF[leaf]}": arr
+    structure) as numpy arrays, on the model's device; for a quantized
+    tree and model also the ``w_scale`` buffers (load with
+    ``load_state_dict(..., strict=False)``). Raises if a parameter is
+    missing, left over, or of another shape or kind."""
+    out = {f"layers.{k[1:]}.{_LEAF.get(leaf, leaf)}": arr
            for k, sub in np_tree.items() for leaf, arr in sub.items()}
     params = dict(model.named_parameters())
+    params.update((n, b) for n, b in model.named_buffers()
+                  if n.endswith(".w_scale"))
     if set(out) != set(params):
         raise ValueError(
             f"parameter mismatch: missing {sorted(set(params) - set(out))}, "
@@ -128,6 +135,10 @@ def mlp_from_jax_params(np_tree: dict, model: "SparseMLP"
         arr = np.asarray(arr)
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        if (p.dtype == torch.int8) != (arr.dtype == np.int8):
+            raise ValueError(f"{name}: a {arr.dtype} array for a {p.dtype} "
+                             f"tensor (int8 slabs load from a quantized "
+                             f"tree into a quantized model)")
         sd[name] = torch.as_tensor(np.array(arr), dtype=p.dtype,
                                    device=p.device)
     return sd

@@ -63,16 +63,21 @@ def dequantize_slab(q: torch.Tensor, scales: torch.Tensor,
 def quantize_model(model: nn.Module) -> nn.Module:
     """Quantize every block-sparse junction of ``model`` in place, from its
     weights as they are (the counterpart of ``quantize_tree``: the port has
-    no spec tree, so it walks the modules). A sparse ``Linear`` becomes an
-    int8 ``weight`` with an f32 ``w_scale`` buffer (n_rb, d_in_b); each
-    expert slab of an ``MoE`` (``up``, ``gate``, ``down`` with a pattern)
-    becomes int8 with an f32 buffer ``<name>_scale`` (E, n_rb, d_in_b), the
-    JAX tree's sibling names. Dense junctions and junctions already
-    quantized are left as they are. Returns ``model``."""
+    no spec tree, so it walks the modules). A sparse ``Linear`` and a
+    ``core.sparse_linear.SparseLinear`` in a block mode (the paper MLP's
+    junctions) become an int8 ``weight`` with an f32 ``w_scale`` buffer
+    (n_rb, d_in_b); each expert slab of an ``MoE`` (``up``, ``gate``,
+    ``down`` with a pattern) becomes int8 with an f32 buffer
+    ``<name>_scale`` (E, n_rb, d_in_b), the JAX tree's sibling names. Dense
+    junctions and junctions already quantized are left as they are.
+    Returns ``model``."""
     from ..nn.ffn import MoE
     from ..nn.layers import Linear
+    from .sparse_linear import SparseLinear
     for mod in model.modules():
-        if isinstance(mod, Linear) and mod.is_sparse \
+        if ((isinstance(mod, Linear) and mod.is_sparse)
+                or (isinstance(mod, SparseLinear)
+                    and mod.mode.startswith("block"))) \
                 and mod.w_scale is None:
             with torch.no_grad():
                 q, scales = quantize_slab(mod.weight)

@@ -16,9 +16,13 @@ Execution modes, one statistical family:
                the slab (n_rb, d_in_b, bL, bR), run through the port's one
                junction primitive ``kernels.ops.csd_matmul`` with the bias
                and activation fused into its epilogue (the hand-written
-               kernels on the card, their plain versions on the CPU). The
-               JAX package's Pallas branch ignores the mode's dataflow, and
-               so does the port: both block modes run the same kernels.
+               kernels on the card, their plain versions on the CPU), in
+               its ``dataflow="gather"`` or ``"scatter"``. That choice
+               changes the CPU's plain forward only: the JAX package's
+               Pallas branch ignores it, and on the card both block modes
+               run the same kernels. ``core.quant.quantize_model`` makes a
+               block junction int8 for inference (an int8 ``weight`` and
+               its per-block f32 scales ``w_scale``).
 
 ``dense``, ``mask`` and ``gather`` stay plain torch, as the JAX package
 leaves them outside any Pallas kernel. All modes initialise with He scaling
@@ -80,7 +84,8 @@ class SparseLinear(nn.Module):
     slab in the block modes) and ``bias`` (n_out,). Buffers: the mask
     (``mask``), the index pattern (``idx``, gather) or the block pattern's
     gather and scatter forms (``block_idx``, ``out_idx``, ``out_slot``,
-    int32)."""
+    int32), and ``w_scale``: None, or for an int8 slab its f32 scales
+    (n_rb, d_in_b)."""
 
     def __init__(self, spec: SparseLinearSpec, *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -127,6 +132,7 @@ class SparseLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(
             spec.n_out, device=device, dtype=dtype)) if spec.use_bias \
             else None
+        self.register_buffer("w_scale", None)
 
     def init_weight(self, generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
@@ -140,13 +146,17 @@ class SparseLinear(nn.Module):
     def forward(self, x: torch.Tensor,
                 activation: Optional[str] = None) -> torch.Tensor:
         """``activation(x @ W_sparse + b)``. In the block modes the bias and
-        the activation ride the ``csd_matmul`` epilogue; the other modes
-        apply them inline."""
+        the activation ride the ``csd_matmul`` epilogue (an int8 slab
+        enters the int8 forward with its scales); the other modes apply
+        them inline."""
         w, b = self.weight, self.bias
         if self.mode in ("block_gather", "block_scatter"):
-            return csd_matmul(x, w, self.block_idx, bias=b,
-                              activation=activation, out_idx=self.out_idx,
-                              out_slot=self.out_slot)
+            return csd_matmul(
+                x, w, self.block_idx, bias=b, activation=activation,
+                out_idx=self.out_idx, out_slot=self.out_slot,
+                w_scale=self.w_scale,
+                dataflow="scatter" if self.mode == "block_scatter"
+                else "gather")
         if self.mode == "dense":
             y = x @ w
         elif self.mode == "mask":

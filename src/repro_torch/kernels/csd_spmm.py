@@ -46,7 +46,9 @@ and ``csrc/csd_spmm_small_dw.cu`` (dw) (CUDA cores, f32 accumulation, any
 block shape, 4-D and expert-batched),
 ``csd_spmm_fwd_small_cuda``, ``csd_spmm_dx_small_cuda`` and
 ``csd_spmm_dw_small_cuda``, which the wrappers above call and which count
-their own launches. The int8 forward has no small-block form yet.
+their own launches. The int8 forward's small-block form is the gather
+kernel over an int8 slab (``csd_spmm_fwd_quant_small_cuda``, 4-D and
+expert-batched), which the int8 wrappers below call for those blocks.
 
 The forward also has an int8 form for serving (``w_scale``): the slab is
 int8 with one f32 scale per (bL x bR) block (``core.quant``), each slot's
@@ -56,7 +58,9 @@ which ``csd_spmm_fwd_cuda`` calls when given ``w_scale``), with three
 bodies that ``launch.quant_body`` chooses between: in bf16 the
 weight-streaming body for a few rows per expert (every decode call; one
 launch, the fan-in split over a thread-block cluster) and the wgmma body
-over int8 tiles for more; in f32 the grid body.
+over int8 tiles for more; in f32 the grid body. Blocks that
+``launch.small_block`` sends to the small-block forms run the gather
+kernel's int8 form (``csd_spmm_fwd_quant_small_cuda``) instead.
 
 And the forward has an expert-batched form for MoE (the JAX package's
 ``_csd_spmm_fwd_batched`` and ``_csd_spmm_fwd_quant_batched``): x (E, M,
@@ -329,12 +333,15 @@ def _stream():
 
 def _check_fwd_shapes(name: str, x, w, block_idx, bias,
                       batched: bool, grid_body: bool = True) -> tuple:
-    """(E, M, n_in, n_rb, d_in_b, bL, bR) of a forward launch: x (M, n_in)
-    with w (n_rb, d_in_b, bL, bR) and bias (n_rb * bR,) as E = 1, or with
-    ``batched`` x (E, M, n_in), w (E, n_rb, d_in_b, bL, bR) and bias (E,
-    n_rb * bR). ``grid_body``: the launch runs ``csd_spmm_fwd.cuh``'s grid
-    body, whose row tiles of all experts fill gridDim.y (at most 65535).
-    bL and bR must be multiples of 64."""
+    """(E, M, n_in, n_rb, d_in_b, bL, bR) of a launch of the full-width
+    forward bodies (``csd_spmm_fwd.cu``, ``csd_spmm_fwd_quant.cu``): x (M,
+    n_in) with w (n_rb, d_in_b, bL, bR) and bias (n_rb * bR,) as E = 1, or
+    with ``batched`` x (E, M, n_in), w (E, n_rb, d_in_b, bL, bR) and bias
+    (E, n_rb * bR). ``grid_body``: the launch runs ``csd_spmm_fwd.cuh``'s
+    grid body, whose row tiles of all experts fill gridDim.y (at most
+    65535). bL and bR must be multiples of 64: ``_launch_fwd`` and
+    ``_launch_fwd_quant`` send other blocks to the small-block forms before
+    this check."""
     if (x.dim(), w.dim()) != ((3, 5) if batched else (2, 4)):
         raise ValueError(f"{name}: x must be {3 if batched else 2}-D and w "
                          f"{5 if batched else 4}-D")
@@ -410,7 +417,14 @@ def _launch_fwd(name: str, x, w, block_idx, bias, activation, save_preact,
 def _launch_fwd_quant(name: str, x, w, w_scale, block_idx, bias, activation,
                       batched: bool):
     """Check and launch ``csrc/csd_spmm_fwd_quant.cu`` through its plan;
-    (y, whether the kernel was launched)."""
+    (y, whether that kernel was launched). Blocks that
+    ``launch.small_block`` sends to the small-block form run
+    ``csd_spmm_fwd_quant_small_cuda`` instead, which counts its own
+    launch."""
+    if w.dim() >= 4 and launch.small_block(*w.shape[-2:]):
+        return csd_spmm_fwd_quant_small_cuda(
+            x, w, w_scale, block_idx, bias=bias, activation=activation,
+            batched=batched), False
     if activation not in _ACT_CODE:
         raise ValueError(f"unsupported fused activation {activation!r}")
     _check_quant(name, w, w_scale, False)
@@ -477,8 +491,9 @@ def csd_spmm_fwd_quant_cuda(x: torch.Tensor, w: torch.Tensor,
     """Launch ``csrc/csd_spmm_fwd_quant.cu`` on the current stream: the
     int8 forward, inference only. x (M, n_in) f32/bf16, w int8 (n_rb,
     d_in_b, bL, bR), w_scale f32 (n_rb, d_in_b), bias like x or None,
-    block_idx int32, all on the device of x -> y (M, n_rb * bR) like x.
-    Raises on what the kernel does not take."""
+    block_idx int32, all on the device of x -> y (M, n_rb * bR) like x
+    (blocks below 64: ``csd_spmm_fwd_quant_small_cuda``). Raises on what
+    the kernel does not take."""
     y, launched = _launch_fwd_quant("csd_spmm_fwd_quant_cuda", x, w, w_scale,
                                     block_idx, bias, activation,
                                     batched=False)
@@ -554,20 +569,8 @@ def csd_spmm_fwd_small_cuda(x: torch.Tensor, w: torch.Tensor,
     floats = (x, w) if bias is None else (x, w, bias)
     launch.check_device(name, floats + (block_idx,))
     _check_dtypes(name, floats, (block_idx,))
-    _rank(name, batched, (x, 2), (w, 4))
-    e, m, n_in = x.shape if batched else (1,) + tuple(x.shape)
-    n_rb, d_in_b, bl, br = w.shape[-4:]
-    if n_in % bl or (batched and w.shape[0] != e) \
-            or tuple(block_idx.shape) != (n_rb, d_in_b) \
-            or (bias is not None
-                and tuple(bias.shape) != x.shape[:-2] + (n_rb * br,)) \
-            or e > 65535 or not launch.small_gather_fits(
-                n_in, bl, x.element_size()):
-        raise ValueError(
-            f"{name}: shapes not taken: x {tuple(x.shape)}, "
-            f"w {tuple(w.shape)}, block_idx {tuple(block_idx.shape)} "
-            f"(8 rows of x must fit the kernel's shared memory)")
-    _check_slab_size(name, w, batched)
+    e, m, n_in, n_rb, d_in_b, bl, br = _check_small_fwd_shapes(
+        name, x, w, block_idx, bias, batched)
     y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
                     device=x.device)
     z = torch.empty_like(y) if save_preact else None
@@ -588,6 +591,78 @@ def csd_spmm_fwd_small_cuda(x: torch.Tensor, w: torch.Tensor,
                        _stream()))
         csd_spmm_fwd_small_cuda.launches += 1
     return (y, z) if save_preact else y
+
+
+def _check_small_fwd_shapes(name: str, x, w, block_idx, bias,
+                            batched: bool) -> tuple:
+    """(E, M, n_in, n_rb, d_in_b, bL, bR) of a small-block forward launch
+    (``csd_spmm_fwd_small_cuda``, ``csd_spmm_fwd_quant_small_cuda``): any
+    block shape, 8 rows of x within the gather kernel's shared memory."""
+    _rank(name, batched, (x, 2), (w, 4))
+    e, m, n_in = x.shape if batched else (1,) + tuple(x.shape)
+    n_rb, d_in_b, bl, br = w.shape[-4:]
+    if n_in % bl or (batched and w.shape[0] != e) \
+            or tuple(block_idx.shape) != (n_rb, d_in_b) \
+            or (bias is not None
+                and tuple(bias.shape) != x.shape[:-2] + (n_rb * br,)) \
+            or e > 65535 or not launch.small_gather_fits(
+                n_in, bl, x.element_size()):
+        raise ValueError(
+            f"{name}: shapes not taken: x {tuple(x.shape)}, "
+            f"w {tuple(w.shape)}, block_idx {tuple(block_idx.shape)} "
+            f"(8 rows of x must fit the kernel's shared memory)")
+    _check_slab_size(name, w, batched)
+    return e, m, n_in, n_rb, d_in_b, bl, br
+
+
+def csd_spmm_fwd_quant_small_cuda(x: torch.Tensor, w: torch.Tensor,
+                                  w_scale: torch.Tensor,
+                                  block_idx: torch.Tensor, *,
+                                  bias: Optional[torch.Tensor] = None,
+                                  activation: Optional[str] = None,
+                                  batched: Optional[bool] = None
+                                  ) -> torch.Tensor:
+    """Launch the int8 small-block forward of ``csrc/csd_spmm_small.cu`` on
+    the current stream: the form ``csd_spmm_fwd_quant_cuda`` and
+    ``csd_spmm_fwd_quant_batched_cuda`` run for blocks whose bL or bR is
+    not a multiple of 64 (``launch.small_block``); it takes any block
+    shape. Same contract as ``csd_spmm_fwd_plain`` (4-D w) or
+    ``csd_spmm_fwd_batched_plain`` (5-D w, or ``batched``) with
+    ``w_scale``: w int8, w_scale f32 like w's leading dims, x and bias
+    f32/bf16, block_idx int32, all on the device of x. Raises on what the
+    kernel does not take."""
+    name = "csd_spmm_fwd_quant_small_cuda"
+    if activation not in _ACT_CODE:
+        raise ValueError(f"unsupported fused activation {activation!r}")
+    if batched is None:
+        batched = w.dim() == 5
+    _check_quant(name, w, w_scale, False)
+    floats = (x,) if bias is None else (x, bias)
+    launch.check_device(name, floats + (w, w_scale, block_idx))
+    _check_dtypes(name, floats, (block_idx,))
+    if w_scale.dtype != torch.float32:
+        raise ValueError(f"{name}: w_scale must be float32")
+    e, m, n_in, n_rb, d_in_b, bl, br = _check_small_fwd_shapes(
+        name, x, w, block_idx, bias, batched)
+    y = torch.empty(x.shape[:-1] + (n_rb * br,), dtype=x.dtype,
+                    device=x.device)
+    if y.numel() > 0:
+        plan = launch.fwd_small_plan(
+            e, m, n_in, n_rb, d_in_b, bl, br, _dtype(x),
+            has_bias=bias is not None, save_preact=False,
+            n_sm=launch.sm_count(x.device), quant=True) \
+            .with_patterns(block_idx=block_idx)
+        launch.run(plan, dict(x=x, w=w, w_scale=w_scale, block_idx=block_idx,
+                              bias=bias, y=y),
+                   lambda: _bind("csd_spmm_small", 6, 14,
+                                 "csd_spmm_small_fwd_quant")(
+                       x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+                       block_idx.data_ptr(), _ptr(bias), y.data_ptr(), e, m,
+                       n_in, n_rb, d_in_b, bl, br, _DTYPE_CODE[x.dtype],
+                       _ACT_CODE[activation], *_gather_args(plan),
+                       _stream()))
+        csd_spmm_fwd_quant_small_cuda.launches += 1
+    return y
 
 
 def csd_mask_cotangent_cuda(dy: torch.Tensor, aux: Optional[torch.Tensor],
@@ -923,5 +998,6 @@ csd_spmm_dw_cuda.launches = 0
 csd_spmm_dw_batched_cuda.launches = 0
 csd_mask_cotangent_cuda.launches = 0
 csd_spmm_fwd_small_cuda.launches = 0
+csd_spmm_fwd_quant_small_cuda.launches = 0
 csd_spmm_dx_small_cuda.launches = 0
 csd_spmm_dw_small_cuda.launches = 0

@@ -6,7 +6,8 @@
 // conversion, the fused activation and its derivative folded into a
 // cotangent, and the two forward kernels' epilogue and ordered second pass
 // over fan-in splits (for one junction or E expert junctions of one shared
-// pattern).
+// pattern). load_vec also widens int8 slab rows (the int8 small-block
+// forward of csd_spmm_small.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -151,6 +152,27 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
         G ? __ldg(reinterpret_cast<const unsigned short*>(p))
           : *reinterpret_cast<const unsigned short*>(p);
     v[0] = __bfloat162float(__ushort_as_bfloat16(t));
+  }
+}
+
+// N (1, 2 or 4) consecutive int8 values at p, aligned to N bytes, widened
+// exactly to f32 (an int8 slab's rows of 4, 2 or 1 columns: no 16-byte
+// alignment assumed).
+template <bool G, int N>
+__device__ __forceinline__ void load_vec(const int8_t* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const int t = G ? __ldg(reinterpret_cast<const int*>(p))
+                    : *reinterpret_cast<const int*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = static_cast<float>(static_cast<int8_t>(t >> (8 * i)));
+  } else if constexpr (N == 2) {
+    const short t = G ? __ldg(reinterpret_cast<const short*>(p))
+                      : *reinterpret_cast<const short*>(p);
+    v[0] = static_cast<float>(static_cast<int8_t>(t));
+    v[1] = static_cast<float>(static_cast<int8_t>(t >> 8));
+  } else {
+    v[0] = static_cast<float>(G ? __ldg(p) : *p);
   }
 }
 

@@ -13,6 +13,28 @@
 // 100 or 390 elements whose byte strides are not all multiples of 16.
 // Plain versions: kernels/csd_spmm.py csd_spmm_{fwd,dx}(_batched)_plain.
 //
+// The same kernel is the int8 forward at these blocks (the slab type WT
+// int8_t), in place of csd_spmm.py's _csd_spmm_fwd_quant (#4) and
+// _csd_spmm_fwd_quant_batched (#5): q (E, n_rb, d_in_b, bL, bR) int8 with
+// one f32 scale s[e, rb, f] per block,
+//
+//   y[e, m, rb bR + j] = act(sum_f (sum_k x[e, m, blk(f) bL + k] q[k, j])
+//                            s[e, rb, f] + bias[e, rb bR + j]).
+//
+// A thread's CW columns lie in one output block, so a slot's scale is one
+// scalar: each slot is summed in f32 into its own register tile, which is
+// multiplied by the slot's scale (one rounding) and then added (another),
+// as the plain version does; the scale is never folded into the weights
+// (csd_spmm_fwd_quant.cu keeps the same convention). int8 rows of a 16 x 4,
+// 1 x 2 or 2 x 1 block are 4, 2 or 1 bytes: they are loaded CW bytes at a
+// time through the read-only path (no wider alignment assumed) and widened
+// exactly. The int8 slab is a quarter of the f32 one's bytes; x, y and
+// the arithmetic are the f32 form's, so the bounds below hold for it too.
+// Its two-CTA 4 x 4 form (128 registers: an accumulator and a slot tile of
+// 8 x 4 each) spills a few words; forms that do not (the slot summed half
+// the rows at a time, or one x row a step over a packed slab) measured
+// slower at every phase-3d shape (PERF.md, section 6).
+//
 // FF and BP are one gather kernel, csd_spmm_small_gather_kernel:
 //
 //   out[e, m, ob ow + j] = act(sum_s sum_k in[e, m, src(ob, s) iw + k]
@@ -210,11 +232,11 @@ __device__ __forceinline__ void load_slab16(const T* p, int ow,
 }
 
 // acc[i][j] += sum_k x[row i][k] w[k][j] over a slot's 16 staged inputs
-// (rows rstr elements apart), k in order.
+// (rows rstr elements apart), k in order (the scale is the int8 form's).
 template <typename T>
 __device__ __forceinline__ void sum_slab16(float (&acc)[kTR][4],
                                            const T* xp, int rstr,
-                                           const float (&w)[16][4]) {
+                                           const float (&w)[16][4], float) {
 #pragma unroll
   for (int k0 = 0; k0 < 16; k0 += 4)
 #pragma unroll
@@ -229,14 +251,106 @@ __device__ __forceinline__ void sum_slab16(float (&acc)[kTR][4],
     }
 }
 
+// acc += part * sc, element by element, each product and sum rounded as
+// the plain version rounds them (no contraction into an FMA).
+template <int CW>
+__device__ __forceinline__ void add_scaled(float (&acc)[kTR][CW],
+                                           const float (&part)[kTR][CW],
+                                           float sc) {
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+      acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(part[i][j], sc));
+}
+
+// A 16 x 4 int8 slab (rows ow bytes apart) into registers, packed: a row
+// a word, through the read-only path.
+__device__ __forceinline__ void load_slab16(const int8_t* p, int ow,
+                                            unsigned (&q)[16]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    q[k] = __ldg(reinterpret_cast<const unsigned*>(p + k * ow));
+}
+
+// The int8 form of sum_slab16: the slot's sum in its own f32 tile (each
+// slab row widened once, exactly), then acc += sum * sc.
+template <typename T>
+__device__ __forceinline__ void sum_slab16(float (&acc)[kTR][4],
+                                           const T* xp, int rstr,
+                                           const unsigned (&q)[16],
+                                           float sc) {
+  float part[kTR][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < 16; k0 += 4) {
+    float w[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[kk][j] = static_cast<float>(
+            static_cast<int8_t>(q[k0 + kk] >> (8 * j)));
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      float xv[4];
+      csd::load_vec<false>(xp + i * rstr + k0, xv);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          part[i][j] = fmaf(xv[kk], w[kk][j], part[i][j]);
+    }
+  }
+  add_scaled(acc, part, sc);
+}
+
+// acc[i][j] += sum_k in[row i][k] W[k][j] over one slot: the staged input
+// block at xp (rows xstr elements apart), the slab at wp (FF: W = w[ob, s],
+// bL x bR row-major; BP: W = w[src, f] read transposed); KQ input elements
+// a step, k in order.
+template <bool DX, int CW, int KQ, int OCC, typename T, typename WT>
+__device__ __forceinline__ void sum_slot(float (&acc)[kTR][CW], const T* xp,
+                                         int xstr, const WT* wp, int iw,
+                                         int ow, int j0) {
+#pragma unroll(OCC == 1 ? 4 : 1)
+  for (int k0 = 0; k0 < iw; k0 += KQ) {
+    float wv[KQ][CW];
+    if constexpr (DX) {
+#pragma unroll
+      for (int j = 0; j < CW; ++j) {
+        float t[KQ];
+        csd::load_vec<true>(wp + (j0 + j) * iw + k0, t);
+#pragma unroll
+        for (int kk = 0; kk < KQ; ++kk) wv[kk][j] = t[kk];
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk)
+        csd::load_vec<true>(wp + (k0 + kk) * ow + j0, wv[kk]);
+    }
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      float xv[KQ];
+      csd::load_vec<false>(xp + i * xstr + k0, xv);
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk)
+#pragma unroll
+        for (int j = 0; j < CW; ++j)
+          acc[i][j] = fmaf(xv[kk], wv[kk][j], acc[i][j]);
+    }
+  }
+}
+
 // CTA (grp, y, e): column groups [grp ncg, grp ncg + ncg) of expert e, row
 // tiles y, y + gridDim.y, ... Thread tid: rows rg + nrg i (i < 8) of the
 // tile, column group cgl, fan-in rank kr (slots [kr per_ks, kr per_ks +
-// per_ks)), tid = rg + nrg (cgl + ncg kr).
-template <typename T, bool DX, int CW, int KQ, int OCC>
+// per_ks)), tid = rg + nrg (cgl + ncg kr). WT int8_t: the int8 forward
+// (FF only), with the blocks' f32 scales (E, n_ob, n_slots).
+template <typename T, typename WT, bool DX, int CW, int KQ, int OCC>
 __global__ void __launch_bounds__(kThreads, OCC)
     csd_spmm_small_gather_kernel(const T* __restrict__ in,
-                                 const T* __restrict__ w,
+                                 const WT* __restrict__ w,
+                                 const float* __restrict__ scale,
                                  const int* __restrict__ idx,
                                  const int* __restrict__ slot,
                                  const T* __restrict__ bias,
@@ -245,6 +359,8 @@ __global__ void __launch_bounds__(kThreads, OCC)
                                  int n_slots, int iw, int ow, int d_in_b,
                                  int act, int R, int ncg, int ks,
                                  int stages) {
+  constexpr bool kQuant = std::is_same<WT, int8_t>::value;
+  static_assert(!(kQuant && DX), "the int8 form has no backward");
   extern __shared__ __align__(16) unsigned char smem[];
   const GatherGeo geo = gather_geo(in_cols, sizeof(T), n_slots, iw, ow, R,
                                    ncg, ks, stages);
@@ -263,7 +379,11 @@ __global__ void __launch_bounds__(kThreads, OCC)
   const int s_lo = kr * geo.per_ks;
   const int s_hi = mine ? min(s_lo + geo.per_ks, n_slots) : s_lo;
   const T* in_e = in + static_cast<size_t>(e) * M * in_cols;
-  const T* w_e = w + static_cast<size_t>(e) * n_ob * n_slots * iw * ow;
+  const WT* w_e = w + static_cast<size_t>(e) * n_ob * n_slots * iw * ow;
+  // the slots' scales of this thread's output block (int8)
+  const float* sc_ob =
+      kQuant ? scale + (static_cast<size_t>(e) * n_ob + ob) * n_slots
+             : nullptr;
   const int slab = iw * ow;
   const bool reduce = ks > 1;
   // whole rows as one segment, or block by block where blocks are padded
@@ -320,26 +440,32 @@ __global__ void __launch_bounds__(kThreads, OCC)
     if constexpr (OCC == 1 && !DX && CW == 4 && KQ == 4) {
       // FF at 16-element input blocks where one CTA holds the SM (CIFAR's
       // 16 x 4): a slot's whole slab in registers, the next slot's loaded
-      // while this one is summed (two register sets in turn)
+      // while this one is summed (two register sets in turn; int8: the
+      // slab packed a row a word, each slot's sum scaled)
       if (iw == 16 && s_lo < s_hi) {
-        const T* w_ob = w_e + static_cast<size_t>(ob) * n_slots * slab + j0;
+        const WT* w_ob = w_e + static_cast<size_t>(ob) * n_slots * slab + j0;
         const T* x_rg = xs + rg * geo.rs;
         const int rstr = nrg * geo.rs;
-        float wa[16][4], wb[16][4];
+        using Slab = std::conditional_t<kQuant, unsigned[16], float[16][4]>;
+        Slab wa, wb;
+        float sa = 1.f, sb = 1.f;  // the slots' scales (int8)
         load_slab16(w_ob + static_cast<size_t>(s_lo) * slab, ow, wa);
+        if constexpr (kQuant) sa = __ldg(sc_ob + s_lo);
         int src_a = src_n, src_b = 0;
         for (int s = s_lo; s < s_hi; s += 2) {
           if (s + 1 < s_hi) {
             load_slab16(w_ob + static_cast<size_t>(s + 1) * slab, ow, wb);
             src_b = __ldg(idx_ob + s + 1);
+            if constexpr (kQuant) sb = __ldg(sc_ob + s + 1);
           }
-          sum_slab16(acc, x_rg + src_a * geo.bs, rstr, wa);
+          sum_slab16(acc, x_rg + src_a * geo.bs, rstr, wa, sa);
           if (s + 1 >= s_hi) break;
           if (s + 2 < s_hi) {
             load_slab16(w_ob + static_cast<size_t>(s + 2) * slab, ow, wa);
             src_a = __ldg(idx_ob + s + 2);
+            if constexpr (kQuant) sa = __ldg(sc_ob + s + 2);
           }
-          sum_slab16(acc, x_rg + src_b * geo.bs, rstr, wb);
+          sum_slab16(acc, x_rg + src_b * geo.bs, rstr, wb, sb);
         }
         summed = true;
       }
@@ -353,34 +479,16 @@ __global__ void __launch_bounds__(kThreads, OCC)
       const size_t wb =
           DX ? (static_cast<size_t>(src) * d_in_b + f) * slab
              : (static_cast<size_t>(ob) * n_slots + s) * slab;
-      const T* wp = w_e + wb;
+      const WT* wp = w_e + wb;
       const T* xp = xs + rg * geo.rs + src * geo.bs;
-#pragma unroll(OCC == 1 ? 4 : 1)
-      for (int k0 = 0; k0 < iw; k0 += KQ) {
-        float wv[KQ][CW];
-        if constexpr (DX) {
-#pragma unroll
-          for (int j = 0; j < CW; ++j) {
-            float t[KQ];
-            csd::load_vec<true>(wp + (j0 + j) * iw + k0, t);
-#pragma unroll
-            for (int kk = 0; kk < KQ; ++kk) wv[kk][j] = t[kk];
-          }
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < KQ; ++kk) csd::load_vec<true>(
-              wp + (k0 + kk) * ow + j0, wv[kk]);
-        }
-#pragma unroll
-        for (int i = 0; i < kTR; ++i) {
-          float xv[KQ];
-          csd::load_vec<false>(xp + i * nrg * geo.rs + k0, xv);
-#pragma unroll
-          for (int kk = 0; kk < KQ; ++kk)
-#pragma unroll
-            for (int j = 0; j < CW; ++j)
-              acc[i][j] = fmaf(xv[kk], wv[kk][j], acc[i][j]);
-        }
+      if constexpr (kQuant) {
+        // the slot's sum in its own tile, then scaled and added
+        const float sc = __ldg(sc_ob + s);
+        float part[kTR][CW] = {};
+        sum_slot<DX, CW, KQ, OCC>(part, xp, nrg * geo.rs, wp, iw, ow, j0);
+        add_scaled(acc, part, sc);
+      } else {
+        sum_slot<DX, CW, KQ, OCC>(acc, xp, nrg * geo.rs, wp, iw, ow, j0);
       }
     }
 
@@ -435,16 +543,17 @@ __global__ void __launch_bounds__(kThreads, OCC)
   csd::cp_async_wait<0>();
 }
 
-template <typename T, bool DX>
-using GatherFn = void (*)(const T*, const T*, const int*, const int*,
-                          const T*, T*, T*, int, int, int, int, int, int, int,
-                          int, int, int, int, int, int);
+template <typename T, typename WT, bool DX>
+using GatherFn = void (*)(const T*, const WT*, const float*, const int*,
+                          const int*, const T*, T*, T*, int, int, int, int,
+                          int, int, int, int, int, int, int, int, int);
 
-template <typename T, bool DX, int CW>
-GatherFn<T, DX> pick_kq(int kq) {
-  return kq == 4   ? csd_spmm_small_gather_kernel<T, DX, CW, 4, kRegCtas>
-         : kq == 2 ? csd_spmm_small_gather_kernel<T, DX, CW, 2, kRegCtas>
-                   : csd_spmm_small_gather_kernel<T, DX, CW, 1, kRegCtas>;
+template <typename T, typename WT, bool DX, int CW>
+GatherFn<T, WT, DX> pick_kq(int kq) {
+  return kq == 4 ? csd_spmm_small_gather_kernel<T, WT, DX, CW, 4, kRegCtas>
+         : kq == 2
+             ? csd_spmm_small_gather_kernel<T, WT, DX, CW, 2, kRegCtas>
+             : csd_spmm_small_gather_kernel<T, WT, DX, CW, 1, kRegCtas>;
 }
 
 // The kernel for CW x KQ. Where shared memory holds one CTA an SM, the 4 x
@@ -453,27 +562,41 @@ GatherFn<T, DX> pick_kq(int kq) {
 // and, at 16-element input blocks, holds a slot's slab in registers while
 // the next slot's loads (CIFAR's forward at 8000 rows, the fan-in whole:
 // 643 us against 861 with the two-CTA form, PERF.md).
-template <typename T, bool DX>
-GatherFn<T, DX> pick(int cw, int kq, bool one_cta) {
+template <typename T, typename WT, bool DX>
+GatherFn<T, WT, DX> pick(int cw, int kq, bool one_cta) {
   if (one_cta && cw == 4 && kq == 4)
-    return csd_spmm_small_gather_kernel<T, DX, 4, 4, 1>;
-  return cw == 4   ? pick_kq<T, DX, 4>(kq)
-         : cw == 2 ? pick_kq<T, DX, 2>(kq)
-                   : pick_kq<T, DX, 1>(kq);
+    return csd_spmm_small_gather_kernel<T, WT, DX, 4, 4, 1>;
+  return cw == 4   ? pick_kq<T, WT, DX, 4>(kq)
+         : cw == 2 ? pick_kq<T, WT, DX, 2>(kq)
+                   : pick_kq<T, WT, DX, 1>(kq);
 }
 
-template <typename T, bool DX>
-int launch_gather(const void* in, const void* w, const int* idx,
-                  const int* slot, const void* bias, void* out, void* zout,
-                  int E, int M, int in_cols, int out_cols, int n_ob,
-                  int n_slots, int iw, int ow, int d_in_b, int act, int R,
-                  int ncg, int ks, int stages, int Y, cudaStream_t s) {
-  const GatherGeo g = gather_geo(in_cols, sizeof(T), n_slots, iw, ow, R,
-                                 ncg, ks, stages);
+// The launch's geometry and dims for x of `size` bytes an element, or
+// false for a geometry the kernel does not take: what the launcher and the
+// plan exports share.
+bool gather_launch_dims(int E, int n_ob, int ow, int iw, int in_cols,
+                        int n_slots, int size, int R, int ncg, int ks,
+                        int stages, int Y, plan::Dims* d) {
+  const GatherGeo g = gather_geo(in_cols, size, n_slots, iw, ow, R, ncg, ks,
+                                 stages);
   if (!gather_ok(g, n_slots, ow) || Y < 1 || Y > 65535 || E > 65535)
+    return false;
+  *d = gather_dims(g, E, n_ob * ow / column_group(ow), Y);
+  return true;
+}
+
+template <typename T, typename WT, bool DX>
+int launch_gather(const void* in, const void* w, const float* scale,
+                  const int* idx, const int* slot, const void* bias,
+                  void* out, void* zout, int E, int M, int in_cols,
+                  int out_cols, int n_ob, int n_slots, int iw, int ow,
+                  int d_in_b, int act, int R, int ncg, int ks, int stages,
+                  int Y, cudaStream_t s) {
+  plan::Dims d;
+  if (!gather_launch_dims(E, n_ob, ow, iw, in_cols, n_slots, sizeof(T), R,
+                          ncg, ks, stages, Y, &d))
     return static_cast<int>(cudaErrorInvalidValue);
-  const plan::Dims d = gather_dims(g, E, out_cols / column_group(ow), Y);
-  const GatherFn<T, DX> k = pick<T, DX>(
+  const GatherFn<T, WT, DX> k = pick<T, WT, DX>(
       column_group(ow), column_group(iw),
       kSmemPerSm / (static_cast<int>(d.smem) + kSmemReserved) < 2);
   cudaError_t err = cudaFuncSetAttribute(
@@ -481,7 +604,7 @@ int launch_gather(const void* in, const void* w, const int* idx,
       static_cast<int>(d.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   k<<<d.grid, d.threads, d.smem, s>>>(
-      static_cast<const T*>(in), static_cast<const T*>(w), idx, slot,
+      static_cast<const T*>(in), static_cast<const WT*>(w), scale, idx, slot,
       static_cast<const T*>(bias), static_cast<T*>(out),
       static_cast<T*>(zout), M, in_cols, out_cols, n_ob, n_slots, iw, ow,
       d_in_b, act, R, ncg, ks, stages);
@@ -510,13 +633,42 @@ extern "C" int csd_spmm_small_fwd(const void* x, const void* w,
   if (act < 0 || act > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int n_out = n_rb * br;
   if (dtype == 0)
-    return launch_gather<float, false>(
-        x, w, block_idx, nullptr, bias, y, z, E, M, n_in, n_out, n_rb,
-        d_in_b, bl, br, d_in_b, act, R, ncg, ks, stages, Y, s);
+    return launch_gather<float, float, false>(
+        x, w, nullptr, block_idx, nullptr, bias, y, z, E, M, n_in, n_out,
+        n_rb, d_in_b, bl, br, d_in_b, act, R, ncg, ks, stages, Y, s);
   if (dtype == 1)
-    return launch_gather<__nv_bfloat16, false>(
-        x, w, block_idx, nullptr, bias, y, z, E, M, n_in, n_out, n_rb,
-        d_in_b, bl, br, d_in_b, act, R, ncg, ks, stages, Y, s);
+    return launch_gather<__nv_bfloat16, __nv_bfloat16, false>(
+        x, w, nullptr, block_idx, nullptr, bias, y, z, E, M, n_in, n_out,
+        n_rb, d_in_b, bl, br, d_in_b, act, R, ncg, ks, stages, Y, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The int8 forward: y = act(sum_f (x block of block_idx[rb, f]) q[rb, f]
+// scale[rb, f] + b) over E experts of M rows: x (E, M, n_in) f32/bf16, q
+// (E, n_rb, d_in_b, bL, bR) int8, scale (E, n_rb, d_in_b) f32, bias (E,
+// n_rb bR) like x or null, y (E, M, n_rb bR) like x. Geometry and
+// preconditions as csd_spmm_small_fwd's (the geometry is x's, the same
+// rule's).
+extern "C" int csd_spmm_small_fwd_quant(const void* x, const void* q,
+                                        const float* scale,
+                                        const int* block_idx,
+                                        const void* bias, void* y, int E,
+                                        int M, int n_in, int n_rb,
+                                        int d_in_b, int bl, int br, int dtype,
+                                        int act, int R, int ncg, int ks,
+                                        int stages, int Y, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act < 0 || act > 2 || scale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_out = n_rb * br;
+  if (dtype == 0)
+    return launch_gather<float, int8_t, false>(
+        x, q, scale, block_idx, nullptr, bias, y, nullptr, E, M, n_in, n_out,
+        n_rb, d_in_b, bl, br, d_in_b, act, R, ncg, ks, stages, Y, s);
+  if (dtype == 1)
+    return launch_gather<__nv_bfloat16, int8_t, false>(
+        x, q, scale, block_idx, nullptr, bias, y, nullptr, E, M, n_in, n_out,
+        n_rb, d_in_b, bl, br, d_in_b, act, R, ncg, ks, stages, Y, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -533,19 +685,20 @@ extern "C" int csd_spmm_small_dx(const void* g, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_in = n_lb * bl, n_out = n_rb * br;
   if (dtype == 0)
-    return launch_gather<float, true>(
-        g, w, out_idx, out_slot, nullptr, dx, nullptr, E, M, n_out, n_in,
-        n_lb, d_out_b, br, bl, d_in_b, 0, R, ncg, ks, stages, Y, s);
+    return launch_gather<float, float, true>(
+        g, w, nullptr, out_idx, out_slot, nullptr, dx, nullptr, E, M, n_out,
+        n_in, n_lb, d_out_b, br, bl, d_in_b, 0, R, ncg, ks, stages, Y, s);
   if (dtype == 1)
-    return launch_gather<__nv_bfloat16, true>(
-        g, w, out_idx, out_slot, nullptr, dx, nullptr, E, M, n_out, n_in,
-        n_lb, d_out_b, br, bl, d_in_b, 0, R, ncg, ks, stages, Y, s);
+    return launch_gather<__nv_bfloat16, __nv_bfloat16, true>(
+        g, w, nullptr, out_idx, out_slot, nullptr, dx, nullptr, E, M, n_out,
+        n_in, n_lb, d_out_b, br, bl, d_in_b, 0, R, ncg, ks, stages, Y, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The launch csd_spmm_small_fwd (n_ob = n_rb, ow = bR, iw = bL, in_cols =
-// n_in, n_slots = d_in_b) or csd_spmm_small_dx (n_ob = n_lb, ow = bL, iw =
-// bR, in_cols = n_out, n_slots = d_out_b) makes with the given geometry,
+// The launch csd_spmm_small_fwd or csd_spmm_small_fwd_quant (n_ob = n_rb,
+// ow = bR, iw = bL, in_cols = n_in, n_slots = d_in_b; dtype that of x) or
+// csd_spmm_small_dx (n_ob = n_lb, ow = bL, iw = bR, in_cols = n_out,
+// n_slots = d_out_b) makes with the given geometry,
 // from the host code it launches with: six ints (plan.cuh) written to out.
 // Returns 1, or -1 for an unknown dtype or a geometry the kernel does not
 // take.
@@ -553,10 +706,11 @@ extern "C" int csd_spmm_small_gather_plan(int E, int n_ob, int ow, int iw,
                                           int in_cols, int n_slots,
                                           int dtype, int R, int ncg, int ks,
                                           int stages, int Y, int* out) {
-  if (dtype != 0 && dtype != 1) return -1;
-  const GatherGeo g = gather_geo(in_cols, dtype == 0 ? 4 : 2, n_slots, iw,
-                                 ow, R, ncg, ks, stages);
-  if (!gather_ok(g, n_slots, ow)) return -1;
-  plan::put(out, 0, gather_dims(g, E, n_ob * ow / column_group(ow), Y));
+  plan::Dims d;
+  if ((dtype != 0 && dtype != 1) ||
+      !gather_launch_dims(E, n_ob, ow, iw, in_cols, n_slots,
+                          dtype == 0 ? 4 : 2, R, ncg, ks, stages, Y, &d))
+    return -1;
+  plan::put(out, 0, d);
   return 1;
 }

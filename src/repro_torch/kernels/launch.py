@@ -458,12 +458,12 @@ def fwd_tile_n(dtype: str, e: int, m: int, n_rb: int, br: int,
 
 def small_block(bl: int, br: int) -> bool:
     """Whether a junction of (bL x bR) blocks runs the small-block forms of
-    ``csrc/csd_spmm_small.cu`` (forward, dx and dw, CUDA cores, f32
-    accumulation): every block shape the 64-wide tiles of the other bodies
-    refuse, bL or bR not a multiple of 64 (the paper MLP's 16 x 4, 4 x 4,
-    1 x 2 and 2 x 1, the smoke configurations' 16 x 16). Shapes that are
-    multiples of 64 keep their bodies (``fwd_tile_n``, ``dx_plan``,
-    ``dw_plan``)."""
+    ``csrc/csd_spmm_small.cu`` (forward, int8 forward, dx and dw, CUDA
+    cores, f32 accumulation): every block shape the 64-wide tiles of the
+    other bodies refuse, bL or bR not a multiple of 64 (the paper MLP's
+    16 x 4, 4 x 4, 1 x 2 and 2 x 1, the smoke configurations' 16 x 16).
+    Shapes that are multiples of 64 keep their bodies (``fwd_tile_n``,
+    ``quant_body``, ``dx_plan``, ``dw_plan``)."""
     return bl % 64 != 0 or br % 64 != 0
 
 
@@ -1016,8 +1016,8 @@ def mask_plan(rows: int, n_out: int, dtype: str) -> LaunchPlan:
 
 
 # ---------------------------------------------------------------------------
-# csrc/csd_spmm_small.cu (forward and dx) and csrc/csd_spmm_small_dw.cu (dw):
-# the small-block forms
+# csrc/csd_spmm_small.cu (forward, int8 forward and dx) and
+# csrc/csd_spmm_small_dw.cu (dw): the small-block forms
 # ---------------------------------------------------------------------------
 
 _SMALL_THREADS = 256            # the gather kernel's CTA (kThreads)
@@ -1302,19 +1302,27 @@ def _small_gather_launch(e: int, m: int, n_ob: int, ow: int, iw: int,
 @functools.lru_cache(maxsize=4096)
 def fwd_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
                    bl: int, br: int, dtype: str, *, has_bias: bool,
-                   save_preact: bool, n_sm: int = H100_SMS) -> LaunchPlan:
+                   save_preact: bool, n_sm: int = H100_SMS,
+                   quant: bool = False) -> LaunchPlan:
     """The plan of the small-block forward (``csd_spmm_small_fwd``): the
     gather kernel over the n_rb right blocks (width bR), each summing
     x[:, block_idx[rb, f]] w[rb, f] over its slots, in the geometry
-    ``small_gather_split`` picks for ``n_sm`` SMs."""
+    ``small_gather_split`` picks for ``n_sm`` SMs (x's, whatever the
+    slab's type). ``quant``: the int8 form (``csd_spmm_small_fwd_quant``),
+    an int8 slab whose every slot also reads its block's f32 scale
+    ``w_scale`` (E, n_rb, d_in_b); no pre-activation."""
+    if quant and save_preact:
+        raise ValueError("the int8 small-block forward has no save_preact")
     n_out = n_rb * br
     size = _itemsize(dtype)
     buffers = {
         "x": Buffer((e * m, n_in), size, "in"),
-        "w": Buffer((e, n_rb, d_in_b, bl, br), size, "in"),
+        "w": Buffer((e, n_rb, d_in_b, bl, br), 1 if quant else size, "in"),
         "block_idx": Buffer((n_rb, d_in_b), 4, "in"),
         "y": Buffer((e * m, n_out), size, "out"),
     }
+    if quant:
+        buffers["w_scale"] = Buffer((e, n_rb, d_in_b), 4, "in")
     if has_bias:
         buffers["bias"] = Buffer((e, n_out), size, "in")
     if save_preact:
@@ -1322,8 +1330,12 @@ def fwd_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
     sp = small_gather_split(e, m, n_rb, br, bl, n_in, d_in_b, size, n_sm)
 
     def reads_slot(rb, f, ex, j0, j1, pats, n):
-        return [_box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
-                     (0, bl), (j0, j1))]
+        out = [_box("w", n, (ex, ex + 1), (rb, rb + 1), (f, f + 1),
+                    (0, bl), (j0, j1))]
+        if quant:
+            out.append(_box("w_scale", n, (ex, ex + 1), (rb, rb + 1),
+                            (f, f + 1)))
+        return out
 
     def table_reads(ob0, ob1, n):
         return [_box("block_idx", n, (ob0, ob1), (0, d_in_b))]
@@ -1332,7 +1344,8 @@ def fwd_small_plan(e: int, m: int, n_in: int, n_rb: int, d_in_b: int,
         e, m, n_rb, br, bl, d_in_b, "x", n_in, size, sp,
         outs=("y", "z") if save_preact else ("y",), reads_slot=reads_slot,
         table_reads=table_reads, has_bias=has_bias)
-    return LaunchPlan("csd_spmm_fwd_small", buffers, (ln,), 1,
+    name = "csd_spmm_fwd_quant_small" if quant else "csd_spmm_fwd_small"
+    return LaunchPlan(name, buffers, (ln,), 1,
                       dict(E=e, n_ob=n_rb, ow=br, iw=bl, in_cols=n_in,
                            n_slots=d_in_b, dtype=_code(dtype), R=sp.rows,
                            ncg=sp.ncg, ks=sp.ks, stages=sp.stages, Y=sp.y))
@@ -2123,6 +2136,7 @@ PLAN_EXPORTS["paged_decode_attention_quant"] = \
     PLAN_EXPORTS["paged_decode_attention"]
 PLAN_EXPORTS["flash_attention_bwd"] = PLAN_EXPORTS["flash_attention_fwd"]
 PLAN_EXPORTS["csd_spmm_dx_small"] = PLAN_EXPORTS["csd_spmm_fwd_small"]
+PLAN_EXPORTS["csd_spmm_fwd_quant_small"] = PLAN_EXPORTS["csd_spmm_fwd_small"]
 
 
 def library_dims(plan: LaunchPlan

@@ -1,5 +1,6 @@
-"""The small-block forms of the junction kernels (``csrc/csd_spmm_small.cu``)
-and the mask kernel's tail against their plain versions, on the card.
+"""The small-block forms of the junction kernels (``csrc/csd_spmm_small.cu``:
+the forward, the int8 forward and dx) and the mask kernel's tail against
+their plain versions, on the card.
 
 These tests carry the ``cuda`` marker and skip where there is no card; they
 import neither JAX nor the JAX package, so they run on the GPU machine:
@@ -7,14 +8,15 @@ import neither JAX nor the JAX package, so they run on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_small_cuda.py
 
 Tolerances: f32 1e-4 and bf16 1e-2 of max |plain| (sums in another order;
-bf16 one rounding of each output on top), the mask equal element for
-element.
+bf16 one rounding of each output on top; the int8 gates are the same), the
+mask equal element for element.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.block_pattern import make_block_pattern
+from repro_torch.core.quant import quantize_slab
 from repro_torch.kernels import csd_spmm, launch
 from repro_torch.kernels.ops import csd_matmul
 
@@ -227,3 +229,85 @@ def test_csd_matmul_gradients_small_blocks(cuda_device, junction):
                                                  bt.grad)])
     for got, ref in zip(*outs):
         _close(got, ref, torch.float32)
+
+
+def _nan_filled(monkeypatch):
+    """Fill every output of each launch with NaN first."""
+    real = launch.run
+
+    def nan_run(plan, buffers, call):
+        for k, t in buffers.items():
+            if t is not None and plan.buffers[k].role != "in":
+                t.fill_(float("nan"))
+        return real(plan, buffers, call)
+
+    monkeypatch.setattr(launch, "run", nan_run)
+
+
+def _never_the_width_check(monkeypatch):
+    """Fail if the full-width forward's shape check, which refuses blocks
+    below 64, is reached."""
+    def refuse(*a, **kw):
+        raise AssertionError("_check_fwd_shapes reached")
+
+    monkeypatch.setattr(csd_spmm, "_check_fwd_shapes", refuse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("experts", [None, 3], ids=["4d", "5d"])
+@pytest.mark.parametrize("junction", SMALL_JUNCTIONS, ids=IDS)
+def test_quant_small_matches_plain(cuda_device, junction, experts, dtype,
+                                   monkeypatch):
+    """The int8 small-block forward through the shipped int8 wrappers
+    (``csd_spmm_fwd_cuda`` / ``_batched_cuda`` with ``w_scale``), with and
+    without bias, relu and gelu: into NaN-filled outputs, two runs
+    bit-equal, within the int8 gate of the plain version; each launch
+    counted on ``csd_spmm_fwd_quant_small_cuda`` and none on the full-width
+    int8 wrappers, and ``_check_fwd_shapes``'s refusal never reached."""
+    _nan_filled(monkeypatch)
+    _never_the_width_check(monkeypatch)
+    bp, x, w, b, _ = _case(junction, 77, experts, seed=5)
+    q, s = quantize_slab(torch.as_tensor(w))
+    x, b = _to(cuda_device, dtype, x, b)
+    q, s = q.to(cuda_device), s.to(cuda_device)
+    idx = _pat(bp, cuda_device)["block_idx"]
+    form = "" if experts is None else "_batched"
+    fwd = getattr(csd_spmm, f"csd_spmm_fwd{form}_cuda")
+    plain = getattr(csd_spmm, f"csd_spmm_fwd{form}_plain")
+    full = getattr(csd_spmm, f"csd_spmm_fwd_quant{form}_cuda")
+    small = csd_spmm.csd_spmm_fwd_quant_small_cuda
+    n0 = (small.launches, full.launches)
+    combos = (dict(bias=b, activation="relu"), dict(activation="gelu"),
+              dict(bias=b))
+    for kw in combos:
+        a, c = (fwd(x, q, idx, w_scale=s, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        assert not bool(torch.isnan(a.float()).any())
+        assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+        _close(a, plain(x, q, idx, w_scale=s, **kw), dtype)
+    assert (small.launches, full.launches) == (n0[0] + 2 * len(combos),
+                                               n0[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [None, 4], ids=["rule", "split4"])
+@pytest.mark.parametrize("m", [1, 33, 8000])
+def test_quant_small_ragged_and_long_m(cuda_device, m, split, monkeypatch):
+    """Table I's and CIFAR_MLP's int8 junctions (16 x 4; CIFAR's 4000-wide
+    rows take the one-CTA register-resident form) at 1 row, a partial tile
+    and the training set's 8000 rows, f32, with the rule's fan-in split and
+    with it forced over 4 ranks."""
+    _never_the_width_check(monkeypatch)
+    for junction in (SMALL_JUNCTIONS[0], (4000, 500, 16, 4, 0.2)):
+        bp, x, w, b, _ = _case(junction, m, None, seed=m)
+        q, s = quantize_slab(torch.as_tensor(w))
+        x, b = _to(cuda_device, torch.float32, x, b)
+        q, s = q.to(cuda_device), s.to(cuda_device)
+        idx = _pat(bp, cuda_device)["block_idx"]
+        with launch.forced_small_split(gather=split):
+            got = csd_spmm.csd_spmm_fwd_cuda(x, q, idx, w_scale=s, bias=b,
+                                             activation="relu")
+        _close(got, csd_spmm.csd_spmm_fwd_plain(
+            x, q, idx, w_scale=s, bias=b, activation="relu"), torch.float32)
