@@ -102,7 +102,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one cache state: over int8 KV pages two free-running caches may hold a
    token quantized a level apart, recorded), the int8 small-block forward
    launched and no other junction kernel (no f32 forward, no full-width
-   int8 body);
+   int8 body); each served model (f32 and int8) then serves 4 periodic
+   prompts with ``spec_k`` 4 and without: equal tokens, drafts made, only
+   the small-block forward and the paged decode launched;
+3g. run the port's example scripts (``examples/torch_quickstart.py``,
+   ``torch_train_sparse_mlp.py``, ``torch_serve_batched.py``) at their
+   defaults on the card, all three at once, each in its own process:
+   each must exit 0;
 5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
    vocab 262144; random weights from a seed; bf16) through
    ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
@@ -124,6 +130,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    profiled steps, whose junction kernels' µs per step are recorded; then
    the teacher-forced top-1 agreement of the int8 model's logits with the
    bf16 model's on phase 5's prompts and tokens (recorded, not gated);
+5s. speculative decode (``EngineConfig(spec_k=4)``) on phase 5's and 5b's
+   models (after 5b) and on phase 5c's (after 5c): 4 prompts of 8-token
+   motifs tiled to 64-128 tokens, 32 new tokens, served spec-on, off, on,
+   off (decode tok/s, steps and acceptance recorded); each run's launches
+   exact for its paged steps (3 junction launches a layer a step, a paged
+   decode a layer a plain decode step and none in a verify step); every
+   spec-on run must draft; its tokens equal the spec-off run's or first
+   differ where the spec-off logits' top-2 gap is below 5% of max |logit|;
+   one verify step (4 rows of 1 + 4 positions, n_new 5, 5, 3, 1) held
+   against the plain versions from one cache state at every valid
+   position (5% of max |logit|), with exactly 3 junction launches a layer
+   (102 for gemma3-4b, 72 expert-batched for granite-moe) on the body
+   ``launch.fwd_body`` gives for the chunk's rows, and profiled;
 5c. serve granite-moe-1b-a400m at its full width (24 layers, d_model 1024,
    32 experts top-8 of d_expert 512, vocab 49155; random weights from a
    seed; bf16) in its serving configuration: expert blocks 128 x 256
@@ -1798,7 +1817,79 @@ def smoke_serve(arch: str, device, quant: bool = False) -> dict:
             or not gated[0] <= SMOKE_LOGIT_TOL * gated[1]:
         fail(f"the {cfg.name} smoke configuration did not serve as "
              f"expected: {rec}")
+    rec["spec"] = smoke_spec(model, device, fwd, paged)
     return rec
+
+
+def smoke_spec(model, device, fwd: str, paged: str) -> dict:
+    """Phase 3f's speculative run: ``model`` (a smoke configuration, as
+    ``smoke_serve`` served it) serves 4 periodic prompts of 32 tokens (16
+    new each, ``generate``'s engine knobs) with ``spec_k`` = ``SPEC_K``
+    and without it: the tokens must be equal, the spec-on run must draft,
+    and it must launch only ``fwd`` and ``paged``."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = model.cfg
+    prompts = periodic_prompts(cfg.vocab_size, (32,) * 4)
+    knobs = dict(max_slots=4, page_size=16, total_pages=12,
+                 max_pages_per_seq=3, token_budget=36, prefill_chunk=64)
+    toks = {}
+    for spec_k in (0, SPEC_K):
+        eng = ServingEngine(model, EngineConfig(spec_k=spec_k, **knobs),
+                            device=device)
+        reset_launch_counts()
+        toks[spec_k] = [o.tolist() for o in eng.run(prompts, 16)]
+    launches = {k: v for k, v in launch_counts().items() if v}
+    tag = " int8" if cfg.sparsity.quant is not None else ""
+    rec = dict(check=f"{cfg.name} smoke{tag}: spec_k {SPEC_K} vs 0",
+               stats=dict(eng.sched.stats),
+               tokens_equal=toks[0] == toks[SPEC_K], launches=launches)
+    log(json.dumps(rec))
+    if not rec["tokens_equal"] or not eng.sched.stats["spec_drafted"] \
+            or set(launches) - {fwd, paged} or not launches.get(fwd):
+        fail(f"the {cfg.name} smoke configuration's speculative run: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the port's example scripts
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_quickstart.py", "torch_train_sparse_mlp.py",
+            "torch_serve_batched.py")
+
+
+def run_examples() -> dict:
+    """Each of the port's example scripts once at its defaults (the card),
+    all three at once, each in its own process: each must exit 0; its time
+    and last lines recorded (the rates they print share the card)."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            rec = dict(check=f"examples/{name}", rc=proc.returncode,
+                       seconds=time.perf_counter() - t0,
+                       stdout=stdout.splitlines()[-6:])
+            log(json.dumps(rec))
+            if proc.returncode != 0:
+                fail(f"examples/{name} exited {proc.returncode}: "
+                     f"{stderr[-2000:]}")
+            out[name] = rec
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1935,29 +2026,14 @@ def serve(model, device, out_dir, quant=None,
     reset_launch_counts()
     torch.cuda.synchronize()
     t_start = time.perf_counter()
-    for i, p in enumerate(prompts):
-        eng.add_request(p, n_new, req_id=i)
-    ttft, steps, t_prefilled, gen_at = {}, 0, None, 0
-    while eng.sched.has_work():
-        eng.step()  # ends in a host copy of the sampled tokens
-        steps += 1
-        now = time.perf_counter()
-        for s in eng.sched.active:
-            if s is not None and s.n_generated >= 1:
-                ttft.setdefault(s.req.req_id, now - t_start)
-        for rid in eng.outputs:
-            ttft.setdefault(rid, now - t_start)
-        if t_prefilled is None and len(ttft) == len(prompts):
-            t_prefilled = now
-            gen_at = sum(len(o) for o in eng.outputs.values()) + sum(
-                s.n_generated for s in eng.sched.active if s is not None)
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
+    run = drain(eng, prompts, n_new, t_start)
+    steps, ttft = run["steps"], run["ttft"]
+    t_end, t_prefilled, gen_at = run["t_end"], run["t_prefilled"], \
+        run["gen_at"]
     launches = launch_counts()
     forms = paged_form_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    outs = [eng.outputs[i] for i in range(len(prompts))]
-    toks = np.stack(outs)
+    toks = run["tokens"]
     gen_total = toks.size
     rec = dict(model=cfg.name, n_layers=cfg.n_layers,
                d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
@@ -2061,6 +2137,45 @@ def serve(model, device, out_dir, quant=None,
         knobs=knobs), toks, prompts
 
 
+def drain(eng, prompts, n_new, t_start) -> dict:
+    """Serve ``prompts`` (``n_new`` tokens each) on ``eng`` until it drains,
+    the clock started at ``t_start``: the steps, each request's time to
+    first token, when every request had its first token (``t_prefilled``)
+    and how many tokens there were then (``gen_at``), the end after a
+    device sync, the tokens (requests, n_new), and the paged steps by kind:
+    prefill calls (one per chunk length a step), plain decode steps and
+    speculative verify steps."""
+    import numpy as np
+    import torch
+    for i, p in enumerate(prompts):
+        eng.add_request(p, n_new, req_id=i)
+    ttft, steps, t_prefilled, gen_at = {}, 0, None, 0
+    kinds = dict(prefill_calls=0, decode_steps=0, verify_steps=0)
+    while eng.sched.has_work():
+        plan, _ = eng.step()  # ends in a host copy of the sampled tokens
+        steps += 1
+        kinds["prefill_calls"] += len(plan.prefill_groups)
+        if plan.drafts:
+            kinds["verify_steps"] += 1
+        elif plan.decode_slots:
+            kinds["decode_steps"] += 1
+        now = time.perf_counter()
+        for s in eng.sched.active:
+            if s is not None and s.n_generated >= 1:
+                ttft.setdefault(s.req.req_id, now - t_start)
+        for rid in eng.outputs:
+            ttft.setdefault(rid, now - t_start)
+        if t_prefilled is None and len(ttft) == len(prompts):
+            t_prefilled = now
+            gen_at = sum(len(o) for o in eng.outputs.values()) + sum(
+                s.n_generated for s in eng.sched.active if s is not None)
+    torch.cuda.synchronize()
+    return dict(steps=steps, ttft=ttft, t_prefilled=t_prefilled,
+                gen_at=gen_at, t_end=time.perf_counter(),
+                tokens=np.stack([eng.outputs.pop(i)
+                                 for i in range(len(prompts))]), **kinds)
+
+
 def launched_plans(fn) -> tuple:
     """(fn(), the plans of every launch it made, in order)."""
     from repro_torch.kernels import launch
@@ -2158,6 +2273,285 @@ def top1_agreement(ref_model, model, prompts, gen, device, quant,
                 near_tie_margin=NEAR_TIE_MARGIN)
 
 
+# ---------------------------------------------------------------------------
+# phase 5s: speculative decode at full width
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_MOTIF, SPEC_NEW = 8, 32  # motif tokens of a periodic prompt; new tokens
+# the check step's drafts per request: the spec-off continuation whole, with
+# its second draft wrong, its first two, none
+SPEC_CHECK_DRAFTS = ("whole", "second_wrong", "two", "none")
+
+
+def periodic_prompts(vocab: int, lens, motif: int = SPEC_MOTIF) -> list:
+    """One request per length: a motif of ``motif`` tokens from the seed
+    tiled to that length, as ``tests/test_serving.py::_periodic_prompt``
+    builds them (the prompt-lookup drafter matches such runs)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [np.tile(rng.integers(0, vocab, motif).astype(np.int32),
+                    -(-n // motif))[:n] for n in lens]
+
+
+def check_drafter(prompts, cont, vocab: int):
+    """A drafter for the checked verify step: request i's drafts are the
+    tokens ``cont[i]`` (the spec-off run's) that follow its history, shaped
+    by ``SPEC_CHECK_DRAFTS[i]``."""
+    def drafter(tokens, k):
+        i = next(j for j, p in enumerate(prompts)
+                 if list(tokens[:SPEC_MOTIF]) == p[:SPEC_MOTIF].tolist())
+        n_gen = len(tokens) - len(prompts[i])
+        d = [int(t) for t in cont[i][n_gen:n_gen + k]]
+        kind = SPEC_CHECK_DRAFTS[i % len(SPEC_CHECK_DRAFTS)]
+        if kind == "second_wrong" and len(d) > 1:
+            d[1] = (d[1] + 1) % vocab
+        return {"whole": d, "second_wrong": d, "two": d[:2]}.get(kind, [])
+    return drafter
+
+
+def verify_bodies(plans, model, slots: int, c: int, quant) -> dict:
+    """Fail unless every junction call of a verify step (the plans of
+    ``csd_spmm_fwd`` / ``csd_spmm_fwd_quant``) ran over the chunk's rows,
+    ``slots`` x ``c`` tokens (an MoE expert: the capacity of that many), on
+    the body ``launch.fwd_body`` gives for them; the (kernel, rows, tile
+    columns) the calls ran, with their counts."""
+    import torch
+    from repro_torch.kernels import launch
+    from repro_torch.nn.ffn import MoE
+    n_sm = launch.sm_count(torch.device("cuda", 0))
+    rows = slots * c
+    moe = next((m for m in model.modules() if isinstance(m, MoE)), None)
+    want_m = rows if moe is None else moe.capacity(rows)
+    kernels = {launch.BODY_WGMMA: "csd_spmm_fwd_wgmma_kernel",
+               launch.BODY_STREAM: "csd_spmm_fwd_quant_stream_kernel"}
+    seen = {}
+    for p in plans:
+        if p.name not in ("csd_spmm_fwd", "csd_spmm_fwd_quant"):
+            continue
+        e, n_rb, d_in_b, _, br = p.buffers["w"].shape
+        m = p.buffers["x"].shape[0] // e
+        body = launch.fwd_body(model.cfg.dtype, e, m, n_rb, d_in_b, br,
+                               n_sm, quant is not None)
+        got = p.launches[0].kernel
+        want = kernels.get(body[0])
+        if m != want_m or (
+                got != want if want else got in kernels.values()):
+            fail(f"a verify junction call ran {got} over {m} rows; the "
+                 f"rule gives body {body} for {rows} tokens")
+        key = f"{got}, {m} rows, tile_n {body[2]}"
+        seen[key] = seen.get(key, 0) + 1
+    return seen
+
+
+def profile_call(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: its kernels' device ms (summed
+    over the CUDA kernels), wall ms, kernel launches and the top five."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(dev_us(e) for e in kernels)
+    return dict(kernel_ms=total / 1e3 if total else "not measured",
+                wall_ms=wall * 1e3,
+                kernel_launches=sum(e.count for e in kernels),
+                top=[dict(name=e.key[:70], us=dev_us(e), calls=e.count)
+                     for e in sorted(kernels, key=dev_us, reverse=True)[:5]])
+
+
+def logits_at(model, prompt, gen, pos, device, quant) -> "torch.Tensor":
+    """The f32 logits from which a plain greedy run chose ``gen[pos]``:
+    ``prompt`` as one prefill chunk, then ``gen[:pos]`` one token a decode
+    step (the kernels; over int8 pages where ``quant.kv``)."""
+    import torch
+    from repro_torch.nn.common import dtype_of
+    n = len(prompt)
+    per_row = -(-(n + pos + 1) // 16)
+    table = torch.arange(per_row, dtype=torch.int32, device=device)[None]
+    cache = model.init_paged_cache(per_row, 16, dtype_of(model.cfg), device,
+                                   quant_kv=quant is not None and quant.kv)
+
+    def step(toks, at, k):
+        return model.paged_step(
+            torch.as_tensor(toks, device=device)[None],
+            torch.tensor([at], dtype=torch.int32, device=device),
+            torch.tensor([k], dtype=torch.int32, device=device), cache,
+            table)[0, 0].float()
+
+    out = step(prompt, 0, n)
+    for j in range(pos):
+        out = step(gen[j:j + 1], n + j, 1)
+    return out
+
+
+def spec_serve(model, device, quant=None) -> dict:
+    """Phase 5s on ``model`` (served with ``quant``): periodic prompts
+    (``periodic_prompts`` at ``DENSE_PROMPTS``' lengths, ``SPEC_NEW`` new
+    tokens) served with ``spec_k`` = ``SPEC_K`` and without it, on, off,
+    on, off, each run's launches exact for its paged steps (3 junction calls
+    a layer a step, one paged decode a layer a plain decode step, none in a
+    verify step) and its decode tok/s recorded; every spec-on run must
+    draft; the tokens equal the spec-off run's, or first differ where the
+    spec-off logits' top-2 gap lies below ``NEAR_TIE_MARGIN`` of max
+    |logit|. Then one verify step (drafts from ``check_drafter``) from one
+    cache state with the kernels and with the plain versions: the logits
+    at every valid chunk position within ``LOGIT_TOL`` of max |logit|,
+    exactly 3 junction launches a layer on the rule's body for the chunk's
+    rows and nothing else, and its kernel time under the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = model.cfg
+    tag = "int8" if quant is not None else cfg.dtype
+    n_layers = cfg.n_layers
+    fwd, paged = serve_kernels(cfg, quant)
+    prompts = periodic_prompts(cfg.vocab_size, DENSE_PROMPTS)
+    warm = ServingEngine(model, engine_config(quant, spec_k=SPEC_K),
+                         device=device)
+    warm.run(periodic_prompts(cfg.vocab_size, (16,)), 8)  # verify shapes
+    runs = []
+    for spec_k in (SPEC_K, 0, SPEC_K, 0):
+        eng = ServingEngine(model, engine_config(quant, spec_k=spec_k),
+                            device=device)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = drain(eng, prompts, SPEC_NEW, t0)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        calls = r["prefill_calls"] + r["decode_steps"] + r["verify_steps"]
+        want = {fwd: 3 * n_layers * calls}
+        if r["decode_steps"]:
+            want[paged] = n_layers * r["decode_steps"]
+        toks = r["tokens"]
+        stats = dict(eng.sched.stats)
+        rec = dict(spec_k=spec_k, steps=r["steps"],
+                   prefill_calls=r["prefill_calls"],
+                   decode_steps=r["decode_steps"],
+                   verify_steps=r["verify_steps"],
+                   spec_drafted=stats["spec_drafted"],
+                   spec_accepted=stats["spec_accepted"],
+                   acceptance=stats["spec_accepted"] / stats["spec_drafted"]
+                   if stats["spec_drafted"] else None,
+                   wall_s=r["t_end"] - t0,
+                   decode_tok_per_s=(toks.size - r["gen_at"])
+                   / (r["t_end"] - r["t_prefilled"]),
+                   launches=launches)
+        log(json.dumps(dict(check=f"{cfg.name} {tag} spec_k {spec_k}",
+                            **rec)))
+        if toks.shape != (len(prompts), SPEC_NEW) or launches != want:
+            fail(f"{cfg.name} {tag} spec_k {spec_k}: tokens {toks.shape}, "
+                 f"launches {launches}, expected {want}")
+        if spec_k and not stats["spec_drafted"]:
+            fail(f"{cfg.name} {tag}: the spec-on run drafted nothing")
+        runs.append((rec, toks))
+    off = runs[1][1]
+    diverged = []
+    for on in (runs[0][1], runs[2][1]):
+        for i in range(len(prompts)):
+            diff = np.flatnonzero(on[i] != off[i])
+            if not diff.size:
+                continue
+            pos = int(diff[0])
+            lg = logits_at(model, prompts[i], off[i], pos, device, quant)
+            top2 = lg.topk(2).values
+            d = dict(request=i, position=pos, spec_token=int(on[i, pos]),
+                     off_token=int(off[i, pos]),
+                     top2_gap=float(top2[0] - top2[1]),
+                     max_abs_logit=float(lg.abs().max()),
+                     off_token_is_argmax=int(lg.argmax()) == int(off[i, pos]))
+            diverged.append(d)
+            if not d["top2_gap"] < NEAR_TIE_MARGIN * d["max_abs_logit"]:
+                fail(f"{cfg.name} {tag}: spec-on tokens diverge from "
+                     f"spec-off above a near tie: {d}")
+
+    # one verify step, kernels against plain versions from one cache state
+    chk = ServingEngine(model, engine_config(quant, spec_k=SPEC_K),
+                        device=device)
+    chk.sched.drafter = check_drafter(prompts, off, cfg.vocab_size)
+    for i, p in enumerate(prompts):
+        chk.add_request(p, SPEC_NEW, req_id=i)
+    while chk.sched.waiting or any(s is not None and s.prefilling
+                                   for s in chk.sched.active):
+        chk.step()
+    plan = chk.sched.schedule()
+    if not plan.drafts or plan.prefills:
+        fail(f"{cfg.name} {tag}: expected a verify step after the prefill "
+             f"drain, got {plan}")
+    slots, c = chk.config.max_slots, 1 + SPEC_K
+    tokens = np.zeros((slots, c), np.int32)
+    n_new = np.zeros((slots,), np.int32)
+    for s in plan.decode_slots:
+        row = [chk.sched.active[s].pending_token] + plan.drafts.get(s, [])
+        tokens[s, :len(row)] = row
+        n_new[s] = len(row)
+    base = [{k: v.clone() for k, v in cc.items()} for cc in chk.cache]
+
+    def run_step(cache=None):
+        chk.cache = cache or [{k: v.clone() for k, v in cc.items()}
+                              for cc in base]
+        return chk._run(tokens, chk.sched.state.seq_lens, n_new,
+                        all_logits=True)
+
+    reset_launch_counts()
+    logits_k, plans = launched_plans(run_step)
+    per_step = {k: v for k, v in launch_counts().items() if v}
+    with plain_versions():
+        logits_p = run_step()
+    valid = torch.as_tensor(np.arange(c)[None] < n_new[:, None],
+                            device=device)
+    lk, lp = logits_k.float()[valid], logits_p.float()[valid]
+    err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
+    bodies = verify_bodies(plans, model, slots, c, quant)
+    cache = [{k: v.clone() for k, v in cc.items()} for cc in base]
+    prof = profile_call(lambda: run_step(cache))
+    chk_rec = dict(check=f"{cfg.name} {tag} verify step (chunk {c}, n_new "
+                         f"{n_new.tolist()}), kernels vs plain versions",
+                   valid_positions=int(valid.sum()), max_abs_err=err,
+                   max_abs_logit=scale, tol=LOGIT_TOL * scale,
+                   argmax_agreement=float(
+                       (lk.argmax(-1) == lp.argmax(-1)).float().mean()),
+                   finite=bool(torch.isfinite(lk).all()),
+                   launches_per_verify_step=per_step, bodies=bodies,
+                   profile=prof)
+    log(json.dumps(chk_rec))
+    if not chk_rec["finite"] or err > LOGIT_TOL * scale:
+        fail(f"verify logits disagree: {chk_rec}")
+    if per_step != {fwd: 3 * n_layers}:
+        fail(f"{tag} verify step launched {per_step}, expected "
+             f"{ {fwd: 3 * n_layers} }")
+    on_recs = [runs[0][0], runs[2][0]]
+    return dict(model=cfg.name, tag=tag, spec_k=SPEC_K,
+                prompt_lens=list(DENSE_PROMPTS), motif=SPEC_MOTIF,
+                new_tokens=SPEC_NEW, runs=[r for r, _ in runs],
+                acceptance=[r["acceptance"] for r in on_recs],
+                steps_on=[r["steps"] for r in on_recs],
+                steps_off=[runs[1][0]["steps"], runs[3][0]["steps"]],
+                decode_tok_per_s_on=[r["decode_tok_per_s"] for r in on_recs],
+                decode_tok_per_s_off=[runs[1][0]["decode_tok_per_s"],
+                                      runs[3][0]["decode_tok_per_s"]],
+                tokens_equal=[bool((runs[j][1] == off).all())
+                              for j in (0, 2)],
+                off_runs_equal=bool((runs[3][1] == off).all()),
+                diverged=diverged, verify_check=chk_rec)
+
+
+def dev_us(e) -> float:
+    """A profiler event's own device µs (the key's name moved between torch
+    releases)."""
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0)
+
+
 def export_trace(prof, path: Path) -> None:
     """The profiler's chrome trace, gzipped (``<path>.gz``)."""
     import gzip
@@ -2195,10 +2589,6 @@ def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
         wall = time.perf_counter() - t0
     export_trace(prof, out_dir / (trace + ("" if quant is None
                                            else "_int8") + ".json"))
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -3153,10 +3543,6 @@ def profile_train(trainer, params, opt, data, out_dir, trace):
     launches = {k: v for k, v in launch_counts().items() if v}
     export_trace(prof, out_dir / f"{trace}.json")
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     total_us = sum(dev_us(e) for e in kernels)
@@ -3456,6 +3842,8 @@ def main() -> int:
     log(f"phase 3e done at {time.perf_counter() - t_all:.1f} s")
     smoke_recs = run_smoke_configs(device)
     log(f"phase 3f done at {time.perf_counter() - t_all:.1f} s")
+    example_recs = run_examples()
+    log(f"phase 3g done at {time.perf_counter() - t_all:.1f} s")
 
     # phase 5
     from repro_torch.core.quant import QuantConfig
@@ -3481,6 +3869,11 @@ def main() -> int:
                                device, quant)
     log(json.dumps(agree_rec))
     log(f"phase 5b done at {time.perf_counter() - t_all:.1f} s")
+
+    # phase 5s: speculative decode on the models phases 5, 5b and 5c serve
+    spec_recs = {"gemma3-4b bf16": spec_serve(bf16_model, device),
+                 "gemma3-4b int8": spec_serve(int8_model, device, quant)}
+    log(f"phase 5s (gemma3-4b) done at {time.perf_counter() - t_all:.1f} s")
     del bf16_model, int8_model
     gc.collect()  # the serving models and their engines
     torch.cuda.empty_cache()
@@ -3493,6 +3886,9 @@ def main() -> int:
         g_bf16, device, out_dir, trace="decode_trace_granite",
         slab_bytes=g_bytes["bf16"][0])
     log(f"phase 5c done at {time.perf_counter() - t_all:.1f} s")
+    spec_recs["granite-moe-1b-a400m bf16"] = spec_serve(g_bf16, device)
+    log(f"phase 5s (granite-moe) done at "
+        f"{time.perf_counter() - t_all:.1f} s")
 
     # phase 5d: the same weights, quantized at load from f32
     g_int8 = fresh_model(gcfg)
@@ -3825,6 +4221,20 @@ def main() -> int:
     entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
     next(e for e in entries if e["name"] == "csd_spmm_fwd_batched")[
         "launches_train"] = g_train_rec["launches"]["csd_spmm_fwd_batched"]
+    for e in entries:  # phase 5s's spec-on runs, phase 3f's speculative runs
+        if e["name"] in ("csd_spmm_fwd", "csd_spmm_fwd_quant",
+                         "csd_spmm_fwd_batched", "paged_decode_attention",
+                         "paged_decode_attention_quant"):
+            e["launches_spec"] = sum(
+                r["launches"].get(e["name"], 0) for v in spec_recs.values()
+                for r in v["runs"] if r["spec_k"])
+            e["launches_per_verify_step"] = {
+                k: v["verify_check"]["launches_per_verify_step"].get(
+                    e["name"], 0) for k, v in spec_recs.items()}
+        if e["name"].endswith("_small") and "fwd" in e["name"]:
+            e["launches_smoke_spec"] = sum(
+                r["spec"]["launches"].get(e["name"], 0)
+                for k, r in smoke_recs.items() if "spec" in r)
     for e in entries:  # the attention kernels in granite's training
         if e["name"] in ("flash_attention", "flash_attention_bwd"):
             e["launches_train_granite"] = g_train_rec["launches"][e["name"]]
@@ -3848,6 +4258,7 @@ def main() -> int:
              nan_coverage=nan_rec,
              injected_alias=inj_rec, paper_mlp=mlp_recs,
              smoke_configs=smoke_recs, dense_decoders=dense_recs,
+             examples=example_recs, spec=spec_recs,
              kernels=entries),
         indent=1))
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -190,18 +190,25 @@ class LM(nn.Module):
     @torch.no_grad()
     def paged_step(self, tokens: torch.Tensor, pos: torch.Tensor,
                    n_new: torch.Tensor, cache: List[dict],
-                   page_table: torch.Tensor) -> torch.Tensor:
+                   page_table: torch.Tensor, *,
+                   all_logits: bool = False) -> torch.Tensor:
         """One engine step: tokens (B, C) int, per-row start positions
         ``pos`` (B,) and valid counts ``n_new`` (B,), int32. C == 1 is a
-        batched decode step, C > 1 one prefill chunk. Updates the cache in
-        place and returns the logits of each row's last valid token,
-        (B, 1, V)."""
+        batched decode step, C > 1 one prefill chunk or a speculative verify
+        chunk (pending token + drafts, ``n_new`` below C where a row drafted
+        fewer). Updates the cache in place and returns the logits of each
+        row's last valid token, (B, 1, V), or with ``all_logits`` those of
+        every chunk position, (B, C, V): the verify step reads the greedy
+        continuation after each draft. Logits at positions past a row's
+        ``n_new`` are computed but mean nothing."""
         x = self.embed(tokens)
         if self.cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         for layer, c in zip(self.layers, cache):
             x = layer.paged_step(x, pos, n_new, c, page_table)
         x = self.ln_f(x)
+        if all_logits:
+            return self.logits_fn(x)
         idx = torch.clamp(n_new.long() - 1, 0, x.shape[1] - 1)
         h_last = torch.gather(
             x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))

@@ -8,6 +8,16 @@ runs the ``csd_spmm_fwd`` kernel and every decode step the paged decode
 kernel when the model lives on the card; on the CPU the same code runs the
 plain versions.
 
+Speculative decode (``spec_k > 0``, greedy only): a prompt-lookup drafter
+proposes up to ``spec_k`` tokens per decode slot, and when any slot drafted
+the decode step becomes one verify chunk of ``1 + spec_k`` positions over
+every slot (the prefill chunk path: its junctions at M = slots x (1 +
+spec_k), attention by gather), whose logits at every position give the
+greedy continuation; the longest matching prefix of drafts is accepted and
+the rejected KV rolled back with ``kv_cache.truncate``. The tokens are those
+of plain greedy decode. A step where no slot drafted is the plain decode
+step, paged decode kernel included.
+
 At load the engine moves the model to its device and compute dtype once
 (bf16 for the full configs): the JAX ``Linear`` casts its f32 weight on
 every call, which here would triple the bytes each junction reads. It moves
@@ -41,14 +51,14 @@ import torch
 from ..core.quant import QuantConfig, quantize_model
 from ..nn.common import dtype_of, resolve_device
 from .scheduler import Request, Scheduler, StepPlan
+from .spec import PromptLookupDrafter
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Engine knobs. ``token_budget`` is the per-step work quantum (the
     paper's degree of parallelism ``z``), ``page_size`` the KV allocation
-    granularity, ``max_slots`` the number of resident sequences.
-    Speculative decode (the JAX package's ``spec_k``) is not ported yet."""
+    granularity, ``max_slots`` the number of resident sequences."""
     max_slots: int = 8
     page_size: int = 16
     total_pages: int = 128
@@ -57,6 +67,10 @@ class EngineConfig:
     prefill_chunk: int = 32
     greedy: bool = True
     temperature: float = 1.0
+    # speculative decode: up to spec_k prompt-lookup drafts per decode slot,
+    # verified in one multi-token step (0 = off; greedy only)
+    spec_k: int = 0
+    spec_ngram: int = 3         # longest suffix n-gram the drafter matches
     # int8 inference: quantize the sparse junctions' slabs per block at load
     # (weights=True) and/or keep the KV pages in int8 with per-token scales
     # (kv=True). None falls back to the model's SparsityConfig.quant
@@ -107,13 +121,20 @@ class ServingEngine:
                                   quantize=qc is not None and qc.weights)
         self.config = cfg
         self.seed = seed
+        # acceptance compares argmax continuations, so speculation is greedy
+        # only. (The JAX engine also clamps spec_k to 0 for stacks with
+        # mamba layers, whose recurrent state cannot be rolled back; the
+        # port has no mamba layer kind yet.)
+        self.spec_k = cfg.spec_k if cfg.greedy else 0
         self.sched = Scheduler(
             slots=cfg.max_slots, total_pages=cfg.total_pages,
             page_size=cfg.page_size,
             max_pages_per_seq=cfg.max_pages_per_seq,
             token_budget=cfg.token_budget,
             prefill_chunk=cfg.prefill_chunk,
-            window=self._reclaim_window(mc))
+            window=self._reclaim_window(mc), spec_k=self.spec_k,
+            drafter=PromptLookupDrafter(cfg.spec_ngram) if self.spec_k
+            else None)
         self.cache = model.init_paged_cache(
             cfg.total_pages, cfg.page_size, dtype_of(mc), self.device,
             quant_kv=qc is not None and qc.kv)
@@ -174,13 +195,14 @@ class ServingEngine:
     # -- the step ----------------------------------------------------------
 
     def _run(self, tokens: np.ndarray, pos: np.ndarray,
-             n_new: np.ndarray) -> torch.Tensor:
+             n_new: np.ndarray, all_logits: bool = False) -> torch.Tensor:
         dev = self.device
         return self.model.paged_step(
             torch.as_tensor(tokens, device=dev),
             torch.as_tensor(pos, dtype=torch.int32, device=dev),
             torch.as_tensor(n_new, device=dev), self.cache,
-            torch.as_tensor(self.sched.state.page_table, device=dev))
+            torch.as_tensor(self.sched.state.page_table, device=dev),
+            all_logits=all_logits)
 
     def step(self) -> Tuple[StepPlan, List[Tuple[int, np.ndarray]]]:
         """Run one engine step; returns (plan, finished) where finished is
@@ -209,7 +231,10 @@ class ServingEngine:
                     self.sched.append_token(
                         slot, self._sample(logits[slot, 0], slot))
 
-        if plan.decode_slots:
+        if plan.drafts:
+            self._verify_decode(plan)
+        elif plan.decode_slots:
+            # plain decode (C == 1): the paged decode kernel
             tokens = np.zeros((slots, 1), np.int32)
             n_new = np.zeros((slots,), np.int32)
             for s in plan.decode_slots:
@@ -232,6 +257,39 @@ class ServingEngine:
                 self.outputs[req.req_id] = gen
                 finished.append((req.req_id, gen))
         return plan, finished
+
+    def _verify_decode(self, plan: StepPlan) -> None:
+        """Verify pending + drafts of every decode slot in one multi-token
+        ``paged_step``: ``n_new`` = 1 + drafts per row, the chunk padded to
+        ``1 + spec_k`` over all slots. The argmax runs on the device and
+        only the (slots, C) greedy tokens come to the host. The longest
+        prefix of drafts that matches the greedy continuation is accepted,
+        so the committed tokens are those plain decode would give; the
+        rejected tail rolls back in ``note_verified``."""
+        slots = self.config.max_slots
+        tokens = np.zeros((slots, 1 + self.spec_k), np.int32)
+        n_new = np.zeros((slots,), np.int32)
+        for s in plan.decode_slots:
+            row = [self.sched.active[s].pending_token] \
+                + plan.drafts.get(s, [])
+            tokens[s, :len(row)] = row
+            n_new[s] = len(row)
+        logits = self._run(tokens, self.sched.state.seq_lens, n_new,
+                           all_logits=True)
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()   # (slots, C)
+        for s in plan.decode_slots:
+            drafts = plan.drafts.get(s, [])
+            g = greedy[s]
+            m = 0
+            while m < len(drafts) and drafts[m] == int(g[m]):
+                m += 1
+            # committed: the pending token and m drafts; emitted: their
+            # greedy continuations g[0..m] (g[m] becomes the new pending
+            # token, as after a plain decode step)
+            self.sched.note_verified(s, n_written=1 + len(drafts),
+                                     n_accepted=1 + m)
+            for i in range(m + 1):
+                self.sched.append_token(s, int(g[i]))
 
     # -- drain loop --------------------------------------------------------
 

@@ -119,6 +119,33 @@ def release_prefix(st: PageState, slot: int, n: int) -> PageState:
                                first_page=first_page)
 
 
+def truncate(st: PageState, slot: int, n_tokens: int,
+             page_size: int) -> PageState:
+    """Speculative-decode rollback, the mirror of ``release_prefix``:
+    un-record the last ``n_tokens`` tokens of ``slot`` (rejected draft KV)
+    and push the tail pages that now hold no live token onto the free list,
+    in logical order. The caller guarantees ``n_tokens <= seq_lens[slot]``
+    and that the new length does not fall below ``first_page * page_size``
+    (window-reclaimed positions cannot be rolled back into); the clip keeps
+    the op total where it does not."""
+    if n_tokens == 0:
+        return st
+    first = int(st.first_page[slot])
+    end = first + int(st.n_pages[slot])
+    new_len = int(st.seq_lens[slot]) - n_tokens
+    # logical pages from ceil(new_len / page_size) on hold no live token
+    keep = min(max(-(-new_len // page_size), first), end)
+    stack, count = _push(st, st.page_table[slot, keep:end])
+    table = st.page_table.copy()
+    table[slot, keep:end] = -1
+    n_pages, seq_lens = st.n_pages.copy(), st.seq_lens.copy()
+    n_pages[slot] = keep - first
+    seq_lens[slot] = new_len
+    return dataclasses.replace(st, page_table=table, n_pages=n_pages,
+                               seq_lens=seq_lens, free_stack=stack,
+                               free_count=count)
+
+
 def advance(st: PageState, slot: int, n_tokens: int) -> PageState:
     """Record ``n_tokens`` more tokens written for ``slot``."""
     seq_lens = st.seq_lens.copy()

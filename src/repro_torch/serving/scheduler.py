@@ -12,17 +12,22 @@ over a junction of any size. Policy (latency first):
 3. **admission** when a slot and at least one page are free;
 4. **preemption** when a page allocation fails: the youngest running
    sequence that owns pages is evicted and re-queued for recompute with
-   its generated tokens folded into the prompt.
+   its generated tokens folded into the prompt;
+5. **speculative drafts** (``spec_k > 0``): a decode slot may carry up to
+   ``spec_k`` draft tokens from ``drafter(tokens, k)``, each one lane of
+   the budget; their pages come only from the free pool (drafts never
+   preempt), and the engine reports back through ``note_verified``, which
+   rolls the rejected tail back with ``kv_cache.truncate``.
 
 All page accounting goes through ``kv_cache.PageState``, which lives on
-the host, so the scheduler reads it directly. Speculative decode is not
-part of this port yet.
+the host, so the scheduler reads it directly (the JAX scheduler keeps host
+mirrors of its device state instead).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -85,10 +90,16 @@ class StepPlan:
     prefills: List[Tuple[int, int, np.ndarray]]
     admitted: List[int] = dataclasses.field(default_factory=list)
     preempted: List[int] = dataclasses.field(default_factory=list)
+    # draft tokens per decode slot (absent key = no drafts): the engine
+    # verifies pending + drafts in one multi-token step
+    drafts: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
 
     @property
     def n_tokens(self) -> int:
+        """Tokens of work this plan issues; each draft takes one lane of
+        the budget, as a decode or prefill token does."""
         return (len(self.decode_slots)
+                + sum(len(d) for d in self.drafts.values())
                 + sum(len(c) for _, _, c in self.prefills))
 
     @property
@@ -114,14 +125,23 @@ class Scheduler:
 
     def __init__(self, *, slots: int, total_pages: int, page_size: int,
                  max_pages_per_seq: int, token_budget: int,
-                 prefill_chunk: int, window: Optional[int] = None):
+                 prefill_chunk: int, window: Optional[int] = None,
+                 spec_k: int = 0,
+                 drafter: Optional[Callable[[Sequence[int], int],
+                                            List[int]]] = None):
         if prefill_chunk < 1 or token_budget < 1:
             raise ValueError("prefill_chunk and token_budget must be >= 1")
         if window is not None and window < 1:
             raise ValueError("window must be >= 1 (or None)")
+        if spec_k < 0:
+            raise ValueError("spec_k must be >= 0")
         self.page_size = page_size
         self.token_budget = token_budget
         self.prefill_chunk = prefill_chunk
+        # speculative decode: up to spec_k drafts per decode slot from
+        # ``drafter(tokens, k)``, verified by the engine in one step
+        self.spec_k = spec_k
+        self.drafter = drafter
         # sliding-window page reclamation: when every attention layer's
         # window is <= ``window``, pages whose tokens every window has left
         # are freed after each advance, so a sequence holds O(window) pages
@@ -132,7 +152,8 @@ class Scheduler:
         self.active: List[Optional[ActiveSeq]] = [None] * slots
         self._admit_counter = 0
         self.stats = {"admitted": 0, "preempted": 0, "finished": 0,
-                      "steps": 0, "reclaimed_pages": 0}
+                      "steps": 0, "reclaimed_pages": 0,
+                      "spec_drafted": 0, "spec_accepted": 0}
 
     # -- bookkeeping the engine reports back ------------------------------
 
@@ -156,6 +177,23 @@ class Scheduler:
         """A decode step wrote the pending token's KV at ``n_prefilled``."""
         self.active[slot].n_prefilled += 1
         self.state = kv_cache.advance(self.state, slot, 1)
+        self._reclaim(slot)
+
+    def note_verified(self, slot: int, n_written: int,
+                      n_accepted: int) -> None:
+        """A verify step wrote ``n_written`` tokens of KV (pending + drafts)
+        from ``n_prefilled`` on, of which greedy verification committed the
+        first ``n_accepted``. The rejected tail is rolled back with
+        ``kv_cache.truncate``, which returns its emptied tail pages to the
+        pool. Window reclamation runs only after the rollback: reclaiming
+        against the briefly longer length could free pages the rollback
+        brings back inside the window."""
+        assert 1 <= n_accepted <= n_written
+        self.active[slot].n_prefilled += n_accepted
+        self.state = kv_cache.advance(self.state, slot, n_written)
+        self.state = kv_cache.truncate(self.state, slot,
+                                       n_written - n_accepted, self.page_size)
+        self.stats["spec_accepted"] += n_accepted - 1
         self._reclaim(slot)
 
     def _reclaim(self, slot: int) -> None:
@@ -276,9 +314,17 @@ class Scheduler:
             need = self._pages_for(slot, seq.n_prefilled + 1)
             if not self._try_alloc(slot, need, protected, plan.preempted):
                 continue             # pool exhausted even after preemption
+            drafts = self._propose_drafts(slot, budget)
+            while drafts and not self._alloc_extra(
+                    slot, self._pages_for(slot, seq.n_prefilled + 1
+                                          + len(drafts))):
+                drafts.pop()         # shrink the drafts to what fits for free
+            if drafts:
+                plan.drafts[slot] = drafts
+                self.stats["spec_drafted"] += len(drafts)
             plan.decode_slots.append(slot)
             protected.add(slot)
-            budget -= 1
+            budget -= 1 + len(drafts)
 
         # 3) chunked prefill with the remaining budget, oldest first
         prefillers = sorted(
@@ -305,6 +351,32 @@ class Scheduler:
             protected.add(slot)
             budget -= chunk
         return plan
+
+    def _propose_drafts(self, slot: int, budget: int) -> List[int]:
+        """Drafts for a decode slot, capped so that a verify step never
+        overshoots: the generation budget (a verify that emits m + 1 tokens
+        needs m + 1 <= remaining), the step's token budget (the verify takes
+        1 + k lanes) and ``spec_k``."""
+        if self.spec_k <= 0 or self.drafter is None:
+            return []
+        seq = self.active[slot]
+        remaining = seq.req.max_new_tokens - seq.n_generated
+        k = min(self.spec_k, budget - 1, remaining - 1)
+        if k <= 0:
+            return []
+        return [int(t) for t in self.drafter(seq.tokens, k)][:k]
+
+    def _alloc_extra(self, slot: int, need: int) -> bool:
+        """Allocate ``need`` pages for draft tokens from the free pool only:
+        never preempts and never exceeds the slot's table row (drafts are
+        a bet on throughput, not work that must run)."""
+        if need == 0:
+            return True
+        if need > self.state.free_count \
+                or self._extent(slot) + need > self.state.max_pages_per_seq:
+            return False
+        self.state = kv_cache.alloc_pages(self.state, slot, need)
+        return True
 
     # -- invariant check (used by the tests) ------------------------------
 

@@ -1337,3 +1337,45 @@ def test_paged_decode_mma_nan_filled_repeatable(cuda_device, g, quant,
     np.testing.assert_allclose(first.float().cpu(), ref.float().cpu(),
                                atol=1e-2, rtol=1e-2)
     assert (first[2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_verify_step_on_the_card_matches_plain(cuda_device):
+    """One speculative verify step at the gemma3 smoke shape (4 slots, a
+    chunk of 1 + 4 positions, rows with n_new 5, 3, 1 and 0) on the card
+    against the same step on the CPU (the plain versions) from the same
+    weights and cache: the logits at every valid position within 1e-4 of
+    max |plain| (f32), exactly 3 launches of the small-block forward a
+    layer and no paged decode."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import LM
+    cfg = get_config("gemma3_4b", smoke=True)
+    model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    b, page, c = 4, 16, 5
+    table = torch.arange(b * 3, dtype=torch.int32).reshape(b, 3)
+    lens = torch.tensor([20, 11, 17, 0], dtype=torch.int32)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 20)))
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, c)))
+    n_new = torch.tensor([5, 3, 1, 0], dtype=torch.int32)
+    cache = model.init_paged_cache(b * 3, page, torch.float32, "cpu")
+    model.paged_step(prompt, torch.zeros(b, dtype=torch.int32), lens, cache,
+                     table)
+    dev_model = copy.deepcopy(model).to(cuda_device)
+    dev_cache = [{k: v.to(cuda_device) for k, v in cc.items()}
+                 for cc in cache]
+    ref = model.paged_step(chunk, lens, n_new, cache, table, all_logits=True)
+    fwd = csd_spmm.csd_spmm_fwd_small_cuda
+    paged = flash_attention.paged_decode_attention_cuda
+    fwd.launches = paged.launches = 0
+    got = dev_model.paged_step(chunk.to(cuda_device), lens.to(cuda_device),
+                               n_new.to(cuda_device), dev_cache,
+                               table.to(cuda_device), all_logits=True)
+    torch.cuda.synchronize()
+    assert (fwd.launches, paged.launches) == (3 * cfg.n_layers, 0)
+    assert got.shape == ref.shape == (b, c, cfg.vocab_size)
+    valid = torch.arange(c)[None] < n_new[:, None]
+    err = (got.cpu()[valid] - ref[valid]).abs().max()
+    assert err <= 1e-4 * ref[valid].abs().max()

@@ -1,5 +1,5 @@
-"""The port and its chip smoke script import neither JAX nor the JAX
-package, so that they run on a machine without JAX."""
+"""The port, its example scripts and its chip smoke script import neither
+JAX nor the JAX package, so that they run on a machine without JAX."""
 import ast
 from pathlib import Path
 
@@ -8,6 +8,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples").glob("torch_*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 

@@ -2,7 +2,7 @@
 """Time the junction forward kernel of the port on one card.
 
     python3 tools/time_forward.py [--src DIR] [--label NAME]
-                                  [--bodies | --epilogues]
+                                  [--bodies [--rows M ...] | --epilogues]
 
 Times TPU kernels #1 (``csd_spmm_fwd_cuda``) and #3
 (``csd_spmm_fwd_batched_cuda``) in bf16 through their wrappers, as a
@@ -22,9 +22,12 @@ sequence.
 forward forced at the same inputs (``launch.forced_body`` for the run:
 0 the grid body, 64/128/256 the wgmma body at that tile width):
 gemma3-4b's gate and down junctions at M 4 to 4096, granite-moe's up/gate
-and down at 4, 64, 256 and 1280 rows per expert, so that the rule between
-the bodies and the tile width can be read off; each record carries the
-rule's pick (``rule_tile_n``).
+and down at 4, 64, 256 and 1280 rows per expert, and both at a speculative
+verify chunk's M 20 and 40 (4 and 8 slots of 1 + 4 tokens; granite-moe's
+dropless serving capacity gives each expert as many rows as tokens), so
+that the rule between the bodies and the tile width can be read off; each
+record carries the rule's pick (``rule_tile_n``); ``--rows`` keeps only
+those M (rows per expert for granite-moe).
 ``--epilogues`` times instead gemma3-4b's gate and granite-moe's up/gate
 training junctions with each epilogue: no activation or gelu, with and
 without ``save_preact``, so that the epilogue's share can be read off.
@@ -52,6 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--rows", type=int, nargs="*",
+                    help="with --bodies: only these M")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--bodies", action="store_true")
     mode.add_argument("--epilogues", action="store_true")
@@ -81,11 +86,13 @@ def main(argv=None) -> int:
     gate, gelu = ("gate", up, "gelu"), ("down", down, None)
     if args.bodies:
         rows = [("gemma3-4b", (), m, (gate, gelu))
-                for m in (4, 16, 32, 64, 128, 256, 512, 1024, 2048,
-                          cs.TRAIN_M)]
+                for m in (4, 16, 20, 32, 40, 64, 128, 256, 512, 1024,
+                          2048, cs.TRAIN_M)]
         rows += [("granite-moe-1b-a400m", (n_exp,), m,
                   (("up/gate", g_up, None), ("down", g_down, None)))
-                 for m in (4, 64, 256, c)]
+                 for m in (4, 20, 40, 64, 256, c)]
+        if args.rows:
+            rows = [r for r in rows if r[2] in args.rows]
     elif args.epilogues:
         rows = [("gemma3-4b", (), cs.TRAIN_M,
                  tuple(("gate", up, a) for a in (None, "gelu"))),

@@ -9,10 +9,11 @@ Times TPU kernels #4 (``csd_spmm_fwd_quant_cuda``, through
 (``csd_spmm_fwd_quant_batched_cuda``, through ``csd_spmm_fwd_batched_cuda``)
 with bf16 x through their wrappers, as a caller would call them, from one
 seed: gemma3-4b's up/gate junction (with its gelu) and down junction at M =
-4 (a decode step's four slots) and 16, 32, 64, 128 and 256 (prefill: four
+4 (a decode step's four slots), 20 and 40 (a speculative verify chunk of
+4 and 8 slots of 1 + 4 tokens) and 16, 32, 64, 128 and 256 (prefill: four
 slots of 4- to 64-token chunks), and granite-moe-1b-a400m's up/gate and
 down expert junctions (32 experts, 128 x 256 blocks) at as many rows per
-expert (``--rows`` sets them). The int8 slabs (and the
+expert (its dropless serving capacity; ``--rows`` sets them). The int8 slabs (and the
 slabs of the yardsticks) are cycled over enough copies to exceed the 50 MB
 L2, as ``chip_smoke.py``'s phase 4b does. Beside each kernel time: the bound
 (the int8 slab, its scales, x, y and the pattern once over 3.35 TB/s, or
@@ -58,7 +59,7 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--rows", type=int, nargs="*",
-                    default=[4, 16, 32, 64, 128, 256])
+                    default=[4, 16, 20, 32, 40, 64, 128, 256])
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--bodies", action="store_true")
     mode.add_argument("--splits", action="store_true")
