@@ -104,11 +104,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launched and no other junction kernel (no f32 forward, no full-width
    int8 body); each served model (f32 and int8) then serves 4 periodic
    prompts with ``spec_k`` 4 and without: equal tokens, drafts made, only
-   the small-block forward and the paged decode launched;
+   the small-block forward and the paged decode launched; gemma3-4b's
+   ``launch.train.main`` run again with ``--checkpoint-every 2 --diloco 2
+   --simulate-failure-at 3``, a checkpoint directory, ``--metrics-jsonl``
+   and ``--profile-dir``, and without the failure: losses bit-equal, the
+   JSONL stream replayed through ``repro_torch.obs.dump``, the Chrome trace
+   naming ``train/step`` once a step;
 3g. run the port's example scripts (``examples/torch_quickstart.py``,
-   ``torch_train_sparse_mlp.py``, ``torch_serve_batched.py``) at their
-   defaults on the card, all three at once, each in its own process:
-   each must exit 0;
+   ``torch_train_sparse_mlp.py``, ``torch_serve_batched.py`` and
+   ``torch_sparse_llm_pretrain.py`` with ``--checkpoint-dir``) at their
+   defaults on the card, all at once, each in its own process: each must
+   exit 0, the pretraining example's last loss below its first; then the
+   pretraining example alone at ``--size full100m --steps 60`` (tok/s
+   recorded);
 5. serve gemma3-4b at its full configuration (34 layers, d_model 2560,
    vocab 262144; random weights from a seed; bf16) through
    ``ServingEngine``: 4 requests of 64-128 prompt tokens and 32 new tokens
@@ -219,6 +227,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the counts are of the expert-batched kernels (72 dx, 72 dw, 144
    forwards per step) and the attention kernels (48 forward, 24 backward),
    none of the 4-D or int8 ones and no mask (silu does not fuse);
+7d. free that model and train gemma3-4b at full width and 4 layers (bf16
+   over f32 parameters, batch 2 x 2048; the depth cut for disk: 11.1 GB of
+   f32 parameters and AdamW state a checkpoint, 33.7 GB at full depth) in
+   a temporary directory: 4 ``Trainer`` steps uncut, then a fresh model of
+   the same seed cut at step 3 through the CLI's restart loop (checkpoints
+   every 2 steps, keep 1) and resumed: losses, parameters and AdamW state
+   bit-equal to the uncut run's; around each of its saves and its restore
+   the device's peak allocation above its resting allocation below the
+   largest tensor (the 2.68 GB embedding); per save the snapshot, hash and
+   write seconds and bytes, restore seconds, a step with an async save in
+   flight against one without (recorded); a flipped byte in a shard makes
+   ``restore`` raise ``IOError``; two DiLoCo runs (period 2) bit-equal,
+   each sync of the first and last layers' parameters within 1e-6 of max
+   of the same formula in numpy f32, peak memory against the three state
+   copies (recorded); one step with a JSONL sink and a profile directory
+   (replayed through ``obs.dump``, the trace names ``train/step``) and one
+   without: equal launches, as phase 7 counts them; ``train_step`` under
+   ``torch.cuda.set_sync_debug_mode("error")``;
 7c. run the port's sparselint (``python -m repro_torch.analysis.lint``)
    on the card: clean it must exit 0 (grid, pattern and dispatch passes;
    the dispatch pass runs both models' full-width paged steps, bf16 and
@@ -236,7 +262,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel #9's counterpart (``csd_spmm_fwd_injected_alias``) at the demo
    shape beside the shipped forward, its error above 10x the forward's f32
    tolerance while the shipped forward at the same split passes;
-8. print one JSON line describing each ported kernel;
+8. print the seconds at which each phase ended (``phase_done_at_s``, also
+   in ``chiprun_out/chip_smoke.json``) and one JSON line describing each
+   ported kernel;
 9. print the device line, last.
 
 It exits non-zero without a result where no CUDA device is present or where
@@ -1580,22 +1608,73 @@ SMOKE_TOL = {"loss": 1e-5, "grad_norm": 1e-4}
 SMOKE_LOGIT_TOL = 1e-4
 
 
-def smoke_train(arch: str, plain: bool) -> list:
+def smoke_train(arch: str, plain: bool, extra=()) -> list:
     """``repro_torch.launch.train.main`` on the smoke configuration of
-    ``arch`` on the card; its printed metrics per step."""
+    ``arch`` on the card (with the options ``extra``); its printed metrics
+    per step."""
     import ast
     import contextlib
     import io
     from repro_torch.launch import train as train_cli
     buf = io.StringIO()
     argv = ["--arch", arch, "--steps", str(SMOKE_STEPS), "--batch",
-            str(SMOKE_BATCH), "--seq", str(SMOKE_SEQ), "--device", "cuda"]
+            str(SMOKE_BATCH), "--seq", str(SMOKE_SEQ), "--device", "cuda",
+            *extra]
     with contextlib.redirect_stdout(buf), \
             (plain_versions() if plain else contextlib.nullcontext()):
         train_cli.main(argv)
     return [ast.literal_eval(line.split(": ", 1)[1])
             for line in buf.getvalue().splitlines()
             if line.startswith("step ")]
+
+
+def trace_spans(prof_dir: Path, name: str) -> int:
+    """How many host ranges named ``name`` the Chrome traces in
+    ``prof_dir`` hold (on the card each also has a ``gpu_user_annotation``
+    twin on the device's timeline)."""
+    return sum(e.get("name") == name and e.get("cat") == "user_annotation"
+               for f in sorted(prof_dir.glob("trace_*.json"))
+               for e in json.loads(f.read_text())["traceEvents"])
+
+
+def smoke_restart(arch: str) -> dict:
+    """Phase 3f's fault-tolerance run: ``launch.train.main`` with
+    ``--checkpoint-every 2 --diloco 2 --simulate-failure-at 3`` and a
+    checkpoint directory, ``--metrics-jsonl`` and ``--profile-dir``, against
+    the same command without the failure: the losses bit-equal, the cut
+    run's checkpoints at steps 2 and 3, each JSONL stream replayed through
+    ``repro_torch.obs.dump`` with its run's steps, and each Chrome trace
+    naming ``train/step`` once a step."""
+    import tempfile
+    from repro_torch.obs import dump
+    from repro_torch.train import CheckpointManager
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3f_") as tmp:
+        runs = {}
+        for run in ("cut", "uncut"):
+            d = Path(tmp) / run
+            extra = ["--checkpoint-every", "2", "--diloco", "2",
+                     "--checkpoint-dir", str(d / "ckpt"), "--metrics-jsonl",
+                     str(d / "m.jsonl"), "--profile-dir", str(d / "prof")]
+            if run == "cut":
+                extra += ["--simulate-failure-at", "3"]
+            hist = smoke_train(arch, False, extra)
+            replayed = dump.replay(str(d / "m.jsonl"))
+            runs[run] = dict(
+                losses=[h["loss"] for h in hist],
+                checkpoints=CheckpointManager(str(d / "ckpt")).steps(),
+                jsonl_steps=replayed.counter("train_steps_total").value(),
+                trace_steps=trace_spans(d / "prof", "train/step"))
+    rec = dict(check=f"{arch} smoke: launch.train.main restart, DiLoCo, "
+                     f"metrics and profile", **runs)
+    log(json.dumps(rec))
+    cut, uncut = runs["cut"], runs["uncut"]
+    if cut["losses"] != uncut["losses"] \
+            or len(cut["losses"]) != SMOKE_STEPS \
+            or cut["checkpoints"] != [2, 3] \
+            or any(r["jsonl_steps"] != SMOKE_STEPS
+                   or r["trace_steps"] != SMOKE_STEPS for r in runs.values()):
+        fail(f"{arch} smoke restart run: {rec}")
+    return rec
 
 
 def forced_logits(model, prompt, gen, device, page_size=16, quant_kv=False):
@@ -1733,6 +1812,8 @@ def run_smoke_configs(device) -> dict:
             fail(f"{c.name} smoke training: {rec}; expected launches "
                  f"{want}")
         out[f"{arch}_train"] = rec
+        if arch == "gemma3_4b":
+            rec["restart"] = smoke_restart(arch)
     torch.cuda.empty_cache()
     return out
 
@@ -1855,40 +1936,68 @@ def smoke_spec(model, device, fwd: str, paged: str) -> dict:
 # ---------------------------------------------------------------------------
 
 EXAMPLES = ("torch_quickstart.py", "torch_train_sparse_mlp.py",
-            "torch_serve_batched.py")
+            "torch_serve_batched.py", "torch_sparse_llm_pretrain.py")
+PRETRAIN = "torch_sparse_llm_pretrain.py"
+
+
+def pretrain_losses(stdout: str) -> tuple:
+    """(first loss, last loss, tok/s) from the pretraining example's
+    ``done: a -> b (r tok/s on cuda)`` line."""
+    line = next(ln for ln in stdout.splitlines() if ln.startswith("done: "))
+    first, rest = line[len("done: "):].split(" -> ")
+    last, rate = rest.split(" (")
+    return float(first), float(last), float(rate.split()[0])
 
 
 def run_examples() -> dict:
     """Each of the port's example scripts once at its defaults (the card),
-    all three at once, each in its own process: each must exit 0; its time
-    and last lines recorded (the rates they print share the card)."""
+    all at once, each in its own process (the pretraining example with
+    ``--checkpoint-dir``): each must exit 0, the pretraining example's last
+    loss below its first; their time and last lines recorded (the rates
+    they print share the card). Then the pretraining example alone at
+    ``--size full100m --steps 60``, its tok/s recorded."""
     import os
+    import tempfile
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]]
                                if env.get("PYTHONPATH") else []))
-    t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
-        [sys.executable, str(ROOT / "examples" / name)], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in EXAMPLES}
     out = {}
-    try:
-        for name, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=300)
-            rec = dict(check=f"examples/{name}", rc=proc.returncode,
-                       seconds=time.perf_counter() - t0,
-                       stdout=stdout.splitlines()[-6:])
-            log(json.dumps(rec))
-            if proc.returncode != 0:
-                fail(f"examples/{name} exited {proc.returncode}: "
-                     f"{stderr[-2000:]}")
-            out[name] = rec
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3g_") as tmp:
+        for batch in ({name: [] for name in EXAMPLES},
+                      {PRETRAIN: ["--size", "full100m", "--steps", "60"]}):
+            t0 = time.perf_counter()
+            procs = {name: subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / name), *args]
+                + (["--checkpoint-dir", str(Path(tmp) / f"ckpt{len(out)}")]
+                   if name == PRETRAIN else []),
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+                for name, args in batch.items()}
+            try:
+                for name, proc in procs.items():
+                    stdout, stderr = proc.communicate(timeout=300)
+                    rec = dict(check=f"examples/{name}", args=batch[name],
+                               rc=proc.returncode,
+                               seconds=time.perf_counter() - t0,
+                               stdout=stdout.splitlines()[-6:])
+                    if proc.returncode == 0 and name == PRETRAIN:
+                        rec["first_loss"], rec["last_loss"], \
+                            rec["tokens_per_s"] = pretrain_losses(stdout)
+                    log(json.dumps(rec))
+                    if proc.returncode != 0:
+                        fail(f"examples/{name} exited {proc.returncode}: "
+                             f"{stderr[-2000:]}")
+                    if name == PRETRAIN and not batch[name] \
+                            and not rec["last_loss"] < rec["first_loss"]:
+                        fail(f"examples/{name}: the loss did not fall: "
+                             f"{rec}")
+                    out[name + (" full100m" if batch[name] else "")] = rec
+            finally:
+                for proc in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
     return out
 
 
@@ -3571,6 +3680,307 @@ def profile_train(trainer, params, opt, data, out_dir, trace):
 
 
 # ---------------------------------------------------------------------------
+# phase 7d: checkpoints, restart, DiLoCo and metrics at full width
+# ---------------------------------------------------------------------------
+
+CKPT_LAYERS = 4          # gemma3-4b's full width; the depth cut for disk
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL = 4, 2, 3
+DILOCO_PERIOD = 2
+# the card's sync against the same formula in numpy f32 on the CPU, of the
+# largest |value|: the same operations in the same order (no FMA)
+DILOCO_TOL = 1e-6
+
+
+def full_depth_params(cfg, model) -> int:
+    """The parameter count of ``cfg`` at its full depth from ``model``, the
+    same configuration at fewer layers (every layer has the same shapes)."""
+    per_layer = sum(p.numel() for n, p in model.named_parameters()
+                    if n.startswith("layers.0."))
+    return sum(p.numel() for p in model.parameters()) \
+        + (cfg.n_layers - model.cfg.n_layers) * per_layer
+
+
+def diloco_formula(before: dict, lr: float, mom: float):
+    """The parameter after one DiLoCo sync, computed in numpy f32 from its
+    values before the sync (p, anchor, outer momentum, error feedback)."""
+    import numpy as np
+    f32 = np.float32
+    p, a, m, e = (before[k].numpy() for k in ("p", "anchor", "outer_m", "err"))
+    target = (a - p.astype(f32)) + e
+    scale = f32(max(np.abs(target).max(), f32(1e-12))) / f32(127)
+    q = np.clip(np.rint(target / scale), -127, 127)
+    m = f32(mom) * m + q.astype(f32) * scale
+    return a - f32(lr) * m
+
+
+def flip_byte(path: Path, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def run_checkpointing(device, cfg) -> dict:
+    """Phase 7d: gemma3-4b at full width and ``CKPT_LAYERS`` layers, bf16
+    over f32 parameters, batch 2 x 2048, in a temporary directory that it
+    removes. An uncut run of ``CKPT_STEPS`` ``Trainer`` steps; a fresh model
+    of the same seed cut at step ``CKPT_FAIL`` through the CLI's restart
+    loop (``launch.train.train_with_restarts``: checkpoints every
+    ``CKPT_EVERY`` steps, keep 1) and resumed from that checkpoint: its
+    losses, parameters and AdamW state bit-equal to the uncut run's; the
+    device's peak allocation read around each of its saves and its restore
+    may rise above the resting allocation by less than the largest tensor;
+    its steps are timed (step 3 runs while step 2's save is written). A
+    byte flipped in its last checkpoint makes ``restore`` raise
+    ``IOError``. Two DiLoCo runs (period ``DILOCO_PERIOD``) bit-equal,
+    each sync of the first and last layers' parameters against
+    ``diloco_formula``, peak memory against the three state copies. One
+    step with the JSONL sink and the profile directory (the stream replays
+    through ``obs.dump``, the trace names ``train/step``) and one without:
+    equal launches; ``train_step`` under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_7d_"))
+    try:
+        return checkpointing(device, cfg, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checkpointing(device, cfg, tmp: Path) -> dict:
+    import shutil
+    import torch
+    from repro_torch.data import BigramLM
+    from repro_torch.launch.train import train_with_restarts
+    from repro_torch.nn.model import LM
+    from repro_torch.obs import Registry, dump
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    ccfg = cfg.with_(n_layers=CKPT_LAYERS)
+    data = BigramLM(vocab_size=ccfg.vocab_size, seed=SEED)
+    rec = dict(model=ccfg.name, n_layers=CKPT_LAYERS, d_model=ccfg.d_model,
+               vocab=ccfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+
+    def fresh():
+        return LM(ccfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(SEED))
+
+    def trainer(model, **kw):
+        return Trainer(model, TrainerConfig(
+            opt=AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=CKPT_STEPS),
+            log_every=1, metrics=False, **kw), device=device)
+
+    def batches(start):
+        return data.iterate(TRAIN_BATCH, TRAIN_SEQ, start_step=start)
+
+    def sync_peak():
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(device)
+
+    # the uncut run
+    model_a = fresh()
+    n_params = sum(p.numel() for p in model_a.parameters())
+    largest = max(p.numel() * p.element_size() for p in model_a.parameters())
+    rec.update(n_params=n_params, state_bytes=12 * n_params,
+               full_depth_state_bytes=12 * full_depth_params(cfg, model_a),
+               largest_tensor_bytes=largest,
+               free_bytes=shutil.disk_usage(tmp).free, directory=str(tmp))
+    log(json.dumps(dict(check="phase 7d sizes", **rec)))
+    losses_a = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    pa, oa, _ = trainer(model_a).fit(
+        batches(0), CKPT_STEPS,
+        on_step=lambda s, m: losses_a.append(m["loss"]))
+    rec["train_peak_bytes"] = sync_peak()
+    model_a.zero_grad(set_to_none=True)
+
+    # the cut run, resumed from its checkpoint; the device's peak
+    # allocation read around each save and restore
+    model_b = fresh()
+    tb = trainer(model_b, checkpoint_dir=str(tmp / "ckpt"),
+                 checkpoint_every=CKPT_EVERY, checkpoint_keep=1)
+    mgr, mem = tb.ckpt, []
+
+    def measured(fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            rest = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            mem.append(dict(call=fn.__name__, resting_bytes=rest,
+                            rise_bytes=sync_peak() - rest,
+                            seconds=time.perf_counter() - t0))
+            return out
+        return call
+
+    mgr.save, mgr.restore = measured(mgr.save), measured(mgr.restore)
+    train_step, step_s = tb.train_step, []
+
+    def timed_step(*args):  # step 3 runs while step 2's save is written
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    tb.train_step = timed_step
+    losses_b, restarts = [], []
+    pb, ob, _ = train_with_restarts(
+        tb, batches, CKPT_STEPS, fail_at=CKPT_FAIL,
+        on_step=lambda s, m: losses_b.append((s, m["loss"])),
+        log=restarts.append)
+    mgr.wait()
+    model_b.zero_grad(set_to_none=True)
+    differ = [n for n in pa if not torch.equal(pa[n], pb[n])] + [
+        f"opt/{k}/{n}" for k in ("m", "v") for n in pa
+        if not torch.equal(oa[k][n], ob[k][n])]
+    resume = dict(losses=losses_a, losses_cut=[v for _, v in losses_b],
+                  steps_cut=[s for s, _ in losses_b], restarts=restarts,
+                  checkpoints=mgr.steps(), differing=differ,
+                  saves=list(mgr.save_stats),
+                  restores=list(mgr.restore_stats), memory=mem,
+                  largest_tensor_bytes=largest, step_s=step_s,
+                  step_in_flight_s=step_s[CKPT_EVERY])
+    log(json.dumps(dict(check="phase 7d: cut at step 3, resumed", **resume)))
+    if resume["losses_cut"] != losses_a or differ \
+            or resume["steps_cut"] != list(range(1, CKPT_STEPS + 1)) \
+            or len(restarts) != 1 or oa["step"] != ob["step"] \
+            or resume["checkpoints"] != [CKPT_STEPS]:
+        fail(f"the resumed run differs from the uncut run: {resume}")
+    if [m["call"] for m in mem] != ["save", "save", "restore", "save"] \
+            or any(m["rise_bytes"] >= largest for m in mem):
+        fail(f"saves and restores raised the device allocation by the "
+             f"largest tensor ({largest} bytes) or more: {mem}")
+    rec["resume"] = resume
+    del pa, oa, model_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a flipped byte in the shard
+    flip_byte(tmp / "ckpt" / f"step_{CKPT_STEPS:08d}" / "shard-00000.npz",
+              4096)
+    try:
+        mgr.restore(CKPT_STEPS, {"params": pb, "opt": ob})
+    except IOError as e:
+        rec["corruption"] = str(e)
+    else:
+        fail("restore of a corrupted shard did not raise IOError")
+    log(json.dumps(dict(check="phase 7d: corrupted shard",
+                        error=rec["corruption"])))
+    del pb, ob, tb, mgr, model_b, train_step, timed_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two DiLoCo runs
+    runs = []
+    for capture in (True, False):
+        model = fresh()
+        tr = trainer(model, diloco_period=DILOCO_PERIOD)
+        real_sync, syncs = tr.diloco_sync, []
+        names = [n for n, _ in model.named_parameters()
+                 if n.startswith(("layers.0.", f"layers.{CKPT_LAYERS - 1}."))]
+        peak = [0]
+
+        def sync(params, dstate, axis_name=None):
+            before = {n: {"p": params[n].detach().to("cpu", copy=True),
+                          **{k: dstate[k][n].to("cpu", copy=True)
+                             for k in ("anchor", "outer_m", "err")}}
+                      for n in names} if capture else None
+            peak[0] = max(peak[0], sync_peak())
+            rest = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            out = real_sync(params, dstate, axis_name)
+            one = dict(seconds=time.perf_counter() - t0)
+            one["rise_bytes"] = sync_peak() - rest
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated(device))
+            if capture:
+                lr, mom = (tr.cfg.diloco_outer_lr,
+                           tr.cfg.diloco_outer_momentum)
+                one["rel_err"] = max(
+                    float((params[n].detach().cpu() - torch.from_numpy(
+                        want)).abs().max()) / float(abs(want).max())
+                    for n in names
+                    for want in [diloco_formula(before[n], lr, mom)])
+            syncs.append(one)
+            return out
+
+        tr.diloco_sync = sync
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        params, _, _ = tr.fit(batches(0), CKPT_STEPS,
+                              on_step=lambda s, m: losses.append(m["loss"]))
+        peak[0] = max(peak[0], sync_peak())
+        model.zero_grad(set_to_none=True)
+        runs.append(dict(model=model, params=params, losses=losses,
+                         syncs=syncs, peak_bytes=peak[0]))
+    differ = [n for n in runs[0]["params"]
+              if not torch.equal(runs[0]["params"][n], runs[1]["params"][n])]
+    diloco = dict(period=DILOCO_PERIOD, losses=[r["losses"] for r in runs],
+                  differing=differ, syncs=[r["syncs"] for r in runs],
+                  peak_bytes=[r["peak_bytes"] for r in runs],
+                  state_copies_bytes=3 * 4 * n_params,
+                  train_peak_bytes=rec["train_peak_bytes"], tol=DILOCO_TOL)
+    log(json.dumps(dict(check="phase 7d: DiLoCo", **diloco)))
+    if runs[0]["losses"] != runs[1]["losses"] or differ \
+            or len(runs[0]["syncs"]) != CKPT_STEPS // DILOCO_PERIOD \
+            or max(s["rel_err"] for s in runs[0]["syncs"]) > DILOCO_TOL:
+        fail(f"DiLoCo runs: {diloco}")
+    rec["diloco"] = diloco
+    model = runs[1]["model"]
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step with metrics and a profile, one without
+    reg = Registry(jsonl_path=str(tmp / "m.jsonl"))
+    params = dict(model.named_parameters())
+    launches = {}
+    for on in (True, False):
+        tr = Trainer(model, TrainerConfig(
+            opt=AdamWConfig(lr=3e-4), log_every=1, metrics=on,
+            profile_dir=str(tmp / "prof") if on else None),
+            device=device, registry=reg if on else None)
+        _, opt = tr.init_state()
+        reset_launch_counts()
+        tr.fit(batches(0), 1, params=params, opt=opt,
+               on_step=lambda s, m: None)
+        torch.cuda.synchronize()
+        launches[on] = launch_counts()
+    reg.close()
+    replayed = dump.replay(str(tmp / "m.jsonl"))
+    batch = tr.to_device(data.batch(0, TRAIN_BATCH, TRAIN_SEQ))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.train_step(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    obs = dict(launches_on={k: v for k, v in launches[True].items() if v},
+               launches_off={k: v for k, v in launches[False].items() if v},
+               jsonl_steps=replayed.counter("train_steps_total").value(),
+               jsonl_spans=len(replayed.span_durations("train/step")),
+               trace_spans=trace_spans(tmp / "prof", "train/step"),
+               sync_debug="clean")
+    log(json.dumps(dict(check="phase 7d: metrics and profile", **obs)))
+    if launches[True] != launches[False] \
+            or launches[True] != train_launches_per_step(ccfg) \
+            or obs["jsonl_steps"] != 1 or obs["jsonl_spans"] != 1 \
+            or obs["trace_spans"] != 1:
+        fail(f"a step with metrics and a profile: {obs}")
+    rec["obs"] = obs
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 7c: the port's sparselint on the card
 # ---------------------------------------------------------------------------
 
@@ -3807,6 +4217,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     t_all = time.perf_counter()
+    done_at = {}  # seconds from here to the end of each phase
+
+    def done(phase: str) -> None:
+        done_at[phase] = round(time.perf_counter() - t_all, 1)
+        log(f"phase {phase} done at {done_at[phase]} s")
 
     # phase 2
     t0 = time.perf_counter()
@@ -3833,17 +4248,17 @@ def main() -> int:
     run_paged_quant(device, results)
     run_spmm_batched(gcfg, device, results)
     torch.cuda.empty_cache()
-    log(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
+    done("3-3c")
 
     # phases 3d-3f: the small-block forms, the paper MLP, the smoke configs
     run_small_kernels(device, results)
-    log(f"phase 3d done at {time.perf_counter() - t_all:.1f} s")
+    done("3d")
     mlp_recs = run_mlp(device)
-    log(f"phase 3e done at {time.perf_counter() - t_all:.1f} s")
+    done("3e")
     smoke_recs = run_smoke_configs(device)
-    log(f"phase 3f done at {time.perf_counter() - t_all:.1f} s")
+    done("3f")
     example_recs = run_examples()
-    log(f"phase 3g done at {time.perf_counter() - t_all:.1f} s")
+    done("3g")
 
     # phase 5
     from repro_torch.core.quant import QuantConfig
@@ -3858,7 +4273,7 @@ def main() -> int:
     bf16_model = fresh_model()
     serve_rec, chk_rec, prof_rec, bf16_toks, prompts = serve(
         bf16_model, device, out_dir)
-    log(f"phase 5 done at {time.perf_counter() - t_all:.1f} s")
+    done("5")
 
     # phase 5b: the same weights, quantized at load from f32
     quant = QuantConfig(weights=True, kv=True)
@@ -3868,12 +4283,12 @@ def main() -> int:
     agree_rec = top1_agreement(bf16_model, int8_model, prompts, bf16_toks,
                                device, quant)
     log(json.dumps(agree_rec))
-    log(f"phase 5b done at {time.perf_counter() - t_all:.1f} s")
+    done("5b")
 
     # phase 5s: speculative decode on the models phases 5, 5b and 5c serve
     spec_recs = {"gemma3-4b bf16": spec_serve(bf16_model, device),
                  "gemma3-4b int8": spec_serve(int8_model, device, quant)}
-    log(f"phase 5s (gemma3-4b) done at {time.perf_counter() - t_all:.1f} s")
+    done("5s (gemma3-4b)")
     del bf16_model, int8_model
     gc.collect()  # the serving models and their engines
     torch.cuda.empty_cache()
@@ -3885,10 +4300,9 @@ def main() -> int:
     g_serve_rec, g_chk_rec, g_prof_rec, g_toks, g_prompts = serve(
         g_bf16, device, out_dir, trace="decode_trace_granite",
         slab_bytes=g_bytes["bf16"][0])
-    log(f"phase 5c done at {time.perf_counter() - t_all:.1f} s")
+    done("5c")
     spec_recs["granite-moe-1b-a400m bf16"] = spec_serve(g_bf16, device)
-    log(f"phase 5s (granite-moe) done at "
-        f"{time.perf_counter() - t_all:.1f} s")
+    done("5s (granite-moe)")
 
     # phase 5d: the same weights, quantized at load from f32
     g_int8 = fresh_model(gcfg)
@@ -3901,7 +4315,7 @@ def main() -> int:
     g_agree_rec = top1_agreement(g_bf16, g_int8, g_prompts, g_toks, device,
                                  quant)
     log(json.dumps(g_agree_rec))
-    log(f"phase 5d done at {time.perf_counter() - t_all:.1f} s")
+    done("5d")
     del g_bf16, g_int8
     gc.collect()
     torch.cuda.empty_cache()
@@ -3919,7 +4333,7 @@ def main() -> int:
     dense["5e"] = serve(g2_bf16, device, out_dir, prompt_lens=g2_lens,
                         n_new=DENSE_NEW, trace="decode_trace_gemma2",
                         knobs=g2_knobs)
-    log(f"phase 5e done at {time.perf_counter() - t_all:.1f} s")
+    done("5e")
     g2_int8 = fresh_model(g2cfg)
     dense["5f"] = serve(g2_int8, device, out_dir, quant=quant,
                         prompt_lens=g2_lens, n_new=DENSE_NEW,
@@ -3929,7 +4343,7 @@ def main() -> int:
                                   dense["5e"][4][:n_short],
                                   dense["5e"][3][:n_short], device, quant)
     log(json.dumps(g2_agree_rec))
-    log(f"phase 5f done at {time.perf_counter() - t_all:.1f} s")
+    done("5f")
     del g2_bf16, g2_int8
     gc.collect()
     torch.cuda.empty_cache()
@@ -3937,7 +4351,7 @@ def main() -> int:
     q2_model = fresh_model(get_config("qwen2_7b"))
     dense["5g"] = serve(q2_model, device, out_dir, prompt_lens=DENSE_PROMPTS,
                         n_new=DENSE_NEW, trace="decode_trace_qwen2")
-    log(f"phase 5g done at {time.perf_counter() - t_all:.1f} s")
+    done("5g")
     del q2_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3948,7 +4362,7 @@ def main() -> int:
     dense["5h"] = serve(g34_model, device, out_dir,
                         prompt_lens=DENSE_PROMPTS, n_new=DENSE_NEW,
                         trace="decode_trace_granite34b")
-    log(f"phase 5h done at {time.perf_counter() - t_all:.1f} s")
+    done("5h")
     del g34_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3958,27 +4372,33 @@ def main() -> int:
 
     # phases 6 and 6b
     run_train_kernels(cfg, device, results)
-    log(f"phase 6 done at {time.perf_counter() - t_all:.1f} s")
+    done("6")
     tcfg = granite_training_config()
     run_train_kernels_batched(tcfg, device, results)
     torch.cuda.empty_cache()
-    log(f"phase 6b done at {time.perf_counter() - t_all:.1f} s")
+    done("6b")
     run_flash(device, results)
     torch.cuda.empty_cache()
-    log(f"phase 6c done at {time.perf_counter() - t_all:.1f} s")
+    done("6c")
 
     # phase 7
     step_chk, train_rec, train_prof = train(device, cfg, out_dir)
     gc.collect()  # the gemma3 model, its gradients and AdamW state
     torch.cuda.empty_cache()
-    log(f"phase 7 done at {time.perf_counter() - t_all:.1f} s")
+    done("7")
 
     # phase 7b
     g_step_chk, g_train_rec, g_train_prof = train(
         device, tcfg, out_dir, trace="train_trace_granite")
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 7b done at {time.perf_counter() - t_all:.1f} s")
+    done("7b")
+
+    # phase 7d: checkpoints, restart, DiLoCo and metrics at full width
+    ckpt_rec = run_checkpointing(device, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("7d")
 
     # phase 7c: the port's sparselint on the card, the plans against the
     # libraries, NaN-filled outputs, and TPU kernel #9's race
@@ -3989,7 +4409,7 @@ def main() -> int:
     nan_rec = nan_coverage(device)
     inj_rec = run_injected(device)
     torch.cuda.empty_cache()
-    log(f"phase 7c done at {time.perf_counter() - t_all:.1f} s")
+    done("7c")
 
     # phase 8: one entry per kernel: the junction kernels at the training
     # shape of the gelu gate junction, paged decode at a decode step's, the
@@ -4251,6 +4671,7 @@ def main() -> int:
              train_step_check=step_chk, train=train_rec,
              train_profile=train_prof, granite_train_step_check=g_step_chk,
              granite_train=g_train_rec, granite_train_profile=g_train_prof,
+             checkpointing=ckpt_rec,
              sass=sass_rec, paged_registers=paged_regs,
              int8_decode_registers=stream_regs,
              small_gather_registers=small_regs, lint=lint_rec,
@@ -4258,10 +4679,11 @@ def main() -> int:
              nan_coverage=nan_rec,
              injected_alias=inj_rec, paper_mlp=mlp_recs,
              smoke_configs=smoke_recs, dense_decoders=dense_recs,
-             examples=example_recs, spec=spec_recs,
+             examples=example_recs, spec=spec_recs, done_at_s=done_at,
              kernels=entries),
         indent=1))
     log(f"total {time.perf_counter() - t_all:.1f} s")
+    log(json.dumps({"phase_done_at_s": done_at}))
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

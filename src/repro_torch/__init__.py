@@ -22,5 +22,9 @@ race-broken forward of ``csrc/csd_spmm_fwd_injected_alias.cu``) as its
 self-test; and the paper's own sparse MLP (``core.sparse_linear``,
 ``nn.mlp``, ``configs.paper_mlp``, ``core.storage``), whose small blocks
 (and the smoke configurations' 16 x 16) run the small-block forms of the
-junction kernels (``csrc/csd_spmm_small.cu``).
+junction kernels (``csrc/csd_spmm_small.cu``); and the rest of
+single-device training: checkpoints (``train.checkpoint``), restart
+(``train.fault_tolerance``, the CLI's restart loop), DiLoCo with int8
+error-feedback compression (``optim.compression``) and the obs registry
+(``obs``: metrics, spans, profiles, the JSONL dump).
 """
