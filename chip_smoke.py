@@ -21,8 +21,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gather kernel's one-CTA int8 forms fails the run);
 3. hold ``csd_spmm_fwd`` against its plain version at gemma3-4b's junction
    shapes (up/gate and down, decode M = 4 and prefill M = 256, f32 and
-   bf16) and at the dense decoders' (gemma2-9b, qwen2-7b, granite-34b:
-   fan-ins 7-74, M 4 and 256, bf16), and time kernel, plain version, bound
+   bf16), at the dense decoders' (gemma2-9b, qwen2-7b, granite-34b:
+   fan-ins 7-74, M 4 and 256, bf16) and at deepseek-moe-16b's 4-D
+   junctions (64 x 64 blocks: the shared experts' up/gate at fan-in 16 over
+   44 right blocks and down at 33, the dense layer 0's up/gate at 32 over
+   171 right blocks and down at 171; M 4 and 256, bf16), and time kernel,
+   plain version, bound
    and a dense ``torch.matmul`` yardstick; each forward record of phases
    3, 3c, 4b, 6 and 6b names the body its plan runs (the grid body or the
    wgmma body and its tile);
@@ -32,15 +36,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    yardstick, and again at granite-moe-1b-a400m's heads (Hkv = 8, G = 2,
    Dh = 64, no window), gemma2-9b's (Hkv 8, G 2, Dh 256, softcap 50,
    window 4096 over rows past it), qwen2-7b's (Hkv 4, G 7, Dh 128),
-   granite-34b's (Hkv 1, G 48, Dh 128) and a group of 12: in bf16 these
-   three run the tensor-core form (``paged_decode_mma_kernel``), in f32
-   the CUDA-core form, and a case that runs another split kernel than
-   ``launch.paged_rule`` gives fails; the last two count on the grouped
-   wrapper; each record names the split kernel and the split its plan
+   granite-34b's (Hkv 1, G 48, Dh 128), a group of 12 and
+   deepseek-moe-16b's (Hkv 16, G 1, Dh 128): in bf16 qwen2's, granite's
+   and the group of 12 run the tensor-core form
+   (``paged_decode_mma_kernel``), in f32 and at G 1 the CUDA-core form,
+   and a case that runs another split kernel than
+   ``launch.paged_rule`` gives fails; granite-34b's and the group of 12
+   count on the grouped wrapper; each record names the split kernel and the split its plan
    takes (keys per tile, pages per split, launches);
 4b. the int8 serving kernels against their plain versions: the int8
-   ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (M 4, 16, 32,
-   64, 128 and 256, f32 and bf16, with and without the gelu epilogue; the yardstick a
+   ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (gemma3-4b's at
+   M 4, 16, 32, 64, 128 and 256, f32 and bf16, with and without the gelu
+   epilogue, the dense decoders' and deepseek-moe-16b's at M 4 and 256,
+   bf16; the yardstick a
    ``torch.matmul`` on the densified, dequantized slab; each record names
    the body its plan runs, its tile and its cluster), and paged decode
    over int8 pages at phase 4's cases (the yardstick SDPA over the
@@ -52,7 +60,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1024 at fan-in 3; f32 and bf16): ``csd_spmm_fwd_batched`` with phase 3's
    tolerances and ``csd_spmm_fwd_quant_batched`` with phase 4b's (also at
    C = 16, 32, 64 and 128), timed like phase 3 with one ``torch.bmm`` over the
-   densified (dequantized) slabs as the yardstick;
+   densified (dequantized) slabs as the yardstick; then the same at
+   deepseek-moe-16b's expert junctions in bf16 (64 experts, 64 x 64
+   blocks: up/gate 2048 -> 1408 at fan-in 16 over 22 right blocks, down
+   1408 -> 2048 at 22 over 32; C = 4, a dropless decode step, and 256, a
+   prefill chunk of 4 x 64 tokens; the int8 decode at bR 64 on the wgmma
+   body over int8 tiles), each record naming its body;
 3d. the small-block forms (``csrc/csd_spmm_small.cu``, the forward and dx,
    and ``csrc/csd_spmm_small_dw.cu``: blocks whose bL or bR is not a
    multiple of 64) through the shipped wrappers at the paper
@@ -92,12 +105,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3f. the LM smoke configurations (16 x 16 FFN and expert blocks): gemma3-4b's,
    gemma2-9b's, qwen2-7b's and granite-34b's served through
    ``launch.serve.generate`` and trained through ``launch.train.main``,
-   granite-moe's trained, each again with the plain
+   granite-moe's and deepseek-moe's trained (deepseek's dense layer 0 and
+   shared expert on the 4-D small form, its routed experts on the 5-D
+   one), each again with the plain
    versions (losses and gradient norms compared; served first tokens
    equal and every served step's logits, teacher-forced, within 1e-4 of
    the largest), exact training launches; then the four served ones and
-   granite-moe's (at the dropless capacity factor 4.0: the 5-D form) served
-   again in int8 (``SparsityConfig.quant``: weights and KV), with the same
+   granite-moe's and deepseek-moe's (at the dropless capacity factor 4.0:
+   the 5-D form, deepseek's 4-D form too) served again in int8 (``SparsityConfig.quant``: weights and KV), with the same
    checks against the int8 plain versions (the logits of each step from
    one cache state: over int8 KV pages two free-running caches may hold a
    token quantized a level apart, recorded), the int8 small-block forward
@@ -123,7 +138,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each, with every kernel's launch count read around that run (the
    serving kernels must run, no training kernel may); then the
    decode step after the prefill drain run with the kernels and with the
-   plain versions from one cache state, logits compared; then 4 decode
+   plain versions from one cache state, logits compared (an MoE model's
+   plain step replays the kernels' step's expert choices, as phase 7b's
+   step check does; its own choices that differ and their logits' error
+   recorded); then 4 decode
    steps under ``torch.profiler`` (with the paged decode's CUDA launches
    and device time per layer);
 5b. the same in int8 (``EngineConfig(quant=QuantConfig(weights=True,
@@ -178,7 +196,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5h. serve granite-34b at full width and depth (88 layers), its parameters
    built in bf16 (in f32 they would not fit the card): 264 junction
    launches and 88 launches of the grouped paged decode a decode step;
-   each model is freed before the next; in every serving phase each paged
+   each model is freed before the next;
+5i. serve deepseek-moe-16b at full width and depth (28 layers: the dense
+   layer 0, then 27 MoE layers of 64 routed experts top-6 of d_expert
+   1408 and 2 shared experts; d_model 2048, 16 heads of 128 over 16 KV
+   heads, untied head, vocab 102400; random weights from a seed built in
+   bf16) in its serving configuration: 64 x 64 blocks and the dropless
+   capacity factor 64 / 6. Phase 5's requests, checks and profile, with
+   exactly 81 expert-batched forwards (27 x 3 routed junctions), 84 of the
+   4-D forward (27 x 3 shared, 3 in layer 0) and 28 paged decodes a decode
+   step, and the resident slab bytes equal to the reckoning from the
+   patterns;
+5j. the same weights (a second bf16 build of the seed) quantized at load,
+   weights and KV: the int8 forms with the same counts, each int8
+   junction call of the decode step one launch of the wgmma body over
+   int8 tiles (64-wide blocks leave the decode body out), the int8 slab
+   and scale bytes, and the top-1 agreement with 5i (recorded, not
+   gated); in every serving phase each paged
    decode launch, of the run and of the checked decode step, must be of
    the split kernel ``launch.paged_rule`` gives the model (the tensor-core
    form for qwen2-7b and granite-34b);
@@ -556,10 +590,39 @@ def dense_junctions():
         yield c.name, "down", down, None
 
 
+def deepseek_config():
+    """deepseek-moe-16b as published with the 64 x 64 blocks the card
+    serves it with (``card_config``) and the dropless capacity factor
+    n_routed / top_k = 64 / 6 that paged serving needs."""
+    import dataclasses
+    from repro_torch.configs import deepseek_moe_16b
+    cfg = deepseek_moe_16b.card_config()
+    return cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
+
+
+def deepseek_junctions():
+    """(model, junction, pattern, activation of the gate's epilogue) of
+    deepseek-moe-16b's 4-D junctions at the card's 64 x 64 blocks: the
+    shared experts' (block seed 1, FFN seed + 29: up/gate fan-in 16 over 44
+    right blocks, down 33) and the dense layer 0's (seed 0: up/gate fan-in
+    32 over 171 right blocks, down 171); silu fuses into no epilogue."""
+    from repro_torch.core.block_pattern import fit_block_pattern
+    cfg = deepseek_config()
+    sp, d = cfg.sparsity, cfg.d_model
+    rho_up, rho_down = sp.rho_ffn
+    for name, seed, d_ff in (("shared", 1 + 29, 2 * cfg.moe.d_expert),
+                             ("layer0", 0, cfg.moe.dense_d_ff)):
+        yield cfg.name, f"{name} up/gate", fit_block_pattern(
+            d, d_ff, rho_up, sp, seed=seed + 12), None
+        yield cfg.name, f"{name} down", fit_block_pattern(
+            d_ff, d, rho_down, sp, seed=seed + 13), None
+
+
 def spmm_cases(cfg):
     """(model, junction, pattern, M, dtype, activation, bias) of phase 3:
     gemma3-4b's junctions in f32 and bf16, with and without the epilogue,
-    then the dense decoders' in bf16."""
+    then the dense decoders' and deepseek-moe-16b's 4-D ones in bf16."""
     up, down = junction_patterns(cfg)
     for dtype_name in ("float32", "bfloat16"):
         for m in (4, 256):
@@ -568,7 +631,7 @@ def spmm_cases(cfg):
             for with_bias in (False, True):
                 yield (cfg.name, "down", down, m, dtype_name, None,
                        with_bias)
-    for model, name, bp, act in dense_junctions():
+    for model, name, bp, act in (*dense_junctions(), *deepseek_junctions()):
         for m in (4, 256):
             yield model, name, bp, m, "bfloat16", act, False
 
@@ -639,9 +702,10 @@ GEMMA2_LENGTHS, GEMMA2_PAGES = (4160, 517, 0, 4097), 300
 # gemma3-4b's heads (5 of 6 layers windowed), granite-moe-1b-a400m's (all
 # global), gemma2-9b's (alternating 4096 window, softcap 50, rows crossing
 # the window), qwen2-7b's (a group of 7), granite-34b's (48 query heads
-# over one KV head) and a group of 12: from G 5 in bf16 the tensor-core
-# form (one row tile for 7 and 12, three for 48); in f32 the CUDA-core
-# form (7 as its 8 form with a row masked, 12 and 48 in chunks of 8)
+# over one KV head), a group of 12 and deepseek-moe-16b's (one query head
+# a KV head, Dh 128): from G 5 in bf16 the tensor-core form (one row tile
+# for 7 and 12, three for 48); in f32 the CUDA-core form (7 as its 8 form
+# with a row masked, 12 and 48 in chunks of 8), and at G 1 in both
 PAGED_SHAPES = (
     ("gemma3-4b", 4, 2, 256, (None, 1024), None, PAGED_LENGTHS, PAGED_PAGES),
     ("granite-moe-1b-a400m", 8, 2, 64, (None,), None, PAGED_LENGTHS,
@@ -649,7 +713,9 @@ PAGED_SHAPES = (
     ("gemma2-9b", 8, 2, 256, (4096,), 50.0, GEMMA2_LENGTHS, GEMMA2_PAGES),
     ("qwen2-7b", 4, 7, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES),
     ("granite-34b", 1, 48, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES),
-    ("g12", 4, 12, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES))
+    ("g12", 4, 12, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES),
+    ("deepseek-moe-16b", 16, 1, 128, (None,), None, PAGED_LENGTHS,
+     PAGED_PAGES))
 
 
 def paged_cases():
@@ -846,7 +912,8 @@ def run_spmm_quant(cfg, device, results):
              for dtype_name in ("float32", "bfloat16")
              for name, bp in (("up/gate", up), ("down", down))]
     cases += [(model, name, bp, "bfloat16", (4, 256), (act,))
-              for model, name, bp, act in dense_junctions()]
+              for model, name, bp, act in (*dense_junctions(),
+                                           *deepseek_junctions())]
     for model, name, bp, dtype_name, rows, acts in cases:
         dtype = getattr(torch, dtype_name)
         shape = (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
@@ -1004,15 +1071,38 @@ def expert_patterns(cfg):
             fit_block_pattern(d_e, d, sp.rho_ffn[1], sp, seed=1 + 33))
 
 
-def expert_slab_bytes(cfg, itemsize: int) -> tuple:
-    """(slab bytes, scale bytes) of every layer's up, gate and down expert
-    slabs, from their patterns."""
-    up, down = expert_patterns(cfg)
-    per_expert = [bp.n_rb * bp.d_in_b for bp in (up, up, down)]
-    n = cfg.n_layers * cfg.moe.n_routed
-    weights = n * sum(k * bp.block_in * bp.block_out
-                      for k, bp in zip(per_expert, (up, up, down)))
-    return weights * itemsize, 4 * n * sum(per_expert)
+def junction_slab_bytes(cfg, itemsize: int) -> tuple:
+    """(slab bytes, scale bytes) of an MoE model's sparse junctions,
+    reckoned from their patterns at each block's seed (``layer_seeds``):
+    an MoE block's up, gate and down expert slabs (one per expert) and its
+    shared experts' FFN (seed + 29), a dense block's FFN of ``dense_d_ff``
+    (deepseek-moe's layer 0)."""
+    from repro_torch.core.block_pattern import fit_block_pattern
+    from repro_torch.nn.model import layer_seeds, prologue_len
+    sp, d, mc = cfg.sparsity, cfg.d_model, cfg.moe
+    rho_up, rho_down = sp.rho_ffn
+
+    def slabs(seed, d_ff, first, copies):  # [(slots, weights)] a junction
+        pats = (fit_block_pattern(d, d_ff, rho_up, sp, seed=seed + first),
+                fit_block_pattern(d, d_ff, rho_up, sp,
+                                  seed=seed + first + 1),
+                fit_block_pattern(d_ff, d, rho_down, sp,
+                                  seed=seed + first + 2))
+        return [(copies * bp.n_rb * bp.d_in_b,
+                 copies * bp.n_rb * bp.d_in_b * bp.block_in * bp.block_out)
+                for bp in pats if bp is not None]
+
+    pro_n = prologue_len(cfg)
+    per_seed, junctions = {}, []
+    for i, seed in enumerate(layer_seeds(cfg.layer_kinds, pro_n)):
+        if (i < pro_n, seed) not in per_seed:
+            per_seed[i < pro_n, seed] = slabs(seed, mc.dense_d_ff, 11, 1) \
+                if i < pro_n else slabs(seed, mc.d_expert, 31, mc.n_routed) \
+                + (slabs(seed + 29, mc.n_shared * mc.d_expert, 11, 1)
+                   if mc.n_shared else [])
+        junctions += per_seed[i < pro_n, seed]
+    return itemsize * sum(w for _, w in junctions), \
+        4 * sum(n for n, _ in junctions)
 
 
 def dense_of_experts(bp, w):
@@ -1022,7 +1112,12 @@ def dense_of_experts(bp, w):
     return torch.stack([dense_of(bp, w[e]) for e in range(w.shape[0])])
 
 
-def run_spmm_batched(cfg, device, results):
+def run_spmm_batched(cfg, device, results, dtypes=("float32", "bfloat16"),
+                     rows=None, plain_only=False):
+    """Phase 3c at ``cfg``'s expert junctions: each of ``dtypes``, full
+    width at C 4 and 256 and int8 at ``rows`` (``QUANT_M`` by default);
+    with ``plain_only`` only the unfused, unbiased call (silu runs
+    outside the junction, which has no bias)."""
     import torch
     from repro_torch.core.quant import dequantize_slab, quantize_slab
     from repro_torch.kernels import csd_spmm
@@ -1030,7 +1125,7 @@ def run_spmm_batched(cfg, device, results):
     n_exp = cfg.moe.n_routed
     up, down = expert_patterns(cfg)
     for dtype_name, (name, bp), quant in (
-            (d, j, q) for d in ("float32", "bfloat16")
+            (d, j, q) for d in dtypes
             for j in (("up/gate", up), ("down", down))
             for q in (False, True)):
         dtype = getattr(torch, dtype_name)
@@ -1050,9 +1145,10 @@ def run_spmm_batched(cfg, device, results):
         denses = [dense] + [dense.clone() for _ in range(
             copies_for(dense.numel() * dense.element_size()) - 1)]
         del w0
-        variants = ((None, False), ("gelu", False)) if name == "up/gate" \
-            else ((None, False), (None, True))
-        for m in QUANT_M if quant else (4, 256):
+        variants = ((None, False),) if plain_only else (
+            ((None, False), ("gelu", False)) if name == "up/gate"
+            else ((None, False), (None, True)))
+        for m in (rows or QUANT_M) if quant else (4, 256):
             x = torch.randn((n_exp, m, bp.n_in), generator=g,
                             device=device).to(dtype)
             for act, with_bias in variants:
@@ -1097,7 +1193,8 @@ def run_spmm_batched(cfg, device, results):
                     + 4 * idx.numel()
                 bound_ms, bound_by = bound(nbytes, 2 * m * n_w, dtype)
                 w, sc = slabs[0]
-                rec = dict(kernel=kernel, junction=name, experts=n_exp, m=m,
+                rec = dict(kernel=kernel, model=cfg.name, junction=name,
+                           experts=n_exp, m=m, fan_in=bp.d_in_b,
                            dtype=dtype_name, activation=act, bias=with_bias,
                            w_shape=list(shape),
                            **fwd_body(csd_spmm.csd_spmm_fwd_batched_cuda, x,
@@ -1753,9 +1850,10 @@ def state_logits(model, prompt, gen, device, page_size=16):
 # the smoke configurations phase 3f serves (the MoE one in int8 only, at
 # the dropless capacity factor: its published one drops) and trains
 SMOKE_SERVED = ("gemma3_4b", "gemma2_9b", "qwen2_7b", "granite_34b")
-SMOKE_SERVED_INT8 = SMOKE_SERVED + ("granite_moe_1b_a400m",)
+SMOKE_SERVED_INT8 = SMOKE_SERVED + ("granite_moe_1b_a400m",
+                                   "deepseek_moe_16b")
 SMOKE_TRAINED = ("gemma3_4b", "granite_moe_1b_a400m", "gemma2_9b",
-                 "qwen2_7b", "granite_34b")
+                 "qwen2_7b", "granite_34b", "deepseek_moe_16b")
 
 
 def run_smoke_configs(device) -> dict:
@@ -1793,9 +1891,9 @@ def run_smoke_configs(device) -> dict:
         launches = launch_counts()
         hist_p = smoke_train(arch, plain=True)
         want = train_launches_per_step(c)
-        form = "_batched" if c.moe is not None else ""
-        for op in ("fwd", "dx", "dw"):
-            want[f"csd_spmm_{op}_small"] = want.pop(f"csd_spmm_{op}{form}")
+        for op in ("fwd", "dx", "dw"):  # 4-D and 5-D on one small form
+            want[f"csd_spmm_{op}_small"] = want.pop(f"csd_spmm_{op}") \
+                + want.pop(f"csd_spmm_{op}_batched")
         want = {k: want.get(k, 0) * SMOKE_STEPS for k in ALL_KERNELS}
         err = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
                       zip(hist, hist_p)) for k in ("loss", "grad_norm")}
@@ -2035,6 +2133,30 @@ def serve_kernels(cfg, quant) -> tuple:
     return fwd, paged
 
 
+def junctions_by_form(cfg) -> tuple:
+    """(4-D, expert-batched) junction calls of one forward of ``cfg``, 3 a
+    block: an MoE block's routed experts on the expert-batched form, its
+    shared experts' FFN and a dense block's (deepseek-moe's layer 0) on
+    the 4-D form."""
+    from repro_torch.nn.model import prologue_len
+    if cfg.moe is None:
+        return 3 * cfg.n_layers, 0
+    n_moe = cfg.n_layers - prologue_len(cfg)
+    n_ffn = cfg.n_layers - n_moe + (n_moe if cfg.moe.n_shared else 0)
+    return 3 * n_ffn, 3 * n_moe
+
+
+def decode_launches(cfg, quant) -> dict:
+    """Every kernel's launches in one decode step of ``cfg`` (int8 forms
+    with ``quant``): its junctions by ``junctions_by_form`` and one paged
+    decode a layer; the kernels not named launch none."""
+    q = "" if quant is None else "_quant"
+    n_4d, n_5d = junctions_by_form(cfg)
+    want = {f"csd_spmm_fwd{q}": n_4d, f"csd_spmm_fwd{q}_batched": n_5d,
+            serve_kernels(cfg, quant)[1]: cfg.n_layers}
+    return {k: v for k, v in want.items() if v}
+
+
 def resident_bytes(eng) -> dict:
     """Bytes on the card of the sparse junctions' slabs (FFN ``Linear``s
     and MoE expert slabs) and their scales, and of the page pool (pages
@@ -2106,9 +2228,9 @@ def plain_versions():
 def serve(model, device, out_dir, quant=None,
           prompt_lens=(64, 96, 112, 128), n_new=32, trace="decode_trace",
           slab_bytes=None, knobs=None):
-    """Serve ``model`` (phases 5, 5c, 5e, 5g and 5h; with ``quant`` 5b, 5d
-    and 5f) and check it; with ``slab_bytes`` the resident slab bytes must
-    be those; ``knobs`` override the engine's (``engine_config``)."""
+    """Serve ``model`` (phases 5, 5c, 5e, 5g, 5h and 5i; with ``quant`` 5b,
+    5d, 5f and 5j) and check it; with ``slab_bytes`` the resident slab bytes
+    must be those; ``knobs`` override the engine's (``engine_config``)."""
     knobs = knobs or {}
     import numpy as np
     import torch
@@ -2160,7 +2282,9 @@ def serve(model, device, out_dir, quant=None,
             or toks.max() >= cfg.vocab_size:
         fail(f"served tokens malformed: shape {toks.shape}")
     # the run went through this configuration's kernels and no others
-    want = serve_kernels(cfg, quant)
+    expect = decode_launches(cfg, quant)
+    want = tuple(expect)
+    paged = serve_kernels(cfg, quant)[1]
     never = [k for k in ALL_KERNELS if k not in want]
     if slab_bytes is not None and rec["ffn_slab_bytes"] != slab_bytes:
         fail(f"{cfg.name} {tag}: resident slab bytes "
@@ -2173,9 +2297,9 @@ def serve(model, device, out_dir, quant=None,
             fail(f"the {tag} served run launched {name} {launches[name]} "
                  f"times")
     form = paged_form_of(cfg, quant)
-    if forms != {k: launches[want[1]] if k == form else 0 for k in forms}:
+    if forms != {k: launches[paged] if k == form else 0 for k in forms}:
         fail(f"the {tag} served run's paged decode ran {forms}, the rule "
-             f"gives {form} for all {launches[want[1]]}")
+             f"gives {form} for all {launches[paged]}")
 
     # the decode step after the prefill drain, run from one cache state with
     # the kernels and with their plain versions
@@ -2200,12 +2324,22 @@ def serve(model, device, out_dir, quant=None,
         chk.cache = [{k: v.clone() for k, v in c.items()} for c in base]
         return chk._run(tokens, chk.sched.state.seq_lens, n_new_a)
 
+    # an MoE model's plain step routes as the kernels' step did (phase 7b's
+    # replay): a bf16 rounding apart in the router's input can swap an
+    # expert of a near tie, which is not the kernels' error; the plain
+    # step's own routing, the choices that differ and its logits' error
+    # are recorded
+    picks, own_picks = [], []
     reset_launch_counts()
-    logits_k, plans = launched_plans(run_step)
+    with routing(record=picks):
+        logits_k, plans = launched_plans(run_step)
     per_step = {k: v for k, v in launch_counts().items() if v}
     forms_per_step = paged_form_counts()
     with plain_versions():
-        logits_p = run_step()
+        with routing(record=own_picks):
+            logits_own = run_step()
+        with routing(replay=picks):
+            logits_p = run_step()
     torch.cuda.synchronize()
     rows = list(plan.decode_slots)
     seq_lens = [int(chk.sched.state.seq_lens[r]) for r in rows]
@@ -2226,6 +2360,15 @@ def serve(model, device, out_dir, quant=None,
                    finite=bool(torch.isfinite(lk).all()),
                    launches_per_decode_step=per_step,
                    paged_forms_per_decode_step=forms_per_step)
+    if picks:
+        lo = logits_own[rows, 0].float()
+        chk_rec.update(
+            routing_replayed=True,
+            unreplayed_routing=routing_differences(picks, own_picks,
+                                                   len(picks)),
+            unreplayed_max_abs_err=float((lk - lo).abs().max()),
+            unreplayed_argmax_agreement=float(
+                (lk.argmax(-1) == lo.argmax(-1)).float().mean()))
     if quant is not None:
         chk_rec["int8_junction_bodies"] = check_int8_decode_body(plans, tag)
     log(json.dumps(chk_rec))
@@ -2235,7 +2378,6 @@ def serve(model, device, out_dir, quant=None,
             and max(seq_lens) <= cfg.attn_window:
         fail(f"the checked decode step has no row past the window: "
              f"{chk_rec}")
-    expect = {want[0]: 3 * cfg.n_layers, want[1]: cfg.n_layers}
     if per_step != expect:
         fail(f"{tag} decode step launched {per_step}, expected {expect}")
     if forms_per_step[form] != cfg.n_layers:
@@ -2303,23 +2445,34 @@ def launched_plans(fn) -> tuple:
 
 
 INT8_DECODE_BODY = "csd_spmm_fwd_quant_stream_kernel"
+INT8_WGMMA_BODY = "csd_spmm_fwd_wgmma_kernel"
 
 
 def check_int8_decode_body(plans, tag) -> dict:
     """Fail unless every int8 junction call of a bf16 decode step (the
-    plans of ``csd_spmm_fwd_quant``) is one launch of the decode body with
-    no f32 partial buffer; the distinct (cluster, rows, columns) the calls
-    ran, with their counts."""
+    plans of ``csd_spmm_fwd_quant``) is one launch with no f32 partial
+    buffer of the body ``launch.quant_body`` gives its shape: the decode
+    body where 128 divides bR (``launch.quant_body`` must give it there),
+    else (deepseek-moe's 64-wide blocks) the wgmma body over int8 tiles;
+    the distinct (body, cluster, rows, columns) the calls ran, with their
+    counts."""
+    from repro_torch.kernels import launch
     seen = {}
     for p in plans:
         if p.name != "csd_spmm_fwd_quant":
             continue
+        a = p.args
+        body = launch.quant_body("bfloat16", a["E"], a["M"], a["n_rb"],
+                                 a["d_in_b"], a["bR"], a["n_sm"])[0]
+        want = INT8_DECODE_BODY if body == launch.BODY_STREAM \
+            else INT8_WGMMA_BODY
         kernels = [ln.kernel for ln in p.launches]
-        if kernels != [INT8_DECODE_BODY] or "partial" in p.buffers:
+        if kernels != [want] or "partial" in p.buffers \
+                or (a["bR"] % 128 == 0 and want != INT8_DECODE_BODY):
             fail(f"{tag}: an int8 decode junction call ran {kernels} "
-                 f"({p.args}), not one launch of {INT8_DECODE_BODY}")
-        key = f"cluster {p.args['cluster']}, {p.args['tile_m']} x " \
-              f"{p.args['tile_n']}, grid {list(p.launches[0].grid)}"
+                 f"({a}), not one launch of {want}")
+        key = f"{want}, cluster {a['cluster']}, {a['tile_m']} x " \
+              f"{a['tile_n']}, grid {list(p.launches[0].grid)}"
         seen[key] = seen.get(key, 0) + 1
     if not seen:
         fail(f"{tag}: the decode step launched no int8 junction")
@@ -3366,23 +3519,24 @@ def paged_form_of(cfg, quant) -> str:
 
 
 def train_launches_per_step(cfg) -> dict:
-    """Every kernel's launches in one training step of ``cfg``: each of the
-    3 junctions of a layer runs the forward (twice with remat: the
-    recompute), dx and dw once; the expert-batched forms for an MoE
-    model; the junction whose epilogue carries a fused activation (one per
-    layer, where the activation fuses: gelu, not silu) runs the mask
-    kernel once; each layer's attention runs the flash forward (twice with
-    remat) and its backward once; no other kernel."""
+    """Every kernel's launches in one training step of ``cfg``: each
+    junction (``junctions_by_form``: the expert-batched forms for routed
+    experts, the 4-D ones for the rest) runs the forward (twice with remat:
+    the recompute), dx and dw once; the junction whose epilogue carries a
+    fused activation (one in 3, where the activation fuses: gelu, not silu)
+    runs the mask kernel once; each layer's attention runs the flash
+    forward (twice with remat) and its backward once; no other kernel."""
     from repro_torch.nn.ffn import _FUSABLE
-    form = "_batched" if cfg.moe is not None else ""
-    n = 3 * cfg.n_layers
     fwd = 2 if cfg.remat else 1
-    want = {f"csd_spmm_fwd{form}": fwd * n,
-            f"csd_spmm_dx{form}": n, f"csd_spmm_dw{form}": n,
-            "csd_mask_cotangent":
-                cfg.n_layers if _FUSABLE.get(cfg.act) else 0,
-            "flash_attention": fwd * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
+    want = {}
+    for form, n in zip(("", "_batched"), junctions_by_form(cfg)):
+        want.update({f"csd_spmm_fwd{form}": fwd * n,
+                     f"csd_spmm_dx{form}": n, f"csd_spmm_dw{form}": n})
+    n_gates = sum(junctions_by_form(cfg)) // 3
+    want.update({"csd_mask_cotangent": n_gates if _FUSABLE.get(cfg.act)
+                 else 0,
+                 "flash_attention": fwd * cfg.n_layers,
+                 "flash_attention_bwd": cfg.n_layers})
     return {k: want.get(k, 0) for k in ALL_KERNELS}
 
 
@@ -4248,6 +4402,9 @@ def main() -> int:
     run_paged_quant(device, results)
     run_spmm_batched(gcfg, device, results)
     torch.cuda.empty_cache()
+    run_spmm_batched(deepseek_config(), device, results,
+                     dtypes=("bfloat16",), rows=(4, 256), plain_only=True)
+    torch.cuda.empty_cache()
     done("3-3c")
 
     # phases 3d-3f: the small-block forms, the paper MLP, the smoke configs
@@ -4294,7 +4451,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 5c: granite-moe-1b-a400m in its serving configuration, bf16
-    g_bytes = dict(zip(("bf16", "int8"), (expert_slab_bytes(gcfg, k)
+    g_bytes = dict(zip(("bf16", "int8"), (junction_slab_bytes(gcfg, k)
                                           for k in (2, 1))))
     g_bf16 = fresh_model(gcfg)
     g_serve_rec, g_chk_rec, g_prof_rec, g_toks, g_prompts = serve(
@@ -4369,6 +4526,37 @@ def main() -> int:
     dense_recs = {k: dict(serve=v[0], logits_check=v[1], profile=v[2])
                   for k, v in dense.items()}
     dense_recs["5f"]["top1_agreement_int8"] = g2_agree_rec
+
+    # phase 5i: deepseek-moe-16b at full width and depth (28 layers) in its
+    # serving configuration (64 x 64 blocks, dropless), its parameters
+    # built in bf16 as 5h's are
+    dcfg = deepseek_config().with_(param_dtype="bfloat16")
+    d_bytes = dict(zip(("bf16", "int8"), (junction_slab_bytes(dcfg, k)
+                                          for k in (2, 1))))
+    ds_bf16 = fresh_model(dcfg)
+    ds = {"5i": serve(ds_bf16, device, out_dir, trace="decode_trace_deepseek",
+                      slab_bytes=d_bytes["bf16"][0])}
+    done("5i")
+    # phase 5j: the same weights (a second bf16 build of the seed: an f32
+    # build would not fit beside 5i's model) quantized at load
+    ds_int8 = fresh_model(dcfg)
+    ds["5j"] = serve(ds_int8, device, out_dir, quant=quant,
+                     trace="decode_trace_deepseek",
+                     slab_bytes=d_bytes["int8"][0])
+    if ds["5j"][0]["ffn_scale_bytes"] != d_bytes["int8"][1]:
+        fail(f"deepseek int8 scale bytes {ds['5j'][0]['ffn_scale_bytes']}, "
+             f"expected {d_bytes['int8'][1]}")
+    ds_agree_rec = top1_agreement(ds_bf16, ds_int8, ds["5i"][4], ds["5i"][3],
+                                  device, quant)
+    log(json.dumps(ds_agree_rec))
+    done("5j")
+    del ds_bf16, ds_int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_recs = {k: dict(serve=v[0], logits_check=v[1], profile=v[2])
+               for k, v in ds.items()}
+    ds_recs["5j"]["top1_agreement_int8"] = ds_agree_rec
+    ds_recs["slab_bytes_reckoned"] = d_bytes
 
     # phases 6 and 6b
     run_train_kernels(cfg, device, results)
@@ -4482,7 +4670,8 @@ def main() -> int:
              "[1100, 517, 0, 1040]"),
             ("csd_spmm_fwd_batched",
              pick("csd_spmm_fwd_batched", junction="down", m=4,
-                  dtype="bfloat16", bias=False),
+                  dtype="bfloat16", bias=False,
+                  model="granite-moe-1b-a400m"),
              "src/repro_torch/kernels/csrc/csd_spmm_fwd.cu",
              "src/repro/kernels/csd_spmm.py:337",
              g_serve_rec["launches"]["csd_spmm_fwd_batched"],
@@ -4490,7 +4679,8 @@ def main() -> int:
              "256)"),
             ("csd_spmm_fwd_quant_batched",
              pick("csd_spmm_fwd_quant_batched", junction="down", m=4,
-                  dtype="bfloat16", bias=False),
+                  dtype="bfloat16", bias=False,
+                  model="granite-moe-1b-a400m"),
              "src/repro_torch/kernels/csrc/csd_spmm_fwd_quant.cu",
              "src/repro/kernels/csd_spmm.py:295",
              gq_serve_rec["launches"]["csd_spmm_fwd_quant_batched"],
@@ -4587,7 +4777,7 @@ def main() -> int:
                            for r in (serve_rec, q_serve_rec, g_serve_rec,
                                      gq_serve_rec)) + sum(
             v[0]["launches"]["csd_spmm_fwd_injected_alias"]
-            for v in dense.values()),
+            for v in (*dense.values(), *ds.values())),
         launches_train=sum(r["launches"]["csd_spmm_fwd_injected_alias"]
                            for r in (train_rec, g_train_rec)),
         max_abs_err=inj_rec["max_abs_err"], ms=inj_rec["ms"],
@@ -4622,13 +4812,19 @@ def main() -> int:
                   f"lengths [1100, 517, 0, 1040]; the tensor-core form, "
                   f"3 row tiles of 16 query heads"))
     # the dense decoders' serving launches of the forms they share with
-    # the earlier models
+    # the earlier models, and deepseek-moe-16b's (phases 5i and 5j)
     for e in entries:
         if e["name"] in ("csd_spmm_fwd", "paged_decode_attention",
                          "csd_spmm_fwd_quant",
                          "paged_decode_attention_quant"):
             e["launches_serve_dense"] = sum(
                 v[0]["launches"][e["name"]] for v in dense.values())
+        if e["name"] in ("csd_spmm_fwd", "csd_spmm_fwd_batched",
+                         "csd_spmm_fwd_quant", "csd_spmm_fwd_quant_batched",
+                         "paged_decode_attention",
+                         "paged_decode_attention_quant"):
+            e["launches_serve_deepseek"] = sum(
+                v[0]["launches"][e["name"]] for v in ds.values())
     # the tensor-core form's launches in the serving runs (qwen2-7b's G 7
     # on paged_decode_attention, granite-34b's 48 on the grouped wrapper)
     for e in entries:
@@ -4679,6 +4875,7 @@ def main() -> int:
              nan_coverage=nan_rec,
              injected_alias=inj_rec, paper_mlp=mlp_recs,
              smoke_configs=smoke_recs, dense_decoders=dense_recs,
+             deepseek=ds_recs,
              examples=example_recs, spec=spec_recs, done_at_s=done_at,
              kernels=entries),
         indent=1))

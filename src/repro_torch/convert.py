@@ -1,10 +1,12 @@
 """Move a JAX parameter tree into the port: ``from_jax_params``.
 
-The JAX ``LM`` keeps its layers as ``params["stack"]["scan"][u]`` (trees
+The JAX ``LM`` keeps its layers as ``params["stack"]["prologue"][i]``
+(deepseek-moe's dense layer 0), ``params["stack"]["scan"][u]`` (trees
 whose leaves carry a leading group axis g, one entry per slot u of the
 repeating unit) and ``params["stack"]["epilogue"][i]``. The port's flat
-``layers`` list holds scan slot u of group g at index ``g * unit + u`` and
-epilogue block i after all scanned layers; an untied head
+``layers`` list holds prologue block i at index i, scan slot u of group g
+at ``pro_n + g * unit + u`` (``pro_n`` prologue blocks) and epilogue block
+i after all scanned layers; an untied head
 ``params["head"]["w"]`` (d_model, vocab) maps onto ``head.weight``. The
 tree is passed in as numpy arrays, so this module needs no JAX.
 
@@ -38,7 +40,7 @@ from typing import TYPE_CHECKING, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from .nn.model import LM, detect_unit
+from .nn.model import LM, detect_unit, prologue_len
 
 if TYPE_CHECKING:
     from .nn.mlp import SparseMLP
@@ -69,10 +71,13 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
     from the JAX ``LM`` parameter tree as numpy arrays. Raises if a
     parameter is missing, left over, or of another shape."""
     stack = np_tree["stack"]
-    if stack.get("prologue"):
-        raise NotImplementedError("stacks with a prologue layer")
-    kinds = model.cfg.layer_kinds
-    unit = detect_unit(kinds)
+    pro_n = prologue_len(model.cfg)
+    prologue = stack.get("prologue") or []
+    if len(prologue) != pro_n:
+        raise ValueError(f"prologue mismatch: the tree has {len(prologue)} "
+                         f"prologue blocks, the model {pro_n}")
+    kinds = model.cfg.layer_kinds[pro_n:]
+    unit = detect_unit(kinds) if kinds else 1
     n_groups = len(kinds) // unit
     out: Dict[str, np.ndarray] = {
         "embed.table": np.asarray(np_tree["embed"]["table"]),
@@ -85,13 +90,18 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
             f"model's tie_embeddings is {model.cfg.tie_embeddings}")
     if "head" in np_tree:
         out["head.weight"] = np.asarray(np_tree["head"]["w"])
+    for i, blk in enumerate(prologue):
+        for path, arr in _items(blk):
+            out[f"layers.{i}.{_block_name(path)}"] = arr
     for u, slot_tree in enumerate(stack["scan"]):
         for path, arr in _items(slot_tree):
             for g in range(n_groups):
-                out[f"layers.{g * unit + u}.{_block_name(path)}"] = arr[g]
+                out[f"layers.{pro_n + g * unit + u}.{_block_name(path)}"] = \
+                    arr[g]
     for i, blk in enumerate(stack["epilogue"]):
         for path, arr in _items(blk):
-            out[f"layers.{n_groups * unit + i}.{_block_name(path)}"] = arr
+            out[f"layers.{pro_n + n_groups * unit + i}."
+                f"{_block_name(path)}"] = arr
     params = dict(model.named_parameters())
     params.update((n, b) for n, b in model.named_buffers()
                   if n.endswith("_scale"))

@@ -17,10 +17,14 @@ once), so ``--full`` serves on one 80 GB card
   grouped form of the paged decode kernel), untied head, ~29.5 B, ~59 GB
   (its f32 parameters, ~118 GB, would not fit).
 
-``--arch granite_moe_1b_a400m`` is accepted, but its published expert
-capacity (``capacity_factor`` 1.25) is not dropless, so the engine refuses
-it; the JAX CLI falls back to its dense-cache loop there, which is not
-ported.
+``--arch granite_moe_1b_a400m`` and ``--arch deepseek_moe_16b`` (28
+layers, a dense layer 0, 64 routed experts top-6 and 2 shared experts,
+~11.2 B parameters at the card's 64 x 64 blocks, ~16.4 B at the published
+dense ones) are accepted, but their published expert capacity
+(``capacity_factor`` 1.25) is not dropless, so the engine refuses them;
+the JAX CLI falls back to its dense-cache loop there, which is not
+ported. ``chip_smoke.py`` serves both at the dropless capacity
+(``n_routed / top_k``) with the blocks their ``card_config`` sets.
 """
 from __future__ import annotations
 

@@ -2,20 +2,21 @@
 forward and chunked cross-entropy loss of training, and the paged serving
 step.
 
-The JAX package splits its layers into scanned pattern units (gemma3:
-5 local + 1 global) under ``lax.scan`` plus an unscanned epilogue (34 =
-5 x 6 + 4 for gemma3). Here the layers are one flat ``nn.ModuleList`` run
-by a Python loop, but each layer is built with the seed its JAX block has,
-because the seed picks its FFN sparsity pattern: scan slot ``u`` gets
-``10 * u + 1`` in every group (scanned groups share one pattern per slot),
-epilogue block ``i`` gets ``2000 + 10 * i``. MoE blocks (granite-moe) get
-the same seeds; the MoE prologue layer (deepseek-moe's dense layer 0) is
-not ported yet, and the paged step runs MoE over all B x C rows, inactive
-slots' rows included, as the JAX step does (serving needs dropless
-capacity for that, which the engine checks). In training the MoE blocks'
-aux values are summed over layers and enter the loss as in the JAX
-package: ``moe_lb`` x 0.01 and ``moe_z`` x 1.0, each sum divided by the
-number of layers.
+The JAX package splits its layers into an unscanned prologue
+(deepseek-moe's dense layer 0), scanned pattern units (gemma3: 5 local +
+1 global) under ``lax.scan`` and an unscanned epilogue (34 = 5 x 6 + 4 for
+gemma3). Here the layers are one flat ``nn.ModuleList`` run by a Python
+loop, but each layer is built with the seed its JAX block has, because the
+seed picks its FFN sparsity pattern: prologue block ``i`` gets
+``1000 * i``, scan slot ``u`` gets ``10 * u + 1`` in every group (scanned
+groups share one pattern per slot), epilogue block ``i`` gets
+``2000 + 10 * i``. MoE blocks
+(granite-moe, deepseek-moe) get the same seeds, and the paged step runs
+MoE over all B x C rows, inactive slots' rows included, as the JAX step
+does (serving needs dropless capacity for that, which the engine checks).
+In training the MoE blocks' aux values are summed over layers and enter
+the loss as in the JAX package: ``moe_lb`` x 0.01 and ``moe_z`` x 1.0,
+each sum divided by the number of layers, the dense prologue's included.
 
 With ``cfg.remat`` the training forward recomputes each layer, and the loss
 each sequence chunk, in the backward pass (``torch.utils.checkpoint``); the
@@ -51,14 +52,23 @@ def detect_unit(kinds: Tuple[str, ...]) -> int:
     return n
 
 
-def layer_seeds(kinds: Tuple[str, ...]) -> List[int]:
-    """Per-layer block seeds of the JAX stack (scan slots, then epilogue)."""
-    if not kinds:
-        return []
-    unit = detect_unit(kinds)
-    scanned = (len(kinds) // unit) * unit
-    return [10 * (i % unit) + 1 if i < scanned else 2000 + 10 * (i - scanned)
-            for i in range(len(kinds))]
+def prologue_len(cfg: ModelConfig) -> int:
+    """Layers the JAX stack keeps unscanned before its scan: 1 for an MoE
+    stack whose first layer is dense (deepseek-moe), else 0."""
+    return int(cfg.moe is not None and cfg.moe.first_layer_dense)
+
+
+def layer_seeds(kinds: Tuple[str, ...], pro_n: int = 0) -> List[int]:
+    """Per-layer block seeds of the JAX stack: ``pro_n`` prologue blocks,
+    then the scan slots of the rest, then its epilogue."""
+    rest = kinds[pro_n:]
+    if not rest:
+        return [1000 * i for i in range(len(kinds))]
+    unit = detect_unit(rest)
+    scanned = (len(rest) // unit) * unit
+    return [1000 * i for i in range(pro_n)] + [
+        10 * (i % unit) + 1 if i < scanned else 2000 + 10 * (i - scanned)
+        for i in range(len(rest))]
 
 
 class LM(nn.Module):
@@ -78,8 +88,9 @@ class LM(nn.Module):
         kinds = cfg.layer_kinds
         self.layers = nn.ModuleList(
             TransformerBlock(cfg, kind, seed=seed, device=device,
-                             generator=generator)
-            for kind, seed in zip(kinds, layer_seeds(kinds)))
+                             generator=generator, layer_idx=i)
+            for i, (kind, seed) in enumerate(
+                zip(kinds, layer_seeds(kinds, prologue_len(cfg)))))
         self.ln_f = RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)
         self.head = None if cfg.tie_embeddings else Linear(
             cfg.d_model, cfg.vocab_size, dtype=pd, device=device,

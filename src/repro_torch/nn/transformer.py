@@ -1,9 +1,11 @@
 """The decoder block (port of ``repro.nn.transformer.TransformerBlock``):
 pre-norm attention + FFN or MoE, with gemma's sandwich norms when
-``post_norms`` is set; ``forward`` runs the full sequence (training) and
-returns the MoE block's aux values (load balance, router z-loss) beside x
-for the loss, ``paged_step`` one serving step, which drops them as the JAX
-block does in serving."""
+``post_norms`` is set; an MoE config with ``first_layer_dense`` gives
+layer 0 a dense FFN of ``dense_d_ff`` instead (deepseek-moe's prologue).
+``forward`` runs the full sequence (training) and returns the MoE block's
+aux values (load balance, router z-loss) beside x for the loss,
+``paged_step`` one serving step, which drops them as the JAX block does in
+serving."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -19,7 +21,8 @@ from .layers import RMSNorm
 
 class TransformerBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str, seed: int = 0,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 layer_idx: int = 0):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
@@ -27,17 +30,16 @@ class TransformerBlock(nn.Module):
         self.attn = Attention(cfg, window=window, seed=seed,
                               qk_norm=cfg.post_norms, device=device,
                               generator=generator)
-        if cfg.moe is not None:
-            if cfg.moe.first_layer_dense:
-                raise NotImplementedError(
-                    "MoE stacks with a dense first layer (deepseek-moe's "
-                    "prologue) are not ported yet")
+        moe = cfg.moe
+        dense_first = moe is not None and moe.first_layer_dense
+        self.is_moe = moe is not None and not (dense_first and layer_idx == 0)
+        if self.is_moe:
             self.ffn = MoE(cfg, seed=seed, device=device,
                            generator=generator)
         else:
             self.ffn = FFN(cfg, seed=seed, device=device,
-                           generator=generator)
-        self.is_moe = cfg.moe is not None
+                           generator=generator,
+                           d_ff=moe.dense_d_ff if dense_first else None)
         pd = param_dtype_of(cfg)
         norm = lambda: RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)  # noqa: E731
         self.ln_attn = norm()
