@@ -25,8 +25,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fan-ins 7-74, M 4 and 256, bf16) and at deepseek-moe-16b's 4-D
    junctions (64 x 64 blocks: the shared experts' up/gate at fan-in 16 over
    44 right blocks and down at 33, the dense layer 0's up/gate at 32 over
-   171 right blocks and down at 171; M 4 and 256, bf16), and time kernel,
-   plain version, bound
+   171 right blocks and down at 171; M 4 and 256, bf16) and at the SSM
+   models' (mamba2-130m's out_proj: one 768-wide right block at fan-in 6;
+   zamba2-1.2b's mixer in_proj: 131 right blocks of 64 at fan-in 8, its
+   out_proj at 16, its shared FFN's gelu gate at 4 of 8 and down at 32;
+   M 4 and 256, bf16), and time kernel, plain version, bound
    and a dense ``torch.matmul`` yardstick; each forward record of phases
    3, 3c, 4b, 6 and 6b names the body its plan runs (the grid body or the
    wgmma body and its tile);
@@ -36,8 +39,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    yardstick, and again at granite-moe-1b-a400m's heads (Hkv = 8, G = 2,
    Dh = 64, no window), gemma2-9b's (Hkv 8, G 2, Dh 256, softcap 50,
    window 4096 over rows past it), qwen2-7b's (Hkv 4, G 7, Dh 128),
-   granite-34b's (Hkv 1, G 48, Dh 128), a group of 12 and
-   deepseek-moe-16b's (Hkv 16, G 1, Dh 128): in bf16 qwen2's, granite's
+   granite-34b's (Hkv 1, G 48, Dh 128), a group of 12,
+   deepseek-moe-16b's (Hkv 16, G 1, Dh 128) and zamba2-1.2b's shared
+   block's (Hkv 32, G 1, Dh 128): in bf16 qwen2's, granite's
    and the group of 12 run the tensor-core form
    (``paged_decode_mma_kernel``), in f32 and at G 1 the CUDA-core form,
    and a case that runs another split kernel than
@@ -47,8 +51,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4b. the int8 serving kernels against their plain versions: the int8
    ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (gemma3-4b's at
    M 4, 16, 32, 64, 128 and 256, f32 and bf16, with and without the gelu
-   epilogue, the dense decoders' and deepseek-moe-16b's at M 4 and 256,
-   bf16; the yardstick a
+   epilogue, the dense decoders', deepseek-moe-16b's and the SSM models'
+   at M 4 and 256, bf16; the yardstick a
    ``torch.matmul`` on the densified, dequantized slab; each record names
    the body its plan runs, its tile and its cluster), and paged decode
    over int8 pages at phase 4's cases (the yardstick SDPA over the
@@ -103,14 +107,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    accuracies and the resident slab bytes (f32 against int8 plus scales)
    recorded;
 3f. the LM smoke configurations (16 x 16 FFN and expert blocks): gemma3-4b's,
-   gemma2-9b's, qwen2-7b's and granite-34b's served through
+   gemma2-9b's, qwen2-7b's, granite-34b's, mamba2-130m's and zamba2-1.2b's
+   (their mixers' out_proj and zamba2's shared FFN; in_proj is dense at
+   this width) served through
    ``launch.serve.generate`` and trained through ``launch.train.main``,
    granite-moe's and deepseek-moe's trained (deepseek's dense layer 0 and
    shared expert on the 4-D small form, its routed experts on the 5-D
    one), each again with the plain
    versions (losses and gradient norms compared; served first tokens
    equal and every served step's logits, teacher-forced, within 1e-4 of
-   the largest), exact training launches; then the four served ones and
+   the largest), exact training launches; then the six served ones and
    granite-moe's and deepseek-moe's (at the dropless capacity factor 4.0:
    the 5-D form, deepseek's 4-D form too) served again in int8 (``SparsityConfig.quant``: weights and KV), with the same
    checks against the int8 plain versions (the logits of each step from
@@ -119,7 +125,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launched and no other junction kernel (no f32 forward, no full-width
    int8 body); each served model (f32 and int8) then serves 4 periodic
    prompts with ``spec_k`` 4 and without: equal tokens, drafts made, only
-   the small-block forward and the paged decode launched; gemma3-4b's
+   the small-block forward and the paged decode launched (the SSM models:
+   ``spec_k`` clamped to 0, no draft, equal tokens); gemma3-4b's
    ``launch.train.main`` run again with ``--checkpoint-every 2 --diloco 2
    --simulate-failure-at 3``, a checkpoint directory, ``--metrics-jsonl``
    and ``--profile-dir``, and without the failure: losses bit-equal, the
@@ -141,15 +148,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain versions from one cache state, logits compared (an MoE model's
    plain step replays the kernels' step's expert choices, as phase 7b's
    step check does; its own choices that differ and their logits' error
-   recorded); then 4 decode
-   steps under ``torch.profiler`` (with the paged decode's CUDA launches
-   and device time per layer);
+   recorded); then, on the checked engine, 2 more decode steps under
+   ``torch.profiler`` (with the paged decode's CUDA launches and device
+   time per layer);
 5b. the same in int8 (``EngineConfig(quant=QuantConfig(weights=True,
    kv=True))``) from a fresh f32 model of the same seed, quantized at load:
    launch counts of all six serving kernels around the run (the bf16
    forward and the full-width paged decode must not run), the kernels per
    decode step, the bytes of the int8 slabs and of the page pool, the
-   kernels-vs-plain decode step and 4 profiled decode steps; every int8
+   kernels-vs-plain decode step and 2 profiled decode steps; every int8
    junction call of the decode step must be one launch of the int8
    forward's decode body (``csd_spmm_fwd_quant_stream_kernel``, no f32
    partial buffer), and no ``reduce_splits_kernel`` may run in the
@@ -216,6 +223,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode launch, of the run and of the checked decode step, must be of
    the split kernel ``launch.paged_rule`` gives the model (the tensor-core
    form for qwen2-7b and granite-34b);
+5k. serve mamba2-130m at full width and depth (24 Mamba2 layers, d_model
+   768, no attention; random weights from a seed; bf16) as phase 5 does:
+   exactly 24 junction launches a decode step (each mixer's out_proj: one
+   768-wide right block; in_proj is dense, a ``torch.matmul``) and no
+   paged decode; the SSD runs in plain torch (no TPU kernel), its and the
+   whole mixer's device ms a step read from profiler ranges; the resident
+   bytes of slabs and of the slots' SSM state; then the first request
+   served again on the drained engine, in a slot whose state the run left
+   non-zero: its tokens equal to a fresh engine's;
+5l. the same for zamba2-1.2b (38 Mamba2 layers, d_model 2048, and the
+   shared attention block after every 6: 32 heads over 32 KV heads of
+   128, a GeGLU FFN of 8192; bf16): 94 junction launches (38 in_proj over
+   131 right blocks of 64, 38 out_proj, 6 x 3 shared FFN) and 6 paged
+   decodes (G 1) a decode step;
+5m. the same weights (a second f32 build of the seed) quantized at load,
+   weights and KV: 94 int8 junction launches a step, each one launch of
+   its body (in_proj at 64-wide blocks on the wgmma body over int8 tiles,
+   the rest on the decode body), and 6 paged decodes over the shared
+   block's pools, which stay bf16; the top-1 agreement with 5l (recorded,
+   not gated);
 6. hold the training kernels against their plain versions at gemma3-4b's
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
@@ -619,10 +646,21 @@ def deepseek_junctions():
             d_ff, d, rho_down, sp, seed=seed + 13), None
 
 
+def ssm_junctions():
+    """(model, junction, pattern, activation of the gate's epilogue) of the
+    junctions mamba2-130m and zamba2-1.2b serve at full width (phases
+    5k-5m), as the lint's grid pass holds them
+    (``grid_pass.ssm_junctions``)."""
+    from repro_torch.analysis.grid_pass import ssm_junctions
+    for cfg, name, bp, act in ssm_junctions():
+        yield cfg.name, name, bp, act
+
+
 def spmm_cases(cfg):
     """(model, junction, pattern, M, dtype, activation, bias) of phase 3:
     gemma3-4b's junctions in f32 and bf16, with and without the epilogue,
-    then the dense decoders' and deepseek-moe-16b's 4-D ones in bf16."""
+    then the dense decoders', deepseek-moe-16b's and the SSM models' 4-D
+    ones in bf16."""
     up, down = junction_patterns(cfg)
     for dtype_name in ("float32", "bfloat16"):
         for m in (4, 256):
@@ -631,7 +669,8 @@ def spmm_cases(cfg):
             for with_bias in (False, True):
                 yield (cfg.name, "down", down, m, dtype_name, None,
                        with_bias)
-    for model, name, bp, act in (*dense_junctions(), *deepseek_junctions()):
+    for model, name, bp, act in (*dense_junctions(), *deepseek_junctions(),
+                                 *ssm_junctions()):
         for m in (4, 256):
             yield model, name, bp, m, "bfloat16", act, False
 
@@ -702,8 +741,9 @@ GEMMA2_LENGTHS, GEMMA2_PAGES = (4160, 517, 0, 4097), 300
 # gemma3-4b's heads (5 of 6 layers windowed), granite-moe-1b-a400m's (all
 # global), gemma2-9b's (alternating 4096 window, softcap 50, rows crossing
 # the window), qwen2-7b's (a group of 7), granite-34b's (48 query heads
-# over one KV head), a group of 12 and deepseek-moe-16b's (one query head
-# a KV head, Dh 128): from G 5 in bf16 the tensor-core form (one row tile
+# over one KV head), a group of 12, deepseek-moe-16b's (one query head a
+# KV head, Dh 128) and zamba2-1.2b's shared block's (the same over 32 KV
+# heads): from G 5 in bf16 the tensor-core form (one row tile
 # for 7 and 12, three for 48); in f32 the CUDA-core form (7 as its 8 form
 # with a row masked, 12 and 48 in chunks of 8), and at G 1 in both
 PAGED_SHAPES = (
@@ -715,7 +755,8 @@ PAGED_SHAPES = (
     ("granite-34b", 1, 48, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES),
     ("g12", 4, 12, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES),
     ("deepseek-moe-16b", 16, 1, 128, (None,), None, PAGED_LENGTHS,
-     PAGED_PAGES))
+     PAGED_PAGES),
+    ("zamba2-1.2b", 32, 1, 128, (None,), None, PAGED_LENGTHS, PAGED_PAGES))
 
 
 def paged_cases():
@@ -913,7 +954,8 @@ def run_spmm_quant(cfg, device, results):
              for name, bp in (("up/gate", up), ("down", down))]
     cases += [(model, name, bp, "bfloat16", (4, 256), (act,))
               for model, name, bp, act in (*dense_junctions(),
-                                           *deepseek_junctions())]
+                                           *deepseek_junctions(),
+                                           *ssm_junctions())]
     for model, name, bp, dtype_name, rows, acts in cases:
         dtype = getattr(torch, dtype_name)
         shape = (bp.n_rb, bp.d_in_b, bp.block_in, bp.block_out)
@@ -1788,7 +1830,7 @@ def forced_logits(model, prompt, gen, device, page_size=16, quant_kv=False):
                          device=device).reshape(b, per_row)
     cache = model.init_paged_cache(b * per_row, page_size,
                                    dtype_of(model.cfg), device,
-                                   quant_kv=quant_kv)
+                                   quant_kv=quant_kv, slots=b)
 
     def step(toks, pos, n):
         return model.paged_step(
@@ -1823,7 +1865,8 @@ def state_logits(model, prompt, gen, device, page_size=16):
     table = torch.arange(b * per_row, dtype=torch.int32,
                          device=device).reshape(b, per_row)
     cache = model.init_paged_cache(b * per_row, page_size,
-                                   dtype_of(model.cfg), device, quant_kv=True)
+                                   dtype_of(model.cfg), device, quant_kv=True,
+                                   slots=b)
 
     def step(c, toks, pos, n):
         return model.paged_step(
@@ -1847,9 +1890,10 @@ def state_logits(model, prompt, gen, device, page_size=16):
     return torch.stack(kern, 1), torch.stack(plain, 1), flips
 
 
-# the smoke configurations phase 3f serves (the MoE one in int8 only, at
-# the dropless capacity factor: its published one drops) and trains
-SMOKE_SERVED = ("gemma3_4b", "gemma2_9b", "qwen2_7b", "granite_34b")
+# the smoke configurations phase 3f serves (the MoE ones in int8 only, at
+# the dropless capacity factor: their published one drops) and trains
+SMOKE_SERVED = ("gemma3_4b", "gemma2_9b", "qwen2_7b", "granite_34b",
+                "mamba2_130m", "zamba2_1p2b")
 SMOKE_SERVED_INT8 = SMOKE_SERVED + ("granite_moe_1b_a400m",
                                    "deepseek_moe_16b")
 SMOKE_TRAINED = ("gemma3_4b", "granite_moe_1b_a400m", "gemma2_9b",
@@ -1860,8 +1904,9 @@ def run_smoke_configs(device) -> dict:
     """Phase 3f: the smoke configurations of gemma3-4b and of the dense
     decoders (gemma2-9b, qwen2-7b, granite-34b) served through
     ``launch.serve.generate`` (4 prompts of 32 tokens, 16 new) and trained
-    through ``launch.train.main`` (3 steps of 2 x 32 tokens), and
-    granite-moe's trained the same way, on the card: their 16 x 16 FFN and
+    through ``launch.train.main`` (3 steps of 2 x 32 tokens), the SSM
+    models' (mamba2-130m, zamba2-1.2b) served, and granite-moe's and
+    deepseek-moe's trained the same way, on the card: their 16 x 16 FFN and
     expert blocks run the small-block forms (no "multiples of 64"
     refusal). Training launches exactly those of ``train_launches_per_step``
     with the junction kernels' small-block forms in place of the full-width
@@ -1964,11 +2009,11 @@ def smoke_serve(arch: str, device, quant: bool = False) -> dict:
         kv_diff = dict(
             entries=sum(int((a != c).sum()) for a, c in pages),
             of=sum(a.numel() for a, _ in pages),
-            max_levels=max(int((a.int() - c.int()).abs().max())
-                           for a, c in pages))
+            max_levels=max((int((a.int() - c.int()).abs().max())
+                            for a, c in pages), default=0))
     fwd = "csd_spmm_fwd_quant_small" if quant else "csd_spmm_fwd_small"
-    paged = "paged_decode_attention" + ("_quant" if quant else "") + (
-        "_grouped" if cfg.n_heads // cfg.n_kv_heads > 8 else "")
+    paged = serve_kernels(cfg, QuantConfig(weights=True, kv=True)
+                          if quant else None)[1]
     # no other junction kernel: no full-width body, no f32/bf16 forward in
     # the int8 run, nothing of training
     others = [k for k in ALL_KERNELS if k.startswith("csd_") and k != fwd
@@ -1991,12 +2036,42 @@ def smoke_serve(arch: str, device, quant: bool = False) -> dict:
                    state_kv_int8_differ=flips,
                    free_running_kv_int8_differ=kv_diff)
     log(json.dumps(rec))
-    if launches[fwd] == 0 or launches[paged] == 0 or others \
+    paged_ok = launches[paged] > 0 if paged is not None else not any(
+        launches[k] for k in ALL_KERNELS if k.startswith("paged"))
+    if launches[fwd] == 0 or not paged_ok or others \
             or not rec["first_tokens_equal"] \
             or not gated[0] <= SMOKE_LOGIT_TOL * gated[1]:
         fail(f"the {cfg.name} smoke configuration did not serve as "
              f"expected: {rec}")
-    rec["spec"] = smoke_spec(model, device, fwd, paged)
+    if "mamba" in cfg.layer_kinds:
+        rec["spec"] = spec_clamped(model, device)
+    else:
+        rec["spec"] = smoke_spec(model, device, fwd, paged)
+    return rec
+
+
+def spec_clamped(model, device) -> dict:
+    """A stack with mamba layers serves without speculative decode: an
+    engine asked for ``spec_k`` = ``SPEC_K`` clamps it to 0 (its recurrent
+    state cannot be rolled back), makes no draft and gives the spec-off
+    tokens on phase 3f's periodic prompts."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    prompts = periodic_prompts(model.cfg.vocab_size, (32,) * 4)
+    knobs = dict(max_slots=4, page_size=16, total_pages=12,
+                 max_pages_per_seq=3, token_budget=36, prefill_chunk=64)
+    toks = {}
+    for spec_k in (0, SPEC_K):
+        eng = ServingEngine(model, EngineConfig(spec_k=spec_k, **knobs),
+                            device=device)
+        reset_launch_counts()
+        toks[spec_k] = [o.tolist() for o in eng.run(prompts, 16)]
+    rec = dict(check=f"{model.cfg.name} smoke: spec_k {SPEC_K} clamped",
+               spec_k=eng.spec_k, drafted=eng.sched.stats["spec_drafted"],
+               tokens_equal=toks[0] == toks[SPEC_K],
+               launches={k: v for k, v in launch_counts().items() if v})
+    log(json.dumps(rec))
+    if eng.spec_k or rec["drafted"] or not rec["tokens_equal"]:
+        fail(f"the {model.cfg.name} smoke configuration's spec_k: {rec}")
     return rec
 
 
@@ -2121,24 +2196,75 @@ def engine_config(quant=None, **knobs):
     return EngineConfig(quant=quant, **kw)
 
 
+def attention_steps(cfg) -> int:
+    """Attention applications in one forward of ``cfg``: one a layer; for
+    a stack with mamba layers the hybrid's shared block after each of its
+    ``n_layers // period`` groups (zamba2: 6), none without one
+    (mamba2)."""
+    if "mamba" not in cfg.layer_kinds:
+        return cfg.n_layers
+    return 0 if cfg.hybrid is None else cfg.n_layers // cfg.hybrid.period
+
+
+def int8_pages(cfg, quant) -> bool:
+    """Whether ``cfg``'s paged decode reads int8 pages when served with
+    ``quant``: a hybrid's shared-block pools stay full width."""
+    return quant is not None and quant.kv \
+        and "mamba" not in cfg.layer_kinds
+
+
 def serve_kernels(cfg, quant) -> tuple:
     """The (junction, paged decode) kernels a serving run of ``cfg`` must
     launch: the expert-batched forward for an MoE model, the int8 forms
-    with ``quant``, the grouped paged decode for more than 8 query heads a
-    KV head."""
+    with ``quant`` (the paged decode's only over int8 pages), the grouped
+    paged decode for more than 8 query heads a KV head; no paged decode
+    for an attention-free stack (None)."""
     fwd = "csd_spmm_fwd" + ("" if quant is None else "_quant") \
         + ("_batched" if cfg.moe is not None else "")
-    paged = "paged_decode_attention" + ("" if quant is None else "_quant") \
+    if not attention_steps(cfg):
+        return fwd, None
+    paged = "paged_decode_attention" + ("_quant" if int8_pages(cfg, quant)
+                                        else "") \
         + ("_grouped" if cfg.n_heads // cfg.n_kv_heads > 8 else "")
     return fwd, paged
+
+
+def ssm_junction_calls(cfg) -> int:
+    """Junction calls of one forward of a stack with mamba layers, from the
+    configuration's shapes alone: each layer's in_proj (d_model -> 2
+    d_inner + 2 G N + H, at rho_up) and out_proj (d_inner -> d_model, at
+    rho_down), and for each shared-block application (``attention_steps``)
+    its FFN's up and gate (d_model -> shared_d_ff, rho_up) and down
+    (rho_down). A junction that ``fit_block_pattern`` leaves dense at its
+    shape is a ``torch.matmul`` and no call (mamba2-130m's in_proj: 3352 =
+    8 x 419); the shared attention's projections are dense. The full
+    configurations give 24 (mamba2-130m) and 2 x 38 + 3 x 6 = 94
+    (zamba2-1.2b)."""
+    from repro_torch.core.block_pattern import fit_block_pattern
+    sp, sc, d = cfg.sparsity, cfg.ssm, cfg.d_model
+    rho_up, rho_down = sp.rho_ffn
+
+    def calls(n_in, n_out, rho):
+        return int(fit_block_pattern(n_in, n_out, rho, sp) is not None)
+
+    d_inner = sc.expand * d
+    in_w = 2 * d_inner + 2 * sc.n_groups * sc.d_state + d_inner // sc.head_dim
+    n = cfg.n_layers * (calls(d, in_w, rho_up) + calls(d_inner, d, rho_down))
+    if cfg.hybrid is not None:
+        ff = cfg.hybrid.shared_d_ff
+        n += attention_steps(cfg) * ((1 + cfg.ffn_gated) * calls(d, ff, rho_up)
+                                     + calls(ff, d, rho_down))
+    return n
 
 
 def junctions_by_form(cfg) -> tuple:
     """(4-D, expert-batched) junction calls of one forward of ``cfg``, 3 a
     block: an MoE block's routed experts on the expert-batched form, its
     shared experts' FFN and a dense block's (deepseek-moe's layer 0) on
-    the 4-D form."""
+    the 4-D form; a stack with mamba layers by ``ssm_junction_calls``."""
     from repro_torch.nn.model import prologue_len
+    if "mamba" in cfg.layer_kinds:
+        return ssm_junction_calls(cfg), 0
     if cfg.moe is None:
         return 3 * cfg.n_layers, 0
     n_moe = cfg.n_layers - prologue_len(cfg)
@@ -2149,18 +2275,21 @@ def junctions_by_form(cfg) -> tuple:
 def decode_launches(cfg, quant) -> dict:
     """Every kernel's launches in one decode step of ``cfg`` (int8 forms
     with ``quant``): its junctions by ``junctions_by_form`` and one paged
-    decode a layer; the kernels not named launch none."""
+    decode an attention application (``attention_steps``); the kernels not
+    named launch none."""
     q = "" if quant is None else "_quant"
     n_4d, n_5d = junctions_by_form(cfg)
-    want = {f"csd_spmm_fwd{q}": n_4d, f"csd_spmm_fwd{q}_batched": n_5d,
-            serve_kernels(cfg, quant)[1]: cfg.n_layers}
+    want = {f"csd_spmm_fwd{q}": n_4d, f"csd_spmm_fwd{q}_batched": n_5d}
+    paged = serve_kernels(cfg, quant)[1]
+    if paged is not None:
+        want[paged] = attention_steps(cfg)
     return {k: v for k, v in want.items() if v}
 
 
 def resident_bytes(eng) -> dict:
-    """Bytes on the card of the sparse junctions' slabs (FFN ``Linear``s
-    and MoE expert slabs) and their scales, and of the page pool (pages
-    and per-token scales)."""
+    """Bytes on the card of the sparse junctions' slabs (FFN and mixer
+    ``Linear``s, MoE expert slabs) and their scales, of the page pools
+    (pages and per-token scales) and of the slots' SSM state."""
     from repro_torch.nn.ffn import MoE
     from repro_torch.nn.layers import Linear
     slabs = []  # (weight, scale or None)
@@ -2177,7 +2306,11 @@ def resident_bytes(eng) -> dict:
         ffn_scale_bytes=sum(sc.numel() * 4 for _, sc in slabs
                             if sc is not None),
         kv_pool_bytes=sum(t.numel() * t.element_size()
-                          for c in eng.cache for t in c.values()))
+                          for c in eng.cache if "ssd" not in c
+                          for t in c.values()),
+        ssm_state_bytes=sum(t.numel() * t.element_size()
+                            for c in eng.cache if "ssd" in c
+                            for t in c.values()))
 
 
 @contextmanager
@@ -2228,9 +2361,11 @@ def plain_versions():
 def serve(model, device, out_dir, quant=None,
           prompt_lens=(64, 96, 112, 128), n_new=32, trace="decode_trace",
           slab_bytes=None, knobs=None):
-    """Serve ``model`` (phases 5, 5c, 5e, 5g, 5h and 5i; with ``quant`` 5b,
-    5d, 5f and 5j) and check it; with ``slab_bytes`` the resident slab bytes
-    must be those; ``knobs`` override the engine's (``engine_config``)."""
+    """Serve ``model`` (phases 5, 5c, 5e, 5g, 5h, 5i, 5k and 5l; with
+    ``quant`` 5b, 5d, 5f, 5j and 5m) and check it; with ``slab_bytes`` the
+    resident slab bytes must be those; ``knobs`` override the engine's
+    (``engine_config``). A stack with mamba layers also serves a request
+    again in a slot its run left (``readmission``)."""
     knobs = knobs or {}
     import numpy as np
     import torch
@@ -2281,6 +2416,9 @@ def serve(model, device, out_dir, quant=None,
     if toks.shape != (len(prompts), n_new) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
         fail(f"served tokens malformed: shape {toks.shape}")
+    if "mamba" in cfg.layer_kinds:
+        rec["readmission"] = readmission(eng, model, quant, knobs,
+                                         prompts[0], READMIT_NEW)
     # the run went through this configuration's kernels and no others
     expect = decode_launches(cfg, quant)
     want = tuple(expect)
@@ -2297,9 +2435,10 @@ def serve(model, device, out_dir, quant=None,
             fail(f"the {tag} served run launched {name} {launches[name]} "
                  f"times")
     form = paged_form_of(cfg, quant)
-    if forms != {k: launches[paged] if k == form else 0 for k in forms}:
+    n_paged = launches[paged] if paged is not None else 0
+    if forms != {k: n_paged if k == form else 0 for k in forms}:
         fail(f"the {tag} served run's paged decode ran {forms}, the rule "
-             f"gives {form} for all {launches[paged]}")
+             f"gives {form} for all {n_paged}")
 
     # the decode step after the prefill drain, run from one cache state with
     # the kernels and with their plain versions
@@ -2380,12 +2519,44 @@ def serve(model, device, out_dir, quant=None,
              f"{chk_rec}")
     if per_step != expect:
         fail(f"{tag} decode step launched {per_step}, expected {expect}")
-    if forms_per_step[form] != cfg.n_layers:
+    if forms_per_step.get(form, 0) != attention_steps(cfg):
         fail(f"{tag} decode step's paged decode ran {forms_per_step}, "
-             f"expected {cfg.n_layers} of {form}")
-    return rec, chk_rec, profile_decode(
-        model, prompts, n_new, device, out_dir, quant, trace=trace,
-        knobs=knobs), toks, prompts
+             f"expected {attention_steps(cfg)} of {form}")
+    # the profiled steps continue the check engine from the state after
+    # its prefill drain (``schedule`` allocates a decode step's pages only
+    # once, so the check's plan is planned again as it was)
+    chk.cache = base
+    return rec, chk_rec, profile_decode(chk, out_dir, quant, trace=trace), \
+        toks, prompts
+
+
+READMIT_NEW = 8  # new tokens of the re-admitted request
+
+
+def readmission(eng, model, quant, knobs, prompt, n_new) -> dict:
+    """Serve ``prompt`` again on ``eng`` once its run has drained: slot 0,
+    where it is admitted, holds the SSM state an earlier request left
+    (checked non-zero), which the engine must zero at admission. Its
+    tokens must equal those of the same request on a fresh engine (slot
+    0 of a clean cache, the same launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+    left = max(float(c[k][0].abs().max()) for c in eng.cache if "ssd" in c
+               for k in ("ssd", "conv"))
+    got = eng.run([prompt], n_new)[0]
+    fresh = ServingEngine(model, engine_config(quant, **knobs),
+                          device=eng.device)
+    want = fresh.run([prompt], n_new)[0]
+    torch.cuda.synchronize()
+    rec = dict(check=f"{model.cfg.name}: a request re-admitted into a "
+                     f"freed slot vs a fresh engine", slot_state_left=left,
+               tokens_equal=bool(np.array_equal(got, want)), n_new=n_new)
+    log(json.dumps(rec))
+    if left == 0.0 or not rec["tokens_equal"]:
+        fail(f"re-admission: {rec}; tokens {got.tolist()} vs "
+             f"{want.tolist()}")
+    return rec
 
 
 def drain(eng, prompts, n_new, t_start) -> dict:
@@ -2499,9 +2670,10 @@ def top1_agreement(ref_model, model, prompts, gen, device, quant,
     table = torch.arange(b * per_row, dtype=torch.int32,
                          device=device).reshape(b, per_row)
     dt = dtype_of(ref_model.cfg)
-    caches = [ref_model.init_paged_cache(b * per_row, page_size, dt, device),
+    caches = [ref_model.init_paged_cache(b * per_row, page_size, dt, device,
+                                         slots=b),
               model.init_paged_cache(b * per_row, page_size, dt, device,
-                                     quant_kv=quant.kv)]
+                                     quant_kv=quant.kv, slots=b)]
     prompt = np.zeros((b, int(lens.max())), np.int32)
     for i, p in enumerate(prompts):
         prompt[i, :len(p)] = p
@@ -2807,11 +2979,12 @@ def spec_serve(model, device, quant=None) -> dict:
                 diverged=diverged, verify_check=chk_rec)
 
 
-def dev_us(e) -> float:
-    """A profiler event's own device µs (the key's name moved between torch
-    releases)."""
-    return getattr(e, "self_device_time_total", None) \
-        or getattr(e, "self_cuda_time_total", 0)
+def dev_us(e, own: bool = True) -> float:
+    """A profiler event's own device µs, or with ``own`` False its
+    children's included (the key's name moved between torch releases)."""
+    pre = "self_" if own else ""
+    return getattr(e, f"{pre}device_time_total", None) \
+        or getattr(e, f"{pre}cuda_time_total", 0)
 
 
 def export_trace(prof, path: Path) -> None:
@@ -2824,22 +2997,20 @@ def export_trace(prof, path: Path) -> None:
     path.unlink()
 
 
-def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
-                   n_steps=4, trace="decode_trace", knobs=None):
-    """Where a decode step's time goes: ``n_steps`` engine decode steps
-    under ``torch.profiler``, kernel time summed by name."""
+def profile_decode(eng, out_dir, quant=None, n_steps=2,
+                   trace="decode_trace"):
+    """Where a decode step's time goes: one decode step of ``eng`` (its
+    requests prefilled), then ``n_steps`` more under ``torch.profiler``,
+    kernel time summed by name; for a stack with mamba layers also the
+    device time of the SSD's plain-torch ops and of the whole mixer (the
+    ranges ``nn.ssm`` names). The profiler's post-processing grows with
+    the events it recorded: at full depth it costs more than the steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.nn.ssm import MIXER_RANGE, SSD_RANGE
 
-    eng = ServingEngine(model, engine_config(quant, **(knobs or {})),
-                        device=device)
-    for i, p in enumerate(prompts):
-        eng.add_request(p, n_new, req_id=i)
-    while eng.sched.waiting or any(s is not None and s.prefilling
-                                   for s in eng.sched.active):
-        eng.step()
+    model = eng.model
     eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2852,8 +3023,12 @@ def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
     export_trace(prof, out_dir / (trace + ("" if quant is None
                                            else "_int8") + ".json"))
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    # the mixer's profiler ranges also appear as device-side annotations
+    # spanning their kernels: not kernels
+    ranges = (SSD_RANGE, MIXER_RANGE)
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.key not in ranges]
     total_us = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     rec = dict(check=f"{model.cfg.name} decode step profile"
@@ -2867,11 +3042,19 @@ def profile_decode(model, prompts, n_new, device, out_dir, quant=None,
                kernel_launches_per_step=sum(e.count for e in kernels)
                / n_steps,
                paged_per_layer=paged_per_layer(
-                   kernels, dev_us, n_steps * model.cfg.n_layers),
+                   kernels, dev_us,
+                   n_steps * max(attention_steps(model.cfg), 1)),
                junction_per_step=junction_per_step(kernels, dev_us,
                                                    n_steps),
                top=[dict(name=e.key[:70], us_per_step=dev_us(e) / n_steps,
                          calls_per_step=e.count / n_steps) for e in top])
+    if "mamba" in model.cfg.layer_kinds:
+        # the host ranges' device time: the kernels launched inside them
+        rec["ssm_ms_per_step"] = {
+            e.key: dev_us(e, own=False) / 1e3 / n_steps
+            if dev_us(e, own=False) else "not measured"
+            for e in events
+            if e.key in ranges and e.device_type == DeviceType.CPU}
     log(json.dumps(rec))
     if quant is not None and any("reduce_splits" in k
                                  for k in rec["junction_per_step"]):
@@ -3510,10 +3693,13 @@ def paged_form_counts() -> dict:
 
 def paged_form_of(cfg, quant) -> str:
     """The split kernel ``launch.paged_rule`` gives ``cfg``'s paged decode
-    (bf16 q; int8 pages with ``quant``)."""
+    (bf16 q; int8 pages where ``int8_pages``); None for an attention-free
+    stack."""
     from repro_torch.kernels import launch
+    if not attention_steps(cfg):
+        return None
     form = launch.paged_rule(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
-                             16, "bfloat16", quant is not None)
+                             16, "bfloat16", int8_pages(cfg, quant))
     return "paged_decode_mma_kernel" if form == "mma" \
         else "paged_decode_kernel"
 
@@ -4558,6 +4744,34 @@ def main() -> int:
     ds_recs["5j"]["top1_agreement_int8"] = ds_agree_rec
     ds_recs["slab_bytes_reckoned"] = d_bytes
 
+    # phases 5k-5m: the SSM models at full width and depth, phase 5's four
+    # requests: mamba2-130m (24 layers) in bf16, zamba2-1.2b (38 layers)
+    # in bf16 and, from a second f32 build of the seed, in int8
+    ssm = {}
+    m2_model = fresh_model(get_config("mamba2_130m"))
+    ssm["5k"] = serve(m2_model, device, out_dir, trace="decode_trace_mamba2")
+    done("5k")
+    del m2_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    zcfg = get_config("zamba2_1p2b")
+    z_bf16 = fresh_model(zcfg)
+    ssm["5l"] = serve(z_bf16, device, out_dir, trace="decode_trace_zamba2")
+    done("5l")
+    z_int8 = fresh_model(zcfg)
+    ssm["5m"] = serve(z_int8, device, out_dir, quant=quant,
+                      trace="decode_trace_zamba2")
+    z_agree_rec = top1_agreement(z_bf16, z_int8, ssm["5l"][4], ssm["5l"][3],
+                                 device, quant)
+    log(json.dumps(z_agree_rec))
+    done("5m")
+    del z_bf16, z_int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_recs = {k: dict(serve=v[0], logits_check=v[1], profile=v[2])
+                for k, v in ssm.items()}
+    ssm_recs["5m"]["top1_agreement_int8"] = z_agree_rec
+
     # phases 6 and 6b
     run_train_kernels(cfg, device, results)
     done("6")
@@ -4777,7 +4991,7 @@ def main() -> int:
                            for r in (serve_rec, q_serve_rec, g_serve_rec,
                                      gq_serve_rec)) + sum(
             v[0]["launches"]["csd_spmm_fwd_injected_alias"]
-            for v in (*dense.values(), *ds.values())),
+            for v in (*dense.values(), *ds.values(), *ssm.values())),
         launches_train=sum(r["launches"]["csd_spmm_fwd_injected_alias"]
                            for r in (train_rec, g_train_rec)),
         max_abs_err=inj_rec["max_abs_err"], ms=inj_rec["ms"],
@@ -4825,6 +5039,10 @@ def main() -> int:
                          "paged_decode_attention_quant"):
             e["launches_serve_deepseek"] = sum(
                 v[0]["launches"][e["name"]] for v in ds.values())
+        if e["name"] in ("csd_spmm_fwd", "csd_spmm_fwd_quant",
+                         "paged_decode_attention"):
+            e["launches_serve_ssm"] = sum(
+                v[0]["launches"][e["name"]] for v in ssm.values())
     # the tensor-core form's launches in the serving runs (qwen2-7b's G 7
     # on paged_decode_attention, granite-34b's 48 on the grouped wrapper)
     for e in entries:
@@ -4875,7 +5093,7 @@ def main() -> int:
              nan_coverage=nan_rec,
              injected_alias=inj_rec, paper_mlp=mlp_recs,
              smoke_configs=smoke_recs, dense_decoders=dense_recs,
-             deepseek=ds_recs,
+             deepseek=ds_recs, ssm=ssm_recs,
              examples=example_recs, spec=spec_recs, done_at_s=done_at,
              kernels=entries),
         indent=1))

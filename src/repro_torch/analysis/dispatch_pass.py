@@ -256,7 +256,7 @@ def paged_steps(cfg, device, quant: bool):
         quantize_model(model)
     model = model.to(dtype=dtype_of(cfg))
     cache = model.init_paged_cache(TOTAL_PAGES, PAGE_SIZE, dtype_of(cfg),
-                                   device, quant_kv=quant)
+                                   device, quant_kv=quant, slots=slots)
     per_row = TOTAL_PAGES // slots
     table = np.full((slots, per_row), -1, np.int32)
     for i in range(slots):

@@ -883,12 +883,59 @@ def small_block_cases() -> List[KernelCase]:
     return cases
 
 
+# the SSM models' junctions at full width: (arch, junction, module path)
+SSM_JUNCTIONS = (("mamba2_130m", "out_proj", "layers.0.mixer.out_proj"),
+                 ("zamba2_1p2b", "in_proj", "layers.0.mixer.in_proj"),
+                 ("zamba2_1p2b", "out_proj", "layers.0.mixer.out_proj"),
+                 ("zamba2_1p2b", "shared gate", "shared.ffn.gate"),
+                 ("zamba2_1p2b", "shared down", "shared.ffn.down"))
+
+
+def ssm_junctions():
+    """(config, junction, pattern, activation of its epilogue) of
+    ``SSM_JUNCTIONS``: mamba2-130m's out_proj (one 768-wide right block,
+    fan-in 6; its in_proj is dense), zamba2-1.2b's mixer in_proj (131 right
+    blocks of 64, fan-in 8) and out_proj (fan-in 16), and its shared FFN's
+    gate (gelu, fan-in 4 of 8) and down (fan-in 32)."""
+    from ..configs import get_config
+    from .pattern_pass import model_patterns
+    for arch, name, path in SSM_JUNCTIONS:
+        cfg = get_config(arch)
+        yield (cfg, name, dict(model_patterns(cfg, "m"))[f"m.{path}.pattern"],
+               "gelu" if name.endswith("gate") else None)
+
+
+def ssm_cases() -> List[KernelCase]:
+    """``ssm_junctions``' forwards, bf16 and int8, at a decode step's (M 4)
+    and a prefill's (M 256) rows, and zamba2-1.2b's shared block's paged
+    decode (32 KV heads, one query head each, Dh 128, bf16 pages: its
+    pools stay full width in int8 serving)."""
+    from ..configs import canonical, get_config
+    bf16 = torch.bfloat16
+    cases = []
+    for cfg, name, bp, act in ssm_junctions():
+        tag = f"{canonical(cfg.name)}/{name.replace(' ', '_')}"
+        for quant in (False, True):
+            for phase, m in (("decode", DECODE_M), ("prefill", PREFILL_M)):
+                cases.append(_fwd_case(
+                    f"{tag}/{phase}/fwd{'_quant' if quant else ''}", bp, m,
+                    bf16, activation=act, quant=quant))
+    z = get_config("zamba2_1p2b")
+    for lengths, n_pages, tag in ((PAGED_LENGTHS, PAGED_PAGES, "decode"),
+                                  (SERVING_LENGTHS, SERVING_PAGES, "serve")):
+        cases.append(_paged_case(
+            f"zamba2_1p2b/{tag}/paged_shared", z.n_kv_heads,
+            z.n_heads // z.n_kv_heads, z.head_dim, bf16, lengths=lengths,
+            n_pages=n_pages, page=PAGE, window=None, quant=False))
+    return cases
+
+
 def kernel_cases() -> List[KernelCase]:
     """Every shipped kernel family: the demo cases, the full-width shapes
-    of the two models, the dense decoders' and the small-block forms'
-    cases."""
+    of the two models, the dense decoders', the SSM models' and the
+    small-block forms' cases."""
     return demo_cases() + full_width_cases() + dense_decoder_cases() \
-        + small_block_cases()
+        + ssm_cases() + small_block_cases()
 
 
 # ---------------------------------------------------------------------------

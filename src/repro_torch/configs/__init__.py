@@ -11,7 +11,7 @@ import importlib
 from ..nn.common import ModelConfig
 
 ARCHS = ["gemma3_4b", "granite_moe_1b_a400m", "gemma2_9b", "qwen2_7b",
-         "granite_34b", "deepseek_moe_16b"]
+         "granite_34b", "deepseek_moe_16b", "mamba2_130m", "zamba2_1p2b"]
 
 
 def canonical(name: str) -> str:

@@ -8,7 +8,12 @@ repeating unit) and ``params["stack"]["epilogue"][i]``. The port's flat
 at ``pro_n + g * unit + u`` (``pro_n`` prologue blocks) and epilogue block
 i after all scanned layers; an untied head
 ``params["head"]["w"]`` (d_model, vocab) maps onto ``head.weight``. The
-tree is passed in as numpy arrays, so this module needs no JAX.
+repeating unit is the model's (``nn.model.repeat_unit``: zamba2's
+``hybrid.period``). A mamba layer's leaves (``mixer.{in_proj, out_proj}``,
+``mixer.{conv_w, conv_b, a_log, dt_bias, d_skip}``, ``mixer.norm``,
+``ln``) keep their names, and a hybrid stack's ``params["stack"]
+["shared"]`` maps onto the port's ``shared`` block. The tree is passed in
+as numpy arrays, so this module needs no JAX.
 
 A gradient tree from ``jax.grad`` of the LM's loss has the parameter
 tree's structure, so the same function maps it onto the port's parameter
@@ -40,7 +45,7 @@ from typing import TYPE_CHECKING, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from .nn.model import LM, detect_unit, prologue_len
+from .nn.model import LM, prologue_len, repeat_unit
 
 if TYPE_CHECKING:
     from .nn.mlp import SparseMLP
@@ -77,7 +82,7 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
         raise ValueError(f"prologue mismatch: the tree has {len(prologue)} "
                          f"prologue blocks, the model {pro_n}")
     kinds = model.cfg.layer_kinds[pro_n:]
-    unit = detect_unit(kinds) if kinds else 1
+    unit = repeat_unit(model.cfg)
     n_groups = len(kinds) // unit
     out: Dict[str, np.ndarray] = {
         "embed.table": np.asarray(np_tree["embed"]["table"]),
@@ -102,6 +107,8 @@ def from_jax_params(np_tree: dict, model: LM) -> Dict[str, torch.Tensor]:
         for path, arr in _items(blk):
             out[f"layers.{pro_n + n_groups * unit + i}."
                 f"{_block_name(path)}"] = arr
+    for path, arr in _items(stack.get("shared") or {}):
+        out[f"shared.{_block_name(path)}"] = arr
     params = dict(model.named_parameters())
     params.update((n, b) for n, b in model.named_buffers()
                   if n.endswith("_scale"))

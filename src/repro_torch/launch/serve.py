@@ -15,7 +15,15 @@ once), so ``--full`` serves on one 80 GB card
   FFN patterns dense at full width (coprime block counts), ~7.6 B, ~15 GB;
 * ``--arch granite_34b``: 88 layers, 48 query heads over one KV head (the
   grouped form of the paged decode kernel), untied head, ~29.5 B, ~59 GB
-  (its f32 parameters, ~118 GB, would not fit).
+  (its f32 parameters, ~118 GB, would not fit);
+* ``--arch mamba2_130m``: 24 Mamba2 layers, no attention, 0.129 B
+  parameters, ~0.26 GB, 19.4 MB of f32 SSM state a slot;
+* ``--arch zamba2_1p2b``: 38 Mamba2 layers and a shared attention block
+  applied after every 6 (6 page pools), 1.130 B, ~2.26 GB, 41.8 MB of SSM
+  state a slot.
+
+Served with 4 slots on an NVIDIA H100 80GB HBM3 (``chip_smoke.py`` phases
+5k and 5l) the two peaked at 0.52 and 2.87 GB of device memory.
 
 ``--arch granite_moe_1b_a400m`` and ``--arch deepseek_moe_16b`` (28
 layers, a dense layer 0, 64 routed experts top-6 and 2 shared experts,
@@ -41,7 +49,9 @@ def generate(model, prompt, s_max: int, steps: int, *, greedy: bool = True,
              device=None, page_size: int = 16, seed: int = 0):
     """Batched generation through ``ServingEngine``; returns
     (tokens (B, steps) int32 array, tokens/s). The rate covers the tokens
-    decoded after every prompt has been prefilled."""
+    decoded after every prompt has been prefilled. Raises RuntimeError if
+    the prefill has not drained after 10,000 steps or the engine after
+    100,000 more."""
     prompt = np.asarray(prompt, np.int32)
     b, prompt_len = prompt.shape
     pages_per_seq = -(-s_max // page_size)
@@ -55,16 +65,24 @@ def generate(model, prompt, s_max: int, steps: int, *, greedy: bool = True,
         device=device, seed=seed)
     for i in range(b):
         eng.add_request(prompt[i], steps, req_id=i)
+    guard = 0
     while any(s is not None and s.prefilling for s in eng.sched.active) \
             or eng.sched.waiting:
         eng.step()
+        guard += 1
+        if guard > 10_000:
+            raise RuntimeError("prefill failed to drain")
     # tokens decoded while other rows were still prefilling are not timed
     pre = sum(len(o) for o in eng.outputs.values()) \
         + sum(s.n_generated for s in eng.sched.active if s is not None)
     _sync(eng.device)
     t0 = time.perf_counter()
+    steps_run = 0
     while eng.sched.has_work():
         eng.step()
+        steps_run += 1
+        if steps_run > 100_000:
+            raise RuntimeError("engine failed to drain")
     _sync(eng.device)
     dt = time.perf_counter() - t0
     toks = np.stack([eng.outputs[i] for i in range(b)])

@@ -132,11 +132,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class Attention(nn.Module):
     """GQA self-attention with rope, optional qk-norm, window and logit
-    softcap, and optionally pre-defined-sparse projections."""
+    softcap, and optionally pre-defined-sparse projections. ``d_in`` is the
+    width q, k and v are projected from (d_model by default; zamba2's
+    shared block reads [h, embedding], 2 x d_model); the output projects
+    back to d_model."""
 
     def __init__(self, cfg: ModelConfig, *, window: Optional[int] = None,
                  seed: int = 0, qk_norm: bool = False, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 d_in: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.window = window
@@ -150,11 +154,11 @@ class Attention(nn.Module):
         pd = param_dtype_of(cfg)
         kw = dict(rho=rho if rho is not None else 1.0, sp=attn_sp, dtype=pd,
                   device=device, generator=generator)
-        d = cfg.d_model
+        d = d_in or cfg.d_model
         self.wq = Linear(d, h * dh, bias=cfg.qkv_bias, seed=seed + 1, **kw)
         self.wk = Linear(d, kv * dh, bias=cfg.qkv_bias, seed=seed + 2, **kw)
         self.wv = Linear(d, kv * dh, bias=cfg.qkv_bias, seed=seed + 3, **kw)
-        self.wo = Linear(h * dh, d, bias=False, seed=seed + 4, **kw)
+        self.wo = Linear(h * dh, cfg.d_model, bias=False, seed=seed + 4, **kw)
         if qk_norm:
             self.qnorm = RMSNorm(dh, cfg.rms_eps, pd, device)
             self.knorm = RMSNorm(dh, cfg.rms_eps, pd, device)

@@ -2,10 +2,10 @@
 half of ``repro.nn.common``).
 
 The fields and defaults are those of the JAX package's ``ModelConfig``,
-``SparsityConfig`` and ``MoEConfig`` that the ported slices read, with the
-int8 serving knob ``SparsityConfig.quant``; fields of the SSM,
-encoder-decoder and frontend families and the TPU backend switch arrive
-with the slices that use them.
+``SparsityConfig``, ``MoEConfig``, ``SSMConfig`` and ``HybridConfig`` that
+the ported slices read, with the int8 serving knob ``SparsityConfig.quant``;
+fields of the encoder-decoder and frontend families and the TPU backend
+switch arrive with the slices that use them.
 """
 from __future__ import annotations
 
@@ -56,6 +56,30 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """A Mamba2 mixer: ``expand * d_model`` inner width in heads of
+    ``head_dim``, ``n_groups`` B/C groups of state size ``d_state``, a
+    causal depthwise conv of width ``d_conv``, SSD chunks of ``chunk``."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256
+    a_init_range: Tuple[float, float] = (1.0, 16.0)
+    dt_limit: Tuple[float, float] = (1e-3, 1e2)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """zamba2-style: a mamba backbone and one *shared* attention block (one
+    parameter set) applied after every ``period`` layers."""
+    period: int = 6
+    shared_d_ff: int = 8192
+    concat_embedding: bool = True  # shared block sees [h, embedding] (2*d)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     n_layers: int = 4
@@ -67,6 +91,7 @@ class ModelConfig:
     vocab_size: int = 32000
     max_seq_len: int = 8192
 
+    block_kind: str = "attn"     # attn | mamba
     layer_pattern: Tuple[str, ...] = ()  # per-layer kinds, cycled; () = all attn
     attn_window: Optional[int] = None    # sliding window for 'local' layers
     local_global_ratio: int = 0          # k local : 1 global (0 = all global)
@@ -82,6 +107,8 @@ class ModelConfig:
     scale_embed: bool = False    # gemma multiplies embeddings by sqrt(d)
 
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
 
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
 
@@ -96,10 +123,12 @@ class ModelConfig:
 
     @property
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Resolved per-layer kind: 'global' or 'local'."""
+        """Resolved per-layer kind: 'global', 'local' or 'mamba'."""
         if self.layer_pattern:
             pat = self.layer_pattern
             return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+        if self.block_kind == "mamba":
+            return ("mamba",) * self.n_layers
         if self.local_global_ratio > 0:
             k = self.local_global_ratio
             return tuple("local" if (i % (k + 1)) != k else "global"

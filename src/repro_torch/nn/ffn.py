@@ -93,22 +93,24 @@ class _Combine(torch.autograd.Function):
 class FFN(nn.Module):
     """(Gated) feed-forward junction pair, optionally pre-defined sparse.
     The junction seeds are the JAX package's (+11 up, +12 gate, +13 down):
-    the seed picks each junction's sparsity pattern."""
+    the seed picks each junction's sparsity pattern. ``d_in`` is the input
+    width (d_model by default); the output is d_model wide."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, device=None,
                  generator: Optional[torch.Generator] = None,
-                 d_ff: Optional[int] = None):
+                 d_ff: Optional[int] = None, d_in: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         sp = cfg.sparsity
         rho_up, rho_down = sp.rho_ffn if sp.enabled else (1.0, 1.0)
         kw = dict(sp=sp, dtype=param_dtype_of(cfg), device=device,
                   generator=generator)
-        d, d_ff = cfg.d_model, d_ff or cfg.d_ff
+        d, d_ff = d_in or cfg.d_model, d_ff or cfg.d_ff
         self.up = Linear(d, d_ff, rho=rho_up, seed=seed + 11, **kw)
         self.gate = Linear(d, d_ff, rho=rho_up, seed=seed + 12, **kw) \
             if cfg.ffn_gated else None
-        self.down = Linear(d_ff, d, rho=rho_down, seed=seed + 13, **kw)
+        self.down = Linear(d_ff, cfg.d_model, rho=rho_down, seed=seed + 13,
+                           **kw)
         self.act = activation(cfg.act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -104,21 +104,27 @@ class Linear(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """RMS norm computed in f32. Zero-centred (gemma style, ``1 + scale``
-    with the scale initialised to zeros) for every model, as in the JAX
-    package."""
+    """RMS norm computed in f32. Zero-centred by default (gemma style,
+    ``1 + scale`` with the scale initialised to zeros), as every norm of the
+    JAX package is but the Mamba2 mixer's gated one, which is built with
+    ``zero_centered=False``: its scale starts at ones and multiplies."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32,
-                 device=None):
+                 device=None, zero_centered: bool = True):
         super().__init__()
         self.eps = eps
-        self.scale = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+        self.zero_centered = zero_centered
+        init = torch.zeros if zero_centered else torch.ones
+        self.scale = nn.Parameter(init(dim, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         xf = xf * torch.rsqrt(var + self.eps)
-        return (xf * (1.0 + self.scale.float())).to(x.dtype)
+        scale = self.scale.float()
+        if self.zero_centered:
+            scale = 1.0 + scale
+        return (xf * scale).to(x.dtype)
 
 
 class Embedding(nn.Module):

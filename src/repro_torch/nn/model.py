@@ -10,7 +10,12 @@ loop, but each layer is built with the seed its JAX block has, because the
 seed picks its FFN sparsity pattern: prologue block ``i`` gets
 ``1000 * i``, scan slot ``u`` gets ``10 * u + 1`` in every group (scanned
 groups share one pattern per slot), epilogue block ``i`` gets
-``2000 + 10 * i``. MoE blocks
+``2000 + 10 * i``. The repeating unit is ``detect_unit``'s, or for a
+hybrid stack (mamba layers and ``cfg.hybrid``: zamba2) ``hybrid.period``
+(``repeat_unit``): zamba2's 38 layers are 6 groups of 6 slots and 2
+epilogue layers. The hybrid's shared attention block (``self.shared``,
+seed 501) runs after each group, never after the epilogue, on the hidden
+state and the scaled input embedding. MoE blocks
 (granite-moe, deepseek-moe) get the same seeds, and the paged step runs
 MoE over all B x C rows, inactive slots' rows included, as the JAX step
 does (serving needs dropless capacity for that, which the engine checks).
@@ -34,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, dtype_of, param_dtype_of
 from .layers import Embedding, Linear, RMSNorm
-from .transformer import TransformerBlock
+from .transformer import MambaLayer, SharedAttnBlock, TransformerBlock
 
 # weight of each MoE aux value in the loss, as in the JAX package
 _AUX_SCALE = {"moe_lb": 0.01, "moe_z": 1.0}
@@ -58,13 +63,29 @@ def prologue_len(cfg: ModelConfig) -> int:
     return int(cfg.moe is not None and cfg.moe.first_layer_dense)
 
 
-def layer_seeds(kinds: Tuple[str, ...], pro_n: int = 0) -> List[int]:
+def is_hybrid(cfg: ModelConfig) -> bool:
+    """A zamba2-style stack: mamba layers and a shared attention block."""
+    return cfg.hybrid is not None and "mamba" in cfg.layer_kinds
+
+
+def repeat_unit(cfg: ModelConfig) -> int:
+    """The JAX stack's repeating unit of the layers after the prologue:
+    ``hybrid.period`` for a hybrid stack, else ``detect_unit``'s."""
+    rest = cfg.layer_kinds[prologue_len(cfg):]
+    if is_hybrid(cfg):
+        return cfg.hybrid.period
+    return detect_unit(rest) if rest else 1
+
+
+def layer_seeds(kinds: Tuple[str, ...], pro_n: int = 0,
+                unit: Optional[int] = None) -> List[int]:
     """Per-layer block seeds of the JAX stack: ``pro_n`` prologue blocks,
-    then the scan slots of the rest, then its epilogue."""
+    then the scan slots of the rest (repeating ``unit`` layers, by default
+    ``detect_unit``'s), then its epilogue."""
     rest = kinds[pro_n:]
     if not rest:
         return [1000 * i for i in range(len(kinds))]
-    unit = detect_unit(rest)
+    unit = unit or detect_unit(rest)
     scanned = (len(rest) // unit) * unit
     return [1000 * i for i in range(pro_n)] + [
         10 * (i % unit) + 1 if i < scanned else 2000 + 10 * (i - scanned)
@@ -86,11 +107,19 @@ class LM(nn.Module):
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, pd, device,
                                generator)
         kinds = cfg.layer_kinds
+        pro_n, unit = prologue_len(cfg), repeat_unit(cfg)
+        kw = dict(device=device, generator=generator)
         self.layers = nn.ModuleList(
-            TransformerBlock(cfg, kind, seed=seed, device=device,
-                             generator=generator, layer_idx=i)
+            MambaLayer(cfg, seed=seed, **kw) if kind == "mamba" else
+            TransformerBlock(cfg, kind, seed=seed, layer_idx=i, **kw)
             for i, (kind, seed) in enumerate(
-                zip(kinds, layer_seeds(kinds, prologue_len(cfg)))))
+                zip(kinds, layer_seeds(kinds, pro_n, unit))))
+        n_groups = (len(kinds) - pro_n) // unit
+        self.shared = SharedAttnBlock(cfg, seed=501, **kw) \
+            if is_hybrid(cfg) else None
+        # layer index -> the group whose shared-block application follows it
+        self.shared_after = {} if self.shared is None else {
+            pro_n + (g + 1) * unit - 1: g for g in range(n_groups)}
         self.ln_f = RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)
         self.head = None if cfg.tie_embeddings else Linear(
             cfg.d_model, cfg.vocab_size, dtype=pd, device=device,
@@ -98,19 +127,25 @@ class LM(nn.Module):
 
     def init_paged_cache(self, total_pages: int, page_size: int,
                          dtype: Optional[torch.dtype] = None,
-                         device=None, quant_kv: bool = False) -> List[dict]:
-        """Per-layer page pools, each with one extra write-discard page
-        (attention layers keep no per-slot state). ``quant_kv`` makes the
-        pools int8 with per-token f32 scale buffers ``k_scale``/``v_scale``
-        of shape (P+1, page) beside them; the attention step keys the int8
-        path on their presence."""
+                         device=None, quant_kv: bool = False,
+                         slots: Optional[int] = None) -> List[dict]:
+        """The serving cache: one flat dict of tensors a layer, then one a
+        shared-block application (a hybrid stack's ``n_groups``). An
+        attention layer's is a page pool with one extra write-discard page
+        (no per-slot state); ``quant_kv`` makes it int8 with per-token f32
+        scale buffers ``k_scale``/``v_scale`` of shape (P+1, page) beside
+        it, and the attention step keys the int8 path on their presence. A
+        mamba layer's is its state for each of ``slots`` slots, {"ssd":
+        (slots, H, P, N), "conv": (slots, K - 1, C)} in f32 (``slots`` is
+        needed only then). The shared block's pools stay full width with
+        ``quant_kv``, as the JAX package's do."""
         cfg = self.cfg
         dtype = dtype or dtype_of(cfg)
         device = device or self.embed.table.device
         shape = (total_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
 
-        def pool():
-            if not quant_kv:
+        def pool(quant):
+            if not quant:
                 return {k: torch.zeros(shape, dtype=dtype, device=device)
                         for k in ("k_pages", "v_pages")}
             c = {k: torch.zeros(shape, dtype=torch.int8, device=device)
@@ -120,7 +155,26 @@ class LM(nn.Module):
                       for k in ("k_scale", "v_scale")})
             return c
 
-        return [pool() for _ in self.layers]
+        def entry(layer):
+            if not isinstance(layer, MambaLayer):
+                return pool(quant_kv)
+            if slots is None:
+                raise ValueError("a stack with mamba layers keeps state per "
+                                 "slot: pass slots to init_paged_cache")
+            return layer.mixer.init_state(slots, device=device)
+
+        return [entry(layer) for layer in self.layers] + [
+            pool(False) for _ in self.shared_after]
+
+    def reset_slot_state(self, cache: List[dict], slot: int) -> None:
+        """Zero one slot's SSM state in ``cache``, in place: a freed slot's
+        new occupant must not inherit the previous sequence's state, which
+        a chunk carries in unmasked (attention pages need no reset: stale
+        KV is masked by the sequence length)."""
+        for layer, c in zip(self.layers, cache):
+            if isinstance(layer, MambaLayer):
+                for t in c.values():
+                    t[slot].zero_()
 
     def logits_fn(self, h: torch.Tensor) -> torch.Tensor:
         logits = self.embed.attend(h) if self.head is None else self.head(h)
@@ -148,16 +202,22 @@ class LM(nn.Module):
         """tokens (B, S) int -> (final-normed hidden states (B, S, d), the
         MoE blocks' aux values summed over layers, {} without MoE)."""
         x = self.embed_in(tokens)
+        emb = x
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         aux_tot: Dict[str, torch.Tensor] = {}
-        for layer in self.layers:
+
+        def run(fn, *args):
             if self._remat():
-                x, aux = checkpoint(layer, x, positions, use_reentrant=False)
-            else:
-                x, aux = layer(x, positions)
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        for i, layer in enumerate(self.layers):
+            x, aux = run(layer, x, positions)
             for k, v in aux.items():
                 aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
+            if i in self.shared_after:
+                x = run(self.shared, x, emb, positions)
         return self.ln_f(x), aux_tot
 
     def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor):
@@ -202,7 +262,8 @@ class LM(nn.Module):
     def paged_step(self, tokens: torch.Tensor, pos: torch.Tensor,
                    n_new: torch.Tensor, cache: List[dict],
                    page_table: torch.Tensor, *,
-                   all_logits: bool = False) -> torch.Tensor:
+                   all_logits: bool = False,
+                   slot_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One engine step: tokens (B, C) int, per-row start positions
         ``pos`` (B,) and valid counts ``n_new`` (B,), int32. C == 1 is a
         batched decode step, C > 1 one prefill chunk or a speculative verify
@@ -211,12 +272,27 @@ class LM(nn.Module):
         row's last valid token, (B, 1, V), or with ``all_logits`` those of
         every chunk position, (B, C, V): the verify step reads the greedy
         continuation after each draft. Logits at positions past a row's
-        ``n_new`` are computed but mean nothing."""
+        ``n_new`` are computed but mean nothing. Row i's SSM state is that
+        of slot ``slot_ids[i]`` (B,), or of slot i without it (the engine's
+        rows are its slots). A mamba layer folds a row's whole chunk into
+        its state, padding past ``n_new`` included, as the JAX step does;
+        the engine's prefill rows fill their chunk."""
         x = self.embed(tokens)
         if self.cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
-        for layer, c in zip(self.layers, cache):
-            x = layer.paged_step(x, pos, n_new, c, page_table)
+        emb = x
+        if slot_ids is not None:
+            slot_ids = slot_ids.long()
+        shared = cache[len(self.layers):]
+        for i, (layer, c) in enumerate(zip(self.layers, cache)):
+            if isinstance(layer, MambaLayer):
+                x = layer.paged_step(x, pos, n_new, c, page_table, slot_ids)
+            else:
+                x = layer.paged_step(x, pos, n_new, c, page_table)
+            g = self.shared_after.get(i)
+            if g is not None:
+                x = self.shared.paged_step(x, emb, pos, n_new, shared[g],
+                                           page_table)
         x = self.ln_f(x)
         if all_logits:
             return self.logits_fn(x)

@@ -1,11 +1,19 @@
-"""The decoder block (port of ``repro.nn.transformer.TransformerBlock``):
-pre-norm attention + FFN or MoE, with gemma's sandwich norms when
-``post_norms`` is set; an MoE config with ``first_layer_dense`` gives
-layer 0 a dense FFN of ``dense_d_ff`` instead (deepseek-moe's prologue).
-``forward`` runs the full sequence (training) and returns the MoE block's
-aux values (load balance, router z-loss) beside x for the loss,
-``paged_step`` one serving step, which drops them as the JAX block does in
-serving."""
+"""The decoder blocks (port of ``repro.nn.transformer``).
+
+``TransformerBlock``: pre-norm attention + FFN or MoE, with gemma's
+sandwich norms when ``post_norms`` is set; an MoE config with
+``first_layer_dense`` gives layer 0 a dense FFN of ``dense_d_ff`` instead
+(deepseek-moe's prologue). ``forward`` runs the full sequence (training)
+and returns the MoE block's aux values (load balance, router z-loss) beside
+x for the loss, ``paged_step`` one serving step, which drops them as the
+JAX block does in serving.
+
+``MambaLayer``: norm + the Mamba2 mixer with a residual (no FFN). Its
+serving state is per slot ({"ssd", "conv"} rows of the paged cache).
+
+``SharedAttnBlock``: zamba2's shared block, one parameter set applied
+after every ``hybrid.period`` layers: attention over the normed [h,
+embedding] (2 x d_model) back to d_model, then the FFN."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -17,6 +25,7 @@ from .attention import Attention
 from .common import ModelConfig, param_dtype_of
 from .ffn import FFN, MoE
 from .layers import RMSNorm
+from .ssm import Mamba2Block
 
 
 class TransformerBlock(nn.Module):
@@ -76,3 +85,82 @@ class TransformerBlock(nn.Module):
         if self.cfg.post_norms:
             h = self.ln_attn_post(h)
         return self._ffn_res(x + h)[0]
+
+
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, seed: int = 0, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mixer = Mamba2Block(cfg, seed=seed, device=device,
+                                 generator=generator)
+        self.ln = RMSNorm(cfg.d_model, cfg.rms_eps, param_dtype_of(cfg),
+                          device)
+
+    def forward(self, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full-sequence forward (training): (x, {}), the aux values of a
+        block without MoE."""
+        h, _ = self.mixer(self.ln(x))
+        return x + h, {}
+
+    def paged_step(self, x: torch.Tensor, pos: torch.Tensor,
+                   n_new: torch.Tensor, cache: Dict[str, torch.Tensor],
+                   page_table: torch.Tensor,
+                   slot_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One serving step: the decode form at C == 1, else the chunked
+        form with the rows' state carried in. ``cache`` holds the state of
+        every slot ({"ssd": (slots, H, P, N), "conv": (slots, K - 1, C)});
+        row i of x is slot ``slot_ids[i]`` (slot i without ``slot_ids``).
+        The state is updated in place; rows with ``n_new == 0`` keep theirs
+        exactly (they still run the mixer on their zero tokens)."""
+        rows = cache if slot_ids is None else {
+            k: t.index_select(0, slot_ids) for k, t in cache.items()}
+        h = self.ln(x)
+        if x.shape[1] == 1:
+            h, new = self.mixer.decode(h, rows)
+        else:
+            h, new = self.mixer(h, rows)
+        active = n_new > 0
+        for k, old in rows.items():
+            keep = active.reshape((-1,) + (1,) * (old.dim() - 1))
+            upd = torch.where(keep, new[k].to(old.dtype), old)
+            if slot_ids is None:
+                cache[k].copy_(upd)
+            else:
+                cache[k].index_copy_(0, slot_ids, upd)
+        return x + h
+
+
+class SharedAttnBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, seed: int = 0, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.concat = cfg.hybrid.concat_embedding
+        d = cfg.d_model
+        d_in = 2 * d if self.concat else d
+        kw = dict(device=device, generator=generator)
+        self.attn = Attention(cfg, seed=seed, d_in=d_in, **kw)
+        self.ffn = FFN(cfg, seed=seed, d_ff=cfg.hybrid.shared_d_ff, d_in=d,
+                       **kw)
+        pd = param_dtype_of(cfg)
+        self.ln_in = RMSNorm(d_in, cfg.rms_eps, pd, device)
+        self.ln_ffn = RMSNorm(d, cfg.rms_eps, pd, device)
+
+    def _input(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x, emb], dim=-1) if self.concat else x
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward: x and the input embedding ``emb`` (B, S,
+        d), positions (B, S) -> (B, S, d)."""
+        x = x + self.attn(self.ln_in(self._input(x, emb)), positions)
+        return x + self.ffn(self.ln_ffn(x))
+
+    def paged_step(self, x: torch.Tensor, emb: torch.Tensor,
+                   pos: torch.Tensor, n_new: torch.Tensor, cache: dict,
+                   page_table: torch.Tensor) -> torch.Tensor:
+        """One serving step against this application's page pool."""
+        x = x + self.attn.paged_step(self.ln_in(self._input(x, emb)), pos,
+                                     n_new, cache, page_table)
+        return x + self.ffn(self.ln_ffn(x))

@@ -39,6 +39,12 @@ MoE models serve only dropless (``capacity_factor >= n_routed / top_k``):
 a batched step runs the rows of inactive slots too, and with a finite
 expert capacity those rows could evict real tokens from their experts'
 buffers.
+
+Stacks with mamba layers (mamba2, zamba2) keep each slot's SSM state in
+the cache beside the page pools (``LM.init_paged_cache(slots=...)``). A
+slot admitted in a step has its state zeroed before its first chunk, and
+such stacks serve without speculative decode (``spec_k`` is clamped to 0):
+a recurrent state cannot be rolled back as paged KV can.
 """
 from __future__ import annotations
 
@@ -122,10 +128,10 @@ class ServingEngine:
         self.config = cfg
         self.seed = seed
         # acceptance compares argmax continuations, so speculation is greedy
-        # only. (The JAX engine also clamps spec_k to 0 for stacks with
-        # mamba layers, whose recurrent state cannot be rolled back; the
-        # port has no mamba layer kind yet.)
-        self.spec_k = cfg.spec_k if cfg.greedy else 0
+        # only, and it needs rollback: paged KV truncates, a mamba layer's
+        # recurrent state does not
+        self.spec_k = cfg.spec_k if cfg.greedy \
+            and "mamba" not in mc.layer_kinds else 0
         self.sched = Scheduler(
             slots=cfg.max_slots, total_pages=cfg.total_pages,
             page_size=cfg.page_size,
@@ -137,7 +143,7 @@ class ServingEngine:
             else None)
         self.cache = model.init_paged_cache(
             cfg.total_pages, cfg.page_size, dtype_of(mc), self.device,
-            quant_kv=qc is not None and qc.kv)
+            quant_kv=qc is not None and qc.kv, slots=cfg.max_slots)
         self._next_id = 0
         self.outputs: Dict[int, np.ndarray] = {}
 
@@ -145,8 +151,12 @@ class ServingEngine:
     def _reclaim_window(mc) -> Optional[int]:
         """Sliding-window page reclamation is sound only when every
         attention layer is windowed: all page pools share one page table,
-        so a page may be freed only when no layer can still read it."""
-        if mc.attn_window is not None and set(mc.layer_kinds) == {"local"}:
+        so a page may be freed only when no layer can still read it. Mamba
+        layers hold no pages and do not constrain it; a hybrid stack's
+        shared block attends globally."""
+        kinds = set(mc.layer_kinds)
+        if mc.attn_window is not None and kinds <= {"local", "mamba"} \
+                and "local" in kinds and mc.hybrid is None:
             return int(mc.attn_window)
         return None
 
@@ -209,6 +219,10 @@ class ServingEngine:
         a list of (req_id, generated token ids)."""
         cfg = self.config
         plan = self.sched.schedule()
+        # a re-admitted slot may have hosted another sequence: clear its
+        # SSM state before the first prefill chunk touches it
+        for slot in plan.admitted:
+            self.model.reset_slot_state(self.cache, slot)
         slots = cfg.max_slots
         for group in plan.prefill_groups:
             # equal-length chunks of different sequences in ONE call; slots

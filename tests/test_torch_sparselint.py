@@ -75,8 +75,10 @@ def test_shipped_tree_is_clean_on_every_pass(cli_reports):
         assert want in grid, want
         assert sum(rep["cost"][want]["ctas"]) > 1
     # five steps (paged prefill and decode, int8 and not, training) of each
-    # of the six registered configs
-    assert len(rep["covered"]["dispatch"]) == 30
+    # of the eight registered configs
+    assert len(rep["covered"]["dispatch"]) == 40
+    assert "zamba2_1p2b:smoke:paged_step_int8[decode]" \
+        in rep["covered"]["dispatch"]
     assert "deepseek_moe_16b:smoke:train_step" in rep["covered"]["dispatch"]
     assert any(s.startswith("granite_moe_1b_a400m:full")
                for s in rep["covered"]["pattern"])

@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""Time where ``chip_smoke.py``'s full-width serving phases spend their
+seconds, on one card.
+
+    python3 tools/time_smoke_serve.py [--phases 5e,5f,...] [--out FILE]
+
+Builds the kernels, then runs the chosen phases (default: 5e, 5f, 5h, 5i,
+5j, 5k, 5l and 5m, each at full width and depth, as the smoke runs them)
+through the smoke's own ``serve`` and ``top1_agreement``, with timers
+around the helpers a phase calls: building the model (``fresh_model``), the
+engines' construction, the served run (``drain``), the re-admitted request
+(``readmission``), the kernels-vs-plain decode step (``launched_plans``
+and the plain steps), the profiled steps (``profile_decode``, with the
+trace's export, ``export_trace``, inside it) and the top-1 agreement. Each
+phase prints one JSON line of seconds: its total and each helper's sum
+(the rest of the total is the check engine's prefill and the checks); the
+records go to ``--out`` (default ``chiprun_out/time_smoke_serve.json``).
+An int8 phase (5f, 5j, 5m) needs its bf16 phase (5e, 5i, 5l) before it in
+``--phases``. The card's name and power limit come first.
+"""
+import argparse
+import functools
+import gc
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+PHASES = ("5e", "5f", "5h", "5i", "5j", "5k", "5l", "5m")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out"
+                                         / "time_smoke_serve.json"))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("time_smoke_serve: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import build
+    from repro_torch.nn.model import LM
+    from repro_torch.serving import engine
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    secs = defaultdict(float)
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                secs[name] += time.perf_counter() - t0
+        return run
+
+    for name in ("drain", "readmission", "profile_decode", "top1_agreement",
+                 "launched_plans", "export_trace"):
+        setattr(cs, name, timed(name, getattr(cs, name)))
+    plain = cs.plain_versions
+
+    @contextmanager
+    def plain_steps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain():
+            yield
+        torch.cuda.synchronize()
+        secs["plain_steps"] += time.perf_counter() - t0
+
+    cs.plain_versions = plain_steps
+    engine.ServingEngine.__init__ = timed("engine_init",
+                                          engine.ServingEngine.__init__)
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    out_dir = ROOT / "chiprun_out" / "time_smoke_serve"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    quant = QuantConfig(weights=True, kv=True)
+    fresh = timed("fresh_model", lambda c: LM(
+        c, device=device,
+        generator=torch.Generator(device=device).manual_seed(cs.SEED)))
+
+    # the phases as chip_smoke.main runs them; a bf16 phase's model and
+    # run stay for the int8 phase after it (top-1 agreement)
+    g2cfg = get_config("gemma2_9b")
+    g2 = dict(prompt_lens=cs.DENSE_PROMPTS + (cs.GEMMA2_LONG,),
+              n_new=cs.DENSE_NEW, knobs=dict(
+                  max_slots=5, total_pages=320,
+                  max_pages_per_seq=-(-(cs.GEMMA2_LONG + cs.DENSE_NEW)
+                                      // 16),
+                  token_budget=1024, prefill_chunk=512))
+    n_short = len(cs.DENSE_PROMPTS)
+    dcfg = cs.deepseek_config().with_(param_dtype="bfloat16")
+    zcfg = get_config("zamba2_1p2b")
+    kept = {}
+
+    def bf16(key, c, **kw):
+        kept[key] = fresh(c)
+        kept[key + "_run"] = cs.serve(kept[key], device, out_dir, **kw)
+
+    def int8(key, c, n=None, **kw):
+        m = fresh(c)
+        cs.serve(m, device, out_dir, quant=quant, **kw)
+        run = kept.pop(key + "_run")
+        cs.top1_agreement(kept.pop(key), m, run[4][:n], run[3][:n], device,
+                          quant)
+
+    phases = {
+        "5e": lambda: bf16("g2", g2cfg, **g2),
+        "5f": lambda: int8("g2", g2cfg, n=n_short, **g2),
+        "5h": lambda: cs.serve(fresh(get_config("granite_34b").with_(
+            param_dtype="bfloat16")), device, out_dir,
+            prompt_lens=cs.DENSE_PROMPTS, n_new=cs.DENSE_NEW),
+        "5i": lambda: bf16("ds", dcfg),
+        "5j": lambda: int8("ds", dcfg),
+        "5k": lambda: cs.serve(fresh(get_config("mamba2_130m")), device,
+                               out_dir),
+        "5l": lambda: bf16("z", zcfg),
+        "5m": lambda: int8("z", zcfg),
+    }
+    res = {}
+    for name in args.phases.split(","):
+        secs.clear()
+        t0 = time.perf_counter()
+        phases[name]()
+        res[name] = dict(total=time.perf_counter() - t0, **secs)
+        print(json.dumps({name: res[name]}), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(args.out).write_text(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
