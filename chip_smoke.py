@@ -29,7 +29,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    models' (mamba2-130m's out_proj: one 768-wide right block at fan-in 6;
    zamba2-1.2b's mixer in_proj: 131 right blocks of 64 at fan-in 8, its
    out_proj at 16, its shared FFN's gelu gate at 4 of 8 and down at 32;
-   M 4 and 256, bf16), and time kernel, plain version, bound
+   M 4 and 256, bf16) and at the dense-cache loop's models'
+   (seamless-m4t-medium's gelu up, 4 x 4 blocks at fan-in 2, and down,
+   fan-in 16 into one 1024-wide right block; llava-next-34b's up/gate at
+   fan-in 14 and down at 80; M 4 and 256, bf16), and time kernel, plain
+   version, bound
    and a dense ``torch.matmul`` yardstick; each forward record of phases
    3, 3c, 4b, 6 and 6b names the body its plan runs (the grid body or the
    wgmma body and its tile);
@@ -47,7 +51,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and a case that runs another split kernel than
    ``launch.paged_rule`` gives fails; granite-34b's and the group of 12
    count on the grouped wrapper; each record names the split kernel and the split its plan
-   takes (keys per tile, pages per split, launches);
+   takes (keys per tile, pages per split, launches); then
+   ``dense_decode_attention`` over a dense cache's page view at phases 5n
+   and 5o's last decode step (seamless-m4t-medium's self caches, G 1, Dh
+   64, 36 of 48 rows, and cross caches, 750 of 752 rows; llava-next-34b's
+   G 7, Dh 128, 592 rows) against the plain version on the same view, SDPA
+   over the dense cache as the yardstick;
 4b. the int8 serving kernels against their plain versions: the int8
    ``csd_spmm_fwd`` (``w_scale``) at phase 3's junctions (gemma3-4b's at
    M 4, 16, 32, 64, 128 and 256, f32 and bf16, with and without the gelu
@@ -126,7 +135,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    int8 body); each served model (f32 and int8) then serves 4 periodic
    prompts with ``spec_k`` 4 and without: equal tokens, drafts made, only
    the small-block forward and the paged decode launched (the SSM models:
-   ``spec_k`` clamped to 0, no draft, equal tokens); gemma3-4b's
+   ``spec_k`` clamped to 0, no draft, equal tokens); the smoke
+   configurations ``launch.serve.generate`` serves through the dense-cache
+   loop (seamless-m4t-medium's with 24 stub encoder frames,
+   llava-next-34b's from 32 stub embeddings, granite-moe's at its own
+   capacity factor 1.5), f32, with the same checks against the plain
+   versions and exactly the launches ``dense_loop_calls`` gives (the
+   junctions on the small-block form, paged decode over the page view, the
+   prefill's flash forwards); gemma3-4b's
    ``launch.train.main`` run again with ``--checkpoint-every 2 --diloco 2
    --simulate-failure-at 3``, a checkpoint directory, ``--metrics-jsonl``
    and ``--profile-dir``, and without the failure: losses bit-equal, the
@@ -243,6 +259,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the rest on the decode body), and 6 paged decodes over the shared
    block's pools, which stay bf16; the top-1 agreement with 5l (recorded,
    not gated);
+5n. serve seamless-m4t-medium at full width and depth (12 encoder and 12
+   decoder layers, d_model 1024, vocab 256206; random weights from a seed
+   built in bf16) through ``launch.serve.generate``, which falls back to the
+   dense-cache loop (``generate_cached``): 4 requests of 750 stub encoder
+   frames and a 4-token decoder prompt, 32 new tokens each, every kernel's
+   launches exact over the run (48 junctions and 36 flash forwards in the
+   prefill, 24 junctions and 24 paged decodes, 12 self and 12 cross, a
+   decode step); the prefill alone (seconds, the caches' bytes), 2 decode
+   steps teacher-forced on the served tokens with the kernels and with the
+   plain versions from its cache (exact launches, logits within 5% of max
+   |logit|) and 2 profiled decode steps; weights' bytes and peak memory;
+5o. the same for llava-next-34b at full width and depth (60 layers, 56
+   heads over 8 KV heads of 128, d_model 7168; 25.6 B parameters built in
+   bf16, 51.3 GB), after every earlier model is freed: 4 requests of 576
+   stub patch embeddings (one 24 x 24 tile) through the projector, 16 new
+   tokens each; 180 junctions and 60 flash forwards in the prefill, 180
+   junctions and 60 paged decodes (the tensor-core form, G 7) a decode
+   step;
 6. hold the training kernels against their plain versions at gemma3-4b's
    training shapes (M = 2 x 2048 tokens; the gelu gate junction and the
    down junction, f32 and bf16): ``csd_spmm_fwd`` with ``save_preact``,
@@ -271,6 +305,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``enable_gqa``, causal or a window mask; its backward through autograd)
    as the yardstick; each record carries its launches' tiles (rows per CTA
    and streamed rows, from the plan) and the share of the bound reached;
+   then the forward's serving forms of phases 5n and 5o's prefill, bf16:
+   seamless-m4t-medium's encoder (bidirectional, 750 frames, 16 heads of
+   64), its cross-attention (bidirectional, Sq 4 and 128 over 750 keys) and
+   llava-next-34b's causal prefill (Sq 576, 56 query heads over 8 KV heads
+   of 128), o per block and lse within the bf16 forward limit, timed with
+   SDPA;
 7. free the serving model and train gemma3-4b at its full configuration
    (f32 parameters, bf16 compute, batch 2 x seq 2048, remat): one step's
    loss and gradients (the first and last layers' FFN and attention
@@ -603,6 +643,8 @@ def junction_patterns(cfg):
 # 7 and 40 (gemma2-9b, gelu), 14 and 74 (qwen2-7b, dense patterns), 12 and
 # 64 (granite-34b)
 DENSE_ARCHS = ("gemma2_9b", "qwen2_7b", "granite_34b")
+# the models the dense-cache loop serves at full width (phases 5n and 5o)
+DENSE_LOOP_ARCHS = ("seamless_m4t_medium", "llava_next_34b")
 
 
 def dense_junctions():
@@ -656,11 +698,32 @@ def ssm_junctions():
         yield cfg.name, name, bp, act
 
 
+def dense_loop_junctions():
+    """(model, junction, pattern, activation of the epilogue) of the FFN
+    junctions the dense-cache loop's models serve at full width (phases 5n
+    and 5o), seeded as their layers are: seamless-m4t-medium's ungated
+    gelu up (4 x 4 blocks of 256 x 1024 at density 0.5, fan-in 2) and
+    down (16 x 1, density 1.0: fan-in 16 into one 1024-wide right block),
+    at the decoder's slot (seed 9001); llava-next-34b's up/gate (28 x 20,
+    fan-in 14; silu fuses into no epilogue) and down (80 x 7, fan-in 80)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.block_pattern import fit_block_pattern
+    from repro_torch.nn.model import DECODER_SEED
+    for arch in DENSE_LOOP_ARCHS:
+        c = get_config(arch)
+        sp, seed = c.sparsity, 1 + (DECODER_SEED if c.enc_dec else 0)
+        act = "gelu" if c.act.startswith("gelu") else None
+        yield c.name, "up/gate" if c.ffn_gated else "up", fit_block_pattern(
+            c.d_model, c.d_ff, sp.rho_ffn[0], sp, seed=seed + 11), act
+        yield c.name, "down", fit_block_pattern(
+            c.d_ff, c.d_model, sp.rho_ffn[1], sp, seed=seed + 13), None
+
+
 def spmm_cases(cfg):
     """(model, junction, pattern, M, dtype, activation, bias) of phase 3:
     gemma3-4b's junctions in f32 and bf16, with and without the epilogue,
-    then the dense decoders', deepseek-moe-16b's and the SSM models' 4-D
-    ones in bf16."""
+    then the dense decoders', deepseek-moe-16b's, the SSM models' and the
+    dense-cache loop's models' 4-D ones in bf16."""
     up, down = junction_patterns(cfg)
     for dtype_name in ("float32", "bfloat16"):
         for m in (4, 256):
@@ -670,7 +733,7 @@ def spmm_cases(cfg):
                 yield (cfg.name, "down", down, m, dtype_name, None,
                        with_bias)
     for model, name, bp, act in (*dense_junctions(), *deepseek_junctions(),
-                                 *ssm_junctions()):
+                                 *ssm_junctions(), *dense_loop_junctions()):
         for m in (4, 256):
             yield model, name, bp, m, "bfloat16", act, False
 
@@ -917,6 +980,85 @@ def paged_split(fn, *args, **kw) -> dict:
                 keys_per_tile=plan.args["keys_per_tile"],
                 pages_per_split=plan.args["pages_per_split"],
                 n_splits=plan.n_splits, n_launches=len(plan.launches))
+
+
+# the decode of phases 5n and 5o over the dense caches' page view
+# (``dense_decode_attention``), bf16, 4 rows at the last decode step:
+# (model, Hkv, G, Dh, cache rows, lengths). seamless-m4t-medium's self
+# caches hold its 4 + 32 positions in 48 rows, its cross caches the
+# encoder's 750 frames in 752; llava-next-34b's the 576 patches and 16 new
+# tokens in 592, the position at the last row
+DENSE_DECODE_SHAPES = (
+    ("seamless-m4t-medium self", 16, 1, 64, 48, (36,) * 4),
+    ("seamless-m4t-medium cross", 16, 1, 64, 752, (750,) * 4),
+    ("llava-next-34b", 8, 7, 128, 592, (592,) * 4))
+
+
+def run_dense_decode(device, results):
+    """Phase 4's check of the paged decode over the dense caches' page view
+    (``DENSE_DECODE_SHAPES``): ``dense_decode_attention`` against the plain
+    version on the same view, timed like phase 4 beside the bound and SDPA
+    over the dense cache (no gather), each case on the split kernel
+    ``launch.paged_rule`` gives it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    dtype = torch.bfloat16
+    atol, rtol = PAGED_TOL[str(dtype)]
+    for model, hkv, grp, dh, rows, lens in DENSE_DECODE_SHAPES:
+        b = len(lens)
+        q = torch.randn((b, hkv, grp, dh), generator=g,
+                        device=device).to(dtype)
+        n = copies_for(2 * b * rows * hkv * dh * dtype.itemsize)
+        caches = [tuple(torch.randn((b, rows, hkv, dh), generator=g,
+                                    device=device).to(dtype)
+                        for _ in range(2)) for _ in range(n)]
+        k, v = caches[0]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        table = fa.dense_page_table(b, rows, device)
+        pool = (b * rows // fa.DENSE_PAGE, fa.DENSE_PAGE, hkv, dh)
+
+        def plain(c):
+            return fa.paged_decode_attention_plain(
+                q, c[0].view(pool), c[1].view(pool), table, lengths)
+
+        counter = paged_counter(fa, grp, False)
+        n0 = counter.launches
+        got = fa.dense_decode_attention(q, k, v, lengths, page_table=table)
+        ref = plain(caches[0])
+        torch.cuda.synchronize()
+        abs_e, rel_e = max_err(got, ref)
+        ok = within(got, ref, atol, rtol) and bool(
+            torch.isfinite(got).all()) and counter.launches == n0 + 1
+        ms, host_ms = bench([lambda c=c: fa.dense_decode_attention(
+            q, c[0], c[1], lengths, page_table=table) for c in caches], 100)
+        plain_ms, _ = bench([lambda c=c: plain(c) for c in caches], 10)
+        mask = torch.arange(rows, device=device)[None] < lengths[:, None]
+        qq = q.reshape(b, hkv * grp, 1, dh)
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        lib_ms, _ = bench([lambda: F.scaled_dot_product_attention(
+            qq, kt, vt, attn_mask=mask[:, None, None], enable_gqa=True)],
+            50)
+        bound_ms, bound_by = paged_bound(q, table, lengths, sum(lens), False)
+        rec = dict(kernel=counter.__name__[:-5], model=model,
+                   view="dense cache", dtype="bfloat16", hkv=hkv, g=grp,
+                   dh=dh, rows=rows, window=None, softcap=None,
+                   lengths=list(lens), max_abs_err=abs_e, max_rel_err=rel_e,
+                   atol=atol, rtol=rtol, ok=ok, ms=ms, host_ms=host_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=lib_ms,
+                   library="SDPA over the dense cache (enable_gqa, the "
+                           "lengths' mask)",
+                   **paged_split(counter, q, k.view(pool), v.view(pool),
+                                 table, lengths))
+        results.append(rec)
+        log(json.dumps(rec))
+        if not ok:
+            fail(f"dense_decode_attention disagrees with its plain "
+                 f"version: {rec}")
+        check_paged_form(rec, grp, dh, "bfloat16", False)
+        del caches, k, v, kt, vt
 
 
 # ---------------------------------------------------------------------------
@@ -1898,6 +2040,12 @@ SMOKE_SERVED_INT8 = SMOKE_SERVED + ("granite_moe_1b_a400m",
                                    "deepseek_moe_16b")
 SMOKE_TRAINED = ("gemma3_4b", "granite_moe_1b_a400m", "gemma2_9b",
                  "qwen2_7b", "granite_34b", "deepseek_moe_16b")
+# the smoke configurations ``launch.serve.generate`` serves through the
+# dense-cache loop: the encoder-decoder, the stub frontend and granite-moe
+# at its own capacity factor (1.5: it drops, which the engine refuses)
+SMOKE_DENSE_LOOP = ("seamless_m4t_medium", "llava_next_34b",
+                    "granite_moe_1b_a400m")
+SMOKE_FRAMES = 24  # seamless-m4t's stub encoder frames in phase 3f
 
 
 def run_smoke_configs(device) -> dict:
@@ -1921,7 +2069,9 @@ def run_smoke_configs(device) -> dict:
     small-block forward and the int8 paged decode; there the logits are
     compared step by step from one cache state (``state_logits``), the
     free-running teacher-forced difference recorded with the int8 KV
-    entries the two runs quantized differently."""
+    entries the two runs quantized differently. Last, the configurations
+    ``generate`` serves through the dense-cache loop (``smoke_serve_dense``:
+    seamless-m4t's, llava's, granite-moe's at its own capacity factor)."""
     import torch
     from repro_torch.configs import get_config
     out = {}
@@ -1929,6 +2079,8 @@ def run_smoke_configs(device) -> dict:
         out[f"{arch}_serve"] = smoke_serve(arch, device)
     for arch in SMOKE_SERVED_INT8:
         out[f"{arch}_serve_int8"] = smoke_serve(arch, device, quant=True)
+    for arch in SMOKE_DENSE_LOOP:
+        out[f"{arch}_serve_dense_loop"] = smoke_serve_dense(arch, device)
     for arch in SMOKE_TRAINED:
         c = get_config(arch, smoke=True)
         reset_launch_counts()
@@ -2101,6 +2253,87 @@ def smoke_spec(model, device, fwd: str, paged: str) -> dict:
     if not rec["tokens_equal"] or not eng.sched.stats["spec_drafted"] \
             or set(launches) - {fwd, paged} or not launches.get(fwd):
         fail(f"the {cfg.name} smoke configuration's speculative run: {rec}")
+    return rec
+
+
+def dense_forced_logits(model, batch, gen, s_max: int):
+    """The f32 logits (B, G, vocab) from which a greedy dense-cache loop
+    chose ``gen`` (B, G): one ``prefill`` of ``batch`` into caches of
+    ``s_max`` positions, then ``gen`` one token a ``decode_step``."""
+    import torch
+    with torch.no_grad():
+        logits, cache = model.prefill(batch, s_max)
+        out = [logits[:, 0].float()]
+        for j in range(gen.shape[1] - 1):
+            logits, cache = model.decode_step(torch.as_tensor(
+                gen[:, j:j + 1], device=logits.device), cache)
+            out.append(logits[:, 0].float())
+    return torch.stack(out, 1)
+
+
+def smoke_serve_dense(arch: str, device) -> dict:
+    """Phase 3f's run of a smoke configuration that ``launch.serve.
+    generate`` serves through the dense-cache loop (``SMOKE_DENSE_LOOP``):
+    4 requests of 32 prompt tokens (seamless-m4t's with ``SMOKE_FRAMES``
+    stub encoder frames, llava's prompt 32 stub embeddings), 16 new each,
+    f32, then again with the plain versions: the first tokens equal, every
+    step's logits teacher-forced on the kernels' tokens within
+    ``SMOKE_LOGIT_TOL`` of max |plain|, and the run's launches exactly
+    those of ``dense_loop_calls``, the junctions on the small-block form."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, needs_dense_loop
+    from repro_torch.nn.model import build_model
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    extra = None
+    if cfg.input_mode == "embeddings":
+        frames = SMOKE_FRAMES if cfg.enc_dec is not None else 32
+        extra = {"embeds": rng.standard_normal(
+            (4, frames, cfg.frontend_dim), dtype=np.float32)}
+    reset_launch_counts()
+    toks, tps = generate(model, prompt, 48, 16, device=device, seed=SEED,
+                         extra_batch=extra)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    batch = {"tokens": torch.as_tensor(prompt, device=device)}
+    batch.update((k, torch.as_tensor(v, device=device))
+                 for k, v in (extra or {}).items())
+    logits = dense_forced_logits(model, batch, toks, 48)
+    with plain_versions():
+        toks_p, _ = generate(model, prompt, 48, 16, device=device,
+                             seed=SEED, extra_batch=extra)
+        logits_p = dense_forced_logits(model, batch, toks, 48)
+    err = float((logits - logits_p).abs().max())
+    scale = float(logits_p.abs().max())
+    calls = dense_loop_calls(cfg)
+    paged = serve_kernels(cfg, None)[1]
+    expect = {"csd_spmm_fwd_small": calls["prefill_junctions"]
+              + 15 * calls["decode_junctions"],
+              paged: 15 * calls["decode_paged"],
+              "flash_attention": calls["prefill_flash"]}
+    rec = dict(check=f"{cfg.name} smoke: launch.serve.generate (the "
+                     f"dense-cache loop)",
+               dense_loop=needs_dense_loop(cfg),
+               capacity_factor=None if cfg.moe is None
+               else cfg.moe.capacity_factor,
+               tokens=list(toks.shape), tok_per_s=tps, launches=launches,
+               expected_launches=expect,
+               token_agreement=float((toks == toks_p).mean()),
+               first_tokens_equal=bool((toks[:, 0] == toks_p[:, 0]).all()),
+               logits_max_abs_err=err, logits_max_abs_ref=scale,
+               logits_tol=SMOKE_LOGIT_TOL,
+               forced_argmax_agreement=float(
+                   (logits.argmax(-1).cpu().numpy() == toks).mean()))
+    log(json.dumps(rec))
+    if not rec["dense_loop"] or launches != expect \
+            or not rec["first_tokens_equal"] \
+            or not err <= SMOKE_LOGIT_TOL * scale:
+        fail(f"the {cfg.name} smoke configuration did not serve as "
+             f"expected through the dense-cache loop: {rec}")
     return rec
 
 
@@ -2350,6 +2583,8 @@ def plain_versions():
             mock.patch.object(csd_spmm, "csd_mask_cotangent_cuda",
                               csd_spmm.mask_cotangent), \
             mock.patch.object(attention, "paged_decode_attention",
+                              flash_attention.paged_decode_attention_plain), \
+            mock.patch.object(flash_attention, "paged_decode_attention",
                               flash_attention.paged_decode_attention_plain), \
             mock.patch.object(flash_attention, "flash_attention_cuda",
                               flash_attention.flash_attention_plain), \
@@ -3096,6 +3331,206 @@ def paged_per_layer(kernels, dev_us, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 5n and 5o: the dense-cache loop at full width and depth
+# ---------------------------------------------------------------------------
+
+# 4 requests each. seamless-m4t-medium: 750 stub encoder frames (width
+# 1024) and a 4-token decoder prompt, 32 new tokens; llava-next-34b: 576
+# stub patch embeddings (one 24 x 24 tile, width 1024), 16 new tokens
+DENSE_LOOP_REQUESTS = 4
+SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_NEW = 750, 4, 32
+LLAVA_PATCHES, LLAVA_NEW = 576, 16
+DENSE_LOOP_CHECKED_STEPS = 2  # teacher-forced decode steps, kernels vs plain
+
+
+def dense_loop_calls(cfg) -> dict:
+    """Kernel calls of ``cfg``'s dense-cache loop, from the configuration
+    alone: junctions a decode step (each FFN junction that
+    ``fit_block_pattern`` makes sparse at its shape, in every decoder
+    layer; an MoE stack's by ``junctions_by_form``), paged decodes a decode
+    step (a self and, in an encoder-decoder, a cross attention a decoder
+    layer), and the prefill's junctions and flash forwards (the encoder's
+    layers too; a cross layer's attention is a forward of its own)."""
+    from repro_torch.core.block_pattern import fit_block_pattern
+    sp = cfg.sparsity
+    if cfg.moe is not None:
+        ffn = sum(junctions_by_form(cfg)) // cfg.n_layers
+    else:
+        def sparse(n_in, n_out, rho):
+            return int(fit_block_pattern(n_in, n_out, rho, sp) is not None)
+        ffn = (1 + cfg.ffn_gated) * sparse(cfg.d_model, cfg.d_ff,
+                                           sp.rho_ffn[0]) \
+            + sparse(cfg.d_ff, cfg.d_model, sp.rho_ffn[1])
+    if cfg.enc_dec is None:
+        n_enc, n_dec, per_dec = 0, cfg.n_layers, 1
+    else:
+        n_enc, n_dec, per_dec = cfg.enc_dec.n_encoder_layers, \
+            cfg.enc_dec.n_decoder_layers, 2
+    return dict(decode_junctions=ffn * n_dec, decode_paged=per_dec * n_dec,
+                prefill_junctions=ffn * (n_enc + n_dec),
+                prefill_flash=n_enc + per_dec * n_dec)
+
+
+def clone_dense_cache(cache: dict) -> dict:
+    return dict(cache, layers=[
+        {part: {n: t.clone() for n, t in kv.items()}
+         for part, kv in c.items()} for c in cache["layers"]])
+
+
+class DenseLoopStepper:
+    """The dense-cache loop as ``profile_decode`` steps an engine:
+    ``step()`` runs one greedy ``decode_step`` of every row."""
+
+    def __init__(self, model, token, cache):
+        self.model, self.token, self.cache = model, token, cache
+
+    def step(self):
+        logits, self.cache = self.model.decode_step(self.token, self.cache)
+        self.token = logits.argmax(-1).to(self.token.dtype)
+
+
+def serve_dense_loop(model, device, out_dir, *, prompt_len: int,
+                     frames: int, n_new: int, trace: str):
+    """Serve ``model`` (phases 5n and 5o: an encoder-decoder reading
+    ``frames`` stub frames beside a ``prompt_len``-token decoder prompt, or
+    a stub-frontend LM whose prompt is ``frames`` = ``prompt_len``
+    embeddings) through ``launch.serve.generate``, which falls back to the
+    dense-cache loop: ``DENSE_LOOP_REQUESTS`` requests of ``n_new`` new
+    tokens, every kernel's launches exact over the run
+    (``dense_loop_calls``); then the prefill alone (seconds, the caches'
+    bytes), ``DENSE_LOOP_CHECKED_STEPS`` decode steps teacher-forced on the
+    served tokens with the kernels and with the plain versions from its
+    cache (the launches of each step exact, the logits within
+    ``LOGIT_TOL`` of max |plain|), and 2 profiled decode steps from the
+    same cache. -> (run, check, profile records, the served tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import generate, needs_dense_loop
+
+    cfg = model.cfg
+    if not needs_dense_loop(cfg):
+        fail(f"{cfg.name} is not served through the dense-cache loop")
+    b = DENSE_LOOP_REQUESTS
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (b, prompt_len)).astype(
+        np.int32)
+    embeds = rng.standard_normal((b, frames, cfg.frontend_dim),
+                                 dtype=np.float32)
+    s_max = prompt_len + n_new
+    t0 = time.perf_counter()
+    generate(model, prompt[:, :4], 8, 2, device=device, seed=SEED,
+             extra_batch={"embeds": embeds[:, :4]})  # cuBLAS handles
+    torch.cuda.synchronize()
+    log(f"warmed up {cfg.name} in {time.perf_counter() - t0:.1f} s")
+
+    calls = dense_loop_calls(cfg)
+    fwd, paged = serve_kernels(cfg, None)
+    steps = n_new - 1
+    expect = {fwd: calls["prefill_junctions"]
+              + steps * calls["decode_junctions"],
+              paged: steps * calls["decode_paged"],
+              "flash_attention": calls["prefill_flash"]}
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, tps = generate(model, prompt, s_max, n_new, device=device,
+                         seed=SEED, extra_batch={"embeds": embeds})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    forms = paged_form_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    tensors = [*model.parameters(), *model.buffers()]
+    rec = dict(model=cfg.name, n_layers=cfg.n_layers,
+               encoder_layers=cfg.enc_dec.n_encoder_layers
+               if cfg.enc_dec else 0,
+               d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+               params=sum(p.numel() for p in model.parameters()),
+               requests=b, prompt_len=prompt_len, frames=frames,
+               new_tokens=n_new, s_max=s_max, wall_s=wall,
+               tok_per_s=toks.size / wall, decode_tok_per_s=tps,
+               peak_mem_gb=peak_gb,
+               weight_bytes=sum(t.numel() * t.element_size()
+                                for t in tensors),
+               launches=launches, expected_launches=expect,
+               paged_forms=forms)
+    if toks.shape != (b, n_new) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        fail(f"{cfg.name}: served tokens malformed: shape {toks.shape}")
+    if launches != expect:
+        fail(f"{cfg.name}'s dense-cache loop launched {launches}, expected "
+             f"{expect}")
+    form = paged_form_of(cfg, None)
+    if forms != {k: expect[paged] if k == form else 0 for k in forms}:
+        fail(f"{cfg.name}'s paged decode ran {forms}, the rule gives {form} "
+             f"for all {expect[paged]}")
+
+    # the prefill alone, then decode steps from its cache, teacher-forced
+    batch = {"tokens": torch.as_tensor(prompt, device=device),
+             "embeds": torch.as_tensor(embeds, device=device)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits0, base = model.prefill(batch, s_max)
+    torch.cuda.synchronize()
+    rec["prefill_s"] = time.perf_counter() - t0
+    rec["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for c in base["layers"] for kv in c.values()
+                             for t in kv.values())
+    rec["prefill_argmax_equal_served"] = bool(
+        (logits0.argmax(-1).cpu().numpy()[:, 0] == toks[:, 0]).all())
+    log(json.dumps(rec))
+    n_chk = DENSE_LOOP_CHECKED_STEPS
+
+    def forced():
+        cache, out = clone_dense_cache(base), []
+        with torch.no_grad():
+            for j in range(n_chk):
+                tok = torch.as_tensor(toks[:, j:j + 1], device=device)
+                logits, cache = model.decode_step(tok, cache)
+                out.append(logits[:, 0].float())
+        return torch.stack(out, 1)
+
+    reset_launch_counts()
+    lk = forced()
+    per_step = {k: v / n_chk for k, v in launch_counts().items() if v}
+    forms_per_step = {k: v / n_chk for k, v in paged_form_counts().items()}
+    with plain_versions():
+        lp = forced()
+    torch.cuda.synchronize()
+    errs = [float((lk[:, j] - lp[:, j]).abs().max()) for j in range(n_chk)]
+    scale = float(lp.abs().max())
+    want_step = {fwd: calls["decode_junctions"],
+                 paged: calls["decode_paged"]}
+    chk_rec = dict(check=f"{cfg.name} {cfg.dtype} decode logits from the "
+                         f"prefill's cache, {n_chk} steps teacher-forced on "
+                         f"the served tokens, kernels vs plain versions",
+                   rows=b, max_abs_err=max(errs), max_abs_err_by_step=errs,
+                   max_abs_logit=scale, tol=LOGIT_TOL * scale,
+                   argmax_agreement=float(
+                       (lk.argmax(-1) == lp.argmax(-1)).float().mean()),
+                   finite=bool(torch.isfinite(lk).all()),
+                   launches_per_decode_step=per_step,
+                   expected_per_decode_step=want_step,
+                   paged_forms_per_decode_step=forms_per_step)
+    log(json.dumps(chk_rec))
+    if not chk_rec["finite"] or max(errs) > LOGIT_TOL * scale:
+        fail(f"{cfg.name}: decode logits disagree: {chk_rec}")
+    if per_step != want_step:
+        fail(f"{cfg.name}: a decode step launched {per_step}, expected "
+             f"{want_step}")
+    if forms_per_step.get(form, 0) != calls["decode_paged"]:
+        fail(f"{cfg.name}: a decode step's paged decode ran "
+             f"{forms_per_step}, expected {calls['decode_paged']} of {form}")
+    stepper = DenseLoopStepper(model, torch.as_tensor(
+        toks[:, :1], device=device), clone_dense_cache(base))
+    del base
+    prof_rec = profile_decode(stepper, out_dir, trace=trace)
+    return rec, chk_rec, prof_rec, toks
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the training kernels at gemma3-4b's training shapes
 # ---------------------------------------------------------------------------
 
@@ -3628,6 +4063,83 @@ def run_flash(device, results):
                 del o, lse, out_t
             del q, k, v, do, qt, kt, vt, dot
             torch.cuda.empty_cache()
+
+
+# the forward's serving forms (the prefill of phases 5n and 5o), bf16:
+# (model, B, Sq, Skv, Hq, Hkv, Dh, causal). seamless-m4t-medium's encoder
+# (bidirectional over its 750 frames), its decoder's cross-attention
+# (bidirectional, queries of a 4-token prompt and of a 128-token one over
+# the 750 frames) and llava-next-34b's causal prefill over 576 patches (not
+# a multiple of the 128-row tile) at G 7, Dh 128
+FLASH_SERVE_SHAPES = (
+    ("seamless-m4t-medium encoder", 4, 750, 750, 16, 16, 64, False),
+    ("seamless-m4t-medium cross", 4, 4, 750, 16, 16, 64, False),
+    ("seamless-m4t-medium cross", 4, 128, 750, 16, 16, 64, False),
+    ("llava-next-34b prefill", 4, 576, 576, 56, 8, 128, True))
+
+
+def run_flash_serving(device, results):
+    """Phase 6c's forward check at ``FLASH_SERVE_SHAPES``: o per block of
+    FLASH_ROWS rows and lse against the plain version within the bf16
+    forward limit, timed beside the bound over the visible pairs and SDPA
+    (``enable_gqa``, causal or not), cycling through copies of the inputs
+    where they would stay in L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    dtype = torch.bfloat16
+    tol, el = FLASH_TOL[str(dtype)][0], dtype.itemsize
+    for model, b, sq, skv, hq, hkv, dh, causal in FLASH_SERVE_SHAPES:
+        n_q, n_kv = b * sq * hq * dh, b * skv * hkv * dh
+        nbytes = el * (2 * n_q + 2 * n_kv) + 4 * b * hq * sq
+        copies = [tuple(torch.randn(shape, generator=g, device=device)
+                        .to(dtype) for shape in ((b, sq, hq, dh),
+                                                 (b, skv, hkv, dh),
+                                                 (b, skv, hkv, dh)))
+                  for _ in range(copies_for(nbytes))]
+        q, k, v = copies[0]
+        n0 = fa.flash_attention_cuda.launches
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         return_lse=True)
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                  return_lse=True)
+        torch.cuda.synchronize()
+        err = dict(o=block_rel_err(o, o_ref),
+                   lse=float((lse - lse_ref).abs().max()))
+        ok = max(err.values()) <= tol and bool(torch.isfinite(o).all()) \
+            and bool(torch.isfinite(lse).all()) \
+            and fa.flash_attention_cuda.launches == n0 + 1
+        abs_e = float((o.float() - o_ref.float()).abs().max())
+        del o, lse, o_ref, lse_ref
+        sdpa_in = [tuple(t.transpose(1, 2).contiguous() for t in c)
+                   for c in copies]
+        ms, host_ms = bench([lambda c=c: fa.flash_attention_cuda(
+            *c, causal=causal) for c in copies], 10)
+        plain_ms, _ = bench([lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal)], 2)
+        lib_ms, _ = bench([lambda c=c: F.scaled_dot_product_attention(
+            *c, is_causal=causal, enable_gqa=True) for c in sdpa_in], 10)
+        pairs = b * hq * (visible_pairs(sq, None) if causal else sq * skv)
+        bound_ms, bound_by = bound(nbytes, 4 * dh * pairs, dtype)
+        plan = fa._flash_plan(q, k, causal, None, 0, False)
+        rec = dict(kernel="flash_attention", model=model, dtype="bfloat16",
+                   b=b, sq=sq, skv=skv, hq=hq, hkv=hkv, dh=dh,
+                   causal=causal, window=None, visible_pairs=pairs,
+                   tiles={ln.kernel: dict((what, tile) for what, _, tile, _
+                                          in ln.tiles)
+                          for ln in plan.launches},
+                   bound_share=bound_ms / ms, max_abs_err=abs_e, err=err,
+                   tol=tol, ok=ok, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                   library="SDPA (enable_gqa, "
+                           + ("causal)" if causal else "no mask)"))
+        results.append(rec)
+        log(json.dumps(rec))
+        if not ok:
+            fail(f"flash_attention disagrees with its plain version: {rec}")
+        del copies, sdpa_in, q, k, v
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4389,6 +4901,15 @@ def run_lint(out_dir: Path) -> dict:
             and k not in SMALL_KERNELS]
     if idle:
         fail(f"the lint's full-width steps never launched {idle}")
+    # the dense-cache loop's models are stepped as their entry point runs
+    # them: a prefill and a decode step each (at ``card_depth``)
+    missing = [f"{arch}:{step}" for arch in DENSE_LOOP_ARCHS
+               for step in ("prefill", "decode")
+               if not any(s.startswith(f"{arch}:full")
+                          and s.endswith(f":dense_loop[{step}]")
+                          for s in rep["covered"]["dispatch"])]
+    if missing:
+        fail(f"the lint's dispatch pass did not step {missing}")
     rec = dict(check="lint", exit=rc, exit_selftest=rc_i, seconds=secs,
                seconds_selftest=secs_i, covered={
                    k: len(v) for k, v in rep["covered"].items()},
@@ -4584,6 +5105,7 @@ def main() -> int:
     gcfg = granite_serving_config()
     run_spmm(cfg, device, results)
     run_paged(device, results)
+    run_dense_decode(device, results)
     run_spmm_quant(cfg, device, results)
     run_paged_quant(device, results)
     run_spmm_batched(gcfg, device, results)
@@ -4605,13 +5127,13 @@ def main() -> int:
 
     # phase 5
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.nn.model import LM
+    from repro_torch.nn.model import build_model
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
 
-    def fresh_model(c=cfg):  # f32 parameters from the seed
-        return LM(c, device=device,
-                  generator=torch.Generator(device=device).manual_seed(SEED))
+    def fresh_model(c=cfg):  # parameters from the seed (f32 by default)
+        return build_model(c, device=device, generator=torch.Generator(
+            device=device).manual_seed(SEED))
 
     bf16_model = fresh_model()
     serve_rec, chk_rec, prof_rec, bf16_toks, prompts = serve(
@@ -4772,6 +5294,32 @@ def main() -> int:
                 for k, v in ssm.items()}
     ssm_recs["5m"]["top1_agreement_int8"] = z_agree_rec
 
+    # phases 5n and 5o: the dense-cache loop (``generate``'s fallback) at
+    # full width and depth in bf16, parameters built in bf16 as 5h's:
+    # seamless-m4t-medium (12 + 12 layers), then llava-next-34b (60)
+    loop = {}
+    sm_model = fresh_model(get_config("seamless_m4t_medium").with_(
+        param_dtype="bfloat16"))
+    loop["5n"] = serve_dense_loop(
+        sm_model, device, out_dir, prompt_len=SEAMLESS_PROMPT,
+        frames=SEAMLESS_FRAMES, n_new=SEAMLESS_NEW,
+        trace="decode_trace_seamless")
+    done("5n")
+    del sm_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lv_model = fresh_model(get_config("llava_next_34b").with_(
+        param_dtype="bfloat16"))
+    loop["5o"] = serve_dense_loop(
+        lv_model, device, out_dir, prompt_len=LLAVA_PATCHES,
+        frames=LLAVA_PATCHES, n_new=LLAVA_NEW, trace="decode_trace_llava")
+    done("5o")
+    del lv_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop_recs = {k: dict(serve=v[0], logits_check=v[1], profile=v[2],
+                         tokens=v[3].tolist()) for k, v in loop.items()}
+
     # phases 6 and 6b
     run_train_kernels(cfg, device, results)
     done("6")
@@ -4781,6 +5329,7 @@ def main() -> int:
     done("6b")
     run_flash(device, results)
     torch.cuda.empty_cache()
+    run_flash_serving(device, results)
     done("6c")
 
     # phase 7
@@ -4990,8 +5539,9 @@ def main() -> int:
         launches_serve=sum(r["launches"]["csd_spmm_fwd_injected_alias"]
                            for r in (serve_rec, q_serve_rec, g_serve_rec,
                                      gq_serve_rec)) + sum(
-            v[0]["launches"]["csd_spmm_fwd_injected_alias"]
-            for v in (*dense.values(), *ds.values(), *ssm.values())),
+            v[0]["launches"].get("csd_spmm_fwd_injected_alias", 0)
+            for v in (*dense.values(), *ds.values(), *ssm.values(),
+                      *loop.values())),
         launches_train=sum(r["launches"]["csd_spmm_fwd_injected_alias"]
                            for r in (train_rec, g_train_rec)),
         max_abs_err=inj_rec["max_abs_err"], ms=inj_rec["ms"],
@@ -5043,6 +5593,10 @@ def main() -> int:
                          "paged_decode_attention"):
             e["launches_serve_ssm"] = sum(
                 v[0]["launches"][e["name"]] for v in ssm.values())
+        if e["name"] in ("csd_spmm_fwd", "paged_decode_attention",
+                         "flash_attention"):  # phases 5n and 5o
+            e["launches_serve_dense_loop"] = sum(
+                v[0]["launches"].get(e["name"], 0) for v in loop.values())
     # the tensor-core form's launches in the serving runs (qwen2-7b's G 7
     # on paged_decode_attention, granite-34b's 48 on the grouped wrapper)
     for e in entries:
@@ -5050,8 +5604,8 @@ def main() -> int:
             e["launches_serve_mma"] = sum(
                 r["paged_forms"]["paged_decode_mma_kernel"]
                 for r in [serve_rec, q_serve_rec, g_serve_rec, gq_serve_rec]
-                + [v[0] for v in dense.values()]
-                if r["launches"][e["name"]])
+                + [v[0] for v in (*dense.values(), *loop.values())]
+                if r["launches"].get(e["name"]))
     entries[0]["launches_serve"] = serve_rec["launches"]["csd_spmm_fwd"]
     next(e for e in entries if e["name"] == "csd_spmm_fwd_batched")[
         "launches_train"] = g_train_rec["launches"]["csd_spmm_fwd_batched"]
@@ -5093,7 +5647,7 @@ def main() -> int:
              nan_coverage=nan_rec,
              injected_alias=inj_rec, paper_mlp=mlp_recs,
              smoke_configs=smoke_recs, dense_decoders=dense_recs,
-             deepseek=ds_recs, ssm=ssm_recs,
+             deepseek=ds_recs, ssm=ssm_recs, dense_loop=loop_recs,
              examples=example_recs, spec=spec_recs, done_at_s=done_at,
              kernels=entries),
         indent=1))

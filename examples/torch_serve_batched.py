@@ -12,28 +12,25 @@ small-block junction kernel and every decode step the paged decode kernel;
     PYTHONPATH=src python examples/torch_serve_batched.py --arch gemma3-4b \
         [--batch 4 --prompt-len 32 --gen 24 --sample --device cpu]
 
-The port has no legacy dense-cache loop (the JAX package's
-``generate_cached``) yet: ``--no-engine``, and the stub-frontend, enc-dec
-and capacity-constrained MoE architectures that only that loop serves, are
-refused until slice 7 (A8) ports it.
+``--no-engine`` runs the legacy dense-cache loop instead
+(``repro_torch.launch.serve.generate_cached``: one prefill, then one
+decode step a token over per-request caches), and so do the architectures
+that only that loop serves: the stub-frontend (llava-next-34b, its prompt
+the frontend's embeddings) and encoder-decoder (seamless-m4t-medium, frames
+for its encoder) ones and capacity-constrained MoE (granite-moe-1b-a400m at
+its own capacity factor).
 """
 import argparse
-import sys
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs import canonical, get_config
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import generate_cached, needs_dense_loop
 from repro_torch.nn.common import resolve_device
-from repro_torch.nn.model import LM
+from repro_torch.nn.model import build_model
 from repro_torch.serving.engine import EngineConfig, ServingEngine
-
-# the stub-frontend (embeddings) and enc-dec architectures, which only the
-# legacy loop serves
-LEGACY_ARCHS = ("llava_next_34b", "seamless_m4t_medium")
-LEGACY_REFUSAL = ("the legacy dense-cache loop (generate_cached) is not "
-                  "ported yet: it comes with slice 7 (A8)")
 
 
 def main():
@@ -53,19 +50,33 @@ def main():
                     help="cuda (the card, the default) or cpu")
     args = ap.parse_args()
 
-    if args.no_engine:
-        sys.exit(f"--no-engine: {LEGACY_REFUSAL}")
-    if canonical(args.arch) in LEGACY_ARCHS:
-        sys.exit(f"{args.arch}: stub-frontend/enc-dec: {LEGACY_REFUSAL}")
     cfg = get_config(args.arch, smoke=True)
-    if cfg.moe is not None and cfg.moe.capacity_factor * cfg.moe.top_k \
-            < cfg.moe.n_routed:
-        sys.exit(f"{args.arch}: capacity-constrained MoE: {LEGACY_REFUSAL}")
-
     device = resolve_device(args.device)
-    model = LM(cfg, device=device,
-               generator=torch.Generator(device=device).manual_seed(0))
+    model = build_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(0))
     rng = np.random.default_rng(0)
+
+    legacy_only = needs_dense_loop(cfg)
+    if args.no_engine or legacy_only:
+        if legacy_only and not args.no_engine:
+            print(f"{args.arch}: stub-frontend/enc-dec/capacity-"
+                  f"constrained MoE — legacy path")
+        prompt = rng.integers(0, cfg.vocab_size,
+                              (args.batch, args.prompt_len))
+        extra = None
+        if cfg.input_mode == "embeddings":
+            extra = {"embeds": rng.normal(size=(
+                args.batch, args.prompt_len, cfg.frontend_dim)).astype(
+                    np.float32)}
+        toks, tps = generate_cached(
+            model, prompt, args.prompt_len + args.gen, args.gen,
+            greedy=not args.sample, seed=1, extra_batch=extra,
+            device=device)
+        print(f"{args.arch} [legacy]: {toks.shape[1]} tokens x "
+              f"{toks.shape[0]} sequences at {tps:.1f} tok/s")
+        for i in range(min(2, args.batch)):
+            print(f"  seq{i}: {toks[i][:16]} ...")
+        return
 
     # mixed prompt lengths: the whole point of continuous batching
     lens = [max(4, args.prompt_len * (i % 4 + 1) // 4)

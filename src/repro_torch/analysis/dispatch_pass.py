@@ -8,8 +8,13 @@ record. The steps are those the entry points run, for every registered
 config: ``LM.paged_step`` (one prefill chunk and one decode step, with
 full-width and with int8 weights and KV pages; the MoE made dropless, as
 the serving engine requires) and one ``Trainer.train_step`` (forward,
-backward and the AdamW update). They run at the smoke size on the CPU and
-at full width on the card, where the step also runs under
+backward and the AdamW update). A config that serves only through the
+dense-cache loop (an encoder-decoder or a stub frontend: seamless-m4t,
+llava) steps what its entry point, ``launch.serve.generate_cached``, runs:
+one ``prefill`` and one ``decode_step``, full width; it has no paged step,
+and its int8 and training steps are not ported yet, so none is stepped.
+They run at the smoke size on the CPU and at full width on the card (at
+``card_depth``), where the step also runs under
 ``torch.cuda.set_sync_debug_mode("error")``. The CUDA kernels themselves
 are ctypes calls the mode does not see; everything around them is.
 
@@ -218,8 +223,8 @@ def card_depth(cfg):
     """``cfg`` at the depth the card's dispatch-pass steps run: its own
     where the f32 training state fits ``CARD_STATE_BYTES``, else two of its
     repeating units of layers."""
-    from ..nn.model import LM, detect_unit
-    n = sum(p.numel() for p in LM(cfg, device="meta").parameters())
+    from ..nn.model import build_model, detect_unit
+    n = sum(p.numel() for p in build_model(cfg, device="meta").parameters())
     if 16 * n <= CARD_STATE_BYTES:
         return cfg
     return cfg.with_(n_layers=min(cfg.n_layers,
@@ -227,9 +232,9 @@ def card_depth(cfg):
 
 
 def _model(cfg, device):
-    from ..nn.model import LM
+    from ..nn.model import build_model
     gen = torch.Generator(device=device).manual_seed(0)
-    return LM(cfg, device=device, generator=gen)
+    return build_model(cfg, device=device, generator=gen)
 
 
 def _tokens(rng, cfg, shape) -> np.ndarray:
@@ -280,6 +285,33 @@ def paged_steps(cfg, device, quant: bool):
     return prefill, decode, int8_shapes(*params)
 
 
+# the dense-cache loop's encoder frames
+ENC_FRAMES = 24
+
+
+def dense_loop_steps(cfg, device):
+    """(prefill, decode) of ``cfg``'s dense-cache loop in its compute dtype:
+    closures running one ``prefill`` of ``CHUNK`` prompt tokens on ``SLOTS``
+    rows (a stub frontend's embeddings for them; an encoder-decoder's
+    ``ENC_FRAMES`` frames) into a cache of ``2 * CHUNK`` positions, then
+    one ``decode_step`` on the cache a first prefill (not traced) made."""
+    from ..nn.common import dtype_of
+    model = _model(cfg, device).to(dtype=dtype_of(cfg))
+    rng = np.random.default_rng(0)
+    frames = ENC_FRAMES if cfg.enc_dec is not None else CHUNK
+    batch = {
+        "tokens": torch.as_tensor(_tokens(rng, cfg, (SLOTS, CHUNK)),
+                                  dtype=torch.int32, device=device),
+        "embeds": torch.as_tensor(rng.normal(size=(
+            SLOTS, frames, cfg.frontend_dim)), dtype=torch.float32,
+            device=device)}
+    cache = model.prefill(batch, 2 * CHUNK)[1]
+    token = torch.as_tensor(_tokens(rng, cfg, (SLOTS, 1)), dtype=torch.int32,
+                            device=device)
+    return (lambda: model.prefill(batch, 2 * CHUNK),
+            lambda: model.decode_step(token, cache))
+
+
 def train_step(cfg, device):
     """A closure running one ``Trainer.train_step`` of ``cfg`` (forward,
     backward, AdamW) on a random batch."""
@@ -318,10 +350,11 @@ def run(config_names: Optional[Sequence[str]] = None,
         device: str = "cpu", inject: bool = False
         ) -> Tuple[List[Finding], List[str], List[str]]:
     """Lint the paged steps (full width and int8) and the training step of
-    every registered config: the smoke size on the CPU, full width on the
-    card (at ``card_depth``). Returns (findings, covered subjects,
-    errors); a step that fails to run is an error (gating): a hot path the
-    linter cannot see is not a certified hot path."""
+    every registered config, or the dense-cache loop's prefill and decode
+    of one that serves only through it: the smoke size on the CPU, full
+    width on the card (at ``card_depth``). Returns (findings, covered
+    subjects, errors); a step that fails to run is an error (gating): a
+    hot path the linter cannot see is not a certified hot path."""
     from ..configs import ARCHS, canonical, get_config
 
     dev = torch.device(device)
@@ -355,6 +388,12 @@ def run(config_names: Optional[Sequence[str]] = None,
         if full and card_depth(cfg) is not cfg:
             cfg = card_depth(cfg)
             size = f"full@{cfg.n_layers}L"
+        if cfg.enc_dec is not None or cfg.input_mode != "tokens":
+            def make_dense(cfg=cfg):
+                pre, dec = dense_loop_steps(cfg, dev)
+                return [("prefill", pre), ("decode", dec)], set()
+            lint(f"{arch}:{size}:dense_loop", make_dense)
+            continue
         for quant in (False, True):
             def make(cfg=cfg, quant=quant):
                 pre, dec, shapes = paged_steps(cfg, dev, quant)

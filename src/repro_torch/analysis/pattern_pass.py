@@ -194,9 +194,9 @@ def model_patterns(cfg, subject: str) -> List[Tuple[str, object]]:
     ``cfg`` instantiates, read from the model built on the meta device
     (cached per config: patterns are a pure function of it)."""
     from ..core.block_pattern import BlockPattern
-    from ..nn.model import LM
+    from ..nn.model import build_model
 
-    model = LM(cfg, device="meta")
+    model = build_model(cfg, device="meta")
     return [(f"{subject}.{mod_name}.{attr}" if mod_name
              else f"{subject}.{attr}", v)
             for mod_name, mod in model.named_modules()

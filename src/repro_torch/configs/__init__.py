@@ -2,7 +2,7 @@
 
 ``get_config(name)`` returns the full published configuration and
 ``get_config(name, smoke=True)`` the reduced same-family variant the CPU
-tests use. Only the architectures ported so far are listed.
+tests use. Every architecture of the JAX package is listed.
 """
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import importlib
 from ..nn.common import ModelConfig
 
 ARCHS = ["gemma3_4b", "granite_moe_1b_a400m", "gemma2_9b", "qwen2_7b",
-         "granite_34b", "deepseek_moe_16b", "mamba2_130m", "zamba2_1p2b"]
+         "granite_34b", "deepseek_moe_16b", "mamba2_130m", "zamba2_1p2b",
+         "seamless_m4t_medium", "llava_next_34b"]
 
 
 def canonical(name: str) -> str:

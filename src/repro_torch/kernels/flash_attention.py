@@ -65,6 +65,14 @@ grouped query token over a paged KV cache.
   above 8 query heads a KV head is counted on
   ``paged_decode_attention_grouped_cuda``.
 * ``paged_decode_attention`` — dispatches on the device of ``q``.
+* ``dense_decode_attention`` — the same kernel over a dense cache: a
+  contiguous (B, S, Hkv, Dh) tensor, S a multiple of ``DENSE_PAGE``, is
+  viewed without a copy as a pool of B S / 16 pages of 16 rows, row b's
+  page j at b S / 16 + j (``dense_page_table``). With ``lengths`` = pos + 1
+  it computes the JAX package's ``decode_attention`` (keys at or before
+  pos, the window, the softcap); over an encoder's cache ``lengths`` are
+  its frames. Rows past a length (a cache rounded up to whole pages) are
+  masked by the lengths, never by the tensor's shape.
 
 Each takes ``k_scale``/``v_scale`` (both or neither): int8 pages with one
 f32 scale per stored token, (P, page), from ``serving.kv_cache.
@@ -352,6 +360,44 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                                             lengths, **kw)
     raise ValueError(f"paged_decode_attention: no implementation for "
                      f"{q.device}")
+
+
+DENSE_PAGE = 16  # rows of a dense cache's page view
+
+
+def dense_page_table(batch: int, seq: int, device=None) -> torch.Tensor:
+    """(B, S / 16) int32: row b's page j of a dense (B, S, ...) cache viewed
+    as a page pool is page b S / 16 + j."""
+    if seq % DENSE_PAGE:
+        raise ValueError(f"a dense cache's length {seq} is not a multiple "
+                         f"of {DENSE_PAGE}")
+    n = seq // DENSE_PAGE
+    return torch.arange(batch * n, dtype=torch.int32,
+                        device=device).reshape(batch, n)
+
+
+def dense_decode_attention(q, k, v, lengths, *,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           scale: Optional[float] = None,
+                           page_table: Optional[torch.Tensor] = None):
+    """One grouped query token q (B, Hkv, G, Dh) over the dense caches k, v
+    (B, S, Hkv, Dh), contiguous, S a multiple of ``DENSE_PAGE``: the keys
+    below ``lengths`` (B,) int32 (and inside the window) are visible.
+    Runs ``paged_decode_attention`` over the caches' page view
+    (``page_table`` is ``dense_page_table``'s, made here when not given);
+    returns like q."""
+    b, s = k.shape[:2]
+    if v.shape != k.shape or not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"dense_decode_attention: k and v must be "
+                         f"contiguous and alike, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if page_table is None:
+        page_table = dense_page_table(b, s, k.device)
+    pool = (b * s // DENSE_PAGE, DENSE_PAGE) + tuple(k.shape[2:])
+    return paged_decode_attention(q.contiguous(), k.view(pool), v.view(pool),
+                                  page_table, lengths, window=window,
+                                  softcap=softcap, scale=scale)
 
 
 # ---------------------------------------------------------------------------

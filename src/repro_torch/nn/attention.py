@@ -1,30 +1,44 @@
 """GQA attention (port of ``repro.nn.attention``): ``Attention.forward`` for
-the full sequence (training) and ``chunked_attention``, its reference;
-``Attention._qkv`` and ``Attention.paged_step`` for serving.
+the full sequence (training, prefill and the encoder) and
+``chunked_attention``, its reference; ``Attention.decode`` over the dense
+per-request cache of ``generate_cached``, ``decode_attention`` its
+reference; ``Attention.paged_step`` for the serving engine.
 
 The full-sequence path runs ``kernels.flash_attention.FlashAttention``
 (forward, and a backward that recomputes the probabilities from the saved
 row log-sum-exp): the hand-written flash-attention kernels on the card,
 their plain versions on the CPU, so that both devices run the same wiring.
-This follows the JAX package's docstrings, where the Pallas kernel takes the
-place of its q-chunk scan on real hardware. ``chunked_attention`` is that
-scan, the JAX training path's XLA form in plain torch (a loop over query
-chunks, a static window span sliced out of KV for sliding-window layers,
-and for long KV an online-softmax merge over KV chunks); the model does not
-call it, and it stays as the reference the layer is held against. Decode
-(one token per row) runs through the paged decode kernel; a prefill chunk
-gathers the row's logical KV view and runs masked grouped attention in
-plain torch, as the JAX package does with a gather and einsums.
+It is causal self-attention in a decoder, bidirectional in an encoder
+(``causal=False``), and bidirectional cross-attention with queries from x
+and keys and values from ``x_kv`` (an encoder's output, Sq != Skv) in a
+cross layer (``cross=True``: no rope, no QKV bias). This follows the JAX
+package's docstrings, where the Pallas kernel takes the place of its
+q-chunk scan on real hardware. ``chunked_attention`` is that scan, the JAX
+training path's XLA form in plain torch (a loop over query chunks, a static
+window span sliced out of KV for sliding-window layers, and for long KV an
+online-softmax merge over KV chunks); the model does not call it, and it
+stays as the reference the layer is held against.
+
+Decode (one token per row) runs through the paged decode kernel: over the
+engine's page pools in ``paged_step``, and in ``decode`` over the dense
+cache viewed as a pool of 16-row pages (``kernels.flash_attention.
+dense_decode_attention``), a self layer's keys up to its position, a cross
+layer's the encoder's frames. ``decode_attention`` is the JAX package's
+XLA einsums over the dense cache in plain torch; the model does not call
+it. A prefill chunk of the engine gathers the row's logical KV view and
+runs masked grouped attention in plain torch, as the JAX package does with
+a gather and einsums.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 
 from ..kernels.flash_attention import (FlashAttention,
+                                       dense_decode_attention,
                                        paged_decode_attention)
 from ..serving import kv_cache
 from .common import ModelConfig, param_dtype_of
@@ -130,20 +144,55 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :sq] if pad_q else out
 
 
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     pos: int, window: Optional[int],
+                     softcap: Optional[float], scale: float) -> torch.Tensor:
+    """One query token over a dense cache (port of ``repro.nn.attention.
+    decode_attention``): q (B, 1, Hkv, G, Dh), k, v (B, S, Hkv, Dh); keys at
+    or before ``pos`` (and inside the window) are visible -> (B, 1, Hkv, G,
+    Dh) in the dtype of q."""
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float() * scale, k.float())
+    logits = _softcap(logits, softcap)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = kpos <= pos
+    if window is not None:
+        mask &= kpos > pos - window
+    logits = torch.where(mask, logits, _NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.to(q.dtype)
+
+
+class DecodeView(NamedTuple):
+    """What every layer of one dense-cache decode step shares: the position
+    ``pos`` being written, as an int and as rope positions (B, 1); the page
+    table and lengths (``pos + 1``) that view the self caches as page pools;
+    for a decoder with cross-attention those of the encoder caches (lengths
+    the encoder's frames), else None."""
+    pos: int
+    positions: torch.Tensor
+    table: torch.Tensor
+    lengths: torch.Tensor
+    cross_table: Optional[torch.Tensor] = None
+    cross_lengths: Optional[torch.Tensor] = None
+
+
 class Attention(nn.Module):
-    """GQA self-attention with rope, optional qk-norm, window and logit
-    softcap, and optionally pre-defined-sparse projections. ``d_in`` is the
-    width q, k and v are projected from (d_model by default; zamba2's
+    """GQA self- or cross-attention with rope, optional qk-norm, window and
+    logit softcap, and optionally pre-defined-sparse projections. ``d_in``
+    is the width q, k and v are projected from (d_model by default; zamba2's
     shared block reads [h, embedding], 2 x d_model); the output projects
-    back to d_model."""
+    back to d_model. A cross layer (``cross``) projects k and v from the
+    encoder's output, applies no rope and has no QKV bias."""
 
     def __init__(self, cfg: ModelConfig, *, window: Optional[int] = None,
-                 seed: int = 0, qk_norm: bool = False, device=None,
-                 generator: Optional[torch.Generator] = None,
+                 cross: bool = False, seed: int = 0, qk_norm: bool = False,
+                 device=None, generator: Optional[torch.Generator] = None,
                  d_in: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.window = window
+        self.cross = cross
         self.qk_norm = qk_norm
         h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.h, self.kv, self.dh = h, kv, dh
@@ -155,35 +204,78 @@ class Attention(nn.Module):
         kw = dict(rho=rho if rho is not None else 1.0, sp=attn_sp, dtype=pd,
                   device=device, generator=generator)
         d = d_in or cfg.d_model
-        self.wq = Linear(d, h * dh, bias=cfg.qkv_bias, seed=seed + 1, **kw)
-        self.wk = Linear(d, kv * dh, bias=cfg.qkv_bias, seed=seed + 2, **kw)
-        self.wv = Linear(d, kv * dh, bias=cfg.qkv_bias, seed=seed + 3, **kw)
+        bias = cfg.qkv_bias and not cross
+        self.wq = Linear(d, h * dh, bias=bias, seed=seed + 1, **kw)
+        self.wk = Linear(d, kv * dh, bias=bias, seed=seed + 2, **kw)
+        self.wv = Linear(d, kv * dh, bias=bias, seed=seed + 3, **kw)
         self.wo = Linear(h * dh, cfg.d_model, bias=False, seed=seed + 4, **kw)
         if qk_norm:
             self.qnorm = RMSNorm(dh, cfg.rms_eps, pd, device)
             self.knorm = RMSNorm(dh, cfg.rms_eps, pd, device)
 
-    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        b = x.shape[0]
-        q = self.wq(x).reshape(b, -1, self.h, self.dh)
-        k = self.wk(x).reshape(b, -1, self.kv, self.dh)
-        v = self.wv(x).reshape(b, -1, self.kv, self.dh)
+    def _q(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        q = self.wq(x).reshape(x.shape[0], -1, self.h, self.dh)
         if self.qk_norm:
             q = self.qnorm(q)
-            k = self.knorm(k)
-        q = apply_rope(q, positions, self.cfg.rope_theta)
-        k = apply_rope(k, positions, self.cfg.rope_theta)
-        return q, k, v
+        return q if self.cross else apply_rope(q, positions,
+                                               self.cfg.rope_theta)
 
-    def forward(self, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal self-attention (training): x (B, S, d),
-        positions (B, S) -> (B, S, d), through ``FlashAttention``."""
+    def _kv(self, src: torch.Tensor, positions: torch.Tensor):
+        b = src.shape[0]
+        k = self.wk(src).reshape(b, -1, self.kv, self.dh)
+        v = self.wv(src).reshape(b, -1, self.kv, self.dh)
+        if self.qk_norm:
+            k = self.knorm(k)
+        if not self.cross:
+            k = apply_rope(k, positions, self.cfg.rope_theta)
+        return k, v
+
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor,
+             x_kv: Optional[torch.Tensor] = None):
+        """q from x; k and v from ``x_kv`` (a cross layer's encoder output)
+        or x; rope on q and k of a self layer at ``positions``."""
+        return (self._q(x, positions),) + self._kv(
+            x if x_kv is None else x_kv, positions)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                x_kv: Optional[torch.Tensor] = None, causal: bool = True,
+                collect: bool = False):
+        """Full-sequence attention through ``FlashAttention``: x (B, S, d),
+        positions (B, S) -> (B, S, d); causal unless ``causal`` is False
+        or the layer is a cross layer, whose keys and values come from
+        ``x_kv`` (B, Skv, d). With ``collect`` also the layer's {"k", "v"}
+        (B, Skv, Hkv, Dh), for a prefill to write into its cache."""
         b, sq, _ = x.shape
-        q, k, v = self._qkv(x, positions)
-        o = FlashAttention.apply(q, k, v, True, self.window,
-                                 self.cfg.logit_softcap, self.dh ** -0.5, 0)
-        return self.wo(o.reshape(b, sq, self.h * self.dh))
+        q, k, v = self._qkv(x, positions, x_kv)
+        o = FlashAttention.apply(q, k, v, causal and not self.cross,
+                                 self.window, self.cfg.logit_softcap,
+                                 self.dh ** -0.5, 0)
+        out = self.wo(o.reshape(b, sq, self.h * self.dh))
+        return (out, {"k": k, "v": v}) if collect else out
+
+    def decode(self, x: torch.Tensor, cache: dict,
+               view: DecodeView) -> torch.Tensor:
+        """One token per row over the dense cache: x (B, 1, d); cache
+        {"k", "v"} (B, S, Hkv, Dh), S a multiple of 16. A self layer writes
+        its new k and v at ``view.pos`` in place and attends to the keys up
+        to it (and inside its window); a cross layer reads its static
+        encoder cache and projects no k and v from x. Returns (B, 1, d)."""
+        b = x.shape[0]
+        q = self._q(x, view.positions)
+        if self.cross:
+            table, lengths, window = view.cross_table, view.cross_lengths, \
+                None
+        else:
+            k_new, v_new = self._kv(x, view.positions)
+            cache["k"][:, view.pos] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][:, view.pos] = v_new[:, 0].to(cache["v"].dtype)
+            table, lengths, window = view.table, view.lengths, self.window
+        o = dense_decode_attention(
+            q.reshape(b, self.kv, self.groups, self.dh), cache["k"],
+            cache["v"], lengths, window=window,
+            softcap=self.cfg.logit_softcap, scale=self.dh ** -0.5,
+            page_table=table)
+        return self.wo(o.reshape(b, 1, self.h * self.dh).to(x.dtype))
 
     def paged_step(self, x: torch.Tensor, pos: torch.Tensor,
                    n_new: torch.Tensor, cache: dict,

@@ -2,10 +2,10 @@
 half of ``repro.nn.common``).
 
 The fields and defaults are those of the JAX package's ``ModelConfig``,
-``SparsityConfig``, ``MoEConfig``, ``SSMConfig`` and ``HybridConfig`` that
-the ported slices read, with the int8 serving knob ``SparsityConfig.quant``;
-fields of the encoder-decoder and frontend families and the TPU backend
-switch arrive with the slices that use them.
+``SparsityConfig``, ``MoEConfig``, ``SSMConfig``, ``HybridConfig`` and
+``EncDecConfig`` that the ported slices read, with the int8 serving knob
+``SparsityConfig.quant``; the TPU backend switch and the XLA attention
+scan's chunk sizes have no counterpart.
 """
 from __future__ import annotations
 
@@ -80,6 +80,14 @@ class HybridConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    """An encoder-decoder's stacks (seamless-m4t): the encoder reads the
+    stub frontend's frames, the decoder cross-attends to its output."""
+    n_encoder_layers: int = 12
+    n_decoder_layers: int = 12
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     n_layers: int = 4
@@ -109,6 +117,9 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    enc_dec: Optional[EncDecConfig] = None
+    input_mode: str = "tokens"   # tokens | embeddings (audio/vlm frontends)
+    frontend_dim: int = 0        # embedding width of the stub frontend
 
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
 

@@ -1,6 +1,9 @@
-"""The decoder-only LM (port of ``repro.nn.model.LM``): the full-sequence
-forward and chunked cross-entropy loss of training, and the paged serving
-step.
+"""The models (port of ``repro.nn.model``): the decoder-only ``LM`` (token
+or stub-frontend embedding input) with the full-sequence forward and
+chunked cross-entropy loss of training, the paged serving step and the
+dense-cache loop (``prefill``, ``decode_step``), and the encoder-decoder
+``EncDec`` (seamless-m4t's backbone) with the dense-cache loop;
+``build_model`` picks one for a configuration.
 
 The JAX package splits its layers into an unscanned prologue
 (deepseek-moe's dense layer 0), scanned pattern units (gemma3: 5 local +
@@ -27,6 +30,34 @@ With ``cfg.remat`` the training forward recomputes each layer, and the loss
 each sequence chunk, in the backward pass (``torch.utils.checkpoint``); the
 JAX package recomputes each scanned group of layers instead. The results
 are the same, only the memory differs.
+
+An LM with ``input_mode="embeddings"`` (llava's stub vision tower) reads
+frontend embeddings (B, S, frontend_dim) through a 2-layer projector,
+``proj_in`` (with bias), tanh gelu, ``proj_mid`` (with bias), dense
+``Linear``s whose products are ``torch.matmul``s as the JAX package's are
+XLA dots; its decode embeds generated text tokens through the table.
+
+The dense-cache loop (the JAX ``generate_cached`` path, which ``generate``
+falls back to for encoder-decoders, stub frontends and MoE with a finite
+expert capacity): ``prefill`` runs the prompt through ``forward``, writes
+each layer's k and v into a cache of ``s_max`` rows per request
+(``init_cache``; one {"self": {"k", "v"}} a layer, (B, S, Hkv, Dh) in the
+compute dtype, and a decoder layer's static "cross" cache of the encoder's
+frames) and returns the last token's logits; ``decode_step`` runs one token
+per row at the cache's position ``pos`` (one position for the batch, as in
+the JAX package), writing in place. The caches' rows are rounded up to a
+multiple of 16, so that the paged decode kernel reads them as a page pool
+(``kernels.flash_attention.dense_decode_attention``); the padding rows are
+masked by the lengths. Stacks with mamba layers have no dense-cache loop
+here: token-input SSM models serve through the engine.
+
+``EncDec``: the stub frontend's frames go through the dense ``adapter``
+(with bias) into an encoder of bidirectional global layers and ``ln_enc``;
+the decoder's layers cross-attend to that output; the logits are the tied
+``embed.attend`` with no final softcap. Each stack's layer seeds start from
+its base, as the JAX ``Stack(seed=...)``: 7000 for the encoder (every
+layer 7001: a unit of one global layer, scanned) and 9000 for the decoder
+(9001; its cross-attention 9101).
 """
 from __future__ import annotations
 
@@ -37,12 +68,16 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.flash_attention import DENSE_PAGE, dense_page_table
+from .attention import DecodeView
 from .common import ModelConfig, dtype_of, param_dtype_of
-from .layers import Embedding, Linear, RMSNorm
+from .layers import Embedding, Linear, RMSNorm, activation
 from .transformer import MambaLayer, SharedAttnBlock, TransformerBlock
 
 # weight of each MoE aux value in the loss, as in the JAX package
 _AUX_SCALE = {"moe_lb": 0.01, "moe_z": 1.0}
+# the seed bases of an encoder-decoder's stacks (the JAX ``EncDec``)
+ENCODER_SEED, DECODER_SEED = 7000, 9000
 
 
 def detect_unit(kinds: Tuple[str, ...]) -> int:
@@ -78,26 +113,119 @@ def repeat_unit(cfg: ModelConfig) -> int:
 
 
 def layer_seeds(kinds: Tuple[str, ...], pro_n: int = 0,
-                unit: Optional[int] = None) -> List[int]:
-    """Per-layer block seeds of the JAX stack: ``pro_n`` prologue blocks,
-    then the scan slots of the rest (repeating ``unit`` layers, by default
-    ``detect_unit``'s), then its epilogue."""
+                unit: Optional[int] = None, base: int = 0) -> List[int]:
+    """Per-layer block seeds of the JAX stack built with seed ``base``:
+    ``pro_n`` prologue blocks, then the scan slots of the rest (repeating
+    ``unit`` layers, by default ``detect_unit``'s), then its epilogue."""
     rest = kinds[pro_n:]
     if not rest:
-        return [1000 * i for i in range(len(kinds))]
+        return [base + 1000 * i for i in range(len(kinds))]
     unit = unit or detect_unit(rest)
     scanned = (len(rest) // unit) * unit
-    return [1000 * i for i in range(pro_n)] + [
-        10 * (i % unit) + 1 if i < scanned else 2000 + 10 * (i - scanned)
+    return [base + 1000 * i for i in range(pro_n)] + [
+        base + (10 * (i % unit) + 1 if i < scanned
+                else 2000 + 10 * (i - scanned))
         for i in range(len(rest))]
 
 
-class LM(nn.Module):
-    """Decoder-only token LM. With ``tie_embeddings`` the logits are
-    ``h @ embed.table^T``; without, a dense ``head`` ``Linear(d_model,
-    vocab_size)`` without bias in the parameter dtype computes them (the
-    JAX ``LM.head``), its product a ``torch.matmul`` as the JAX package's
-    is an XLA dot. The final softcap applies to either."""
+def _check_dense_loop(cfg: ModelConfig) -> None:
+    if "mamba" in cfg.layer_kinds:
+        raise NotImplementedError(
+            "the dense-cache loop (prefill, decode_step) runs attention "
+            "stacks; a stack with mamba layers serves through the engine "
+            "(serving.engine.ServingEngine, LM.paged_step)")
+
+
+def _pages(n: int) -> int:
+    """``n`` rows rounded up to whole pages of the dense caches' view."""
+    return -(-n // DENSE_PAGE) * DENSE_PAGE
+
+
+def _write_prefill(layer_caches: List[dict], kvs: List[dict]) -> None:
+    """Write each layer's prefill KV ({"self", and a cross layer's "cross":
+    {"k", "v"}}) into the first rows of its zeroed caches, in place."""
+    for c, kv in zip(layer_caches, kvs):
+        for part, new in kv.items():
+            for n in ("k", "v"):
+                c[part][n][:, :new[n].shape[1]] = new[n]
+
+
+class _DenseCacheLoop:
+    """The half of ``prefill`` and ``decode_step`` that ``LM`` and
+    ``EncDec`` share, over the layers ``_cache_layers`` names."""
+
+    _cache_layers: nn.ModuleList
+
+    def init_cache(self, batch: int, s_max: int,
+                   dtype: Optional[torch.dtype] = None, device=None,
+                   enc_len: int = 0) -> List[dict]:
+        """Zeroed dense caches, one dict a layer: {"self": {"k", "v"}} of
+        (batch, s_max rounded up to a multiple of 16, Hkv, Dh), and for a
+        cross layer "cross" of ``enc_len`` rows rounded up the same way;
+        in ``dtype`` (the compute dtype by default)."""
+        cfg = self.cfg
+        _check_dense_loop(cfg)
+        dtype = dtype or dtype_of(cfg)
+        device = device or self.embed.table.device
+
+        def kv(rows):
+            return {n: torch.zeros((batch, _pages(rows), cfg.n_kv_heads,
+                                    cfg.head_dim), dtype=dtype, device=device)
+                    for n in ("k", "v")}
+
+        out = []
+        for layer in self._cache_layers:
+            c = {"self": kv(s_max)}
+            if layer.cross_attn is not None:
+                c["cross"] = kv(enc_len)
+            out.append(c)
+        return out
+
+    def _decode_layers(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
+        """x (B, 1, d) through every layer's ``decode`` at ``cache["pos"]``,
+        the caches written in place; advances ``cache["pos"]``."""
+        pos, layers = cache["pos"], cache["layers"]
+        b, dev = x.shape[0], x.device
+        s = layers[0]["self"]["k"].shape[1]
+        if pos >= s:
+            raise ValueError(f"the dense cache holds {s} positions; "
+                             f"position {pos} is past it")
+        cross = layers[0].get("cross")
+        view = DecodeView(
+            pos=pos,
+            positions=torch.full((b, 1), pos, dtype=torch.int32, device=dev),
+            table=dense_page_table(b, s, dev),
+            lengths=torch.full((b,), pos + 1, dtype=torch.int32, device=dev),
+            cross_table=None if cross is None else dense_page_table(
+                b, cross["k"].shape[1], dev),
+            cross_lengths=None if cross is None else torch.full(
+                (b,), cache["enc_len"], dtype=torch.int32, device=dev))
+        for layer, c in zip(self._cache_layers, layers):
+            x = layer.decode(x, c, view)
+        cache["pos"] = pos + 1
+        return x
+
+
+def _blocks(cfg: ModelConfig, kinds: Tuple[str, ...], base: int, *,
+            cross: bool = False, device=None,
+            generator: Optional[torch.Generator] = None) -> nn.ModuleList:
+    """The attention blocks of an encoder-decoder's stack, seeded as the
+    JAX ``Stack(cfg, kinds, cross, seed=base)``."""
+    pro_n = 0 if cross else prologue_len(cfg)
+    return nn.ModuleList(
+        TransformerBlock(cfg, kind, seed=seed, layer_idx=i, cross=cross,
+                         device=device, generator=generator)
+        for i, (kind, seed) in enumerate(
+            zip(kinds, layer_seeds(kinds, pro_n, base=base))))
+
+
+class LM(_DenseCacheLoop, nn.Module):
+    """Decoder-only LM (tokens or stub-frontend embeddings in). With
+    ``tie_embeddings`` the logits are ``h @ embed.table^T``; without, a
+    dense ``head`` ``Linear(d_model, vocab_size)`` without bias in the
+    parameter dtype computes them (the JAX ``LM.head``), its product a
+    ``torch.matmul`` as the JAX package's is an XLA dot. The final softcap
+    applies to either."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -121,9 +249,19 @@ class LM(nn.Module):
         self.shared_after = {} if self.shared is None else {
             pro_n + (g + 1) * unit - 1: g for g in range(n_groups)}
         self.ln_f = RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)
+        if cfg.input_mode == "embeddings":
+            # the 2-layer MLP projector of the stub frontend (llava)
+            self.proj_in = Linear(cfg.frontend_dim, cfg.d_model, bias=True,
+                                  dtype=pd, **kw)
+            self.proj_mid = Linear(cfg.d_model, cfg.d_model, bias=True,
+                                   dtype=pd, **kw)
         self.head = None if cfg.tie_embeddings else Linear(
             cfg.d_model, cfg.vocab_size, dtype=pd, device=device,
             generator=generator)
+
+    @property
+    def _cache_layers(self) -> nn.ModuleList:
+        return self.layers
 
     def init_paged_cache(self, total_pages: int, page_size: int,
                          dtype: Optional[torch.dtype] = None,
@@ -188,24 +326,42 @@ class LM(nn.Module):
     def _remat(self) -> bool:
         return self.cfg.remat and torch.is_grad_enabled()
 
-    def embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings in the compute dtype, scaled by sqrt(d_model)
-        where the model asks for it."""
+    def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         cdt = dtype_of(self.cfg)
         x = self.embed(tokens, dtype=cdt)
         if self.cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=cdt)
         return x
 
-    def forward(self, tokens: torch.Tensor
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """tokens (B, S) int -> (final-normed hidden states (B, S, d), the
-        MoE blocks' aux values summed over layers, {} without MoE)."""
-        x = self.embed_in(tokens)
+    def embed_in(self, tokens: Optional[torch.Tensor] = None,
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The input in the compute dtype: token embeddings, or with
+        ``input_mode="embeddings"`` the frontend's ``embeds`` (B, S,
+        frontend_dim) through the projector (the tokens are then not
+        read, as in the JAX package); scaled by sqrt(d_model) where the
+        model asks for it."""
+        cfg = self.cfg
+        if cfg.input_mode != "embeddings":
+            return self._embed_tokens(tokens)
+        if embeds is None:
+            raise ValueError(f"{cfg.name} reads the frontend's embeddings: "
+                             f"pass embeds")
+        cdt = dtype_of(cfg)
+        x = self.proj_in(embeds.to(cdt))
+        x = self.proj_mid(activation("gelu")(x))
+        if cfg.scale_embed:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
+        return x
+
+    def _run_layers(self, x: torch.Tensor, collect: bool = False):
+        """x (B, S, d) through the layers -> (final-normed hidden states,
+        the MoE aux values summed over layers, and with ``collect`` each
+        layer's KV for the dense cache, else [])."""
         emb = x
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         aux_tot: Dict[str, torch.Tensor] = {}
+        kvs: List[dict] = []
 
         def run(fn, *args):
             if self._remat():
@@ -213,12 +369,25 @@ class LM(nn.Module):
             return fn(*args)
 
         for i, layer in enumerate(self.layers):
-            x, aux = run(layer, x, positions)
+            if collect:
+                x, aux, kv = layer(x, positions, collect=True)
+                kvs.append(kv)
+            else:
+                x, aux = run(layer, x, positions)
             for k, v in aux.items():
                 aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
             if i in self.shared_after:
                 x = run(self.shared, x, emb, positions)
-        return self.ln_f(x), aux_tot
+        return self.ln_f(x), aux_tot, kvs
+
+    def forward(self, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens (B, S) int (or a stub frontend's ``embeds``, see
+        ``embed_in``) -> (final-normed hidden states (B, S, d), the MoE
+        blocks' aux values summed over layers, {} without MoE)."""
+        h, aux, _ = self._run_layers(self.embed_in(tokens, embeds))
+        return h, aux
 
     def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor):
         logits = self.logits_fn(h).float()
@@ -236,7 +405,7 @@ class LM(nn.Module):
         JAX package), plus the MoE aux terms. Returns (loss, {"loss",
         "tokens"}, and for MoE "moe_lb" and "moe_z" summed over layers);
         the metric "loss" is the cross entropy alone."""
-        h, aux = self.forward(batch["tokens"])
+        h, aux = self.forward(batch.get("tokens"), batch.get("embeds"))
         labels = batch["labels"]
         s = labels.shape[1]
         chunk = min(self.cfg.loss_chunk, s)
@@ -255,6 +424,39 @@ class LM(nn.Module):
             loss = loss + _AUX_SCALE[k] * v.float() / len(self.layers)
             metrics[k] = v
         return loss, metrics
+
+    # -- the dense-cache loop ------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor], s_max: int
+                ) -> Tuple[torch.Tensor, dict]:
+        """Run the prompt ({"tokens": (B, S) int} or a stub frontend's
+        {"embeds": (B, S, frontend_dim)}) and build a dense cache of
+        ``s_max`` positions: (last-token logits (B, 1, V), {"layers": the
+        caches, "pos": S, "enc_len": 0})."""
+        _check_dense_loop(self.cfg)
+        h, _, kvs = self._run_layers(
+            self.embed_in(batch.get("tokens"), batch.get("embeds")),
+            collect=True)
+        b, s = h.shape[:2]
+        layers = self.init_cache(b, s_max, device=h.device)
+        _write_prefill(layers, kvs)
+        return self.logits_fn(h[:, -1:]), {"layers": layers, "pos": s,
+                                           "enc_len": 0}
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache: dict
+                    ) -> Tuple[torch.Tensor, dict]:
+        """One decode step of every row: token (B, 1) int (or (B, 1, F)
+        frontend embeddings through the projector) -> (logits (B, 1, V),
+        ``cache``, written in place at its position, which advances). A
+        stub-frontend model embeds generated text tokens through the
+        table: the frontend only feeds the prefill."""
+        _check_dense_loop(self.cfg)
+        x = self._embed_tokens(token) if token.dim() == 2 \
+            else self.embed_in(embeds=token)
+        x = self._decode_layers(x, cache)
+        return self.logits_fn(self.ln_f(x)), cache
 
     # -- serving -------------------------------------------------------------
 
@@ -276,7 +478,12 @@ class LM(nn.Module):
         of slot ``slot_ids[i]`` (B,), or of slot i without it (the engine's
         rows are its slots). A mamba layer folds a row's whole chunk into
         its state, padding past ``n_new`` included, as the JAX step does;
-        the engine's prefill rows fill their chunk."""
+        the engine's prefill rows fill their chunk. Only token-input
+        models serve here; a stub frontend feeds the dense-cache loop."""
+        if self.cfg.input_mode != "tokens":
+            raise NotImplementedError(
+                "paged serving expects token inputs (stub frontends feed "
+                "the dense-cache loop, launch.serve.generate_cached)")
         x = self.embed(tokens)
         if self.cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
@@ -300,3 +507,99 @@ class LM(nn.Module):
         h_last = torch.gather(
             x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
         return self.logits_fn(h_last)
+
+
+class EncDec(_DenseCacheLoop, nn.Module):
+    """Encoder-decoder transformer (seamless-m4t's backbone): the encoder
+    reads the stub frontend's frame embeddings, the decoder is a causal
+    token LM with cross-attention to the encoder's output."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.enc_dec is None:
+            raise ValueError(f"{cfg.name} is not an encoder-decoder")
+        self.cfg = cfg
+        ed, pd = cfg.enc_dec, param_dtype_of(cfg)
+        kw = dict(device=device, generator=generator)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, pd, device,
+                               generator)
+        self.adapter = Linear(cfg.frontend_dim or cfg.d_model, cfg.d_model,
+                              bias=True, dtype=pd, **kw)
+        self.encoder = _blocks(cfg, ("global",) * ed.n_encoder_layers,
+                               ENCODER_SEED, **kw)
+        self.decoder = _blocks(cfg, ("global",) * ed.n_decoder_layers,
+                               DECODER_SEED, cross=True, **kw)
+        self.ln_enc = RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)
+        self.ln_f = RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)
+
+    @property
+    def _cache_layers(self) -> nn.ModuleList:
+        return self.decoder
+
+    def logits_fn(self, h: torch.Tensor) -> torch.Tensor:
+        """The tied head, with no final softcap (the JAX ``EncDec``)."""
+        return self.embed.attend(h)
+
+    def encode(self, embeds: torch.Tensor) -> torch.Tensor:
+        """Frame embeddings (B, Se, frontend_dim) -> the encoder's normed
+        output (B, Se, d) in the compute dtype: the adapter, then the
+        encoder's bidirectional layers."""
+        x = self.adapter(embeds.to(dtype_of(self.cfg)))
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        for layer in self.encoder:
+            x, _ = layer(x, positions, causal=False)
+        return self.ln_enc(x)
+
+    def forward(self, tokens: torch.Tensor, embeds: torch.Tensor,
+                collect: bool = False):
+        """Decoder tokens (B, S) int and encoder frames ``embeds`` ->
+        (final-normed decoder states (B, S, d), each decoder layer's KV
+        for the dense cache with ``collect`` (self and cross), else [],
+        the encoder's output)."""
+        enc_out = self.encode(embeds)
+        x = self.embed(tokens, dtype=dtype_of(self.cfg))
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        kvs: List[dict] = []
+        for layer in self.decoder:
+            if collect:
+                x, _, kv = layer(x, positions, enc_out=enc_out, collect=True)
+                kvs.append(kv)
+            else:
+                x, _ = layer(x, positions, enc_out=enc_out)
+        return self.ln_f(x), kvs, enc_out
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor], s_max: int
+                ) -> Tuple[torch.Tensor, dict]:
+        """Encode ``batch["embeds"]``, run the decoder prompt
+        ``batch["tokens"]`` and build the dense caches (self of ``s_max``
+        positions, cross of the encoder's frames, written once here):
+        (last-token logits (B, 1, V), {"layers", "pos", "enc_len"})."""
+        h, kvs, enc_out = self.forward(batch["tokens"], batch["embeds"],
+                                       collect=True)
+        b, s = h.shape[:2]
+        enc_len = enc_out.shape[1]
+        layers = self.init_cache(b, s_max, device=h.device, enc_len=enc_len)
+        _write_prefill(layers, kvs)
+        return self.logits_fn(h[:, -1:]), {"layers": layers, "pos": s,
+                                           "enc_len": enc_len}
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache: dict
+                    ) -> Tuple[torch.Tensor, dict]:
+        """One decoder token per row (B, 1) int -> (logits (B, 1, V),
+        ``cache``, its self caches written in place, its position
+        advanced)."""
+        x = self.embed(token, dtype=dtype_of(self.cfg))
+        x = self._decode_layers(x, cache)
+        return self.logits_fn(self.ln_f(x)), cache
+
+
+def build_model(cfg: ModelConfig, *, device=None,
+                generator: Optional[torch.Generator] = None):
+    """``EncDec`` for an encoder-decoder configuration, else ``LM``."""
+    cls = EncDec if cfg.enc_dec is not None else LM
+    return cls(cfg, device=device, generator=generator)

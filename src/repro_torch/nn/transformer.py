@@ -3,10 +3,14 @@
 ``TransformerBlock``: pre-norm attention + FFN or MoE, with gemma's
 sandwich norms when ``post_norms`` is set; an MoE config with
 ``first_layer_dense`` gives layer 0 a dense FFN of ``dense_d_ff`` instead
-(deepseek-moe's prologue). ``forward`` runs the full sequence (training)
-and returns the MoE block's aux values (load balance, router z-loss) beside
-x for the loss, ``paged_step`` one serving step, which drops them as the
-JAX block does in serving.
+(deepseek-moe's prologue). A decoder block of an encoder-decoder
+(``cross``) has a cross-attention (seed + 100) after its self-attention,
+with its own pre-norm ``ln_cross``. ``forward`` runs the full sequence
+(training, prefill, the encoder with ``causal=False``) and returns the MoE
+block's aux values (load balance, router z-loss) beside x for the loss, and
+with ``collect`` the KV a prefill writes into the dense cache; ``decode``
+one token over the dense cache, ``paged_step`` one serving step of the
+engine; both drop the aux values as the JAX block does in serving.
 
 ``MambaLayer``: norm + the Mamba2 mixer with a residual (no FFN). Its
 serving state is per slot ({"ssd", "conv"} rows of the paged cache).
@@ -21,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from .attention import Attention
+from .attention import Attention, DecodeView
 from .common import ModelConfig, param_dtype_of
 from .ffn import FFN, MoE
 from .layers import RMSNorm
@@ -31,7 +35,7 @@ from .ssm import Mamba2Block
 class TransformerBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str, seed: int = 0,
                  device=None, generator: Optional[torch.Generator] = None,
-                 layer_idx: int = 0):
+                 layer_idx: int = 0, cross: bool = False):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
@@ -39,6 +43,9 @@ class TransformerBlock(nn.Module):
         self.attn = Attention(cfg, window=window, seed=seed,
                               qk_norm=cfg.post_norms, device=device,
                               generator=generator)
+        self.cross_attn = Attention(cfg, cross=True, seed=seed + 100,
+                                    device=device, generator=generator) \
+            if cross else None
         moe = cfg.moe
         dense_first = moe is not None and moe.first_layer_dense
         self.is_moe = moe is not None and not (dense_first and layer_idx == 0)
@@ -53,6 +60,8 @@ class TransformerBlock(nn.Module):
         norm = lambda: RMSNorm(cfg.d_model, cfg.rms_eps, pd, device)  # noqa: E731
         self.ln_attn = norm()
         self.ln_ffn = norm()
+        if cross:
+            self.ln_cross = norm()
         if cfg.post_norms:
             self.ln_attn_post = norm()
             self.ln_ffn_post = norm()
@@ -65,21 +74,55 @@ class TransformerBlock(nn.Module):
             h = self.ln_ffn_post(h)
         return x + h, aux
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                enc_out: Optional[torch.Tensor] = None, causal: bool = True,
+                collect: bool = False):
         """Full-sequence forward: x (B, S, d), positions (B, S) -> (x, the
         MoE block's aux values {"moe_lb", "moe_z"}, or {} for an FFN
-        block)."""
-        h = self.attn(self.ln_attn(x), positions)
+        block); with ``collect`` also the KV for the dense cache, {"self":
+        {"k", "v"}} and for a cross block "cross": the k and v it projected
+        from ``enc_out`` (B, Se, d), the encoder's output. ``causal=False``
+        makes the self-attention bidirectional (an encoder)."""
+        h = self.attn(self.ln_attn(x), positions, causal=causal,
+                      collect=collect)
+        if collect:
+            h, kv = h
+            kvs = {"self": kv}
         if self.cfg.post_norms:
             h = self.ln_attn_post(h)
-        return self._ffn_res(x + h)
+        x = x + h
+        if self.cross_attn is not None:
+            h = self.cross_attn(self.ln_cross(x), positions, x_kv=enc_out,
+                                causal=False, collect=collect)
+            if collect:
+                h, kvs["cross"] = h
+            x = x + h
+        x, aux = self._ffn_res(x)
+        return (x, aux, kvs) if collect else (x, aux)
+
+    def decode(self, x: torch.Tensor, cache: dict,
+               view: DecodeView) -> torch.Tensor:
+        """One token per row over the dense cache ({"self": {"k", "v"}}, and
+        a cross block's static "cross" one), the self cache updated in
+        place at ``view.pos``."""
+        h = self.attn.decode(self.ln_attn(x), cache["self"], view)
+        if self.cfg.post_norms:
+            h = self.ln_attn_post(h)
+        x = x + h
+        if self.cross_attn is not None:
+            x = x + self.cross_attn.decode(self.ln_cross(x), cache["cross"],
+                                           view)
+        return self._ffn_res(x)[0]
 
     def paged_step(self, x: torch.Tensor, pos: torch.Tensor,
                    n_new: torch.Tensor, cache: dict,
                    page_table: torch.Tensor) -> torch.Tensor:
         """Serving step (decode or prefill chunk) against paged KV; the
-        layer's pages in ``cache`` are updated in place."""
+        layer's pages in ``cache`` are updated in place. A cross block has
+        no paged step (encoder-decoders serve through ``generate_cached``),
+        as in the JAX package."""
+        if self.cross_attn is not None:
+            raise NotImplementedError("paged serving: no cross-attention")
         h = self.attn.paged_step(self.ln_attn(x), pos, n_new, cache,
                                  page_table)
         if self.cfg.post_norms:

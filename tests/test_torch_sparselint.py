@@ -75,8 +75,13 @@ def test_shipped_tree_is_clean_on_every_pass(cli_reports):
         assert want in grid, want
         assert sum(rep["cost"][want]["ctas"]) > 1
     # five steps (paged prefill and decode, int8 and not, training) of each
-    # of the eight registered configs
-    assert len(rep["covered"]["dispatch"]) == 40
+    # of the eight token-input configs, and the dense-cache loop's prefill
+    # and decode of the encoder-decoder and the stub-frontend LM
+    assert len(rep["covered"]["dispatch"]) == 44
+    for arch in ("seamless_m4t_medium", "llava_next_34b"):
+        for step in ("prefill", "decode"):
+            assert f"{arch}:smoke:dense_loop[{step}]" \
+                in rep["covered"]["dispatch"]
     assert "zamba2_1p2b:smoke:paged_step_int8[decode]" \
         in rep["covered"]["dispatch"]
     assert "deepseek_moe_16b:smoke:train_step" in rep["covered"]["dispatch"]

@@ -5,10 +5,11 @@ seconds, on one card.
     python3 tools/time_smoke_serve.py [--phases 5e,5f,...] [--out FILE]
 
 Builds the kernels, then runs the chosen phases (default: 5e, 5f, 5h, 5i,
-5j, 5k, 5l and 5m, each at full width and depth, as the smoke runs them)
-through the smoke's own ``serve`` and ``top1_agreement``, with timers
-around the helpers a phase calls: building the model (``fresh_model``), the
-engines' construction, the served run (``drain``), the re-admitted request
+5j, 5k, 5l, 5m, 5n and 5o, each at full width and depth, as the smoke runs
+them) through the smoke's own ``serve``, ``serve_dense_loop`` and
+``top1_agreement``, with timers around the helpers a phase calls: building
+the model (``fresh_model``), the engines' construction, the served run
+(``drain``; the dense-cache loop's ``generate``), the re-admitted request
 (``readmission``), the kernels-vs-plain decode step (``launched_plans``
 and the plain steps), the profiled steps (``profile_decode``, with the
 trace's export, ``export_trace``, inside it) and the top-1 agreement. Each
@@ -33,7 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("5e", "5f", "5h", "5i", "5j", "5k", "5l", "5m")
+PHASES = ("5e", "5f", "5h", "5i", "5j", "5k", "5l", "5m", "5n", "5o")
 
 
 def main() -> int:
@@ -50,7 +51,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels import build
-    from repro_torch.nn.model import LM
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.nn.model import build_model
     from repro_torch.serving import engine
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -73,6 +75,7 @@ def main() -> int:
     for name in ("drain", "readmission", "profile_decode", "top1_agreement",
                  "launched_plans", "export_trace"):
         setattr(cs, name, timed(name, getattr(cs, name)))
+    serve_cli.generate = timed("generate", serve_cli.generate)
     plain = cs.plain_versions
 
     @contextmanager
@@ -95,7 +98,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out" / "time_smoke_serve"
     out_dir.mkdir(parents=True, exist_ok=True)
     quant = QuantConfig(weights=True, kv=True)
-    fresh = timed("fresh_model", lambda c: LM(
+    fresh = timed("fresh_model", lambda c: build_model(
         c, device=device,
         generator=torch.Generator(device=device).manual_seed(cs.SEED)))
 
@@ -136,6 +139,16 @@ def main() -> int:
                                out_dir),
         "5l": lambda: bf16("z", zcfg),
         "5m": lambda: int8("z", zcfg),
+        "5n": lambda: cs.serve_dense_loop(
+            fresh(get_config("seamless_m4t_medium").with_(
+                param_dtype="bfloat16")), device, out_dir,
+            prompt_len=cs.SEAMLESS_PROMPT, frames=cs.SEAMLESS_FRAMES,
+            n_new=cs.SEAMLESS_NEW, trace="decode_trace_seamless"),
+        "5o": lambda: cs.serve_dense_loop(
+            fresh(get_config("llava_next_34b").with_(
+                param_dtype="bfloat16")), device, out_dir,
+            prompt_len=cs.LLAVA_PATCHES, frames=cs.LLAVA_PATCHES,
+            n_new=cs.LLAVA_NEW, trace="decode_trace_llava"),
     }
     res = {}
     for name in args.phases.split(","):
