@@ -11,8 +11,9 @@ the serving engine requires) and one ``Trainer.train_step`` (forward,
 backward and the AdamW update). A config that serves only through the
 dense-cache loop (an encoder-decoder or a stub frontend: seamless-m4t,
 llava) steps what its entry point, ``launch.serve.generate_cached``, runs:
-one ``prefill`` and one ``decode_step``, full width; it has no paged step,
-and its int8 and training steps are not ported yet, so none is stepped.
+one ``prefill`` and one ``decode_step``, full width (it has no paged step,
+and the dense-cache loop has no int8 form, in the JAX package neither),
+and one ``Trainer.train_step`` on a batch with the frontend's ``embeds``.
 They run at the smoke size on the CPU and at full width on the card (at
 ``card_depth``), where the step also runs under
 ``torch.cuda.set_sync_debug_mode("error")``. The CUDA kernels themselves
@@ -213,9 +214,9 @@ def _dropless(cfg):
 
 # the f32 training state (parameters, gradients and AdamW's two moments,
 # 16 bytes a parameter) the card's steps may hold at full depth; a config
-# past it (gemma2-9b, qwen2-7b, granite-34b) runs its full-width steps at
-# the depth of two of its repeating units, at least two layers (every
-# layer of a unit runs the same ops)
+# past it (gemma2-9b, qwen2-7b, granite-34b, llava-next-34b) runs its
+# full-width steps at the depth of two of its repeating units, at least two
+# layers (every layer of a unit runs the same ops)
 CARD_STATE_BYTES = 64e9
 
 
@@ -314,13 +315,20 @@ def dense_loop_steps(cfg, device):
 
 def train_step(cfg, device):
     """A closure running one ``Trainer.train_step`` of ``cfg`` (forward,
-    backward, AdamW) on a random batch."""
+    backward, AdamW) on a random batch; an encoder-decoder's or a stub
+    frontend's batch also holds ``embeds``, an encoder-decoder's of
+    ``ENC_FRAMES`` frames (not the tokens' count)."""
     from ..train.trainer import Trainer
     trainer = Trainer(_model(cfg, device), device=device)
     params, opt = trainer.init_state()
     rng = np.random.default_rng(0)
     toks = _tokens(rng, cfg, (TRAIN_BATCH, TRAIN_SEQ + 1))
-    data = trainer.to_device({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.enc_dec is not None or cfg.input_mode != "tokens":
+        frames = ENC_FRAMES if cfg.enc_dec is not None else TRAIN_SEQ
+        batch["embeds"] = rng.normal(size=(
+            TRAIN_BATCH, frames, cfg.frontend_dim)).astype(np.float32)
+    data = trainer.to_device(batch)
     return lambda: trainer.train_step(params, opt, data)
 
 
@@ -349,12 +357,13 @@ def quant_inject_step(device):
 def run(config_names: Optional[Sequence[str]] = None,
         device: str = "cpu", inject: bool = False
         ) -> Tuple[List[Finding], List[str], List[str]]:
-    """Lint the paged steps (full width and int8) and the training step of
-    every registered config, or the dense-cache loop's prefill and decode
-    of one that serves only through it: the smoke size on the CPU, full
-    width on the card (at ``card_depth``). Returns (findings, covered
-    subjects, errors); a step that fails to run is an error (gating): a
-    hot path the linter cannot see is not a certified hot path."""
+    """Lint the paged steps (full width and int8) of every registered
+    config, or the dense-cache loop's prefill and decode of one that
+    serves only through it, and the training step of each: the smoke size
+    on the CPU, full width on the card (at ``card_depth``). Returns
+    (findings, covered subjects, errors); a step that fails to run is an
+    error (gating): a hot path the linter cannot see is not a certified
+    hot path."""
     from ..configs import ARCHS, canonical, get_config
 
     dev = torch.device(device)
@@ -393,13 +402,13 @@ def run(config_names: Optional[Sequence[str]] = None,
                 pre, dec = dense_loop_steps(cfg, dev)
                 return [("prefill", pre), ("decode", dec)], set()
             lint(f"{arch}:{size}:dense_loop", make_dense)
-            continue
-        for quant in (False, True):
-            def make(cfg=cfg, quant=quant):
-                pre, dec, shapes = paged_steps(cfg, dev, quant)
-                return [("prefill", pre), ("decode", dec)], shapes
-            lint(f"{arch}:{size}:paged_step"
-                 f"{'_int8' if quant else ''}", make)
+        else:
+            for quant in (False, True):
+                def make(cfg=cfg, quant=quant):
+                    pre, dec, shapes = paged_steps(cfg, dev, quant)
+                    return [("prefill", pre), ("decode", dec)], shapes
+                lint(f"{arch}:{size}:paged_step"
+                     f"{'_int8' if quant else ''}", make)
         lint(f"{arch}:{size}:train_step",
              lambda cfg=cfg: ([("", train_step(cfg, dev))], set()))
     if inject:

@@ -6,7 +6,12 @@
 trains the published configuration from random weights (seed 0) on
 ``BigramLM`` batches on the card, printing each step's metrics; without
 ``--full`` it trains the smoke configuration. ``--device cpu`` runs the
-plain versions of the kernels on the CPU.
+plain versions of the kernels on the CPU. The model is ``build_model``'s
+(an ``EncDec`` for seamless-m4t); an encoder-decoder's or a stub
+frontend's batches carry the JAX CLI's stand-in frontend output,
+``embeds`` (batch, seq, frontend_dim) drawn from a normal generator of
+seed 0 that restarts with the data (``batches``), so that the batches are
+the JAX CLI's bit for bit.
 
 Fault tolerance: with ``--checkpoint-dir`` the run resumes from the latest
 committed checkpoint there (the data iterator restarts at its step) and
@@ -21,10 +26,32 @@ from __future__ import annotations
 
 import argparse
 import gc
+from typing import Optional
 
+import numpy as np
 import torch
 
 MAX_RETRIES = 3  # restores after a failure before the error is raised
+
+
+def batches(cfg, data, batch: int, seq: int, start: int = 0,
+            frames: Optional[int] = None):
+    """``data``'s batches from step ``start``, as the JAX CLI's
+    ``make_iter`` gives them: for an encoder-decoder or a stub frontend
+    each also gets ``embeds``, (batch, frames, frontend_dim) f32 from
+    ``np.random.default_rng(0)``, seeded anew at each (re)start; the CLI's
+    ``frames`` is ``seq``."""
+    it = data.iterate(batch, seq, start_step=start)
+    if cfg.input_mode != "embeddings" and cfg.enc_dec is None:
+        return it
+    rng = np.random.default_rng(0)
+    shape = (batch, frames or seq, cfg.frontend_dim)
+
+    def gen():
+        for b in it:
+            b["embeds"] = rng.normal(size=shape).astype(np.float32)
+            yield b
+    return gen()
 
 
 def train_with_restarts(trainer, make_iter, steps: int, *, fail_at: int = 0,
@@ -92,7 +119,7 @@ def main(argv=None):
     from ..configs import get_config
     from ..data import BigramLM
     from ..nn.common import SparsityConfig, resolve_device
-    from ..nn.model import LM
+    from ..nn.model import build_model
     from ..obs import get_registry
     from ..optim import AdamWConfig
     from ..train import Trainer, TrainerConfig
@@ -105,8 +132,9 @@ def main(argv=None):
             enabled=args.rho < 1.0,
             rho_ffn=(args.rho, min(1.0, args.rho * 1.5)),
             block_in=sp.block_in, block_out=sp.block_out))
-    model = LM(cfg, device=device,
-               generator=torch.Generator(device=device).manual_seed(0))
+    model = build_model(
+        cfg, device=device,
+        generator=torch.Generator(device=device).manual_seed(0))
     tc = TrainerConfig(
         opt=AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                         total_steps=args.steps),
@@ -122,8 +150,7 @@ def main(argv=None):
     try:
         params, opt, _ = train_with_restarts(
             trainer,
-            lambda start: data.iterate(args.batch, args.seq,
-                                       start_step=start),
+            lambda start: batches(cfg, data, args.batch, args.seq, start),
             args.steps, fail_at=args.simulate_failure_at,
             on_step=lambda s, m: print(f"step {s}: {m}", flush=True),
             log=lambda msg: print(msg, flush=True))

@@ -26,10 +26,11 @@ In training the MoE blocks' aux values are summed over layers and enter
 the loss as in the JAX package: ``moe_lb`` x 0.01 and ``moe_z`` x 1.0,
 each sum divided by the number of layers, the dense prologue's included.
 
-With ``cfg.remat`` the training forward recomputes each layer, and the loss
-each sequence chunk, in the backward pass (``torch.utils.checkpoint``); the
-JAX package recomputes each scanned group of layers instead. The results
-are the same, only the memory differs.
+With ``cfg.remat`` the training forward recomputes each layer (an
+encoder-decoder's encoder and decoder layers too), and the loss each
+sequence chunk, in the backward pass (``torch.utils.checkpoint``); the JAX
+package recomputes each scanned group of layers instead. The results are
+the same, only the memory differs.
 
 An LM with ``input_mode="embeddings"`` (llava's stub vision tower) reads
 frontend embeddings (B, S, frontend_dim) through a 2-layer projector,
@@ -48,16 +49,22 @@ per row at the cache's position ``pos`` (one position for the batch, as in
 the JAX package), writing in place. The caches' rows are rounded up to a
 multiple of 16, so that the paged decode kernel reads them as a page pool
 (``kernels.flash_attention.dense_decode_attention``); the padding rows are
-masked by the lengths. Stacks with mamba layers have no dense-cache loop
-here: token-input SSM models serve through the engine.
+masked by the lengths. A mamba layer's cache is its state of B rows,
+{"ssd", "conv"} in f32, which ``prefill`` sets to the state the chunked
+SSD ends the prompt with and ``decode_step`` steps; a hybrid stack's
+shared block has one {"self"} cache per application after the layers'
+(the JAX ``Stack.decode``). ``launch.serve.generate`` still serves
+token-input SSM models through the engine, as the JAX one does.
 
 ``EncDec``: the stub frontend's frames go through the dense ``adapter``
 (with bias) into an encoder of bidirectional global layers and ``ln_enc``;
 the decoder's layers cross-attend to that output; the logits are the tied
-``embed.attend`` with no final softcap. Each stack's layer seeds start from
-its base, as the JAX ``Stack(seed=...)``: 7000 for the encoder (every
-layer 7001: a unit of one global layer, scanned) and 9000 for the decoder
-(9001; its cross-attention 9101).
+``embed.attend`` with no final softcap. Its ``loss`` is the JAX
+``EncDec.loss``: f32 cross entropy over every position (chunked for
+memory here, the tail included), labels < 0 ignored. Each stack's layer
+seeds start from its base, as the JAX ``Stack(seed=...)``: 7000 for the
+encoder (every layer 7001: a unit of one global layer, scanned) and 9000
+for the decoder (9001; its cross-attention 9101).
 """
 from __future__ import annotations
 
@@ -128,43 +135,78 @@ def layer_seeds(kinds: Tuple[str, ...], pro_n: int = 0,
         for i in range(len(rest))]
 
 
-def _check_dense_loop(cfg: ModelConfig) -> None:
-    if "mamba" in cfg.layer_kinds:
-        raise NotImplementedError(
-            "the dense-cache loop (prefill, decode_step) runs attention "
-            "stacks; a stack with mamba layers serves through the engine "
-            "(serving.engine.ServingEngine, LM.paged_step)")
-
-
 def _pages(n: int) -> int:
     """``n`` rows rounded up to whole pages of the dense caches' view."""
     return -(-n // DENSE_PAGE) * DENSE_PAGE
 
 
 def _write_prefill(layer_caches: List[dict], kvs: List[dict]) -> None:
-    """Write each layer's prefill KV ({"self", and a cross layer's "cross":
-    {"k", "v"}}) into the first rows of its zeroed caches, in place."""
+    """Write each prefill KV ({"self", and a cross layer's "cross": {"k",
+    "v"}}) into the first rows of its zeroed cache, and each mamba layer's
+    final state ({"ssd", "conv"}) over its state, in place."""
     for c, kv in zip(layer_caches, kvs):
         for part, new in kv.items():
+            if isinstance(new, torch.Tensor):
+                c[part].copy_(new)
+                continue
             for n in ("k", "v"):
                 c[part][n][:, :new[n].shape[1]] = new[n]
 
 
 class _DenseCacheLoop:
-    """The half of ``prefill`` and ``decode_step`` that ``LM`` and
-    ``EncDec`` share, over the layers ``_cache_layers`` names."""
+    """What ``LM`` and ``EncDec`` share: remat, the chunked cross entropy,
+    and the half of ``prefill`` and ``decode_step`` over the layers
+    ``_cache_layers`` names (then the shared block's applications, which
+    follow the layers ``shared_after`` maps to one)."""
 
     _cache_layers: nn.ModuleList
+    # layer index -> the shared-block application after it (a hybrid LM's)
+    shared_after: Dict[int, int] = {}
+
+    def _remat(self) -> bool:
+        return self.cfg.remat and torch.is_grad_enabled()
+
+    def _run(self, fn, *args, **kw):
+        """``fn(*args, **kw)``, recomputed in the backward pass under
+        remat."""
+        if self._remat():
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return fn(*args, **kw)
+
+    def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor):
+        logits = self.logits_fn(h).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp_min(0)[..., None].long())[..., 0]
+        valid = (labels >= 0).float()
+        return ((logz - gold) * valid).sum(), valid.sum()
+
+    def _xent(self, h: torch.Tensor, labels: torch.Tensor, tail: bool):
+        """(summed f32 cross entropy, valid labels) of ``h`` over
+        ``loss_chunk`` sequence chunks, each recomputed under remat; the
+        tail shorter than a chunk is dropped unless ``tail``."""
+        s = labels.shape[1]
+        chunk = min(self.cfg.loss_chunk, s)
+        cuts = list(range(0, s - chunk + 1, chunk))
+        if tail and s % chunk:
+            cuts.append(s - s % chunk)
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for lo in cuts:
+            sl = slice(lo, lo + chunk)
+            t, c = self._run(self._chunk_loss, h[:, sl], labels[:, sl])
+            tot, cnt = tot + t, cnt + c
+        return tot, cnt
 
     def init_cache(self, batch: int, s_max: int,
                    dtype: Optional[torch.dtype] = None, device=None,
                    enc_len: int = 0) -> List[dict]:
         """Zeroed dense caches, one dict a layer: {"self": {"k", "v"}} of
         (batch, s_max rounded up to a multiple of 16, Hkv, Dh), and for a
-        cross layer "cross" of ``enc_len`` rows rounded up the same way;
-        in ``dtype`` (the compute dtype by default)."""
+        cross layer "cross" of ``enc_len`` rows rounded up the same way,
+        in ``dtype`` (the compute dtype by default); a mamba layer's state
+        of ``batch`` rows in f32; then a {"self"} one for each application
+        of a hybrid stack's shared block."""
         cfg = self.cfg
-        _check_dense_loop(cfg)
         dtype = dtype or dtype_of(cfg)
         device = device or self.embed.table.device
 
@@ -175,33 +217,44 @@ class _DenseCacheLoop:
 
         out = []
         for layer in self._cache_layers:
+            if isinstance(layer, MambaLayer):
+                out.append(layer.mixer.init_state(batch, device=device))
+                continue
             c = {"self": kv(s_max)}
             if layer.cross_attn is not None:
                 c["cross"] = kv(enc_len)
             out.append(c)
-        return out
+        return out + [{"self": kv(s_max)} for _ in self.shared_after]
 
-    def _decode_layers(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
-        """x (B, 1, d) through every layer's ``decode`` at ``cache["pos"]``,
-        the caches written in place; advances ``cache["pos"]``."""
+    def _decode_layers(self, x: torch.Tensor, cache: dict,
+                       emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, 1, d) through every layer's ``decode`` at ``cache["pos"]``
+        (and the shared block's, on x and the token's embedding ``emb``),
+        the caches and states written in place; advances
+        ``cache["pos"]``."""
         pos, layers = cache["pos"], cache["layers"]
         b, dev = x.shape[0], x.device
-        s = layers[0]["self"]["k"].shape[1]
-        if pos >= s:
+        attn = [c for c in layers if "self" in c]
+        s = attn[0]["self"]["k"].shape[1] if attn else None
+        if attn and pos >= s:
             raise ValueError(f"the dense cache holds {s} positions; "
                              f"position {pos} is past it")
-        cross = layers[0].get("cross")
+        cross = attn[0].get("cross") if attn else None
         view = DecodeView(
             pos=pos,
             positions=torch.full((b, 1), pos, dtype=torch.int32, device=dev),
-            table=dense_page_table(b, s, dev),
+            table=dense_page_table(b, s, dev) if attn else None,
             lengths=torch.full((b,), pos + 1, dtype=torch.int32, device=dev),
             cross_table=None if cross is None else dense_page_table(
                 b, cross["k"].shape[1], dev),
             cross_lengths=None if cross is None else torch.full(
                 (b,), cache["enc_len"], dtype=torch.int32, device=dev))
-        for layer, c in zip(self._cache_layers, layers):
+        n = len(self._cache_layers)
+        for i, (layer, c) in enumerate(zip(self._cache_layers, layers)):
             x = layer.decode(x, c, view)
+            g = self.shared_after.get(i)
+            if g is not None:
+                x = self.shared.decode(x, emb, layers[n + g], view)
         cache["pos"] = pos + 1
         return x
 
@@ -323,9 +376,6 @@ class LM(_DenseCacheLoop, nn.Module):
 
     # -- training ------------------------------------------------------------
 
-    def _remat(self) -> bool:
-        return self.cfg.remat and torch.is_grad_enabled()
-
     def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         cdt = dtype_of(self.cfg)
         x = self.embed(tokens, dtype=cdt)
@@ -356,29 +406,29 @@ class LM(_DenseCacheLoop, nn.Module):
     def _run_layers(self, x: torch.Tensor, collect: bool = False):
         """x (B, S, d) through the layers -> (final-normed hidden states,
         the MoE aux values summed over layers, and with ``collect`` each
-        layer's KV for the dense cache, else [])."""
+        layer's KV (a mamba layer's final state) for the dense cache, then
+        each shared-block application's, else [])."""
         emb = x
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         aux_tot: Dict[str, torch.Tensor] = {}
         kvs: List[dict] = []
-
-        def run(fn, *args):
-            if self._remat():
-                return checkpoint(fn, *args, use_reentrant=False)
-            return fn(*args)
-
+        shared_kvs: List[dict] = []
         for i, layer in enumerate(self.layers):
             if collect:
                 x, aux, kv = layer(x, positions, collect=True)
                 kvs.append(kv)
             else:
-                x, aux = run(layer, x, positions)
+                x, aux = self._run(layer, x, positions)
             for k, v in aux.items():
                 aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
             if i in self.shared_after:
-                x = run(self.shared, x, emb, positions)
-        return self.ln_f(x), aux_tot, kvs
+                if collect:
+                    x, kv = self.shared(x, emb, positions, collect=True)
+                    shared_kvs.append(kv)
+                else:
+                    x = self._run(self.shared, x, emb, positions)
+        return self.ln_f(x), aux_tot, kvs + shared_kvs
 
     def forward(self, tokens: Optional[torch.Tensor] = None,
                 embeds: Optional[torch.Tensor] = None
@@ -389,14 +439,6 @@ class LM(_DenseCacheLoop, nn.Module):
         h, aux, _ = self._run_layers(self.embed_in(tokens, embeds))
         return h, aux
 
-    def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor):
-        logits = self.logits_fn(h).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels.clamp_min(0)[..., None].long())[..., 0]
-        valid = (labels >= 0).float()
-        return ((logz - gold) * valid).sum(), valid.sum()
-
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy of ``batch`` ({"tokens", "labels"},
@@ -406,18 +448,7 @@ class LM(_DenseCacheLoop, nn.Module):
         "tokens"}, and for MoE "moe_lb" and "moe_z" summed over layers);
         the metric "loss" is the cross entropy alone."""
         h, aux = self.forward(batch.get("tokens"), batch.get("embeds"))
-        labels = batch["labels"]
-        s = labels.shape[1]
-        chunk = min(self.cfg.loss_chunk, s)
-        tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-        for i in range(s // chunk):
-            sl = slice(i * chunk, (i + 1) * chunk)
-            if self._remat():
-                t, c = checkpoint(self._chunk_loss, h[:, sl], labels[:, sl],
-                                  use_reentrant=False)
-            else:
-                t, c = self._chunk_loss(h[:, sl], labels[:, sl])
-            tot, cnt = tot + t, cnt + c
+        tot, cnt = self._xent(h, batch["labels"], tail=False)
         loss = tot / torch.clamp_min(cnt, 1.0)
         metrics = {"loss": loss, "tokens": cnt}
         for k, v in aux.items():
@@ -433,8 +464,8 @@ class LM(_DenseCacheLoop, nn.Module):
         """Run the prompt ({"tokens": (B, S) int} or a stub frontend's
         {"embeds": (B, S, frontend_dim)}) and build a dense cache of
         ``s_max`` positions: (last-token logits (B, 1, V), {"layers": the
-        caches, "pos": S, "enc_len": 0})."""
-        _check_dense_loop(self.cfg)
+        caches, "pos": S, "enc_len": 0}); a mamba layer's state is the one
+        the prompt ends with."""
         h, _, kvs = self._run_layers(
             self.embed_in(batch.get("tokens"), batch.get("embeds")),
             collect=True)
@@ -452,10 +483,9 @@ class LM(_DenseCacheLoop, nn.Module):
         ``cache``, written in place at its position, which advances). A
         stub-frontend model embeds generated text tokens through the
         table: the frontend only feeds the prefill."""
-        _check_dense_loop(self.cfg)
         x = self._embed_tokens(token) if token.dim() == 2 \
             else self.embed_in(embeds=token)
-        x = self._decode_layers(x, cache)
+        x = self._decode_layers(x, cache, emb=x)
         return self.logits_fn(self.ln_f(x)), cache
 
     # -- serving -------------------------------------------------------------
@@ -549,7 +579,7 @@ class EncDec(_DenseCacheLoop, nn.Module):
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         for layer in self.encoder:
-            x, _ = layer(x, positions, causal=False)
+            x, _ = self._run(layer, x, positions, causal=False)
         return self.ln_enc(x)
 
     def forward(self, tokens: torch.Tensor, embeds: torch.Tensor,
@@ -557,7 +587,9 @@ class EncDec(_DenseCacheLoop, nn.Module):
         """Decoder tokens (B, S) int and encoder frames ``embeds`` ->
         (final-normed decoder states (B, S, d), each decoder layer's KV
         for the dense cache with ``collect`` (self and cross), else [],
-        the encoder's output)."""
+        the encoder's output). Under remat each layer is recomputed in the
+        backward pass, and the encoder's output gets the gradients of
+        every decoder layer's cross k and v projections."""
         enc_out = self.encode(embeds)
         x = self.embed(tokens, dtype=dtype_of(self.cfg))
         b, s = x.shape[:2]
@@ -568,8 +600,21 @@ class EncDec(_DenseCacheLoop, nn.Module):
                 x, _, kv = layer(x, positions, enc_out=enc_out, collect=True)
                 kvs.append(kv)
             else:
-                x, _ = layer(x, positions, enc_out=enc_out)
+                x, _ = self._run(layer, x, positions, enc_out=enc_out)
         return self.ln_f(x), kvs, enc_out
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Cross entropy of the decoder's ``batch["tokens"]`` against
+        ``batch["labels"]`` (B, S) int (a label < 0 is ignored), the encoder
+        reading ``batch["embeds"]`` (B, Se, frontend_dim): f32 logits of
+        the tied head, the mean over the valid labels of every position
+        (the JAX ``EncDec.loss``; chunked here, the tail included). Returns
+        (loss, {"loss", "tokens"})."""
+        h, _, _ = self.forward(batch["tokens"], batch["embeds"])
+        tot, cnt = self._xent(h, batch["labels"], tail=True)
+        loss = tot / torch.clamp_min(cnt, 1.0)
+        return loss, {"loss": loss, "tokens": cnt}
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], s_max: int

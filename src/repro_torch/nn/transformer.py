@@ -13,11 +13,13 @@ one token over the dense cache, ``paged_step`` one serving step of the
 engine; both drop the aux values as the JAX block does in serving.
 
 ``MambaLayer``: norm + the Mamba2 mixer with a residual (no FFN). Its
-serving state is per slot ({"ssd", "conv"} rows of the paged cache).
+serving state is per slot ({"ssd", "conv"} rows of the paged cache), and
+per row in the dense-cache loop (``decode``).
 
 ``SharedAttnBlock``: zamba2's shared block, one parameter set applied
 after every ``hybrid.period`` layers: attention over the normed [h,
-embedding] (2 x d_model) back to d_model, then the FFN."""
+embedding] (2 x d_model) back to d_model, then the FFN; each application
+has its own KV (a page pool, or a dense cache in the dense-cache loop)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -140,12 +142,23 @@ class MambaLayer(nn.Module):
                           device)
 
     def forward(self, x: torch.Tensor,
-                positions: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Full-sequence forward (training): (x, {}), the aux values of a
-        block without MoE."""
-        h, _ = self.mixer(self.ln(x))
-        return x + h, {}
+                positions: Optional[torch.Tensor] = None, *,
+                collect: bool = False):
+        """Full-sequence forward (training, prefill): (x, {}), the aux
+        values of a block without MoE; with ``collect`` also the state
+        {"ssd", "conv"} the sequence ends with, for the dense cache."""
+        h, state = self.mixer(self.ln(x))
+        return (x + h, {}, state) if collect else (x + h, {})
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               view: Optional[DecodeView] = None) -> torch.Tensor:
+        """One token per row over the dense-cache loop's state {"ssd": (B,
+        H, P, N), "conv": (B, K - 1, C)}, stepped in place (``view`` is
+        not read: the state holds the position)."""
+        h, new = self.mixer.decode(self.ln(x), cache)
+        for k, t in cache.items():
+            t.copy_(new[k])
+        return x + h
 
     def paged_step(self, x: torch.Tensor, pos: torch.Tensor,
                    n_new: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -194,10 +207,24 @@ class SharedAttnBlock(nn.Module):
         return torch.cat([x, emb], dim=-1) if self.concat else x
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, *, collect: bool = False):
         """Full-sequence forward: x and the input embedding ``emb`` (B, S,
-        d), positions (B, S) -> (B, S, d)."""
-        x = x + self.attn(self.ln_in(self._input(x, emb)), positions)
+        d), positions (B, S) -> (B, S, d); with ``collect`` also {"self":
+        {"k", "v"}} for the dense cache."""
+        h = self.attn(self.ln_in(self._input(x, emb)), positions,
+                      collect=collect)
+        if collect:
+            h, kv = h
+        x = x + h
+        x = x + self.ffn(self.ln_ffn(x))
+        return (x, {"self": kv}) if collect else x
+
+    def decode(self, x: torch.Tensor, emb: torch.Tensor, cache: dict,
+               view: DecodeView) -> torch.Tensor:
+        """One token per row over this application's dense cache
+        ({"self": {"k", "v"}}, written in place at ``view.pos``)."""
+        x = x + self.attn.decode(self.ln_in(self._input(x, emb)),
+                                 cache["self"], view)
         return x + self.ffn(self.ln_ffn(x))
 
     def paged_step(self, x: torch.Tensor, emb: torch.Tensor,

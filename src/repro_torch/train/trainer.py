@@ -52,8 +52,8 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Trains ``model`` (an ``LM``) on ``device``: the card unless the
-    caller names another; raises where there is no card."""
+    """Trains ``model`` (an ``LM`` or an ``EncDec``) on ``device``: the
+    card unless the caller names another; raises where there is no card."""
 
     def __init__(self, model, cfg: Optional[TrainerConfig] = None, *,
                  device=None, registry: Optional[obs_metrics.Registry] = None):
@@ -87,16 +87,25 @@ class Trainer:
         return params, adam.init(params)
 
     def to_device(self, batch: dict) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device,
-                                                     torch.long)
-                for k, v in batch.items()}
+        """``batch`` (numpy arrays) on the device: integer arrays (tokens,
+        labels) as int64, float ones (a stub frontend's ``embeds``) as
+        f32, their values unchanged."""
+        out = {}
+        for k, v in batch.items():
+            a = np.asarray(v)
+            dt = torch.float32 if np.issubdtype(a.dtype, np.floating) \
+                else torch.long
+            out[k] = torch.as_tensor(a).to(self.device, dt)
+        return out
 
     def train_step(self, params: Dict[str, torch.Tensor], opt: dict,
                    batch: Dict[str, torch.Tensor]):
         """Loss and gradients over ``grad_accum`` micro-batches (the
         gradients summed, then divided by their count), then one AdamW
-        update in place. Returns (params, opt, metrics) with 0-d tensors as
-        metric values."""
+        update in place. A parameter off the loss's path (a stub frontend's
+        embedding table) gets a zero gradient, as ``jax.grad`` gives it,
+        and is still decayed. Returns (params, opt, metrics) with 0-d
+        tensors as metric values."""
         accum = self.cfg.grad_accum
         for p in params.values():
             p.grad = None
@@ -112,6 +121,9 @@ class Trainer:
             loss.backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = {name: p.grad for name, p in params.items()}
         if accum > 1:
             for g in grads.values():

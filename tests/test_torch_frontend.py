@@ -32,7 +32,7 @@ from repro_torch.convert import from_jax_params
 from repro_torch.core.block_pattern import fit_block_pattern
 from repro_torch.launch.serve import (generate, generate_cached,
                                       needs_dense_loop)
-from repro_torch.nn.model import LM, build_model, layer_seeds
+from repro_torch.nn.model import build_model, layer_seeds
 from repro_torch.serving.engine import ServingEngine
 
 ARCH = "llava_next_34b"
@@ -231,12 +231,3 @@ def test_generate_falls_back_for_capacity_constrained_moe():
     want, _ = jax_generate(jmodel, params, jnp.asarray(prompt), 20, 12)
     got, _ = generate(tmodel, prompt, 20, 12, device="cpu")
     np.testing.assert_array_equal(got, np.asarray(want))
-
-
-def test_dense_loop_refuses_mamba_stacks():
-    """Token-input SSM stacks serve through the engine: the dense-cache
-    loop raises, naming it."""
-    model = LM(get_config("mamba2_130m", smoke=True), device="cpu")
-    assert not needs_dense_loop(model.cfg)
-    with pytest.raises(NotImplementedError, match="ServingEngine"):
-        model.prefill({"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 8)

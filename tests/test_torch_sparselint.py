@@ -76,12 +76,13 @@ def test_shipped_tree_is_clean_on_every_pass(cli_reports):
         assert sum(rep["cost"][want]["ctas"]) > 1
     # five steps (paged prefill and decode, int8 and not, training) of each
     # of the eight token-input configs, and the dense-cache loop's prefill
-    # and decode of the encoder-decoder and the stub-frontend LM
-    assert len(rep["covered"]["dispatch"]) == 44
+    # and decode and the training step of the encoder-decoder and the
+    # stub-frontend LM
+    assert len(rep["covered"]["dispatch"]) == 46
     for arch in ("seamless_m4t_medium", "llava_next_34b"):
-        for step in ("prefill", "decode"):
-            assert f"{arch}:smoke:dense_loop[{step}]" \
-                in rep["covered"]["dispatch"]
+        for step in ("dense_loop[prefill]", "dense_loop[decode]",
+                     "train_step"):
+            assert f"{arch}:smoke:{step}" in rep["covered"]["dispatch"]
     assert "zamba2_1p2b:smoke:paged_step_int8[decode]" \
         in rep["covered"]["dispatch"]
     assert "deepseek_moe_16b:smoke:train_step" in rep["covered"]["dispatch"]

@@ -1,13 +1,20 @@
 #!/usr/bin/env python3
-"""Time where ``chip_smoke.py``'s full-width serving phases spend their
-seconds, on one card.
+"""Time where ``chip_smoke.py``'s full-width serving phases, and the
+phases this slice added, spend their seconds, on one card.
 
     python3 tools/time_smoke_serve.py [--phases 5e,5f,...] [--out FILE]
 
 Builds the kernels, then runs the chosen phases (default: 5e, 5f, 5h, 5i,
 5j, 5k, 5l, 5m, 5n and 5o, each at full width and depth, as the smoke runs
-them) through the smoke's own ``serve``, ``serve_dense_loop`` and
-``top1_agreement``, with timers around the helpers a phase calls: building
+them) through the smoke's own ``serve``, ``serve_dense_loop``,
+``ssm_dense_loop`` (after 5k and 5l) and ``top1_agreement``; or 6 (the
+training junction kernels at seamless-m4t's and llava's training shapes,
+``run_train_kernels``), 6c (the
+attention kernels at ``FLASH_TRAIN_FORMS``, ``run_flash_forms``), 7e and
+7f (``train`` of seamless-m4t-medium and of llava-next-34b at its card
+depth) and 3f (the smoke's training of seamless-m4t's and llava's smoke
+configurations and the dense-cache loop of mamba2's and zamba2's), with
+timers around the helpers a phase calls: building
 the model (``fresh_model``), the engines' construction, the served run
 (``drain``; the dense-cache loop's ``generate``), the re-admitted request
 (``readmission``), the kernels-vs-plain decode step (``launched_plans``
@@ -48,6 +55,7 @@ def main() -> int:
         print("time_smoke_serve: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from repro_torch.analysis.dispatch_pass import card_depth
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels import build
@@ -116,9 +124,15 @@ def main() -> int:
     zcfg = get_config("zamba2_1p2b")
     kept = {}
 
-    def bf16(key, c, **kw):
+    def bf16(key, c, dense_loop=False, **kw):
         kept[key] = fresh(c)
-        kept[key + "_run"] = cs.serve(kept[key], device, out_dir, **kw)
+        kept[key + "_run"] = run = cs.serve(kept[key], device, out_dir, **kw)
+        if dense_loop:
+            cs.ssm_dense_loop(kept[key], device, run[4], run[3])
+
+    def ssm(model):
+        run = cs.serve(model, device, out_dir)
+        cs.ssm_dense_loop(model, device, run[4], run[3])
 
     def int8(key, c, n=None, **kw):
         m = fresh(c)
@@ -135,9 +149,8 @@ def main() -> int:
             prompt_lens=cs.DENSE_PROMPTS, n_new=cs.DENSE_NEW),
         "5i": lambda: bf16("ds", dcfg),
         "5j": lambda: int8("ds", dcfg),
-        "5k": lambda: cs.serve(fresh(get_config("mamba2_130m")), device,
-                               out_dir),
-        "5l": lambda: bf16("z", zcfg),
+        "5k": lambda: ssm(fresh(get_config("mamba2_130m"))),
+        "5l": lambda: bf16("z", zcfg, dense_loop=True),
         "5m": lambda: int8("z", zcfg),
         "5n": lambda: cs.serve_dense_loop(
             fresh(get_config("seamless_m4t_medium").with_(
@@ -149,6 +162,27 @@ def main() -> int:
                 param_dtype="bfloat16")), device, out_dir,
             prompt_len=cs.LLAVA_PATCHES, frames=cs.LLAVA_PATCHES,
             n_new=cs.LLAVA_NEW, trace="decode_trace_llava"),
+        "6": lambda: (cs.run_train_kernels(
+            get_config("seamless_m4t_medium"), device, [],
+            rows=(cs.ENC_TRAIN_BATCH * cs.ENC_TRAIN_FRAMES,
+                  cs.ENC_TRAIN_BATCH * cs.ENC_TRAIN_SEQ),
+            dtypes=("bfloat16",)), cs.run_train_kernels(
+            get_config("llava_next_34b"), device, [],
+            dtypes=("bfloat16",))),
+        "6c": lambda: cs.run_flash_forms(device, []),
+        "7e": lambda: cs.train(
+            device, get_config("seamless_m4t_medium"), out_dir,
+            trace="train_trace_seamless", batch=cs.ENC_TRAIN_BATCH,
+            seq=cs.ENC_TRAIN_SEQ, frames=cs.ENC_TRAIN_FRAMES,
+            floor=True),
+        "7f": lambda: cs.train(
+            device, card_depth(get_config("llava_next_34b")), out_dir,
+            trace="train_trace_llava", floor=True),
+        "3f": lambda: (
+            [cs.smoke_train_check(a) for a in ("seamless_m4t_medium",
+                                               "llava_next_34b")],
+            [cs.smoke_serve_dense(a, device) for a in ("mamba2_130m",
+                                                       "zamba2_1p2b")]),
     }
     res = {}
     for name in args.phases.split(","):
